@@ -60,6 +60,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-minute tests (full-shape kernel "
         "equivalence); tier-1 runs -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the PyTorch port's Hopper "
+        "kernels); skips inside the test when none is visible")
 
 
 def pytest_collection_modifyitems(config, items):
