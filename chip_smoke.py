@@ -6,8 +6,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. device: torch's name for card 0 and nvidia-smi's name and power
      limit;
-  2. build: the K1 flash-attention kernel (paddle_tpu_torch/csrc/
-     flash_attn_fwd.cu) with nvcc for sm_90a, from this checkout;
+  2. build: every kernel source under paddle_tpu_torch/csrc/ (K1 flash
+     forward, K2-K4 flash backward, K5 lm-head log-sum-exp) with nvcc
+     for sm_90a, from this checkout, one nvcc per source in parallel;
   3. kernel: K1 held against its plain PyTorch version at the LM
      server's shapes (GPT-2-small heads: n=12, D=64; prefill b=4,
      t=256 over a 384-key page view, cold and prefix-hit; decode 8
@@ -27,7 +28,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      Checks: token counts, prefix hits, page/slot allocs == frees after
      drain, K1 launches == layers x (prefills + decode steps), and the
      greedy tokens of three requests against a plain full-recompute
-     forward of the same weights on the card.
+     forward of the same weights on the card;
+  5. backward kernels: K2 (fused), K3 (dq) and K4 (dk, dv), each called
+     explicitly, held against the plain backward at the GPT-2-small
+     training shapes q/k/v [8, 12, 1024, 64] and [32, 12, 256, 64]
+     causal, and at a ragged kv_len case and a Tq != Tk case; K1 timed at the same shape. Times
+     beside the bound, the plain version and the backward of torch's
+     scaled_dot_product_attention (a yardstick only);
+  6. K5 held against its plain version at the training shape x [8192,
+     768] @ w [768, 50304], timed beside torch.logsumexp(x @ w);
+  7. training: GPT-2-small at full width (vocab 50304, H 768, 12 layers,
+     12 heads, T 1024, batch 8, f32, TF32 off) built with the port's
+     front end (transformer_lm_cost + AdamOptimizer(1e-4).minimize),
+     initialised by the port's startup program (its torch.Generator,
+     seeded 0), fed one fixed token batch from numpy seed 3. Step 1's
+     loss and every parameter's gradient are held against a plain
+     full recompute (plain attention, plain cross-entropy, torch
+     autograd) of the same weights on the card; then five more Adam
+     steps, the loss must fall; launches per step: K1 12, the route's
+     backward kernels (K3 + K4 at T = 1024) 12 each, K5 1. Step wall
+     time, tokens/s and a profiled step's device time by kernel;
+  8. short-context training: the same model at T 256, batch 32, where
+     the backward route is the fused K2: step 1's loss and gradients
+     held against the plain recompute as in phase 7, then a second Adam
+     step; launches per step K1 12, K2 12, K5 1.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -55,6 +79,8 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 try:
     from paddle_tpu_torch import _build, flags, monitor
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import chunked_ce as ce
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.serving import (GenerationConfig,
                                           GenerationEngine, LMSpec,
@@ -71,6 +97,10 @@ PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 TOL = 1e-4
 SEED = 0
+# GPT-2-small training at full width (bench.py's _mfu_bench model, f32)
+VOCAB, HID, LAYERS, TRAIN_T, TRAIN_B = 50304, 768, 12, 1024, 8
+SHORT_T, SHORT_B = 256, 32
+LR = 1e-4
 N_HEADS, HEAD_DIM = 12, 64
 VIEW = 384            # page view of max_prompt_len 256 + max_new 128
 
@@ -411,25 +441,510 @@ def decode_step_breakdown(engine, smi, reps=20):
         f"share {device_ms / wall_ms:.3f} | {smi}")
 
 
+# -- phase 5: backward kernels vs plain --------------------------------------
+
+def live_pairs(B, Tq, Tk, kv_len, causal):
+    """Live (row, key) pairs of one head summed over the batch."""
+    rows = np.arange(Tq)[None, :]
+    lim = np.minimum(np.asarray(kv_len)[:, None], Tk)
+    if causal:
+        lim = np.minimum(lim, rows + 1)
+    return int(np.maximum(lim, 0).sum())
+
+
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attn_bound(B, Tq, Tk, kv_len, causal, products, ins, outs):
+    """The least time for `products` T x T x D products over the live
+    pairs, against `ins` q-sized inputs read, `outs` outputs written and
+    the [B, n, Tq] row statistics (lse and, backward, delta)."""
+    pairs = live_pairs(B, Tq, Tk, kv_len, causal) * N_HEADS
+    elems = B * N_HEADS * HEAD_DIM
+    nbytes = 4 * (elems * (Tq + 2 * Tk)                 # q, k, v
+                  + elems * (ins - 3) * Tq               # dO (backward)
+                  + elems * sum(outs)                    # outputs
+                  + B * N_HEADS * Tq * (1 if ins == 3 else 2))
+    return bound(2.0 * HEAD_DIM * pairs * products, nbytes)
+
+
+def time_events(fn, reps=10):
+    """Device ms per call of an eager call that is itself many ms of
+    device work (the host's enqueue is not the limit): CUDA events
+    around `reps` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rel_err(got, ref):
+    return float((got - ref).abs().max()) / max(1.0,
+                                                float(ref.abs().max()))
+
+
+def bwd_inputs(rng, B, Tq, Tk, kv_len, causal, scale):
+    dev = torch.device("cuda")
+    q, k, v, do = (torch.from_numpy(rng.randn(B, N_HEADS, T, HEAD_DIM)
+                                    .astype(np.float32)).to(dev)
+                   for T in (Tq, Tk, Tk, Tq))
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    o, lse = fa.flash_attn_fwd(q, k, v, lens, torch.zeros_like(lens),
+                               causal, scale)
+    delta = (do * o).sum(-1).contiguous()
+    return (q, k, v, do, lse, delta, lens)
+
+
+BWD_KERNELS = {
+    # name: (call returning a tuple, which of (dq, dk, dv) it returns,
+    # T x T x D products it computes, the TPU kernel it replaces)
+    "flash_attn_bwd_fused": (lambda *a: fa.flash_attn_bwd_fused(*a),
+                             (0, 1, 2), 5, "paddle_tpu/ops/pallas_attention.py:513"),
+    "flash_attn_bwd_dq": (lambda *a: (fa.flash_attn_bwd_dq(*a),),
+                          (0,), 3, "paddle_tpu/ops/pallas_attention.py:400"),
+    "flash_attn_bwd_dkv": (lambda *a: fa.flash_attn_bwd_dkv(*a),
+                           (1, 2), 4, "paddle_tpu/ops/pallas_attention.py:450"),
+}
+
+
+def backward_kernel_phase(smi):
+    """K2, K3 and K4 against the plain backward at both training shapes
+    (T 1024 and the short T 256), a ragged and a Tq != Tk case; K1 timed
+    at the T 1024 training shape. Tolerance: 1e-4 of the larger of 1 and the plain
+    gradient's largest element — f32 sums over up to 1024 keys (rows)
+    in 64-wide tiles against one matmul per product."""
+    rng = np.random.RandomState(SEED + 2)
+    scale = 1.0 / float(np.sqrt(HEAD_DIM))
+    B, T = TRAIN_B, TRAIN_T
+    full = [T] * B
+    cases = {
+        "train": (B, T, T, full),
+        # the short-context training shape, where the route is K2
+        "short": (SHORT_B, SHORT_T, SHORT_T, [SHORT_T] * SHORT_B),
+        "ragged": (4, 600, 600, [600, 333, 64, 1]),
+        "cross": (2, 200, 700, [700, 450]),
+    }
+    errs = {name: 0.0 for name in BWD_KERNELS}
+    for case, (b, tq, tk, kv_len) in cases.items():
+        args = bwd_inputs(rng, b, tq, tk, kv_len, True, scale)
+        ref = fa.flash_attn_bwd_fused_plain(*args, True, scale)
+        for name, (call, idx, _, _) in BWD_KERNELS.items():
+            got = call(*args, True, scale)
+            torch.cuda.synchronize()
+            err = max(rel_err(g, ref[i]) for g, i in zip(got, idx))
+            abs_err = max(float((g - ref[i]).abs().max())
+                          for g, i in zip(got, idx))
+            errs[name] = max(errs[name], abs_err)
+            log(f"backward {name} {case}: q [{b},{N_HEADS},{tq},"
+                f"{HEAD_DIM}] k [{tk}] max_abs_err {abs_err:.3e}, "
+                f"relative {err:.3e} (tol {TOL:g} relative)")
+            if not np.isfinite(err) or err > TOL:
+                raise AssertionError(f"{name} ({case}) disagrees with the "
+                                     f"plain backward beyond {TOL:g}")
+        del args, ref
+    sets = [bwd_inputs(rng, B, T, T, full, True, scale) for _ in range(2)]
+    results = {}
+    for name, (call, _, products, _) in BWD_KERNELS.items():
+        plain = {"flash_attn_bwd_fused": fa.flash_attn_bwd_fused_plain,
+                 "flash_attn_bwd_dq": fa.flash_attn_bwd_dq_plain,
+                 "flash_attn_bwd_dkv": fa.flash_attn_bwd_dkv_plain}[name]
+        ms = time_ms(lambda *a: call(*a, True, scale), sets, reps=10)
+        plain_ms = time_ms(lambda *a: plain(*a, True, scale), sets, reps=4)
+        outs = {"flash_attn_bwd_fused": (T, T, T),
+                "flash_attn_bwd_dq": (T,),
+                "flash_attn_bwd_dkv": (T, T)}[name]
+        bound_ms, bound_by = attn_bound(B, T, T, full, True, products, 4,
+                                        outs)
+        results[name] = {"ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "max_abs_err": errs[name]}
+    # the yardstick: the backward of torch's SDPA at the same shape
+    q, k, v, do = (t.clone().requires_grad_(i < 3)
+                   for i, t in enumerate(sets[0][:4]))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale)
+    lib_bwd = time_events(lambda: torch.autograd.grad(
+        out, (q, k, v), do, retain_graph=True))
+    del out, q, k, v, do
+    for name in results:
+        results[name]["library_ms"] = lib_bwd
+        r = results[name]
+        log(f"backward {name}: ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} library_ms (SDPA backward) "
+            f"{lib_bwd:.4f} bound_ms {r['bound_ms']:.5f} "
+            f"({r['bound_by']}) | {smi}")
+    # K1 at the training shape
+    starts = torch.zeros(B, dtype=torch.int32, device="cuda")
+    fsets = [(s[0], s[1], s[2]) for s in sets]
+    k1 = {"case": "train", "q": [B, N_HEADS, T, HEAD_DIM], "kv": T}
+    k1["ms"] = time_ms(lambda q, k, v: fa.flash_attn_fwd(
+        q, k, v, sets[0][6], starts, True, scale), fsets, reps=20)
+    k1["plain_ms"] = time_ms(lambda q, k, v: fa.flash_attn_fwd_plain(
+        q, k, v, sets[0][6], starts, True, scale), fsets, reps=5)
+    k1["library_ms"] = time_ms(
+        lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale), fsets, reps=20)
+    k1["bound_ms"], k1["bound_by"] = attn_bound(B, T, T, full, True, 2, 3,
+                                                (T,))
+    o, lse = fa.flash_attn_fwd(*fsets[0], sets[0][6], starts, True, scale)
+    o_ref, lse_ref = fa.flash_attn_fwd_plain(*fsets[0], sets[0][6], starts,
+                                             True, scale)
+    k1["max_abs_err"] = max(float((o - o_ref).abs().max()),
+                            float((lse - lse_ref).abs().max()))
+    if k1["max_abs_err"] > TOL:
+        raise AssertionError("K1 disagrees with its plain version at the "
+                             "training shape")
+    log(f"kernel flash_attn_fwd train: ms {k1['ms']:.4f} plain_ms "
+        f"{k1['plain_ms']:.4f} library_ms {k1['library_ms']:.4f} bound_ms "
+        f"{k1['bound_ms']:.5f} ({k1['bound_by']}) err "
+        f"{k1['max_abs_err']:.3e} | {smi}")
+    return results, k1
+
+
+# -- phase 6: K5 vs plain -----------------------------------------------------
+
+def lse_kernel_phase(smi):
+    """K5 against its plain version at the training shape. Tolerance
+    1e-4 absolute on values near log(V) = 10.8: f32 dot products over
+    H = 768 and a sum of 50304 exponentials, in other orders."""
+    rng = np.random.RandomState(SEED + 4)
+    N = TRAIN_B * TRAIN_T
+    dev = torch.device("cuda")
+    sets = [(torch.from_numpy(rng.randn(N, HID).astype(np.float32)).to(dev),
+             torch.from_numpy((rng.randn(HID, VOCAB) * 0.02)
+                              .astype(np.float32)).to(dev))
+            for _ in range(2)]
+    got = ce.lm_head_lse(*sets[0])
+    torch.cuda.synchronize()
+    ref = ce.lm_head_lse_plain(*sets[0])
+    err = float((got - ref).abs().max())
+    log(f"kernel lm_head_lse: x [{N},{HID}] w [{HID},{VOCAB}] "
+        f"max_abs_err {err:.3e} (tol {TOL:g})")
+    if not np.isfinite(err) or err > TOL:
+        raise AssertionError("lm_head_lse disagrees with its plain version")
+    r = {"max_abs_err": err,
+         "ms": time_ms(ce.lm_head_lse, sets, reps=6),
+         "plain_ms": time_ms(ce.lm_head_lse_plain, sets, reps=3),
+         "library_ms": time_ms(lambda x, w: torch.logsumexp(x @ w, dim=1),
+                               sets, reps=3)}
+    r["bound_ms"], r["bound_by"] = bound(
+        2.0 * N * HID * VOCAB, 4.0 * (N * HID + HID * VOCAB + N))
+    log(f"kernel lm_head_lse: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f}"
+        f" library_ms (logsumexp(x @ w)) {r['library_ms']:.4f} bound_ms "
+        f"{r['bound_ms']:.5f} ({r['bound_by']}) | {smi}")
+    return r
+
+
+# -- phase 7/8: training ------------------------------------------------------
+
+def build_gpt2(T):
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        tok = pt.layers.data("tok", [T, 1], dtype="int64")
+        nxt = pt.layers.data("nxt", [T, 1], dtype="int64")
+        cost = pt.models.transformer.transformer_lm_cost(
+            tok, nxt, VOCAB, hid=HID, num_layers=LAYERS, num_heads=N_HEADS,
+            max_len=T)
+        _, params_grads = pt.AdamOptimizer(LR).minimize(cost)
+    return main, startup, cost, params_grads
+
+
+def token_batch(B, T, seed):
+    rng = np.random.RandomState(seed)
+    return {"tok": rng.randint(0, VOCAB, (B, T, 1)).astype(np.int64),
+            "nxt": rng.randint(0, VOCAB, (B, T, 1)).astype(np.int64)}
+
+
+def reference_loss_and_grads(w, feed):
+    """The same model as plain PyTorch: plain softmax attention over the
+    full [T, T] scores, plain cross-entropy over the full [B*T, V]
+    logits, gradients by torch autograd — no kernel of the port."""
+    dev = w["tok_emb"].device
+    tok = torch.from_numpy(feed["tok"][..., 0]).to(dev)
+    nxt = torch.from_numpy(feed["nxt"]).to(dev).reshape(-1)
+    B, T = tok.shape
+    D = HID // N_HEADS
+    causal = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+
+    def ln(x, g, b):
+        mu = x.mean(-1, keepdim=True)
+        var = (x - mu).square().mean(-1, keepdim=True)
+        return (x - mu) / torch.sqrt(var + 1e-5) * g + b
+
+    x = w["tok_emb"][tok] + w["pos_emb"][:T]
+    for i in range(LAYERS):
+        p = f"block{i}"
+        h = ln(x, w[f"{p}.ln1.w_0"], w[f"{p}.ln1.w_1"])
+        qkv = h @ w[f"{p}.qkv.w"] + w[f"{p}.qkv.b"]
+        q, k, v = (t.reshape(B, T, N_HEADS, D).transpose(1, 2)
+                   for t in qkv.split(HID, dim=2))
+        s = (q @ k.transpose(-1, -2)) / float(np.sqrt(D))
+        a = torch.softmax(s.masked_fill(~causal, float("-inf")), -1) @ v
+        x = x + a.transpose(1, 2).reshape(B, T, HID) @ w[f"{p}.proj.w"] \
+            + w[f"{p}.proj.b"]
+        h = ln(x, w[f"{p}.ln2.w_0"], w[f"{p}.ln2.w_1"])
+        up = torch.nn.functional.gelu(h @ w[f"{p}.ffn_up.w"]
+                                      + w[f"{p}.ffn_up.b"],
+                                      approximate="tanh")
+        x = x + up @ w[f"{p}.ffn_down.w"] + w[f"{p}.ffn_down.b"]
+    x = ln(x, w["ln_f.w_0"], w["ln_f.w_1"])
+    logits = x.reshape(B * T, HID) @ w["lm_head.w"]
+    loss = torch.nn.functional.cross_entropy(logits, nxt)
+    names = sorted(w)
+    grads = torch.autograd.grad(loss, [w[n] for n in names])
+    return loss.detach(), dict(zip(names, grads))
+
+
+ALL_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_fused",
+               "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "lm_head_lse")
+
+
+def wrappers():
+    return {"flash_attn_fwd": fa.flash_attn_fwd,
+            "flash_attn_bwd_fused": fa.flash_attn_bwd_fused,
+            "flash_attn_bwd_dq": fa.flash_attn_bwd_dq,
+            "flash_attn_bwd_dkv": fa.flash_attn_bwd_dkv,
+            "lm_head_lse": ce.lm_head_lse}
+
+
+def zero_counts():
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_counts():
+    return {name: w.launches for name, w in wrappers().items()}
+
+
+def check_counts(counts, want, what):
+    if counts != want:
+        raise AssertionError(f"{what}: kernel launches {counts}, expected "
+                             f"{want}")
+
+
+# step 1's gradients against the plain recompute: 1e-3 of each
+# gradient's largest element (f32 throughout, sums in other orders —
+# flash tiles against full softmax, a chunked lse against one
+# logsumexp); loss: 1e-4 absolute
+GRAD_RTOL, LOSS_ATOL = 1e-3, 1e-4
+
+
+def checked_first_step(exe, main, feed, cost, params_grads, scope, what):
+    """Step 1 with every gradient fetched, its loss and gradients held
+    against the plain recompute of the same weights. Returns (loss,
+    |loss diff|, worst relative gradient diff, step ms, peak GiB)."""
+    names = [p.name for p, _ in params_grads]
+    snapshot = {n: scope.get(n).detach().clone().requires_grad_()
+                for n in names}
+    fetch = [cost] + [g for _, g in params_grads]
+    torch.cuda.reset_peak_memory_stats()
+    t_step = time.perf_counter()
+    out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                  return_numpy=False)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t_step)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    loss = float(out[0][0])
+    ref_loss, ref_grads = reference_loss_and_grads(snapshot, feed)
+    loss_err = abs(loss - float(ref_loss))
+    worst = max((float((g - ref_grads[n]).abs().max())
+                 / max(float(ref_grads[n].abs().max()), 1e-30), n)
+                for n, g in zip(names, out[1:]))
+    log(f"{what} step 1: loss {loss:.6f} vs plain recompute "
+        f"{float(ref_loss):.6f} (|diff| {loss_err:.2e}, tol {LOSS_ATOL:g});"
+        f" worst gradient {worst[1]} at {worst[0]:.2e} of its largest "
+        f"element (tol {GRAD_RTOL:g}) over {len(names)} parameters")
+    if not np.isfinite(loss) or loss_err > LOSS_ATOL:
+        raise AssertionError(f"{what}: step-1 loss differs from the plain "
+                             f"recompute")
+    if not worst[0] <= GRAD_RTOL:
+        raise AssertionError(f"{what}: gradient of {worst[1]} differs from "
+                             f"the plain recompute by {worst[0]:.3e}")
+    return loss, loss_err, worst[0], step_ms, peak_gb
+
+
+def training_phase(smi):
+    torch.cuda.empty_cache()            # the kernel phases' graph pools
+    t0 = time.perf_counter()
+    main, startup, cost, params_grads = build_gpt2(TRAIN_T)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(p.shape)) for p, _ in params_grads)
+    log(f"training: GPT-2-small {LAYERS} layers, H {HID}, vocab {VOCAB}, "
+        f"T {TRAIN_T}, batch {TRAIN_B}, {n_params} parameters, "
+        f"{len(main.global_block().ops)} ops; built and initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    feed = token_batch(TRAIN_B, TRAIN_T, SEED + 3)
+
+    zero_counts()                       # the main path starts here
+    loss, loss_err, grad_worst, step1_ms, peak_gb = checked_first_step(
+        exe, main, feed, cost, params_grads, scope, "training")
+    losses = [loss]
+    wall = []
+    for _ in range(5):
+        t_step = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+        wall.append(1e3 * (time.perf_counter() - t_step))
+        losses.append(float(loss[0]))
+    counts = read_counts()              # the main path ends here
+    log(f"training: losses {[round(x, 5) for x in losses]}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError("the loss did not fall over 5 Adam steps on a "
+                             "fixed batch")
+    steps = len(losses)
+    route = fa.bwd_route(TRAIN_T)
+    want = {"flash_attn_fwd": LAYERS * steps, "lm_head_lse": steps,
+            "flash_attn_bwd_fused": LAYERS * steps if route == "fused" else 0,
+            "flash_attn_bwd_dq": LAYERS * steps if route == "split" else 0,
+            "flash_attn_bwd_dkv": LAYERS * steps if route == "split" else 0}
+    check_counts(counts, want, f"training T={TRAIN_T} ({steps} steps, "
+                 f"route {route})")
+    step_ms = float(np.mean(wall))
+    tokens = TRAIN_B * TRAIN_T
+    log(f"training: launches {counts} over {steps} steps (route {route}); "
+        f"step wall {step_ms:.1f} ms (mean of steps 2-6, min "
+        f"{min(wall):.1f}; step 1 with gradient fetch {step1_ms:.1f}), "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
+        f"{peak_gb:.1f} GiB | {smi}")
+    breakdown = step_breakdown(exe, main, feed, cost, scope, step_ms, smi)
+    del scope, exe
+    torch.cuda.empty_cache()
+    return counts, {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+                    "losses": losses, "loss_err": loss_err,
+                    "grad_worst": grad_worst, "peak_gib": peak_gb,
+                    "breakdown": breakdown}
+
+
+KERNEL_NAMES = {          # profiler kernel name fragments
+    "flash_attn_fwd": ("flash_fwd_kernel",),
+    "flash_attn_bwd_fused": ("bwd_dkv_kernel<true>", "bwd_dkv_kernelILb1"),
+    "flash_attn_bwd_dq": ("bwd_dq_kernel",),
+    "flash_attn_bwd_dkv": ("bwd_dkv_kernel<false>", "bwd_dkv_kernelILb0"),
+    "lm_head_lse": ("lse_kernel",),
+}
+
+
+def step_breakdown(exe, main, feed, cost, scope, step_ms, smi):
+    """One more training step under torch.profiler: the device time of
+    every kernel it ran, the share of K1-K5, and device busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+        torch.cuda.synchronize()
+    by_kernel = {name: 0.0 for name in KERNEL_NAMES}
+    device_us = 0.0
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = float(ev.time_range.elapsed_us())
+        device_us += us
+        for name, frags in KERNEL_NAMES.items():
+            if any(f in ev.name for f in frags):
+                by_kernel[name] += us
+    if device_us <= 0:
+        log("step breakdown: the profiler recorded no device time; "
+            "device time not measured")
+        return None
+    device_ms = device_us / 1e3
+    shares = {n: round(us / device_us, 4) for n, us in by_kernel.items()}
+    log(f"step breakdown (profiled step): device {device_ms:.1f} ms of "
+        f"kernels against a {step_ms:.1f} ms unprofiled step wall (busy "
+        f"share {device_ms / step_ms:.3f}); K1-K5 ms "
+        f"{ {n: round(us / 1e3, 3) for n, us in by_kernel.items()} }, "
+        f"share of device time {shares} | {smi}")
+    return {"device_ms": device_ms, "kernel_ms": {
+        n: us / 1e3 for n, us in by_kernel.items()}, "share": shares}
+
+
+def short_training_phase(smi):
+    """T = 256, where the backward route is the fused K2: step 1's loss
+    and gradients against the plain recompute, then a second step."""
+    main, startup, cost, params_grads = build_gpt2(SHORT_T)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = token_batch(SHORT_B, SHORT_T, SEED + 5)
+    zero_counts()                       # the main path starts here
+    losses = [checked_first_step(exe, main, feed, cost, params_grads, scope,
+                                 f"short training T {SHORT_T}")[0]]
+    losses.append(float(exe.run(main, feed=feed, fetch_list=[cost],
+                                scope=scope)[0][0]))
+    counts = read_counts()              # the main path ends here
+    route = fa.bwd_route(SHORT_T)
+    if route != "fused":
+        raise AssertionError(f"T={SHORT_T} should take the fused route")
+    check_counts(counts, {"flash_attn_fwd": 2 * LAYERS,
+                          "flash_attn_bwd_fused": 2 * LAYERS,
+                          "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
+                          "lm_head_lse": 2}, f"training T={SHORT_T}")
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite loss at T=256")
+    log(f"short training: T {SHORT_T} batch {SHORT_B}, losses {losses}, "
+        f"launches {counts} (route {route})")
+    del scope, exe
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     name, smi = device_phase()
     t0 = time.perf_counter()
-    _build.build_library("flash_attn_fwd")
-    log(f"build: flash_attn_fwd (nvcc, sm_90a) in "
-        f"{time.perf_counter() - t0:.1f} s")
+    _build.build_libraries(_build.KERNEL_SOURCES)
+    log(f"build: {', '.join(_build.KERNEL_SOURCES)} (nvcc, sm_90a, in "
+        f"parallel) in {time.perf_counter() - t0:.1f} s")
     cases = kernel_phase()
-    launches = engine_phase(smi)
+    serving_k1 = engine_phase(smi)
+    bwd, k1_train = backward_kernel_phase(smi)
+    lse = lse_kernel_phase(smi)
+    train_counts, train = training_phase(smi)
+    short_counts = short_training_phase(smi)
+    paths = {"serving": {"flash_attn_fwd": serving_k1},
+             f"training_T{TRAIN_T}": train_counts,
+             f"training_T{SHORT_T}": short_counts}
+    launches = {k: sum(p.get(k, 0) for p in paths.values())
+                for k in ALL_KERNELS}
+    by_path = {k: {p: c.get(k, 0) for p, c in paths.items()}
+               for k in ALL_KERNELS}
+    for k, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{k} was launched no time on a main path")
     decode = next(c for c in cases if c["case"] == "decode")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "paddle_tpu/ops/pallas_attention.py:212",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "launches": launches["flash_attn_fwd"],
+        "launches_by_path": by_path["flash_attn_fwd"],
+        "max_abs_err": max([c["max_abs_err"] for c in cases]
+                           + [k1_train["max_abs_err"]]),
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
-        "library_ms": decode["library_ms"], "cases": cases}]
-    print(json.dumps({"kernels": kernels}), flush=True)
+        "library_ms": decode["library_ms"], "cases": cases + [k1_train]}]
+    for kname, (_, _, _, replaces) in BWD_KERNELS.items():
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+            "replaces": replaces, "launches": launches[kname],
+            "launches_by_path": by_path[kname], **bwd[kname]})
+    kernels.append({
+        "name": "lm_head_lse", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/lm_head_lse.cu",
+        "replaces": "paddle_tpu/ops/chunked_ce.py:90",
+        "launches": launches["lm_head_lse"],
+        "launches_by_path": by_path["lm_head_lse"], **lse})
+    print(json.dumps({"kernels": kernels, "training": train}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,9 +3,11 @@ H100 (Hopper, sm_90a).
 
 It stands beside the JAX package, which stays the reference it is held
 against, and imports nothing of it. Entry points run on the CUDA card
-unless the caller passes `device="cpu"`; every TPU kernel on a ported
-path is a hand-written Hopper kernel under `csrc/`, built with nvcc at
-first use. This slice ports LM serving:
+unless the caller passes `device="cpu"` (or `CPUPlace()`); every TPU
+kernel on a ported path is a hand-written Hopper kernel under `csrc/`,
+built with nvcc at first use. Ported so far:
+
+LM serving (slice 1):
 
     from paddle_tpu_torch.serving import (GenerationConfig,
                                           GenerationEngine, LMSpec,
@@ -14,6 +16,41 @@ first use. This slice ports LM serving:
     ids, reason = engine.generate(prompt)
 
     python -m paddle_tpu_torch serve --generate --artifact lm.pdmodel
+
+Training through the fluid-style front end (slice 2: Program ->
+Executor -> Adam, GPT-2 with the flash-attention forward and backward
+and the lm-head log-sum-exp as Hopper kernels):
+
+    import paddle_tpu_torch as pt
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        tok = pt.layers.data("tok", [T, 1], dtype="int64")
+        nxt = pt.layers.data("nxt", [T, 1], dtype="int64")
+        cost = pt.models.transformer.transformer_lm_cost(
+            tok, nxt, vocab, hid=768, num_layers=12, num_heads=12,
+            max_len=T)
+        pt.AdamOptimizer(1e-4).minimize(cost)
+    exe = pt.Executor()                 # the card; CPUPlace() for the CPU
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    loss, = exe.run(main, feed={"tok": ..., "nxt": ...},
+                    fetch_list=[cost], scope=scope)
 """
 
-__all__ = ["flags", "io", "monitor", "ops", "serving", "weights"]
+from . import framework
+from .framework import (CPUPlace, CUDAPlace, Program, default_main_program,
+                        default_startup_program, program_guard,
+                        reset_default_programs)
+from .executor import Executor, Scope, global_scope, scope_guard
+from .backward import append_backward
+from . import initializer, layers, models, optimizer, regularizer
+from .optimizer import AdamOptimizer, SGDOptimizer
+from .param_attr import ParamAttr
+
+__all__ = ["framework", "CPUPlace", "CUDAPlace", "Program",
+           "default_main_program", "default_startup_program",
+           "program_guard", "reset_default_programs", "Executor", "Scope",
+           "global_scope", "scope_guard", "append_backward", "initializer",
+           "layers", "models", "optimizer", "regularizer", "AdamOptimizer",
+           "SGDOptimizer", "ParamAttr", "flags", "io", "monitor", "ops",
+           "serving", "weights"]

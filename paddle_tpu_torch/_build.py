@@ -17,7 +17,8 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["load_library", "build_library", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["load_library", "build_library", "build_libraries",
+           "KERNEL_SOURCES", "BUILD_DIR", "CSRC_DIR"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -25,6 +26,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "paddle_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# every csrc/*.cu the port's paths launch
+KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "lm_head_lse")
 
 _lock = threading.Lock()
 _loaded = {}
@@ -43,25 +47,45 @@ def _nvcc():
                        "from csrc/ on a machine with the CUDA toolkit")
 
 
-def build_library(name):
-    """Compile `csrc/<name>.cu` (if its hashed build is missing) and
-    return the path of the shared library."""
+def _target(name):
     src = os.path.join(CSRC_DIR, name + ".cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src} (exit "
-                           f"{proc.returncode}):\n{proc.stdout}\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
-    return out
+    return src, out
+
+
+def build_libraries(names):
+    """Compile every `csrc/<name>.cu` whose hashed build is missing, one
+    nvcc process per source, all started together; returns
+    {name: library path}. Raises naming each source that failed."""
+    targets = {name: _target(name) for name in names}
+    procs = {}
+    for name, (src, out) in targets.items():
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {targets[name][0]} (exit "
+                          f"{proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: out for name, (_, out) in targets.items()}
+
+
+def build_library(name):
+    """Compile `csrc/<name>.cu` (if its hashed build is missing) and
+    return the path of the shared library."""
+    return build_libraries([name])[name]
 
 
 def load_library(name):

@@ -1,0 +1,241 @@
+"""Executor: runs a Program op by op in eager PyTorch.
+
+The port of `paddle_tpu/executor.py`. The JAX package traces a block's
+ops into one pure function, jit-compiles it with the state buffers
+donated and caches the executable; here `Executor.run` interprets the
+block directly, on the card unless the caller asks for the CPU:
+
+  * `_analyze` classifies the block's vars into mutable state, read-only
+    state and feeds, with the reference's error messages for an unfed
+    data var and an uninitialised persistable;
+  * feeds are coerced to their var's dtype (`host_cast_feed`) and moved
+    to the device;
+  * each op runs its lowering (ops/registry.py); a forward op whose
+    `<type>_grad` op appears later (`_ops_needing_tape`) runs under the
+    autograd tape, and its grad op replays the tape (ops/grad.py);
+  * the optimizer ops update the scope's tensors in place, where the
+    reference donates their buffers; the persistables the block writes
+    are then stored back into the scope.
+
+There is no jit, no donation and no compile cache: PyTorch dispatches
+each op's kernels as the interpreter reaches it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from . import framework
+from ._device import resolve_device, use_full_f32
+from .framework import CPUPlace, CUDAPlace
+from .ops import grad as grad_mod
+from .ops import registry as op_registry
+
+__all__ = ["Executor", "Scope", "global_scope", "scope_guard",
+           "host_cast_feed"]
+
+_GENERATOR_KEY = "__rng_generator__"
+
+
+class Scope:
+    """Name -> tensor container (framework/scope.h analog). Persistable
+    state lives here between runs, on the executor's device."""
+
+    def __init__(self):
+        self.vars = {}
+
+    def set(self, name, value):
+        self.vars[name] = value
+
+    def get(self, name, default=None):
+        return self.vars.get(name, default)
+
+    def has(self, name):
+        return name in self.vars
+
+    def keys(self):
+        return self.vars.keys()
+
+
+_global_scope = Scope()
+
+
+def global_scope() -> Scope:
+    return _global_scope
+
+
+@contextlib.contextmanager
+def scope_guard(scope):
+    global _global_scope
+    prev = _global_scope
+    _global_scope = scope
+    try:
+        yield
+    finally:
+        _global_scope = prev
+
+
+def host_cast_feed(program, name, arr):
+    """Coerce a feed array to its data var's declared dtype (the
+    reference's feed-dtype policy; torch keeps int64 as int64)."""
+    var = program.global_block()._find_var(name)
+    if var is not None and var.dtype is not None:
+        want = np.dtype(var.dtype)
+        if arr.dtype != want:
+            arr = arr.astype(want)
+    return arr
+
+
+def _place_device(place):
+    """Executor place -> torch device: None (the card), CPUPlace,
+    CUDAPlace(i), or a device string."""
+    if place is None:
+        return resolve_device(None)
+    if isinstance(place, CPUPlace):
+        return resolve_device("cpu")
+    if isinstance(place, CUDAPlace):
+        return resolve_device(f"cuda:{place.device_id}")
+    return resolve_device(place)
+
+
+class Executor:
+    """fluid.Executor-shaped API over an eager op-by-op interpreter.
+
+    `Executor()` runs on the CUDA card and raises when there is none;
+    `Executor(CPUPlace())` (or `Executor("cpu")`) runs on the CPU."""
+
+    def __init__(self, place=None):
+        self.device = _place_device(place)
+        self.place = (CPUPlace() if self.device.type == "cpu"
+                      else CUDAPlace(self.device.index or 0))
+        if self.device.type == "cuda":
+            use_full_f32()
+
+    # -- public API ---------------------------------------------------------
+    def run(self, program=None, feed=None, fetch_list=None, scope=None,
+            return_numpy=True):
+        program = program or framework.default_main_program()
+        feed = dict(feed or {})
+        fetch_list = fetch_list or []
+        scope = scope or _global_scope
+        fetch_names = [v.name if isinstance(v, framework.Variable) else v
+                       for v in fetch_list]
+
+        (block, state_mut, state_ro, state_out, feed_names,
+         uses_key) = self._analyze(program, feed, fetch_names, scope)
+        env = {}
+        for n in state_mut + state_ro:
+            env[n] = self._to_device(scope.get(n), n)
+        for n in feed_names:
+            env[n] = self._coerce_feed(program, n, feed[n])
+        ctx = op_registry.LoweringContext(
+            program, block, env, self.device,
+            generator=self._generator(program, scope) if uses_key else None)
+        taped = self._ops_needing_tape(block)
+        for op in block.ops:
+            self._lower_op(ctx, op, taped)
+        missing = [n for n in fetch_names if n not in env]
+        if missing:
+            raise KeyError(f"fetch var(s) {missing} were not computed by "
+                           "the program")
+        fetches = [env[n] for n in fetch_names]
+        for name in state_out:
+            scope.set(name, env[name])
+        if return_numpy:
+            return [f.detach().cpu().numpy() for f in fetches]
+        return fetches
+
+    # -- analysis -----------------------------------------------------------
+    def _analyze(self, program, feed, fetch_names, scope):
+        """Classify block vars into mutable state, read-only state and
+        feeds (the reference's `_analyze`, same errors)."""
+        block = program.global_block()
+        written = set()
+        read = set()
+        for op in block.ops:
+            for names in op.inputs.values():
+                for n in names:
+                    if n and n not in written:
+                        read.add(n)
+            for names in op.outputs.values():
+                written.update(n for n in names if n)
+
+        persistable = {n for n, v in block.vars.items() if v.persistable}
+        feed_names = sorted(feed.keys())
+        feed_set = set(feed_names)
+
+        state_out = [n for n in block.vars
+                     if n in persistable and n in written]
+        out_set = set(state_out)
+        state_mut, state_ro = [], []
+        for n in block.vars:
+            if n in persistable and n not in feed_set:
+                if (n in read or n in written) and scope.has(n):
+                    (state_mut if n in out_set else state_ro).append(n)
+                elif n in read and not scope.has(n):
+                    raise RuntimeError(
+                        f"persistable var {n!r} is read by the program but "
+                        "not initialised — run the startup program first")
+
+        for n, v in block.vars.items():
+            if (not v.persistable and n not in feed_set and n not in written
+                    and n in read):
+                raise RuntimeError(f"var {n!r} must be fed (is_data var "
+                                   "missing from feed dict)")
+
+        uses_key = any(op_registry.has_op(op.type)
+                       and op_registry.get_op(op.type).stateful
+                       for op in block.ops)
+        return block, state_mut, state_ro, state_out, feed_names, uses_key
+
+    @staticmethod
+    def _ops_needing_tape(block):
+        return {op.attrs["fwd_op_id"] for op in block.ops
+                if op.type.endswith("_grad") and "fwd_op_id" in op.attrs}
+
+    @staticmethod
+    def _lower_op(ctx, op, taped):
+        if op.type.endswith("_grad") and "fwd_op_id" in op.attrs:
+            grad_mod.lower_grad_op(ctx, op)
+            return
+        opdef = op_registry.get_op(op.type)
+        ins = {slot: [ctx.lookup(n) for n in names if n]
+               for slot, names in op.inputs.items() if any(names)}
+        if op.id in taped and opdef.differentiable:
+            outs = grad_mod.lower_with_tape(ctx, op, opdef, ins, op.attrs)
+        else:
+            with torch.no_grad():
+                outs = opdef.lowering(ctx, ins, dict(op.attrs))
+        for slot, names in op.outputs.items():
+            vals = outs.get(slot)
+            if vals is None:
+                continue
+            for name, val in zip(names, vals):
+                if name:
+                    ctx.env[name] = val
+
+    # -- helpers ------------------------------------------------------------
+    def _generator(self, program, scope):
+        """The scope's generator on this device, seeded from
+        `program.seed` (default 0) at first use and advanced by every
+        later draw — the counterpart of the reference's `__rng_key__`."""
+        gen = scope.get(_GENERATOR_KEY)
+        if gen is None or gen.device != self.device:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(program.seed if program.seed is not None else 0)
+            scope.set(_GENERATOR_KEY, gen)
+        return gen
+
+    def _to_device(self, val, name):
+        if val is None:
+            raise RuntimeError(f"state var {name!r} missing from scope")
+        if not isinstance(val, torch.Tensor):
+            val = torch.from_numpy(np.ascontiguousarray(val))
+        return val if val.device == self.device else val.to(self.device)
+
+    def _coerce_feed(self, program, name, val):
+        arr = host_cast_feed(program, name, np.asarray(val))
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)

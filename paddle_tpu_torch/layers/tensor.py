@@ -1,0 +1,59 @@
+"""Tensor creation / manipulation layers (the port's copy of the part of
+`paddle_tpu/layers/tensor.py` the training path calls)."""
+
+from __future__ import annotations
+
+from .. import framework
+from ..layer_helper import LayerHelper
+
+__all__ = ["create_parameter", "cast", "fill_constant", "slice",
+           "uniform_random"]
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, name=None):
+    """Fresh uniform sample each run, drawn from the executor's
+    generator (bench.py's synthetic token source)."""
+    helper = LayerHelper("uniform_random", name=name)
+    out = helper.create_tmp_variable(dtype, shape=list(shape))
+    helper.append_op("uniform_random", {}, {"Out": [out.name]},
+                     {"shape": list(shape), "dtype": dtype,
+                      "min": min, "max": max})
+    return out
+
+
+def create_parameter(shape, dtype="float32", name=None, attr=None,
+                     is_bias=False, default_initializer=None):
+    helper = LayerHelper("create_parameter", name=name)
+    from ..param_attr import ParamAttr
+    attr = attr or ParamAttr(name=name)
+    return helper.create_parameter(attr, shape, dtype, is_bias,
+                                   default_initializer)
+
+
+def cast(x, dtype, name=None):
+    helper = LayerHelper("cast", name=name)
+    dtype = framework.canonical_dtype(dtype)
+    out = helper.create_tmp_variable(dtype, lod_level=x.lod_level)
+    helper.append_op("cast", {"X": [x.name]}, {"Out": [out.name]},
+                     {"out_dtype": dtype, "in_dtype": x.dtype})
+    return out
+
+
+def fill_constant(shape, dtype, value, out=None, name=None):
+    helper = LayerHelper("fill_constant", name=name)
+    dtype = framework.canonical_dtype(dtype)
+    if out is None:
+        out = helper.create_tmp_variable(dtype)
+    helper.append_op("fill_constant", {}, {"Out": [out.name]},
+                     {"shape": list(shape), "dtype": dtype,
+                      "value": float(value)})
+    return out
+
+
+def slice(input, axes, starts, ends, name=None):
+    helper = LayerHelper("slice", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("slice", {"X": [input.name]}, {"Out": [out.name]},
+                     {"axes": list(axes), "starts": list(starts),
+                      "ends": list(ends)})
+    return out

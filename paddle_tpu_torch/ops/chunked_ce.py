@@ -1,0 +1,183 @@
+"""Fused LM-head + softmax-cross-entropy (the port of
+`paddle_tpu/ops/chunked_ce.py`), with K5, the lm-head log-sum-exp, as a
+hand-written Hopper kernel.
+
+loss[i] = logsumexp(x[i] @ w) - (x[i] @ w)[labels[i]], with the [N, V]
+logits never materialized in the forward: the picked logit is one
+row-gather of w^T and a rowwise dot, and the lse comes from
+`lm_head_lse` — K5 (`csrc/lm_head_lse.cu`, the counterpart of
+`_lse_kernel`) on a CUDA tensor, its plain chunked version on a CPU
+tensor. The reference elects its Pallas lse with a flag and a VMEM gate
+(`resolve_lse_mode`, `_lse_supports`); the port uses the kernel whenever
+the tensors are on the card. The backward (`_xent_bwd`) is plain torch
+matmuls over vocab chunks, as the reference leaves it to XLA: it reads
+only the lse residual and recomputes each chunk's logits.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .registry import register_op
+
+__all__ = ["lm_head_lse", "lm_head_lse_plain", "chunked_lm_head_xent",
+           "auto_chunks", "LSE_MAX_H"]
+
+LSE_MAX_H = 768         # K5 keeps the [H, 64] row tile in shared memory
+
+
+def auto_chunks(V):
+    """Chunk count of the backward's vocab sweep: ~8k columns per chunk
+    keeps the [N, Vc] f32 transient bounded (the reference's rule)."""
+    if V <= 16384:
+        return 1
+    return max(1, round(V / 8192.0))
+
+
+def lm_head_lse_plain(x, w, chunk=4096):
+    """lse[i] = logsumexp_c (x @ w)[i, c], as an online max/denominator
+    over vocab chunks (the kernel's arithmetic in chunk-sized steps)."""
+    N, V = x.shape[0], w.shape[1]
+    m = torch.full((N,), -float("inf"), dtype=torch.float32,
+                   device=x.device)
+    s = torch.zeros((N,), dtype=torch.float32, device=x.device)
+    for c0 in range(0, V, chunk):
+        lg = torch.matmul(x.float(), w[:, c0:c0 + chunk].float())
+        mn = torch.maximum(m, lg.amax(dim=1))
+        s = s * torch.exp(m - mn) + torch.exp(lg - mn[:, None]).sum(dim=1)
+        m = mn
+    return m + torch.log(s)
+
+
+def _lse_lib():
+    from .._build import load_library
+    fn = load_library("lm_head_lse").pt_lm_head_lse_f32
+    if fn.argtypes is None:
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [vp, vp, vp, i, i, i, ll, ll, vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def lm_head_lse(x, w):
+    """Per-row log-sum-exp of x [N, H] @ w [H, V] -> [N] f32. CUDA
+    tensors run K5 (or raise), CPU tensors the plain version, meta
+    tensors give the shape."""
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"lm_head_lse takes x [N, H] and w [H, V], got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.device != w.device:
+        raise ValueError(f"lm_head_lse operands on {x.device} and "
+                         f"{w.device}")
+    N, H = x.shape
+    V = w.shape[1]
+    if x.device.type == "cpu":
+        return lm_head_lse_plain(x, w)
+    if x.device.type == "meta":
+        return torch.empty((N,), dtype=torch.float32, device="meta")
+    if x.device.type != "cuda":
+        raise ValueError(f"lm_head_lse: unsupported device {x.device}")
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError(f"lm_head_lse kernel takes float32 x and w, got "
+                        f"{x.dtype} and {w.dtype}")
+    if x.stride(1) != 1 or w.stride(1) != 1:
+        raise ValueError("lm_head_lse kernel takes row-major x and w")
+    if H % 4 or x.stride(0) % 4 or x.data_ptr() % 16 or H > LSE_MAX_H:
+        raise ValueError(f"lm_head_lse kernel takes H a multiple of 4 up "
+                         f"to {LSE_MAX_H} with 16-byte aligned rows, got "
+                         f"H={H}, row stride {x.stride(0)}")
+    lse = torch.empty((N,), dtype=torch.float32, device=x.device)
+    if N == 0 or V == 0:
+        return lse
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _lse_lib()(x.data_ptr(), w.data_ptr(), lse.data_ptr(), N, H, V,
+                    x.stride(0), w.stride(0), stream)
+    if rc != 0:
+        raise RuntimeError(f"lm_head_lse kernel launch failed: cudaError "
+                           f"{rc} (N={N}, H={H}, V={V})")
+    lm_head_lse.launches += 1
+    return lse
+
+
+# kernel launches made through this wrapper (the main-path proof)
+lm_head_lse.launches = 0
+
+
+def _xent_bwd(x, w, labels, lse, g, C):
+    """d_logits = (softmax - onehot) * g, formed chunk-wise from
+    recomputed chunk logits (the reference's `_xent_bwd`): dx
+    accumulates over the chunks, each chunk writes its [H, Vc] slice of
+    dw."""
+    N, H = x.shape
+    V = w.shape[1]
+    Vc = -(-V // C)
+    gf = g.float()
+    dx = torch.zeros((N, H), dtype=torch.float32, device=x.device)
+    dw = torch.empty((H, V), dtype=torch.float32, device=x.device)
+    for c0 in range(0, V, Vc):
+        wc = w[:, c0:c0 + Vc].float()
+        p = torch.exp(torch.matmul(x.float(), wc) - lse[:, None])
+        # minus the one-hot of each label that falls in this chunk
+        local = labels - c0
+        hit = (local >= 0) & (local < wc.shape[1])
+        p.scatter_add_(1, local.clamp(0, wc.shape[1] - 1)[:, None],
+                       -hit.to(p.dtype)[:, None])
+        d = p * gf[:, None]
+        dx += torch.matmul(d, wc.t())
+        dw[:, c0:c0 + Vc] = torch.matmul(x.float().t(), d)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+class _ChunkedXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, labels, C):
+        labels = labels.to(torch.int64)
+        # the picked logit x[i] . w[:, lab_i]: one row-gather of w^T and a
+        # rowwise dot instead of a per-chunk gather over the logits
+        picked = (x.float() * w.t()[labels].float()).sum(dim=1)
+        lse = lm_head_lse(x, w)
+        ctx.save_for_backward(x, w, labels, lse)
+        ctx.C = C
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, labels, lse = ctx.saved_tensors
+        dx, dw = _xent_bwd(x, w, labels, lse, g, ctx.C)
+        return dx, dw, None, None
+
+
+def chunked_lm_head_xent(x, w, labels, num_chunks):
+    """loss[i] = logsumexp(x[i] @ w) - (x[i] @ w)[labels[i]].
+
+    x [N, H] float, w [H, V] float, labels [N] int. Returns [N] f32,
+    differentiable in x and w."""
+    if x.device.type == "meta":
+        return torch.empty((x.shape[0],), dtype=torch.float32,
+                           device="meta")
+    return _ChunkedXent.apply(x, w, labels, num_chunks)
+
+
+@register_op("fused_lm_head_xent")
+def _fused_lm_head_xent(ctx, ins, attrs):
+    """X [.., H] hidden states, W [H, V] head weight, Label [.., 1] int
+    -> Loss [.., 1] f32 per-position cross-entropy. `cache_logits` (the
+    reference's option to keep the chunk logits for the backward) is
+    not ported: the port always recomputes them, which is the
+    reference's default ("auto")."""
+    x = ins["X"][0]
+    w = ins["W"][0]
+    label = ins["Label"][0]
+    if attrs.get("cache_logits", "auto") not in ("auto", False, 0):
+        raise NotImplementedError("fused_lm_head_xent: cache_logits=True "
+                                  "is not ported")
+    lead = tuple(x.shape[:-1])
+    N = int(np.prod(lead)) if lead else 1
+    V = int(w.shape[1])
+    C = int(attrs.get("num_chunks", 0)) or auto_chunks(V)
+    loss = chunked_lm_head_xent(x.reshape(N, x.shape[-1]), w,
+                                label.reshape(N), C)
+    return {"Loss": [loss.reshape(lead + (1,))]}

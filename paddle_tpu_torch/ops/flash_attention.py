@@ -1,5 +1,5 @@
-"""Flash-attention forward (K1) for the LM server: wrapper, plain
-version and launch counter.
+"""Flash attention: K1 forward (LM server and training) and the K2-K4
+backward (training), with their plain versions and launch counters.
 
 `flash_attn_fwd(q, k, v, kv_len, q_start, causal, scale)` computes
 attention over head-major `[B, n, T, D]` float32 operands with the mask
@@ -8,15 +8,32 @@ attention over head-major `[B, n, T, D]` float32 operands with the mask
 
 and returns `(o [B, n, Tq, D], lse [B, n, Tq])`. It is the function of
 `paddle_tpu/ops/pallas_attention.py::_kernel` (K1) with one extension,
-the per-batch query offset `q_start`: cold prefill has q_start = 0 (K1
-exactly), decode has Tq = 1, q_start = pos, kv_len = pos + 1, and a
-prefix-hit prefill has q_start = the first computed position. A fully
-masked row gives o = 0 and lse = -1e30, as K1's finalize does.
+the per-batch query offset `q_start`: cold prefill and training have
+q_start = 0 (K1 exactly), decode has Tq = 1, q_start = pos, kv_len =
+pos + 1, and a prefix-hit prefill has q_start = the first computed
+position. A fully masked row gives o = 0 and lse = -1e30, as K1's
+finalize does.
 
-On a CUDA tensor the wrapper launches the hand-written Hopper kernel
-(`csrc/flash_attn_fwd.cu`, built by nvcc on first use) or raises; it
-never falls back. The plain PyTorch version `flash_attn_fwd_plain` is
-the reference the kernel is held to, and the path for CPU tensors only.
+The backward is the route of the reference's `_flash_backward`: delta =
+rowsum(dO * O) is computed outside the kernels, then either the
+single-sweep K2 (`flash_attn_bwd_fused`: dk, dv and per-kv-tile dq
+partials, summed after) or the split pair K3 (`flash_attn_bwd_dq`) and
+K4 (`flash_attn_bwd_dkv`). The reference takes K2 when its kv block
+count is <= 4; the port keeps the rule on its own 64-key tiles
+(`bwd_route`), so Tk <= 256 takes K2 and the training length T = 1024
+takes K3 + K4.
+
+`flash_attention_plane` is the training op's entry: a
+`torch.autograd.Function` over the packed `[B, T, n*D]` planes (viewed
+head-major by strides, no copy) whose forward is K1 and whose backward
+is the route above.
+
+On a CUDA tensor each wrapper launches its hand-written Hopper kernel
+(`csrc/flash_attn_fwd.cu`, `csrc/flash_attn_bwd.cu`, built by nvcc on
+first use) or raises; it never falls back. The plain PyTorch versions
+are the references the kernels are held to, and the path for CPU
+tensors only; on `meta` tensors (build-time shape inference) the
+wrappers compute shapes only.
 """
 
 from __future__ import annotations
@@ -26,11 +43,18 @@ import ctypes
 import numpy as np
 import torch
 
-__all__ = ["flash_attn_fwd", "flash_attn_fwd_plain", "KERNEL_HEAD_DIMS",
+__all__ = ["flash_attn_fwd", "flash_attn_fwd_plain", "flash_attn_bwd",
+           "flash_attn_bwd_fused", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+           "flash_attn_bwd_dq_plain", "flash_attn_bwd_dkv_plain",
+           "flash_attn_bwd_fused_plain", "flash_attention_plane",
+           "bwd_route", "KERNEL_HEAD_DIMS", "BWD_HEAD_DIMS", "BWD_TILE",
            "NEG"]
 
 NEG = -1e30
 KERNEL_HEAD_DIMS = (32, 64)
+BWD_HEAD_DIMS = (64,)   # the backward kernels' tiles are 64 x 64
+BWD_TILE = 64           # q rows / keys per backward kernel tile
+FUSED_MAX_TILES = 4     # the reference's nk <= 4 rule for the fused K2
 
 
 def flash_attn_fwd_plain(q, k, v, kv_len, q_start, causal=True,
@@ -156,6 +180,10 @@ def flash_attn_fwd(q, k, v, kv_len, q_start, causal=True, scale=None):
     if q.device.type == "cpu":
         return flash_attn_fwd_plain(q, k, v, kv_len, q_start, causal,
                                     scale)
+    if q.device.type == "meta":    # build-time shape inference
+        B, n, Tq, _ = q.shape
+        return (torch.empty(q.shape, dtype=q.dtype, device="meta"),
+                torch.empty((B, n, Tq), dtype=torch.float32, device="meta"))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_fwd: unsupported device {q.device}")
     _check_kernel_operands(q, k, v, kv_len, q_start)
@@ -164,3 +192,269 @@ def flash_attn_fwd(q, k, v, kv_len, q_start, causal=True, scale=None):
 
 # kernel launches made through this wrapper (the main-path proof)
 flash_attn_fwd.launches = 0
+
+
+# -- backward: K2 (fused), K3 (dq), K4 (dk, dv) ------------------------------
+
+def _bwd_probs(q, k, lse, kv_len, causal, scale):
+    """p = exp(scale * q.k - lse) under K1's mask (q_start = 0), zero on
+    rows whose lse is the fully-masked sentinel: the reference's
+    rebuild of the forward's probabilities."""
+    Tq, Tk = q.shape[2], k.shape[2]
+    dev = q.device
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    col = torch.arange(Tk, device=dev)
+    live = col[None, None, None, :] < kv_len.to(dev, torch.int64).clamp(
+        max=Tk)[:, None, None, None]
+    if causal:
+        row = torch.arange(Tq, device=dev)
+        live = live & (col[None, :] <= row[:, None])[None, None]
+    live = live & (lse > NEG * 0.5)[..., None]
+    return torch.where(live, torch.exp(s - lse[..., None]),
+                       torch.zeros((), device=dev))
+
+
+def flash_attn_bwd_fused_plain(q, k, v, do, lse, delta, kv_len,
+                               causal=True, scale=None):
+    """K2's function on full matrices, from one rebuild of p: ds = p *
+    (dO.V^T - delta), dq = scale * ds.K, dk = scale * ds^T.Q, dv =
+    p^T.dO."""
+    scale = _scale_of(q, scale)
+    p = _bwd_probs(q, k, lse, kv_len, causal, scale)
+    ds = p * (torch.matmul(do.float(), v.float().transpose(-1, -2))
+              - delta[..., None])
+    dq = scale * torch.matmul(ds, k.float())
+    dk = scale * torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(p.transpose(-1, -2), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attn_bwd_dq_plain(*args, **kwargs):
+    """K3's function: the dq of `flash_attn_bwd_fused_plain`."""
+    return flash_attn_bwd_fused_plain(*args, **kwargs)[0]
+
+
+def flash_attn_bwd_dkv_plain(*args, **kwargs):
+    """K4's function: the (dk, dv) of `flash_attn_bwd_fused_plain`."""
+    return flash_attn_bwd_fused_plain(*args, **kwargs)[1:]
+
+
+def _scale_of(q, scale):
+    return 1.0 / float(np.sqrt(q.shape[3])) if scale is None else scale
+
+
+def bwd_route(Tk):
+    """The reference's route rule on the port's own kv tiles: the fused
+    single-sweep K2 when the kv tile count is <= 4 (Tk <= 256), the
+    split K3 + K4 beyond."""
+    nk = -(-Tk // BWD_TILE)
+    return "fused" if nk <= FUSED_MAX_TILES else "split"
+
+
+def _check_bwd(q, k, v, do, lse, delta, kv_len):
+    _check(q, k, v, kv_len, kv_len)
+    B, n, Tq, D = q.shape
+    if do.shape != q.shape:
+        raise ValueError(f"dO {tuple(do.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, n, Tq):
+            raise ValueError(f"{name} must be [B, n, Tq]={(B, n, Tq)}, "
+                             f"got {tuple(t.shape)}")
+    if len({t.device for t in (q, do, lse, delta)}) != 1:
+        raise ValueError("flash-attention backward operands on several "
+                         "devices")
+
+
+def _check_bwd_kernel(q, k, v, do, lse, delta, kv_len):
+    _check_kernel_operands(q, k, v, kv_len, kv_len)
+    _check_kernel_operands(do, k, v, kv_len, kv_len)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"{name} must be a contiguous float32 tensor")
+    if q.shape[3] not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash-attention backward kernels support head "
+                         f"dims {BWD_HEAD_DIMS}, got D={q.shape[3]}")
+
+
+def _bwd_lib():
+    from .._build import load_library
+    fn = load_library("flash_attn_bwd").pt_flash_attn_bwd_f32
+    if fn.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([i] + [vp] * 10 + [i] * 5
+                       + [ctypes.POINTER(ctypes.c_longlong), i,
+                          ctypes.c_float, vp])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_WHICH = {"fused": 0, "dq": 1, "dkv": 2}
+
+
+def _plane_grad(B, n, T, D, dev):
+    """A [B, n, T, D] gradient allocated in the packed [B, T, n, D]
+    plane, so the caller's merge of heads is a free view."""
+    return torch.empty((B, T, n, D), dtype=torch.float32,
+                       device=dev).permute(0, 2, 1, 3)
+
+
+def _bwd_launch(which, q, k, v, do, lse, delta, kv_len, dq, dk, dv,
+                causal, scale, tile_stride=0):
+    B, n, Tq, D = q.shape
+    Tk = k.shape[2]
+    none = (0, 0, 0)
+    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *do.stride()[:3],
+               *(dq.stride()[-4:-1] if dq is not None else none),
+               *(dk.stride()[:3] if dk is not None else none),
+               *(dv.stride()[:3] if dv is not None else none), tile_stride]
+    arr = (ctypes.c_longlong * len(strides))(*strides)
+    ptr = (lambda t: t.data_ptr() if t is not None else None)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _bwd_lib()(_WHICH[which], q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(), kv_len.data_ptr(), ptr(dq), ptr(dk),
+                    ptr(dv), B, n, Tq, Tk, D, arr, int(bool(causal)),
+                    float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash-attention backward ({which}) kernel "
+                           f"launch failed: cudaError {rc} (B={B}, n={n}, "
+                           f"Tq={Tq}, Tk={Tk}, D={D})")
+
+
+def _bwd_wrapper(which, plain):
+    """The wrapper of one backward kernel: validates, routes CPU tensors
+    to the plain version and meta tensors to shapes, launches the kernel
+    on CUDA tensors (or raises) and counts the launch."""
+
+    def wrapper(q, k, v, do, lse, delta, kv_len, causal=True, scale=None):
+        _check_bwd(q, k, v, do, lse, delta, kv_len)
+        scale = _scale_of(q, scale)
+        if q.device.type == "cpu":
+            return plain(q, k, v, do, lse, delta, kv_len, causal, scale)
+        B, n, Tq, D = q.shape
+        Tk = k.shape[2]
+        if q.device.type == "meta":
+            like = {"dq": (q,), "dkv": (k, v), "fused": (q, k, v)}[which]
+            outs = tuple(torch.empty(t.shape, dtype=t.dtype, device="meta")
+                         for t in like)
+            return outs[0] if which == "dq" else outs
+        if q.device.type != "cuda":
+            raise ValueError(f"flash-attention backward: unsupported "
+                             f"device {q.device}")
+        _check_bwd_kernel(q, k, v, do, lse, delta, kv_len)
+        dev = q.device
+        if which == "dq":
+            dq = _plane_grad(B, n, Tq, D, dev)
+            if B and n and Tq:
+                _bwd_launch("dq", q, k, v, do, lse, delta, kv_len, dq,
+                            None, None, causal, scale)
+                wrapper.launches += 1
+            return dq
+        dk = _plane_grad(B, n, Tk, D, dev)
+        dv = _plane_grad(B, n, Tk, D, dev)
+        if which == "dkv":
+            if B and n and Tk:
+                _bwd_launch("dkv", q, k, v, do, lse, delta, kv_len, None,
+                            dk, dv, causal, scale)
+                wrapper.launches += 1
+            return dk, dv
+        nk = -(-Tk // BWD_TILE)
+        # per-kv-tile dq partials [nk, B, Tq, n, D], summed below in a
+        # fixed order (the reference's way), so the result is
+        # deterministic
+        part = torch.empty((nk, B, Tq, n, D), dtype=torch.float32,
+                           device=dev)
+        part_h = part.permute(0, 1, 3, 2, 4)          # [nk, B, n, Tq, D]
+        if B and n and Tk:
+            _bwd_launch("fused", q, k, v, do, lse, delta, kv_len, part_h,
+                        dk, dv, causal, scale, tile_stride=part.stride(0))
+            wrapper.launches += 1
+        dq = part.sum(0).permute(0, 2, 1, 3) if nk > 1 else part_h[0]
+        return dq, dk, dv
+
+    wrapper.launches = 0        # kernel launches (the main-path proof)
+    wrapper.__name__ = f"flash_attn_bwd_{which}"
+    return wrapper
+
+
+flash_attn_bwd_fused = _bwd_wrapper("fused", flash_attn_bwd_fused_plain)
+flash_attn_bwd_dq = _bwd_wrapper("dq", flash_attn_bwd_dq_plain)
+flash_attn_bwd_dkv = _bwd_wrapper("dkv", flash_attn_bwd_dkv_plain)
+
+
+def flash_attn_bwd(q, k, v, o, lse, do, kv_len, causal=True, scale=None):
+    """Gradients (dq, dk, dv) of `flash_attn_fwd` (q_start = 0) from its
+    saved o and lse: delta = rowsum(dO * O) outside the kernels, then
+    the fused K2 or the split K3 + K4, as `bwd_route(Tk)` picks."""
+    delta = (do.float() * o.float()).sum(-1).contiguous()   # [B, n, Tq]
+    if bwd_route(k.shape[2]) == "fused":
+        return flash_attn_bwd_fused(q, k, v, do, lse, delta, kv_len,
+                                    causal, scale)
+    dq = flash_attn_bwd_dq(q, k, v, do, lse, delta, kv_len, causal, scale)
+    dk, dv = flash_attn_bwd_dkv(q, k, v, do, lse, delta, kv_len, causal,
+                                scale)
+    return dq, dk, dv
+
+
+# -- the training op's entry: an autograd Function over packed planes -------
+
+def _heads(x, n):
+    """[B, T, n*D] plane -> its [B, n, T, D] head view (strides only)."""
+    B, T, nD = x.shape
+    return x.view(B, T, n, nD // n).permute(0, 2, 1, 3)
+
+
+def _merge(x):
+    """[B, n, T, D] -> the [B, T, n*D] plane (a view when x lies in a
+    plane, as every kernel output does)."""
+    B, n, T, D = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B, T, n * D)
+
+
+class _FlashPlane(torch.autograd.Function):
+    """K1 forward (saves O and LSE) and the K2 / K3 + K4 backward over
+    [B, T, n*D] planes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, n, causal, scale):
+        B = q.shape[0]
+        starts = torch.zeros(B, dtype=torch.int32, device=q.device)
+        o, lse = flash_attn_fwd(_heads(q, n), _heads(k, n), _heads(v, n),
+                                kv_len, starts, causal, scale)
+        out = _merge(o)
+        ctx.save_for_backward(q, k, v, out, lse, kv_len)
+        ctx.n, ctx.causal, ctx.scale = n, causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, kv_len = ctx.saved_tensors
+        n = ctx.n
+        dq, dk, dv = flash_attn_bwd(
+            _heads(q, n), _heads(k, n), _heads(v, n), _heads(out, n), lse,
+            _heads(dout, n), kv_len, ctx.causal, ctx.scale)
+        return _merge(dq), _merge(dk), _merge(dv), None, None, None, None
+
+
+def flash_attention_plane(q, k, v, num_heads, causal=False, scale=None,
+                          kv_len=None):
+    """Attention over packed planes: q [B, Tq, n*D], k/v [B, Tk, n*D]
+    (head h owns columns h*D:(h+1)*D) -> [B, Tq, n*D], differentiable in
+    q, k and v. kv_len [B] (optional) masks keys >= kv_len[b]."""
+    B, Tq, nD = q.shape
+    Tk = k.shape[1]
+    if nD % num_heads:
+        raise ValueError(f"flash_attention_plane: plane width {nD} is not "
+                         f"divisible by num_heads={num_heads}")
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(nD // num_heads))
+    if q.device.type == "meta":
+        return torch.empty((B, Tq, nD), dtype=q.dtype, device="meta")
+    if kv_len is None:
+        kv_len = torch.full((B,), Tk, dtype=torch.int32, device=q.device)
+    else:
+        kv_len = kv_len.to(q.device, torch.int32).contiguous()
+    return _FlashPlane.apply(q, k, v, kv_len, num_heads, bool(causal),
+                             float(scale))

@@ -1,4 +1,6 @@
-"""The port's Hopper kernels on the card, held to their plain versions.
+"""The port's Hopper kernels on the card, held to their plain versions:
+K1 (flash-attention forward), K2-K4 (its backward), K5 (the lm-head
+log-sum-exp).
 
 Marked `cuda`: they skip on a machine without a CUDA card (the kernels
 have no interpret mode). This file imports neither JAX nor the JAX
@@ -11,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import chunked_ce as ce
 from paddle_tpu_torch.ops import flash_attention as fa
 
 
@@ -79,3 +82,115 @@ def test_flash_attn_fwd_kernel_refuses_what_it_does_not_take(card):
                           lens)
     with pytest.raises(TypeError, match="int32"):
         fa.flash_attn_fwd(q64, q64, q64, lens.long(), lens.long())
+
+
+# -- K2-K4: the flash-attention backward ------------------------------------
+
+def _bwd_case(card, B, n, Tq, Tk, D, kv_len, causal, seed):
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(B, n, T, D).astype(np.float32))
+                   .to(card) for T in (Tq, Tk, Tk, Tq))
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=card)
+    o, lse = fa.flash_attn_fwd(q, k, v, lens, torch.zeros_like(lens), causal)
+    delta = (do * o).sum(-1).contiguous()
+    return q, k, v, do, lse, delta, lens
+
+
+# tolerance 1e-4 absolute: the kernels sum over 64-key (64-row) tiles in
+# another order than the plain version's one product per matrix
+BWD_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,n,Tq,Tk,kv_len", [
+    (2, 3, 256, 256, [256, 256]),       # nk = 4: the fused K2's range
+    (2, 3, 200, 200, [200, 77]),        # ragged T and kv_len
+    (3, 2, 100, 300, [300, 150, 0]),    # Tq != Tk, a fully masked batch
+    (2, 2, 130, 70, [70, 33]),          # Tq > Tk
+])
+def test_flash_backward_kernels_match_plain(card, causal, B, n, Tq, Tk,
+                                            kv_len):
+    q, k, v, do, lse, delta, lens = _bwd_case(card, B, n, Tq, Tk, 64,
+                                              kv_len, causal, Tq + Tk)
+    ref_dq, ref_dk, ref_dv = fa.flash_attn_bwd_fused_plain(
+        q, k, v, do, lse, delta, lens, causal)
+    counts = (fa.flash_attn_bwd_fused.launches,
+              fa.flash_attn_bwd_dq.launches, fa.flash_attn_bwd_dkv.launches)
+    fused = fa.flash_attn_bwd_fused(q, k, v, do, lse, delta, lens, causal)
+    torch.cuda.synchronize()
+    dq = fa.flash_attn_bwd_dq(q, k, v, do, lse, delta, lens, causal)
+    torch.cuda.synchronize()
+    dk, dv = fa.flash_attn_bwd_dkv(q, k, v, do, lse, delta, lens, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attn_bwd_fused.launches, fa.flash_attn_bwd_dq.launches,
+            fa.flash_attn_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    for name, got, ref in (("K2 dq", fused[0], ref_dq),
+                           ("K2 dk", fused[1], ref_dk),
+                           ("K2 dv", fused[2], ref_dv), ("K3 dq", dq, ref_dq),
+                           ("K4 dk", dk, ref_dk), ("K4 dv", dv, ref_dv)):
+        err = float((got - ref).abs().max())
+        assert err <= BWD_TOL, (name, err)
+
+
+@pytest.mark.cuda
+def test_flash_backward_kernels_take_plane_views(card):
+    """q/k/v head views of one packed qkv plane and plane-allocated
+    gradients, as the training op passes them; through the autograd
+    Function, against the same Function on the CPU (plain versions)."""
+    B, n, T, D = 2, 4, 320, 64
+    rng = np.random.RandomState(9)
+    qkv = rng.randn(B, T, 3 * n * D).astype(np.float32)
+    dout = rng.randn(B, T, n * D).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", card):
+        x = torch.from_numpy(qkv).to(dev).requires_grad_()
+        H = n * D
+        out = fa.flash_attention_plane(x[..., :H], x[..., H:2 * H],
+                                       x[..., 2 * H:], n, causal=True)
+        out.backward(torch.from_numpy(dout).to(dev))
+        grads[str(dev)] = (out.detach().cpu(), x.grad.cpu())
+    for a, b in zip(grads["cpu"], grads[str(card)]):
+        assert float((a - b).abs().max()) <= BWD_TOL
+
+
+@pytest.mark.cuda
+def test_flash_backward_kernels_refuse_what_they_do_not_take(card):
+    q, k, v, do, lse, delta, lens = _bwd_case(card, 1, 2, 16, 16, 32, [16],
+                                              True, 0)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attn_bwd_dq(q, k, v, do, lse, delta, lens)
+    q, k, v, do, lse, delta, lens = _bwd_case(card, 1, 2, 16, 16, 64, [16],
+                                              True, 0)
+    with pytest.raises(TypeError, match="contiguous float32"):
+        fa.flash_attn_bwd_dkv(q, k, v, do, lse.double(), delta, lens)
+
+
+# -- K5: the lm-head log-sum-exp --------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,V", [(300, 768, 5000), (64, 64, 96),
+                                   (1000, 128, 50304), (5, 32, 70)])
+def test_lm_head_lse_kernel_matches_plain(card, N, H, V):
+    rng = np.random.RandomState(N + V)
+    x = torch.from_numpy(rng.randn(N, H).astype(np.float32)).to(card)
+    w = torch.from_numpy((rng.randn(H, V) * 0.05).astype(np.float32)
+                         ).to(card)
+    before = ce.lm_head_lse.launches
+    got = ce.lm_head_lse(x, w)
+    torch.cuda.synchronize()
+    assert ce.lm_head_lse.launches == before + 1
+    ref = ce.lm_head_lse_plain(x, w)
+    # f32 dot products over H in another order, then a log of a sum of
+    # V exponentials: 1e-4 absolute on values of order log(V)
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_lm_head_lse_kernel_refuses_what_it_does_not_take(card):
+    x = torch.zeros(4, 1024, device=card)
+    with pytest.raises(ValueError, match="multiple of 4 up"):
+        ce.lm_head_lse(x, torch.zeros(1024, 10, device=card))
+    with pytest.raises(TypeError, match="float32"):
+        ce.lm_head_lse(x[:, :64].double(),
+                       torch.zeros(64, 10, device=card).double())
