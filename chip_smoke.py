@@ -7,8 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device: torch's name for card 0 and nvidia-smi's name and power
      limit;
   2. build: every kernel source under paddle_tpu_torch/csrc/ (K1 flash
-     forward, K2-K4 flash backward, K5 lm-head log-sum-exp) with nvcc
-     for sm_90a, from this checkout, one nvcc per source in parallel;
+     forward, K2-K4 flash backward, K5 lm-head log-sum-exp, K6 int8
+     matmul) with nvcc for sm_90a, from this checkout, one nvcc per
+     source in parallel;
   3. kernel: K1 held against its plain PyTorch version at the LM
      server's shapes (GPT-2-small heads: n=12, D=64; prefill b=4,
      t=256 over a 384-key page view, cold and prefix-hit; decode 8
@@ -51,7 +52,28 @@ Phases, in order; any failure raises and the script exits non-zero:
   8. short-context training: the same model at T 256, batch 32, where
      the backward route is the fused K2: step 1's loss and gradients
      held against the plain recompute as in phase 7, then a second Adam
-     step; launches per step K1 12, K2 12, K5 1.
+     step; launches per step K1 12, K2 12, K5 1;
+  9. K6 (the int8 x int8 -> int32 matmul) held bitwise against its plain
+     version (a float64 matmul of the int8 operands, exact) at the five
+     GPT-2-small products of a rung-8 int8 dispatch (M 8192: qkv, proj,
+     ffn_up, ffn_down, lm head) and a ragged case, asymmetric operands
+     over the whole int8 range; times beside the bound, the plain
+     version and torch._int_mm (a yardstick only);
+ 10. int8 one-shot serving: GPT-2-small transformer_lm + argmax at full
+     width (T 1024, f32, TF32 off, the port's startup, generator seed
+     0) saved by save_inference_model, quantized by the port's
+     quantize_inference_model (50 quantized ops), loaded and served by
+     InferenceEngine.from_program (rungs 1, 2, 4, 8) behind the HTTP
+     server — the code of `serve --model_dir`. Eight /v1/infer requests
+     of 1-3 rows from four client threads must co-batch; launches K6 49
+     and K1 12 a dispatch. Checks: reply ids == Executor.run on the same
+     rows; every quant_mul output of a rung-8 run bitwise == the plain
+     recompute from its own input; logits within 5e-2 of max |logit| of
+     a plain full recompute (plain attention, int8_matmul_plain), ids
+     equal where its top-2 margin exceeds twice the largest difference.
+     Printed: the f32 model on the same batch, both dispatch walls,
+     tokens/s, peak memory, weight bytes, and a profiled dispatch's
+     device time split into K6, K1, quantize, rescale and the rest.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -60,6 +82,7 @@ no CUDA card is visible or when run outside a checkout of the repo.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -80,11 +103,13 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 try:
     from paddle_tpu_torch import _build, flags, monitor
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch import quant
     from paddle_tpu_torch.ops import chunked_ce as ce
     from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.serving import (GenerationConfig,
-                                          GenerationEngine, LMSpec,
-                                          init_lm_weights)
+    from paddle_tpu_torch.ops import quant_ops as qo
+    from paddle_tpu_torch.serving import (EngineConfig, GenerationConfig,
+                                          GenerationEngine, InferenceEngine,
+                                          LMSpec, init_lm_weights)
     from paddle_tpu_torch.serving.http import make_server
     from paddle_tpu_torch.weights import lm_weights_from_numpy
     from paddle_tpu_torch._device import use_full_f32
@@ -92,8 +117,10 @@ except ImportError as e:
     sys.exit(f"chip_smoke: the paddle_tpu_torch package is not beside "
              f"this script ({e}); run it from a checkout of the repo")
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, dense
+# int8 on the tensor cores, HBM
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 TOL = 1e-4
 SEED = 0
@@ -706,7 +733,8 @@ def reference_loss_and_grads(w, feed):
 
 
 ALL_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_fused",
-               "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "lm_head_lse")
+               "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "lm_head_lse",
+               "int8_matmul")
 
 
 def wrappers():
@@ -714,7 +742,8 @@ def wrappers():
             "flash_attn_bwd_fused": fa.flash_attn_bwd_fused,
             "flash_attn_bwd_dq": fa.flash_attn_bwd_dq,
             "flash_attn_bwd_dkv": fa.flash_attn_bwd_dkv,
-            "lm_head_lse": ce.lm_head_lse}
+            "lm_head_lse": ce.lm_head_lse,
+            "int8_matmul": qo.int8_matmul_i32}
 
 
 def zero_counts():
@@ -808,7 +837,8 @@ def training_phase(smi):
     want = {"flash_attn_fwd": LAYERS * steps, "lm_head_lse": steps,
             "flash_attn_bwd_fused": LAYERS * steps if route == "fused" else 0,
             "flash_attn_bwd_dq": LAYERS * steps if route == "split" else 0,
-            "flash_attn_bwd_dkv": LAYERS * steps if route == "split" else 0}
+            "flash_attn_bwd_dkv": LAYERS * steps if route == "split" else 0,
+            "int8_matmul": 0}
     check_counts(counts, want, f"training T={TRAIN_T} ({steps} steps, "
                  f"route {route})")
     step_ms = float(np.mean(wall))
@@ -888,7 +918,8 @@ def short_training_phase(smi):
     check_counts(counts, {"flash_attn_fwd": 2 * LAYERS,
                           "flash_attn_bwd_fused": 2 * LAYERS,
                           "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
-                          "lm_head_lse": 2}, f"training T={SHORT_T}")
+                          "lm_head_lse": 2, "int8_matmul": 0},
+                 f"training T={SHORT_T}")
     if not np.isfinite(losses).all():
         raise AssertionError("non-finite loss at T=256")
     log(f"short training: T {SHORT_T} batch {SHORT_B}, losses {losses}, "
@@ -896,6 +927,470 @@ def short_training_phase(smi):
     del scope, exe
     torch.cuda.empty_cache()
     return counts
+
+
+# -- phase 9: K6 vs plain -----------------------------------------------------
+
+SERVE_B = 8                      # the int8 server's largest rung
+# the five GPT-2-small products of one int8 dispatch at M = 8 x 1024:
+# name -> (K, N, launches per dispatch)
+INT8_PRODUCTS = {"qkv": (HID, 3 * HID, LAYERS), "proj": (HID, HID, LAYERS),
+                 "ffn_up": (HID, 4 * HID, LAYERS),
+                 "ffn_down": (4 * HID, HID, LAYERS),
+                 "lm_head": (HID, VOCAB, 1)}
+INT8_PER_DISPATCH = sum(n for _, _, n in INT8_PRODUCTS.values())     # 49
+# The int8 model against its plain recompute, end to end: max |diff| /
+# max |logit|. The two differ by ~1e-6 before any quantization (K1
+# against plain attention, torch's layer norm against the plain one);
+# a value that sits on a rounding boundary then quantizes one int8 step
+# apart, and over 12 layers those steps can cascade to the size of the
+# quantization noise itself (2.08e-2 measured on the H100 at rung 8).
+# The gate is tools/check_quantize.py's band for the int8 core against
+# f32 (GPT2_INT8_REL_ERR): a wrong layer, scale or layout gives O(1).
+INT8_E2E_RTOL = 5e-2
+
+
+def int8_operands(rng, M, K, N):
+    """Asymmetric int8 operands over the whole range, -127 and 127
+    included: a lane-order or k-packing fault does not cancel on them."""
+    x = rng.randint(-127, 128, (M, K)).astype(np.int8)
+    w = rng.randint(-127, 128, (K, N)).astype(np.int8)
+    x[0, :] = 127
+    x[-1, ::3] = -127
+    w[:, 0] = np.arange(K) % 255 - 127
+    w[K // 2, :] = -127
+    return (torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda())
+
+
+def int8_work(M, K, N):
+    """(operations, bytes) of one int8 product: 2MKN integer operations;
+    xq and wq read once, the int32 result written once."""
+    return 2.0 * M * K * N, float(M * K + K * N + 4 * M * N)
+
+
+def int8_bound(ops, nbytes):
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def int8_kernel_phase(smi):
+    """K6 against its plain version (float64 matmul of the int8 operands,
+    exact) at the five GPT-2-small products of a rung-8 dispatch (M =
+    8192) and a ragged case: the int32 results must be bitwise equal.
+    Times: the kernel, the plain version and torch._int_mm (a yardstick
+    only; the port never calls it), each over input sets larger than the
+    50 MB L2 (the int32 outputs alone exceed it)."""
+    rng = np.random.RandomState(SEED + 7)
+    M = SERVE_B * TRAIN_T
+    cases = {k: (M, K, N) for k, (K, N, _) in INT8_PRODUCTS.items()}
+    cases["ragged"] = (1000, 100, 130)
+    results = {}
+    for case, (m, k, n) in cases.items():
+        sets = [int8_operands(rng, m, k, n) for _ in range(2)]
+        got = qo.int8_matmul_i32(*sets[0])
+        torch.cuda.synchronize()
+        ref = qo.int8_matmul_plain(*sets[0])
+        if got.dtype != torch.int32 or not torch.equal(got, ref):
+            bad = int((got != ref).sum())
+            raise AssertionError(f"int8_matmul {case} [{m},{k}]@[{k},{n}]: "
+                                 f"{bad} int32 results differ from the "
+                                 f"plain version")
+        del got, ref
+        big = m * n > 10**8           # the lm head: 1.65 GB outputs
+        r = {"case": case, "M": m, "K": k, "N": n, "max_abs_err": 0.0,
+             "ms": time_ms(qo.int8_matmul_i32, sets, reps=4 if big else 20),
+             "plain_ms": time_ms(qo.int8_matmul_plain, sets,
+                                 reps=2 if big else 6),
+             # cuBLASLt's int8 GEMM takes K and N in multiples of 8
+             "library_ms": (time_ms(torch._int_mm, sets,
+                                    reps=4 if big else 20)
+                            if k % 8 == 0 and n % 8 == 0 and m > 16
+                            else None)}
+        r["bound_ms"], r["bound_by"] = int8_bound(*int8_work(m, k, n))
+        # beside it, _int_mm given the weight column-major ([N, K]
+        # contiguous, the layout cuBLASLt's int8 GEMM prefers): not the
+        # same inputs, so not library_ms, but how fast a library gets
+        r["library_colmajor_ms"] = (time_ms(
+            lambda x, wt: torch._int_mm(x, wt.t()),
+            [(x, w.t().contiguous()) for x, w in sets],
+            reps=4 if big else 20) if r["library_ms"] is not None else None)
+        lib = (f"{r['library_ms']:.4f} (column-major w "
+               f"{r['library_colmajor_ms']:.4f})"
+               if r["library_ms"] is not None else "n/a")
+        log(f"kernel int8_matmul {case}: [{m},{k}] @ [{k},{n}] bitwise == "
+            f"plain; ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+            f"library_ms (torch._int_mm) {lib} bound_ms "
+            f"{r['bound_ms']:.5f} ({r['bound_by']}) | {smi}")
+        results[case] = r
+        del sets
+        torch.cuda.empty_cache()
+    # one dispatch's worth: 12 x the four block products + the lm head
+    total = {key: sum(results[c][key] * INT8_PRODUCTS[c][2]
+                      for c in INT8_PRODUCTS)
+             for key in ("ms", "plain_ms", "library_ms",
+                         "library_colmajor_ms")}
+    ops = sum(int8_work(M, K, N)[0] * n for K, N, n in INT8_PRODUCTS.values())
+    nbytes = sum(int8_work(M, K, N)[1] * n
+                 for K, N, n in INT8_PRODUCTS.values())
+    total["bound_ms"], total["bound_by"] = int8_bound(ops, nbytes)
+    log(f"kernel int8_matmul per rung-8 dispatch ({INT8_PER_DISPATCH} "
+        f"launches): ms {total['ms']:.4f} plain_ms {total['plain_ms']:.4f} "
+        f"library_ms {total['library_ms']:.4f} (column-major w "
+        f"{total['library_colmajor_ms']:.4f}) bound_ms "
+        f"{total['bound_ms']:.5f} ({total['bound_by']}) | {smi}")
+    return total, list(results.values())
+
+
+# -- phase 10: int8 one-shot serving -----------------------------------------
+
+def build_gpt2_lm():
+    """GPT-2-small's inference program: logits and their argmax."""
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        tok = pt.layers.data("tokens", [TRAIN_T], dtype="int64")
+        logits = pt.models.transformer.transformer_lm(
+            tok, VOCAB, hid=HID, num_layers=LAYERS, num_heads=N_HEADS,
+            max_len=TRAIN_T)
+        ids = pt.layers.argmax(logits, axis=-1)
+    return main, startup, logits, ids
+
+
+def post_infer(port, tokens):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("POST", "/v1/infer",
+                 json.dumps({"feeds": {"tokens": tokens.tolist()}}),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    body = resp.read()
+    conn.close()
+    if resp.status != 200:
+        raise AssertionError(f"/v1/infer -> {resp.status}: {body[:300]!r}")
+    return np.asarray(json.loads(body)["outputs"][0], np.int64)
+
+
+def int8_reference_logits(scope, tokens):
+    """The int8 model as plain PyTorch on the card: the int8 x int8 ->
+    int32 products by int8_matmul_plain between the same f32 quantize and
+    rescale ops, plain softmax attention over the full [T, T] scores,
+    plain layer norm and gelu — no kernel of the port."""
+    w = {n: scope.get(n) for n in scope.keys() if not n.startswith("__")}
+    B, T_ = tokens.shape
+    D = HID // N_HEADS
+    causal = torch.ones(T_, T_, dtype=torch.bool,
+                        device=tokens.device).tril()
+
+    def ln(x, g, b):
+        mu = x.mean(-1, keepdim=True)
+        var = (x - mu).square().mean(-1, keepdim=True)
+        return (x - mu) / torch.sqrt(var + 1e-5) * g + b
+
+    def qmm(x, name):
+        xq, ax = qo.quantize_activations(x.reshape(-1, x.shape[-1]))
+        acc = qo.int8_matmul_plain(xq, w[name])
+        out = qo.rescale(acc, ax, w[name + "@QSCALE"].reshape(1, -1))
+        return out.reshape(x.shape[:-1] + (-1,))
+
+    x = (w["tok_emb"][tokens].float() * w["tok_emb@QSCALE"][tokens]
+         + w["pos_emb"][:T_])
+    for i in range(LAYERS):
+        p = f"block{i}"
+        h = ln(x, w[f"{p}.ln1.w_0"], w[f"{p}.ln1.w_1"])
+        qkv = qmm(h, f"{p}.qkv.w") + w[f"{p}.qkv.b"]
+        q, k, v = (t.reshape(B, T_, N_HEADS, D).transpose(1, 2)
+                   for t in qkv.split(HID, dim=2))
+        s = (q @ k.transpose(-1, -2)) / float(np.sqrt(D))
+        a = torch.softmax(s.masked_fill(~causal, float("-inf")), -1) @ v
+        del q, k, v, s, qkv
+        x = x + qmm(a.transpose(1, 2).reshape(B, T_, HID),
+                    f"{p}.proj.w") + w[f"{p}.proj.b"]
+        h = ln(x, w[f"{p}.ln2.w_0"], w[f"{p}.ln2.w_1"])
+        up = torch.nn.functional.gelu(qmm(h, f"{p}.ffn_up.w")
+                                      + w[f"{p}.ffn_up.b"],
+                                      approximate="tanh")
+        x = x + qmm(up, f"{p}.ffn_down.w") + w[f"{p}.ffn_down.b"]
+    return qmm(ln(x, w["ln_f.w_0"], w["ln_f.w_1"]), "lm_head.w")
+
+
+def check_quant_muls_bitwise(exe, prog, scope, feed):
+    """Every quant_mul of one rung-8 run: its output Out against the plain
+    recompute from its own fetched input X (the same f32 quantize and
+    rescale ops around int8_matmul_plain), bit for bit."""
+    muls = [op for op in prog.global_block().ops if op.type == "quant_mul"]
+    names = [n for op in muls for n in (op.input("X")[0],
+                                        op.output("Out")[0])]
+    vals = exe.run(prog, feed=feed, fetch_list=names, scope=scope,
+                   return_numpy=False)
+    shapes = set()
+    for i, op in enumerate(muls):
+        x, out = vals[2 * i], vals[2 * i + 1]
+        wname = op.input("Y")[0]
+        x2 = x.reshape(-1, x.shape[-1])
+        xq, ax = qo.quantize_activations(x2)
+        ref = qo.rescale(qo.int8_matmul_plain(xq, scope.get(wname)), ax,
+                         scope.get(op.input("YScale")[0]).reshape(1, -1))
+        if not torch.equal(out.reshape(ref.shape), ref):
+            raise AssertionError(f"quant_mul on {wname}: K6's output differs "
+                                 f"from the plain recompute of its input")
+        shapes.add((tuple(x2.shape), tuple(scope.get(wname).shape)))
+        vals[2 * i] = vals[2 * i + 1] = None
+    return len(muls), sorted(shapes)
+
+
+def dispatch_breakdown(what, exe, prog, scope, feed, fetch, wall_ms, smi):
+    """One rung-8 dispatch under torch.profiler: device time of K6, K1,
+    the activation quantize and rescale ops (marked by record_function
+    around quant_ops.quantize_activations / rescale), cuBLAS's matmuls
+    (kernel names with "gemm": the f32 program's products), and the
+    rest."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    real = {"quantize_activations": qo.quantize_activations,
+            "rescale": qo.rescale}
+
+    def marked(name):
+        def call(*a, **kw):
+            with record_function(f"int8/{name}"):
+                return real[name](*a, **kw)
+        return call
+    try:
+        for name in real:
+            setattr(qo, name, marked(name))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in real.items():
+            setattr(qo, name, fn)
+    kernels = {"int8_matmul": 0.0, "flash_attn_fwd": 0.0,
+               "cublas_gemm": 0.0}
+    marks = {"quantize_activations": 0.0, "rescale": 0.0}
+    device_us = 0.0
+    for ev in prof.events():
+        is_mark = ev.name.startswith("int8/")
+        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            if is_mark:
+                continue             # the annotation's own device range
+            us = float(ev.time_range.elapsed_us())
+            device_us += us
+            if "int8_matmul_kernel" in ev.name:
+                kernels["int8_matmul"] += us
+            elif "flash_fwd_kernel" in ev.name:
+                kernels["flash_attn_fwd"] += us
+            elif "gemm" in ev.name.lower():
+                kernels["cublas_gemm"] += us
+        elif is_mark:
+            marks[ev.name[5:]] += float(getattr(ev, "device_time_total", 0.0)
+                                        or 0.0)
+    if device_us <= 0:
+        log(f"{what} dispatch breakdown: the profiler recorded no device "
+            "time; device time not measured")
+        return None
+    parts = {**{k: v / 1e3 for k, v in kernels.items()},
+             **{k: v / 1e3 for k, v in marks.items()}}
+    parts["rest"] = device_us / 1e3 - sum(parts.values())
+    device_ms = device_us / 1e3
+    log(f"{what} dispatch breakdown (profiled rung-8 dispatch): device "
+        f"{device_ms:.2f} ms of kernels against a {wall_ms:.2f} ms "
+        f"unprofiled wall (busy share {device_ms / wall_ms:.3f}); ms "
+        f"{ {k: round(v, 3) for k, v in parts.items()} } | {smi}")
+    return {"device_ms": device_ms, "ms": parts,
+            "share": {k: v / device_ms for k, v in parts.items()}}
+
+
+def timed_dispatch(exe, prog, scope, feed, fetch, reps=3):
+    """Host-clock wall of the engine's dispatch at rung 8 (tokens in,
+    ids back as numpy, so the card has finished), after one warm run."""
+    exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return float(np.mean(walls)), min(walls)
+
+
+def scope_bytes(scope):
+    return sum(v.numel() * v.element_size() for v in scope.vars.values()
+               if isinstance(v, torch.Tensor))
+
+
+def int8_serving_phase(smi):
+    """GPT-2-small quantized by the port (quantize_inference_model) and
+    served one-shot: save_inference_model -> quantize -> load ->
+    InferenceEngine.from_program behind make_server (the code of `serve
+    --model_dir`), eight /v1/infer requests from four client threads."""
+    import tempfile
+    torch.cuda.empty_cache()
+    flags.set_flag("metrics", True)     # quant.fallback_ops is counted
+    t0 = time.perf_counter()
+    main, startup, logits, ids = build_gpt2_lm()
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_int8_")
+    src, out = os.path.join(tmp, "f32"), os.path.join(tmp, "int8")
+    # fetch [ids]: 50304 logits a position would make each reply GBs; the
+    # logits var stays in the pruned program for the checks below
+    pt.io.save_inference_model(src, ["tokens"], [ids], exe,
+                               main_program=main, scope=scope)
+    del scope
+    _, report = quant.quantize_inference_model(src, out)
+    fallback0 = monitor.snapshot()["counters"].get("quant.fallback_ops", 0)
+    qscope = pt.Scope()
+    prog, feeds, fetch = pt.io.load_inference_model(out, exe, scope=qscope)
+    fallbacks = monitor.snapshot()["counters"].get("quant.fallback_ops",
+                                                   0) - fallback0
+    log(f"int8 serving: quantized {report['quantized_ops']} ops "
+        f"({report['quantized_weights']} weights, {report['dequant_ops']} "
+        f"dequant-at-boundary), bytes {report['bytes_before']} -> "
+        f"{report['bytes_after']}, fallback ops at load {fallbacks}; built, "
+        f"saved, quantized and loaded in {time.perf_counter() - t0:.1f} s")
+    if report["quantized_ops"] != 4 * LAYERS + 2 or fallbacks != 0:
+        raise AssertionError(f"expected {4 * LAYERS + 2} quantized ops "
+                             "(4 muls a block, the lm head, tok_emb's "
+                             "lookup) and no fallback")
+    engine = InferenceEngine.from_program(
+        prog, feeds, fetch, executor=exe, scope=qscope,
+        config=EngineConfig(max_batch_size=SERVE_B, buckets=(1, 2, 4, 8),
+                            batch_timeout_ms=20))
+    t0 = time.perf_counter()
+    rungs = engine.warmup()
+    log(f"int8 serving: warmed rungs {rungs} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    server = make_server(engine, port=0)
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+
+    rng = np.random.RandomState(SEED + 5)
+    reqs = [rng.randint(0, VOCAB, (r, TRAIN_T)).astype(np.int64)
+            for r in rng.randint(1, 4, 8)]
+    replies, errors = {}, []
+
+    def client(idx):
+        for i in idx:
+            try:
+                replies[i] = post_infer(port, reqs[i])
+            except Exception as e:       # re-raised below
+                errors.append((i, e))
+
+    before = engine.stats()
+    qo.int8_matmul_i32.launches = 0     # the main path starts here
+    fa.flash_attn_fwd.launches = 0
+    t_start = time.perf_counter()
+    threads = [threading.Thread(target=client, args=((c, c + 4),))
+               for c in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t_start
+    counts = {"int8_matmul": qo.int8_matmul_i32.launches,
+              "flash_attn_fwd": fa.flash_attn_fwd.launches}
+    # the main path ends here
+    server.shutdown()
+    engine.shutdown(drain=True, timeout=600)
+    if errors:
+        raise AssertionError(f"/v1/infer requests failed: {errors}")
+    st = engine.stats()
+    batches = st["batches"] - before["batches"]
+    done = st["completed"] - before["completed"]
+    log(f"int8 serving: {done} requests ({sum(len(r) for r in reqs)} rows) "
+        f"in {batches} dispatches over {wall:.2f} s, launches {counts}")
+    if done != len(reqs) or not batches < done:
+        raise AssertionError("the requests did not co-batch (expected a "
+                             "dispatch with more than one request)")
+    want = {"int8_matmul": INT8_PER_DISPATCH * batches,
+            "flash_attn_fwd": LAYERS * batches}
+    check_counts(counts, want, f"int8 serving ({batches} dispatches)")
+
+    # replies == Executor.run of the same rows
+    for i, x in enumerate(reqs):
+        mine, = exe.run(prog, feed={"tokens": x}, fetch_list=fetch,
+                        scope=qscope)
+        if not np.array_equal(replies[i], mine):
+            raise AssertionError(f"request {i}: reply ids differ from "
+                                 "Executor.run on the same rows")
+    log("int8 serving: every reply's ids == Executor.run on the same rows")
+
+    feed = {"tokens": np.random.RandomState(SEED + 6).randint(
+        0, VOCAB, (SERVE_B, TRAIN_T)).astype(np.int64)}
+    n_muls, shapes = check_quant_muls_bitwise(exe, prog, qscope, feed)
+    log(f"int8 serving: {n_muls} quant_mul outputs bitwise == the plain "
+        f"recompute from their inputs, at {shapes}")
+
+    got_ids, got_logits = exe.run(prog, feed=feed,
+                                  fetch_list=[fetch[0], logits.name],
+                                  scope=qscope, return_numpy=False)
+    with torch.inference_mode():
+        ref = int8_reference_logits(
+            qscope, torch.from_numpy(feed["tokens"]).cuda())
+    diff = (got_logits - ref).abs()
+    max_d, mean_d = float(diff.max()), float(diff.mean())
+    rel = max_d / float(ref.abs().max())
+    del diff
+    top2 = ref.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * max_d
+    agree = bool((got_ids[sure] == ref.argmax(-1)[sure]).all())
+    log(f"int8 serving: logits vs the plain full recompute: max |diff| "
+        f"{max_d:.4e} (mean {mean_d:.4e}), / max |logit| {rel:.4e} (gate "
+        f"{INT8_E2E_RTOL:g}); ids equal at all {int(sure.sum())} of "
+        f"{sure.numel()} positions whose top-2 margin exceeds 2 x max "
+        f"|diff|: {agree}")
+    if not np.isfinite(rel) or rel > INT8_E2E_RTOL or not agree:
+        raise AssertionError("the int8 model disagrees with its plain full "
+                             "recompute")
+    del ref, top2, sure
+
+    # timings: the rung-8 dispatch of the int8 and the f32 programs
+    torch.cuda.reset_peak_memory_stats()
+    int8_ms, int8_min = timed_dispatch(exe, prog, qscope, feed, fetch)
+    int8_peak = torch.cuda.max_memory_allocated() / 2**30
+    breakdown = dispatch_breakdown("int8", exe, prog, qscope, feed, fetch,
+                                   int8_ms, smi)
+    int8_bytes = scope_bytes(qscope)
+    del engine, qscope
+    torch.cuda.empty_cache()
+    fscope = pt.Scope()
+    fprog, _, ffetch = pt.io.load_inference_model(src, exe, scope=fscope)
+    f32_ids, f32_logits = exe.run(fprog, feed=feed,
+                                  fetch_list=[ffetch[0], logits.name],
+                                  scope=fscope, return_numpy=False)
+    vs_f32 = (float((got_logits - f32_logits).abs().max())
+              / float(f32_logits.abs().max()))
+    top1 = float((got_ids == f32_ids).float().mean())
+    del got_logits, f32_logits
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    f32_ms, f32_min = timed_dispatch(exe, fprog, fscope, feed, ffetch)
+    f32_peak = torch.cuda.max_memory_allocated() / 2**30
+    f32_breakdown = dispatch_breakdown("f32", exe, fprog, fscope, feed,
+                                       ffetch, f32_ms, smi)
+    f32_bytes = scope_bytes(fscope)
+    tokens = SERVE_B * TRAIN_T
+    log(f"int8 serving vs the f32 model (printed, not gated: random "
+        f"weights have near-tied top-1 margins): max |int8 - f32| / max "
+        f"|f32| {vs_f32:.4e}, top-1 agreement {top1:.4f}")
+    log(f"int8 serving: rung-8 dispatch wall int8 {int8_ms:.2f} ms (min "
+        f"{int8_min:.2f}, {tokens / int8_ms * 1e3:.0f} tokens/s, peak "
+        f"{int8_peak:.2f} GiB, weights {int8_bytes} B) vs f32 "
+        f"{f32_ms:.2f} ms (min {f32_min:.2f}, {tokens / f32_ms * 1e3:.0f} "
+        f"tokens/s, peak {f32_peak:.2f} GiB, weights {f32_bytes} B) | {smi}")
+    del fscope
+    shutil.rmtree(tmp)
+    torch.cuda.empty_cache()
+    return counts, {"dispatches": batches, "requests": done,
+                    "logit_rel_err": rel, "vs_f32_rel": vs_f32,
+                    "int8_ms": int8_ms,
+                    "f32_ms": f32_ms, "int8_tokens_per_s":
+                        tokens / int8_ms * 1e3,
+                    "f32_tokens_per_s": tokens / f32_ms * 1e3,
+                    "int8_peak_gib": int8_peak, "f32_peak_gib": f32_peak,
+                    "int8_weight_bytes": int8_bytes,
+                    "f32_weight_bytes": f32_bytes, "top1_vs_f32": top1,
+                    "breakdown": breakdown, "f32_breakdown": f32_breakdown}
 
 
 def main():
@@ -910,9 +1405,12 @@ def main():
     lse = lse_kernel_phase(smi)
     train_counts, train = training_phase(smi)
     short_counts = short_training_phase(smi)
+    k6, k6_cases = int8_kernel_phase(smi)
+    int8_counts, int8_serving = int8_serving_phase(smi)
     paths = {"serving": {"flash_attn_fwd": serving_k1},
              f"training_T{TRAIN_T}": train_counts,
-             f"training_T{SHORT_T}": short_counts}
+             f"training_T{SHORT_T}": short_counts,
+             "serving_int8": int8_counts}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ALL_KERNELS}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()}
@@ -944,7 +1442,19 @@ def main():
         "replaces": "paddle_tpu/ops/chunked_ce.py:90",
         "launches": launches["lm_head_lse"],
         "launches_by_path": by_path["lm_head_lse"], **lse})
-    print(json.dumps({"kernels": kernels, "training": train}), flush=True)
+    kernels.append({
+        "name": "int8_matmul", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "paddle_tpu/ops/quant_ops.py:123",
+        "launches": launches["int8_matmul"],
+        "launches_by_path": by_path["int8_matmul"],
+        "max_abs_err": 0.0,
+        "case": f"one rung-8 dispatch: {INT8_PER_DISPATCH} launches "
+                f"({LAYERS} x qkv, proj, ffn_up, ffn_down + lm head) at M "
+                f"{SERVE_B * TRAIN_T}",
+        **k6, "cases": k6_cases})
+    print(json.dumps({"kernels": kernels, "training": train,
+                      "serving_int8": int8_serving}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

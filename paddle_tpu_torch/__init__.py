@@ -35,6 +35,14 @@ and the lm-head log-sum-exp as Hopper kernels):
     exe.run(startup, scope=scope)
     loss, = exe.run(main, feed={"tok": ..., "nxt": ...},
                     fetch_list=[cost], scope=scope)
+
+int8 one-shot serving (slice 3: quantize a saved inference model, serve
+it with the micro-batching engine; every quantized matmul runs the int8
+matmul as a Hopper kernel):
+
+    pt.io.save_inference_model("m", ["tokens"], [ids], exe, main, scope)
+    pt.quant.quantize_inference_model("m", "m.int8")
+    python -m paddle_tpu_torch serve --model_dir m.int8   # POST /v1/infer
 """
 
 from . import framework
@@ -44,6 +52,7 @@ from .framework import (CPUPlace, CUDAPlace, Program, default_main_program,
 from .executor import Executor, Scope, global_scope, scope_guard
 from .backward import append_backward
 from . import initializer, layers, models, optimizer, regularizer
+from . import io, quant
 from .optimizer import AdamOptimizer, SGDOptimizer
 from .param_attr import ParamAttr
 
@@ -53,4 +62,4 @@ __all__ = ["framework", "CPUPlace", "CUDAPlace", "Program",
            "global_scope", "scope_guard", "append_backward", "initializer",
            "layers", "models", "optimizer", "regularizer", "AdamOptimizer",
            "SGDOptimizer", "ParamAttr", "flags", "io", "monitor", "ops",
-           "serving", "weights"]
+           "quant", "serving", "weights"]

@@ -28,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # every csrc/*.cu the port's paths launch
-KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "lm_head_lse")
+KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "lm_head_lse",
+                  "int8_matmul")
 
 _lock = threading.Lock()
 _loaded = {}

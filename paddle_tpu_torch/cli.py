@@ -1,13 +1,19 @@
 """Command line of the port.
 
-    python -m paddle_tpu_torch serve --generate --artifact lm.pdmodel \
+    python -m paddle_tpu_torch serve --model_dir DIR \
+        [--max_batch_size 16] [--batch_timeout_ms 2] [--buckets 1,2,4,8]
+    python -m paddle_tpu_torch serve --generate --artifact lm.pdmodel
         [--port 8080] [--host 127.0.0.1] [--device cpu]
 
-serves an LM artifact written by the JAX package
-(`paddle_tpu.io.export_lm_artifact`) through the continuous-batching
-engine behind `POST /v1/generate`. The HTTP server binds before warmup
-(`/healthz` answers "booting" until every rung has run once); SIGTERM
-drains the in-flight generations and exits 0.
+`--model_dir` serves a `save_inference_model` directory (f32, or int8
+from `quant.quantize_inference_model`; either package's) through the
+micro-batching engine behind `POST /v1/infer`. `--artifact` serves an
+LM artifact written by the JAX package (`paddle_tpu.io.
+export_lm_artifact`) through the continuous-batching engine behind
+`POST /v1/generate`. Both run on the card unless `--device cpu`. The
+HTTP server binds before warmup (`/healthz` answers "booting" until
+every rung has run once); SIGTERM drains the in-flight requests and
+exits 0.
 """
 
 from __future__ import annotations
@@ -28,12 +34,25 @@ def _log(msg):
 def _parser():
     p = argparse.ArgumentParser(prog="python -m paddle_tpu_torch")
     p.add_argument("job", choices=["serve"])
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--model_dir",
+                     help="a save_inference_model directory (json): "
+                          "one-shot serving, POST /v1/infer")
+    src.add_argument("--artifact",
+                     help="an LM artifact (paddle_tpu.io."
+                          "export_lm_artifact): POST /v1/generate")
     p.add_argument("--generate", action="store_true",
-                   help="serve a generative-LM artifact through "
-                        "POST /v1/generate (required: one-shot "
-                        "inference serving is not ported yet)")
-    p.add_argument("--artifact", required=True,
-                   help="an LM artifact (paddle_tpu.io.export_lm_artifact)")
+                   help="serve a generative-LM artifact (implied by "
+                        "--artifact)")
+    p.add_argument("--max_batch_size", type=int, default=None,
+                   help="--model_dir: admission bound and largest rung "
+                        "(default: the serving_max_batch_size flag)")
+    p.add_argument("--batch_timeout_ms", type=float, default=None,
+                   help="--model_dir: how long a batch is held open "
+                        "(default: the serving_batch_timeout_ms flag)")
+    p.add_argument("--buckets", default=None,
+                   help="--model_dir: comma-separated batch ladder "
+                        "(default: powers of two)")
     p.add_argument("--host", default="127.0.0.1", help="bind address")
     p.add_argument("--port", type=int, default=8080,
                    help="bind port (0 = ephemeral, printed at start)")
@@ -52,42 +71,20 @@ def _parser():
 
 def _serve(args):
     from . import flags
-    from .io import read_lm_artifact
-    from .serving.http import make_server
-    from .serving.lm import GenerationConfig, GenerationEngine, LMSpec
 
-    if not args.generate:
-        raise SystemExit("only `serve --generate` (LM artifacts) is "
-                         "ported; one-shot inference serving is not")
+    if args.generate and args.model_dir:
+        raise SystemExit("--generate needs an LM artifact (--artifact); "
+                         f"{args.model_dir} is a one-shot inference model "
+                         "(it serves without --generate)")
     # GET /metrics is part of the serve contract: recording is on
     flags.set_flag("metrics", True)
-    if not os.path.exists(args.artifact):
-        raise SystemExit(f"--artifact file not found: {args.artifact}")
-    meta, weights = read_lm_artifact(args.artifact)
-    spec = LMSpec.from_meta(meta["lm"]["model"])
-    config = GenerationConfig.from_meta(
-        meta["lm"]["serving"],
-        **({"queue_limit": args.queue_limit}
-           if args.queue_limit is not None else {}))
-    engine = GenerationEngine(spec, weights, config=config, ready=False,
-                              device=args.device)
-    server = make_server(engine, host=args.host, port=args.port,
-                         read_timeout_s=args.read_timeout_s)
-    port = server.server_address[1]
-    http_thread = threading.Thread(target=server.serve_forever,
-                                   name="paddle-tpu-torch-http",
-                                   daemon=True)
-    http_thread.start()
-    if args.no_warmup:
-        engine.set_ready(True)
-    else:
-        _log(f"warmed rungs {engine.warmup()}")
-    _log(f"serving LM {args.artifact} on http://{args.host}:{port} "
-         f"(device={engine.device}, slots={config.max_slots}, "
-         f"prefill_batch={config.prefill_batch}, "
-         f"max_prompt={config.max_prompt_len}, "
-         f"max_new={config.max_new_tokens}, paged={config.paged}) "
-         "— POST /v1/generate")
+    if args.model_dir:
+        return _serve_model_dir(args)
+    return _serve_lm(args)
+
+
+def _run_until_sigterm(server, engine):
+    """Serve until SIGTERM / Ctrl-C, then stop accepting and drain."""
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
     try:
@@ -98,7 +95,81 @@ def _serve(args):
     _log("draining...")
     server.shutdown()
     engine.shutdown(drain=True)
-    st = engine.stats()
+    return engine.stats()
+
+
+def _start_http(engine, args):
+    from .serving.http import make_server
+    server = make_server(engine, host=args.host, port=args.port,
+                         read_timeout_s=args.read_timeout_s)
+    threading.Thread(target=server.serve_forever,
+                     name="paddle-tpu-torch-http", daemon=True).start()
+    return server, server.server_address[1]
+
+
+def _serve_model_dir(args):
+    from . import io as io_mod
+    from .executor import Executor, Scope
+    from .serving.engine import EngineConfig, InferenceEngine
+
+    if not os.path.isdir(args.model_dir):
+        raise SystemExit(f"--model_dir not found: {args.model_dir}")
+    buckets = ([int(b) for b in args.buckets.split(",") if b]
+               if args.buckets else None)
+    cfg = EngineConfig(max_batch_size=args.max_batch_size,
+                       batch_timeout_ms=args.batch_timeout_ms,
+                       queue_limit=args.queue_limit, buckets=buckets)
+    exe = Executor(args.device)
+    scope = Scope()
+    program, feed_names, fetch_vars = io_mod.load_inference_model(
+        args.model_dir, exe, scope=scope)
+    engine = InferenceEngine.from_program(
+        program, feed_names, fetch_vars, executor=exe, scope=scope,
+        config=cfg)
+    engine.set_ready(False)
+    server, port = _start_http(engine, args)
+    if args.no_warmup:
+        engine.set_ready(True)
+    else:
+        _log(f"warmed buckets {engine.warmup()}")
+    _log(f"serving {args.model_dir} on http://{args.host}:{port} "
+         f"(device={exe.device}, max_batch={cfg.max_batch_size}, "
+         f"timeout={cfg.batch_timeout_ms}ms, "
+         f"queue_limit={cfg.queue_limit}, buckets={list(cfg.buckets)}) "
+         "— POST /v1/infer")
+    st = _run_until_sigterm(server, engine)
+    _log(f"served {st['completed']} requests in {st['batches']} batches "
+         f"(shed={st['shed']}, rejected={st['rejected']}, "
+         f"errors={st['errors']})")
+    return 0
+
+
+def _serve_lm(args):
+    from .io import read_lm_artifact
+    from .serving.lm import GenerationConfig, GenerationEngine, LMSpec
+
+    if not os.path.exists(args.artifact):
+        raise SystemExit(f"--artifact file not found: {args.artifact}")
+    meta, weights = read_lm_artifact(args.artifact)
+    spec = LMSpec.from_meta(meta["lm"]["model"])
+    config = GenerationConfig.from_meta(
+        meta["lm"]["serving"],
+        **({"queue_limit": args.queue_limit}
+           if args.queue_limit is not None else {}))
+    engine = GenerationEngine(spec, weights, config=config, ready=False,
+                              device=args.device)
+    server, port = _start_http(engine, args)
+    if args.no_warmup:
+        engine.set_ready(True)
+    else:
+        _log(f"warmed rungs {engine.warmup()}")
+    _log(f"serving LM {args.artifact} on http://{args.host}:{port} "
+         f"(device={engine.device}, slots={config.max_slots}, "
+         f"prefill_batch={config.prefill_batch}, "
+         f"max_prompt={config.max_prompt_len}, "
+         f"max_new={config.max_new_tokens}, paged={config.paged}) "
+         "— POST /v1/generate")
+    st = _run_until_sigterm(server, engine)
     _log(f"served {st['completed']} generations / {st['tokens']} tokens "
          f"in {st['decode_steps']} decode steps (shed={st['shed']}, "
          f"rejected={st['rejected']})")

@@ -1,7 +1,8 @@
 """Runtime flags the port reads: env-tunable knobs (`PADDLE_TPU_*`).
 
 The port's own copy of the slice of `paddle_tpu/flags.py` that LM
-serving reads, with the same names, defaults and environment spellings
+serving, one-shot serving and the int8 quantized ops read, with the
+same names, defaults and environment spellings
 (`PADDLE_TPU_<NAME>`), so one deployment environment configures both
 packages alike. Values resolve from the environment at first use and
 can be set from Python.
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["get", "set_flag"]
+__all__ = ["get", "set_flag", "reset"]
 
 
 def _parse_bool(s):
@@ -28,11 +29,37 @@ def _parse_float(s):
     return float(str(s).strip())
 
 
+def _parse_choice(*choices):
+    def parse(s):
+        t = str(s).strip().lower()
+        if t == "":
+            t = choices[0]
+        if t not in choices:
+            raise ValueError(f"expected one of {choices}, got {s!r}")
+        return t
+    return parse
+
+
 # name -> (parser, default, help)
 _DEFS = {
     "metrics": (_parse_bool, False,
                 "record structured telemetry (counters/gauges/histograms) "
                 "into the monitor registry; off = zero-overhead no-ops"),
+    "int8_matmul": (_parse_choice("auto", "pallas", "dot"), "auto",
+                    "quantized-matmul core (quant_mul/quant_matmul, "
+                    "ops/quant_ops.py): on a CUDA tensor every value runs "
+                    "K6, the int8 x int8 -> int32 Hopper kernel; on a CPU "
+                    "tensor auto (default) = dequantize-to-f32 matmul, "
+                    "pallas / dot = the plain int8 x int8 -> int32 core"),
+    "serving_max_batch_size": (_parse_int, 16,
+                               "serving.EngineConfig default: admission "
+                               "bound and largest bucket-ladder rung of "
+                               "the online micro-batcher"),
+    "serving_batch_timeout_ms": (_parse_float, 2.0,
+                                 "serving.EngineConfig default: how long "
+                                 "the batcher holds an incomplete batch "
+                                 "open for more requests (0 = dispatch "
+                                 "immediately)"),
     "serving_queue_limit": (_parse_int, 128,
                             "bounded-queue capacity in requests; submits "
                             "beyond it raise ServerOverloadedError"),
@@ -93,6 +120,11 @@ def set_flag(name, value):
     _values[name] = val
     _apply_side_effects(name, val)
     return val
+
+
+def reset():
+    """Forget cached and explicit values (tests)."""
+    _values.clear()
 
 
 def _apply_side_effects(name, val):

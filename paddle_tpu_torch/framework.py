@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import json
 import threading
 
@@ -258,6 +259,9 @@ class Block:
                    if blk.parent_idx >= 0 else None)
         return None
 
+    def has_var(self, name):
+        return self._find_var(name) is not None
+
     def all_parameters(self):
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
@@ -295,6 +299,13 @@ class Block:
             "ops": op_dicts,
         }
 
+    def resolve_fwd_op_links(self):
+        """Rewrite deserialized `fwd_op_idx` attrs into live op ids."""
+        for op in self.ops:
+            if "fwd_op_idx" in op.attrs:
+                op.attrs["fwd_op_id"] = self.ops[
+                    op.attrs.pop("fwd_op_idx")].id
+
 
 class Program:
     """A serialisable graph of blocks (fluid framework.py:827).
@@ -323,10 +334,60 @@ class Program:
     def bump(self):
         self.version += 1
 
-    # -- serialise ----------------------------------------------------------
+    # -- clone / serialise --------------------------------------------------
+    def clone(self, for_test=False):
+        """Deep-copy the program (a fresh uid, version bumped). With
+        for_test=True, every op that carries the standard `is_test` attr
+        flips it on (inference behaviour). The reference also flips ops
+        its registry marks test-aware (dropout, batch_norm); the port
+        has none of those yet."""
+        cloned = copy.deepcopy(self)
+        Program._uid_counter += 1
+        cloned.uid = Program._uid_counter
+        cloned.bump()
+        if for_test:
+            for blk in cloned.blocks:
+                for op in blk.ops:
+                    if "is_test" in op.attrs:
+                        op.attrs["is_test"] = True
+        return cloned
+
     def to_dict(self):
         return {"blocks": [b.to_dict() for b in self.blocks],
                 "version": self.version}
+
+    @staticmethod
+    def from_dict(d) -> "Program":
+        """The inverse of `to_dict` (the JAX package's `__model__.json`
+        program text loads unchanged). Shapes come from the text; no
+        shape inference runs."""
+        prog = Program()
+        prog.blocks = []
+        for bd in d["blocks"]:
+            blk = Block(prog, bd["idx"], bd["parent_idx"])
+            for vd in bd["vars"]:
+                vd = dict(vd)
+                trainable = vd.pop("trainable", False)
+                name = vd.pop("name")
+                seq_len_var = vd.pop("seq_len_var", None)
+                sub_seq_len_var = vd.pop("sub_seq_len_var", None)
+                if trainable:
+                    var = blk.create_parameter(
+                        name, vd.pop("shape"), dtype=vd.pop("dtype"),
+                        lod_level=vd.get("lod_level", 0),
+                        stop_gradient=vd.get("stop_gradient", False))
+                else:
+                    var = blk.create_var(name=name, **vd)
+                var.seq_len_var = seq_len_var
+                var.sub_seq_len_var = sub_seq_len_var
+            for od in bd["ops"]:
+                blk.append_op(od["type"], od["inputs"], od["outputs"],
+                              od["attrs"], infer_shape=False)
+            blk.resolve_fwd_op_links()
+            prog.blocks.append(blk)
+        if not prog.blocks:
+            prog.blocks = [Block(prog, 0)]
+        return prog
 
 
 # ---------------------------------------------------------------------------

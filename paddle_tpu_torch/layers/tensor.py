@@ -7,7 +7,7 @@ from .. import framework
 from ..layer_helper import LayerHelper
 
 __all__ = ["create_parameter", "cast", "fill_constant", "slice",
-           "uniform_random"]
+           "uniform_random", "argmax"]
 
 
 def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, name=None):
@@ -56,4 +56,14 @@ def slice(input, axes, starts, ends, name=None):
     helper.append_op("slice", {"X": [input.name]}, {"Out": [out.name]},
                      {"axes": list(axes), "starts": list(starts),
                       "ends": list(ends)})
+    return out
+
+
+def argmax(x, axis=-1, name=None):
+    """Index of the largest element along `axis` (the first one on ties),
+    int64."""
+    helper = LayerHelper("arg_max", name=name)
+    out = helper.create_tmp_variable("int64")
+    helper.append_op("arg_max", {"X": [x.name]}, {"Out": [out.name]},
+                     {"axis": axis})
     return out

@@ -1,9 +1,10 @@
 """Decoder-only transformer LM (the port's copy of the unstacked path
 of `paddle_tpu/models/transformer.py`): pre-norm blocks whose attention
 is the fused scaled_dot_product_attention op over the packed [B, T, n*D]
-q/k/v planes, and the fused lm-head cross-entropy loss. The same layer
-calls as the reference, so both packages build the same Program. Not
-ported yet: the scan-stacked `transformer_stack` (and with it pipeline
+q/k/v planes; the logits head (`transformer_lm`, what the int8 serving
+path quantizes) and the fused lm-head cross-entropy loss. The same
+layer calls as the reference, so both packages build the same Program.
+Not ported yet: the scan-stacked `transformer_stack` (and with it pipeline
 parallelism), tensor/sequence/expert sharding, and the decode op.
 """
 
@@ -12,7 +13,7 @@ from __future__ import annotations
 from .. import layers
 from ..param_attr import ParamAttr
 
-__all__ = ["transformer_block", "transformer_lm_cost"]
+__all__ = ["transformer_block", "transformer_lm", "transformer_lm_cost"]
 
 
 def transformer_block(x, hid, num_heads, idx, ffn_mult=4):
@@ -56,6 +57,22 @@ def _backbone(tokens, vocab_size, hid, num_layers, num_heads, max_len):
     for i in range(num_layers):
         x = transformer_block(x, hid, num_heads, i)
     return layers.layer_norm(x, begin_norm_axis=2, name="ln_f")
+
+
+def _head_logits(x, vocab_size):
+    """The lm-head projection: one definition, so the logits path and
+    the fused loss share the same `lm_head.w`."""
+    return layers.fc(input=x, size=vocab_size, num_flatten_dims=2,
+                     param_attr=ParamAttr(name="lm_head.w"), bias_attr=False)
+
+
+def transformer_lm(tokens, vocab_size, hid=256, num_layers=4, num_heads=4,
+                   max_len=512):
+    """tokens [B, T] or [B, T, 1] int64. Returns logits [B, T, vocab]:
+    the reference's `transformer_lm` with stacked=None and no mesh
+    axes."""
+    x = _backbone(tokens, vocab_size, hid, num_layers, num_heads, max_len)
+    return _head_logits(x, vocab_size)
 
 
 def transformer_lm_cost(tokens, next_tokens, vocab_size, hid=256,

@@ -1,14 +1,15 @@
 """Device functions and op lowerings of the port.
 
 Kernels with their wrappers and plain versions: flash attention K1-K4
-(flash_attention.py) and the lm-head log-sum-exp K5 (chunked_ce.py).
-The LM server's KV-cached transformer functions: transformer_ops.py.
-The op registry, the autograd tape and the lowerings the training
-program runs: registry.py, grad.py, math_ops.py, nn_ops.py,
-tensor_ops.py, attention_ops.py, chunked_ce.py, optimizer_ops.py —
-imported here so that every lowering is registered.
+(flash_attention.py), the lm-head log-sum-exp K5 (chunked_ce.py) and
+the int8 matmul K6 (quant_ops.py). The LM server's KV-cached
+transformer functions: transformer_ops.py. The op registry, the
+autograd tape and the lowerings the programs run: registry.py, grad.py,
+math_ops.py, nn_ops.py, tensor_ops.py, attention_ops.py, chunked_ce.py,
+optimizer_ops.py, quant_ops.py — imported here so that every lowering
+is registered.
 """
 
 from . import registry  # noqa: F401
 from . import (attention_ops, chunked_ce, math_ops, nn_ops,  # noqa: F401
-               optimizer_ops, tensor_ops)
+               optimizer_ops, quant_ops, tensor_ops)

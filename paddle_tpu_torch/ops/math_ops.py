@@ -88,6 +88,13 @@ def _mean(ctx, ins, attrs):
     return {"Out": [ins["X"][0].mean().reshape(1)]}
 
 
+@register_op("arg_max", differentiable=False)
+def _arg_max(ctx, ins, attrs):
+    """int64 index of the maximum along `axis`; ties take the first index
+    in both torch.argmax and jnp.argmax."""
+    return {"Out": [torch.argmax(ins["X"][0], dim=attrs.get("axis", -1))]}
+
+
 @register_op("cast")
 def _cast(ctx, ins, attrs):
     return {"Out": [ins["X"][0].to(torch_dtype(attrs["out_dtype"]))]}

@@ -17,7 +17,7 @@ import torch
 from .registry import register_op
 
 
-@register_op("sgd", differentiable=False)
+@register_op("sgd", differentiable=False, is_optimizer=True)
 def _sgd(ctx, ins, attrs):
     p, g = ins["Param"][0], ins["Grad"][0]
     lr = ins["LearningRate"][0].reshape(())
@@ -26,7 +26,7 @@ def _sgd(ctx, ins, attrs):
     return {"ParamOut": [p]}
 
 
-@register_op("adam", differentiable=False)
+@register_op("adam", differentiable=False, is_optimizer=True)
 def _adam(ctx, ins, attrs):
     p, g = ins["Param"][0], ins["Grad"][0]
     m1, m2 = ins["Moment1"][0], ins["Moment2"][0]

@@ -27,21 +27,30 @@ class OpDef(NamedTuple):
     lowering: Callable            # (ctx, ins, attrs) -> dict slot -> list[val]
     differentiable: bool          # participates in autodiff at all
     stateful: bool                # draws from the executor's generator
+    is_optimizer: bool = False    # parameter-update op: pruned for inference
 
 
 _REGISTRY: Dict[str, OpDef] = {}
 
 
-def register_op(type, *, differentiable=True, stateful=False):
+def register_op(type, *, differentiable=True, stateful=False,
+                is_optimizer=False):
     """Decorator: register `fn(ctx, ins, attrs) -> {slot: [values]}`.
     The lowering modules register on import; the ops package imports
     them all, and the package's __init__ imports the ops package."""
 
     def deco(fn):
-        _REGISTRY[type] = OpDef(type, fn, differentiable, stateful)
+        _REGISTRY[type] = OpDef(type, fn, differentiable, stateful,
+                                is_optimizer)
         return fn
 
     return deco
+
+
+def optimizer_op_types():
+    """The parameter-update op types (OpDef metadata): what inference
+    pruning strips."""
+    return {t for t, d in _REGISTRY.items() if d.is_optimizer}
 
 
 def get_op(type) -> OpDef:

@@ -1,8 +1,18 @@
-"""Stdlib-only HTTP front end over a GenerationEngine.
+"""Stdlib-only HTTP front end over an InferenceEngine or a
+GenerationEngine.
 
-The port of the LM half of `paddle_tpu/serving/http.py`:
+The port of `paddle_tpu/serving/http.py`:
 
-  POST /v1/generate  {"prompt": [token ids], "max_new_tokens": 32,
+  POST /v1/infer   (one-shot replicas: `serve --model_dir`)
+                   {"feeds": {name: nested lists}, "deadline_ms": 50}
+                   -> 200 {"outputs": [...], "fetch_names": [...],
+                      "trace_id": "..."}
+                   -> 400 bad request, 429 overloaded ("shed"), 503
+                      shutting down ("unavailable"), 504 deadline
+                      exceeded ("deadline"), 500 batch failure;
+                      `error_type` in quotes
+  POST /v1/generate  (LM replicas: `serve --generate`)
+                   {"prompt": [token ids], "max_new_tokens": 32,
                       "deadline_ms": 5000, "stream": true}
                    Streaming (the default) replies 200 + chunked NDJSON,
                    one JSON object per line as the decode loop emits:
@@ -15,7 +25,8 @@ The port of the LM half of `paddle_tpu/serving/http.py`:
                    "error_type": ...} line. "stream": false collects the
                    whole generation into one {"tokens": [...],
                    "finish_reason": ...} reply.
-  POST /v1/infer   404 with a routing hint: this replica serves an LM.
+                   /v1/infer on an LM replica, and /v1/generate on a
+                   one-shot replica, is a 404 with a routing hint.
   GET  /healthz    engine stats(): 200 "ready" once warmup() completed,
                    503 "booting" before, 503 "shutdown" after close;
                    `?live` answers 200 "alive" through boot and drain.
@@ -60,6 +71,14 @@ class QuietHTTPServer(ThreadingHTTPServer):
         if isinstance(sys.exc_info()[1], (ConnectionError, TimeoutError)):
             return
         super().handle_error(request, client_address)
+
+
+def _jsonable(arr):
+    """numpy -> JSON lists; non-native dtypes go through f32."""
+    arr = np.asarray(arr)
+    if arr.dtype.kind not in "biuf":
+        arr = arr.astype(np.float32)
+    return arr.tolist()
 
 
 def resolve_trace_id(raw):
@@ -138,16 +157,80 @@ class ServingHandler(BaseHTTPRequestHandler):
         self.wfile.write(f"{len(data):X}\r\n".encode() + data + b"\r\n")
 
     def do_POST(self):   # noqa: N802
+        engine = self.server.engine
         path = self.path.partition("?")[0]
-        if path != "/v1/generate":
+        is_lm = hasattr(engine, "generate")   # GenerationEngine
+        if path not in ("/v1/infer", "/v1/generate"):
             # replying without consuming the body would leave it to be
             # parsed as the next request on this keep-alive connection
             self.close_connection = True
-            hint = (": this replica serves a generative LM — POST "
-                    "/v1/generate" if path == "/v1/infer" else "")
-            self._reply(404, {"error": f"no route {path!r} here{hint}"})
+            self._reply(404, {"error": f"no route {self.path!r}"})
             return
-        self._generate(self.server.engine)
+        if (path == "/v1/generate") != is_lm:
+            hint = ("this replica serves a generative LM — POST "
+                    "/v1/generate" if is_lm else
+                    "this replica serves one-shot inference — POST "
+                    "/v1/infer")
+            self.close_connection = True
+            self._reply(404, {"error": f"no route {path!r} here: "
+                                       f"{hint}"})
+            return
+        if is_lm:
+            self._generate(engine)
+        else:
+            self._infer(engine)
+
+    def _infer(self, engine):
+        """POST /v1/infer — see the module docstring for the wire
+        format. Only admission errors (this request's fault) map to
+        400; a failed batch (possibly a batchmate's fault) is a 500."""
+        trace_id = resolve_trace_id(self.headers.get("x-trace-id"))
+        try:
+            try:
+                raw = self._read_body()
+            except TimeoutError:
+                self.close_connection = True
+                self._reply(408, {"error": "timed out reading the "
+                                           "request body",
+                                  "error_type": "timeout"},
+                            trace_id=trace_id)
+                return
+            req = json.loads(raw)
+            feeds = req["feeds"]
+            if not isinstance(feeds, dict):
+                raise ValueError('"feeds" must be an object '
+                                 "{name: nested lists}")
+            deadline_ms = req.get("deadline_ms")
+            deadline = (float(deadline_ms) / 1e3
+                        if deadline_ms is not None else None)
+        except (ValueError, KeyError, TypeError,
+                json.JSONDecodeError) as e:
+            self._reply(400, {"error": f"bad request: {e}"},
+                        trace_id=trace_id)
+            return
+        try:
+            pending = engine.submit(feeds, deadline=deadline,
+                                    trace_id=trace_id)
+        except ValueError as e:               # shape/name mismatch
+            self._reply(400, {"error": str(e)}, trace_id=trace_id)
+            return
+        except ServerOverloadedError as e:
+            self._reply(429, {"error": str(e), "error_type": "shed"},
+                        trace_id=trace_id)
+            return
+        except EngineClosedError as e:
+            self._reply(503, {"error": str(e), "error_type": "unavailable"},
+                        trace_id=trace_id)
+            return
+        try:
+            outputs = pending.result()
+        except Exception as e:                # noqa: BLE001 typed below
+            self._reply_error(e, trace_id, "inference failed")
+            return
+        with monitor.span("serving/respond", trace_id=trace_id):
+            self._reply(200, {"outputs": [_jsonable(o) for o in outputs],
+                              "fetch_names": engine.fetch_names},
+                        trace_id=trace_id)
 
     def _generate(self, engine):
         trace_id = resolve_trace_id(self.headers.get("x-trace-id"))
@@ -240,10 +323,9 @@ class ServingHandler(BaseHTTPRequestHandler):
             engine.cancel(gen)
             self.close_connection = True
 
-    def _reply_error(self, e, trace_id):
+    def _reply_error(self, e, trace_id, what="generation failed"):
         code = {"deadline": 504, "unavailable": 503}.get(_error_type(e), 500)
-        payload = {"error": str(e) if code != 500
-                   else f"generation failed: {e}"}
+        payload = {"error": str(e) if code != 500 else f"{what}: {e}"}
         if code != 500:
             payload["error_type"] = _error_type(e)
         self._reply(code, payload, trace_id=trace_id)

@@ -1,6 +1,6 @@
 """The port's Hopper kernels on the card, held to their plain versions:
 K1 (flash-attention forward), K2-K4 (its backward), K5 (the lm-head
-log-sum-exp).
+log-sum-exp), K6 (the int8 x int8 -> int32 matmul).
 
 Marked `cuda`: they skip on a machine without a CUDA card (the kernels
 have no interpret mode). This file imports neither JAX nor the JAX
@@ -13,8 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import _build, flags
 from paddle_tpu_torch.ops import chunked_ce as ce
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import quant_ops
+from paddle_tpu_torch.ops.registry import get_op
 
 
 @pytest.fixture
@@ -194,3 +197,76 @@ def test_lm_head_lse_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(TypeError, match="float32"):
         ce.lm_head_lse(x[:, :64].double(),
                        torch.zeros(64, 10, device=card).double())
+
+
+# -- K6: the int8 matmul ----------------------------------------------------
+
+def _int8_operands(rng, M, K, N):
+    """Asymmetric int8 operands over the whole range: a lane-order or
+    k-packing fault in the kernel does not cancel out on them."""
+    x = rng.randint(-127, 128, (M, K)).astype(np.int8)
+    w = rng.randint(-127, 128, (K, N)).astype(np.int8)
+    x[0, :] = 127
+    x[-1, ::3] = -127
+    w[:, 0] = np.arange(K) % 255 - 127
+    w[K // 2, :] = -127
+    return x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [
+    (256, 768, 2304), (256, 768, 768), (256, 768, 3072),   # GPT-2 blocks
+    (256, 3072, 768), (128, 768, 50304),                   # ffn down, head
+    (1000, 100, 130), (1, 16, 16), (17, 33, 5), (1024, 64, 8)])
+def test_int8_matmul_kernel_bitwise_equals_plain(card, M, K, N):
+    x, w = _int8_operands(np.random.RandomState(M + K + N), M, K, N)
+    xq, wq = torch.from_numpy(x).to(card), torch.from_numpy(w).to(card)
+    before = quant_ops.int8_matmul_i32.launches
+    got = quant_ops.int8_matmul_i32(xq, wq)
+    torch.cuda.synchronize()
+    assert quant_ops.int8_matmul_i32.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    # exact: int32 sums of int8 products, float64 in the plain version
+    assert torch.equal(got.cpu(), quant_ops.int8_matmul_plain(
+        torch.from_numpy(x), torch.from_numpy(w)))
+
+
+@pytest.mark.cuda
+def test_int8_matmul_kernel_refuses_what_it_does_not_take(card):
+    x = torch.zeros(4, 8, dtype=torch.int8, device=card)
+    w = torch.zeros(8, 4, dtype=torch.int8, device=card)
+    with pytest.raises(TypeError, match="int8"):
+        quant_ops.int8_matmul_i32(x.float(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_ops.int8_matmul_i32(x, w.t().contiguous().t())
+    with pytest.raises(ValueError, match="takes xq"):
+        quant_ops.int8_matmul_i32(x, w[:4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["auto", "pallas", "dot"])
+def test_quant_mul_on_the_card_runs_k6_or_raises(card, mode, monkeypatch):
+    """Every flag value takes K6 on a CUDA tensor; when the kernel's
+    library cannot load, quant_mul raises — no dequant route, no plain
+    fallback."""
+    rng = np.random.RandomState(3)
+    ins = {"X": [torch.from_numpy(rng.randn(2, 8, 64).astype(np.float32)
+                                  ).to(card)],
+           "Y": [torch.from_numpy(rng.randint(-127, 128, (64, 32))
+                                  .astype(np.int8)).to(card)],
+           "YScale": [torch.full((1, 32), 0.01, device=card)]}
+    attrs = {"x_num_col_dims": 2, "y_num_col_dims": 1}
+    flags.set_flag("int8_matmul", mode)
+    try:
+        before = quant_ops.int8_matmul_i32.launches
+        out = get_op("quant_mul").lowering(None, ins, attrs)["Out"][0]
+        assert quant_ops.int8_matmul_i32.launches == before + 1
+        assert out.shape == (2, 8, 32) and out.device.type == "cuda"
+
+        def unloadable(name):
+            raise OSError(f"lib{name}.so: cannot open shared object file")
+        monkeypatch.setattr(_build, "load_library", unloadable)
+        with pytest.raises(OSError, match="int8_matmul"):
+            get_op("quant_mul").lowering(None, ins, attrs)
+    finally:
+        flags.set_flag("int8_matmul", "auto")
