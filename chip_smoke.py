@@ -15,8 +15,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      t=256 over a 384-key page view, cold and prefix-hit; decode 8
      slots x 1 row over 384 keys), float32, ragged kv_len, inputs from
      a numpy seed. Tolerance 1e-4 absolute on O and LSE: the two sum in
-     different orders (online softmax over 32-key chunks vs one
-     softmax over the row). Times: the kernel, the plain version and
+     different orders (online softmax over 64-key tiles with 3xTF32
+     tensor-core products for Tq > 1, over 32-key chunks for decode, vs
+     one softmax over the row). Times: the kernel, the plain version and
      torch's scaled_dot_product_attention (a yardstick only; the port
      never calls it), each over input sets that together exceed the
      50 MB L2, beside the least time the card could take;
@@ -33,9 +34,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. backward kernels: K2 (fused), K3 (dq) and K4 (dk, dv), each called
      explicitly, held against the plain backward at the GPT-2-small
      training shapes q/k/v [8, 12, 1024, 64] and [32, 12, 256, 64]
-     causal, and at a ragged kv_len case and a Tq != Tk case; K1 timed at the same shape. Times
-     beside the bound, the plain version and the backward of torch's
-     scaled_dot_product_attention (a yardstick only);
+     causal, and at a ragged kv_len case and a Tq != Tk case; K1 timed
+     at the T 1024 shape, K2 at both. Times beside the bound (f32 FMA
+     and 3xTF32 tensor cores), the plain version and torch's
+     scaled_dot_product_attention forward and backward (a yardstick
+     only), whose device kernels are named from a profiled call;
   6. K5 held against its plain version at the training shape x [8192,
      768] @ w [768, 50304], timed beside torch.logsumexp(x @ w);
   7. training: GPT-2-small at full width (vocab 50304, H 768, 12 layers,
@@ -51,8 +54,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      time, tokens/s and a profiled step's device time by kernel;
   8. short-context training: the same model at T 256, batch 32, where
      the backward route is the fused K2: step 1's loss and gradients
-     held against the plain recompute as in phase 7, then a second Adam
-     step; launches per step K1 12, K2 12, K5 1;
+     held against the plain recompute as in phase 7, then three more
+     Adam steps; launches per step K1 12, K2 12, K5 1. Step wall time,
+     tokens/s and a profiled step's device time by kernel;
   9. K6 (the int8 x int8 -> int32 matmul) held bitwise against its plain
      version (a float64 matmul of the int8 operands, exact) at the five
      GPT-2-small products of a rung-8 int8 dispatch (M 8192: qkv, proj,
@@ -118,8 +122,10 @@ except ImportError as e:
              f"this script ({e}); run it from a checkout of the repo")
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, dense
-# int8 on the tensor cores, HBM
+# int8 on the tensor cores, HBM; f32-accurate products on the tensor
+# cores take three dense TF32 products each (3xTF32, K1 and K2)
 PEAK_F32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 TOL = 1e-4
@@ -164,6 +170,20 @@ def make_case(rng, B, Tq, kv_len, q_start, sets):
     return out, lens, starts
 
 
+def bound(flops, nbytes):
+    """(ms, what bounds it): the larger of the f32 operations at the
+    card's f32 FMA peak and the bytes at the HBM peak."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_3xtf32(flops, nbytes):
+    """The same work's least time with its products on the tensor cores
+    at f32 accuracy (3xTF32, a third of the dense TF32 peak), in ms."""
+    return max(flops / PEAK_3XTF32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+
+
 def live_mask(B, Tq, kv_len, q_start):
     col = np.arange(VIEW)[None, None, :]
     limit = np.minimum(np.asarray(kv_len)[:, None],
@@ -176,7 +196,7 @@ def bound_of(B, Tq, kv_len, q_start):
     """Least time for this call's work on the card: its live (row, key)
     pairs' FLOPs (QK^T and PV, 2 each per D) at the f32 peak, against
     the bytes it must move (q, the live K/V rows, O and LSE) at the
-    HBM peak."""
+    HBM peak; returns (ms, bound_by, ms with 3xTF32 tensor cores)."""
     live = live_mask(B, Tq, kv_len, q_start)
     pairs = int(live.sum()) * N_HEADS
     flops = 4.0 * HEAD_DIM * pairs
@@ -184,9 +204,7 @@ def bound_of(B, Tq, kv_len, q_start):
     nbytes = 4 * (B * N_HEADS * Tq * HEAD_DIM * 2       # q in, O out
                   + 2 * kv_rows * HEAD_DIM              # live K and V
                   + B * N_HEADS * Tq)                   # LSE out
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return (*bound(flops, nbytes), bound_3xtf32(flops, nbytes))
 
 
 def time_ms(fn, sets, reps=60):
@@ -257,15 +275,15 @@ def kernel_phase():
         library_ms = time_ms(
             lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, scale=scale), sets)
-        bound_ms, bound_by = bound_of(B, Tq, kv_len, q_start)
+        bound_ms, bound_by, tc_ms = bound_of(B, Tq, kv_len, q_start)
         log(f"kernel {name}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
             f"library_ms {library_ms:.4f} bound_ms {bound_ms:.5f} "
-            f"({bound_by})")
+            f"({bound_by}), 3xTF32 {tc_ms:.5f}")
         results.append({"case": name, "q": [B, N_HEADS, Tq, HEAD_DIM],
                         "kv": VIEW, "max_abs_err": max(err_o, err_lse),
                         "ms": ms, "plain_ms": plain_ms,
                         "library_ms": library_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by})
+                        "bound_by": bound_by, "bound_3xtf32_ms": tc_ms})
     return results
 
 
@@ -479,23 +497,19 @@ def live_pairs(B, Tq, Tk, kv_len, causal):
     return int(np.maximum(lim, 0).sum())
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
 def attn_bound(B, Tq, Tk, kv_len, causal, products, ins, outs):
     """The least time for `products` T x T x D products over the live
     pairs, against `ins` q-sized inputs read, `outs` outputs written and
-    the [B, n, Tq] row statistics (lse and, backward, delta)."""
+    the [B, n, Tq] row statistics (lse and, backward, delta): (ms,
+    bound_by, ms with 3xTF32 tensor cores)."""
     pairs = live_pairs(B, Tq, Tk, kv_len, causal) * N_HEADS
     elems = B * N_HEADS * HEAD_DIM
     nbytes = 4 * (elems * (Tq + 2 * Tk)                 # q, k, v
                   + elems * (ins - 3) * Tq               # dO (backward)
                   + elems * sum(outs)                    # outputs
                   + B * N_HEADS * Tq * (1 if ins == 3 else 2))
-    return bound(2.0 * HEAD_DIM * pairs * products, nbytes)
+    flops = 2.0 * HEAD_DIM * pairs * products
+    return (*bound(flops, nbytes), bound_3xtf32(flops, nbytes))
 
 
 def time_events(fn, reps=10):
@@ -531,6 +545,41 @@ def bwd_inputs(rng, B, Tq, Tk, kv_len, causal, scale):
     return (q, k, v, do, lse, delta, lens)
 
 
+def device_kernels(fn):
+    """{device kernel name: us} of one profiled call of fn: names the
+    backend behind a library yardstick."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            names[ev.name] = names.get(ev.name, 0.0) + float(
+                ev.time_range.elapsed_us())
+    return {n: round(us, 1) for n, us in sorted(names.items(),
+                                                key=lambda kv: -kv[1])}
+
+
+def sdpa_backward(args, scale):
+    """Device ms of the backward of torch's causal SDPA (the yardstick
+    of K2-K4) on a backward case's q, k, v, dO, and its kernels' names."""
+    q, k, v, do = (t.clone().requires_grad_(i < 3)
+                   for i, t in enumerate(args[:4]))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale)
+    grad = (lambda: torch.autograd.grad(out, (q, k, v), do,
+                                        retain_graph=True))
+    ms = time_events(grad)
+    names = device_kernels(grad)
+    log(f"SDPA backward [{', '.join(map(str, q.shape))}] device kernels: "
+        f"{names}")
+    return ms, names
+
+
 BWD_KERNELS = {
     # name: (call returning a tuple, which of (dq, dk, dv) it returns,
     # T x T x D products it computes, the TPU kernel it replaces)
@@ -545,10 +594,12 @@ BWD_KERNELS = {
 
 def backward_kernel_phase(smi):
     """K2, K3 and K4 against the plain backward at both training shapes
-    (T 1024 and the short T 256), a ragged and a Tq != Tk case; K1 timed
-    at the T 1024 training shape. Tolerance: 1e-4 of the larger of 1 and the plain
-    gradient's largest element — f32 sums over up to 1024 keys (rows)
-    in 64-wide tiles against one matmul per product."""
+    (T 1024 and the short T 256), a ragged and a Tq != Tk case; all
+    three timed at T 1024, K2 also at T 256, beside SDPA's backward at
+    the same shapes; K1 timed at the T 1024 training shape. Tolerance:
+    1e-4 of the larger of 1 and the plain gradient's largest element —
+    f32 sums over up to 1024 keys (rows) in 64-wide tiles (K2 with
+    3xTF32 tensor-core products) against one matmul per product."""
     rng = np.random.RandomState(SEED + 2)
     scale = 1.0 / float(np.sqrt(HEAD_DIM))
     B, T = TRAIN_B, TRAIN_T
@@ -578,52 +629,66 @@ def backward_kernel_phase(smi):
                 raise AssertionError(f"{name} ({case}) disagrees with the "
                                      f"plain backward beyond {TOL:g}")
         del args, ref
-    sets = [bwd_inputs(rng, B, T, T, full, True, scale) for _ in range(2)]
+    plains = {"flash_attn_bwd_fused": fa.flash_attn_bwd_fused_plain,
+              "flash_attn_bwd_dq": fa.flash_attn_bwd_dq_plain,
+              "flash_attn_bwd_dkv": fa.flash_attn_bwd_dkv_plain}
+    timed = {}       # kernel -> [case dicts]
+    # every kernel at T 1024 (K3 + K4's main path), K2 also at T 256 (its
+    # own main path)
+    for case, (b, t, names) in {
+            "train": (B, T, tuple(BWD_KERNELS)),
+            "short": (SHORT_B, SHORT_T, ("flash_attn_bwd_fused",))}.items():
+        full_b = [t] * b
+        sets = [bwd_inputs(rng, b, t, t, full_b, True, scale)
+                for _ in range(2)]
+        lib_bwd, lib_names = sdpa_backward(sets[0], scale)
+        for name in names:
+            call, _, products, _ = BWD_KERNELS[name]
+            outs = {"flash_attn_bwd_fused": (t, t, t),
+                    "flash_attn_bwd_dq": (t,),
+                    "flash_attn_bwd_dkv": (t, t)}[name]
+            r = {"case": case, "q": [b, N_HEADS, t, HEAD_DIM],
+                 "ms": time_ms(lambda *a: call(*a, True, scale), sets,
+                               reps=10),
+                 "plain_ms": time_ms(lambda *a: plains[name](
+                     *a, True, scale), sets, reps=4),
+                 "library_ms": lib_bwd, "library_kernels": lib_names}
+            r["bound_ms"], r["bound_by"], r["bound_3xtf32_ms"] = attn_bound(
+                b, t, t, full_b, True, products, 4, outs)
+            timed.setdefault(name, []).append(r)
+            log(f"backward {name} {case} [{b},{N_HEADS},{t},{HEAD_DIM}]: "
+                f"ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+                f"library_ms (SDPA backward) {lib_bwd:.4f} bound_ms "
+                f"{r['bound_ms']:.5f} ({r['bound_by']}), 3xTF32 "
+                f"{r['bound_3xtf32_ms']:.5f} | {smi}")
+        if case == "train":
+            k1_sets = [(s_[0], s_[1], s_[2]) for s_ in sets]
+            k1_lens = sets[0][6]
+    # the top-level numbers are each kernel's main-path shape: T 256 for
+    # K2, T 1024 for K3 and K4
     results = {}
-    for name, (call, _, products, _) in BWD_KERNELS.items():
-        plain = {"flash_attn_bwd_fused": fa.flash_attn_bwd_fused_plain,
-                 "flash_attn_bwd_dq": fa.flash_attn_bwd_dq_plain,
-                 "flash_attn_bwd_dkv": fa.flash_attn_bwd_dkv_plain}[name]
-        ms = time_ms(lambda *a: call(*a, True, scale), sets, reps=10)
-        plain_ms = time_ms(lambda *a: plain(*a, True, scale), sets, reps=4)
-        outs = {"flash_attn_bwd_fused": (T, T, T),
-                "flash_attn_bwd_dq": (T,),
-                "flash_attn_bwd_dkv": (T, T)}[name]
-        bound_ms, bound_by = attn_bound(B, T, T, full, True, products, 4,
-                                        outs)
-        results[name] = {"ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "max_abs_err": errs[name]}
-    # the yardstick: the backward of torch's SDPA at the same shape
-    q, k, v, do = (t.clone().requires_grad_(i < 3)
-                   for i, t in enumerate(sets[0][:4]))
-    out = torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=scale)
-    lib_bwd = time_events(lambda: torch.autograd.grad(
-        out, (q, k, v), do, retain_graph=True))
-    del out, q, k, v, do
-    for name in results:
-        results[name]["library_ms"] = lib_bwd
-        r = results[name]
-        log(f"backward {name}: ms {r['ms']:.4f} plain_ms "
-            f"{r['plain_ms']:.4f} library_ms (SDPA backward) "
-            f"{lib_bwd:.4f} bound_ms {r['bound_ms']:.5f} "
-            f"({r['bound_by']}) | {smi}")
-    # K1 at the training shape
+    for name, cases_ in timed.items():
+        top = cases_[-1]
+        results[name] = {k_: top[k_] for k_ in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_3xtf32_ms")}
+        results[name].update(max_abs_err=errs[name], case=top["case"],
+                             cases=cases_)
+    # K1 at the training shape, with the forward SDPA's kernels named
     starts = torch.zeros(B, dtype=torch.int32, device="cuda")
-    fsets = [(s[0], s[1], s[2]) for s in sets]
     k1 = {"case": "train", "q": [B, N_HEADS, T, HEAD_DIM], "kv": T}
     k1["ms"] = time_ms(lambda q, k, v: fa.flash_attn_fwd(
-        q, k, v, sets[0][6], starts, True, scale), fsets, reps=20)
+        q, k, v, k1_lens, starts, True, scale), k1_sets, reps=20)
     k1["plain_ms"] = time_ms(lambda q, k, v: fa.flash_attn_fwd_plain(
-        q, k, v, sets[0][6], starts, True, scale), fsets, reps=5)
-    k1["library_ms"] = time_ms(
-        lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=scale), fsets, reps=20)
-    k1["bound_ms"], k1["bound_by"] = attn_bound(B, T, T, full, True, 2, 3,
-                                                (T,))
-    o, lse = fa.flash_attn_fwd(*fsets[0], sets[0][6], starts, True, scale)
-    o_ref, lse_ref = fa.flash_attn_fwd_plain(*fsets[0], sets[0][6], starts,
+        q, k, v, k1_lens, starts, True, scale), k1_sets, reps=5)
+    sdpa = (lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale))
+    k1["library_ms"] = time_ms(sdpa, k1_sets, reps=20)
+    k1["library_kernels"] = device_kernels(lambda: sdpa(*k1_sets[0]))
+    k1["bound_ms"], k1["bound_by"], k1["bound_3xtf32_ms"] = attn_bound(
+        B, T, T, full, True, 2, 3, (T,))
+    o, lse = fa.flash_attn_fwd(*k1_sets[0], k1_lens, starts, True, scale)
+    o_ref, lse_ref = fa.flash_attn_fwd_plain(*k1_sets[0], k1_lens, starts,
                                              True, scale)
     k1["max_abs_err"] = max(float((o - o_ref).abs().max()),
                             float((lse - lse_ref).abs().max()))
@@ -632,8 +697,10 @@ def backward_kernel_phase(smi):
                              "training shape")
     log(f"kernel flash_attn_fwd train: ms {k1['ms']:.4f} plain_ms "
         f"{k1['plain_ms']:.4f} library_ms {k1['library_ms']:.4f} bound_ms "
-        f"{k1['bound_ms']:.5f} ({k1['bound_by']}) err "
-        f"{k1['max_abs_err']:.3e} | {smi}")
+        f"{k1['bound_ms']:.5f} ({k1['bound_by']}), 3xTF32 "
+        f"{k1['bound_3xtf32_ms']:.5f}; err {k1['max_abs_err']:.3e} | {smi}")
+    log(f"SDPA forward (causal, f32) device kernels: "
+        f"{k1['library_kernels']}")
     return results, k1
 
 
@@ -663,8 +730,9 @@ def lse_kernel_phase(smi):
          "plain_ms": time_ms(ce.lm_head_lse_plain, sets, reps=3),
          "library_ms": time_ms(lambda x, w: torch.logsumexp(x @ w, dim=1),
                                sets, reps=3)}
-    r["bound_ms"], r["bound_by"] = bound(
-        2.0 * N * HID * VOCAB, 4.0 * (N * HID + HID * VOCAB + N))
+    flops, nbytes = 2.0 * N * HID * VOCAB, 4.0 * (N * HID + HID * VOCAB + N)
+    r["bound_ms"], r["bound_by"] = bound(flops, nbytes)
+    r["bound_3xtf32_ms"] = bound_3xtf32(flops, nbytes)
     log(f"kernel lm_head_lse: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f}"
         f" library_ms (logsumexp(x @ w)) {r['library_ms']:.4f} bound_ms "
         f"{r['bound_ms']:.5f} ({r['bound_by']}) | {smi}")
@@ -731,6 +799,15 @@ def reference_loss_and_grads(w, feed):
     grads = torch.autograd.grad(loss, [w[n] for n in names])
     return loss.detach(), dict(zip(names, grads))
 
+
+K1_DESIGN = ("Tq > 1: 3xTF32 mma.sync m16n8k8, 64 query rows x 64-key K/V "
+             "tiles, cp.async 2-stage; Tq = 1: f32 FMA, 8 warps split "
+             "the keys")
+BWD_DESIGN = {
+    "flash_attn_bwd_fused": "3xTF32 mma.sync m16n8k8, 8 warps, K/V resident, "
+                            "Q/dO/lse/delta cp.async 2-stage",
+    "flash_attn_bwd_dq": "f32 FMA, 4 x 4 register tiles",
+    "flash_attn_bwd_dkv": "f32 FMA, 4 x 4 register tiles"}
 
 ALL_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_fused",
                "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "lm_head_lse",
@@ -858,10 +935,10 @@ def training_phase(smi):
 
 
 KERNEL_NAMES = {          # profiler kernel name fragments
-    "flash_attn_fwd": ("flash_fwd_kernel",),
-    "flash_attn_bwd_fused": ("bwd_dkv_kernel<true>", "bwd_dkv_kernelILb1"),
+    "flash_attn_fwd": ("flash_fwd_",),
+    "flash_attn_bwd_fused": ("bwd_fused_tc_kernel",),
     "flash_attn_bwd_dq": ("bwd_dq_kernel",),
-    "flash_attn_bwd_dkv": ("bwd_dkv_kernel<false>", "bwd_dkv_kernelILb0"),
+    "flash_attn_bwd_dkv": ("bwd_dkv_kernel",),
     "lm_head_lse": ("lse_kernel",),
 }
 
@@ -901,7 +978,8 @@ def step_breakdown(exe, main, feed, cost, scope, step_ms, smi):
 
 def short_training_phase(smi):
     """T = 256, where the backward route is the fused K2: step 1's loss
-    and gradients against the plain recompute, then a second step."""
+    and gradients against the plain recompute, then three timed steps
+    and a profiled one."""
     main, startup, cost, params_grads = build_gpt2(SHORT_T)
     exe, scope = pt.Executor(), pt.Scope()
     exe.run(startup, scope=scope)
@@ -909,24 +987,36 @@ def short_training_phase(smi):
     zero_counts()                       # the main path starts here
     losses = [checked_first_step(exe, main, feed, cost, params_grads, scope,
                                  f"short training T {SHORT_T}")[0]]
-    losses.append(float(exe.run(main, feed=feed, fetch_list=[cost],
-                                scope=scope)[0][0]))
+    wall = []
+    for _ in range(3):
+        t_step = time.perf_counter()
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[cost],
+                                    scope=scope)[0][0]))
+        wall.append(1e3 * (time.perf_counter() - t_step))
     counts = read_counts()              # the main path ends here
     route = fa.bwd_route(SHORT_T)
     if route != "fused":
         raise AssertionError(f"T={SHORT_T} should take the fused route")
-    check_counts(counts, {"flash_attn_fwd": 2 * LAYERS,
-                          "flash_attn_bwd_fused": 2 * LAYERS,
+    steps = len(losses)
+    check_counts(counts, {"flash_attn_fwd": steps * LAYERS,
+                          "flash_attn_bwd_fused": steps * LAYERS,
                           "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
-                          "lm_head_lse": 2, "int8_matmul": 0},
+                          "lm_head_lse": steps, "int8_matmul": 0},
                  f"training T={SHORT_T}")
     if not np.isfinite(losses).all():
         raise AssertionError("non-finite loss at T=256")
+    step_ms = float(np.mean(wall))
+    tokens = SHORT_B * SHORT_T
     log(f"short training: T {SHORT_T} batch {SHORT_B}, losses {losses}, "
-        f"launches {counts} (route {route})")
+        f"launches {counts} over {steps} steps (route {route}); step wall "
+        f"{step_ms:.1f} ms (mean of steps 2-4, min {min(wall):.1f}), "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s | {smi}")
+    breakdown = step_breakdown(exe, main, feed, cost, scope, step_ms, smi)
     del scope, exe
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"step_ms": step_ms,
+                    "tokens_per_s": tokens / step_ms * 1e3,
+                    "losses": losses, "breakdown": breakdown}
 
 
 # -- phase 9: K6 vs plain -----------------------------------------------------
@@ -1177,7 +1267,7 @@ def dispatch_breakdown(what, exe, prog, scope, feed, fetch, wall_ms, smi):
             device_us += us
             if "int8_matmul_kernel" in ev.name:
                 kernels["int8_matmul"] += us
-            elif "flash_fwd_kernel" in ev.name:
+            elif "flash_fwd_" in ev.name:
                 kernels["flash_attn_fwd"] += us
             elif "gemm" in ev.name.lower():
                 kernels["cublas_gemm"] += us
@@ -1404,7 +1494,7 @@ def main():
     bwd, k1_train = backward_kernel_phase(smi)
     lse = lse_kernel_phase(smi)
     train_counts, train = training_phase(smi)
-    short_counts = short_training_phase(smi)
+    short_counts, short_train = short_training_phase(smi)
     k6, k6_cases = int8_kernel_phase(smi)
     int8_counts, int8_serving = int8_serving_phase(smi)
     paths = {"serving": {"flash_attn_fwd": serving_k1},
@@ -1422,6 +1512,7 @@ def main():
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+        "design": K1_DESIGN,
         "replaces": "paddle_tpu/ops/pallas_attention.py:212",
         "launches": launches["flash_attn_fwd"],
         "launches_by_path": by_path["flash_attn_fwd"],
@@ -1429,11 +1520,14 @@ def main():
                            + [k1_train["max_abs_err"]]),
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
-        "library_ms": decode["library_ms"], "cases": cases + [k1_train]}]
+        "library_ms": decode["library_ms"],
+        "bound_3xtf32_ms": decode["bound_3xtf32_ms"],
+        "cases": cases + [k1_train]}]
     for kname, (_, _, _, replaces) in BWD_KERNELS.items():
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+            "design": BWD_DESIGN[kname],
             "replaces": replaces, "launches": launches[kname],
             "launches_by_path": by_path[kname], **bwd[kname]})
     kernels.append({
@@ -1454,6 +1548,7 @@ def main():
                 f"{SERVE_B * TRAIN_T}",
         **k6, "cases": k6_cases})
     print(json.dumps({"kernels": kernels, "training": train,
+                      "training_short": short_train,
                       "serving_int8": int8_serving}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

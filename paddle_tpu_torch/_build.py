@@ -3,9 +3,10 @@
 Each kernel is one `csrc/*.cu` file with a plain C interface, compiled
 by `nvcc` for `sm_90a` into a shared library under the repo's
 `build/paddle_tpu_torch/` directory and loaded with ctypes. The library
-name carries a hash of the source and the flags, so an edited source
-never loads a stale build. Nothing here runs at import time: the tests
-import every module on machines with no `nvcc` and no card.
+name carries a hash of the source, the headers beside it and the
+flags, so an edited source or header never loads a stale build.
+Nothing here runs at import time: the tests import every module on
+machines with no `nvcc` and no card.
 """
 
 from __future__ import annotations
@@ -50,8 +51,12 @@ def _nvcc():
 
 def _target(name):
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every header beside it (a .cu includes them by name)
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
     return src, out
 

@@ -74,6 +74,74 @@ def test_flash_attn_fwd_kernel_takes_strided_head_views(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("Tq", [63, 64, 65, 1000])
+@pytest.mark.parametrize("D", [32, 64])
+def test_flash_attn_fwd_kernel_at_tile_edges(card, causal, Tq, D):
+    """The Tq > 1 kernel's 64-row query tiles and 64-key K/V tiles at
+    their edges: Tq one either side of a tile, kv_len 0, 1 and one
+    either side of a key tile."""
+    kv_len = [0, 1, 63, 64, 65]
+    Tk = Tq + 7
+    rng = np.random.RandomState(Tq * 3 + D)
+    q, k, v = (torch.from_numpy(rng.randn(5, 3, T, D).astype(np.float32))
+               .to(card) for T in (Tq, Tk, Tk))
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=card)
+    starts = torch.zeros(5, dtype=torch.int32, device=card)
+    o, lse = fa.flash_attn_fwd(q, k, v, lens, starts, causal)
+    torch.cuda.synchronize()
+    ref_o, ref_lse = fa.flash_attn_fwd_plain(q, k, v, lens, starts, causal)
+    err = max(float((o - ref_o).abs().max()),
+              float((lse - ref_lse).abs().max()))
+    print(f"K1 Tq {Tq} D {D} causal {causal}: max_abs_err {err:.3e}")
+    assert err <= 1e-4
+    assert float(o[0].abs().max()) == 0.0      # kv_len 0: fully masked
+    assert bool((lse[0] == fa.NEG).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64])
+def test_flash_attn_fwd_kernel_query_offset_at_tile_edges(card, D):
+    """Tq > 1 with non-zero q_start (prefix-hit prefill rows): the causal
+    limit q_start + row + 1 crosses key tiles inside a query tile."""
+    B, Tq, Tk = 4, 130, 320
+    kv_len, q_start = [320, 194, 64, 129], [190, 64, 0, 1]
+    rng = np.random.RandomState(41 + D)
+    q, k, v = (torch.from_numpy(rng.randn(B, 2, T, D).astype(np.float32))
+               .to(card) for T in (Tq, Tk, Tk))
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=card)
+    starts = torch.tensor(q_start, dtype=torch.int32, device=card)
+    o, lse = fa.flash_attn_fwd(q, k, v, lens, starts)
+    torch.cuda.synchronize()
+    ref_o, ref_lse = fa.flash_attn_fwd_plain(q, k, v, lens, starts)
+    err = max(float((o - ref_o).abs().max()),
+              float((lse - ref_lse).abs().max()))
+    print(f"K1 q_start D {D}: max_abs_err {err:.3e}")
+    assert err <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_attn_fwd_kernel_takes_plane_views_at_training_shape(card):
+    """q/k/v as the training op passes them: head views of one packed
+    [B, T, 3 * n * D] plane at GPT-2-small's [8, 12, 1024, 64]."""
+    B, n, T, D = 8, 12, 1024, 64
+    H = n * D
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(rng.randn(B, T, 3 * H).astype(np.float32)).to(card)
+    q, k, v = (x[..., i * H:(i + 1) * H].view(B, T, n, D).permute(0, 2, 1, 3)
+               for i in range(3))
+    lens = torch.full((B,), T, dtype=torch.int32, device=card)
+    starts = torch.zeros(B, dtype=torch.int32, device=card)
+    o, lse = fa.flash_attn_fwd(q, k, v, lens, starts)
+    torch.cuda.synchronize()
+    ref_o, ref_lse = fa.flash_attn_fwd_plain(q, k, v, lens, starts)
+    err = max(float((o - ref_o).abs().max()),
+              float((lse - ref_lse).abs().max()))
+    print(f"K1 plane views [8, 12, 1024, 64]: max_abs_err {err:.3e}")
+    assert err <= 1e-4
+
+
+@pytest.mark.cuda
 def test_flash_attn_fwd_kernel_refuses_what_it_does_not_take(card):
     q = torch.zeros(1, 2, 4, 48, device=card)
     lens = torch.ones(1, dtype=torch.int32, device=card)
@@ -134,6 +202,30 @@ def test_flash_backward_kernels_match_plain(card, causal, B, n, Tq, Tk,
                            ("K4 dk", dk, ref_dk), ("K4 dv", dv, ref_dv)):
         err = float((got - ref).abs().max())
         assert err <= BWD_TOL, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,B,n,Tq,Tk,kv_len", [
+    (True, 32, 12, 256, 256, [256] * 32),       # T 256 training shape
+    (True, 3, 4, 190, 250, [250, 131, 64]),     # ragged, Tq < Tk
+    (False, 3, 4, 190, 250, [250, 131, 64]),
+    (True, 2, 3, 257, 129, [129, 65]),          # ragged, Tq > Tk
+    (False, 2, 3, 257, 129, [129, 65]),
+])
+def test_flash_backward_fused_kernel_at_main_path_and_ragged_shapes(
+        card, causal, B, n, Tq, Tk, kv_len):
+    """K2 at its own main-path shape [32, 12, 256, 64] and at ragged
+    Tq != Tk, against the plain backward."""
+    q, k, v, do, lse, delta, lens = _bwd_case(card, B, n, Tq, Tk, 64,
+                                              kv_len, causal, Tq * 5 + Tk)
+    ref = fa.flash_attn_bwd_fused_plain(q, k, v, do, lse, delta, lens,
+                                        causal)
+    got = fa.flash_attn_bwd_fused(q, k, v, do, lse, delta, lens, causal)
+    torch.cuda.synchronize()
+    errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+    print(f"K2 [{B},{n},{Tq},{Tk}] causal {causal}: max_abs_err dq "
+          f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}")
+    assert max(errs) <= BWD_TOL
 
 
 @pytest.mark.cuda

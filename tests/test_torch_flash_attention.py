@@ -39,6 +39,12 @@ def _port(q, k, v, kv_len, q_start, causal):
     (3, 2, 16, 48, 16, [48, 17, 0]),         # Tq != Tk, ragged + empty
     (2, 3, 40, 24, 64, [24, 9]),             # Tq > Tk, D = 64
     (1, 2, 8, 64, 64, [0]),                  # every row fully masked
+    # the Hopper kernel's 64-row query and 64-key tiles at their edges
+    (2, 1, 63, 63, 16, [63, 62]),            # one row short of a tile
+    (2, 1, 64, 64, 16, [64, 63]),            # exactly one tile
+    (2, 1, 65, 65, 16, [65, 64]),            # one row into a second tile
+    (3, 1, 65, 130, 32, [129, 65, 63]),      # kv_len either side of 64, 128
+    (2, 1, 130, 65, 16, [65, 64]),           # Tq > Tk across tiles
 ])
 def test_plain_matches_jax_k1_interpret(causal, B, n, Tq, Tk, D, kv_len):
     q, k, v = _qkv(B, n, Tq, Tk, D, seed=Tq + Tk)
@@ -81,6 +87,8 @@ def _naive(q, k, v, kv_len, q_start):
     (8, 40, [40, 21, 13], [16, 8, 5]),       # prefix-hit prefill rows
     (1, 33, [33, 1, 7], [32, 0, 6]),         # decode: Tq = 1, pos = len-1
     (6, 24, [10, 24, 3], [4, 30, 0]),        # kv_len caps the diagonal
+    # prefix-hit rows whose causal limit crosses a 64-key tile
+    (65, 140, [140, 129, 64], [75, 64, 0]),
 ])
 def test_query_offset_matches_naive_softmax(Tq, Tk, kv_len, q_start):
     q, k, v = _qkv(3, 2, Tq, Tk, 16, seed=Tq * Tk)

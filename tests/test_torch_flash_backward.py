@@ -71,6 +71,12 @@ CASES = [
     (3, 2, 48, 48, 16, [48, 17, 0]),      # ragged, one batch fully masked
     (2, 2, 16, 48, 16, [48, 30]),         # Tq != Tk (cross attention)
     (2, 1, 40, 24, 32, [24, 9]),          # Tq > Tk
+    # the Hopper kernels' 64-row / 64-key tiles at their edges
+    (2, 1, 63, 63, 16, [63, 62]),         # one short of a tile
+    (2, 1, 64, 64, 16, [64, 63]),         # exactly one tile
+    (2, 1, 65, 65, 16, [65, 64]),         # one into a second tile
+    (2, 1, 65, 129, 16, [129, 65]),       # kv_len either side of 64, 128
+    (2, 1, 70, 33, 16, [33, 32]),         # Tq > Tk across tiles
 ]
 
 
