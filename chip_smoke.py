@@ -8,8 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      limit;
   2. build: every kernel source under paddle_tpu_torch/csrc/ (K1 flash
      forward, K2-K4 flash backward, K5 lm-head log-sum-exp, K6 int8
-     matmul) with nvcc for sm_90a, from this checkout, one nvcc per
-     source in parallel;
+     matmul, and the bf16 K1, K3, K4 and K5) with nvcc for sm_90a, from
+     this checkout, one nvcc per source in parallel;
   3. kernel: K1 held against its plain PyTorch version at the LM
      server's shapes (GPT-2-small heads: n=12, D=64; prefill b=4,
      t=256 over a 384-key page view, cold and prefix-hit; decode 8
@@ -77,7 +77,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      equal where its top-2 margin exceeds twice the largest difference.
      Printed: the f32 model on the same batch, both dispatch walls,
      tokens/s, peak memory, weight bytes, and a profiled dispatch's
-     device time split into K6, K1, quantize, rescale and the rest.
+     device time split into K6, K1, quantize, rescale and the rest;
+ 11. bf16 kernels: K1-, K3- and K4-bf16 held against their plain bf16
+     versions (the reference's roundings: P and dS to bf16 before the
+     products they feed, O and the gradients once at the end) at the
+     training shape [8, 12, 1024, 64] (head views of the packed bf16
+     planes), a ragged kv_len case and a Tq != Tk case; K5-bf16 at x
+     [8192, 768] @ w [768, 50304]. Tolerance 1e-2 of the largest |plain|
+     element on bf16 outputs (two bf16 ulps), 1e-4 absolute on the f32
+     LSEs. Times by CUDA-graph replay beside the bf16 bound (989 TFLOP/s
+     dense, 3.35 TB/s), the plain version, and bf16 SDPA forward /
+     backward or logsumexp(mm(x, w) with f32 output) as the yardstick;
+ 12. amp training: phase 7's program, weights and token batch with
+     amp.enable (bench.py's _mfu_bench with amp on, batch 8): step 1's
+     loss and every gradient against a plain amp recompute on the card
+     (the role casts written out, the plain bf16 kernels, torch autograd;
+     loss 1e-3 relative, gradients 2e-2 of their largest element) and
+     the loss against phase 7's f32 step 1 (2e-2 relative); every
+     gradient, master weight and Adam moment float32; five more Adam
+     steps, the loss must fall; launches per step K1-bf16 12, K3-bf16
+     12, K4-bf16 12, K5-bf16 1 and no f32 kernel. Step wall, tokens/s,
+     peak memory and a profiled step's device time split into cuBLAS's
+     bf16 products, the four kernels, casts, Adam and other elementwise;
+ 13. the amp program timed at the reference's headline batch, B 32 at
+     T 1024 (bench.py's bench_transformer_mfu), or the largest of 24 and
+     16 that fits: step wall and peak memory.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -105,12 +129,13 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 try:
-    from paddle_tpu_torch import _build, flags, monitor
+    from paddle_tpu_torch import _build, amp, flags, monitor
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import quant
     from paddle_tpu_torch.ops import chunked_ce as ce
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import quant_ops as qo
+    from paddle_tpu_torch.ops import registry as op_registry
     from paddle_tpu_torch.serving import (EngineConfig, GenerationConfig,
                                           GenerationEngine, InferenceEngine,
                                           LMSpec, init_lm_weights)
@@ -126,6 +151,7 @@ except ImportError as e:
 # cores take three dense TF32 products each (3xTF32, K1 and K2)
 PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
+PEAK_BF16_FLOPS = 989e12         # dense bf16 on the tensor cores
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 TOL = 1e-4
@@ -809,9 +835,24 @@ BWD_DESIGN = {
     "flash_attn_bwd_dq": "f32 FMA, 4 x 4 register tiles",
     "flash_attn_bwd_dkv": "f32 FMA, 4 x 4 register tiles"}
 
+BF16_DESIGN = {
+    "flash_attn_fwd_bf16": "bf16 mma.sync m16n8k16, 64 query rows x 64-key "
+                           "K/V tiles, cp.async 2-stage, P as A fragments "
+                           "from registers, V by ldmatrix.trans",
+    "flash_attn_bwd_dq_bf16": "bf16 mma.sync m16n8k16, 64 q rows, K/V tiles "
+                              "cp.async 2-stage, dS as A fragments, K by "
+                              "ldmatrix.trans",
+    "flash_attn_bwd_dkv_bf16": "bf16 mma.sync m16n8k16, 64 keys, Q/dO tiles "
+                               "cp.async 2-stage, P^T and dS^T as A "
+                               "fragments, Q/dO by ldmatrix.trans",
+    "lm_head_lse_bf16": "bf16 mma.sync m16n8k16, 64-row x tile resident, "
+                        "w [64 x 128] chunks cp.async 2-stage by "
+                        "ldmatrix.trans, 8 warps"}
+
 ALL_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_fused",
                "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "lm_head_lse",
-               "int8_matmul")
+               "int8_matmul", "flash_attn_fwd_bf16", "flash_attn_bwd_dq_bf16",
+               "flash_attn_bwd_dkv_bf16", "lm_head_lse_bf16")
 
 
 def wrappers():
@@ -820,7 +861,17 @@ def wrappers():
             "flash_attn_bwd_dq": fa.flash_attn_bwd_dq,
             "flash_attn_bwd_dkv": fa.flash_attn_bwd_dkv,
             "lm_head_lse": ce.lm_head_lse,
-            "int8_matmul": qo.int8_matmul_i32}
+            "int8_matmul": qo.int8_matmul_i32,
+            "flash_attn_fwd_bf16": fa.flash_attn_fwd_bf16,
+            "flash_attn_bwd_dq_bf16": fa.flash_attn_bwd_dq_bf16,
+            "flash_attn_bwd_dkv_bf16": fa.flash_attn_bwd_dkv_bf16,
+            "lm_head_lse_bf16": ce.lm_head_lse_bf16}
+
+
+def launches_of(**counts):
+    """The launch counts a path expects: the named ones, every other
+    kernel 0."""
+    return {**dict.fromkeys(ALL_KERNELS, 0), **counts}
 
 
 def zero_counts():
@@ -911,11 +962,11 @@ def training_phase(smi):
                              "fixed batch")
     steps = len(losses)
     route = fa.bwd_route(TRAIN_T)
-    want = {"flash_attn_fwd": LAYERS * steps, "lm_head_lse": steps,
-            "flash_attn_bwd_fused": LAYERS * steps if route == "fused" else 0,
-            "flash_attn_bwd_dq": LAYERS * steps if route == "split" else 0,
-            "flash_attn_bwd_dkv": LAYERS * steps if route == "split" else 0,
-            "int8_matmul": 0}
+    want = launches_of(
+        flash_attn_fwd=LAYERS * steps, lm_head_lse=steps,
+        flash_attn_bwd_fused=LAYERS * steps if route == "fused" else 0,
+        flash_attn_bwd_dq=LAYERS * steps if route == "split" else 0,
+        flash_attn_bwd_dkv=LAYERS * steps if route == "split" else 0)
     check_counts(counts, want, f"training T={TRAIN_T} ({steps} steps, "
                  f"route {route})")
     step_ms = float(np.mean(wall))
@@ -998,10 +1049,9 @@ def short_training_phase(smi):
     if route != "fused":
         raise AssertionError(f"T={SHORT_T} should take the fused route")
     steps = len(losses)
-    check_counts(counts, {"flash_attn_fwd": steps * LAYERS,
-                          "flash_attn_bwd_fused": steps * LAYERS,
-                          "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0,
-                          "lm_head_lse": steps, "int8_matmul": 0},
+    check_counts(counts, launches_of(flash_attn_fwd=steps * LAYERS,
+                                     flash_attn_bwd_fused=steps * LAYERS,
+                                     lm_head_lse=steps),
                  f"training T={SHORT_T}")
     if not np.isfinite(losses).all():
         raise AssertionError("non-finite loss at T=256")
@@ -1483,6 +1533,499 @@ def int8_serving_phase(smi):
                     "breakdown": breakdown, "f32_breakdown": f32_breakdown}
 
 
+# -- phase 11: the bf16 (amp) kernels vs plain --------------------------------
+
+# bf16 outputs within 1e-2 of the largest |plain| element, two bf16 ulps:
+# kernel and plain version sum f32 products of the same bf16 operands in
+# other orders and round once; f32 outputs (LSE) within TOL absolute
+BF16_REL = 1e-2
+
+
+def bound_bf16(flops, nbytes):
+    """(ms, what bounds it): bf16 tensor-core operations at the dense
+    bf16 peak against bytes at the HBM peak."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attn_bound_bf16(B, Tq, Tk, kv_len, causal, products, ins, outs):
+    """attn_bound's work with bf16 operands: `products` T x T x D
+    products over the live pairs at the bf16 peak, against `ins`
+    q-sized bf16 inputs, the bf16 outputs `outs` (lengths) and the f32
+    row statistics."""
+    pairs = live_pairs(B, Tq, Tk, kv_len, causal) * N_HEADS
+    elems = B * N_HEADS * HEAD_DIM
+    nbytes = (2 * (elems * (Tq + 2 * Tk) + elems * (ins - 3) * Tq
+                   + elems * sum(outs))
+              + 4 * B * N_HEADS * Tq * (1 if ins == 3 else 2))
+    return bound_bf16(2.0 * HEAD_DIM * pairs * products, nbytes)
+
+
+def bf16_err(got, ref):
+    """(max |got - ref|, that over max |ref|) in f32."""
+    diff = float((got.float() - ref.float()).abs().max())
+    return diff, diff / max(float(ref.float().abs().max()), 1e-30)
+
+
+def bf16_attn_inputs(rng, B, Tq, Tk, kv_len, causal, scale):
+    """bf16 q/k/v head views of packed [B, T, 3 * 768] planes, as the qkv
+    fc writes them (q from a plane of its own when Tq != Tk), dO a head
+    view of a [B, Tq, 768] plane, and the forward's LSE and delta (f32).
+    Returns the backward's arguments and the forward's O."""
+    dev, H = torch.device("cuda"), N_HEADS * HEAD_DIM
+
+    def plane(T, width):
+        return torch.from_numpy(rng.randn(B, T, width).astype(np.float32)
+                                ).to(dev, torch.bfloat16)
+    kv = plane(Tk, 3 * H)
+    qp = kv if Tq == Tk else plane(Tq, 3 * H)
+    q, k, v = (fa._heads(t, N_HEADS) for t in
+               (qp[..., :H], kv[..., H:2 * H], kv[..., 2 * H:]))
+    do = fa._heads(plane(Tq, H), N_HEADS)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    o, lse = fa.flash_attn_fwd_bf16(q, k, v, lens, torch.zeros_like(lens),
+                                    causal, scale)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    return (q, k, v, do, lse, delta, lens), o
+
+
+BF16_ATTN = {
+    # name: (the TPU kernel it replaces, T x T x D products it computes)
+    "flash_attn_fwd_bf16": ("paddle_tpu/ops/pallas_attention.py:212", 2),
+    "flash_attn_bwd_dq_bf16": ("paddle_tpu/ops/pallas_attention.py:400", 3),
+    "flash_attn_bwd_dkv_bf16": ("paddle_tpu/ops/pallas_attention.py:450",
+                                4),
+}
+
+
+def bf16_kernel_phase(smi):
+    """K1-, K3- and K4-bf16 against their plain bf16 versions at the
+    training shape [8, 12, 1024, 64] (views of the packed planes), a
+    ragged kv_len case and a Tq != Tk case; K5-bf16 at x [8192, 768] @
+    w [768, 50304]. Each timed by CUDA-graph replay over two input sets
+    (more than the L2 holds) beside its bf16 bound, its plain version
+    and one library call: bf16 SDPA forward / backward (kernels named by
+    profiler), logsumexp(mm(x, w) with f32 output)."""
+    rng = np.random.RandomState(SEED + 6)
+    scale = 1.0 / float(np.sqrt(HEAD_DIM))
+    B, T = TRAIN_B, TRAIN_T
+    cases = {"train": (B, T, T, [T] * B),
+             "ragged": (4, 600, 600, [600, 333, 64, 1]),
+             "cross": (2, 200, 700, [700, 450])}
+    errs = {name: [0.0, 0.0] for name in BF16_ATTN}
+    for case, (b, tq, tk, kv_len) in cases.items():
+        args, o = bf16_attn_inputs(rng, b, tq, tk, kv_len, True, scale)
+        q, k, v, do, lse, delta, lens = args
+        starts = torch.zeros_like(lens)
+        o_ref, lse_ref = fa.flash_attn_fwd_plain(q, k, v, lens, starts,
+                                                 True, scale)
+        ref = fa.flash_attn_bwd_fused_plain(*args, True, scale)
+        dq = fa.flash_attn_bwd_dq_bf16(*args, True, scale)
+        dk, dv = fa.flash_attn_bwd_dkv_bf16(*args, True, scale)
+        torch.cuda.synchronize()
+        lse_err = float((lse - lse_ref).abs().max())
+        got = {"flash_attn_fwd_bf16": [(o, o_ref)],
+               "flash_attn_bwd_dq_bf16": [(dq, ref[0])],
+               "flash_attn_bwd_dkv_bf16": [(dk, ref[1]), (dv, ref[2])]}
+        for name, pairs in got.items():
+            e = [bf16_err(g, r) for g, r in pairs]
+            ab, rel = max(x[0] for x in e), max(x[1] for x in e)
+            errs[name] = [max(errs[name][0], ab), max(errs[name][1], rel)]
+            log(f"bf16 {name} {case}: q [{b},{N_HEADS},{tq},{HEAD_DIM}] k "
+                f"[{tk}] max_abs_err {ab:.3e}, {rel:.3e} of max |plain| "
+                f"(tol {BF16_REL:g})" + (f"; LSE {lse_err:.3e} (tol "
+                                         f"{TOL:g})" if "fwd" in name
+                                         else ""))
+            if not np.isfinite(rel) or rel > BF16_REL:
+                raise AssertionError(f"{name} ({case}) disagrees with its "
+                                     f"plain bf16 version beyond "
+                                     f"{BF16_REL:g}")
+        if not lse_err <= TOL:
+            raise AssertionError(f"K1-bf16 ({case}) LSE disagrees with the "
+                                 "plain version")
+        del args, o, ref, dq, dk, dv
+    full = [T] * B
+    sets = [bf16_attn_inputs(rng, B, T, T, full, True, scale)[0]
+            for _ in range(2)]
+    starts = torch.zeros_like(sets[0][6])
+    fwd_sets = [s_[:3] for s_ in sets]
+    lens = sets[0][6]
+    results = {}
+    sdpa = (lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale))
+    fwd_kernels = device_kernels(lambda: sdpa(*fwd_sets[0]))
+    events_bwd, lib_names = sdpa_backward(sets[0], scale)
+    # the backward yardstick is its kernels' device time in one profiled
+    # call: at bf16 the eager loop's CUDA events (events_bwd) measure
+    # autograd's host dispatch more than the card (0.26-0.51 ms against
+    # ~0.16 ms of kernels)
+    lib_bwd = sum(lib_names.values()) / 1e3
+    log(f"SDPA forward (causal, bf16) device kernels: {fwd_kernels}; "
+        f"SDPA backward: {lib_bwd:.4f} ms of kernels, {events_bwd:.4f} ms "
+        f"by CUDA events around the eager call")
+    timed = {
+        "flash_attn_fwd_bf16": (
+            lambda q, k, v: fa.flash_attn_fwd_bf16(q, k, v, lens, starts,
+                                                   True, scale),
+            lambda q, k, v: fa.flash_attn_fwd_plain(q, k, v, lens, starts,
+                                                    True, scale),
+            fwd_sets, time_ms(sdpa, fwd_sets, reps=20), fwd_kernels,
+            (3, (T,))),
+        "flash_attn_bwd_dq_bf16": (
+            lambda *a: fa.flash_attn_bwd_dq_bf16(*a, True, scale),
+            lambda *a: fa.flash_attn_bwd_dq_plain(*a, True, scale),
+            sets, lib_bwd, lib_names, (4, (T,))),
+        "flash_attn_bwd_dkv_bf16": (
+            lambda *a: fa.flash_attn_bwd_dkv_bf16(*a, True, scale),
+            lambda *a: fa.flash_attn_bwd_dkv_plain(*a, True, scale),
+            sets, lib_bwd, lib_names, (4, (T, T))),
+    }
+    for name, (call, plain, sets_, lib_ms, lib_k, (ins, outs)) in \
+            timed.items():
+        replaces, products = BF16_ATTN[name]
+        r = {"case": "train", "q": [B, N_HEADS, T, HEAD_DIM],
+             "ms": time_ms(call, sets_, reps=20),
+             "plain_ms": time_ms(plain, sets_, reps=3),
+             "library_ms": lib_ms, "library_kernels": lib_k,
+             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
+             "replaces": replaces}
+        r["bound_ms"], r["bound_by"] = attn_bound_bf16(
+            B, T, T, full, True, products, ins, outs)
+        results[name] = r
+        log(f"bf16 {name} train [{B},{N_HEADS},{T},{HEAD_DIM}]: ms "
+            f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+            f"{lib_ms:.4f} bound_ms {r['bound_ms']:.5f} ({r['bound_by']}) "
+            f"| {smi}")
+    del sets, fwd_sets
+    torch.cuda.empty_cache()
+
+    # K5-bf16 at the training shape
+    N = TRAIN_B * TRAIN_T
+    dev = torch.device("cuda")
+    lse_sets = [(torch.from_numpy(rng.randn(N, HID).astype(np.float32))
+                 .to(dev, torch.bfloat16),
+                 torch.from_numpy((rng.randn(HID, VOCAB) * 0.02)
+                                  .astype(np.float32)).to(dev, torch.bfloat16))
+                for _ in range(2)]
+    got = ce.lm_head_lse_bf16(*lse_sets[0])
+    torch.cuda.synchronize()
+    ref = ce.lm_head_lse_plain(*lse_sets[0])
+    err = float((got - ref).abs().max())
+    log(f"bf16 lm_head_lse_bf16: x [{N},{HID}] w [{HID},{VOCAB}] "
+        f"max_abs_err {err:.3e} (tol {TOL:g})")
+    if not np.isfinite(err) or err > TOL:
+        raise AssertionError("lm_head_lse_bf16 disagrees with its plain "
+                             "version")
+    r = {"case": "train", "max_abs_err": err,
+         "ms": time_ms(ce.lm_head_lse_bf16, lse_sets, reps=10),
+         "plain_ms": time_ms(ce.lm_head_lse_plain, lse_sets, reps=3),
+         "library_ms": time_ms(lambda x, w: torch.logsumexp(
+             torch.mm(x, w, out_dtype=torch.float32), dim=1), lse_sets,
+             reps=5),
+         "replaces": "paddle_tpu/ops/chunked_ce.py:90"}
+    r["bound_ms"], r["bound_by"] = bound_bf16(
+        2.0 * N * HID * VOCAB, 2.0 * (N * HID + HID * VOCAB) + 4.0 * N)
+    log(f"bf16 lm_head_lse_bf16: ms {r['ms']:.4f} plain_ms "
+        f"{r['plain_ms']:.4f} library_ms (logsumexp(mm(x, w, f32 out))) "
+        f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+        f"({r['bound_by']}) | {smi}")
+    results["lm_head_lse_bf16"] = r
+    del lse_sets
+    torch.cuda.empty_cache()
+    return results
+
+
+# -- phase 12/13: amp training ------------------------------------------------
+
+class PlainAttention(torch.autograd.Function):
+    """Causal attention over [B, n, T, D] bf16 heads through the plain
+    bf16 versions of K1 (forward) and K3 + K4 (backward): no kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        lens = torch.full((q.shape[0],), q.shape[2], dtype=torch.int32,
+                          device=q.device)
+        o, lse = fa.flash_attn_fwd_plain(q, k, v, lens,
+                                         torch.zeros_like(lens), True)
+        ctx.save_for_backward(q, k, v, o, lse, lens)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, lens = ctx.saved_tensors
+        delta = (do.float() * o.float()).sum(-1)
+        return fa.flash_attn_bwd_fused_plain(q, k, v, do, lse, delta, lens,
+                                             True)
+
+
+def amp_reference_loss_and_grads(w, feed):
+    """The amp model as plain PyTorch on the card, with the reference's
+    role casts written out: compute-role products on bf16 operands (the
+    f32 masters cast), follow-role adds in bf16 once an operand is bf16
+    (block 0's residual add turns the f32 embeddings bf16), layer norm's
+    statistics in f32 and its output in its input's dtype, attention
+    through the plain bf16 K1 / K3 + K4 (PlainAttention), the
+    cross-entropy from f32 logits of the bf16 head; gradients by torch
+    autograd through the casts, so the masters' are f32."""
+    bf = torch.bfloat16
+    dev = w["tok_emb"].device
+    tok = torch.from_numpy(feed["tok"][..., 0]).to(dev)
+    nxt = torch.from_numpy(feed["nxt"]).to(dev).reshape(-1)
+    B, T = tok.shape
+
+    def ln(x, g, b):
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        return ((xf - mu) / torch.sqrt(var + 1e-5) * g + b).to(x.dtype)
+
+    def fc(x, name):
+        return (torch.matmul(x.to(bf), w[f"{name}.w"].to(bf))
+                + w[f"{name}.b"].to(bf))
+
+    x = w["tok_emb"][tok] + w["pos_emb"][:T]
+    for i in range(LAYERS):
+        p = f"block{i}"
+        qkv = fc(ln(x, w[f"{p}.ln1.w_0"], w[f"{p}.ln1.w_1"]), f"{p}.qkv")
+        q, k, v = (fa._heads(t, N_HEADS) for t in qkv.split(HID, dim=2))
+        a = fa._merge(PlainAttention.apply(q, k, v))
+        x = x.to(bf) + fc(a, f"{p}.proj")
+        h = ln(x, w[f"{p}.ln2.w_0"], w[f"{p}.ln2.w_1"])
+        up = torch.nn.functional.gelu(fc(h, f"{p}.ffn_up"),
+                                      approximate="tanh")
+        x = x + fc(up, f"{p}.ffn_down")
+    x = ln(x, w["ln_f.w_0"], w["ln_f.w_1"])
+    logits = (x.reshape(B * T, HID).float()
+              @ w["lm_head.w"].to(bf).float())
+    loss = torch.nn.functional.cross_entropy(logits, nxt)
+    names = sorted(w)
+    grads = torch.autograd.grad(loss, [w[n] for n in names])
+    return loss.detach(), dict(zip(names, grads))
+
+
+# step 1 under amp against the plain amp recompute: loss within 1e-3
+# relative, each gradient within 2e-2 of its largest element (bf16
+# activations rounded in other places: flash tiles against one softmax,
+# the chunked cross-entropy backward's bf16 d against autograd's f32
+# logits gradient); against the f32 step, the loss within 2e-2 relative
+AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_VS_F32_RTOL = 1e-3, 2e-2, 2e-2
+AMP_KERNELS = {"flash_attn_fwd_bf16": ("flash_fwd_bf16_kernel",),
+               "flash_attn_bwd_dq_bf16": ("bwd_dq_bf16_kernel",),
+               "flash_attn_bwd_dkv_bf16": ("bwd_dkv_bf16_kernel",),
+               "lm_head_lse_bf16": ("lse_bf16_kernel",)}
+# cuBLAS's bf16 products (Hopper cuBLAS names its kernels nvjet_* or
+# sm90_xmma_gemm_*) and the dtype conversions / copies, by kernel name
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+CAST_NAMES = ("copy_kernel",)
+
+
+def amp_step_breakdown(exe, main, feed, cost, scope, step_ms, smi):
+    """One more amp step under torch.profiler: its device time split
+    into cuBLAS's bf16 products, the four bf16 kernels, casts (and
+    copies), Adam (the adam ops' kernels, marked by record_function
+    around the op's lowering) and the other elementwise kernels; device
+    busy / wall."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    adam = op_registry._REGISTRY["adam"]
+
+    def marked(ctx, ins, attrs):
+        with record_function("amp/adam"):
+            return adam.lowering(ctx, ins, attrs)
+    op_registry._REGISTRY["adam"] = adam._replace(lowering=marked)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+            torch.cuda.synchronize()
+    finally:
+        op_registry._REGISTRY["adam"] = adam
+    parts = {"kernels": 0.0, "cublas_bf16_products": 0.0, "casts": 0.0,
+             "other": 0.0}
+    per_kernel = dict.fromkeys(AMP_KERNELS, 0.0)
+    top, adam_us, device_us = {}, 0.0, 0.0
+    for ev in prof.events():
+        if ev.name == "amp/adam":
+            if getattr(ev, "device_type", None) != \
+                    torch.autograd.DeviceType.CUDA:
+                adam_us += float(getattr(ev, "device_time_total", 0.0)
+                                 or 0.0)
+            continue
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = float(ev.time_range.elapsed_us())
+        device_us += us
+        top[ev.name[:200]] = top.get(ev.name[:200], 0.0) + us
+        kname = next((k for k, frags in AMP_KERNELS.items()
+                      if any(f in ev.name for f in frags)), None)
+        if kname:
+            per_kernel[kname] += us
+            parts["kernels"] += us
+        elif any(f in ev.name.lower() for f in GEMM_NAMES):
+            parts["cublas_bf16_products"] += us
+        elif any(f in ev.name for f in CAST_NAMES):
+            parts["casts"] += us
+        else:
+            parts["other"] += us
+    if device_us <= 0:
+        log("amp step breakdown: the profiler recorded no device time; "
+            "device time not measured")
+        return None
+    ms = {k: v / 1e3 for k, v in parts.items()}
+    ms["adam"] = adam_us / 1e3
+    ms["elementwise"] = ms.pop("other") - ms["adam"]
+    device_ms = device_us / 1e3
+    top = sorted(top.items(), key=lambda kv: -kv[1])[:12]
+    log(f"amp step breakdown (profiled step): device {device_ms:.1f} ms of "
+        f"kernels against a {step_ms:.1f} ms unprofiled step wall (busy "
+        f"share {device_ms / step_ms:.3f}); ms "
+        f"{ {k: round(v, 3) for k, v in ms.items()} }; the four kernels ms "
+        f"{ {k: round(v / 1e3, 3) for k, v in per_kernel.items()} } | {smi}")
+    log(f"amp step: largest device kernels (us) "
+        f"{[(n, round(us, 1)) for n, us in top]}")
+    return {"device_ms": device_ms, "ms": ms,
+            "kernel_ms": {k: v / 1e3 for k, v in per_kernel.items()},
+            "share": {k: v / device_ms for k, v in ms.items()},
+            "busy": device_ms / step_ms}
+
+
+def float_state_dtypes(scope):
+    return {str(t.dtype) for t in scope.vars.values()
+            if isinstance(t, torch.Tensor) and t.is_floating_point()}
+
+
+def amp_training_phase(smi, f32_loss):
+    """Phase 7's model, weights and token batch under bf16 amp: step 1's
+    loss and gradients against the plain amp recompute and, loosely,
+    the f32 step 1; f32 masters, moments and gradients; five more Adam
+    steps; launches of the four bf16 kernels only."""
+    torch.cuda.empty_cache()
+    main, startup, cost, params_grads = build_gpt2(TRAIN_T)
+    amp.enable(main)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = token_batch(TRAIN_B, TRAIN_T, SEED + 3)
+    names = [p.name for p, _ in params_grads]
+    snapshot = {n: scope.get(n).detach().clone().requires_grad_()
+                for n in names}
+
+    zero_counts()                       # the main path starts here
+    torch.cuda.reset_peak_memory_stats()
+    t_step = time.perf_counter()
+    out = exe.run(main, feed=feed, fetch_list=[cost] + [
+        g for _, g in params_grads], scope=scope, return_numpy=False)
+    torch.cuda.synchronize()
+    step1_ms = 1e3 * (time.perf_counter() - t_step)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    loss = float(out[0][0])
+    grads = dict(zip(names, out[1:]))
+    if {str(g.dtype) for g in grads.values()} != {"torch.float32"} or \
+            float_state_dtypes(scope) != {"torch.float32"}:
+        raise AssertionError("amp: a gradient, master weight or Adam "
+                             "moment is not float32")
+    ref_loss, ref_grads = amp_reference_loss_and_grads(snapshot, feed)
+    del snapshot
+    loss_rel = abs(loss - float(ref_loss)) / abs(float(ref_loss))
+    worst = max((float((g - ref_grads[n]).abs().max())
+                 / max(float(ref_grads[n].abs().max()), 1e-30), n)
+                for n, g in grads.items())
+    vs_f32 = abs(loss - f32_loss) / abs(f32_loss)
+    log(f"amp training step 1: loss {loss:.6f} vs plain amp recompute "
+        f"{float(ref_loss):.6f} ({loss_rel:.2e} relative, tol "
+        f"{AMP_LOSS_RTOL:g}); worst gradient {worst[1]} at {worst[0]:.2e} "
+        f"of its largest element (tol {AMP_GRAD_RTOL:g}) over {len(names)} "
+        f"parameters; vs the f32 step-1 loss {f32_loss:.6f}: {vs_f32:.2e} "
+        f"relative (tol {AMP_VS_F32_RTOL:g})")
+    if not np.isfinite(loss) or loss_rel > AMP_LOSS_RTOL:
+        raise AssertionError("amp: step-1 loss differs from the plain amp "
+                             "recompute")
+    if not worst[0] <= AMP_GRAD_RTOL:
+        raise AssertionError(f"amp: gradient of {worst[1]} differs from the "
+                             f"plain amp recompute by {worst[0]:.3e}")
+    if not vs_f32 <= AMP_VS_F32_RTOL:
+        raise AssertionError("amp: step-1 loss is not within 2e-2 of f32's")
+    del ref_grads, out
+    losses, wall = [loss], []
+    for _ in range(5):
+        t_step = time.perf_counter()
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[cost],
+                                    scope=scope)[0][0]))
+        wall.append(1e3 * (time.perf_counter() - t_step))
+    counts = read_counts()              # the main path ends here
+    steps = len(losses)
+    log(f"amp training: losses {[round(x, 5) for x in losses]}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError("amp: the loss did not fall over 5 Adam steps "
+                             "on a fixed batch")
+    check_counts(counts, launches_of(
+        flash_attn_fwd_bf16=LAYERS * steps,
+        flash_attn_bwd_dq_bf16=LAYERS * steps,
+        flash_attn_bwd_dkv_bf16=LAYERS * steps,
+        lm_head_lse_bf16=steps), f"amp training T={TRAIN_T} ({steps} steps)")
+    if float_state_dtypes(scope) != {"torch.float32"}:
+        raise AssertionError("amp: master weights or moments left float32")
+    step_ms = float(np.mean(wall))
+    tokens = TRAIN_B * TRAIN_T
+    log(f"amp training: launches {counts} over {steps} steps; step wall "
+        f"{step_ms:.1f} ms (mean of steps 2-6, min {min(wall):.1f}; step 1 "
+        f"with gradient fetch {step1_ms:.1f}), {tokens / step_ms * 1e3:.0f} "
+        f"tokens/s, peak memory {peak_gb:.1f} GiB | {smi}")
+    breakdown = amp_step_breakdown(exe, main, feed, cost, scope, step_ms,
+                                   smi)
+    del scope, exe
+    torch.cuda.empty_cache()
+    return counts, {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+                    "losses": losses, "loss_rel": loss_rel,
+                    "grad_worst": worst[0], "vs_f32_rel": vs_f32,
+                    "peak_gib": peak_gb, "breakdown": breakdown}
+
+
+AMP_BATCHES = (32, 24, 16)   # bench.py's headline batch first
+
+
+def amp_batch_phase(smi):
+    """Timed only: the amp program at the reference's headline batch
+    (bench.py's bench_transformer_mfu, B 32, T 1024), or the largest of
+    AMP_BATCHES that fits on the card."""
+    for B in AMP_BATCHES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        main, startup, cost, _ = build_gpt2(TRAIN_T)
+        amp.enable(main)
+        exe, scope = pt.Executor(), pt.Scope()
+        exe.run(startup, scope=scope)
+        feed = token_batch(B, TRAIN_T, SEED + 7)
+        try:
+            exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+            torch.cuda.synchronize()
+            wall, losses = [], []
+            for _ in range(3):
+                t_step = time.perf_counter()
+                losses.append(float(exe.run(main, feed=feed,
+                                            fetch_list=[cost],
+                                            scope=scope)[0][0]))
+                wall.append(1e3 * (time.perf_counter() - t_step))
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"amp batch {B}: out of memory ({str(e)[:120]}); trying a "
+                f"smaller batch")
+            del scope, exe
+            continue
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        del scope, exe
+        torch.cuda.empty_cache()
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"amp batch {B}: non-finite loss")
+        step_ms = float(np.mean(wall))
+        tokens = B * TRAIN_T
+        log(f"amp training B {B} T {TRAIN_T}: step wall {step_ms:.1f} ms "
+            f"(mean of 3 after a warm step, min {min(wall):.1f}), "
+            f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
+            f"{peak_gb:.1f} GiB | {smi}")
+        return {"batch": B, "step_ms": step_ms,
+                "tokens_per_s": tokens / step_ms * 1e3, "peak_gib": peak_gb}
+    raise AssertionError(f"amp: none of the batches {AMP_BATCHES} fits")
+
+
 def main():
     name, smi = device_phase()
     t0 = time.perf_counter()
@@ -1497,10 +2040,14 @@ def main():
     short_counts, short_train = short_training_phase(smi)
     k6, k6_cases = int8_kernel_phase(smi)
     int8_counts, int8_serving = int8_serving_phase(smi)
+    bf16 = bf16_kernel_phase(smi)
+    amp_counts, amp_train = amp_training_phase(smi, train["losses"][0])
+    amp_batch = amp_batch_phase(smi)
     paths = {"serving": {"flash_attn_fwd": serving_k1},
              f"training_T{TRAIN_T}": train_counts,
              f"training_T{SHORT_T}": short_counts,
-             "serving_int8": int8_counts}
+             "serving_int8": int8_counts,
+             f"training_amp_T{TRAIN_T}": amp_counts}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ALL_KERNELS}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()}
@@ -1547,9 +2094,19 @@ def main():
                 f"({LAYERS} x qkv, proj, ffn_up, ffn_down + lm head) at M "
                 f"{SERVE_B * TRAIN_T}",
         **k6, "cases": k6_cases})
+    for kname, r in bf16.items():
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": ("paddle_tpu_torch/csrc/lm_head_lse_bf16.cu"
+                       if kname == "lm_head_lse_bf16" else
+                       "paddle_tpu_torch/csrc/flash_attn_bf16.cu"),
+            "design": BF16_DESIGN[kname], "launches": launches[kname],
+            "launches_by_path": by_path[kname], **r})
     print(json.dumps({"kernels": kernels, "training": train,
                       "training_short": short_train,
-                      "serving_int8": int8_serving}), flush=True)
+                      "serving_int8": int8_serving,
+                      "training_amp": amp_train,
+                      "training_amp_batch": amp_batch}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

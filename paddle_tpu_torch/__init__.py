@@ -43,6 +43,12 @@ matmul as a Hopper kernel):
     pt.io.save_inference_model("m", ["tokens"], [ids], exe, main, scope)
     pt.quant.quantize_inference_model("m", "m.int8")
     python -m paddle_tpu_torch serve --model_dir m.int8   # POST /v1/infer
+
+bf16 mixed-precision training (slice 6: the reference's explicit role
+casts, f32 master weights and Adam; the flash-attention forward and
+split backward and the lm-head log-sum-exp as bf16 Hopper kernels):
+
+    pt.amp.enable(main)                 # before the first exe.run(main)
 """
 
 from . import framework
@@ -51,12 +57,12 @@ from .framework import (CPUPlace, CUDAPlace, Program, default_main_program,
                         reset_default_programs)
 from .executor import Executor, Scope, global_scope, scope_guard
 from .backward import append_backward
-from . import initializer, layers, models, optimizer, regularizer
+from . import amp, initializer, layers, models, optimizer, regularizer
 from . import io, quant
 from .optimizer import AdamOptimizer, SGDOptimizer
 from .param_attr import ParamAttr
 
-__all__ = ["framework", "CPUPlace", "CUDAPlace", "Program",
+__all__ = ["amp", "framework", "CPUPlace", "CUDAPlace", "Program",
            "default_main_program", "default_startup_program",
            "program_guard", "reset_default_programs", "Executor", "Scope",
            "global_scope", "scope_guard", "append_backward", "initializer",

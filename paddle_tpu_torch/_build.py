@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # every csrc/*.cu the port's paths launch
 KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "lm_head_lse",
-                  "int8_matmul")
+                  "int8_matmul", "flash_attn_bf16", "lm_head_lse_bf16")
 
 _lock = threading.Lock()
 _loaded = {}

@@ -14,13 +14,16 @@ __all__ = ["resolve_device", "use_full_f32"]
 
 
 def use_full_f32():
-    """Pin float32 matmuls and convolutions to full float32. The JAX
-    engine computes in f32 end to end; on the card PyTorch would run
-    cuDNN convolutions (and, if a caller flipped it, cuBLAS matmuls) in
-    TF32, which keeps about three decimal digits. Both switches are set
-    explicitly, not left to their defaults."""
+    """Pin float32 matmuls and convolutions to full float32, and bf16
+    matmuls to f32 reductions. The JAX engine computes in f32 end to
+    end and accumulates bf16 products in f32; on the card PyTorch would
+    run cuDNN convolutions (and, if a caller flipped it, cuBLAS matmuls)
+    in TF32, which keeps about three decimal digits, and lets cuBLAS
+    reduce a bf16 matmul's split-K partials in bf16. The switches are
+    set explicitly, not left to their defaults."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device=None):

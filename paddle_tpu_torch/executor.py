@@ -28,6 +28,7 @@ import contextlib
 import numpy as np
 import torch
 
+from . import amp as amp_mod
 from . import framework
 from ._device import resolve_device, use_full_f32
 from .framework import CPUPlace, CUDAPlace
@@ -89,6 +90,16 @@ def host_cast_feed(program, name, arr):
     return arr
 
 
+def _to_numpy(t):
+    """A fetched tensor as numpy. numpy has no bfloat16, so a bf16 var
+    (an amp activation) comes back upcast to float32, exactly; the JAX
+    package returns an ml_dtypes bfloat16 array there."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
 def _place_device(place):
     """Executor place -> torch device: None (the card), CPUPlace,
     CUDAPlace(i), or a device string."""
@@ -145,7 +156,7 @@ class Executor:
         for name in state_out:
             scope.set(name, env[name])
         if return_numpy:
-            return [f.detach().cpu().numpy() for f in fetches]
+            return [_to_numpy(f) for f in fetches]
         return fetches
 
     # -- analysis -----------------------------------------------------------
@@ -205,8 +216,12 @@ class Executor:
         ins = {slot: [ctx.lookup(n) for n in names if n]
                for slot, names in op.inputs.items() if any(names)}
         if op.id in taped and opdef.differentiable:
+            # amp casts happen INSIDE the tape (grad.py) so gradients
+            # come back in the original (f32 master) dtypes
             outs = grad_mod.lower_with_tape(ctx, op, opdef, ins, op.attrs)
         else:
+            if ctx.amp_dtype is not None:
+                ins = amp_mod.cast_ins(op.type, ins, ctx.amp_dtype)
             with torch.no_grad():
                 outs = opdef.lowering(ctx, ins, dict(op.attrs))
         for slot, names in op.outputs.items():

@@ -353,8 +353,11 @@ class Program:
         return cloned
 
     def to_dict(self):
-        return {"blocks": [b.to_dict() for b in self.blocks],
-                "version": self.version}
+        d = {"blocks": [b.to_dict() for b in self.blocks],
+             "version": self.version}
+        if getattr(self, "_amp_dtype", None) is not None:
+            d["amp_dtype"] = self._amp_dtype
+        return d
 
     @staticmethod
     def from_dict(d) -> "Program":
@@ -387,6 +390,7 @@ class Program:
             prog.blocks.append(blk)
         if not prog.blocks:
             prog.blocks = [Block(prog, 0)]
+        prog._amp_dtype = d.get("amp_dtype")
         return prog
 
 

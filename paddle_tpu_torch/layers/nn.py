@@ -1,8 +1,8 @@
 """Neural-network layers (the port's copy of the part of
 `paddle_tpu/layers/nn.py` the GPT-2 training program calls: fc,
 embedding, layer_norm, the fused lm-head cross-entropy, mean and the
-fused attention). Layer functions build IR; the work happens in the op
-lowerings (ops/)."""
+fused attention; and square_error_cost, for regressions). Layer
+functions build IR; the work happens in the op lowerings (ops/)."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from ..initializer import ConstantInitializer, XavierInitializer
 from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "layer_norm", "fused_lm_head_xent", "mean",
-           "scaled_dot_product_attention"]
+           "square_error_cost", "scaled_dot_product_attention"]
 
 
 def _num_cols(input, num_flatten_dims):
@@ -128,6 +128,15 @@ def mean(x, name=None):
     helper = LayerHelper("mean", name=name)
     out = helper.create_tmp_variable(x.dtype)
     helper.append_op("mean", {"X": [x.name]}, {"Out": [out.name]}, {})
+    return out
+
+
+def square_error_cost(input, label, name=None):
+    helper = LayerHelper("square_error_cost", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("square_error_cost",
+                     {"X": [input.name], "Y": [label.name]},
+                     {"Out": [out.name]}, {})
     return out
 
 

@@ -6,7 +6,9 @@ The reference elects its Pallas flash kernels on the TPU only
 otherwise runs plain attention. The port has one route: the flash
 function over the packed [B, T, n*D] planes (`flash_attention_plane`,
 viewed head-major by strides with no copy), whose wrappers launch K1 and
-the K2-K4 backward on the card and run their plain versions on the CPU.
+the K2-K4 backward on the card (the bf16 K1 and K3 + K4 under amp, where
+the op's compute role casts q, k and v to bf16) and run their plain
+versions on the CPU.
 """
 
 from __future__ import annotations

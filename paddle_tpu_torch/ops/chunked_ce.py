@@ -5,13 +5,16 @@ hand-written Hopper kernel.
 loss[i] = logsumexp(x[i] @ w) - (x[i] @ w)[labels[i]], with the [N, V]
 logits never materialized in the forward: the picked logit is one
 row-gather of w^T and a rowwise dot, and the lse comes from
-`lm_head_lse` — K5 (`csrc/lm_head_lse.cu`, the counterpart of
+`lm_head_lse` — K5 (`csrc/lm_head_lse.cu` for f32 operands,
+`csrc/lm_head_lse_bf16.cu` for bf16 amp operands; the counterparts of
 `_lse_kernel`) on a CUDA tensor, its plain chunked version on a CPU
 tensor. The reference elects its Pallas lse with a flag and a VMEM gate
 (`resolve_lse_mode`, `_lse_supports`); the port uses the kernel whenever
 the tensors are on the card. The backward (`_xent_bwd`) is plain torch
 matmuls over vocab chunks, as the reference leaves it to XLA: it reads
-only the lse residual and recomputes each chunk's logits.
+only the lse residual and recomputes each chunk's logits. Under amp the
+operands are bf16 and every product gives f32 (`_mm_f32`), the
+reference's preferred_element_type.
 """
 
 from __future__ import annotations
@@ -23,8 +26,8 @@ import torch
 
 from .registry import register_op
 
-__all__ = ["lm_head_lse", "lm_head_lse_plain", "chunked_lm_head_xent",
-           "auto_chunks", "LSE_MAX_H"]
+__all__ = ["lm_head_lse", "lm_head_lse_bf16", "lm_head_lse_plain",
+           "chunked_lm_head_xent", "auto_chunks", "LSE_MAX_H"]
 
 LSE_MAX_H = 768         # K5 keeps the [H, 64] row tile in shared memory
 
@@ -52,9 +55,14 @@ def lm_head_lse_plain(x, w, chunk=4096):
     return m + torch.log(s)
 
 
-def _lse_lib():
+def _lse_lib(dtype):
+    """The C entry of K5 for `dtype`: f32 (`lm_head_lse.cu`) or bf16
+    (`lm_head_lse_bf16.cu`); both take the same arguments."""
     from .._build import load_library
-    fn = load_library("lm_head_lse").pt_lm_head_lse_f32
+    if dtype == torch.bfloat16:
+        fn = load_library("lm_head_lse_bf16").pt_lm_head_lse_bf16
+    else:
+        fn = load_library("lm_head_lse").pt_lm_head_lse_f32
     if fn.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [vp, vp, vp, i, i, i, ll, ll, vp]
@@ -62,10 +70,34 @@ def _lse_lib():
     return fn
 
 
+def _check_kernel_operands(x, w):
+    """What K5 takes (x and w both float32 or both bfloat16, row-major,
+    16-byte aligned rows, H up to LSE_MAX_H); raises on anything
+    else."""
+    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
+        raise TypeError(f"lm_head_lse kernel takes float32 or bfloat16 x "
+                        f"and w of one dtype, got {x.dtype} and {w.dtype}")
+    if x.stride(1) != 1 or w.stride(1) != 1:
+        raise ValueError("lm_head_lse kernel takes row-major x and w")
+    per16 = 16 // x.element_size()
+    H = x.shape[1]
+    if H % per16 or x.stride(0) % per16 or x.data_ptr() % 16 \
+            or H > LSE_MAX_H:
+        raise ValueError(f"lm_head_lse kernel takes H a multiple of "
+                         f"{per16} up to {LSE_MAX_H} with 16-byte aligned "
+                         f"rows, got H={H}, row stride {x.stride(0)}")
+    if x.dtype == torch.bfloat16 and (w.shape[1] % per16 or w.stride(0)
+                                      % per16 or w.data_ptr() % 16):
+        raise ValueError(f"the bf16 lm_head_lse kernel streams w in 16-byte "
+                         f"rows: V and w's row stride must be multiples of "
+                         f"{per16}, got V={w.shape[1]}, row stride "
+                         f"{w.stride(0)}")
+
+
 def lm_head_lse(x, w):
     """Per-row log-sum-exp of x [N, H] @ w [H, V] -> [N] f32. CUDA
-    tensors run K5 (or raise), CPU tensors the plain version, meta
-    tensors give the shape."""
+    tensors run K5 of their dtype (or raise), CPU tensors the plain
+    version, meta tensors give the shape."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"lm_head_lse takes x [N, H] and w [H, V], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -80,37 +112,54 @@ def lm_head_lse(x, w):
         return torch.empty((N,), dtype=torch.float32, device="meta")
     if x.device.type != "cuda":
         raise ValueError(f"lm_head_lse: unsupported device {x.device}")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError(f"lm_head_lse kernel takes float32 x and w, got "
-                        f"{x.dtype} and {w.dtype}")
-    if x.stride(1) != 1 or w.stride(1) != 1:
-        raise ValueError("lm_head_lse kernel takes row-major x and w")
-    if H % 4 or x.stride(0) % 4 or x.data_ptr() % 16 or H > LSE_MAX_H:
-        raise ValueError(f"lm_head_lse kernel takes H a multiple of 4 up "
-                         f"to {LSE_MAX_H} with 16-byte aligned rows, got "
-                         f"H={H}, row stride {x.stride(0)}")
+    _check_kernel_operands(x, w)
     lse = torch.empty((N,), dtype=torch.float32, device=x.device)
     if N == 0 or V == 0:
         return lse
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _lse_lib()(x.data_ptr(), w.data_ptr(), lse.data_ptr(), N, H, V,
-                    x.stride(0), w.stride(0), stream)
+    rc = _lse_lib(x.dtype)(x.data_ptr(), w.data_ptr(), lse.data_ptr(), N,
+                           H, V, x.stride(0), w.stride(0), stream)
     if rc != 0:
-        raise RuntimeError(f"lm_head_lse kernel launch failed: cudaError "
-                           f"{rc} (N={N}, H={H}, V={V})")
-    lm_head_lse.launches += 1
+        raise RuntimeError(f"lm_head_lse ({x.dtype}) kernel launch failed: "
+                           f"cudaError {rc} (N={N}, H={H}, V={V})")
+    bf16 = x.dtype == torch.bfloat16
+    (lm_head_lse_bf16 if bf16 else lm_head_lse).launches += 1
     return lse
 
 
-# kernel launches made through this wrapper (the main-path proof)
+def lm_head_lse_bf16(x, w):
+    """`lm_head_lse` for bf16 operands (TypeError for any other); its
+    `launches` counts the bf16 K5's launches."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"lm_head_lse_bf16 takes bfloat16 x and w, got "
+                        f"{x.dtype}")
+    return lm_head_lse(x, w)
+
+
+# kernel launches made through these wrappers (the main-path proof): the
+# f32 K5 on lm_head_lse, the bf16 K5 on lm_head_lse_bf16
 lm_head_lse.launches = 0
+lm_head_lse_bf16.launches = 0
+
+
+def _mm_f32(a, b):
+    """a @ b with an f32 result, whatever the operands' float type: bf16
+    operands on the card run cuBLAS's bf16 tensor-core product with f32
+    output (the reference's preferred_element_type=f32); on the CPU, and
+    for f32 operands, the operands are upcast (a bf16 x bf16 product is
+    exact in f32)."""
+    if a.dtype == torch.bfloat16 and a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
 
 
 def _xent_bwd(x, w, labels, lse, g, C):
     """d_logits = (softmax - onehot) * g, formed chunk-wise from
     recomputed chunk logits (the reference's `_xent_bwd`): dx
     accumulates over the chunks, each chunk writes its [H, Vc] slice of
-    dw."""
+    dw. The products take x's dtype and give f32; d is rounded to x's
+    dtype before its two products, dx returns in x's dtype and dw in
+    w's, as the reference's."""
     N, H = x.shape
     V = w.shape[1]
     Vc = -(-V // C)
@@ -118,16 +167,16 @@ def _xent_bwd(x, w, labels, lse, g, C):
     dx = torch.zeros((N, H), dtype=torch.float32, device=x.device)
     dw = torch.empty((H, V), dtype=torch.float32, device=x.device)
     for c0 in range(0, V, Vc):
-        wc = w[:, c0:c0 + Vc].float()
-        p = torch.exp(torch.matmul(x.float(), wc) - lse[:, None])
+        wc = w[:, c0:c0 + Vc]
+        p = torch.exp(_mm_f32(x, wc) - lse[:, None])
         # minus the one-hot of each label that falls in this chunk
         local = labels - c0
         hit = (local >= 0) & (local < wc.shape[1])
         p.scatter_add_(1, local.clamp(0, wc.shape[1] - 1)[:, None],
                        -hit.to(p.dtype)[:, None])
-        d = p * gf[:, None]
-        dx += torch.matmul(d, wc.t())
-        dw[:, c0:c0 + Vc] = torch.matmul(x.float().t(), d)
+        d = (p * gf[:, None]).to(x.dtype)
+        dx += _mm_f32(d, wc.t())
+        dw[:, c0:c0 + Vc] = _mm_f32(x.t(), d)
     return dx.to(x.dtype), dw.to(w.dtype)
 
 

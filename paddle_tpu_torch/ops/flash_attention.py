@@ -28,12 +28,28 @@ takes K3 + K4.
 head-major by strides, no copy) whose forward is K1 and whose backward
 is the route above.
 
+Operands are float32 or bfloat16 (amp training). bf16 runs the
+reference's roundings: products take bf16 operands and accumulate in
+f32; P (forward, and K4's P^T.dO) and dS (K3, K4) are rounded to bf16
+before the next product; O and the gradients are rounded once at the
+end; LSE and delta stay f32. K1 (Tq > 1), K3 and K4 have bf16 kernels
+(`csrc/flash_attn_bf16.cu`) with their own launch counters
+(`flash_attn_fwd_bf16`, `flash_attn_bwd_dq_bf16`,
+`flash_attn_bwd_dkv_bf16`); the fused K2 and the decode step (Tq = 1)
+have none yet and raise for bf16 on the card.
+
+Head dims: the kernels take D in `KERNEL_HEAD_DIMS` (forward) and
+`BWD_HEAD_DIMS` (backward); on the card a smaller D is zero-padded up to
+the next of them, as the reference's `_pad_d` does (padded columns add
+zero to q.k; O's and the gradients' padded columns are zero and sliced
+off; the softmax scale is the original D's). D > 64 raises.
+
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
-(`csrc/flash_attn_fwd.cu`, `csrc/flash_attn_bwd.cu`, built by nvcc on
-first use) or raises; it never falls back. The plain PyTorch versions
-are the references the kernels are held to, and the path for CPU
-tensors only; on `meta` tensors (build-time shape inference) the
-wrappers compute shapes only.
+(`csrc/flash_attn_fwd.cu`, `csrc/flash_attn_bwd.cu`,
+`csrc/flash_attn_bf16.cu`, built by nvcc on first use) or raises; it
+never falls back. The plain PyTorch versions are the references the
+kernels are held to, and the path for CPU tensors only; on `meta`
+tensors (build-time shape inference) the wrappers compute shapes only.
 """
 
 from __future__ import annotations
@@ -47,8 +63,10 @@ __all__ = ["flash_attn_fwd", "flash_attn_fwd_plain", "flash_attn_bwd",
            "flash_attn_bwd_fused", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
            "flash_attn_bwd_dq_plain", "flash_attn_bwd_dkv_plain",
            "flash_attn_bwd_fused_plain", "flash_attention_plane",
-           "bwd_route", "KERNEL_HEAD_DIMS", "BWD_HEAD_DIMS", "BWD_TILE",
-           "NEG"]
+           "flash_attn_fwd_bf16", "flash_attn_bwd_dq_bf16",
+           "flash_attn_bwd_dkv_bf16", "flash_attn_fwd_padded",
+           "flash_attn_bwd_padded", "kernel_head_dim", "bwd_route",
+           "KERNEL_HEAD_DIMS", "BWD_HEAD_DIMS", "BWD_TILE", "NEG"]
 
 NEG = -1e30
 KERNEL_HEAD_DIMS = (32, 64)
@@ -61,7 +79,8 @@ def flash_attn_fwd_plain(q, k, v, kv_len, q_start, causal=True,
                          scale=None):
     """Masked f32 softmax over the full key axis — the arithmetic of
     `_cached_block` (transformer_ops.py) with K1's zeroing of fully
-    masked rows. Same signature and outputs as `flash_attn_fwd`."""
+    masked rows; bf16 operands take K1's roundings (module docstring).
+    Same signature and outputs as `flash_attn_fwd`."""
     B, n, Tq, D = q.shape
     Tk = k.shape[2]
     if scale is None:
@@ -81,7 +100,10 @@ def flash_attn_fwd_plain(q, k, v, kv_len, q_start, causal=True,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     den = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p / den, v.float())
+    if q.dtype == torch.float32:
+        o = torch.matmul(p / den, v.float())
+    else:   # K1's roundings: P to the operand type before P.V, / den after
+        o = torch.matmul(p.to(q.dtype).float(), v.float()) / den
     lse = (m + torch.log(den))[..., 0]
     live = mask.any(dim=-1)                                     # [B,1,Tq]
     o = torch.where(live[..., None], o, torch.zeros((), device=dev))
@@ -108,33 +130,77 @@ def _check(q, k, v, kv_len, q_start):
                          f"{sorted(map(str, devs))}")
 
 
-def _check_kernel_operands(q, k, v, kv_len, q_start):
-    """What the CUDA kernel takes; raises on anything else."""
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_kernel_operands(q, k, v, kv_len, q_start, dims=KERNEL_HEAD_DIMS):
+    """What the CUDA kernels take (float32 or bfloat16 q/k/v of one
+    dtype, 16-byte aligned rows, D in `dims`); raises on anything
+    else."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"flash_attn_fwd kernel takes float32 {name}, "
-                            f"got {t.dtype}")
+        if t.dtype not in _KERNEL_DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"flash-attention kernels take float32 or "
+                            f"bfloat16 q/k/v of one dtype, got {name} "
+                            f"{t.dtype} (q {q.dtype})")
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous along D "
                              f"(stride {t.stride(3)})")
-        if any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        per16 = 16 // t.element_size()
+        if any(s % per16 for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"{name} strides {t.stride()} / pointer must "
-                             "be 16-byte aligned rows (strides multiple "
-                             "of 4 elements)")
+                             f"be 16-byte aligned rows (strides multiple "
+                             f"of {per16} elements)")
     for name, t in (("kv_len", kv_len), ("q_start", q_start)):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"{name} must be a contiguous int32 tensor, "
                             f"got {t.dtype}")
     D = q.shape[3]
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attn_fwd kernel supports head dims "
-                         f"{KERNEL_HEAD_DIMS}, got D={D}")
+    if D not in dims:
+        raise ValueError(f"flash-attention kernels support head dims "
+                         f"{dims}, got D={D}")
 
 
-def _lib():
+def kernel_head_dim(D, dims):
+    """The head dim the kernels run D at: the smallest of `dims` that
+    is >= D (the reference's `_pad_d` pads D the same way, to its own
+    lane multiple). Raises for D above the largest."""
+    for Dp in dims:
+        if D <= Dp:
+            return Dp
+    raise ValueError(f"flash-attention kernels support head dims up to "
+                     f"{dims[-1]} (a smaller D is zero-padded to one of "
+                     f"{dims}), got D={D}")
+
+
+def _pad_d(ts, Dp):
+    """Zero-pad [..., D] tensors along D to Dp (a copy only when
+    D != Dp)."""
+    return [t if t.shape[-1] == Dp else
+            torch.nn.functional.pad(t, (0, Dp - t.shape[-1])) for t in ts]
+
+
+def flash_attn_fwd_padded(fwd, q, k, v, kv_len, q_start, causal, scale):
+    """`fwd` (a forward wrapper or its plain version) run at the kernel
+    head dim: q, k, v zero-padded along D, O's padded columns sliced
+    off. `scale` is the original D's; padded columns add zero to q.k,
+    so S, P, the LSE and O's first D columns are unchanged."""
+    D = q.shape[3]
+    Dp = kernel_head_dim(D, KERNEL_HEAD_DIMS)
+    if Dp == D:
+        return fwd(q, k, v, kv_len, q_start, causal, scale)
+    o, lse = fwd(*_pad_d((q, k, v), Dp), kv_len, q_start, causal, scale)
+    return o[..., :D], lse
+
+
+def _lib(dtype):
+    """The C entry of the forward kernel for `dtype`: the f32 K1
+    (`flash_attn_fwd.cu`) or the bf16 K1 (`flash_attn_bf16.cu`); both
+    take the same arguments."""
     from .._build import load_library
-    lib = load_library("flash_attn_fwd")
-    fn = lib.pt_flash_attn_fwd_f32
+    if dtype == torch.bfloat16:
+        fn = load_library("flash_attn_bf16").pt_flash_attn_fwd_bf16
+    else:
+        fn = load_library("flash_attn_fwd").pt_flash_attn_fwd_f32
     if fn.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = ([vp] * 7 + [i] * 5 + [ll] * 12
@@ -144,36 +210,48 @@ def _lib():
 
 
 def _launch(q, k, v, kv_len, q_start, causal, scale):
-    """Allocate outputs and launch the kernel on the current stream.
-    O is allocated in the packed [B, Tq, n, D] plane and returned as its
+    """Allocate outputs and launch the kernel of q's dtype on the
+    current stream, counting the launch on that kernel's wrapper. O is
+    allocated in the packed [B, Tq, n, D] plane and returned as its
     [B, n, Tq, D] view, so the caller's merge of heads is free."""
     B, n, Tq, D = q.shape
     Tk = k.shape[2]
-    o_plane = torch.empty((B, Tq, n, D), dtype=torch.float32,
-                          device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and Tq == 1:
+        raise NotImplementedError(
+            "flash_attn_fwd: the bf16 K1 takes Tq > 1; the bf16 decode "
+            "step (Tq = 1) has no kernel yet")
+    o_plane = torch.empty((B, Tq, n, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, n, Tq), dtype=torch.float32, device=q.device)
     o = o_plane.permute(0, 2, 1, 3)
     if B == 0 or n == 0 or Tq == 0:
         return o, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                kv_len.data_ptr(), q_start.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), B, n, Tq, Tk, D,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *o.stride()[:3], int(bool(causal)), float(scale), stream)
+    rc = _lib(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       kv_len.data_ptr(), q_start.data_ptr(), o.data_ptr(),
+                       lse.data_ptr(), B, n, Tq, Tk, D,
+                       *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                       *o.stride()[:3], int(bool(causal)), float(scale),
+                       stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attn_fwd kernel launch failed: "
-                           f"{'unsupported head dim' if rc == -1 else ''}"
+        raise RuntimeError(f"flash_attn_fwd ({q.dtype}) kernel launch "
+                           f"failed: "
+                           f"{'unsupported shape ' if rc < 0 else ''}"
                            f"cudaError {rc} (B={B}, n={n}, Tq={Tq}, "
                            f"Tk={Tk}, D={D})")
-    flash_attn_fwd.launches += 1
+    (flash_attn_fwd_bf16 if bf16 else flash_attn_fwd).launches += 1
     return o, lse
+
+
+def _checked_launch(q, k, v, kv_len, q_start, causal, scale):
+    _check_kernel_operands(q, k, v, kv_len, q_start)
+    return _launch(q, k, v, kv_len, q_start, causal, scale)
 
 
 def flash_attn_fwd(q, k, v, kv_len, q_start, causal=True, scale=None):
     """Attention forward with per-batch kv_len and query offset; see the
-    module docstring. CUDA tensors run the Hopper kernel (or raise),
-    CPU tensors run `flash_attn_fwd_plain`."""
+    module docstring. CUDA tensors run the Hopper kernel of their dtype
+    (or raise), CPU tensors run `flash_attn_fwd_plain`."""
     _check(q, k, v, kv_len, q_start)
     if scale is None:
         scale = 1.0 / float(np.sqrt(q.shape[3]))
@@ -186,12 +264,30 @@ def flash_attn_fwd(q, k, v, kv_len, q_start, causal=True, scale=None):
                 torch.empty((B, n, Tq), dtype=torch.float32, device="meta"))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_fwd: unsupported device {q.device}")
-    _check_kernel_operands(q, k, v, kv_len, q_start)
-    return _launch(q, k, v, kv_len, q_start, causal, scale)
+    return flash_attn_fwd_padded(_checked_launch, q, k, v, kv_len, q_start,
+                                 causal, scale)
 
 
-# kernel launches made through this wrapper (the main-path proof)
+def _bf16_only(wrapper, name):
+    """The bf16 face of a dtype-dispatching wrapper: the same function
+    for bf16 operands, a TypeError for any other; its `launches` counts
+    the bf16 kernel's launches."""
+
+    def bf16_wrapper(q, *args, **kwargs):
+        if q.dtype != torch.bfloat16:
+            raise TypeError(f"{name} takes bfloat16 operands, got "
+                            f"{q.dtype}")
+        return wrapper(q, *args, **kwargs)
+
+    bf16_wrapper.launches = 0
+    bf16_wrapper.__name__ = name
+    return bf16_wrapper
+
+
+# kernel launches made through this wrapper (the main-path proof): the
+# f32 K1 here, the bf16 K1 on flash_attn_fwd_bf16
 flash_attn_fwd.launches = 0
+flash_attn_fwd_bf16 = _bf16_only(flash_attn_fwd, "flash_attn_fwd_bf16")
 
 
 # -- backward: K2 (fused), K3 (dq), K4 (dk, dv) ------------------------------
@@ -218,14 +314,17 @@ def flash_attn_bwd_fused_plain(q, k, v, do, lse, delta, kv_len,
                                causal=True, scale=None):
     """K2's function on full matrices, from one rebuild of p: ds = p *
     (dO.V^T - delta), dq = scale * ds.K, dk = scale * ds^T.Q, dv =
-    p^T.dO."""
+    p^T.dO. For bf16 operands p and ds are rounded to bf16 before the
+    products they feed (dv, and dq / dk), as the reference kernels
+    round them; for f32 the rounding is the identity."""
     scale = _scale_of(q, scale)
     p = _bwd_probs(q, k, lse, kv_len, causal, scale)
     ds = p * (torch.matmul(do.float(), v.float().transpose(-1, -2))
               - delta[..., None])
+    ds, pr = (t.to(q.dtype).float() for t in (ds, p))
     dq = scale * torch.matmul(ds, k.float())
     dk = scale * torch.matmul(ds.transpose(-1, -2), q.float())
-    dv = torch.matmul(p.transpose(-1, -2), do.float())
+    dv = torch.matmul(pr.transpose(-1, -2), do.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -267,19 +366,40 @@ def _check_bwd(q, k, v, do, lse, delta, kv_len):
 
 
 def _check_bwd_kernel(q, k, v, do, lse, delta, kv_len):
-    _check_kernel_operands(q, k, v, kv_len, kv_len)
-    _check_kernel_operands(do, k, v, kv_len, kv_len)
+    _check_kernel_operands(q, k, v, kv_len, kv_len, BWD_HEAD_DIMS)
+    _check_kernel_operands(do, k, v, kv_len, kv_len, BWD_HEAD_DIMS)
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise TypeError(f"{name} must be a contiguous float32 tensor")
-    if q.shape[3] not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash-attention backward kernels support head "
-                         f"dims {BWD_HEAD_DIMS}, got D={q.shape[3]}")
 
 
-def _bwd_lib():
+def flash_attn_bwd_padded(bwd, q, k, v, do, lse, delta, kv_len, causal,
+                          scale):
+    """`bwd` (a backward wrapper or its plain version) run at the
+    kernels' head dim: q, k, v, dO zero-padded along D, the gradients'
+    padded columns (zero) sliced off. `scale` is the original D's, and
+    delta = rowsum(dO * O) is the same with or without the zero
+    columns."""
+    D = q.shape[3]
+    Dp = kernel_head_dim(D, BWD_HEAD_DIMS)
+    if Dp == D:
+        return bwd(q, k, v, do, lse, delta, kv_len, causal, scale)
+    out = bwd(*_pad_d((q, k, v, do), Dp), lse, delta, kv_len, causal,
+              scale)
+    if isinstance(out, torch.Tensor):
+        return out[..., :D]
+    return tuple(g[..., :D] for g in out)
+
+
+def _bwd_lib(dtype):
+    """The C entry of the backward kernels for `dtype`: K2-K4 in f32
+    (`flash_attn_bwd.cu`), K3 and K4 in bf16 (`flash_attn_bf16.cu`);
+    both take the same arguments."""
     from .._build import load_library
-    fn = load_library("flash_attn_bwd").pt_flash_attn_bwd_f32
+    if dtype == torch.bfloat16:
+        fn = load_library("flash_attn_bf16").pt_flash_attn_bwd_bf16
+    else:
+        fn = load_library("flash_attn_bwd").pt_flash_attn_bwd_f32
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([i] + [vp] * 10 + [i] * 5
@@ -292,10 +412,10 @@ def _bwd_lib():
 _WHICH = {"fused": 0, "dq": 1, "dkv": 2}
 
 
-def _plane_grad(B, n, T, D, dev):
+def _plane_grad(B, n, T, D, dev, dtype):
     """A [B, n, T, D] gradient allocated in the packed [B, T, n, D]
     plane, so the caller's merge of heads is a free view."""
-    return torch.empty((B, T, n, D), dtype=torch.float32,
+    return torch.empty((B, T, n, D), dtype=dtype,
                        device=dev).permute(0, 2, 1, 3)
 
 
@@ -312,53 +432,50 @@ def _bwd_launch(which, q, k, v, do, lse, delta, kv_len, dq, dk, dv,
     arr = (ctypes.c_longlong * len(strides))(*strides)
     ptr = (lambda t: t.data_ptr() if t is not None else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _bwd_lib()(_WHICH[which], q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                    delta.data_ptr(), kv_len.data_ptr(), ptr(dq), ptr(dk),
-                    ptr(dv), B, n, Tq, Tk, D, arr, int(bool(causal)),
-                    float(scale), stream)
+    rc = _bwd_lib(q.dtype)(_WHICH[which], q.data_ptr(), k.data_ptr(),
+                           v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                           delta.data_ptr(), kv_len.data_ptr(), ptr(dq),
+                           ptr(dk), ptr(dv), B, n, Tq, Tk, D, arr,
+                           int(bool(causal)), float(scale), stream)
     if rc != 0:
-        raise RuntimeError(f"flash-attention backward ({which}) kernel "
-                           f"launch failed: cudaError {rc} (B={B}, n={n}, "
-                           f"Tq={Tq}, Tk={Tk}, D={D})")
+        raise RuntimeError(f"flash-attention backward ({which}, "
+                           f"{q.dtype}) kernel launch failed: cudaError "
+                           f"{rc} (B={B}, n={n}, Tq={Tq}, Tk={Tk}, D={D})")
 
 
 def _bwd_wrapper(which, plain):
     """The wrapper of one backward kernel: validates, routes CPU tensors
     to the plain version and meta tensors to shapes, launches the kernel
-    on CUDA tensors (or raises) and counts the launch."""
+    of the operands' dtype on CUDA tensors (or raises; a D below the
+    kernels' is zero-padded) and counts the launch on that kernel's
+    wrapper."""
 
-    def wrapper(q, k, v, do, lse, delta, kv_len, causal=True, scale=None):
-        _check_bwd(q, k, v, do, lse, delta, kv_len)
-        scale = _scale_of(q, scale)
-        if q.device.type == "cpu":
-            return plain(q, k, v, do, lse, delta, kv_len, causal, scale)
+    def launch(q, k, v, do, lse, delta, kv_len, causal, scale):
+        _check_bwd_kernel(q, k, v, do, lse, delta, kv_len)
+        bf16 = q.dtype == torch.bfloat16
+        if bf16 and which == "fused":
+            raise NotImplementedError(
+                "flash_attn_bwd_fused: the fused backward K2 has no bf16 "
+                "kernel yet (Tk <= 256 takes K2); bf16 runs the split "
+                "K3 + K4 only")
+        counter = _BF16_TWINS[which] if bf16 else wrapper
         B, n, Tq, D = q.shape
         Tk = k.shape[2]
-        if q.device.type == "meta":
-            like = {"dq": (q,), "dkv": (k, v), "fused": (q, k, v)}[which]
-            outs = tuple(torch.empty(t.shape, dtype=t.dtype, device="meta")
-                         for t in like)
-            return outs[0] if which == "dq" else outs
-        if q.device.type != "cuda":
-            raise ValueError(f"flash-attention backward: unsupported "
-                             f"device {q.device}")
-        _check_bwd_kernel(q, k, v, do, lse, delta, kv_len)
         dev = q.device
         if which == "dq":
-            dq = _plane_grad(B, n, Tq, D, dev)
+            dq = _plane_grad(B, n, Tq, D, dev, q.dtype)
             if B and n and Tq:
                 _bwd_launch("dq", q, k, v, do, lse, delta, kv_len, dq,
                             None, None, causal, scale)
-                wrapper.launches += 1
+                counter.launches += 1
             return dq
-        dk = _plane_grad(B, n, Tk, D, dev)
-        dv = _plane_grad(B, n, Tk, D, dev)
+        dk = _plane_grad(B, n, Tk, D, dev, k.dtype)
+        dv = _plane_grad(B, n, Tk, D, dev, v.dtype)
         if which == "dkv":
             if B and n and Tk:
                 _bwd_launch("dkv", q, k, v, do, lse, delta, kv_len, None,
                             dk, dv, causal, scale)
-                wrapper.launches += 1
+                counter.launches += 1
             return dk, dv
         nk = -(-Tk // BWD_TILE)
         # per-kv-tile dq partials [nk, B, Tq, n, D], summed below in a
@@ -370,9 +487,25 @@ def _bwd_wrapper(which, plain):
         if B and n and Tk:
             _bwd_launch("fused", q, k, v, do, lse, delta, kv_len, part_h,
                         dk, dv, causal, scale, tile_stride=part.stride(0))
-            wrapper.launches += 1
+            counter.launches += 1
         dq = part.sum(0).permute(0, 2, 1, 3) if nk > 1 else part_h[0]
         return dq, dk, dv
+
+    def wrapper(q, k, v, do, lse, delta, kv_len, causal=True, scale=None):
+        _check_bwd(q, k, v, do, lse, delta, kv_len)
+        scale = _scale_of(q, scale)
+        if q.device.type == "cpu":
+            return plain(q, k, v, do, lse, delta, kv_len, causal, scale)
+        if q.device.type == "meta":
+            like = {"dq": (q,), "dkv": (k, v), "fused": (q, k, v)}[which]
+            outs = tuple(torch.empty(t.shape, dtype=t.dtype, device="meta")
+                         for t in like)
+            return outs[0] if which == "dq" else outs
+        if q.device.type != "cuda":
+            raise ValueError(f"flash-attention backward: unsupported "
+                             f"device {q.device}")
+        return flash_attn_bwd_padded(launch, q, k, v, do, lse, delta,
+                                     kv_len, causal, scale)
 
     wrapper.launches = 0        # kernel launches (the main-path proof)
     wrapper.__name__ = f"flash_attn_bwd_{which}"
@@ -382,6 +515,13 @@ def _bwd_wrapper(which, plain):
 flash_attn_bwd_fused = _bwd_wrapper("fused", flash_attn_bwd_fused_plain)
 flash_attn_bwd_dq = _bwd_wrapper("dq", flash_attn_bwd_dq_plain)
 flash_attn_bwd_dkv = _bwd_wrapper("dkv", flash_attn_bwd_dkv_plain)
+# the bf16 K3 and K4: the same wrappers for bf16 operands, each counting
+# its own kernel's launches
+flash_attn_bwd_dq_bf16 = _bf16_only(flash_attn_bwd_dq,
+                                    "flash_attn_bwd_dq_bf16")
+flash_attn_bwd_dkv_bf16 = _bf16_only(flash_attn_bwd_dkv,
+                                     "flash_attn_bwd_dkv_bf16")
+_BF16_TWINS = {"dq": flash_attn_bwd_dq_bf16, "dkv": flash_attn_bwd_dkv_bf16}
 
 
 def flash_attn_bwd(q, k, v, o, lse, do, kv_len, causal=True, scale=None):

@@ -43,10 +43,21 @@ def _leaf(t):
 
 def lower_with_tape(ctx, op, opdef, ins, attrs):
     """Lower a forward op under autograd and tape (inputs, outputs);
-    returns the outputs detached, for the executor's env."""
+    returns the outputs detached, for the executor's env.
+
+    Mixed precision: the amp cast is applied to the leaves INSIDE the
+    taped graph, so autograd differentiates through it and gradients
+    return in the ORIGINAL input dtypes — an f32 master weight gets an
+    f32 gradient (the bf16 one upcast by the cast's backward), not a
+    bf16-quantized one, as the reference's vjp through `astype` does.
+    """
     leaves = {slot: [_leaf(t) for t in vals] for slot, vals in ins.items()}
     with torch.enable_grad():
-        outs = opdef.lowering(ctx, leaves, dict(attrs))
+        cast = leaves
+        if ctx.amp_dtype is not None:
+            from ..amp import cast_ins
+            cast = cast_ins(op.type, leaves, ctx.amp_dtype)
+        outs = opdef.lowering(ctx, cast, dict(attrs))
     ctx.tape[op.id] = TapeEntry(leaves, outs)
     return {slot: [t.detach() if isinstance(t, torch.Tensor) else t
                    for t in vals] for slot, vals in outs.items()}

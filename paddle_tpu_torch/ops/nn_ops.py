@@ -1,5 +1,6 @@
 """NN op lowerings (the port of the part of `paddle_tpu/ops/nn_ops.py`
-the training path runs: the gelu activation and layer_norm)."""
+the training path runs: the gelu activation, layer_norm and the
+square_error_cost regression loss)."""
 
 from __future__ import annotations
 
@@ -35,3 +36,8 @@ def _layer_norm(ctx, ins, attrs):
         y = y + ins["Bias"][0].float().reshape(norm_shape)
     return {"Y": [y.to(x.dtype)],
             "Mean": [mean.squeeze()], "Variance": [var.squeeze()]}
+
+
+@register_op("square_error_cost")
+def _square_error_cost(ctx, ins, attrs):
+    return {"Out": [(ins["X"][0] - ins["Y"][0]).square()]}

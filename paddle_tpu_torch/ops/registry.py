@@ -76,16 +76,19 @@ class LoweringContext:
     env: var name -> tensor; tape: op id -> TapeEntry for grad replay;
     `generator`: the `torch.Generator` the random ops draw from, seeded
     from `Program.seed` (the counterpart of the JAX package's threaded
-    PRNG key; the two produce different numbers from the same seed).
+    PRNG key; the two produce different numbers from the same seed);
+    `amp_dtype`: the program's amp compute dtype (amp.py), or None.
     """
 
     def __init__(self, program, block, env, device, generator=None):
+        from ..amp import amp_dtype_of
         self.program = program
         self.block = block
         self.env = env
         self.device = torch.device(device)
         self.tape = {}
         self.generator = generator
+        self.amp_dtype = amp_dtype_of(program)
 
     def lookup(self, name):
         if name not in self.env:
@@ -113,6 +116,7 @@ class _MetaCtx:
     state (random ops draw on the meta device, which has none)."""
     device = torch.device("meta")
     generator = None
+    amp_dtype = None
 
     def lookup(self, name):
         raise KeyError(name)

@@ -1,0 +1,257 @@
+"""The bf16 (amp) paths of K1, K3 + K4 and K5, and the head-dim padding
+of the card's wrappers, on the CPU.
+
+Each bf16 plain version (the function its Hopper kernel is held to on
+the card) against the JAX package's Pallas kernel run in interpret mode
+with bf16 inputs: K1 forward, the split backward K3 + K4 (Tk 64 in
+8-key blocks, so the reference takes its split route), K5. And the
+padded-D route the CUDA wrappers take for a head dim below the kernels'
+(the reference's `_pad_d`), applied to CPU tensors through the same
+helpers, against Pallas at D 8, 16 and 48.
+
+Tolerances: bf16 results are compared within 1e-2 of the largest
+|reference| element, two bf16 ulps (2^-8 relative each): both sides sum
+f32 products of the same bf16 operands, in other orders, and round once
+to bf16. f32 results (the LSE, the padded f32 path) at the JAX suite's
+flash tolerance 2e-5.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import chunked_ce as jce
+from paddle_tpu.ops import pallas_attention as pal
+from paddle_tpu_torch.ops import chunked_ce as ce
+from paddle_tpu_torch.ops import flash_attention as fa
+
+BF16_REL = 1e-2
+TOL = 2e-5
+
+
+def _bf16_inputs(shapes, seed):
+    """Random tensors whose values are exact in bf16, as numpy f32 (the
+    JAX side casts them to bf16 without rounding)."""
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(*s).astype(np.float32))
+            .bfloat16().float().numpy() for s in shapes]
+
+
+def _close(got, ref, what):
+    got = np.asarray(got, np.float32)
+    ref = np.asarray(ref, np.float32)
+    err = float(np.abs(got - ref).max())
+    assert err <= BF16_REL * float(np.abs(ref).max()), (what, err)
+
+
+def _bf(x):
+    return torch.from_numpy(x).bfloat16()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,n,Tq,Tk,kv_len", [
+    (2, 2, 64, 64, [64, 64]),
+    (3, 2, 40, 72, [72, 33, 0]),      # Tq != Tk, ragged, one batch empty
+    (2, 1, 65, 65, [65, 64]),         # a 64-row / 64-key tile edge
+])
+def test_k1_bf16_plain_matches_pallas_interpret(causal, B, n, Tq, Tk,
+                                                kv_len):
+    q, k, v = _bf16_inputs([(B, n, Tq, 64), (B, n, Tk, 64),
+                            (B, n, Tk, 64)], seed=Tq + Tk)
+    ref_o, ref_lse = pal.flash_attention_with_lse(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), causal=causal,
+        kv_len=jnp.asarray(kv_len, jnp.int32), block_q=8, block_k=8,
+        interpret=True)
+    assert ref_o.dtype == jnp.bfloat16
+    lens = torch.tensor(kv_len, dtype=torch.int32)
+    before = fa.flash_attn_fwd_bf16.launches
+    o, lse = fa.flash_attn_fwd_bf16(_bf(q), _bf(k), _bf(v), lens,
+                                    torch.zeros_like(lens), causal)
+    assert fa.flash_attn_fwd_bf16.launches == before   # CPU: plain
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    _close(o.float(), np.asarray(ref_o, np.float32), "O")
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), rtol=TOL,
+                               atol=TOL)
+
+
+def _pallas_grads(q, k, v, do, kv_len, causal, dtype, D=None):
+    """jax.grad of the Pallas flash attention (interpret mode, 8 x 8
+    blocks: Tk 64 is 8 kv blocks, the reference's split K3 + K4) in
+    `dtype`, against the cotangent do."""
+    lens = jnp.asarray(kv_len, jnp.int32)
+
+    def f(q, k, v):
+        out = pal.flash_attention(q, k, v, causal=causal, kv_len=lens,
+                                  block_q=8, block_k=8, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(do))
+
+    return [np.asarray(g, np.float32) for g in jax.grad(
+        f, argnums=(0, 1, 2))(*(jnp.asarray(x, dtype) for x in (q, k, v)))]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,n,Tq,Tk,kv_len", [
+    (2, 2, 64, 64, [64, 64]),
+    (2, 2, 48, 64, [64, 29]),         # Tq != Tk, ragged
+])
+def test_k3_k4_bf16_plain_match_pallas_split_interpret(causal, B, n, Tq,
+                                                       Tk, kv_len):
+    q, k, v, do = _bf16_inputs([(B, n, Tq, 64), (B, n, Tk, 64),
+                                (B, n, Tk, 64), (B, n, Tq, 64)],
+                               seed=Tq * 3 + Tk)
+    ref = _pallas_grads(q, k, v, do, kv_len, causal, jnp.bfloat16)
+    lens = torch.tensor(kv_len, dtype=torch.int32)
+    tq, tk, tv, tdo = map(_bf, (q, k, v, do))
+    o, lse = fa.flash_attn_fwd(tq, tk, tv, lens, torch.zeros_like(lens),
+                               causal)
+    delta = (tdo.float() * o.float()).sum(-1).contiguous()
+    before = (fa.flash_attn_bwd_dq_bf16.launches,
+              fa.flash_attn_bwd_dkv_bf16.launches)
+    dq = fa.flash_attn_bwd_dq_bf16(tq, tk, tv, tdo, lse, delta, lens,
+                                   causal)
+    dk, dv = fa.flash_attn_bwd_dkv_bf16(tq, tk, tv, tdo, lse, delta, lens,
+                                        causal)
+    assert (fa.flash_attn_bwd_dq_bf16.launches,
+            fa.flash_attn_bwd_dkv_bf16.launches) == before
+    for name, g, r in zip("qkv", (dq, dk, dv), ref):
+        assert g.dtype == torch.bfloat16
+        _close(g.float(), r, f"d{name}")
+    # the route function takes the same path for bf16 at Tk > 256 on the
+    # card; on the CPU every route is the plain function
+    got = fa.flash_attn_bwd(tq, tk, tv, o, lse, tdo, lens, causal)
+    for name, g, r in zip("qkv", got, ref):
+        _close(g.float(), r, f"d{name} (route)")
+
+
+def test_bf16_wrappers_refuse_other_dtypes():
+    q = torch.zeros(1, 1, 4, 64)
+    lens = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attn_fwd_bf16(q, q, q, lens, lens)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attn_bwd_dq_bf16(q, q, q, q, q[..., 0], q[..., 0], lens)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ce.lm_head_lse_bf16(torch.zeros(4, 8), torch.zeros(8, 16))
+
+
+@pytest.mark.parametrize("N,H,V", [(20, 32, 200), (64, 64, 96),
+                                   (9, 48, 1000)])
+def test_k5_bf16_plain_matches_pallas_lse_interpret(N, H, V):
+    """K5 with bf16 x and w: f32 dot products of bf16 operands, then an
+    f32 log-sum-exp; both sides give f32."""
+    x, = _bf16_inputs([(N, H)], seed=N)
+    w, = _bf16_inputs([(H, V)], seed=V)
+    w = (torch.from_numpy(w) * 0.25).bfloat16()   # a power of 2: exact
+    ref = np.asarray(jce.pallas_lse(jnp.asarray(x, jnp.bfloat16),
+                                    jnp.asarray(w.float().numpy(),
+                                                jnp.bfloat16),
+                                    bn=8, bv=64, interpret=True))
+    before = ce.lm_head_lse_bf16.launches
+    got = ce.lm_head_lse_bf16(_bf(x), w)
+    assert ce.lm_head_lse_bf16.launches == before
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_chunked_xent_bf16_matches_jax_values_and_gradients():
+    """The fused lm-head cross-entropy with bf16 x and w (the amp lm
+    head): the loss and lse in f32, dx and dw in the operands' dtype,
+    against the reference's chunked_lm_head_xent. d = (p - onehot) * g
+    is rounded to bf16 before its two products in both."""
+    N, H, V, C = 24, 32, 250, 3
+    rng = np.random.RandomState(5)
+    x, w = _bf16_inputs([(N, H), (H, V)], seed=6)
+    w = w * np.float32(0.125)
+    lab = rng.randint(0, V, N)
+    g = rng.rand(N).astype(np.float32)
+
+    def jloss(x, w):
+        return jnp.sum(jce.chunked_lm_head_xent(
+            x, w, jnp.asarray(lab), C) * jnp.asarray(g))
+
+    jx, jw = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    ref_loss = np.asarray(jce.chunked_lm_head_xent(jx, jw, jnp.asarray(lab),
+                                                   C))
+    ref_dx, ref_dw = jax.grad(jloss, argnums=(0, 1))(jx, jw)
+    tx, tw = _bf(x).requires_grad_(), _bf(w).requires_grad_()
+    loss = ce.chunked_lm_head_xent(tx, tw, torch.from_numpy(lab), C)
+    assert loss.dtype == torch.float32
+    np.testing.assert_allclose(loss.detach().numpy(), ref_loss, rtol=1e-5,
+                               atol=1e-5)
+    (loss * torch.from_numpy(g)).sum().backward()
+    assert tx.grad.dtype == tw.grad.dtype == torch.bfloat16
+    _close(tx.grad.float(), np.asarray(ref_dx, np.float32), "dx")
+    _close(tw.grad.float(), np.asarray(ref_dw, np.float32), "dw")
+
+
+# -- head-dim padding (the card's route for D below the kernels') ----------
+
+@pytest.mark.parametrize("D", [8, 16, 48])
+@pytest.mark.parametrize("causal", [False, True])
+def test_padded_d_forward_matches_pallas(D, causal):
+    """The wrapper's padding applied on CPU tensors: q, k, v padded to
+    the kernel head dim (32 or 64), the plain forward at the original
+    D's scale, O sliced back."""
+    q, k, v = _bf16_inputs([(2, 2, 40, D), (2, 2, 56, D), (2, 2, 56, D)],
+                           seed=D)
+    kv_len = [56, 30]
+    ref_o, ref_lse = pal.flash_attention_with_lse(
+        *map(jnp.asarray, (q, k, v)), causal=causal,
+        kv_len=jnp.asarray(kv_len, jnp.int32), block_q=8, block_k=8,
+        interpret=True)
+    lens = torch.tensor(kv_len, dtype=torch.int32)
+    scale = 1.0 / float(np.sqrt(D))
+    o, lse = fa.flash_attn_fwd_padded(
+        fa.flash_attn_fwd_plain, *map(torch.from_numpy, (q, k, v)), lens,
+        torch.zeros_like(lens), causal, scale)
+    assert fa.kernel_head_dim(D, fa.KERNEL_HEAD_DIMS) in (32, 64)
+    assert o.shape == (2, 2, 40, D)
+    np.testing.assert_allclose(o.numpy(), np.asarray(ref_o), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("D", [8, 16, 48])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_d_backward_matches_pallas(D, dtype):
+    """The backward's padding (D up to 64) on CPU tensors, through the
+    split pair's plain versions, against the Pallas gradients at D."""
+    q, k, v, do = _bf16_inputs([(2, 2, 48, D), (2, 2, 64, D),
+                                (2, 2, 64, D), (2, 2, 48, D)], seed=D + 1)
+    kv_len = [64, 37]
+    jdt = getattr(jnp, dtype)
+    ref = _pallas_grads(q, k, v, do, kv_len, True, jdt)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(tdt) for x in (q, k, v, do))
+    lens = torch.tensor(kv_len, dtype=torch.int32)
+    scale = 1.0 / float(np.sqrt(D))
+    o, lse = fa.flash_attn_fwd(tq, tk, tv, lens, torch.zeros_like(lens),
+                               True, scale)
+    delta = (tdo.float() * o.float()).sum(-1).contiguous()
+
+    def split(*a):
+        return (fa.flash_attn_bwd_dq_plain(*a),
+                *fa.flash_attn_bwd_dkv_plain(*a))
+
+    got = fa.flash_attn_bwd_padded(split, tq, tk, tv, tdo, lse, delta,
+                                   lens, True, scale)
+    assert fa.kernel_head_dim(D, fa.BWD_HEAD_DIMS) == 64
+    for name, g, r in zip("qkv", got, ref):
+        assert g.shape[-1] == D and g.dtype == tdt
+        if dtype == "float32":
+            np.testing.assert_allclose(g.numpy(), r, rtol=TOL, atol=TOL,
+                                       err_msg=f"d{name}")
+        else:
+            _close(g.float(), r, f"d{name}")
+
+
+def test_head_dims_above_64_raise():
+    with pytest.raises(ValueError, match="up to 64"):
+        fa.kernel_head_dim(80, fa.KERNEL_HEAD_DIMS)
+    with pytest.raises(ValueError, match="up to 64"):
+        fa.kernel_head_dim(128, fa.BWD_HEAD_DIMS)
+    assert [fa.kernel_head_dim(d, fa.KERNEL_HEAD_DIMS)
+            for d in (1, 32, 33, 64)] == [32, 32, 64, 64]

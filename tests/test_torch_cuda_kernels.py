@@ -1,6 +1,7 @@
 """The port's Hopper kernels on the card, held to their plain versions:
 K1 (flash-attention forward), K2-K4 (its backward), K5 (the lm-head
-log-sum-exp), K6 (the int8 x int8 -> int32 matmul).
+log-sum-exp), K6 (the int8 x int8 -> int32 matmul); the bf16 (amp) K1,
+K3, K4 and K5; and head dims below the kernels', zero-padded.
 
 Marked `cuda`: they skip on a machine without a CUDA card (the kernels
 have no interpret mode). This file imports neither JAX nor the JAX
@@ -143,7 +144,8 @@ def test_flash_attn_fwd_kernel_takes_plane_views_at_training_shape(card):
 
 @pytest.mark.cuda
 def test_flash_attn_fwd_kernel_refuses_what_it_does_not_take(card):
-    q = torch.zeros(1, 2, 4, 48, device=card)
+    # D <= 64 is zero-padded to the kernel's 32 or 64; above 64 raises
+    q = torch.zeros(1, 2, 4, 80, device=card)
     lens = torch.ones(1, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attn_fwd(q, q, q, lens, lens)
@@ -251,14 +253,228 @@ def test_flash_backward_kernels_take_plane_views(card):
 
 @pytest.mark.cuda
 def test_flash_backward_kernels_refuse_what_they_do_not_take(card):
-    q, k, v, do, lse, delta, lens = _bwd_case(card, 1, 2, 16, 16, 32, [16],
+    # D <= 64 is zero-padded to the kernels' 64; above 64 raises
+    q, k, v, do, lse, delta, lens = _bwd_case(card, 1, 2, 16, 16, 64, [16],
                                               True, 0)
+    wide = torch.zeros(1, 2, 16, 96, device=card)
     with pytest.raises(ValueError, match="head dims"):
-        fa.flash_attn_bwd_dq(q, k, v, do, lse, delta, lens)
+        fa.flash_attn_bwd_dq(wide, wide, wide, wide, lse, delta, lens)
     q, k, v, do, lse, delta, lens = _bwd_case(card, 1, 2, 16, 16, 64, [16],
                                               True, 0)
     with pytest.raises(TypeError, match="contiguous float32"):
         fa.flash_attn_bwd_dkv(q, k, v, do, lse.double(), delta, lens)
+
+
+# -- head dims below the kernels' (zero-padded on the card) -----------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_head_dims_match_plain(card, D, dtype):
+    """D 16 and 48 run through the f32 and bf16 kernels padded to 32 /
+    64 (forward) and 64 (backward, the split K3 + K4 at Tk > 256),
+    against the plain versions at D."""
+    B, n, T = 2, 3, 300
+    rng = np.random.RandomState(D)
+    q, k, v, do = (torch.from_numpy(rng.randn(B, n, T, D).astype(np.float32))
+                   .to(card, dtype) for _ in range(4))
+    lens = torch.tensor([300, 170], dtype=torch.int32, device=card)
+    starts = torch.zeros_like(lens)
+    o, lse = fa.flash_attn_fwd(q, k, v, lens, starts)
+    ref_o, ref_lse = fa.flash_attn_fwd_plain(q, k, v, lens, starts)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    got = fa.flash_attn_bwd(q, k, v, o, lse, do, lens)
+    ref = fa.flash_attn_bwd_fused_plain(q, k, v, do, lse, delta, lens)
+    torch.cuda.synchronize()
+    assert o.shape == q.shape and all(g.shape == q.shape for g in got)
+    for name, g, r in (("O", o, ref_o), ("dq", got[0], ref[0]),
+                       ("dk", got[1], ref[1]), ("dv", got[2], ref[2])):
+        err = float((g.float() - r.float()).abs().max())
+        tol = (BWD_TOL if dtype == torch.float32
+               else BF16_REL * float(r.float().abs().max()))
+        assert err <= tol, (name, err)
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+
+
+# -- the bf16 (amp) kernels: K1, K3, K4 and K5 ------------------------------
+
+# bf16 outputs within 1e-2 of the largest |plain| element (two bf16
+# ulps): both sum f32 products of the same bf16 operands in other orders
+# and round once; f32 outputs (LSE) within 1e-4 absolute
+BF16_REL = 1e-2
+
+
+def _bf16_case(card, B, n, Tq, Tk, D, kv_len, causal, seed):
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(B, n, T, D).astype(np.float32))
+                   .to(card, torch.bfloat16) for T in (Tq, Tk, Tk, Tq))
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=card)
+    o, lse = fa.flash_attn_fwd(q, k, v, lens, torch.zeros_like(lens), causal)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    return q, k, v, do, o, lse, delta, lens
+
+
+def _bf16_err(got, ref):
+    return (float((got.float() - ref.float()).abs().max())
+            / float(ref.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,Tq,Tk,kv_len,D", [
+    (2, 64, 64, [64, 63], 64),           # one tile
+    (2, 65, 65, [65, 64], 64),           # one row / key into a second tile
+    (3, 200, 333, [333, 129, 0], 64),    # Tq != Tk, a fully masked batch
+    (2, 300, 130, [130, 65], 32),        # Tq > Tk, D 32
+])
+def test_flash_attn_fwd_bf16_kernel_matches_plain(card, causal, B, Tq, Tk,
+                                                  kv_len, D):
+    q, k, v, _, o, lse, _, lens = _bf16_case(card, B, 4, Tq, Tk, D, kv_len,
+                                             causal, Tq + Tk + D)
+    before = (fa.flash_attn_fwd.launches, fa.flash_attn_fwd_bf16.launches)
+    o, lse = fa.flash_attn_fwd_bf16(q, k, v, lens, torch.zeros_like(lens),
+                                    causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attn_fwd.launches,
+            fa.flash_attn_fwd_bf16.launches) == (before[0], before[1] + 1)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    ref_o, ref_lse = fa.flash_attn_fwd_plain(q, k, v, lens,
+                                             torch.zeros_like(lens), causal)
+    err = _bf16_err(o, ref_o)
+    print(f"K1-bf16 [{B},4,{Tq},{Tk},{D}] causal {causal}: O {err:.3e} of "
+          f"max, LSE {float((lse - ref_lse).abs().max()):.3e}")
+    assert err <= BF16_REL
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    for b, n_live in enumerate(kv_len):
+        if n_live == 0:
+            assert float(o[b].float().abs().max()) == 0.0
+            assert bool((lse[b] == fa.NEG).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,B,n,Tq,Tk,kv_len", [
+    (True, 2, 12, 1024, 1024, [1024, 1024]),    # the training length
+    (True, 3, 4, 300, 500, [500, 257, 0]),      # Tq != Tk, ragged
+    (False, 3, 4, 300, 500, [500, 257, 0]),
+    (True, 2, 3, 600, 270, [270, 65]),          # Tq > Tk
+])
+def test_flash_backward_bf16_kernels_match_plain(card, causal, B, n, Tq, Tk,
+                                                 kv_len):
+    q, k, v, do, o, lse, delta, lens = _bf16_case(card, B, n, Tq, Tk, 64,
+                                                  kv_len, causal, Tq * 3 + Tk)
+    ref = fa.flash_attn_bwd_fused_plain(q, k, v, do, lse, delta, lens,
+                                        causal)
+    counts = (fa.flash_attn_bwd_dq.launches, fa.flash_attn_bwd_dkv.launches,
+              fa.flash_attn_bwd_dq_bf16.launches,
+              fa.flash_attn_bwd_dkv_bf16.launches)
+    dq = fa.flash_attn_bwd_dq_bf16(q, k, v, do, lse, delta, lens, causal)
+    dk, dv = fa.flash_attn_bwd_dkv_bf16(q, k, v, do, lse, delta, lens,
+                                        causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attn_bwd_dq.launches, fa.flash_attn_bwd_dkv.launches,
+            fa.flash_attn_bwd_dq_bf16.launches,
+            fa.flash_attn_bwd_dkv_bf16.launches) == (
+                counts[0], counts[1], counts[2] + 1, counts[3] + 1)
+    errs = [_bf16_err(g, r) for g, r in zip((dq, dk, dv), ref)]
+    print(f"K3/K4-bf16 [{B},{n},{Tq},{Tk}] causal {causal}: dq {errs[0]:.3e}"
+          f" dk {errs[1]:.3e} dv {errs[2]:.3e} of max")
+    assert all(g.dtype == torch.bfloat16 for g in (dq, dk, dv))
+    assert max(errs) <= BF16_REL
+    if 0 in kv_len:
+        b = kv_len.index(0)
+        assert float(dk[b].float().abs().max()) == 0.0
+        assert float(dv[b].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_bf16_attention_op_on_plane_views_at_the_training_shape(card):
+    """The training op's autograd Function on bf16 q/k/v head views of
+    one packed [8, 1024, 3 * 768] plane: K1-bf16 forward, K3 + K4-bf16
+    backward, against the plain versions through the same views."""
+    B, n, T, D = 8, 12, 1024, 64
+    H = n * D
+    rng = np.random.RandomState(11)
+    qkv = torch.from_numpy(rng.randn(B, T, 3 * H).astype(np.float32)).to(
+        card, torch.bfloat16)
+    dout = torch.from_numpy(rng.randn(B, T, H).astype(np.float32)).to(
+        card, torch.bfloat16)
+    x = qkv.clone().requires_grad_()
+    before = (fa.flash_attn_fwd_bf16.launches,
+              fa.flash_attn_bwd_dq_bf16.launches,
+              fa.flash_attn_bwd_dkv_bf16.launches)
+    out = fa.flash_attention_plane(x[..., :H], x[..., H:2 * H],
+                                   x[..., 2 * H:], n, causal=True)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fa.flash_attn_fwd_bf16.launches,
+            fa.flash_attn_bwd_dq_bf16.launches,
+            fa.flash_attn_bwd_dkv_bf16.launches) == tuple(
+                c + 1 for c in before)
+    heads = [fa._heads(t, n) for t in (qkv[..., :H], qkv[..., H:2 * H],
+                                       qkv[..., 2 * H:])]
+    lens = torch.full((B,), T, dtype=torch.int32, device=card)
+    starts = torch.zeros_like(lens)
+    ref_o, ref_lse = fa.flash_attn_fwd_plain(*heads, lens, starts)
+    ref_out = fa._merge(ref_o)
+    do = fa._heads(dout, n)
+    delta = (do.float() * ref_o.float()).sum(-1).contiguous()
+    ref_g = fa.flash_attn_bwd_fused_plain(*heads, do, ref_lse, delta, lens)
+    ref_grad = torch.cat([fa._merge(g) for g in ref_g], dim=2)
+    e_out, e_grad = _bf16_err(out, ref_out), _bf16_err(x.grad, ref_grad)
+    print(f"bf16 plane [8, 12, 1024, 64]: O {e_out:.3e}, dqkv "
+          f"{e_grad:.3e} of max")
+    assert e_out <= BF16_REL and e_grad <= BF16_REL
+
+
+@pytest.mark.cuda
+def test_bf16_paths_without_a_kernel_raise(card):
+    """No fallback: the bf16 fused K2 (Tk <= 256) and the bf16 decode
+    step (Tq = 1) have no kernel and raise; so do mixed dtypes."""
+    q, k, v, do, o, lse, delta, lens = _bf16_case(card, 1, 2, 64, 64, 64,
+                                                  [64], True, 0)
+    with pytest.raises(NotImplementedError, match="fused"):
+        fa.flash_attn_bwd_fused(q, k, v, do, lse, delta, lens)
+    with pytest.raises(NotImplementedError, match="fused"):
+        fa.flash_attn_bwd(q, k, v, o, lse, do, lens)      # route: K2
+    with pytest.raises(NotImplementedError, match="decode"):
+        fa.flash_attn_fwd(q[:, :, :1], k, v, lens, lens - 1)
+    with pytest.raises(TypeError, match="one dtype"):
+        fa.flash_attn_fwd(q, k.float(), v, lens, torch.zeros_like(lens))
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attn_fwd_bf16(q.float(), k.float(), v.float(), lens,
+                               torch.zeros_like(lens))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,V", [(8192, 768, 50304), (300, 768, 5000),
+                                   (64, 64, 96), (5, 32, 72)])
+def test_lm_head_lse_bf16_kernel_matches_plain(card, N, H, V):
+    rng = np.random.RandomState(N + V)
+    x = torch.from_numpy(rng.randn(N, H).astype(np.float32)).to(
+        card, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(H, V) * 0.05).astype(np.float32)).to(
+        card, torch.bfloat16)
+    before = (ce.lm_head_lse.launches, ce.lm_head_lse_bf16.launches)
+    got = ce.lm_head_lse_bf16(x, w)
+    torch.cuda.synchronize()
+    assert (ce.lm_head_lse.launches,
+            ce.lm_head_lse_bf16.launches) == (before[0], before[1] + 1)
+    ref = ce.lm_head_lse_plain(x, w)
+    err = float((got - ref).abs().max())
+    print(f"K5-bf16 [{N},{H}] @ [{H},{V}]: max_abs_err {err:.3e}")
+    # f32 sums of exact bf16 products, in another order: 1e-4 absolute on
+    # values of order log(V)
+    assert err <= 1e-4
+
+
+@pytest.mark.cuda
+def test_lm_head_lse_bf16_kernel_refuses_what_it_does_not_take(card):
+    x = torch.zeros(4, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte rows"):
+        ce.lm_head_lse(x, torch.zeros(64, 70, device=card,
+                                      dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="one dtype"):
+        ce.lm_head_lse(x, torch.zeros(64, 72, device=card))
 
 
 # -- K5: the lm-head log-sum-exp --------------------------------------------
