@@ -8,7 +8,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      limit;
   2. build: every kernel source under paddle_tpu_torch/csrc/ (K1 flash
      forward, K2-K4 flash backward, K5 lm-head log-sum-exp, K6 int8
-     matmul, and the bf16 K1, K3, K4 and K5) with nvcc for sm_90a, from
+     matmul, and the bf16 K1-K5) with nvcc for sm_90a, from
      this checkout, one nvcc per source in parallel;
   3. kernel: K1 held against its plain PyTorch version at the LM
      server's shapes (GPT-2-small heads: n=12, D=64; prefill b=4,
@@ -82,26 +82,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      versions (the reference's roundings: P and dS to bf16 before the
      products they feed, O and the gradients once at the end) at the
      training shape [8, 12, 1024, 64] (head views of the packed bf16
-     planes), a ragged kv_len case and a Tq != Tk case; K5-bf16 at x
+     planes), a ragged kv_len case and a Tq != Tk case; K2-bf16 (the
+     fused backward, f32 dq partials summed and cast once) at its main
+     path's [32, 12, 256, 64], a ragged and a Tq > Tk case; K5-bf16 at x
      [8192, 768] @ w [768, 50304]. Tolerance 1e-2 of the largest |plain|
      element on bf16 outputs (two bf16 ulps), 1e-4 absolute on the f32
      LSEs. Times by CUDA-graph replay beside the bf16 bound (989 TFLOP/s
      dense, 3.35 TB/s), the plain version, and bf16 SDPA forward /
-     backward or logsumexp(mm(x, w) with f32 output) as the yardstick;
+     backward (cuDNN's kernels, named by profiler) or logsumexp(mm(x, w)
+     with f32 output) as the yardstick;
  12. amp training: phase 7's program, weights and token batch with
      amp.enable (bench.py's _mfu_bench with amp on, batch 8): step 1's
      loss and every gradient against a plain amp recompute on the card
      (the role casts written out, the plain bf16 kernels, torch autograd;
-     loss 1e-3 relative, gradients 2e-2 of their largest element) and
+     loss 1e-5 relative, gradients 2e-2 of their largest element) and
      the loss against phase 7's f32 step 1 (2e-2 relative); every
      gradient, master weight and Adam moment float32; five more Adam
      steps, the loss must fall; launches per step K1-bf16 12, K3-bf16
      12, K4-bf16 12, K5-bf16 1 and no f32 kernel. Step wall, tokens/s,
      peak memory and a profiled step's device time split into cuBLAS's
-     bf16 products, the four kernels, casts, Adam and other elementwise;
- 13. the amp program timed at the reference's headline batch, B 32 at
-     T 1024 (bench.py's bench_transformer_mfu), or the largest of 24 and
-     16 that fits: step wall and peak memory.
+     bf16 products, the bf16 kernels, casts, Adam and other elementwise;
+ 13. short-context amp training: phase 8's program, weights and token
+     batch (T 256, B 32) with amp.enable, where the backward route is
+     the fused K2-bf16: the checks of phase 12 (against phase 8's f32
+     step 1), three more Adam steps; launches per step K1-bf16 12,
+     K2-bf16 12, K5-bf16 1; step wall, tokens/s, peak memory and a
+     profiled step;
+ 14. the amp program at the reference's headline batch, B 32 at T 1024
+     (bench.py's bench_transformer_mfu), or the largest of 24 and 16
+     that fits: step wall, peak memory and a profiled step's device time
+     and busy share.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -538,19 +548,42 @@ def attn_bound(B, Tq, Tk, kv_len, causal, products, ins, outs):
     return (*bound(flops, nbytes), bound_3xtf32(flops, nbytes))
 
 
-def time_events(fn, reps=10):
-    """Device ms per call of an eager call that is itself many ms of
-    device work (the host's enqueue is not the limit): CUDA events
-    around `reps` calls after a warm-up."""
+def time_queued(fn, reps=20):
+    """Device ms per call of an eager call that the host enqueues more
+    slowly than the card runs it (autograd's backward of a fast library
+    kernel): a spin kernel holds the card while the host enqueues `reps`
+    calls, so the events around the calls time their device work only.
+    (Profiled device time is no substitute: the profiler drops some
+    calls' kernels.) The spin lasts twice a synchronised loop of the
+    same calls; a host slower than that is retried."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    spin_ms = 2e3 * (time.perf_counter() - t0) + 20.0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    torch.cuda._sleep(10**7)
     end.record()
     end.synchronize()
+    cycles_per_ms = 1e7 / start.elapsed_time(end)
+    for _ in range(3):
+        torch.cuda._sleep(int(spin_ms * cycles_per_ms))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue_ms = 1e3 * (time.perf_counter() - t0)
+        end.record()
+        end.synchronize()
+        if enqueue_ms < spin_ms:
+            break
+        log(f"time_queued: the host took {enqueue_ms:.1f} ms to enqueue, "
+            f"longer than the {spin_ms:.1f} ms spin; again")
+        spin_ms *= 2
     return start.elapsed_time(end) / reps
 
 
@@ -571,21 +604,33 @@ def bwd_inputs(rng, B, Tq, Tk, kv_len, causal, scale):
     return (q, k, v, do, lse, delta, lens)
 
 
-def device_kernels(fn):
-    """{device kernel name: us} of one profiled call of fn: names the
-    backend behind a library yardstick."""
+def device_kernels(fn, calls=4):
+    """{device kernel name: us per call} over `calls` profiled calls of
+    fn: names the backend behind a library yardstick (its time is
+    measured by events). Several calls, because the profiler now and
+    then drops a call's device events; each name's time is its mean over
+    the calls that recorded it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = {}
-    for ev in prof.events():
-        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            names[ev.name] = names.get(ev.name, 0.0) + float(
-                ev.time_range.elapsed_us())
+    per_call = []
+    for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {}
+        for ev in prof.events():
+            if getattr(ev, "device_type", None) == \
+                    torch.autograd.DeviceType.CUDA:
+                names[ev.name] = names.get(ev.name, 0.0) + float(
+                    ev.time_range.elapsed_us())
+        per_call.append(names)
+    seen = {}
+    for call in per_call:
+        for n, us in call.items():
+            seen.setdefault(n, []).append(us)
+    names = {n: float(np.mean(us)) for n, us in seen.items()}
     return {n: round(us, 1) for n, us in sorted(names.items(),
                                                 key=lambda kv: -kv[1])}
 
@@ -599,7 +644,7 @@ def sdpa_backward(args, scale):
         q, k, v, is_causal=True, scale=scale)
     grad = (lambda: torch.autograd.grad(out, (q, k, v), do,
                                         retain_graph=True))
-    ms = time_events(grad)
+    ms = time_queued(grad)
     names = device_kernels(grad)
     log(f"SDPA backward [{', '.join(map(str, q.shape))}] device kernels: "
         f"{names}")
@@ -839,19 +884,28 @@ BF16_DESIGN = {
     "flash_attn_fwd_bf16": "bf16 mma.sync m16n8k16, 64 query rows x 64-key "
                            "K/V tiles, cp.async 2-stage, P as A fragments "
                            "from registers, V by ldmatrix.trans",
-    "flash_attn_bwd_dq_bf16": "bf16 mma.sync m16n8k16, 64 q rows, K/V tiles "
-                              "cp.async 2-stage, dS as A fragments, K by "
-                              "ldmatrix.trans",
-    "flash_attn_bwd_dkv_bf16": "bf16 mma.sync m16n8k16, 64 keys, Q/dO tiles "
-                               "cp.async 2-stage, P^T and dS^T as A "
-                               "fragments, Q/dO by ldmatrix.trans",
+    "flash_attn_bwd_fused_bf16": "bf16 mma.sync m16n8k16, 64 keys, Q/dO "
+                                 "tiles cp.async 2-stage, P^T and dS^T as "
+                                 "A fragments; dS^T through shared memory "
+                                 "for dS.K into f32 dq partials per kv "
+                                 "tile",
+    "flash_attn_bwd_dq_bf16": "wgmma m64n64k16 (S, dP from shared memory; "
+                              "dS as register A, K MN-major), 128 q rows = "
+                              "2 consumer warpgroups + a TMA producer warp, "
+                              "K/V tiles by TMA in a 2-stage mbarrier ring",
+    "flash_attn_bwd_dkv_bf16": "wgmma m64n64k16 (S^T, dP^T from shared "
+                               "memory; P^T, dS^T as register A, dO/Q "
+                               "MN-major), 128 keys = 2 consumer "
+                               "warpgroups + a TMA producer warp, Q/dO "
+                               "tiles by TMA in a 2-stage mbarrier ring",
     "lm_head_lse_bf16": "bf16 mma.sync m16n8k16, 64-row x tile resident, "
                         "w [64 x 128] chunks cp.async 2-stage by "
                         "ldmatrix.trans, 8 warps"}
 
 ALL_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_fused",
                "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "lm_head_lse",
-               "int8_matmul", "flash_attn_fwd_bf16", "flash_attn_bwd_dq_bf16",
+               "int8_matmul", "flash_attn_fwd_bf16",
+               "flash_attn_bwd_fused_bf16", "flash_attn_bwd_dq_bf16",
                "flash_attn_bwd_dkv_bf16", "lm_head_lse_bf16")
 
 
@@ -863,6 +917,7 @@ def wrappers():
             "lm_head_lse": ce.lm_head_lse,
             "int8_matmul": qo.int8_matmul_i32,
             "flash_attn_fwd_bf16": fa.flash_attn_fwd_bf16,
+            "flash_attn_bwd_fused_bf16": fa.flash_attn_bwd_fused_bf16,
             "flash_attn_bwd_dq_bf16": fa.flash_attn_bwd_dq_bf16,
             "flash_attn_bwd_dkv_bf16": fa.flash_attn_bwd_dkv_bf16,
             "lm_head_lse_bf16": ce.lm_head_lse_bf16}
@@ -1593,6 +1648,8 @@ def bf16_attn_inputs(rng, B, Tq, Tk, kv_len, causal, scale):
 BF16_ATTN = {
     # name: (the TPU kernel it replaces, T x T x D products it computes)
     "flash_attn_fwd_bf16": ("paddle_tpu/ops/pallas_attention.py:212", 2),
+    "flash_attn_bwd_fused_bf16": ("paddle_tpu/ops/pallas_attention.py:513",
+                                  5),
     "flash_attn_bwd_dq_bf16": ("paddle_tpu/ops/pallas_attention.py:400", 3),
     "flash_attn_bwd_dkv_bf16": ("paddle_tpu/ops/pallas_attention.py:450",
                                 4),
@@ -1613,7 +1670,7 @@ def bf16_kernel_phase(smi):
     cases = {"train": (B, T, T, [T] * B),
              "ragged": (4, 600, 600, [600, 333, 64, 1]),
              "cross": (2, 200, 700, [700, 450])}
-    errs = {name: [0.0, 0.0] for name in BF16_ATTN}
+    errs = {name: [0.0, 0.0] for name in BF16_ATTN if "fused" not in name}
     for case, (b, tq, tk, kv_len) in cases.items():
         args, o = bf16_attn_inputs(rng, b, tq, tk, kv_len, True, scale)
         q, k, v, do, lse, delta, lens = args
@@ -1655,15 +1712,11 @@ def bf16_kernel_phase(smi):
     sdpa = (lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True, scale=scale))
     fwd_kernels = device_kernels(lambda: sdpa(*fwd_sets[0]))
-    events_bwd, lib_names = sdpa_backward(sets[0], scale)
-    # the backward yardstick is its kernels' device time in one profiled
-    # call: at bf16 the eager loop's CUDA events (events_bwd) measure
-    # autograd's host dispatch more than the card (0.26-0.51 ms against
-    # ~0.16 ms of kernels)
-    lib_bwd = sum(lib_names.values()) / 1e3
+    lib_bwd, lib_names = sdpa_backward(sets[0], scale)
     log(f"SDPA forward (causal, bf16) device kernels: {fwd_kernels}; "
-        f"SDPA backward: {lib_bwd:.4f} ms of kernels, {events_bwd:.4f} ms "
-        f"by CUDA events around the eager call")
+        f"SDPA backward: {lib_bwd:.4f} ms of device work by queued CUDA "
+        f"events, {sum(lib_names.values()) / 1e3:.4f} ms of profiled "
+        f"kernels")
     timed = {
         "flash_attn_fwd_bf16": (
             lambda q, k, v: fa.flash_attn_fwd_bf16(q, k, v, lens, starts,
@@ -1699,6 +1752,7 @@ def bf16_kernel_phase(smi):
             f"| {smi}")
     del sets, fwd_sets
     torch.cuda.empty_cache()
+    results["flash_attn_bwd_fused_bf16"] = fused_bf16_phase(rng, scale, smi)
 
     # K5-bf16 at the training shape
     N = TRAIN_B * TRAIN_T
@@ -1736,7 +1790,61 @@ def bf16_kernel_phase(smi):
     return results
 
 
-# -- phase 12/13: amp training ------------------------------------------------
+def fused_bf16_phase(rng, scale, smi):
+    """K2-bf16 against the plain bf16 backward at its main-path shape
+    [32, 12, 256, 64] (the amp T 256 step), a ragged kv_len case and a
+    Tq > Tk case, all views of packed planes (Tk <= 256: the fused
+    route); timed at the main-path shape beside its bf16 bound, the plain
+    version and cuDNN's SDPA backward kernels on the same inputs."""
+    name = "flash_attn_bwd_fused_bf16"
+    B, T = SHORT_B, SHORT_T
+    cases = {"short": (B, T, T, [T] * B),
+             "ragged": (4, 200, 200, [200, 150, 64, 1]),
+             "cross": (2, 300, 190, [190, 77])}
+    worst = [0.0, 0.0]
+    for case, (b, tq, tk, kv_len) in cases.items():
+        args, _ = bf16_attn_inputs(rng, b, tq, tk, kv_len, True, scale)
+        ref = fa.flash_attn_bwd_fused_plain(*args, True, scale)
+        got = fa.flash_attn_bwd_fused_bf16(*args, True, scale)
+        torch.cuda.synchronize()
+        if any(g.dtype != torch.bfloat16 for g in got):
+            raise AssertionError(f"{name} ({case}): gradients not bf16")
+        e = [bf16_err(g, r) for g, r in zip(got, ref)]
+        ab, rel = max(x[0] for x in e), max(x[1] for x in e)
+        worst = [max(worst[0], ab), max(worst[1], rel)]
+        log(f"bf16 {name} {case}: q [{b},{N_HEADS},{tq},{HEAD_DIM}] k "
+            f"[{tk}] max_abs_err {ab:.3e}, {rel:.3e} of max |plain| (dq "
+            f"{e[0][1]:.3e}, dk {e[1][1]:.3e}, dv {e[2][1]:.3e}; tol "
+            f"{BF16_REL:g})")
+        if not np.isfinite(rel) or rel > BF16_REL:
+            raise AssertionError(f"{name} ({case}) disagrees with its plain "
+                                 f"bf16 version beyond {BF16_REL:g}")
+        del args, ref, got
+    full = [T] * B
+    sets = [bf16_attn_inputs(rng, B, T, T, full, True, scale)[0]
+            for _ in range(2)]
+    lib_ms, lib_names = sdpa_backward(sets[0], scale)
+    replaces, products = BF16_ATTN[name]
+    r = {"case": "short", "q": [B, N_HEADS, T, HEAD_DIM],
+         "ms": time_ms(lambda *a: fa.flash_attn_bwd_fused_bf16(
+             *a, True, scale), sets, reps=20),
+         "plain_ms": time_ms(lambda *a: fa.flash_attn_bwd_fused_plain(
+             *a, True, scale), sets, reps=3),
+         "library_ms": lib_ms, "library_kernels": lib_names,
+         "max_abs_err": worst[0],
+         "max_rel_err": worst[1], "replaces": replaces}
+    r["bound_ms"], r["bound_by"] = attn_bound_bf16(
+        B, T, T, full, True, products, 4, (T, T, T))
+    log(f"bf16 {name} short [{B},{N_HEADS},{T},{HEAD_DIM}]: ms "
+        f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms (cuDNN "
+        f"SDPA backward) {r['library_ms']:.4f} bound_ms "
+        f"{r['bound_ms']:.5f} ({r['bound_by']}) | {smi}")
+    del sets
+    torch.cuda.empty_cache()
+    return r
+
+
+# -- phase 12-14: amp training ------------------------------------------------
 
 class PlainAttention(torch.autograd.Function):
     """Causal attention over [B, n, T, D] bf16 heads through the plain
@@ -1804,13 +1912,15 @@ def amp_reference_loss_and_grads(w, feed):
     return loss.detach(), dict(zip(names, grads))
 
 
-# step 1 under amp against the plain amp recompute: loss within 1e-3
-# relative, each gradient within 2e-2 of its largest element (bf16
-# activations rounded in other places: flash tiles against one softmax,
-# the chunked cross-entropy backward's bf16 d against autograd's f32
-# logits gradient); against the f32 step, the loss within 2e-2 relative
-AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_VS_F32_RTOL = 1e-3, 2e-2, 2e-2
+# step 1 under amp against the plain amp recompute: loss within 1e-5
+# relative (the forward's f32 sums in other orders), each gradient within
+# 2e-2 of its largest element (bf16 activations rounded in other places:
+# flash tiles against one softmax, the chunked cross-entropy backward's
+# bf16 d against autograd's f32 logits gradient); against the f32 step,
+# the loss within 2e-2 relative
+AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_VS_F32_RTOL = 1e-5, 2e-2, 2e-2
 AMP_KERNELS = {"flash_attn_fwd_bf16": ("flash_fwd_bf16_kernel",),
+               "flash_attn_bwd_fused_bf16": ("bwd_fused_bf16_kernel",),
                "flash_attn_bwd_dq_bf16": ("bwd_dq_bf16_kernel",),
                "flash_attn_bwd_dkv_bf16": ("bwd_dkv_bf16_kernel",),
                "lm_head_lse_bf16": ("lse_bf16_kernel",)}
@@ -1820,9 +1930,9 @@ GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 CAST_NAMES = ("copy_kernel",)
 
 
-def amp_step_breakdown(exe, main, feed, cost, scope, step_ms, smi):
+def amp_step_breakdown(what, exe, main, feed, cost, scope, step_ms, smi):
     """One more amp step under torch.profiler: its device time split
-    into cuBLAS's bf16 products, the four bf16 kernels, casts (and
+    into cuBLAS's bf16 products, the bf16 kernels, casts (and
     copies), Adam (the adam ops' kernels, marked by record_function
     around the op's lowering) and the other elementwise kernels; device
     busy / wall."""
@@ -1868,20 +1978,20 @@ def amp_step_breakdown(exe, main, feed, cost, scope, step_ms, smi):
         else:
             parts["other"] += us
     if device_us <= 0:
-        log("amp step breakdown: the profiler recorded no device time; "
-            "device time not measured")
+        log(f"{what} step breakdown: the profiler recorded no device "
+            "time; device time not measured")
         return None
     ms = {k: v / 1e3 for k, v in parts.items()}
     ms["adam"] = adam_us / 1e3
     ms["elementwise"] = ms.pop("other") - ms["adam"]
     device_ms = device_us / 1e3
     top = sorted(top.items(), key=lambda kv: -kv[1])[:12]
-    log(f"amp step breakdown (profiled step): device {device_ms:.1f} ms of "
-        f"kernels against a {step_ms:.1f} ms unprofiled step wall (busy "
+    log(f"{what} step breakdown (profiled step): device {device_ms:.1f} ms "
+        f"of kernels against a {step_ms:.1f} ms unprofiled step wall (busy "
         f"share {device_ms / step_ms:.3f}); ms "
-        f"{ {k: round(v, 3) for k, v in ms.items()} }; the four kernels ms "
+        f"{ {k: round(v, 3) for k, v in ms.items()} }; the bf16 kernels ms "
         f"{ {k: round(v / 1e3, 3) for k, v in per_kernel.items()} } | {smi}")
-    log(f"amp step: largest device kernels (us) "
+    log(f"{what} step: largest device kernels (us) "
         f"{[(n, round(us, 1)) for n, us in top]}")
     return {"device_ms": device_ms, "ms": ms,
             "kernel_ms": {k: v / 1e3 for k, v in per_kernel.items()},
@@ -1894,20 +2004,23 @@ def float_state_dtypes(scope):
             if isinstance(t, torch.Tensor) and t.is_floating_point()}
 
 
-def amp_training_phase(smi, f32_loss):
-    """Phase 7's model, weights and token batch under bf16 amp: step 1's
-    loss and gradients against the plain amp recompute and, loosely,
-    the f32 step 1; f32 masters, moments and gradients; five more Adam
-    steps; launches of the four bf16 kernels only."""
+def amp_training_phase(smi, f32_loss, T, B, feed_seed, timed_steps):
+    """The f32 training phases' model, weights and token batch (T, B,
+    feed_seed) under bf16 amp: step 1's loss and gradients against the
+    plain amp recompute and, loosely, the f32 step 1 (f32_loss); f32
+    masters, moments and gradients; `timed_steps` more Adam steps;
+    launches of the bf16 kernels of T's backward route only; a profiled
+    step."""
     torch.cuda.empty_cache()
-    main, startup, cost, params_grads = build_gpt2(TRAIN_T)
+    main, startup, cost, params_grads = build_gpt2(T)
     amp.enable(main)
     exe, scope = pt.Executor(), pt.Scope()
     exe.run(startup, scope=scope)
-    feed = token_batch(TRAIN_B, TRAIN_T, SEED + 3)
+    feed = token_batch(B, T, feed_seed)
     names = [p.name for p, _ in params_grads]
     snapshot = {n: scope.get(n).detach().clone().requires_grad_()
                 for n in names}
+    what = f"amp training T {T} B {B}"
 
     zero_counts()                       # the main path starts here
     torch.cuda.reset_peak_memory_stats()
@@ -1921,7 +2034,7 @@ def amp_training_phase(smi, f32_loss):
     grads = dict(zip(names, out[1:]))
     if {str(g.dtype) for g in grads.values()} != {"torch.float32"} or \
             float_state_dtypes(scope) != {"torch.float32"}:
-        raise AssertionError("amp: a gradient, master weight or Adam "
+        raise AssertionError(f"{what}: a gradient, master weight or Adam "
                              "moment is not float32")
     ref_loss, ref_grads = amp_reference_loss_and_grads(snapshot, feed)
     del snapshot
@@ -1930,51 +2043,57 @@ def amp_training_phase(smi, f32_loss):
                  / max(float(ref_grads[n].abs().max()), 1e-30), n)
                 for n, g in grads.items())
     vs_f32 = abs(loss - f32_loss) / abs(f32_loss)
-    log(f"amp training step 1: loss {loss:.6f} vs plain amp recompute "
+    log(f"{what} step 1: loss {loss:.6f} vs plain amp recompute "
         f"{float(ref_loss):.6f} ({loss_rel:.2e} relative, tol "
         f"{AMP_LOSS_RTOL:g}); worst gradient {worst[1]} at {worst[0]:.2e} "
         f"of its largest element (tol {AMP_GRAD_RTOL:g}) over {len(names)} "
         f"parameters; vs the f32 step-1 loss {f32_loss:.6f}: {vs_f32:.2e} "
         f"relative (tol {AMP_VS_F32_RTOL:g})")
     if not np.isfinite(loss) or loss_rel > AMP_LOSS_RTOL:
-        raise AssertionError("amp: step-1 loss differs from the plain amp "
-                             "recompute")
+        raise AssertionError(f"{what}: step-1 loss differs from the plain "
+                             "amp recompute")
     if not worst[0] <= AMP_GRAD_RTOL:
-        raise AssertionError(f"amp: gradient of {worst[1]} differs from the "
-                             f"plain amp recompute by {worst[0]:.3e}")
+        raise AssertionError(f"{what}: gradient of {worst[1]} differs from "
+                             f"the plain amp recompute by {worst[0]:.3e}")
     if not vs_f32 <= AMP_VS_F32_RTOL:
-        raise AssertionError("amp: step-1 loss is not within 2e-2 of f32's")
+        raise AssertionError(f"{what}: step-1 loss is not within 2e-2 of "
+                             "f32's")
     del ref_grads, out
     losses, wall = [loss], []
-    for _ in range(5):
+    for _ in range(timed_steps):
         t_step = time.perf_counter()
         losses.append(float(exe.run(main, feed=feed, fetch_list=[cost],
                                     scope=scope)[0][0]))
         wall.append(1e3 * (time.perf_counter() - t_step))
     counts = read_counts()              # the main path ends here
     steps = len(losses)
-    log(f"amp training: losses {[round(x, 5) for x in losses]}")
+    route = fa.bwd_route(T)
+    log(f"{what}: losses {[round(x, 5) for x in losses]}")
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
-        raise AssertionError("amp: the loss did not fall over 5 Adam steps "
-                             "on a fixed batch")
+        raise AssertionError(f"{what}: the loss did not fall over "
+                             f"{timed_steps} Adam steps on a fixed batch")
+    split = LAYERS * steps if route == "split" else 0
     check_counts(counts, launches_of(
         flash_attn_fwd_bf16=LAYERS * steps,
-        flash_attn_bwd_dq_bf16=LAYERS * steps,
-        flash_attn_bwd_dkv_bf16=LAYERS * steps,
-        lm_head_lse_bf16=steps), f"amp training T={TRAIN_T} ({steps} steps)")
+        flash_attn_bwd_fused_bf16=LAYERS * steps - split,
+        flash_attn_bwd_dq_bf16=split, flash_attn_bwd_dkv_bf16=split,
+        lm_head_lse_bf16=steps), f"{what} ({steps} steps, route {route})")
     if float_state_dtypes(scope) != {"torch.float32"}:
-        raise AssertionError("amp: master weights or moments left float32")
+        raise AssertionError(f"{what}: master weights or moments left "
+                             "float32")
     step_ms = float(np.mean(wall))
-    tokens = TRAIN_B * TRAIN_T
-    log(f"amp training: launches {counts} over {steps} steps; step wall "
-        f"{step_ms:.1f} ms (mean of steps 2-6, min {min(wall):.1f}; step 1 "
-        f"with gradient fetch {step1_ms:.1f}), {tokens / step_ms * 1e3:.0f} "
-        f"tokens/s, peak memory {peak_gb:.1f} GiB | {smi}")
-    breakdown = amp_step_breakdown(exe, main, feed, cost, scope, step_ms,
-                                   smi)
+    tokens = B * T
+    log(f"{what}: launches {counts} over {steps} steps (route {route}); "
+        f"step wall {step_ms:.1f} ms (mean of steps 2-{steps}, min "
+        f"{min(wall):.1f}; step 1 with gradient fetch {step1_ms:.1f}), "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
+        f"{peak_gb:.1f} GiB | {smi}")
+    breakdown = amp_step_breakdown(what, exe, main, feed, cost, scope,
+                                   step_ms, smi)
     del scope, exe
     torch.cuda.empty_cache()
-    return counts, {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+    return counts, {"T": T, "batch": B, "route": route, "step_ms": step_ms,
+                    "tokens_per_s": tokens / step_ms * 1e3,
                     "losses": losses, "loss_rel": loss_rel,
                     "grad_worst": worst[0], "vs_f32_rel": vs_f32,
                     "peak_gib": peak_gb, "breakdown": breakdown}
@@ -1984,9 +2103,10 @@ AMP_BATCHES = (32, 24, 16)   # bench.py's headline batch first
 
 
 def amp_batch_phase(smi):
-    """Timed only: the amp program at the reference's headline batch
-    (bench.py's bench_transformer_mfu, B 32, T 1024), or the largest of
-    AMP_BATCHES that fits on the card."""
+    """The amp program at the reference's headline batch (bench.py's
+    bench_transformer_mfu, B 32, T 1024), or the largest of AMP_BATCHES
+    that fits on the card: three timed steps and a profiled one (no
+    recompute fits beside it)."""
     for B in AMP_BATCHES:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2011,8 +2131,6 @@ def amp_batch_phase(smi):
             del scope, exe
             continue
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        del scope, exe
-        torch.cuda.empty_cache()
         if not np.isfinite(losses).all():
             raise AssertionError(f"amp batch {B}: non-finite loss")
         step_ms = float(np.mean(wall))
@@ -2021,8 +2139,14 @@ def amp_batch_phase(smi):
             f"(mean of 3 after a warm step, min {min(wall):.1f}), "
             f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
             f"{peak_gb:.1f} GiB | {smi}")
+        breakdown = amp_step_breakdown(f"amp training B {B} T {TRAIN_T}",
+                                       exe, main, feed, cost, scope,
+                                       step_ms, smi)
+        del scope, exe
+        torch.cuda.empty_cache()
         return {"batch": B, "step_ms": step_ms,
-                "tokens_per_s": tokens / step_ms * 1e3, "peak_gib": peak_gb}
+                "tokens_per_s": tokens / step_ms * 1e3, "peak_gib": peak_gb,
+                "breakdown": breakdown}
     raise AssertionError(f"amp: none of the batches {AMP_BATCHES} fits")
 
 
@@ -2041,13 +2165,17 @@ def main():
     k6, k6_cases = int8_kernel_phase(smi)
     int8_counts, int8_serving = int8_serving_phase(smi)
     bf16 = bf16_kernel_phase(smi)
-    amp_counts, amp_train = amp_training_phase(smi, train["losses"][0])
+    amp_counts, amp_train = amp_training_phase(
+        smi, train["losses"][0], TRAIN_T, TRAIN_B, SEED + 3, 5)
+    amp_short_counts, amp_short = amp_training_phase(
+        smi, short_train["losses"][0], SHORT_T, SHORT_B, SEED + 5, 3)
     amp_batch = amp_batch_phase(smi)
     paths = {"serving": {"flash_attn_fwd": serving_k1},
              f"training_T{TRAIN_T}": train_counts,
              f"training_T{SHORT_T}": short_counts,
              "serving_int8": int8_counts,
-             f"training_amp_T{TRAIN_T}": amp_counts}
+             f"training_amp_T{TRAIN_T}": amp_counts,
+             f"training_amp_T{SHORT_T}": amp_short_counts}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ALL_KERNELS}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()}
@@ -2106,6 +2234,7 @@ def main():
                       "training_short": short_train,
                       "serving_int8": int8_serving,
                       "training_amp": amp_train,
+                      "training_amp_short": amp_short,
                       "training_amp_batch": amp_batch}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,70 +1,79 @@
 // Flash attention for Hopper (sm_90a), bfloat16 operands (amp training):
-// K1 forward (Tq > 1), K3 (dq) and K4 (dk, dv).
+// K1 forward (Tq > 1), K2 (fused backward), K3 (dq) and K4 (dk, dv).
 //
 // Replaces, in paddle_tpu/ops/pallas_attention.py, the kernels as the
 // reference runs them under bf16 amp (its Pallas kernels are dtype
 // generic):
 //   K1  _kernel (:212, launched by _flash_forward :388)
+//   K2  _bwd_fused_kernel (:513, launched by _flash_backward :677)
 //   K3  _bwd_dq_kernel (:400, launched by _flash_backward :705)
 //   K4  _bwd_dkv_kernel (:450, launched by _flash_backward :722)
 // Same functions and the same roundings: every product takes bf16
 // operands and accumulates in f32 (preferred_element_type); the forward
 // rounds P to bf16 before P.V (:260) and O once at the end; K3 rounds
 // dS = P * (dP - delta) to bf16 before dS.K (:440); K4 rounds P before
-// P^T.dO (:498) and dS before dS^T.Q (:502). The softmax statistics,
-// LSE and delta (computed by the caller from the bf16 dO and O) are f32.
-// The masks are those of flash_attn_fwd.cu / flash_attn_bwd.cu: key
-// column `col` of query row `row` is live when col < kv_len[b] and (not
-// causal or col <= q_start[b] + row), q_start = 0 in the backward; a
-// fully masked row gives O = 0 and LSE = -1e30, and a row whose LSE is
-// that sentinel has P = 0 in the backward.
+// P^T.dO (:498) and dS before dS^T.Q (:502); K2 rounds dS once (:570) for
+// dS.K, dS^T.Q and P for P^T.dO (:575), and writes its per-kv-tile dq
+// partials in f32 (:690), summed and cast once by the caller (:698). The
+// softmax statistics, LSE and delta (computed by the caller from the
+// bf16 dO and O) are f32. The masks are those of flash_attn_fwd.cu /
+// flash_attn_bwd.cu: key column `col` of query row `row` is live when
+// col < kv_len[b] and (not causal or col <= q_start[b] + row), q_start =
+// 0 in the backward; a fully masked row gives O = 0 and LSE = -1e30, and
+// a row whose LSE is that sentinel has P = 0 in the backward.
 //
 // What bounds them on an H100: at the training shape [8, 12, 1024, 64]
 // causal, K1 does 2 products (12.9 GFLOP), K3 3 and K4 4 of 2 * D flops
 // per live (row, key) pair: 13-26 us at the 989 TFLOP/s of dense bf16
-// tensor cores, against 12-20 us of HBM bytes. Both bounds are close;
-// what limits these simple kernels is the mma.sync throughput and
-// the softmax arithmetic between the products (wgmma and a ring of TMA
-// loads are later work).
+// tensor cores, against 12-20 us of HBM bytes. K2 at [32, 12, 256, 64]
+// does 5 (8.1 GFLOP, 8 us) against 27 us of bytes: bound by bytes.
 //
-// Design. The TPU grid walks its reduction axis sequentially and keeps
-// the accumulators in VMEM; on the card a block owns one 64-row output
-// tile of one (batch, head) with 4 warps of 16 rows, and loops over the
-// reduction axis itself in 64-wide tiles, double-buffered in shared
-// memory by cp.async (16 bytes a thread, zero-filled past the live
-// range, so unwritten memory never enters a product):
+// Design of K1 and K2 (mma.sync m16n8k16, bf16_mma.cuh). The TPU grid
+// walks its reduction axis sequentially and keeps the accumulators in
+// VMEM; on the card a block owns one 64-row output tile of one (batch,
+// head) with 4 warps of 16 rows, and loops over the reduction axis
+// itself in 64-wide tiles, double-buffered in shared memory by cp.async
+// (16 bytes a thread, zero-filled past the live range, so unwritten
+// memory never enters a product):
 //   K1  block = 64 query rows; K/V tiles stream; Q's A fragments live in
 //       registers; S = Q.K^T and the online softmax on the C fragments;
 //       P, packed to bf16, is the A fragment of P.V without leaving the
 //       registers (bf16_mma.cuh); V's B fragments come from ldmatrix.trans.
-//   K3  block = 64 query rows; K/V tiles stream; Q and dO fragments in
-//       registers; S and dP = dO.V^T, then dS, then dQ += dS.K with K
-//       read by ldmatrix.trans.
-//   K4  block = 64 keys, each warp 16 keys; Q/dO tiles and their LSE /
+//   K2  block = 64 keys, each warp 16 keys; Q/dO tiles and their LSE /
 //       delta rows stream; K and V fragments in registers; S^T = K.Q^T
 //       and dP^T = V.dO^T (keys x rows), then dV += P^T.dO and
 //       dK += dS^T.Q with P^T and dS^T as A fragments from registers and
-//       dO, Q read by ldmatrix.trans.
-// No tile is copied twice for a transposed use: 16-bit ldmatrix.trans
-// delivers the transposed fragments. Tiles wholly past the causal
-// diagonal or kv_len are not loaded; the ragged edge is masked on the
-// fragments; K1 and K3 start the blocks of the longest causal rows
-// first.
+//       dO, Q read by ldmatrix.trans; dS^T, rounded, goes to shared
+//       memory, from which each warp reads 16 q rows of dS (ldmatrix.trans)
+//       for its rows' dq partial dS.K over the tile's 64 keys.
+// K1 starts the blocks of the longest causal rows first; tiles wholly
+// past the causal diagonal or kv_len are not loaded.
+//
+// Design of K3 and K4 (wgmma + TMA, hopper.cuh): see the section below.
+// A block is two consumer warpgroups of 64 rows (K3) or 64 keys (K4) and
+// one producer warp; every product is a wgmma m64n64k16 with f32
+// accumulators, the first two (S and dP, or S^T and dP^T) from shared
+// memory, the last ones with the rounded P / dS as register A fragments
+// and the shared tile read MN-major (the descriptor's transpose bit), so
+// no tile is copied or transposed. The fixed operand is loaded once and
+// the streamed tiles by TMA through a ring of mbarrier stages.
 //
 // Interface: plain C, bound with ctypes; the arguments of the f32
-// entries (flash_attn_fwd.cu, flash_attn_bwd.cu) with bf16 tensors.
-// q/k/v/dO/O and the gradients are [B, n, T, D] bf16 with arbitrary
-// element strides for B, n and T (D contiguous, strides a multiple of 8,
-// pointers 16-byte aligned); lse and delta are contiguous f32 [B, n, Tq].
-// Returns cudaGetLastError() after the launch, -1 for an unsupported
-// head dim or Tq = 1 (the decode step has no bf16 kernel), -2 for a
-// kernel this file does not have (the fused K2).
+// entries (flash_attn_fwd.cu, flash_attn_bwd.cu) with bf16 tensors (K2's
+// dq partials f32). q/k/v/dO/O and the gradients are [B, n, T, D] bf16
+// with arbitrary element strides for B, n and T (D contiguous, strides a
+// multiple of 8, pointers 16-byte aligned: what cp.async and TMA need);
+// lse and delta are contiguous f32 [B, n, Tq]. Returns cudaGetLastError()
+// after the launch, -1 for an unsupported head dim or Tq = 1 (the decode
+// step has no bf16 kernel), -2 for an unknown kernel, -3 when
+// cuTensorMapEncodeTiled refuses a tensor map.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "bf16_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -315,7 +324,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// -- K3, K4: the backward ----------------------------------------------------
+// -- K2, K3, K4: the backward ------------------------------------------------
 
 constexpr int kD = 64;  // the backward's head dim
 constexpr int kS = kD + 8;
@@ -326,102 +335,31 @@ struct BwdArgs {
   const float *lse, *delta;
   const int* kv_len;
   bf16 *dq, *dk, *dv;
+  float* dq_part;            // K2: the f32 dq partials of the kv tiles
   int n, Tq, Tk;
-  // element strides (batch, head, row) of q, k, v, dO, dq, dk, dv
+  // element strides (batch, head, row) of q, k, v, dO, dq (K2: of one
+  // kv tile's partial), dk, dv
   long long sq[3], sk[3], sv[3], sdo[3], sdq[3], sdk[3], sdv[3];
+  long long dq_tile_stride;  // K2: elements between kv tiles' partials
   int causal;
   float scale;
 };
 
-// K3: dq of one 64-row q tile of one (batch, head)
+// K2: dk, dv and the f32 dq partial of one 64-key kv tile of one
+// (batch, head): K4's sweep over the q tiles, plus dQ_j = scale * dS.K
+// of every q tile, written to the tile's partial. dS^T (bf16, the
+// reference's rounding) goes through shared memory: each warp holds 16
+// keys of it, and dS.K sums over all 64, so each warp then reads 16 q
+// rows x 64 keys of it back as A fragments (ldmatrix.trans, no copy).
 __global__ void __launch_bounds__(kThreads)
-bwd_dq_bf16_kernel(const BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [2][key][kS]
-  bf16* vs = ks + 2 * kTile;                       // [2][key][kS]
-
-  const int bh = blockIdx.y, b = bh / a.n, h = bh % a.n;
-  const int row0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int rows = min(kRows, a.Tq - row0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int klen = max(min(a.kv_len[b], a.Tk), 0);
-  const int tile_limit = a.causal ? min(klen, row0 + rows) : klen;
-  const int warp_limit =
-      a.causal ? min(klen, row0 + min(16 * warp + 16, rows)) : klen;
-  const int r0 = 16 * warp + g, r1 = r0 + 8;
-  const int row_a = row0 + r0, row_b = row0 + r1;
-
-  const bf16* kb = a.k + b * a.sk[0] + h * a.sk[1];
-  const bf16* vb = a.v + b * a.sv[0] + h * a.sv[1];
-  auto load_tile = [&](int j, int stage) {
-    stage_rows<kD>(ks + stage * kTile, kb, a.sk[2], j * kCols, tile_limit);
-    stage_rows<kD>(vs + stage * kTile, vb, a.sv[2], j * kCols, tile_limit);
-    bf::cp_async_commit();
-  };
-  const int n_tiles = (tile_limit + kCols - 1) / kCols;
-  if (n_tiles > 0) load_tile(0, 0);
-
-  uint32_t qa[kD / 16][4], oa[kD / 16][4];
-  load_rows_a<kD>(qa, a.q + b * a.sq[0] + h * a.sq[1] + row0 * a.sq[2],
-                  a.sq[2], r0, rows, t);
-  load_rows_a<kD>(oa, a.dout + b * a.sdo[0] + h * a.sdo[1] +
-                          row0 * a.sdo[2], a.sdo[2], r0, rows, t);
-  const float* lrow = a.lse + (long long)bh * a.Tq;
-  const float* drow = a.delta + (long long)bh * a.Tq;
-  const float l0 = r0 < rows ? lrow[row_a] : kNegSentinel;
-  const float l1 = r1 < rows ? lrow[row_b] : kNegSentinel;
-  const float dl0 = r0 < rows ? drow[row_a] : 0.f;
-  const float dl1 = r1 < rows ? drow[row_b] : 0.f;
-  const bool live0 = l0 > kDeadLse, live1 = l1 > kDeadLse;
-
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int i = 0; i < kD / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j & 1;
-    bf::cp_async_wait<0>();
-    __syncthreads();
-    if (j + 1 < n_tiles) load_tile(j + 1, stage ^ 1);
-    const int c0 = j * kCols;
-    if (c0 >= warp_limit) continue;  // warp-uniform: no live key here
-    const bf16* kt = ks + stage * kTile;
-
-    float s[8][4], dp[8][4];
-    rows_x_tile<kD>(s, qa, kt, lane);
-    rows_x_tile<kD>(dp, oa, vs + stage * kTile, lane);
-    // dS = P * (dP - delta) in the S fragments
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = c0 + 8 * nt + 2 * t + e;
-        const bool ok = col < klen;
-        const bool ok0 = ok && live0 && (!a.causal || col <= row_a);
-        const bool ok1 = ok && live1 && (!a.causal || col <= row_b);
-        const float p0 = ok0 ? expf(a.scale * s[nt][e] - l0) : 0.f;
-        const float p1 = ok1 ? expf(a.scale * s[nt][2 + e] - l1) : 0.f;
-        s[nt][e] = p0 * (dp[nt][e] - dl0);
-        s[nt][2 + e] = p1 * (dp[nt][2 + e] - dl1);
-      }
-    }
-    // dQ += dS.K, dS rounded to bf16 (the reference's ds.astype(k.dtype))
-    frag_x_tile<kD>(acc, s, kt, lane);
-  }
-  store_rows<kD>(a.dq + b * a.sdq[0] + h * a.sdq[1] + row0 * a.sdq[2],
-                 a.sdq[2], acc, a.scale, a.scale, r0, rows, t);
-}
-
-// K4: dk, dv of one 64-key kv tile of one (batch, head)
-__global__ void __launch_bounds__(kThreads)
-bwd_dkv_bf16_kernel(const BwdArgs a) {
+bwd_fused_bf16_kernel(const BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [2][row][kS]
   bf16* os = qs + 2 * kTile;                       // [2][row][kS]
-  float* lse_s = reinterpret_cast<float*>(os + 2 * kTile);  // [2][64]
-  float* delta_s = lse_s + 2 * kCols;                        // [2][64]
+  bf16* ks = os + 2 * kTile;                       // [key][kS]
+  bf16* dss = ks + kTile;                          // dS^T [key][kS]
+  float* lse_s = reinterpret_cast<float*>(dss + kTile);  // [2][64]
+  float* delta_s = lse_s + 2 * kCols;                     // [2][64]
 
   const int bh = blockIdx.y, b = bh / a.n, h = bh % a.n;
   const int key0 = blockIdx.x * kRows;
@@ -438,11 +376,18 @@ bwd_dkv_bf16_kernel(const BwdArgs a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
 
-  // causal: q rows before this tile's first key never attend to it
   const int i0 = a.causal ? key0 / kCols : 0;
   const int nq = (a.Tq + kCols - 1) / kCols;
-  // a tile wholly past kv_len gets zero gradients
   const int n_tiles = key0 < klen ? max(nq - i0, 0) : 0;
+
+  // q rows before the first live q tile get a zero partial (the
+  // reference's dead blocks), every other row is written below
+  float* part = a.dq_part + blockIdx.x * a.dq_tile_stride + b * a.sdq[0] +
+                h * a.sdq[1];
+  const int dead_rows = n_tiles > 0 ? min(i0 * kCols, a.Tq) : a.Tq;
+  for (int i = threadIdx.x; i < dead_rows * (kD / 4); i += kThreads)
+    reinterpret_cast<float4*>(part + (i / (kD / 4)) * a.sdq[2])[i % (kD / 4)] =
+        make_float4(0.f, 0.f, 0.f, 0.f);
 
   const bf16* qb = a.q + b * a.sq[0] + h * a.sq[1];
   const bf16* ob = a.dout + b * a.sdo[0] + h * a.sdo[1];
@@ -462,7 +407,13 @@ bwd_dkv_bf16_kernel(const BwdArgs a) {
     }
     bf::cp_async_commit();
   };
-  if (n_tiles > 0) load_tile(i0, 0);
+  if (n_tiles > 0) {
+    // K for dS.K, zero past kv_len (a dead key's dS is 0, and 0 times
+    // what lies there must not be NaN); in the first tile's group
+    stage_rows<kD>(ks, a.k + b * a.sk[0] + h * a.sk[1], a.sk[2], key0,
+                   klen);
+    load_tile(i0, 0);
+  }
 
   uint32_t ka[kD / 16][4], va[kD / 16][4];
   load_rows_a<kD>(ka, a.k + b * a.sk[0] + h * a.sk[1] + key0 * a.sk[2],
@@ -474,6 +425,8 @@ bwd_dkv_bf16_kernel(const BwdArgs a) {
   for (int it = 0; it < n_tiles; ++it) {
     const int stage = it & 1, row0 = (i0 + it) * kCols;
     bf::cp_async_wait<0>();
+    // tile it is visible; every warp is done with tile it - 1's stage
+    // and with its dS^T
     __syncthreads();
     if (it + 1 < n_tiles) load_tile(i0 + it + 1, stage ^ 1);
     const bf16* qt = qs + stage * kTile;
@@ -506,11 +459,484 @@ bwd_dkv_bf16_kernel(const BwdArgs a) {
     // dV += P^T.dO and dK += dS^T.Q, P^T and dS^T rounded to bf16
     frag_x_tile<kD>(dv, st, ot, lane);
     frag_x_tile<kD>(dk, dpt, qt, lane);
+    // dS^T, rounded to bf16, to shared memory: keys k0 / k1, rows 8nt + 2t
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      *reinterpret_cast<uint32_t*>(dss + k0 * kS + 8 * nt + 2 * t) =
+          bf::pack(dpt[nt][0], dpt[nt][1]);
+      *reinterpret_cast<uint32_t*>(dss + k1 * kS + 8 * nt + 2 * t) =
+          bf::pack(dpt[nt][2], dpt[nt][3]);
+    }
+    __syncthreads();
+    // dQ_j of this warp's 16 q rows = dS.K over the tile's 64 keys: dS's
+    // A fragments from dS^T [key][row] by ldmatrix.trans, K's B
+    // fragments from K [key][d] by ldmatrix.trans
+    float dq[kD / 8][4];
+#pragma unroll
+    for (int i = 0; i < kD / 8; ++i)
+      dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+    const int blk = lane >> 3, rr = lane & 7;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t af[4];
+      bf::ldsm_x4_t(af, dss + (16 * kk + rr + 8 * (blk >> 1)) * kS +
+                            16 * warp + 8 * (blk & 1));
+#pragma unroll
+      for (int dp = 0; dp < kD / 16; ++dp) {
+        uint32_t bfr[4];
+        bf::load_b_kn(bfr, ks, kS, 16 * kk, 16 * dp, lane);
+        bf::mma(dq[2 * dp], af, bfr);
+        bf::mma(dq[2 * dp + 1], af, bfr + 2);
+      }
+    }
+    // the f32 partial (the reference writes dq_part in f32)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + 16 * warp + g + 8 * half;
+      if (row >= a.Tq) continue;
+      float* out = part + row * a.sdq[2] + 2 * t;
+#pragma unroll
+      for (int dt = 0; dt < kD / 8; ++dt)
+        *reinterpret_cast<float2*>(out + 8 * dt) =
+            make_float2(dq[dt][2 * half] * a.scale,
+                        dq[dt][2 * half + 1] * a.scale);
+    }
   }
   store_rows<kD>(a.dk + b * a.sdk[0] + h * a.sdk[1] + key0 * a.sdk[2],
                  a.sdk[2], dk, a.scale, a.scale, k0, keys, t);
   store_rows<kD>(a.dv + b * a.sdv[0] + h * a.sdv[1] + key0 * a.sdv[2],
                  a.sdv[2], dv, 1.f, 1.f, k0, keys, t);
+}
+
+// -- K3 and K4 on wgmma + TMA ------------------------------------------------
+//
+// Warp-specialised blocks of three warpgroups: two consumers (64 q rows
+// or 64 keys each, 128 a block) and a producer whose first warp issues
+// every load. The block's fixed operand (K3: Q and dO of its 128 rows;
+// K4: K and V of its 128 keys) is loaded once by TMA; the streamed one
+// (K3: K / V tiles of 64 keys; K4: Q / dO tiles of 64 rows and their
+// LSE / delta) runs through a ring of stages with full / empty
+// mbarriers. Tiles are 64 x 64 bf16 boxes of 4-D tensor maps over
+// (D, T, n, B) with the operands' own strides, 128-byte swizzled
+// (hopper.cuh); rows past the tensor's end are zero-filled by TMA. A
+// dead row (LSE sentinel, or past Tq) carries LSE +inf, so its P is
+// exp2(-inf) = 0 without a test; keys past kv_len and the causal mask
+// are masked on the fragments only in the tiles that have such pairs.
+// Each consumer runs S (or S^T) and dP (dP^T) as two wgmma groups, the
+// softmax on the first while the second runs, and leaves the products
+// into dQ (dK, dV) in flight while it waits for the next tile: the stage
+// they read is released once the next tile's first group has completed
+// (groups complete in order).
+
+constexpr int kWg = 128;                      // threads of a warpgroup
+constexpr int kConsumers = 2;                 // consumer warpgroups
+constexpr int kBlock = kConsumers * 64;       // rows or keys of a block
+constexpr int kWsThreads = (kConsumers + 1) * kWg;
+constexpr int kDqStages = 4;                  // K3: K / V tiles in flight
+constexpr int kDkvStages = 3;                 // K4: Q / dO tiles in flight
+constexpr int kBox = 64 * 64;                 // elements of one TMA box
+constexpr uint32_t kBoxBytes = kBox * sizeof(bf16);
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct alignas(1024) DqSmem {
+  bf16 q[kConsumers * kBox];      // the block's rows, one box per consumer
+  bf16 dout[kConsumers * kBox];
+  bf16 k[kDqStages][kBox];        // streamed key tiles
+  bf16 v[kDqStages][kBox];
+  uint64_t qo_full, full[kDqStages], empty[kDqStages];
+};
+
+struct alignas(1024) DkvSmem {
+  bf16 k[kConsumers * kBox];      // the block's keys, one box per consumer
+  bf16 v[kConsumers * kBox];
+  bf16 q[kDkvStages][kBox];       // streamed q-row tiles
+  bf16 dout[kDkvStages][kBox];
+  float lse2[kDkvStages][kCols];  // the rows' LSE * log2(e), +inf if dead
+  float delta[kDkvStages][kCols];
+  uint64_t kv_full, full[kDkvStages], empty[kDkvStages];
+};
+
+// the dynamic shared memory, rounded up to the 1024-byte boundary the
+// 128-byte swizzle is laid out from (the launch adds 1024 bytes)
+template <typename T>
+__device__ __forceinline__ T& aligned_smem() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t pad = (1024u - (hp::smem_u32(smem_raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<T*>(smem_raw + pad);
+}
+
+// a row's LSE in base 2 for p = exp2(s * scale * log2(e) - lse2); a dead
+// row's is +inf (p = 0)
+__device__ __forceinline__ float lse_base2(float lse) {
+  return lse > kDeadLse ? lse * kLog2e : INFINITY;
+}
+
+// descriptor steps (the start address, in 16-byte units) between the
+// four 16-wide slices of a tile's reduction: 32 bytes along a K-major
+// row, 16 rows (2048 bytes) down an MN-major tile
+constexpr uint64_t kKStep = 32 >> 4, kMnStep = (16 * kD * 2) >> 4;
+
+// a 64 x 64 product over D: d = A.B^T, A and B tiles of 64 rows x D
+__device__ __forceinline__ void tile_product(float (&d)[32], const bf16* a,
+                                             const bf16* b) {
+  const uint64_t da = hp::desc_sw128(a), db = hp::desc_sw128(b);
+  hp::wgmma_ss<false>(d, da, db);
+#pragma unroll
+  for (int kk = 1; kk < kD / 16; ++kk)
+    hp::wgmma_ss<true>(d, da + kk * kKStep, db + kk * kKStep);
+}
+
+// the register A fragments of a 64 x 64 accumulator, rounded to bf16,
+// for the next product's four 16-wide slices of its columns
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[4][4],
+                                       const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = bf::pack(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// d += A.B over 64: A from registers, B a 64 x D tile read MN-major
+__device__ __forceinline__ void tile_product_rs(float (&d)[32],
+                                                const uint32_t (&pa)[4][4],
+                                                const bf16* b) {
+  const uint64_t db = hp::desc_sw128(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) hp::wgmma_rs_t(d, pa[kk], db + kk * kMnStep);
+}
+
+// a warpgroup's 64 x D accumulator, times `mul`, as bf16 rows r0 + (16w
+// + g) and + 8 of `base` (rows >= valid skipped)
+__device__ __forceinline__ void store_acc(bf16* base, long long st,
+                                          const float (&d)[32], float mul,
+                                          int r0, int valid) {
+  const int w = (threadIdx.x & (kWg - 1)) >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 16 * w + g + 8 * half;
+    if (r >= valid) continue;
+    bf16* out = base + r * st + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < kD / 8; ++nt)
+      *reinterpret_cast<uint32_t*>(out + 8 * nt) =
+          bf::pack(d[4 * nt + 2 * half] * mul,
+                   d[4 * nt + 2 * half + 1] * mul);
+  }
+}
+
+// The consumers' release of ring stages: a stage is free once the last
+// wgmma group reading it has completed. `held` is the stage whose
+// second-product group is still in flight (-1: none).
+struct StageRelease {
+  int held = -1;
+  // after a wait that completed the held group
+  __device__ __forceinline__ void release(uint64_t* empty) {
+    if (held >= 0) hp::mbar_arrive(&empty[held]);
+    held = -1;
+  }
+  // a tile with nothing to compute: finish the held group, free both
+  __device__ __forceinline__ void skip(uint64_t* empty, int s) {
+    if (held >= 0) {
+      hp::wgmma_wait<0>();
+      release(empty);
+    }
+    hp::mbar_arrive(&empty[s]);
+  }
+};
+
+// K3: dq of one 128-row q block of one (batch, head)
+__global__ void __launch_bounds__(kWsThreads, 1)
+bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const BwdArgs a) {
+  DqSmem& sm = aligned_smem<DqSmem>();
+  const int bh = blockIdx.y, b = bh / a.n, h = bh % a.n;
+  // the causal rows reach the most keys at the end: start those first
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
+  const int rows = min(kBlock, a.Tq - row0);
+  const int klen = hp::warp_uniform(max(min(a.kv_len[b], a.Tk), 0));
+  const int tile_limit = a.causal ? min(klen, row0 + rows) : klen;
+  const int n_tiles = (tile_limit + kCols - 1) / kCols;
+  const int wg = hp::warp_uniform(threadIdx.x / kWg);
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(&sm.qo_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      hp::mbar_init(&sm.full[s], 1);
+      hp::mbar_init(&sm.empty[s], kConsumers * kWg);
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {                     // the producer
+    hp::regs_dealloc<24>();
+    if (threadIdx.x != kConsumers * kWg || n_tiles == 0) return;
+    hp::mbar_arrive_tx(&sm.qo_full, 2 * kConsumers * kBoxBytes);
+    for (int c = 0; c < kConsumers; ++c) {
+      hp::tma_load_4d(sm.q + c * kBox, &tq, &sm.qo_full, 0, row0 + 64 * c,
+                      h, b);
+      hp::tma_load_4d(sm.dout + c * kBox, &tdo, &sm.qo_full, 0,
+                      row0 + 64 * c, h, b);
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kDqStages;
+      if (j >= kDqStages)
+        hp::mbar_wait(&sm.empty[s], (j / kDqStages - 1) & 1);
+      hp::mbar_arrive_tx(&sm.full[s], 2 * kBoxBytes);
+      hp::tma_load_4d(sm.k[s], &tk, &sm.full[s], 0, j * kCols, h, b);
+      hp::tma_load_4d(sm.v[s], &tv, &sm.full[s], 0, j * kCols, h, b);
+    }
+    return;
+  }
+
+  hp::regs_alloc<240>();                      // a consumer: 64 q rows
+  const int w = (threadIdx.x & (kWg - 1)) >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rbase = row0 + 64 * wg;
+  const int ra = rbase + 16 * w + g, rb = ra + 8;   // this thread's rows
+  // keys past this warpgroup's limit are dead for all of its rows
+  const int wg_limit =
+      rbase >= a.Tq ? 0 : (a.causal ? min(klen, rbase + 64) : klen);
+  const float* lrow = a.lse + (long long)bh * a.Tq;
+  const float* drow = a.delta + (long long)bh * a.Tq;
+  const float la = ra < a.Tq ? lse_base2(lrow[ra]) : INFINITY;
+  const float lb = rb < a.Tq ? lse_base2(lrow[rb]) : INFINITY;
+  const float dla = ra < a.Tq ? drow[ra] : 0.f;
+  const float dlb = rb < a.Tq ? drow[rb] : 0.f;
+  const float sl2 = a.scale * kLog2e;
+
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  if (n_tiles > 0) hp::mbar_wait(&sm.qo_full, 0);
+  const bf16* qt = sm.q + wg * kBox;
+  const bf16* ot = sm.dout + wg * kBox;
+  StageRelease rel;
+  uint32_t da[4][4];
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kDqStages, c0 = j * kCols;
+    hp::mbar_wait(&sm.full[s], (j / kDqStages) & 1);
+    if (c0 >= wg_limit) {                     // warpgroup-uniform
+      rel.skip(sm.empty, s);
+      continue;
+    }
+    float sc[32], dp[32];
+    hp::wgmma_fence();
+    tile_product(sc, qt, sm.k[s]);            // S = Q.K^T
+    hp::wgmma_commit();
+    tile_product(dp, ot, sm.v[s]);            // dP = dO.V^T
+    hp::wgmma_commit();
+    hp::wgmma_wait<1>();                      // the last dQ group and S
+    rel.release(sm.empty);
+    hp::fence_acc(sc);
+    // P on S's fragments while dP finishes; masks only where a pair of
+    // the tile is past kv_len or the causal diagonal
+    if ((a.causal && c0 + 63 > rbase) || c0 + 64 > klen) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = c0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        const bool lo = ((i >> 1) & 1) == 0;
+        const bool ok = col < klen && (!a.causal || col <= (lo ? ra : rb));
+        sc[i] = ok ? hp::exp2_approx(fmaf(sc[i], sl2, -(lo ? la : lb))) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        sc[i] = hp::exp2_approx(fmaf(sc[i], sl2, -(((i >> 1) & 1) ? lb : la)));
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_acc(dp);
+    // dS = P * (dP - delta), rounded to bf16 (the reference's
+    // ds.astype(k.dtype)) as the A fragments of dQ += dS.K
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      dp[i] = sc[i] * (dp[i] - (((i >> 1) & 1) ? dlb : dla));
+    pack_a(da, dp);
+    hp::wgmma_fence();
+    tile_product_rs(dq, da, sm.k[s]);         // K read MN-major
+    hp::wgmma_commit();
+    rel.held = s;
+  }
+  hp::wgmma_wait<0>();
+  rel.release(sm.empty);
+  hp::fence_acc(dq);
+  store_acc(a.dq + b * a.sdq[0] + h * a.sdq[1], a.sdq[2], dq, a.scale,
+            rbase, a.Tq);
+}
+
+// K4: dk, dv of one 128-key kv block of one (batch, head)
+__global__ void __launch_bounds__(kWsThreads, 1)
+bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const BwdArgs a) {
+  DkvSmem& sm = aligned_smem<DkvSmem>();
+  const int bh = blockIdx.y, b = bh / a.n, h = bh % a.n;
+  const int key0 = blockIdx.x * kBlock;
+  const int klen = hp::warp_uniform(max(min(a.kv_len[b], a.Tk), 0));
+  // causal: q tiles before the one holding key0 never attend to the block
+  const int i0 = a.causal ? key0 / kCols : 0;
+  const int nq = (a.Tq + kCols - 1) / kCols;
+  // a block wholly past kv_len gets zero gradients
+  const int n_tiles = key0 < klen ? max(nq - i0, 0) : 0;
+  const int wg = hp::warp_uniform(threadIdx.x / kWg);
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      hp::mbar_init(&sm.full[s], 32);         // the producer warp's lanes
+      hp::mbar_init(&sm.empty[s], kConsumers * kWg);
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {                     // the producer
+    hp::regs_dealloc<24>();
+    const int lane = threadIdx.x & 31;
+    if (threadIdx.x / 32 != kConsumers * 4 || n_tiles == 0) return;
+    if (lane == 0) {
+      hp::mbar_arrive_tx(&sm.kv_full, 2 * kConsumers * kBoxBytes);
+      for (int c = 0; c < kConsumers; ++c) {
+        hp::tma_load_4d(sm.k + c * kBox, &tk, &sm.kv_full, 0, key0 + 64 * c,
+                        h, b);
+        hp::tma_load_4d(sm.v + c * kBox, &tv, &sm.kv_full, 0, key0 + 64 * c,
+                        h, b);
+      }
+    }
+    const float* lrow = a.lse + (long long)bh * a.Tq;
+    const float* drow = a.delta + (long long)bh * a.Tq;
+    // each lane carries rows lane and lane + 32 of the next tile's
+    // statistics, read before the wait for a free stage
+    float l2[2], dl[2];
+    auto fetch = [&](int it) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int row = (i0 + it) * kCols + lane + 32 * k;
+        l2[k] = row < a.Tq ? lse_base2(lrow[row]) : INFINITY;
+        dl[k] = row < a.Tq ? drow[row] : 0.f;
+      }
+    };
+    fetch(0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kDkvStages, row0 = (i0 + it) * kCols;
+      if (it >= kDkvStages)
+        hp::mbar_wait(&sm.empty[s], (it / kDkvStages - 1) & 1);
+      if (lane == 0) {
+        hp::mbar_expect_tx(&sm.full[s], 2 * kBoxBytes);
+        hp::tma_load_4d(sm.q[s], &tq, &sm.full[s], 0, row0, h, b);
+        hp::tma_load_4d(sm.dout[s], &tdo, &sm.full[s], 0, row0, h, b);
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        sm.lse2[s][lane + 32 * k] = l2[k];
+        sm.delta[s][lane + 32 * k] = dl[k];
+      }
+      hp::mbar_arrive(&sm.full[s]);
+      if (it + 1 < n_tiles) fetch(it + 1);
+    }
+    return;
+  }
+
+  hp::regs_alloc<240>();                      // a consumer: 64 keys
+  const int w = (threadIdx.x & (kWg - 1)) >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kbase = key0 + 64 * wg;
+  const int ka = kbase + 16 * w + g, kb = ka + 8;   // this thread's keys
+  const bool wg_live = kbase < klen;
+  const float sl2 = a.scale * kLog2e;
+
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  if (n_tiles > 0) hp::mbar_wait(&sm.kv_full, 0);
+  const bf16* kt = sm.k + wg * kBox;
+  const bf16* vt = sm.v + wg * kBox;
+  StageRelease rel;
+  uint32_t pa[4][4], da[4][4];
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kDkvStages, row0 = (i0 + it) * kCols;
+    hp::mbar_wait(&sm.full[s], (it / kDkvStages) & 1);
+    // causal: a tile wholly before this warpgroup's first key is dead
+    if (!wg_live || (a.causal && row0 + kCols <= kbase)) {
+      rel.skip(sm.empty, s);
+      continue;
+    }
+    float st[32], dpt[32];
+    hp::wgmma_fence();
+    tile_product(st, kt, sm.q[s]);            // S^T = K.Q^T
+    hp::wgmma_commit();
+    tile_product(dpt, vt, sm.dout[s]);        // dP^T = V.dO^T
+    hp::wgmma_commit();
+    // the last tile's dV and dK groups, and S^T
+    hp::wgmma_wait<1>();
+    rel.release(sm.empty);
+    hp::fence_acc(st);
+    const float2* ls = reinterpret_cast<const float2*>(sm.lse2[s]);
+    const float2* dls = reinterpret_cast<const float2*>(sm.delta[s]);
+    // P^T on S^T's fragments (keys x rows) while dP^T finishes; masks
+    // only where a pair of the tile is past kv_len or the diagonal
+    if ((a.causal && row0 < kbase + 63) || kbase + 64 > klen) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 l = ls[4 * nt + t];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = 4 * nt + c, row = row0 + 8 * nt + 2 * t + (c & 1);
+          const int key = c < 2 ? ka : kb;
+          const bool ok = key < klen && (!a.causal || key <= row);
+          st[i] = ok ? hp::exp2_approx(fmaf(st[i], sl2, -((c & 1) ? l.y : l.x))) : 0.f;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 l = ls[4 * nt + t];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          st[4 * nt + c] =
+              hp::exp2_approx(fmaf(st[4 * nt + c], sl2, -((c & 1) ? l.y : l.x)));
+      }
+    }
+    // dV += P^T.dO with P^T rounded to bf16 as register A fragments and
+    // dO read MN-major, in flight while dS is formed
+    pack_a(pa, st);
+    hp::wgmma_fence();
+    tile_product_rs(dv, pa, sm.dout[s]);
+    hp::wgmma_commit();
+    hp::wgmma_wait<1>();                      // dP^T
+    hp::fence_acc(dpt);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 d = dls[4 * nt + t];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        dpt[4 * nt + c] =
+            st[4 * nt + c] * (dpt[4 * nt + c] - ((c & 1) ? d.y : d.x));
+    }
+    // dK += dS^T.Q, dS^T rounded to bf16, Q read MN-major
+    pack_a(da, dpt);
+    hp::wgmma_fence();
+    tile_product_rs(dk, da, sm.q[s]);
+    hp::wgmma_commit();
+    rel.held = s;
+  }
+  hp::wgmma_wait<0>();
+  rel.release(sm.empty);
+  hp::fence_acc(dv);
+  hp::fence_acc(dk);
+  store_acc(a.dk + b * a.sdk[0] + h * a.sdk[1], a.sdk[2], dk, a.scale,
+            kbase, a.Tk);
+  store_acc(a.dv + b * a.sdv[0] + h * a.sdv[1], a.sdv[2], dv, 1.f, kbase,
+            a.Tk);
 }
 
 template <typename Kernel, typename... Args>
@@ -534,6 +960,70 @@ cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v,
                 stream, q, k, v, kv_len, q_start, o, lse, n, Tq, Tk, st[0],
                 st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
                 st[9], st[10], st[11], causal, scale);
+}
+
+// cuTensorMapEncodeTiled, looked up at run time (no link against
+// libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                         12000, cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the 4-D map over (D, T, n, B) of a [B, n, T, 64] bf16 operand with
+// element strides st = (batch, head, row), boxes of 64 rows x 64,
+// 128-byte swizzle, zero fill past T; false if the encoder refuses it
+bool make_map(CUtensorMap* map, const void* base, int B, int n, int T,
+              const long long* st) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  if (B == 0 || n == 0 || T == 0) {   // nothing is ever loaded from it
+    *map = CUtensorMap{};
+    return true;
+  }
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(B)};
+  // a dimension of extent 1 is never stepped: any legal stride will do
+  const long long per[3] = {st[2], n > 1 ? st[1] : 8, B > 1 ? st[0] : 8};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i)
+    strides[i] = static_cast<cuuint64_t>(per[i]) * sizeof(bf16);
+  const cuuint32_t box[4] = {kD, 64, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename Smem, typename Kernel>
+cudaError_t launch_ws(Kernel kernel, dim3 grid, cudaStream_t stream,
+                      const CUtensorMap (&maps)[4], const BwdArgs& a) {
+  const int smem = static_cast<int>(sizeof(Smem)) + 1024;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kWsThreads, smem, stream>>>(maps[0], maps[1], maps[2],
+                                             maps[3], a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -570,9 +1060,10 @@ extern "C" int pt_flash_attn_fwd_bf16(
   }
 }
 
-// which: 1 = K3 (dq), 2 = K4 (dk, dv); 0 (the fused K2) has no bf16
-// kernel. strides: 22 long longs — (batch, head, row) element strides of
-// q, k, v, dO, dq, dk, dv, then one unused (the f32 K2's partial stride).
+// which: 0 = K2 (fused; dq is the f32 [nk, ...] partials buffer),
+// 1 = K3 (dq), 2 = K4 (dk, dv). strides: 22 long longs — (batch, head,
+// row) element strides of q, k, v, dO, dq, dk, dv, then K2's element
+// stride between kv tiles' partials.
 extern "C" int pt_flash_attn_bwd_bf16(
     int which, const void* q, const void* k, const void* v,
     const void* dout, const void* lse, const void* delta,
@@ -588,7 +1079,8 @@ extern "C" int pt_flash_attn_bwd_bf16(
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
   a.kv_len = static_cast<const int*>(kv_len);
-  a.dq = static_cast<bf16*>(dq);
+  a.dq = which == 0 ? nullptr : static_cast<bf16*>(dq);
+  a.dq_part = which == 0 ? static_cast<float*>(dq) : nullptr;
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
   a.n = n;
@@ -597,20 +1089,29 @@ extern "C" int pt_flash_attn_bwd_bf16(
   long long* dsts[7] = {a.sq, a.sk, a.sv, a.sdo, a.sdq, a.sdk, a.sdv};
   for (int t = 0; t < 7; ++t)
     for (int i = 0; i < 3; ++i) dsts[t][i] = strides[3 * t + i];
+  a.dq_tile_stride = strides[21];
   a.causal = causal;
   a.scale = scale;
   auto s = static_cast<cudaStream_t>(stream);
-  const int nq = (Tq + kRows - 1) / kRows, nk = (Tk + kRows - 1) / kRows;
-  const int tiles = 4 * kTile * static_cast<int>(sizeof(bf16));
-  switch (which) {
-    case 1:
-      return static_cast<int>(
-          launch(bwd_dq_bf16_kernel, dim3(nq, B * n), tiles, s, a));
-    case 2:
-      return static_cast<int>(launch(
-          bwd_dkv_bf16_kernel, dim3(nk, B * n),
-          tiles + 4 * kCols * static_cast<int>(sizeof(float)), s, a));
-    default:
-      return -2;
+  if (which == 0) {
+    const int nk = (Tk + kRows - 1) / kRows;
+    const int smem = (6 * kTile) * static_cast<int>(sizeof(bf16)) +
+                     4 * kCols * static_cast<int>(sizeof(float));
+    return static_cast<int>(
+        launch(bwd_fused_bf16_kernel, dim3(nk, B * n), smem, s, a));
   }
+  if (which != 1 && which != 2) return -2;
+  CUtensorMap maps[4];
+  if (!make_map(&maps[0], q, B, n, Tq, a.sq) ||
+      !make_map(&maps[1], k, B, n, Tk, a.sk) ||
+      !make_map(&maps[2], v, B, n, Tk, a.sv) ||
+      !make_map(&maps[3], dout, B, n, Tq, a.sdo))
+    return -3;
+  if (which == 1)
+    return static_cast<int>(launch_ws<DqSmem>(
+        bwd_dq_bf16_kernel, dim3((Tq + kBlock - 1) / kBlock, B * n), s, maps,
+        a));
+  return static_cast<int>(launch_ws<DkvSmem>(
+      bwd_dkv_bf16_kernel, dim3((Tk + kBlock - 1) / kBlock, B * n), s, maps,
+      a));
 }

@@ -32,11 +32,12 @@ Operands are float32 or bfloat16 (amp training). bf16 runs the
 reference's roundings: products take bf16 operands and accumulate in
 f32; P (forward, and K4's P^T.dO) and dS (K3, K4) are rounded to bf16
 before the next product; O and the gradients are rounded once at the
-end; LSE and delta stay f32. K1 (Tq > 1), K3 and K4 have bf16 kernels
-(`csrc/flash_attn_bf16.cu`) with their own launch counters
-(`flash_attn_fwd_bf16`, `flash_attn_bwd_dq_bf16`,
-`flash_attn_bwd_dkv_bf16`); the fused K2 and the decode step (Tq = 1)
-have none yet and raise for bf16 on the card.
+end; LSE and delta stay f32. K1 (Tq > 1), K2, K3 and K4 have bf16
+kernels (`csrc/flash_attn_bf16.cu`) with their own launch counters
+(`flash_attn_fwd_bf16`, `flash_attn_bwd_fused_bf16`,
+`flash_attn_bwd_dq_bf16`, `flash_attn_bwd_dkv_bf16`); K2's dq partials
+stay f32 and are summed, then cast once (`sum_dq_partials`). The decode
+step (Tq = 1) has no bf16 kernel yet and raises for bf16 on the card.
 
 Head dims: the kernels take D in `KERNEL_HEAD_DIMS` (forward) and
 `BWD_HEAD_DIMS` (backward); on the card a smaller D is zero-padded up to
@@ -63,8 +64,9 @@ __all__ = ["flash_attn_fwd", "flash_attn_fwd_plain", "flash_attn_bwd",
            "flash_attn_bwd_fused", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
            "flash_attn_bwd_dq_plain", "flash_attn_bwd_dkv_plain",
            "flash_attn_bwd_fused_plain", "flash_attention_plane",
-           "flash_attn_fwd_bf16", "flash_attn_bwd_dq_bf16",
-           "flash_attn_bwd_dkv_bf16", "flash_attn_fwd_padded",
+           "flash_attn_fwd_bf16", "flash_attn_bwd_fused_bf16",
+           "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16",
+           "sum_dq_partials", "flash_attn_fwd_padded",
            "flash_attn_bwd_padded", "kernel_head_dim", "bwd_route",
            "KERNEL_HEAD_DIMS", "BWD_HEAD_DIMS", "BWD_TILE", "NEG"]
 
@@ -393,8 +395,8 @@ def flash_attn_bwd_padded(bwd, q, k, v, do, lse, delta, kv_len, causal,
 
 def _bwd_lib(dtype):
     """The C entry of the backward kernels for `dtype`: K2-K4 in f32
-    (`flash_attn_bwd.cu`), K3 and K4 in bf16 (`flash_attn_bf16.cu`);
-    both take the same arguments."""
+    (`flash_attn_bwd.cu`) or in bf16 (`flash_attn_bf16.cu`); both take
+    the same arguments."""
     from .._build import load_library
     if dtype == torch.bfloat16:
         fn = load_library("flash_attn_bf16").pt_flash_attn_bwd_bf16
@@ -438,9 +440,23 @@ def _bwd_launch(which, q, k, v, do, lse, delta, kv_len, dq, dk, dv,
                            ptr(dk), ptr(dv), B, n, Tq, Tk, D, arr,
                            int(bool(causal)), float(scale), stream)
     if rc != 0:
+        what = ("cuTensorMapEncodeTiled refused a TMA tensor map"
+                if rc == -3 else f"cudaError {rc}")
         raise RuntimeError(f"flash-attention backward ({which}, "
-                           f"{q.dtype}) kernel launch failed: cudaError "
-                           f"{rc} (B={B}, n={n}, Tq={Tq}, Tk={Tk}, D={D})")
+                           f"{q.dtype}) kernel launch failed: {what} "
+                           f"(B={B}, n={n}, Tq={Tq}, Tk={Tk}, D={D})")
+
+
+def sum_dq_partials(part, dtype):
+    """K2's dq from its f32 per-kv-tile partials `part` [nk, B, Tq, n,
+    D]: summed over the kv tiles in the fixed order j = 0, 1, ..., nk - 1
+    (so the result is deterministic), then cast once to the operands'
+    dtype, as the reference's `jnp.sum(dq_part, 0).astype(q.dtype)`
+    does; returned as the [B, n, Tq, D] view of a [B, Tq, n, D] plane."""
+    dq = part[0]
+    for j in range(1, part.shape[0]):
+        dq = dq + part[j]
+    return dq.to(dtype).permute(0, 2, 1, 3)
 
 
 def _bwd_wrapper(which, plain):
@@ -453,11 +469,6 @@ def _bwd_wrapper(which, plain):
     def launch(q, k, v, do, lse, delta, kv_len, causal, scale):
         _check_bwd_kernel(q, k, v, do, lse, delta, kv_len)
         bf16 = q.dtype == torch.bfloat16
-        if bf16 and which == "fused":
-            raise NotImplementedError(
-                "flash_attn_bwd_fused: the fused backward K2 has no bf16 "
-                "kernel yet (Tk <= 256 takes K2); bf16 runs the split "
-                "K3 + K4 only")
         counter = _BF16_TWINS[which] if bf16 else wrapper
         B, n, Tq, D = q.shape
         Tk = k.shape[2]
@@ -488,8 +499,7 @@ def _bwd_wrapper(which, plain):
             _bwd_launch("fused", q, k, v, do, lse, delta, kv_len, part_h,
                         dk, dv, causal, scale, tile_stride=part.stride(0))
             counter.launches += 1
-        dq = part.sum(0).permute(0, 2, 1, 3) if nk > 1 else part_h[0]
-        return dq, dk, dv
+        return sum_dq_partials(part, q.dtype), dk, dv
 
     def wrapper(q, k, v, do, lse, delta, kv_len, causal=True, scale=None):
         _check_bwd(q, k, v, do, lse, delta, kv_len)
@@ -515,13 +525,16 @@ def _bwd_wrapper(which, plain):
 flash_attn_bwd_fused = _bwd_wrapper("fused", flash_attn_bwd_fused_plain)
 flash_attn_bwd_dq = _bwd_wrapper("dq", flash_attn_bwd_dq_plain)
 flash_attn_bwd_dkv = _bwd_wrapper("dkv", flash_attn_bwd_dkv_plain)
-# the bf16 K3 and K4: the same wrappers for bf16 operands, each counting
-# its own kernel's launches
+# the bf16 K2, K3 and K4: the same wrappers for bf16 operands, each
+# counting its own kernel's launches
+flash_attn_bwd_fused_bf16 = _bf16_only(flash_attn_bwd_fused,
+                                       "flash_attn_bwd_fused_bf16")
 flash_attn_bwd_dq_bf16 = _bf16_only(flash_attn_bwd_dq,
                                     "flash_attn_bwd_dq_bf16")
 flash_attn_bwd_dkv_bf16 = _bf16_only(flash_attn_bwd_dkv,
                                      "flash_attn_bwd_dkv_bf16")
-_BF16_TWINS = {"dq": flash_attn_bwd_dq_bf16, "dkv": flash_attn_bwd_dkv_bf16}
+_BF16_TWINS = {"fused": flash_attn_bwd_fused_bf16,
+               "dq": flash_attn_bwd_dq_bf16, "dkv": flash_attn_bwd_dkv_bf16}
 
 
 def flash_attn_bwd(q, k, v, o, lse, do, kv_len, causal=True, scale=None):

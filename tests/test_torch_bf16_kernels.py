@@ -1,10 +1,12 @@
-"""The bf16 (amp) paths of K1, K3 + K4 and K5, and the head-dim padding
-of the card's wrappers, on the CPU.
+"""The bf16 (amp) paths of K1, K2, K3 + K4 and K5, and the head-dim
+padding of the card's wrappers, on the CPU.
 
 Each bf16 plain version (the function its Hopper kernel is held to on
 the card) against the JAX package's Pallas kernel run in interpret mode
-with bf16 inputs: K1 forward, the split backward K3 + K4 (Tk 64 in
-8-key blocks, so the reference takes its split route), K5. And the
+with bf16 inputs: K1 forward, the fused backward K2 (16- or 32-key
+blocks, so the reference takes its fused route) and K2's sum-and-cast of
+its f32 dq partials, the split backward K3 + K4 (Tk 64 in 8-key blocks,
+so the reference takes its split route), K5. And the
 padded-D route the CUDA wrappers take for a head dim below the kernels'
 (the reference's `_pad_d`), applied to CPU tensors through the same
 helpers, against Pallas at D 8, 16 and 48.
@@ -76,15 +78,16 @@ def test_k1_bf16_plain_matches_pallas_interpret(causal, B, n, Tq, Tk,
                                atol=TOL)
 
 
-def _pallas_grads(q, k, v, do, kv_len, causal, dtype, D=None):
-    """jax.grad of the Pallas flash attention (interpret mode, 8 x 8
-    blocks: Tk 64 is 8 kv blocks, the reference's split K3 + K4) in
-    `dtype`, against the cotangent do."""
+def _pallas_grads(q, k, v, do, kv_len, causal, dtype, D=None, block=8):
+    """jax.grad of the Pallas flash attention (interpret mode, block x
+    block tiles; the default 8 makes Tk 64 eight kv blocks, the
+    reference's split K3 + K4) in `dtype`, against the cotangent do."""
     lens = jnp.asarray(kv_len, jnp.int32)
 
     def f(q, k, v):
         out = pal.flash_attention(q, k, v, causal=causal, kv_len=lens,
-                                  block_q=8, block_k=8, interpret=True)
+                                  block_q=block, block_k=block,
+                                  interpret=True)
         return jnp.sum(out.astype(jnp.float32) * jnp.asarray(do))
 
     return [np.asarray(g, np.float32) for g in jax.grad(
@@ -123,6 +126,84 @@ def test_k3_k4_bf16_plain_match_pallas_split_interpret(causal, B, n, Tq,
     got = fa.flash_attn_bwd(tq, tk, tv, o, lse, tdo, lens, causal)
     for name, g, r in zip("qkv", got, ref):
         _close(g.float(), r, f"d{name} (route)")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,n,Tq,Tk,kv_len,block", [
+    (2, 2, 64, 64, [64, 64], 16),       # nk = 4
+    (3, 2, 48, 64, [64, 29, 0], 16),    # Tq != Tk, ragged, one batch empty
+    (2, 1, 96, 60, [60, 37], 32),       # Tq > Tk, Tk padded to 64, nk = 2
+])
+def test_k2_bf16_plain_matches_pallas_fused_interpret(monkeypatch, causal, B,
+                                                      n, Tq, Tk, kv_len,
+                                                      block):
+    """K2-bf16's plain version (the function the card's fused kernel is
+    held to) against the Pallas single-sweep `_bwd_fused_kernel` with
+    bf16 inputs: blocks of 16 or 32 keep the reference's kv block count
+    nk <= 4, so it takes its fused route (f32 dq partials per kv block,
+    summed, cast once to bf16)."""
+    fused_calls = []
+    fused = pal._bwd_fused_kernel
+
+    def spy(*args, **kwargs):
+        fused_calls.append(kwargs["block_k"])
+        return fused(*args, **kwargs)
+
+    monkeypatch.setattr(pal, "_bwd_fused_kernel", spy)
+    q, k, v, do = _bf16_inputs([(B, n, Tq, 64), (B, n, Tk, 64),
+                                (B, n, Tk, 64), (B, n, Tq, 64)],
+                               seed=Tq * 5 + Tk)
+    ref = _pallas_grads(q, k, v, do, kv_len, causal, jnp.bfloat16,
+                        block=block)
+    assert fused_calls and set(fused_calls) == {block}
+    lens = torch.tensor(kv_len, dtype=torch.int32)
+    tq, tk, tv, tdo = map(_bf, (q, k, v, do))
+    o, lse = fa.flash_attn_fwd(tq, tk, tv, lens, torch.zeros_like(lens),
+                               causal)
+    delta = (tdo.float() * o.float()).sum(-1).contiguous()
+    before = (fa.flash_attn_bwd_fused.launches,
+              fa.flash_attn_bwd_fused_bf16.launches)
+    got = fa.flash_attn_bwd_fused_bf16(tq, tk, tv, tdo, lse, delta, lens,
+                                       causal)
+    assert (fa.flash_attn_bwd_fused.launches,
+            fa.flash_attn_bwd_fused_bf16.launches) == before   # CPU: plain
+    for name, g, r in zip("qkv", got, ref):
+        assert g.dtype == torch.bfloat16
+        _close(g.float(), r, f"d{name}")
+    # Tk <= 256: the route function takes the same (fused) function
+    assert fa.bwd_route(Tk) == "fused"
+    for name, g, r in zip("qkv", fa.flash_attn_bwd(tq, tk, tv, o, lse, tdo,
+                                                   lens, causal), ref):
+        _close(g.float(), r, f"d{name} (route)")
+
+
+@pytest.mark.parametrize("nk", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sum_dq_partials_sums_in_order_and_casts_once(nk, dtype):
+    """K2's dq from its f32 partials [nk, B, Tq, n, D]: the left-to-right
+    sum over the kv tiles, bitwise, cast once to the operands' dtype (not
+    a sum of rounded partials), as the [B, n, Tq, D] view of a plane;
+    within f32 rounding of the reference's jnp.sum(dq_part, 0)."""
+    rng = np.random.RandomState(nk)
+    # magnitudes 1e-3 .. 1e3 across the tiles, so the order of the sum
+    # shows in the f32 result
+    mag = 10.0 ** rng.randint(-3, 4, (nk, 1, 1, 1, 1))
+    part_np = (rng.randn(nk, 2, 5, 3, 64) * mag).astype(np.float32)
+    part = torch.from_numpy(part_np)
+    dq = fa.sum_dq_partials(part, dtype)
+    assert dq.dtype == dtype and dq.shape == (2, 3, 5, 64)
+    assert dq.permute(0, 2, 1, 3).is_contiguous()
+    want = part[0].clone()
+    for j in range(1, nk):
+        want = want + part[j]
+    assert torch.equal(dq, want.to(dtype).permute(0, 2, 1, 3))
+    ref = np.asarray(jnp.sum(jnp.asarray(part_np), axis=0)
+                     .astype(jnp.bfloat16 if dtype == torch.bfloat16
+                             else jnp.float32), np.float32)
+    np.testing.assert_allclose(
+        dq.float().permute(0, 2, 1, 3).numpy(), ref,
+        rtol=1e-2 if dtype == torch.bfloat16 else 1e-6,
+        atol=1e-2 if dtype == torch.bfloat16 else 1e-6)
 
 
 def test_bf16_wrappers_refuse_other_dtypes():

@@ -1,7 +1,7 @@
 """The port's Hopper kernels on the card, held to their plain versions:
 K1 (flash-attention forward), K2-K4 (its backward), K5 (the lm-head
 log-sum-exp), K6 (the int8 x int8 -> int32 matmul); the bf16 (amp) K1,
-K3, K4 and K5; and head dims below the kernels', zero-padded.
+K2, K3, K4 and K5; and head dims below the kernels', zero-padded.
 
 Marked `cuda`: they skip on a machine without a CUDA card (the kernels
 have no interpret mode). This file imports neither JAX nor the JAX
@@ -296,7 +296,7 @@ def test_padded_head_dims_match_plain(card, D, dtype):
     assert float((lse - ref_lse).abs().max()) <= 1e-4
 
 
-# -- the bf16 (amp) kernels: K1, K3, K4 and K5 ------------------------------
+# -- the bf16 (amp) kernels: K1, K2, K3, K4 and K5 ------------------------
 
 # bf16 outputs within 1e-2 of the largest |plain| element (two bf16
 # ulps): both sum f32 products of the same bf16 operands in other orders
@@ -387,6 +387,77 @@ def test_flash_backward_bf16_kernels_match_plain(card, causal, B, n, Tq, Tk,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal,B,n,Tq,Tk,kv_len", [
+    (True, 32, 12, 256, 256, [256] * 32),       # the amp T 256 main path
+    (True, 2, 3, 64, 64, [64, 63]),             # nk = 1
+    (False, 2, 3, 100, 100, [100, 65]),         # nk = 2, Tk not 64k
+    (True, 3, 4, 190, 190, [190, 131, 0]),      # nk = 3, ragged, empty
+    (False, 3, 4, 130, 250, [250, 64, 1]),      # nk = 4, Tq < Tk
+    (True, 2, 3, 300, 256, [256, 129]),         # Tq > Tk
+])
+def test_flash_backward_fused_bf16_kernel_matches_plain(card, causal, B, n,
+                                                        Tq, Tk, kv_len):
+    """K2-bf16 at its main-path shape and across nk = 1-4 kv tiles,
+    ragged kv_len and Tq != Tk, against the plain bf16 backward; dq comes
+    back bf16 (the f32 partials summed and cast once)."""
+    q, k, v, do, o, lse, delta, lens = _bf16_case(card, B, n, Tq, Tk, 64,
+                                                  kv_len, causal, Tq * 7 + Tk)
+    ref = fa.flash_attn_bwd_fused_plain(q, k, v, do, lse, delta, lens,
+                                        causal)
+    counts = (fa.flash_attn_bwd_fused.launches,
+              fa.flash_attn_bwd_fused_bf16.launches)
+    got = fa.flash_attn_bwd_fused_bf16(q, k, v, do, lse, delta, lens,
+                                       causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attn_bwd_fused.launches,
+            fa.flash_attn_bwd_fused_bf16.launches) == (counts[0],
+                                                       counts[1] + 1)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    errs = [_bf16_err(g, r) for g, r in zip(got, ref)]
+    print(f"K2-bf16 [{B},{n},{Tq},{Tk}] causal {causal}: dq {errs[0]:.3e} "
+          f"dk {errs[1]:.3e} dv {errs[2]:.3e} of max")
+    assert max(errs) <= BF16_REL
+    if 0 in kv_len:
+        b = kv_len.index(0)
+        assert all(float(g[b].float().abs().max()) == 0.0 for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [256, 1024])
+def test_bf16_backward_kernels_take_plane_views(card, T):
+    """K2-bf16 (T 256) and the split K3 + K4-bf16 (T 1024) on bf16 head
+    views of one packed [2, T, 3 * 768] plane and a dO plane, as the
+    training op passes them, against the plain backward on the same
+    views; each route launches only its own kernels."""
+    B, n, D = 2, 12, 64
+    H = n * D
+    rng = np.random.RandomState(T)
+    qkv = torch.from_numpy(rng.randn(B, T, 3 * H).astype(np.float32)).to(
+        card, torch.bfloat16)
+    do = fa._heads(torch.from_numpy(rng.randn(B, T, H).astype(np.float32))
+                   .to(card, torch.bfloat16), n)
+    q, k, v = (fa._heads(qkv[..., i * H:(i + 1) * H], n) for i in range(3))
+    lens = torch.full((B,), T, dtype=torch.int32, device=card)
+    o, lse = fa.flash_attn_fwd_bf16(q, k, v, lens, torch.zeros_like(lens),
+                                    True)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    names = ("flash_attn_bwd_fused_bf16", "flash_attn_bwd_dq_bf16",
+             "flash_attn_bwd_dkv_bf16")
+    before = [getattr(fa, m).launches for m in names]
+    got = fa.flash_attn_bwd(q, k, v, o, lse, do, lens, True)
+    torch.cuda.synchronize()
+    fused = fa.bwd_route(T) == "fused"
+    assert [getattr(fa, m).launches - c for m, c in zip(names, before)] == (
+        [1, 0, 0] if fused else [0, 1, 1])
+    ref = fa.flash_attn_bwd_fused_plain(q, k, v, do, lse, delta, lens, True)
+    errs = [_bf16_err(g, r) for g, r in zip(got, ref)]
+    print(f"bf16 backward plane views [2, 12, {T}, 64] "
+          f"({'K2' if fused else 'K3 + K4'}): dq {errs[0]:.3e} dk "
+          f"{errs[1]:.3e} dv {errs[2]:.3e} of max")
+    assert max(errs) <= BF16_REL
+
+
+@pytest.mark.cuda
 def test_bf16_attention_op_on_plane_views_at_the_training_shape(card):
     """The training op's autograd Function on bf16 q/k/v head views of
     one packed [8, 1024, 3 * 768] plane: K1-bf16 forward, K3 + K4-bf16
@@ -428,14 +499,17 @@ def test_bf16_attention_op_on_plane_views_at_the_training_shape(card):
 
 @pytest.mark.cuda
 def test_bf16_paths_without_a_kernel_raise(card):
-    """No fallback: the bf16 fused K2 (Tk <= 256) and the bf16 decode
-    step (Tq = 1) have no kernel and raise; so do mixed dtypes."""
+    """No fallback: the bf16 decode step (Tq = 1) has no kernel and
+    raises; so do mixed dtypes. The bf16 route at Tk <= 256 runs the
+    fused K2-bf16 and matches its plain version."""
     q, k, v, do, o, lse, delta, lens = _bf16_case(card, 1, 2, 64, 64, 64,
                                                   [64], True, 0)
-    with pytest.raises(NotImplementedError, match="fused"):
-        fa.flash_attn_bwd_fused(q, k, v, do, lse, delta, lens)
-    with pytest.raises(NotImplementedError, match="fused"):
-        fa.flash_attn_bwd(q, k, v, o, lse, do, lens)      # route: K2
+    before = fa.flash_attn_bwd_fused_bf16.launches
+    got = fa.flash_attn_bwd(q, k, v, o, lse, do, lens)      # route: K2
+    torch.cuda.synchronize()
+    assert fa.flash_attn_bwd_fused_bf16.launches == before + 1
+    ref = fa.flash_attn_bwd_fused_plain(q, k, v, do, lse, delta, lens)
+    assert max(_bf16_err(g, r) for g, r in zip(got, ref)) <= BF16_REL
     with pytest.raises(NotImplementedError, match="decode"):
         fa.flash_attn_fwd(q[:, :, :1], k, v, lens, lens - 1)
     with pytest.raises(TypeError, match="one dtype"):
