@@ -57,27 +57,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      held against the plain recompute as in phase 7, then three more
      Adam steps; launches per step K1 12, K2 12, K5 1. Step wall time,
      tokens/s and a profiled step's device time by kernel;
-  9. K6 (the int8 x int8 -> int32 matmul) held bitwise against its plain
-     version (a float64 matmul of the int8 operands, exact) at the five
-     GPT-2-small products of a rung-8 int8 dispatch (M 8192: qkv, proj,
-     ffn_up, ffn_down, lm head) and a ragged case, asymmetric operands
-     over the whole int8 range; times beside the bound, the plain
-     version and torch._int_mm (a yardstick only);
+  9. K6, the int8 matmul on s8 wgmma + TMA, at the five GPT-2-small
+     products of a rung-8 int8 dispatch (M 8192: qkv, proj, ffn_up,
+     ffn_down, lm head) and a ragged case, asymmetric operands over the
+     whole int8 range, the weight column-major as the port stores it:
+     with the rescale in its epilogue (int8_matmul_rescaled) bitwise
+     against rescale(int8_matmul_plain) and with its int32 epilogue
+     bitwise against int8_matmul_plain; times beside the bound, the plain
+     version and torch._int_mm on the same column-major weight (a
+     yardstick only). The activation quantize kernel bitwise against
+     quantize_activations_plain on a dispatch's activations (K 768 and
+     3072), rows of zeros, rows of exact halves and a static scale; its
+     time beside its bytes bound and the plain version;
  10. int8 one-shot serving: GPT-2-small transformer_lm + argmax at full
      width (T 1024, f32, TF32 off, the port's startup, generator seed
      0) saved by save_inference_model, quantized by the port's
      quantize_inference_model (50 quantized ops), loaded and served by
      InferenceEngine.from_program (rungs 1, 2, 4, 8) behind the HTTP
-     server — the code of `serve --model_dir`. Eight /v1/infer requests
-     of 1-3 rows from four client threads must co-batch; launches K6 49
-     and K1 12 a dispatch. Checks: reply ids == Executor.run on the same
-     rows; every quant_mul output of a rung-8 run bitwise == the plain
-     recompute from its own input; logits within 5e-2 of max |logit| of
-     a plain full recompute (plain attention, int8_matmul_plain), ids
-     equal where its top-2 margin exceeds twice the largest difference.
-     Printed: the f32 model on the same batch, both dispatch walls,
-     tokens/s, peak memory, weight bytes, and a profiled dispatch's
-     device time split into K6, K1, quantize, rescale and the rest;
+     server — the code of `serve --model_dir`. The int8 matmul weights
+     are column-major on the card, their bytes unchanged. Eight
+     /v1/infer requests of 1-3 rows from four client threads must
+     co-batch; launches a dispatch: the quantize kernel 49, K6 49 (no
+     repack, no K padding), K1 12. Checks: reply ids == Executor.run on
+     the same rows; every quant_mul output of a rung-8 run bitwise == the
+     plain recompute (plain quantize, int8_matmul_plain, rescale) from
+     its own input; logits within 5e-2 of max |logit| of a plain full
+     recompute (plain attention, the plain int8 ops), ids equal where its
+     top-2 margin exceeds twice the largest difference. Printed: the f32
+     model on the same batch, both dispatch walls, tokens/s, peak memory,
+     weight bytes, and a profiled dispatch's device time split into K6,
+     the quantize kernel, K1, an eager rescale (none) and the rest;
  11. bf16 kernels: K1-, K3- and K4-bf16 held against their plain bf16
      versions (the reference's roundings: P and dS to bf16 before the
      products they feed, O and the gradients once at the end) at the
@@ -880,10 +889,21 @@ BWD_DESIGN = {
     "flash_attn_bwd_dq": "f32 FMA, 4 x 4 register tiles",
     "flash_attn_bwd_dkv": "f32 FMA, 4 x 4 register tiles"}
 
+K6_DESIGN = ("s8 wgmma m64n128k32 + TMA, warp-specialised and persistent: "
+             "128 x 128 tiles taken in turn by 2 consumer warpgroups (one's "
+             "epilogue under the other's products) + a TMA producer warp, "
+             "6-stage mbarrier ring of 128-byte-swizzled xq and w^T "
+             "(column-major weight) boxes; f32 rescale epilogue")
+QUANTIZE_DESIGN = ("one warp a row held in registers (K <= 3072): absmax by "
+                   "shuffles, then the round-half-even quantize; float4 in, "
+                   "char4 out")
 BF16_DESIGN = {
-    "flash_attn_fwd_bf16": "bf16 mma.sync m16n8k16, 64 query rows x 64-key "
-                           "K/V tiles, cp.async 2-stage, P as A fragments "
-                           "from registers, V by ldmatrix.trans",
+    "flash_attn_fwd_bf16": "wgmma m64n64k16 (S from shared memory; P as "
+                           "register A, V MN-major), 256 q rows = 4 "
+                           "consumer warpgroups + a TMA producer warp, K/V "
+                           "tiles by TMA in a 3-stage mbarrier ring; S_j "
+                           "issued before P_{j-1}.V_{j-1}, whose run hides "
+                           "the softmax of S_j",
     "flash_attn_bwd_fused_bf16": "bf16 mma.sync m16n8k16, 64 keys, Q/dO "
                                  "tiles cp.async 2-stage, P^T and dS^T as "
                                  "A fragments; dS^T through shared memory "
@@ -892,19 +912,19 @@ BF16_DESIGN = {
     "flash_attn_bwd_dq_bf16": "wgmma m64n64k16 (S, dP from shared memory; "
                               "dS as register A, K MN-major), 128 q rows = "
                               "2 consumer warpgroups + a TMA producer warp, "
-                              "K/V tiles by TMA in a 2-stage mbarrier ring",
+                              "K/V tiles by TMA in a 4-stage mbarrier ring",
     "flash_attn_bwd_dkv_bf16": "wgmma m64n64k16 (S^T, dP^T from shared "
                                "memory; P^T, dS^T as register A, dO/Q "
                                "MN-major), 128 keys = 2 consumer "
                                "warpgroups + a TMA producer warp, Q/dO "
-                               "tiles by TMA in a 2-stage mbarrier ring",
+                               "tiles by TMA in a 3-stage mbarrier ring",
     "lm_head_lse_bf16": "bf16 mma.sync m16n8k16, 64-row x tile resident, "
                         "w [64 x 128] chunks cp.async 2-stage by "
                         "ldmatrix.trans, 8 warps"}
 
 ALL_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_fused",
                "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "lm_head_lse",
-               "int8_matmul", "flash_attn_fwd_bf16",
+               "int8_matmul", "quantize_activations", "flash_attn_fwd_bf16",
                "flash_attn_bwd_fused_bf16", "flash_attn_bwd_dq_bf16",
                "flash_attn_bwd_dkv_bf16", "lm_head_lse_bf16")
 
@@ -915,7 +935,8 @@ def wrappers():
             "flash_attn_bwd_dq": fa.flash_attn_bwd_dq,
             "flash_attn_bwd_dkv": fa.flash_attn_bwd_dkv,
             "lm_head_lse": ce.lm_head_lse,
-            "int8_matmul": qo.int8_matmul_i32,
+            "int8_matmul": qo.int8_matmul_rescaled,
+            "quantize_activations": qo.quantize_activations,
             "flash_attn_fwd_bf16": fa.flash_attn_fwd_bf16,
             "flash_attn_bwd_fused_bf16": fa.flash_attn_bwd_fused_bf16,
             "flash_attn_bwd_dq_bf16": fa.flash_attn_bwd_dq_bf16,
@@ -1147,20 +1168,27 @@ INT8_E2E_RTOL = 5e-2
 
 def int8_operands(rng, M, K, N):
     """Asymmetric int8 operands over the whole range, -127 and 127
-    included: a lane-order or k-packing fault does not cancel on them."""
+    included (a lane-order or k-packing fault does not cancel on them),
+    the weight column-major as the port stores it on the card, and the
+    epilogue's scales: ax per row, col per column."""
     x = rng.randint(-127, 128, (M, K)).astype(np.int8)
     w = rng.randint(-127, 128, (K, N)).astype(np.int8)
     x[0, :] = 127
     x[-1, ::3] = -127
     w[:, 0] = np.arange(K) % 255 - 127
     w[K // 2, :] = -127
-    return (torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda())
+    ax = (rng.rand(M, 1) * 0.1 + 1e-3).astype(np.float32)
+    col = (rng.rand(1, N) * 1e-2 + 1e-4).astype(np.float32)
+    return (torch.from_numpy(x).cuda(),
+            torch.from_numpy(w).cuda().t().contiguous().t(),
+            torch.from_numpy(ax).cuda(), torch.from_numpy(col).cuda())
 
 
 def int8_work(M, K, N):
-    """(operations, bytes) of one int8 product: 2MKN integer operations;
-    xq and wq read once, the int32 result written once."""
-    return 2.0 * M * K * N, float(M * K + K * N + 4 * M * N)
+    """(operations, bytes) of one int8 product with the rescale: 2MKN
+    integer operations; xq, wq, ax and col read once, the f32 result
+    written once."""
+    return 2.0 * M * K * N, float(M * K + K * N + 4 * M * N + 4 * M + 4 * N)
 
 
 def int8_bound(ops, nbytes):
@@ -1169,72 +1197,152 @@ def int8_bound(ops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def int8_plain(x, w, ax, col):
+    return qo.rescale(qo.int8_matmul_plain(x, w), ax, col)
+
+
 def int8_kernel_phase(smi):
-    """K6 against its plain version (float64 matmul of the int8 operands,
-    exact) at the five GPT-2-small products of a rung-8 dispatch (M =
-    8192) and a ragged case: the int32 results must be bitwise equal.
-    Times: the kernel, the plain version and torch._int_mm (a yardstick
-    only; the port never calls it), each over input sets larger than the
-    50 MB L2 (the int32 outputs alone exceed it)."""
+    """K6 against its plain versions at the five GPT-2-small products of
+    a rung-8 dispatch (M = 8192) and a ragged case, the weight
+    column-major: with the rescale epilogue (int8_matmul_rescaled)
+    bitwise against rescale(int8_matmul_plain), with the int32 epilogue
+    bitwise against int8_matmul_plain. Times: the rescaled kernel, its
+    plain version and torch._int_mm on the same column-major weight (a
+    yardstick only; the port never calls it), each over input sets
+    larger than the 50 MB L2 (the f32 outputs alone exceed it); the int32
+    kernel beside them. Then the quantize kernel."""
     rng = np.random.RandomState(SEED + 7)
     M = SERVE_B * TRAIN_T
     cases = {k: (M, K, N) for k, (K, N, _) in INT8_PRODUCTS.items()}
     cases["ragged"] = (1000, 100, 130)
+    k6 = (qo.int8_matmul_rescaled, qo.int8_matmul_i32)
     results = {}
     for case, (m, k, n) in cases.items():
+        fixes = [(w.repacks, w.k_pads) for w in k6]
         sets = [int8_operands(rng, m, k, n) for _ in range(2)]
-        got = qo.int8_matmul_i32(*sets[0])
+        got = qo.int8_matmul_rescaled(*sets[0])
+        acc = qo.int8_matmul_i32(*sets[0][:2])
         torch.cuda.synchronize()
-        ref = qo.int8_matmul_plain(*sets[0])
-        if got.dtype != torch.int32 or not torch.equal(got, ref):
-            bad = int((got != ref).sum())
-            raise AssertionError(f"int8_matmul {case} [{m},{k}]@[{k},{n}]: "
-                                 f"{bad} int32 results differ from the "
-                                 f"plain version")
-        del got, ref
+        ref_acc = qo.int8_matmul_plain(*sets[0][:2])
+        ref = qo.rescale(ref_acc, *sets[0][2:])
+        for what, g, r, dt in (("rescaled", got, ref, torch.float32),
+                               ("int32", acc, ref_acc, torch.int32)):
+            if g.dtype != dt or not torch.equal(g, r):
+                bad = int((g != r).sum())
+                raise AssertionError(f"int8_matmul {case} ({what}) "
+                                     f"[{m},{k}]@[{k},{n}]: {bad} results "
+                                     f"differ from the plain version")
+        del got, acc, ref, ref_acc
         big = m * n > 10**8           # the lm head: 1.65 GB outputs
+        reps = 4 if big else 20
         r = {"case": case, "M": m, "K": k, "N": n, "max_abs_err": 0.0,
-             "ms": time_ms(qo.int8_matmul_i32, sets, reps=4 if big else 20),
-             "plain_ms": time_ms(qo.int8_matmul_plain, sets,
-                                 reps=2 if big else 6),
+             "ms": time_ms(qo.int8_matmul_rescaled, sets, reps=reps),
+             "plain_ms": time_ms(int8_plain, sets, reps=2 if big else 6),
+             "i32_ms": time_ms(lambda x, w, ax, col: qo.int8_matmul_i32(
+                 x, w), sets, reps=reps),
              # cuBLASLt's int8 GEMM takes K and N in multiples of 8
-             "library_ms": (time_ms(torch._int_mm, sets,
-                                    reps=4 if big else 20)
+             "library_ms": (time_ms(lambda x, w, ax, col: torch._int_mm(
+                 x, w), sets, reps=reps)
                             if k % 8 == 0 and n % 8 == 0 and m > 16
                             else None)}
         r["bound_ms"], r["bound_by"] = int8_bound(*int8_work(m, k, n))
-        # beside it, _int_mm given the weight column-major ([N, K]
-        # contiguous, the layout cuBLASLt's int8 GEMM prefers): not the
-        # same inputs, so not library_ms, but how fast a library gets
-        r["library_colmajor_ms"] = (time_ms(
-            lambda x, wt: torch._int_mm(x, wt.t()),
-            [(x, w.t().contiguous()) for x, w in sets],
-            reps=4 if big else 20) if r["library_ms"] is not None else None)
-        lib = (f"{r['library_ms']:.4f} (column-major w "
-               f"{r['library_colmajor_ms']:.4f})"
-               if r["library_ms"] is not None else "n/a")
-        log(f"kernel int8_matmul {case}: [{m},{k}] @ [{k},{n}] bitwise == "
-            f"plain; ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
-            f"library_ms (torch._int_mm) {lib} bound_ms "
-            f"{r['bound_ms']:.5f} ({r['bound_by']}) | {smi}")
+        lib = (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
+               else "n/a")
+        log(f"kernel int8_matmul {case}: [{m},{k}] @ [{k},{n}] (w "
+            f"column-major) bitwise == plain, rescaled and int32; ms "
+            f"{r['ms']:.4f} (int32 epilogue {r['i32_ms']:.4f}) plain_ms "
+            f"{r['plain_ms']:.4f} library_ms (torch._int_mm, column-major "
+            f"w) {lib} bound_ms {r['bound_ms']:.5f} ({r['bound_by']}) | "
+            f"{smi}")
         results[case] = r
         del sets
         torch.cuda.empty_cache()
+        # the column-major weight is read as it is; only a K that is not
+        # a multiple of 16 (the ragged 100) is padded
+        for w, (repacks, pads) in zip(k6, fixes):
+            if w.repacks != repacks or (k % 16 == 0 and w.k_pads != pads):
+                raise AssertionError(f"{w.__name__} {case}: "
+                                     f"{w.repacks - repacks} repacks, "
+                                     f"{w.k_pads - pads} K paddings")
     # one dispatch's worth: 12 x the four block products + the lm head
     total = {key: sum(results[c][key] * INT8_PRODUCTS[c][2]
                       for c in INT8_PRODUCTS)
-             for key in ("ms", "plain_ms", "library_ms",
-                         "library_colmajor_ms")}
+             for key in ("ms", "plain_ms", "library_ms", "i32_ms")}
     ops = sum(int8_work(M, K, N)[0] * n for K, N, n in INT8_PRODUCTS.values())
     nbytes = sum(int8_work(M, K, N)[1] * n
                  for K, N, n in INT8_PRODUCTS.values())
     total["bound_ms"], total["bound_by"] = int8_bound(ops, nbytes)
     log(f"kernel int8_matmul per rung-8 dispatch ({INT8_PER_DISPATCH} "
-        f"launches): ms {total['ms']:.4f} plain_ms {total['plain_ms']:.4f} "
-        f"library_ms {total['library_ms']:.4f} (column-major w "
-        f"{total['library_colmajor_ms']:.4f}) bound_ms "
-        f"{total['bound_ms']:.5f} ({total['bound_by']}) | {smi}")
-    return total, list(results.values())
+        f"launches): ms {total['ms']:.4f} (int32 epilogue "
+        f"{total['i32_ms']:.4f}) plain_ms {total['plain_ms']:.4f} "
+        f"library_ms (torch._int_mm, column-major w) "
+        f"{total['library_ms']:.4f} bound_ms {total['bound_ms']:.5f} "
+        f"({total['bound_by']}) | {smi}")
+    quantize = quantize_kernel_phase(rng, smi)
+    return total, list(results.values()), quantize
+
+
+def quantize_inputs(rng, M, K):
+    """A dispatch's activations at K (layer-norm-like magnitudes), with a
+    wide row, a narrow one, a row of zeros and a row of exact halves (max
+    127 * 2^-3: ax = 2^-3, so x / ax = k + 1/2 and round half to even
+    decides)."""
+    x = rng.randn(M, K).astype(np.float32)
+    x[0] *= 40.0
+    x[1] *= 1e-3
+    x[2] = 0.0
+    x[3] = ((np.arange(K) % 253) - 126 + 0.5) * 0.125
+    x[3, 0] = 127 * 0.125
+    return torch.from_numpy(x).cuda()
+
+
+def quantize_kernel_phase(rng, smi):
+    """The activation quantize kernel against quantize_activations_plain,
+    bit for bit, at the dispatch's two activation widths (K 768: qkv,
+    proj, ffn_up, lm head; K 3072: ffn_down), dynamic and static scales;
+    timed per width and summed over a dispatch (37 x K 768, 12 x K 3072)
+    beside its bytes bound (f32 in, int8 out) and the plain version."""
+    M = SERVE_B * TRAIN_T
+    per_dispatch = {HID: 3 * LAYERS + 1, 4 * HID: LAYERS}
+    static = torch.tensor([0.0125], device="cuda")
+    results = {}
+    for K, count in per_dispatch.items():
+        sets = [(quantize_inputs(rng, M, K),) for _ in range(3)]
+        for scale in (None, static):
+            xq, ax = qo.quantize_activations(sets[0][0], scale)
+            torch.cuda.synchronize()
+            ref_q, ref_ax = qo.quantize_activations_plain(sets[0][0], scale)
+            if not (torch.equal(xq, ref_q) and torch.equal(ax, ref_ax)):
+                raise AssertionError(
+                    f"quantize_activations [{M},{K}] "
+                    f"{'static' if scale is not None else 'dynamic'}: "
+                    f"{int((xq != ref_q).sum())} xq and "
+                    f"{int((ax != ref_ax).sum())} ax differ from the "
+                    "plain version")
+            if scale is None and (float(ax[3, 0]) != 0.125 or float(
+                    ax[2, 0]) != torch.finfo(torch.float32).tiny):
+                raise AssertionError("the tie row's scale is not 2^-3, or "
+                                     "the zero row's not tiny")
+        ms = time_ms(qo.quantize_activations, sets, reps=20)
+        plain_ms = time_ms(qo.quantize_activations_plain, sets, reps=6)
+        bound_ms = 5.0 * M * K / PEAK_HBM_BYTES * 1e3
+        results[K] = (count, ms, plain_ms, bound_ms)
+        log(f"kernel quantize_activations [{M},{K}]: bitwise == plain "
+            f"(dynamic and static; zero row, exact halves); ms {ms:.4f} "
+            f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} (bytes) | "
+            f"{smi}")
+        del sets
+    total = {"max_abs_err": 0.0, "library_ms": None, "bound_by": "bytes",
+             "cases": [{"M": M, "K": K, "per_dispatch": c, "ms": ms,
+                        "plain_ms": p, "bound_ms": b}
+                       for K, (c, ms, p, b) in results.items()]}
+    for i, key in enumerate(("ms", "plain_ms", "bound_ms")):
+        total[key] = sum(v[0] * v[1 + i] for v in results.values())
+    log(f"kernel quantize_activations per rung-8 dispatch "
+        f"({INT8_PER_DISPATCH} launches): ms {total['ms']:.4f} plain_ms "
+        f"{total['plain_ms']:.4f} bound_ms {total['bound_ms']:.5f} (bytes) "
+        f"| {smi}")
+    return total
 
 
 # -- phase 10: int8 one-shot serving -----------------------------------------
@@ -1268,9 +1376,9 @@ def post_infer(port, tokens):
 
 def int8_reference_logits(scope, tokens):
     """The int8 model as plain PyTorch on the card: the int8 x int8 ->
-    int32 products by int8_matmul_plain between the same f32 quantize and
-    rescale ops, plain softmax attention over the full [T, T] scores,
-    plain layer norm and gelu — no kernel of the port."""
+    int32 products by int8_matmul_plain between the plain quantize and
+    rescale, plain softmax attention over the full [T, T] scores, plain
+    layer norm and gelu — no kernel of the port."""
     w = {n: scope.get(n) for n in scope.keys() if not n.startswith("__")}
     B, T_ = tokens.shape
     D = HID // N_HEADS
@@ -1283,9 +1391,8 @@ def int8_reference_logits(scope, tokens):
         return (x - mu) / torch.sqrt(var + 1e-5) * g + b
 
     def qmm(x, name):
-        xq, ax = qo.quantize_activations(x.reshape(-1, x.shape[-1]))
-        acc = qo.int8_matmul_plain(xq, w[name])
-        out = qo.rescale(acc, ax, w[name + "@QSCALE"].reshape(1, -1))
+        xq, ax = qo.quantize_activations_plain(x.reshape(-1, x.shape[-1]))
+        out = int8_plain(xq, w[name], ax, w[name + "@QSCALE"].reshape(1, -1))
         return out.reshape(x.shape[:-1] + (-1,))
 
     x = (w["tok_emb"][tokens].float() * w["tok_emb@QSCALE"][tokens]
@@ -1310,9 +1417,10 @@ def int8_reference_logits(scope, tokens):
 
 
 def check_quant_muls_bitwise(exe, prog, scope, feed):
-    """Every quant_mul of one rung-8 run: its output Out against the plain
-    recompute from its own fetched input X (the same f32 quantize and
-    rescale ops around int8_matmul_plain), bit for bit."""
+    """Every quant_mul of one rung-8 run (the quantize kernel, then K6
+    with its rescale epilogue): its output Out against the plain
+    recompute from its own fetched input X (quantize_activations_plain,
+    int8_matmul_plain, rescale), bit for bit."""
     muls = [op for op in prog.global_block().ops if op.type == "quant_mul"]
     names = [n for op in muls for n in (op.input("X")[0],
                                         op.output("Out")[0])]
@@ -1323,45 +1431,42 @@ def check_quant_muls_bitwise(exe, prog, scope, feed):
         x, out = vals[2 * i], vals[2 * i + 1]
         wname = op.input("Y")[0]
         x2 = x.reshape(-1, x.shape[-1])
-        xq, ax = qo.quantize_activations(x2)
-        ref = qo.rescale(qo.int8_matmul_plain(xq, scope.get(wname)), ax,
+        xq, ax = qo.quantize_activations_plain(x2)
+        ref = int8_plain(xq, scope.get(wname), ax,
                          scope.get(op.input("YScale")[0]).reshape(1, -1))
         if not torch.equal(out.reshape(ref.shape), ref):
-            raise AssertionError(f"quant_mul on {wname}: K6's output differs "
-                                 f"from the plain recompute of its input")
+            raise AssertionError(f"quant_mul on {wname}: the kernels' output "
+                                 f"differs from the plain recompute of its "
+                                 f"input")
         shapes.add((tuple(x2.shape), tuple(scope.get(wname).shape)))
         vals[2 * i] = vals[2 * i + 1] = None
     return len(muls), sorted(shapes)
 
 
 def dispatch_breakdown(what, exe, prog, scope, feed, fetch, wall_ms, smi):
-    """One rung-8 dispatch under torch.profiler: device time of K6, K1,
-    the activation quantize and rescale ops (marked by record_function
-    around quant_ops.quantize_activations / rescale), cuBLAS's matmuls
-    (kernel names with "gemm": the f32 program's products), and the
-    rest."""
+    """One rung-8 dispatch under torch.profiler: device time of K6 (its
+    rescale epilogue included), the quantize kernel, K1, cuBLAS's matmuls
+    (kernel names with "gemm": the f32 program's products), an eager
+    rescale (record_function around quant_ops.rescale, which the card's
+    int8 path no longer calls: it should read 0) and the rest."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    real = {"quantize_activations": qo.quantize_activations,
-            "rescale": qo.rescale}
+    real = qo.rescale
 
-    def marked(name):
-        def call(*a, **kw):
-            with record_function(f"int8/{name}"):
-                return real[name](*a, **kw)
-        return call
+    def marked(*a, **kw):
+        with record_function("int8/rescale"):
+            return real(*a, **kw)
     try:
-        for name in real:
-            setattr(qo, name, marked(name))
+        qo.rescale = marked
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
             torch.cuda.synchronize()
     finally:
-        for name, fn in real.items():
-            setattr(qo, name, fn)
-    kernels = {"int8_matmul": 0.0, "flash_attn_fwd": 0.0,
-               "cublas_gemm": 0.0}
-    marks = {"quantize_activations": 0.0, "rescale": 0.0}
+        qo.rescale = real
+    names = {"int8_matmul": "int8_matmul_kernel",
+             "quantize": "quantize_rows",
+             "flash_attn_fwd": "flash_fwd_"}
+    parts = dict.fromkeys([*names, "cublas_gemm", "rescale"], 0.0)
     device_us = 0.0
     for ev in prof.events():
         is_mark = ev.name.startswith("int8/")
@@ -1370,28 +1475,25 @@ def dispatch_breakdown(what, exe, prog, scope, feed, fetch, wall_ms, smi):
                 continue             # the annotation's own device range
             us = float(ev.time_range.elapsed_us())
             device_us += us
-            if "int8_matmul_kernel" in ev.name:
-                kernels["int8_matmul"] += us
-            elif "flash_fwd_" in ev.name:
-                kernels["flash_attn_fwd"] += us
-            elif "gemm" in ev.name.lower():
-                kernels["cublas_gemm"] += us
+            part = next((k for k, frag in names.items() if frag in ev.name),
+                        "cublas_gemm" if "gemm" in ev.name.lower() else None)
+            if part:
+                parts[part] += us
         elif is_mark:
-            marks[ev.name[5:]] += float(getattr(ev, "device_time_total", 0.0)
-                                        or 0.0)
+            parts["rescale"] += float(getattr(ev, "device_time_total", 0.0)
+                                      or 0.0)
     if device_us <= 0:
         log(f"{what} dispatch breakdown: the profiler recorded no device "
             "time; device time not measured")
         return None
-    parts = {**{k: v / 1e3 for k, v in kernels.items()},
-             **{k: v / 1e3 for k, v in marks.items()}}
-    parts["rest"] = device_us / 1e3 - sum(parts.values())
+    parts = {k: v / 1e3 for k, v in parts.items()}
     device_ms = device_us / 1e3
+    parts["rest"] = device_ms - sum(parts.values())
     log(f"{what} dispatch breakdown (profiled rung-8 dispatch): device "
         f"{device_ms:.2f} ms of kernels against a {wall_ms:.2f} ms "
         f"unprofiled wall (busy share {device_ms / wall_ms:.3f}); ms "
         f"{ {k: round(v, 3) for k, v in parts.items()} } | {smi}")
-    return {"device_ms": device_ms, "ms": parts,
+    return {"device_ms": device_ms, "ms": parts, "busy": device_ms / wall_ms,
             "share": {k: v / device_ms for k, v in parts.items()}}
 
 
@@ -1447,6 +1549,22 @@ def int8_serving_phase(smi):
         raise AssertionError(f"expected {4 * LAYERS + 2} quantized ops "
                              "(4 muls a block, the lm head, tok_emb's "
                              "lookup) and no fallback")
+    # the int8 matmul weights column-major on the card (K6's layout), the
+    # bytes on the card those of the saved arrays
+    dot_weights = {op.input("Y")[0] for op in prog.global_block().ops
+                   if op.type == "quant_mul"}
+    row_major = sorted(n for n in dot_weights
+                       if not qo.is_column_major(qscope.get(n)))
+    with np.load(os.path.join(out, "params.npz")) as saved:
+        saved_bytes = sum(saved[n].nbytes for n in saved.files)
+    loaded_bytes = scope_bytes(qscope)
+    log(f"int8 serving: {len(dot_weights)} int8 matmul weights on the card, "
+        f"{len(dot_weights) - len(row_major)} column-major; scope bytes "
+        f"{loaded_bytes} (saved arrays {saved_bytes})")
+    if row_major or len(dot_weights) != 4 * LAYERS + 1 or \
+            loaded_bytes != saved_bytes:
+        raise AssertionError(f"int8 weights not column-major on the card "
+                             f"({row_major}) or bytes changed")
     engine = InferenceEngine.from_program(
         prog, feeds, fetch, executor=exe, scope=qscope,
         config=EngineConfig(max_batch_size=SERVE_B, buckets=(1, 2, 4, 8),
@@ -1472,8 +1590,9 @@ def int8_serving_phase(smi):
                 errors.append((i, e))
 
     before = engine.stats()
-    qo.int8_matmul_i32.launches = 0     # the main path starts here
-    fa.flash_attn_fwd.launches = 0
+    k6 = qo.int8_matmul_rescaled
+    zero_counts()                       # the main path starts here
+    k6.repacks = k6.k_pads = 0
     t_start = time.perf_counter()
     threads = [threading.Thread(target=client, args=((c, c + 4),))
                for c in range(4)]
@@ -1482,9 +1601,8 @@ def int8_serving_phase(smi):
     for t in threads:
         t.join(600)
     wall = time.perf_counter() - t_start
-    counts = {"int8_matmul": qo.int8_matmul_i32.launches,
-              "flash_attn_fwd": fa.flash_attn_fwd.launches}
-    # the main path ends here
+    counts = read_counts()              # the main path ends here
+    fixes = (k6.repacks, k6.k_pads)
     server.shutdown()
     engine.shutdown(drain=True, timeout=600)
     if errors:
@@ -1493,13 +1611,20 @@ def int8_serving_phase(smi):
     batches = st["batches"] - before["batches"]
     done = st["completed"] - before["completed"]
     log(f"int8 serving: {done} requests ({sum(len(r) for r in reqs)} rows) "
-        f"in {batches} dispatches over {wall:.2f} s, launches {counts}")
+        f"in {batches} dispatches over {wall:.2f} s, launches {counts}; K6 "
+        f"weight repacks {fixes[0]}, K paddings {fixes[1]}")
     if done != len(reqs) or not batches < done:
         raise AssertionError("the requests did not co-batch (expected a "
                              "dispatch with more than one request)")
-    want = {"int8_matmul": INT8_PER_DISPATCH * batches,
-            "flash_attn_fwd": LAYERS * batches}
-    check_counts(counts, want, f"int8 serving ({batches} dispatches)")
+    check_counts(counts, launches_of(
+        int8_matmul=INT8_PER_DISPATCH * batches,
+        quantize_activations=INT8_PER_DISPATCH * batches,
+        flash_attn_fwd=LAYERS * batches), f"int8 serving ({batches} "
+                                          f"dispatches)")
+    if fixes != (0, 0):
+        raise AssertionError("the serving path repacked a weight or padded "
+                             "K")
+    counts = {k: n for k, n in counts.items() if n}
 
     # replies == Executor.run of the same rows
     for i, x in enumerate(reqs):
@@ -1546,6 +1671,9 @@ def int8_serving_phase(smi):
     breakdown = dispatch_breakdown("int8", exe, prog, qscope, feed, fetch,
                                    int8_ms, smi)
     int8_bytes = scope_bytes(qscope)
+    if int8_bytes != saved_bytes:
+        raise AssertionError(f"scope bytes {int8_bytes} after serving, "
+                             f"{saved_bytes} saved")
     del engine, qscope
     torch.cuda.empty_cache()
     fscope = pt.Scope()
@@ -2162,7 +2290,7 @@ def main():
     lse = lse_kernel_phase(smi)
     train_counts, train = training_phase(smi)
     short_counts, short_train = short_training_phase(smi)
-    k6, k6_cases = int8_kernel_phase(smi)
+    k6, k6_cases, quantize = int8_kernel_phase(smi)
     int8_counts, int8_serving = int8_serving_phase(smi)
     bf16 = bf16_kernel_phase(smi)
     amp_counts, amp_train = amp_training_phase(
@@ -2211,17 +2339,26 @@ def main():
         "replaces": "paddle_tpu/ops/chunked_ce.py:90",
         "launches": launches["lm_head_lse"],
         "launches_by_path": by_path["lm_head_lse"], **lse})
+    dispatch = (f"one rung-8 dispatch: {INT8_PER_DISPATCH} launches ({LAYERS} "
+                f"x qkv, proj, ffn_up, ffn_down + lm head) at M "
+                f"{SERVE_B * TRAIN_T}")
     kernels.append({
         "name": "int8_matmul", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/int8_matmul.cu",
+        "design": K6_DESIGN,
         "replaces": "paddle_tpu/ops/quant_ops.py:123",
         "launches": launches["int8_matmul"],
         "launches_by_path": by_path["int8_matmul"],
-        "max_abs_err": 0.0,
-        "case": f"one rung-8 dispatch: {INT8_PER_DISPATCH} launches "
-                f"({LAYERS} x qkv, proj, ffn_up, ffn_down + lm head) at M "
-                f"{SERVE_B * TRAIN_T}",
-        **k6, "cases": k6_cases})
+        "max_abs_err": 0.0, "case": dispatch, **k6, "cases": k6_cases})
+    kernels.append({
+        "name": "quantize_activations", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/int8_matmul.cu",
+        "design": QUANTIZE_DESIGN,
+        "replaces": "paddle_tpu/ops/quant_ops.py:173-179 (the activation "
+                    "quantize of int8_matmul: XLA ops, not a Pallas kernel)",
+        "launches": launches["quantize_activations"],
+        "launches_by_path": by_path["quantize_activations"],
+        "case": dispatch, **quantize})
     for kname, r in bf16.items():
         kernels.append({
             "name": kname, "route": "cuda",

@@ -28,35 +28,34 @@
 // tensor cores, against 12-20 us of HBM bytes. K2 at [32, 12, 256, 64]
 // does 5 (8.1 GFLOP, 8 us) against 27 us of bytes: bound by bytes.
 //
-// Design of K1 and K2 (mma.sync m16n8k16, bf16_mma.cuh). The TPU grid
-// walks its reduction axis sequentially and keeps the accumulators in
-// VMEM; on the card a block owns one 64-row output tile of one (batch,
-// head) with 4 warps of 16 rows, and loops over the reduction axis
-// itself in 64-wide tiles, double-buffered in shared memory by cp.async
-// (16 bytes a thread, zero-filled past the live range, so unwritten
-// memory never enters a product):
-//   K1  block = 64 query rows; K/V tiles stream; Q's A fragments live in
-//       registers; S = Q.K^T and the online softmax on the C fragments;
-//       P, packed to bf16, is the A fragment of P.V without leaving the
-//       registers (bf16_mma.cuh); V's B fragments come from ldmatrix.trans.
-//   K2  block = 64 keys, each warp 16 keys; Q/dO tiles and their LSE /
-//       delta rows stream; K and V fragments in registers; S^T = K.Q^T
-//       and dP^T = V.dO^T (keys x rows), then dV += P^T.dO and
-//       dK += dS^T.Q with P^T and dS^T as A fragments from registers and
-//       dO, Q read by ldmatrix.trans; dS^T, rounded, goes to shared
-//       memory, from which each warp reads 16 q rows of dS (ldmatrix.trans)
-//       for its rows' dq partial dS.K over the tile's 64 keys.
-// K1 starts the blocks of the longest causal rows first; tiles wholly
-// past the causal diagonal or kv_len are not loaded.
+// Design of K2 (mma.sync m16n8k16, bf16_mma.cuh). The TPU grid walks
+// its reduction axis sequentially and keeps the accumulators in VMEM; on
+// the card a block owns one 64-key output tile of one (batch, head) with
+// 4 warps of 16 keys, and loops over the q rows itself in 64-row tiles,
+// double-buffered in shared memory by cp.async (16 bytes a thread,
+// zero-filled past the live range, so unwritten memory never enters a
+// product): Q/dO tiles and their LSE / delta rows stream; K and V
+// fragments live in registers; S^T = K.Q^T and dP^T = V.dO^T (keys x
+// rows), then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T as A
+// fragments from registers and dO, Q read by ldmatrix.trans; dS^T,
+// rounded, goes to shared memory, from which each warp reads 16 q rows of
+// dS (ldmatrix.trans) for its rows' dq partial dS.K over the tile's 64
+// keys.
 //
-// Design of K3 and K4 (wgmma + TMA, hopper.cuh): see the section below.
-// A block is two consumer warpgroups of 64 rows (K3) or 64 keys (K4) and
-// one producer warp; every product is a wgmma m64n64k16 with f32
-// accumulators, the first two (S and dP, or S^T and dP^T) from shared
-// memory, the last ones with the rounded P / dS as register A fragments
-// and the shared tile read MN-major (the descriptor's transpose bit), so
-// no tile is copied or transposed. The fixed operand is loaded once and
-// the streamed tiles by TMA through a ring of mbarrier stages.
+// Design of K1, K3 and K4 (wgmma + TMA, hopper.cuh): see the sections
+// below. A block is consumer warpgroups of 64 rows (K1: four, K3: two)
+// or 64 keys (K4: two) and one producer warp; every product is a wgmma
+// m64n64k16 with f32 accumulators, the first ones (S, and dP; or S^T and
+// dP^T) from shared memory, the last ones with the rounded P / dS as
+// register A fragments and the shared tile read MN-major (the
+// descriptor's transpose bit), so no tile is copied or transposed: K1's
+// O += P.V reads V as K3's dQ += dS.K reads K. The fixed operand (K1,
+// K3: the block's Q rows) is loaded once and the streamed tiles by TMA
+// through a ring of mbarrier stages. K1 and K3 start the blocks of the
+// longest causal rows first; tiles wholly past the causal diagonal or
+// kv_len are not loaded, and masks run only in the tiles that hold
+// masked pairs. Head dims below 64 are zero-padded to 64 by the wrapper
+// (ops/flash_attention.py).
 //
 // Interface: plain C, bound with ctypes; the arguments of the f32
 // entries (flash_attn_fwd.cu, flash_attn_bwd.cu) with bf16 tensors (K2's
@@ -64,7 +63,7 @@
 // with arbitrary element strides for B, n and T (D contiguous, strides a
 // multiple of 8, pointers 16-byte aligned: what cp.async and TMA need);
 // lse and delta are contiguous f32 [B, n, Tq]. Returns cudaGetLastError()
-// after the launch, -1 for an unsupported head dim or Tq = 1 (the decode
+// after the launch, -1 for a head dim other than 64 or Tq = 1 (the decode
 // step has no bf16 kernel), -2 for an unknown kernel, -3 when
 // cuTensorMapEncodeTiled refuses a tensor map.
 
@@ -79,7 +78,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 64;     // rows (or keys) of a block's output tile
+constexpr int kRows = 64;     // keys of a K2 block's output tile
 constexpr int kCols = 64;     // keys (or rows) of a streamed tile
 constexpr int kThreads = 128;
 constexpr float kNegSentinel = -1e30f;
@@ -181,146 +180,6 @@ __device__ __forceinline__ void store_rows(bf16* base, long long st,
     for (int dt = 0; dt < HD / 8; ++dt)
       *reinterpret_cast<uint32_t*>(out + 8 * dt) =
           bf::pack(acc[dt][2 * half] * mul, acc[dt][2 * half + 1] * mul);
-  }
-}
-
-// -- K1: the forward ---------------------------------------------------------
-
-template <int HD>
-constexpr int fwd_smem_bytes() {
-  return 4 * kCols * (HD + 8) * static_cast<int>(sizeof(bf16));
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const int* __restrict__ kv_len,
-                      const int* __restrict__ q_start, bf16* __restrict__ o,
-                      float* __restrict__ lse, int n, int Tq, int Tk,
-                      long long sqb, long long sqh, long long sqt,
-                      long long skb, long long skh, long long skt,
-                      long long svb, long long svh, long long svt,
-                      long long sob, long long soh, long long sot,
-                      int causal, float scale) {
-  constexpr int kTile = kCols * (HD + 8);
-  constexpr int DT = HD / 8;           // n-tiles of O
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [2][key][HD + 8]
-  bf16* vs = ks + 2 * kTile;                       // [2][key][HD + 8]
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  // the causal rows reach the most keys at the end: start those first
-  const int row0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int rows = min(kRows, Tq - row0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int klen = min(kv_len[b], Tk);
-  const int qoff = q_start[b];
-  // exclusive bound on the live keys of block row r (monotone in r)
-  auto row_limit = [&](int r) {
-    int lim = klen;
-    if (causal) lim = min(lim, qoff + row0 + r + 1);
-    return max(lim, 0);
-  };
-  const int tile_limit = row_limit(rows - 1);
-  const int r0 = 16 * warp + g, r1 = r0 + 8;  // this lane's block rows
-  const int lim0 = row_limit(r0), lim1 = row_limit(r1);
-  const int warp_limit =
-      16 * warp < rows ? row_limit(min(16 * warp + 15, rows - 1)) : 0;
-
-  const bf16* kb = k + b * skb + h * skh;
-  const bf16* vb = v + b * svb + h * svh;
-  auto load_tile = [&](int j, int stage) {
-    stage_rows<HD>(ks + stage * kTile, kb, skt, j * kCols, tile_limit);
-    stage_rows<HD>(vs + stage * kTile, vb, svt, j * kCols, tile_limit);
-    bf::cp_async_commit();
-  };
-  const int n_tiles = (tile_limit + kCols - 1) / kCols;
-  if (n_tiles > 0) load_tile(0, 0);
-
-  uint32_t qa[HD / 16][4];
-  load_rows_a<HD>(qa, q + b * sqb + h * sqh + row0 * sqt, sqt, r0, rows, t);
-
-  float m0 = -INFINITY, m1 = -INFINITY;  // running row max (quad-shared)
-  float l0 = 0.f, l1 = 0.f;              // this lane's share of the sum
-  float acc[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j & 1;
-    bf::cp_async_wait<0>();
-    // tile j is visible, and every warp is done with tile j - 1's stage
-    __syncthreads();
-    if (j + 1 < n_tiles) load_tile(j + 1, stage ^ 1);
-    const int c0 = j * kCols;
-    if (c0 >= warp_limit) continue;  // warp-uniform: no live key here
-
-    float s[8][4];
-    rows_x_tile<HD>(s, qa, ks + stage * kTile, lane);
-
-    // mask, scale and the online softmax on the fragments
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = c0 + 8 * nt + 2 * t + e;
-        s[nt][e] = col < lim0 ? s[nt][e] * scale : -INFINITY;
-        s[nt][2 + e] = col < lim1 ? s[nt][2 + e] * scale : -INFINITY;
-        mx0 = fmaxf(mx0, s[nt][e]);
-        mx1 = fmaxf(mx1, s[nt][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int o2 = 1; o2 <= 2; o2 <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o2));
-    }
-    // a row with no live key yet keeps max -inf: exponents against 0
-    const float base0 = mx0 == -INFINITY ? 0.f : mx0;
-    const float base1 = mx1 == -INFINITY ? 0.f : mx1;
-    const float corr0 = expf(m0 - base0), corr1 = expf(m1 - base1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= corr0;
-    l1 *= corr1;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - base0);
-      s[nt][1] = expf(s[nt][1] - base0);
-      s[nt][2] = expf(s[nt][2] - base1);
-      s[nt][3] = expf(s[nt][3] - base1);
-      l0 += s[nt][0] + s[nt][1];   // the f32 P sums, as K1's l
-      l1 += s[nt][2] + s[nt][3];
-    }
-#pragma unroll
-    for (int i = 0; i < DT; ++i) {
-      acc[i][0] *= corr0;
-      acc[i][1] *= corr0;
-      acc[i][2] *= corr1;
-      acc[i][3] *= corr1;
-    }
-    // O += P.V with P rounded to bf16 (the reference's p.astype(v.dtype))
-    frag_x_tile<HD>(acc, s, vs + stage * kTile, lane);
-  }
-
-#pragma unroll
-  for (int o2 = 1; o2 <= 2; o2 <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
-  }
-  // a fully masked row keeps max -inf: O = 0 and the LSE sentinel
-  const bool dead0 = m0 == -INFINITY, dead1 = m1 == -INFINITY;
-  store_rows<HD>(o + b * sob + h * soh + row0 * sot, sot, acc,
-                 dead0 ? 0.f : 1.f / l0, dead1 ? 0.f : 1.f / l1, r0, rows,
-                 t);
-  if (t == 0) {
-    float* lrow = lse + ((long long)b * n + h) * Tq + row0;
-    if (r0 < rows) lrow[r0] = dead0 ? kNegSentinel : m0 + logf(l0);
-    if (r1 < rows) lrow[r1] = dead1 ? kNegSentinel : m1 + logf(l1);
   }
 }
 
@@ -556,15 +415,6 @@ struct alignas(1024) DkvSmem {
   uint64_t kv_full, full[kDkvStages], empty[kDkvStages];
 };
 
-// the dynamic shared memory, rounded up to the 1024-byte boundary the
-// 128-byte swizzle is laid out from (the launch adds 1024 bytes)
-template <typename T>
-__device__ __forceinline__ T& aligned_smem() {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t pad = (1024u - (hp::smem_u32(smem_raw) & 1023u)) & 1023u;
-  return *reinterpret_cast<T*>(smem_raw + pad);
-}
-
 // a row's LSE in base 2 for p = exp2(s * scale * log2(e) - lse2); a dead
 // row's is +inf (p = 0)
 __device__ __forceinline__ float lse_base2(float lse) {
@@ -606,17 +456,18 @@ __device__ __forceinline__ void tile_product_rs(float (&d)[32],
   for (int kk = 0; kk < 4; ++kk) hp::wgmma_rs_t(d, pa[kk], db + kk * kMnStep);
 }
 
-// a warpgroup's 64 x D accumulator, times `mul`, as bf16 rows r0 + (16w
-// + g) and + 8 of `base` (rows >= valid skipped)
+// a warpgroup's 64 x D accumulator as bf16 rows r0 + (16w + g) (times
+// mul_lo) and + 8 (times mul_hi) of `base` (rows >= valid skipped)
 __device__ __forceinline__ void store_acc(bf16* base, long long st,
-                                          const float (&d)[32], float mul,
-                                          int r0, int valid) {
+                                          const float (&d)[32], float mul_lo,
+                                          float mul_hi, int r0, int valid) {
   const int w = (threadIdx.x & (kWg - 1)) >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 16 * w + g + 8 * half;
     if (r >= valid) continue;
+    const float mul = half ? mul_hi : mul_lo;
     bf16* out = base + r * st + 2 * t;
 #pragma unroll
     for (int nt = 0; nt < kD / 8; ++nt)
@@ -646,6 +497,228 @@ struct StageRelease {
   }
 };
 
+// K1: O and LSE of one 256-row q block of one (batch, head): four
+// consumer warpgroups of 64 rows (setmaxnreg 112: the 96 registers a
+// thread of 640 gets at launch, plus what the producer's 24 free) and
+// the producer warp, so each scheduler holds four consumer warps whose
+// softmax latencies interleave (two and three, 128 and 192 rows a block,
+// ran 8 % and 4 % slower at the training shape on an H100:
+// tools/flash_ab.py). Each consumer warpgroup holds its 64 rows' O
+// accumulator and running max / sum. Per K / V tile j it issues S_j =
+// Q.K_j^T (SS wgmma) and then O += P_{j-1}.V_{j-1} (RS wgmma: P rounded
+// to bf16 as the register A fragments, V read MN-major; the reference's
+// p.astype(v.dtype), f32 accumulation), waits for S_j only and runs the
+// online softmax of S_j on its registers while P_{j-1}.V_{j-1} is still
+// in flight; then it waits for that product, frees its stage, scales O
+// by the correction and packs P_j. So a warpgroup's softmax overlaps its
+// own P.V as well as the other warpgroups' products (FlashAttention-3's
+// intra-warpgroup overlap), and no register a product in flight reads
+// is written.
+struct FwdArgs {
+  const int* kv_len;
+  const int* q_start;
+  bf16* o;
+  float* lse;
+  int n, Tq, Tk;
+  long long so[3];             // O's element strides (batch, head, row)
+  int causal;
+  float scale;
+};
+
+constexpr int kFwdStages = 3;                 // K / V tiles in flight
+constexpr int kFwdConsumers = 4;              // consumer warpgroups
+constexpr int kFwdBlock = kFwdConsumers * 64; // q rows of a block
+constexpr int kFwdThreads = (kFwdConsumers + 1) * kWg;
+
+struct alignas(1024) FwdSmem {
+  bf16 q[kFwdConsumers * kBox];   // the block's rows, one box per consumer
+  bf16 k[kFwdStages][kBox];       // streamed key tiles
+  bf16 v[kFwdStages][kBox];
+  uint64_t q_full, full[kFwdStages], empty[kFwdStages];
+};
+
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const FwdArgs a) {
+  FwdSmem& sm = hp::aligned_smem<FwdSmem>();
+  const int bh = blockIdx.y, b = bh / a.n, h = bh % a.n;
+  // the causal rows reach the most keys at the end: start those first
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kFwdBlock;
+  const int rows = min(kFwdBlock, a.Tq - row0);
+  const int klen = hp::warp_uniform(max(min(a.kv_len[b], a.Tk), 0));
+  const int qoff = hp::warp_uniform(a.q_start[b]);
+  // exclusive bound on the keys any row of the block attends to
+  const int tile_limit =
+      a.causal ? max(min(klen, qoff + row0 + rows), 0) : klen;
+  const int n_tiles = (tile_limit + kCols - 1) / kCols;
+  const int wg = hp::warp_uniform(threadIdx.x / kWg);
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      hp::mbar_init(&sm.full[s], 1);
+      hp::mbar_init(&sm.empty[s], kFwdConsumers * kWg);
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == kFwdConsumers) {                  // the producer
+    hp::regs_dealloc<24>();
+    if (threadIdx.x != kFwdConsumers * kWg || n_tiles == 0) return;
+    hp::mbar_arrive_tx(&sm.q_full, kFwdConsumers * kBoxBytes);
+    for (int c = 0; c < kFwdConsumers; ++c)
+      hp::tma_load_4d(sm.q + c * kBox, &tq, &sm.q_full, 0, row0 + 64 * c, h,
+                      b);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kFwdStages;
+      if (j >= kFwdStages)
+        hp::mbar_wait(&sm.empty[s], (j / kFwdStages - 1) & 1);
+      hp::mbar_arrive_tx(&sm.full[s], 2 * kBoxBytes);
+      hp::tma_load_4d(sm.k[s], &tk, &sm.full[s], 0, j * kCols, h, b);
+      hp::tma_load_4d(sm.v[s], &tv, &sm.full[s], 0, j * kCols, h, b);
+    }
+    return;
+  }
+
+  hp::regs_alloc<112>();                      // a consumer: 64 q rows
+  const int w = (threadIdx.x & (kWg - 1)) >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rbase = row0 + 64 * wg;
+  const int ra = rbase + 16 * w + g, rb = ra + 8;   // this thread's rows
+  // exclusive bounds on the live keys of rows ra, rb, and of the
+  // warpgroup's rows (tiles at or past it are dead for all of them)
+  const int lim_a = a.causal ? max(min(klen, qoff + ra + 1), 0) : klen;
+  const int lim_b = a.causal ? max(min(klen, qoff + rb + 1), 0) : klen;
+  const int wg_limit =
+      rbase >= a.Tq ? 0
+                    : (a.causal ? max(min(klen, qoff + rbase + 64), 0) : klen);
+  const int n_live = min(n_tiles, (wg_limit + kCols - 1) / kCols);
+  const float sl2 = a.scale * kLog2e;
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY;     // running raw max (quad-shared)
+  float l_a = 0.f, l_b = 0.f;                 // this thread's share of sums
+  const bf16* qt = sm.q + wg * kBox;
+  float sc[32];
+  uint32_t pa[4][4];
+  float corr_a = 0.f, corr_b = 0.f;
+
+  // the online softmax of tile j's scores in sc (in base 2: exp2 of
+  // s * scale * log2(e) minus the running max's), masked only in tiles
+  // with masked pairs; leaves P (f32) in sc and O's corrections for rows
+  // a and b in corr_a, corr_b
+  auto softmax = [&](int j) {
+    const int c0 = j * kCols;
+    if ((a.causal && c0 + 63 > qoff + rbase) || c0 + 64 > klen) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = c0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        if (col >= (((i >> 1) & 1) ? lim_b : lim_a)) sc[i] = -INFINITY;
+      }
+    }
+    float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if ((i >> 1) & 1)
+        mx_b = fmaxf(mx_b, sc[i]);
+      else
+        mx_a = fmaxf(mx_a, sc[i]);
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, x));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, x));
+    }
+    // a row with no live key yet keeps max -inf: exponents against 0
+    const float base_a = mx_a == -INFINITY ? 0.f : mx_a * sl2;
+    const float base_b = mx_b == -INFINITY ? 0.f : mx_b * sl2;
+    corr_a = hp::exp2_approx(m_a * sl2 - base_a);
+    corr_b = hp::exp2_approx(m_b * sl2 - base_b);
+    m_a = mx_a;
+    m_b = mx_b;
+    l_a *= corr_a;
+    l_b *= corr_b;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool hi = (i >> 1) & 1;
+      sc[i] = hp::exp2_approx(fmaf(sc[i], sl2, -(hi ? base_b : base_a)));
+      if (hi)
+        l_b += sc[i];                         // the f32 P sums, as K1's l
+      else
+        l_a += sc[i];
+    }
+  };
+  // O *= the last softmax's corrections (O holds the products of the
+  // tiles before its tile)
+  auto rescale_o = [&]() {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= ((i >> 1) & 1) ? corr_b : corr_a;
+  };
+
+  if (n_live > 0) {
+    hp::mbar_wait(&sm.q_full, 0);
+    hp::mbar_wait(&sm.full[0], 0);
+    hp::wgmma_fence();
+    tile_product(sc, qt, sm.k[0]);            // S_0 = Q.K_0^T
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_acc(sc);
+    softmax(0);
+    pack_a(pa, sc);                           // P rounded to bf16
+    // tile j: S_j, then P_{j-1}.V_{j-1}; the softmax of S_j runs while
+    // that product does; O is rescaled and P_j packed once it is done
+    for (int j = 1; j < n_live; ++j) {
+      const int s = j % kFwdStages, sp = (j - 1) % kFwdStages;
+      hp::mbar_wait(&sm.full[s], (j / kFwdStages) & 1);
+      hp::wgmma_fence();
+      tile_product(sc, qt, sm.k[s]);          // S_j = Q.K_j^T
+      hp::wgmma_commit();
+      tile_product_rs(o, pa, sm.v[sp]);       // O += P_{j-1}.V_{j-1}
+      hp::wgmma_commit();
+      hp::wgmma_wait<1>();                    // S_j
+      hp::fence_acc(sc);
+      softmax(j);
+      hp::wgmma_wait<0>();                    // P_{j-1}.V_{j-1}
+      hp::mbar_arrive(&sm.empty[sp]);
+      hp::fence_acc(o);
+      rescale_o();
+      pack_a(pa, sc);
+    }
+    const int sl = (n_live - 1) % kFwdStages;
+    hp::wgmma_fence();
+    tile_product_rs(o, pa, sm.v[sl]);         // the last P.V
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::mbar_arrive(&sm.empty[sl]);
+    hp::fence_acc(o);
+  }
+  // tiles past this warpgroup's rows: free their stages
+  for (int j = max(n_live, 0); j < n_tiles; ++j) {
+    const int s = j % kFwdStages;
+    hp::mbar_wait(&sm.full[s], (j / kFwdStages) & 1);
+    hp::mbar_arrive(&sm.empty[s]);
+  }
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, x);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, x);
+  }
+  // a fully masked row keeps max -inf: O = 0 and the LSE sentinel
+  const bool dead_a = m_a == -INFINITY, dead_b = m_b == -INFINITY;
+  store_acc(a.o + b * a.so[0] + h * a.so[1], a.so[2], o,
+            dead_a ? 0.f : 1.f / l_a, dead_b ? 0.f : 1.f / l_b, rbase, a.Tq);
+  if (t == 0) {
+    float* lrow = a.lse + (long long)bh * a.Tq;
+    if (ra < a.Tq) lrow[ra] = dead_a ? kNegSentinel : m_a * a.scale + logf(l_a);
+    if (rb < a.Tq) lrow[rb] = dead_b ? kNegSentinel : m_b * a.scale + logf(l_b);
+  }
+}
+
 // K3: dq of one 128-row q block of one (batch, head)
 __global__ void __launch_bounds__(kWsThreads, 1)
 bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
@@ -653,7 +726,7 @@ bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tv,
                    const __grid_constant__ CUtensorMap tdo,
                    const BwdArgs a) {
-  DqSmem& sm = aligned_smem<DqSmem>();
+  DqSmem& sm = hp::aligned_smem<DqSmem>();
   const int bh = blockIdx.y, b = bh / a.n, h = bh % a.n;
   // the causal rows reach the most keys at the end: start those first
   const int row0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
@@ -767,7 +840,7 @@ bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   rel.release(sm.empty);
   hp::fence_acc(dq);
   store_acc(a.dq + b * a.sdq[0] + h * a.sdq[1], a.sdq[2], dq, a.scale,
-            rbase, a.Tq);
+            a.scale, rbase, a.Tq);
 }
 
 // K4: dk, dv of one 128-key kv block of one (batch, head)
@@ -777,7 +850,7 @@ bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tv,
                     const __grid_constant__ CUtensorMap tdo,
                     const BwdArgs a) {
-  DkvSmem& sm = aligned_smem<DkvSmem>();
+  DkvSmem& sm = hp::aligned_smem<DkvSmem>();
   const int bh = blockIdx.y, b = bh / a.n, h = bh % a.n;
   const int key0 = blockIdx.x * kBlock;
   const int klen = hp::warp_uniform(max(min(a.kv_len[b], a.Tk), 0));
@@ -934,9 +1007,9 @@ bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   hp::fence_acc(dv);
   hp::fence_acc(dk);
   store_acc(a.dk + b * a.sdk[0] + h * a.sdk[1], a.sdk[2], dk, a.scale,
+            a.scale, kbase, a.Tk);
+  store_acc(a.dv + b * a.sdv[0] + h * a.sdv[1], a.sdv[2], dv, 1.f, 1.f,
             kbase, a.Tk);
-  store_acc(a.dv + b * a.sdv[0] + h * a.sdv[1], a.sdv[2], dv, 1.f, kbase,
-            a.Tk);
 }
 
 template <typename Kernel, typename... Args>
@@ -949,48 +1022,12 @@ cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v,
-                       const int* kv_len, const int* q_start, bf16* o,
-                       float* lse, int B, int n, int Tq, int Tk,
-                       const long long* st, int causal, float scale,
-                       cudaStream_t stream) {
-  const dim3 grid((Tq + kRows - 1) / kRows, n, B);
-  return launch(flash_fwd_bf16_kernel<HD>, grid, fwd_smem_bytes<HD>(),
-                stream, q, k, v, kv_len, q_start, o, lse, n, Tq, Tk, st[0],
-                st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-                st[9], st[10], st[11], causal, scale);
-}
-
-// cuTensorMapEncodeTiled, looked up at run time (no link against
-// libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
-                                         12000, cudaEnableDefault,
-                                         &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // the 4-D map over (D, T, n, B) of a [B, n, T, 64] bf16 operand with
 // element strides st = (batch, head, row), boxes of 64 rows x 64,
 // 128-byte swizzle, zero fill past T; false if the encoder refuses it
 bool make_map(CUtensorMap* map, const void* base, int B, int n, int T,
               const long long* st) {
-  EncodeTiled encode = encode_tiled();
+  hp::EncodeTiled encode = hp::encode_tiled();
   if (encode == nullptr) return false;
   if (B == 0 || n == 0 || T == 0) {   // nothing is ever loaded from it
     *map = CUtensorMap{};
@@ -1035,29 +1072,37 @@ extern "C" int pt_flash_attn_fwd_bf16(
     long long skh, long long skt, long long svb, long long svh,
     long long svt, long long sob, long long soh, long long sot, int causal,
     float scale, void* stream) {
-  if (Tq < 2) return -1;
-  const long long st[12] = {sqb, sqh, sqt, skb, skh, skt,
-                            svb, svh, svt, sob, soh, sot};
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
-  const auto* lp = static_cast<const int*>(kv_len);
-  const auto* sp = static_cast<const int*>(q_start);
-  auto* op = static_cast<bf16*>(o);
-  auto* lsep = static_cast<float*>(lse);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      return static_cast<int>(launch_fwd<32>(qp, kp, vp, lp, sp, op, lsep,
-                                             B, n, Tq, Tk, st, causal, scale,
-                                             s));
-    case 64:
-      return static_cast<int>(launch_fwd<64>(qp, kp, vp, lp, sp, op, lsep,
-                                             B, n, Tq, Tk, st, causal, scale,
-                                             s));
-    default:
-      return -1;
-  }
+  if (Tq < 2 || D != kD) return -1;
+  const long long sq[3] = {sqb, sqh, sqt}, sk[3] = {skb, skh, skt},
+                  sv[3] = {svb, svh, svt};
+  FwdArgs a;
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.q_start = static_cast<const int*>(q_start);
+  a.o = static_cast<bf16*>(o);
+  a.lse = static_cast<float*>(lse);
+  a.n = n;
+  a.Tq = Tq;
+  a.Tk = Tk;
+  a.so[0] = sob;
+  a.so[1] = soh;
+  a.so[2] = sot;
+  a.causal = causal;
+  a.scale = scale;
+  CUtensorMap maps[3];
+  if (!make_map(&maps[0], q, B, n, Tq, sq) ||
+      !make_map(&maps[1], k, B, n, Tk, sk) ||
+      !make_map(&maps[2], v, B, n, Tk, sv))
+    return -3;
+  const int smem = static_cast<int>(sizeof(FwdSmem)) + 1024;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_bf16_kernel<<<dim3((Tq + kFwdBlock - 1) / kFwdBlock, B * n),
+                          kFwdThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // which: 0 = K2 (fused; dq is the f32 [nk, ...] partials buffer),

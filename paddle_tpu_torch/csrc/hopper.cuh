@@ -1,25 +1,27 @@
-// Hopper (sm_90a) building blocks for the warp-specialised bf16 kernels
-// (flash_attn_bf16.cu's K3 and K4): mbarriers, TMA tile loads, the
-// wgmma shared-memory descriptor and the bf16 wgmma m64n64k16 products.
+// Hopper (sm_90a) building blocks for the warp-specialised kernels (the
+// bf16 K1, K3 and K4 in flash_attn_bf16.cu, K6 in int8_matmul.cu):
+// mbarriers, TMA tile loads and the host's tensor-map encoder, the
+// 1024-byte-aligned dynamic shared memory, the wgmma shared-memory
+// descriptor and the bf16 wgmma m64n64k16 products.
 //
-// Shared-memory tiles are 64 rows of 64 bf16 (128 bytes, one 128-byte
-// swizzle atom a row), written by TMA with CU_TENSOR_MAP_SWIZZLE_128B
-// and read by wgmma through a descriptor of the same swizzle: a tile
-// starts on a 1024-byte boundary, and the 16-byte chunk c of row r lies
-// at chunk c ^ (r % 8) of that row. Descriptors (PTX ISA, "matrix
-// descriptor"; CUTLASS's make_gmma_desc):
+// Shared-memory tiles are rows of 128 bytes (64 bf16, or 128 int8 of
+// K6's reduction: one 128-byte swizzle atom a row), written by TMA with
+// CU_TENSOR_MAP_SWIZZLE_128B and read by wgmma through a descriptor of
+// the same swizzle: a tile starts on a 1024-byte boundary, and the
+// 16-byte chunk c of row r lies at chunk c ^ (r % 8) of that row.
+// Descriptors (PTX ISA, "matrix descriptor"; CUTLASS's make_gmma_desc):
 //   K-major (the reduction index contiguous, e.g. K in Q.K^T): 8-row
-//     groups 1024 bytes apart (SBO), LBO unused; the k-th 16-wide slice
-//     of the reduction starts 32 bytes further (the hardware applies the
-//     swizzle to the address it forms);
+//     groups 1024 bytes apart (SBO), LBO unused; the k-th 32-byte slice
+//     of the reduction (16 bf16, or 32 int8) starts 32 bytes further (the
+//     hardware applies the swizzle to the address it forms);
 //   MN-major (the output column contiguous, e.g. dO in P^T.dO, read
-//     with the transpose bit): 8-row groups of the reduction 1024 bytes
-//     apart (SBO), LBO the distance between 64-column groups (one group
-//     here); the k-th 16-row slice starts 2048 bytes further.
-// The f32 accumulator of m64nN (a warpgroup's 64 rows) holds, in thread
-// (warp w, lane l = 4g + t) register i, row 16w + g + 8 * ((i >> 1) & 1)
-// and column 8 * (i >> 2) + 2t + (i & 1): mma.sync's C fragments of N / 8
-// n-tiles. Packed to bf16, two adjacent n-tiles are the register A
+//     with the transpose bit, bf16 only): 8-row groups of the reduction
+//     1024 bytes apart (SBO), LBO the distance between 64-column groups
+//     (one group here); the k-th 16-row slice starts 2048 bytes further.
+// The f32 (or s32) accumulator of m64nN (a warpgroup's 64 rows) holds, in
+// thread (warp w, lane l = 4g + t) register i, row 16w + g + 8 * ((i >> 1)
+// & 1) and column 8 * (i >> 2) + 2t + (i & 1): mma.sync's C fragments of
+// N / 8 n-tiles. Packed to bf16, two adjacent n-tiles are the register A
 // fragment of the next product over those 16 columns (bf16_mma.cuh).
 
 #pragma once
@@ -98,6 +100,49 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// one box of a 2-D tensor map at coordinates (c0, c1)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled, looked up at run time (no link against
+// libcuda); nullptr when the driver does not have it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                         12000, cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the dynamic shared memory as a T, rounded up to the 1024-byte boundary
+// the 128-byte swizzle is laid out from (launches add 1024 bytes)
+template <typename T>
+__device__ __forceinline__ T& aligned_smem() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<T*>(smem_raw + pad);
 }
 
 // -- register budgets of warp-specialised roles ------------------------------

@@ -13,7 +13,11 @@ quantized by `quant.quantize_inference_model`:
 
 `load_persistables` puts every array into the scope as a tensor on the
 executor's device, so a served model's weights cross to the card once,
-at load. The reference's binary ProgramDesc format ("pb") is not ported.
+at load; a quantized model's int8 matmul weights are then laid out
+column-major on the card (`quant.place_int8_weights`).
+`save_persistables` writes every array C-ordered, whatever its strides
+on the device, so the file is the same for either layout. The
+reference's binary ProgramDesc format ("pb") is not ported.
 
 LM artifacts: `read_lm_artifact(path)` parses the version-3 container
 of `paddle_tpu.io.export_lm_artifact`:
@@ -59,9 +63,9 @@ def save_persistables(executor, dirname, main_program=None, scope=None):
     for name in _persistable_names(program):
         if scope.has(name):
             val = scope.get(name)
-            arrays[name] = (val.detach().cpu().numpy()
-                            if isinstance(val, torch.Tensor)
-                            else np.asarray(val))
+            arrays[name] = np.asarray(
+                val.detach().cpu().numpy() if isinstance(val, torch.Tensor)
+                else val, order="C")
     np.savez(os.path.join(dirname, "params.npz"), **arrays)
     return sorted(arrays)
 
@@ -158,6 +162,7 @@ def load_inference_model(dirname, executor, scope=None):
     from . import quant
     if quant.has_quant_ops(program):
         quant.ensure_loadable(program, scope or global_scope())
+        quant.place_int8_weights(program, scope or global_scope())
     fetch_vars = [program.global_block().var(n) for n in meta["fetch_names"]]
     return program, meta["feed_names"], fetch_vars
 

@@ -39,11 +39,12 @@ kernels (`csrc/flash_attn_bf16.cu`) with their own launch counters
 stay f32 and are summed, then cast once (`sum_dq_partials`). The decode
 step (Tq = 1) has no bf16 kernel yet and raises for bf16 on the card.
 
-Head dims: the kernels take D in `KERNEL_HEAD_DIMS` (forward) and
-`BWD_HEAD_DIMS` (backward); on the card a smaller D is zero-padded up to
-the next of them, as the reference's `_pad_d` does (padded columns add
-zero to q.k; O's and the gradients' padded columns are zero and sliced
-off; the softmax scale is the original D's). D > 64 raises.
+Head dims: the kernels take D in `KERNEL_HEAD_DIMS` (the f32 forward),
+`BF16_FWD_HEAD_DIMS` (the bf16 forward, whose wgmma tiles are 64 wide)
+and `BWD_HEAD_DIMS` (backward); on the card a smaller D is zero-padded up
+to the next of them, as the reference's `_pad_d` does (padded columns
+add zero to q.k; O's and the gradients' padded columns are zero and
+sliced off; the softmax scale is the original D's). D > 64 raises.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (`csrc/flash_attn_fwd.cu`, `csrc/flash_attn_bwd.cu`,
@@ -68,10 +69,12 @@ __all__ = ["flash_attn_fwd", "flash_attn_fwd_plain", "flash_attn_bwd",
            "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16",
            "sum_dq_partials", "flash_attn_fwd_padded",
            "flash_attn_bwd_padded", "kernel_head_dim", "bwd_route",
-           "KERNEL_HEAD_DIMS", "BWD_HEAD_DIMS", "BWD_TILE", "NEG"]
+           "fwd_head_dims", "KERNEL_HEAD_DIMS", "BF16_FWD_HEAD_DIMS",
+           "BWD_HEAD_DIMS", "BWD_TILE", "NEG"]
 
 NEG = -1e30
 KERNEL_HEAD_DIMS = (32, 64)
+BF16_FWD_HEAD_DIMS = (64,)   # the bf16 forward's tiles are 64 x 64
 BWD_HEAD_DIMS = (64,)   # the backward kernels' tiles are 64 x 64
 BWD_TILE = 64           # q rows / keys per backward kernel tile
 FUSED_MAX_TILES = 4     # the reference's nk <= 4 rule for the fused K2
@@ -181,13 +184,20 @@ def _pad_d(ts, Dp):
             torch.nn.functional.pad(t, (0, Dp - t.shape[-1])) for t in ts]
 
 
+def fwd_head_dims(dtype):
+    """The head dims the forward kernel of `dtype` takes."""
+    return BF16_FWD_HEAD_DIMS if dtype == torch.bfloat16 else \
+        KERNEL_HEAD_DIMS
+
+
 def flash_attn_fwd_padded(fwd, q, k, v, kv_len, q_start, causal, scale):
     """`fwd` (a forward wrapper or its plain version) run at the kernel
-    head dim: q, k, v zero-padded along D, O's padded columns sliced
-    off. `scale` is the original D's; padded columns add zero to q.k,
-    so S, P, the LSE and O's first D columns are unchanged."""
+    head dim of q's dtype: q, k, v zero-padded along D, O's padded
+    columns sliced off. `scale` is the original D's; padded columns add
+    zero to q.k, so S, P, the LSE and O's first D columns are
+    unchanged."""
     D = q.shape[3]
-    Dp = kernel_head_dim(D, KERNEL_HEAD_DIMS)
+    Dp = kernel_head_dim(D, fwd_head_dims(q.dtype))
     if Dp == D:
         return fwd(q, k, v, kv_len, q_start, causal, scale)
     o, lse = fwd(*_pad_d((q, k, v), Dp), kv_len, q_start, causal, scale)
@@ -236,17 +246,18 @@ def _launch(q, k, v, kv_len, q_start, causal, scale):
                        *o.stride()[:3], int(bool(causal)), float(scale),
                        stream)
     if rc != 0:
+        what = ("cuTensorMapEncodeTiled refused a TMA tensor map"
+                if rc == -3 else
+                f"{'unsupported shape ' if rc < 0 else ''}cudaError {rc}")
         raise RuntimeError(f"flash_attn_fwd ({q.dtype}) kernel launch "
-                           f"failed: "
-                           f"{'unsupported shape ' if rc < 0 else ''}"
-                           f"cudaError {rc} (B={B}, n={n}, Tq={Tq}, "
+                           f"failed: {what} (B={B}, n={n}, Tq={Tq}, "
                            f"Tk={Tk}, D={D})")
     (flash_attn_fwd_bf16 if bf16 else flash_attn_fwd).launches += 1
     return o, lse
 
 
 def _checked_launch(q, k, v, kv_len, q_start, causal, scale):
-    _check_kernel_operands(q, k, v, kv_len, q_start)
+    _check_kernel_operands(q, k, v, kv_len, q_start, fwd_head_dims(q.dtype))
     return _launch(q, k, v, kv_len, q_start, causal, scale)
 
 

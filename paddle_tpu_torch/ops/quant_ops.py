@@ -1,6 +1,6 @@
 """Quantized-op lowerings (the port of `paddle_tpu/ops/quant_ops.py`),
-with K6, the int8 x int8 -> int32 matmul, as a hand-written Hopper
-kernel.
+with K6, the int8 matmul, and the activation quantize that feeds it as
+hand-written Hopper kernels.
 
 The post-training quantizer (quant.py) rewrites eligible inference ops
 (`mul` -> `quant_mul`, ...) so their weight input arrives as an int8
@@ -12,19 +12,29 @@ The matmul planes (`quant_mul`, `quant_matmul`) run `int8_matmul`: the
 activations are quantized per row on the fly (or with a calibrated
 static scale), the int8 x int8 product accumulates exactly in int32,
 and the accumulator is rescaled by (act_scale x weight_scale) — the
-reference's f32 arithmetic, op for op. Which core computes the int32
-product (`resolve_int8_core`):
+reference's f32 arithmetic, op for op. Which core computes it
+(`resolve_int8_core`):
 
     tensor  int8_matmul flag   core
-    CUDA    any value          K6 (`int8_matmul_i32`, csrc/int8_matmul.cu)
+    CUDA    any value          the quantize kernel (`quantize_activations`)
+                               then K6 with the rescale in its epilogue
+                               (`int8_matmul_rescaled`), both in
+                               csrc/int8_matmul.cu
     CPU     auto               dequant: x @ (wq * col) in f32, as the
                                reference computes off the TPU
-    CPU     pallas or dot      the plain int8 core (`int8_matmul_plain`)
+    CPU     pallas or dot      the plain versions: quantize, the int8
+                               core (`int8_matmul_plain`), `rescale`
 
 On the card there is no dequant route, no library int8 GEMM and no
-plain fallback: K6 builds and launches, or the call raises. K6 takes
-any M, K and N (ragged edges are bounds-checked and zero-filled), so no
-shape is routed away, unlike the reference's `% 128` gate.
+plain fallback: the kernels build and launch, or the call raises. K6
+takes any M, K and N (ragged edges are masked, loads past them
+zero-filled), so no shape is routed away, unlike the reference's `% 128`
+gate. K6 reads the weight K-major: int8 weights live on the card
+column-major (`quant.place_int8_weights`), and a row-major one is
+transposed per call into a temporary, counted on the wrapper's
+`repacks`. A K that is not a multiple of 16 (what TMA takes) is
+zero-padded per call, counted on `k_pads`; zeros add nothing to an exact
+integer sum.
 
 `quant_lookup_table` gathers int8 rows and their per-row scales and
 dequantizes only the gathered rows. `quant_conv2d`,
@@ -43,8 +53,9 @@ import torch
 from .registry import register_op, torch_dtype
 
 __all__ = ["KERNEL_ID", "META_ATTRS", "dequantize", "resolve_int8_core",
-           "quantize_activations", "rescale", "int8_matmul",
-           "int8_matmul_i32", "int8_matmul_plain"]
+           "quantize_activations", "quantize_activations_plain", "rescale",
+           "int8_matmul", "int8_matmul_i32", "int8_matmul_rescaled",
+           "int8_matmul_plain", "is_column_major"]
 
 # the one quantization scheme this runtime executes; recorded into op
 # attrs so a FUTURE scheme degrades to the per-op dequant fallback
@@ -63,9 +74,9 @@ def dequantize(wq, scale, dtype=None):
 def resolve_int8_core(mode, device_type):
     """The int8-matmul core election: "dequant" (f32 matmul against the
     dequantized weight) or "int8" (quantized activations, an exact
-    int8 x int8 -> int32 product through `int8_matmul_i32`: K6 on a CUDA
-    tensor, its plain version on a CPU tensor). Every tensor off the CPU
-    takes "int8", whatever the flag says; on the CPU, auto (the
+    int8 x int8 -> int32 product, the rescale: the kernels on a CUDA
+    tensor, their plain versions on a CPU tensor). Every tensor off the
+    CPU takes "int8", whatever the flag says; on the CPU, auto (the
     default) takes "dequant", pallas and dot take "int8"."""
     if device_type != "cpu":
         return "int8"
@@ -80,55 +91,142 @@ def int8_matmul_plain(xq, wq):
                         wq.to(torch.float64)).to(torch.int32)
 
 
-def _int8_lib():
+def _lib():
     from .._build import load_library
-    fn = load_library("int8_matmul").pt_int8_matmul_s8s8s32
-    if fn.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, i, i, i, vp]
-        fn.restype = ctypes.c_int
-    return fn
+    lib = load_library("int8_matmul")
+    if lib.pt_int8_matmul.argtypes is None:
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.pt_int8_matmul.argtypes = [vp, ll, vp, ll, vp, vp, ll, vp, i, i,
+                                       i, i, vp]
+        lib.pt_int8_matmul.restype = ctypes.c_int
+        lib.pt_quantize_rows.argtypes = [vp, ll, i, i, vp, vp, vp, vp]
+        lib.pt_quantize_rows.restype = ctypes.c_int
+    return lib
+
+
+def is_column_major(w):
+    """True when the 2-D w is stored column-major: its [N, K] transpose
+    is contiguous (strides (1, K)), the layout K6 reads as it is."""
+    return w.dim() == 2 and w.t().is_contiguous()
+
+
+def _check_int8_operands(name, xq, wq):
+    if xq.dim() != 2 or wq.dim() != 2 or xq.shape[1] != wq.shape[0]:
+        raise ValueError(f"{name} takes xq [M, K] and wq [K, N], got "
+                         f"{tuple(xq.shape)} and {tuple(wq.shape)}")
+    if xq.device != wq.device:
+        raise ValueError(f"{name} operands on {xq.device} and {wq.device}")
+    if xq.device.type not in ("cpu", "meta", "cuda"):
+        raise ValueError(f"{name}: unsupported device {xq.device}")
+
+
+def _k6_operands(wrapper, xq, wq):
+    """(x, w^T, K) as K6 reads them: x [M, K] and w^T [N, K] int8 with
+    16-byte aligned rows and K a multiple of 16. A column-major wq is
+    read as it is; a row-major one is transposed into a temporary
+    (counted on wrapper.repacks); any other layout raises. When K (or a
+    pointer) is not what TMA takes, both operands are zero-padded along
+    K (counted on wrapper.k_pads)."""
+    name = wrapper.__name__
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise TypeError(f"{name} kernel takes int8 xq and wq, got "
+                        f"{xq.dtype} and {wq.dtype}")
+    if not xq.is_contiguous():
+        raise ValueError(f"{name} kernel takes a contiguous row-major xq "
+                         f"[M, K] (strides {xq.stride()})")
+    if is_column_major(wq):
+        wt = wq.t()
+    elif wq.is_contiguous():
+        wt = wq.t().contiguous()
+        wrapper.repacks += 1
+    else:
+        raise ValueError(f"{name} kernel takes wq [K, N] row-major or "
+                         f"column-major, got strides {wq.stride()}")
+    K = xq.shape[1]
+    if (K % 16 or K == 0 or xq.data_ptr() % 16 or wt.data_ptr() % 16
+            or _row_stride(wt) % 16):
+        Kp = max(16, -(-K // 16) * 16)
+        xq = torch.nn.functional.pad(xq, (0, Kp - K))
+        wt = torch.nn.functional.pad(wt, (0, Kp - K))
+        K = Kp
+        wrapper.k_pads += 1
+    return xq, wt, K
+
+
+def _row_stride(t):
+    """The element stride between rows of a 2-D tensor (its width when
+    it has one row, whose stride means nothing)."""
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+
+
+def _k6_launch(wrapper, xq, wq, out, ax=None, col=None):
+    """K6 into `out` [M, N] (int32, or f32 with ax and col)."""
+    M, N = out.shape
+    x, wt, K = _k6_operands(wrapper, xq, wq)
+    f32 = out.dtype == torch.float32
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    rc = _lib().pt_int8_matmul(
+        x.data_ptr(), _row_stride(x), wt.data_ptr(), _row_stride(wt),
+        out.data_ptr(), ax.data_ptr() if f32 else None,
+        (0 if ax.numel() == 1 else 1) if f32 else 0,
+        col.data_ptr() if f32 else None, M, K, N, int(f32), stream)
+    if rc != 0:
+        what = ("cuTensorMapEncodeTiled refused a TMA tensor map"
+                if rc == -3 else f"code {rc}")
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
+                           f"{what} (M={M}, K={K}, N={N})")
+    wrapper.launches += 1
+    return out
 
 
 def int8_matmul_i32(xq, wq):
     """xq [M, K] int8 @ wq [K, N] int8 -> exact int32 [M, N]. CUDA
-    tensors run K6 (or raise), CPU tensors the plain version, meta
-    tensors give the shape."""
-    if xq.dim() != 2 or wq.dim() != 2 or xq.shape[1] != wq.shape[0]:
-        raise ValueError(f"int8_matmul_i32 takes xq [M, K] and wq [K, N], "
-                         f"got {tuple(xq.shape)} and {tuple(wq.shape)}")
-    if xq.device != wq.device:
-        raise ValueError(f"int8_matmul_i32 operands on {xq.device} and "
-                         f"{wq.device}")
-    M, K = xq.shape
-    N = wq.shape[1]
+    tensors run K6 with its int32 epilogue (or raise), CPU tensors the
+    plain version, meta tensors give the shape."""
+    _check_int8_operands("int8_matmul_i32", xq, wq)
+    M, N = xq.shape[0], wq.shape[1]
     if xq.device.type == "cpu":
         return int8_matmul_plain(xq, wq)
-    if xq.device.type == "meta":
-        return torch.empty((M, N), dtype=torch.int32, device="meta")
-    if xq.device.type != "cuda":
-        raise ValueError(f"int8_matmul_i32: unsupported device {xq.device}")
-    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
-        raise TypeError(f"int8_matmul_i32 kernel takes int8 xq and wq, got "
-                        f"{xq.dtype} and {wq.dtype}")
-    if not (xq.is_contiguous() and wq.is_contiguous()):
-        raise ValueError("int8_matmul_i32 kernel takes contiguous row-major "
-                         "xq [M, K] and wq [K, N]")
     out = torch.empty((M, N), dtype=torch.int32, device=xq.device)
-    if M == 0 or N == 0:
+    if xq.device.type == "meta" or M == 0 or N == 0:
         return out
-    stream = torch.cuda.current_stream(xq.device).cuda_stream
-    rc = _int8_lib()(xq.data_ptr(), wq.data_ptr(), out.data_ptr(), M, K, N,
-                     stream)
-    if rc != 0:
-        raise RuntimeError(f"int8_matmul kernel launch failed: code {rc} "
-                           f"(M={M}, K={K}, N={N})")
-    int8_matmul_i32.launches += 1
-    return out
+    return _k6_launch(int8_matmul_i32, xq, wq, out)
 
 
-# kernel launches made through this wrapper (the main-path proof)
-int8_matmul_i32.launches = 0
+def _rescale_operands(name, ax, col, M, N):
+    ax = ax.to(torch.float32).contiguous()
+    col = col.to(torch.float32).contiguous()
+    if ax.numel() not in (1, M) or col.numel() != N:
+        raise ValueError(f"{name} takes ax of M={M} rows (or one static "
+                         f"scale) and col of N={N} columns, got "
+                         f"{tuple(ax.shape)} and {tuple(col.shape)}")
+    return ax, col
+
+
+def int8_matmul_rescaled(xq, wq, ax, col):
+    """f32 [M, N] = f32(xq @ wq) * ax * col, in that order: ax [M, 1]
+    (per row) or [1, 1] (a static scale), col the N per-column weight
+    scales. CUDA tensors run K6 with the rescale in its epilogue (or
+    raise), CPU tensors its plain version `rescale(int8_matmul_plain(xq,
+    wq), ax, col)`, meta tensors give the shape."""
+    name = "int8_matmul_rescaled"
+    _check_int8_operands(name, xq, wq)
+    M, N = xq.shape[0], wq.shape[1]
+    if xq.device.type == "cpu":
+        return rescale(int8_matmul_plain(xq, wq), ax,
+                       col.to(torch.float32).reshape(1, -1))
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    if xq.device.type == "meta" or M == 0 or N == 0:
+        return out
+    ax, col = _rescale_operands(name, ax, col, M, N)
+    return _k6_launch(int8_matmul_rescaled, xq, wq, out, ax, col)
+
+
+# kernel launches made through these wrappers (the main-path proof), and
+# the per-call operand fixes K6 needed: a row-major weight transposed, K
+# zero-padded (both 0 on the serving path)
+for _w in (int8_matmul_i32, int8_matmul_rescaled):
+    _w.launches = _w.repacks = _w.k_pads = 0
 
 
 # The reference writes the dynamic scale as `absmax / 127`; XLA's
@@ -139,7 +237,7 @@ int8_matmul_i32.launches = 0
 _INV_127 = float(np.float32(1.0 / 127.0))
 
 
-def quantize_activations(xf, act_scale=None):
+def quantize_activations_plain(xf, act_scale=None):
     """(xq int8 [M, K], ax f32 [M, 1] or [1, 1]) of f32 activations
     xf [M, K]: the reference's arithmetic op for op as its executor runs
     it, so xq is bitwise the reference's for equal xf. Dynamic
@@ -158,6 +256,48 @@ def quantize_activations(xf, act_scale=None):
     return xq, ax
 
 
+def quantize_activations(xf, act_scale=None):
+    """`quantize_activations_plain`'s (xq, ax) of f32 activations xf
+    [M, K]: CUDA tensors run the quantize kernel (one pass over each
+    row, bitwise the plain version) or raise, CPU tensors the plain
+    version, meta tensors give the shapes."""
+    if xf.device.type == "cpu":
+        return quantize_activations_plain(xf, act_scale)
+    if xf.dim() != 2:
+        raise ValueError(f"quantize_activations takes xf [M, K], got "
+                         f"{tuple(xf.shape)}")
+    M, K = xf.shape
+    if xf.device.type not in ("cuda", "meta"):
+        raise ValueError(f"quantize_activations: unsupported device "
+                         f"{xf.device}")
+    xq = torch.empty((M, K), dtype=torch.int8, device=xf.device)
+    ax = torch.empty((1, 1) if act_scale is not None else (M, 1),
+                     dtype=torch.float32, device=xf.device)
+    if xf.device.type == "meta":
+        return xq, ax
+    if xf.dtype != torch.float32:
+        raise TypeError(f"quantize_activations kernel takes float32 xf, "
+                        f"got {xf.dtype}")
+    if (K > 1 and xf.stride(1) != 1) or (M > 1 and xf.stride(0) < K):
+        xf = xf.contiguous()
+    static = (None if act_scale is None else
+              act_scale.to(xf.device, torch.float32).reshape(1))
+    stream = torch.cuda.current_stream(xf.device).cuda_stream
+    rc = _lib().pt_quantize_rows(
+        xf.data_ptr(), _row_stride(xf), M, K,
+        static.data_ptr() if static is not None else None, xq.data_ptr(),
+        ax.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"quantize_activations kernel launch failed: "
+                           f"code {rc} (M={M}, K={K})")
+    quantize_activations.launches += 1
+    return xq, ax
+
+
+# kernel launches made through this wrapper (the main-path proof)
+quantize_activations.launches = 0
+
+
 def rescale(acc, ax, col):
     """f32 [M, N] of the int32 accumulator: the reference's
     `acc * ax * col`, in that order."""
@@ -171,7 +311,9 @@ def int8_matmul(x2, wq2, col_scale, act_scale=None):
     [N]-broadcastable f32 per-output-channel weight scales; act_scale
     None = dynamic per-row absmax quantization of x, else a calibrated
     scalar (values beyond it saturate at +-127). The core follows
-    `resolve_int8_core`; then `rescale`."""
+    `resolve_int8_core`: on the card the quantize kernel, then K6 with
+    the rescale in its epilogue; on the CPU the plain versions or the
+    dequant route."""
     from .. import flags
     xf = x2.to(torch.float32)
     col = col_scale.to(torch.float32).reshape(1, -1)
@@ -179,7 +321,7 @@ def int8_matmul(x2, wq2, col_scale, act_scale=None):
                          x2.device.type) == "dequant":
         return torch.matmul(xf, wq2.to(torch.float32) * col)
     xq, ax = quantize_activations(xf, act_scale)
-    return rescale(int8_matmul_i32(xq, wq2), ax, col)
+    return int8_matmul_rescaled(xq, wq2, ax, col)
 
 
 def _weight_and_scale(ins, slot):

@@ -30,10 +30,20 @@ Entry points:
   quantize_inference_model(model_dir, out_dir, ...)  # save_inference_
                                                      # model layout
   ensure_loadable(program, scope)        # load-time per-op fallback
+  place_int8_weights(program, scope)     # int8 matmul weights
+                                         # column-major on the card
 
 The scale math runs on the host in numpy (float64, as the reference),
 so the int8 arrays are bitwise the reference's; the quantized arrays go
 back into the scope as tensors on the device their f32 weight was on.
+
+Layout on the card: the int8 matmul kernel (K6) reads its weight
+K-major, so every int8 weight a `quant_mul` / `quant_matmul` reads is
+stored on a CUDA device as the column-major view `w.t().contiguous().t()`
+of the same [K, N] values (`place_int8_weights`, run by
+`quantize_program` and at load by `io.load_inference_model`): the same
+bytes on the card, the same `.cpu().numpy()` values, no per-dispatch
+transpose. On the CPU nothing moves.
 
 Fallback contract: a runtime loading a quantized program whose kernel
 id or op type it does not support warns and dequantizes THAT op back to
@@ -57,8 +67,8 @@ from .ops import registry as op_registry
 
 __all__ = ["SCHEME", "quantize_array", "quantize_program",
            "quantize_inference_model", "calibrate_activations",
-           "has_quant_ops", "ensure_loadable", "stats",
-           "record_artifact_loaded"]
+           "has_quant_ops", "ensure_loadable", "place_int8_weights",
+           "stats", "record_artifact_loaded"]
 
 SCHEME = "int8-sym-perchannel"
 _SCALE_SUFFIX = "@QSCALE"
@@ -361,6 +371,7 @@ def quantize_program(program, scope, activations=False,
                         "weights": [wn for _s, wn, _sn
                                     in quantized_here]})
     qprog.bump()
+    place_int8_weights(qprog, qscope)
 
     from . import flags as flags_mod
     report = {
@@ -470,6 +481,36 @@ def ensure_loadable(program, scope):
     if fixed:
         program.bump()
     return fixed
+
+
+# the int8-dot lowerings and the slot of their int8 weight
+_INT8_DOT_SLOTS = {"quant_mul": "Y", "quant_matmul": "Y"}
+
+
+def _on_card(w):
+    return w.device.type == "cuda"
+
+
+def place_int8_weights(program, scope):
+    """Store every 2-D int8 weight that a quant_mul / quant_matmul of
+    `program` reads, where it lies on a CUDA device, column-major: the
+    view `w.t().contiguous().t()` (same shape [K, N], dtype and values;
+    strides (1, K)), the K-major layout K6 reads without a transpose.
+    Weights on the CPU, of another dtype or already column-major stay
+    as they are. Returns the number of weights re-laid."""
+    names = {n for blk in program.blocks for op in blk.ops
+             if op.type in _INT8_DOT_SLOTS
+             for n in op.inputs.get(_INT8_DOT_SLOTS[op.type]) or () if n}
+    placed = 0
+    for name in sorted(names):
+        w = scope.get(name)
+        if (not isinstance(w, torch.Tensor) or not _on_card(w)
+                or w.dtype != torch.int8 or w.dim() != 2
+                or quant_ops.is_column_major(w)):
+            continue
+        scope.set(name, w.t().contiguous().t())
+        placed += 1
+    return placed
 
 
 # ---------------------------------------------------------------------------

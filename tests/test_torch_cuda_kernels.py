@@ -595,18 +595,35 @@ def _int8_operands(rng, M, K, N):
     return x, w
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [
+INT8_SHAPES = [
     (256, 768, 2304), (256, 768, 768), (256, 768, 3072),   # GPT-2 blocks
     (256, 3072, 768), (128, 768, 50304),                   # ffn down, head
-    (1000, 100, 130), (1, 16, 16), (17, 33, 5), (1024, 64, 8)])
-def test_int8_matmul_kernel_bitwise_equals_plain(card, M, K, N):
+    (1000, 100, 130), (1, 16, 16), (17, 33, 5), (1024, 64, 8)]
+
+
+def _laid_out(w, layout):
+    """The weight on the card row-major, or column-major as
+    quant.place_int8_weights stores it (same shape and values)."""
+    return w if layout == "row" else w.t().contiguous().t()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["col", "row"])
+@pytest.mark.parametrize("M,K,N", INT8_SHAPES)
+def test_int8_matmul_kernel_bitwise_equals_plain(card, M, K, N, layout):
+    """K6 with its int32 epilogue, bitwise against the plain product, on
+    a column-major weight (read as it is) and a row-major one (repacked
+    per call, counted)."""
     x, w = _int8_operands(np.random.RandomState(M + K + N), M, K, N)
-    xq, wq = torch.from_numpy(x).to(card), torch.from_numpy(w).to(card)
-    before = quant_ops.int8_matmul_i32.launches
-    got = quant_ops.int8_matmul_i32(xq, wq)
+    xq = torch.from_numpy(x).to(card)
+    wq = _laid_out(torch.from_numpy(w).to(card), layout)
+    w8 = quant_ops.int8_matmul_i32
+    before = (w8.launches, w8.repacks, w8.k_pads)
+    got = w8(xq, wq)
     torch.cuda.synchronize()
-    assert quant_ops.int8_matmul_i32.launches == before + 1
+    assert (w8.launches, w8.repacks, w8.k_pads) == (
+        before[0] + 1, before[1] + (layout == "row"),
+        before[2] + (K % 16 != 0))
     assert got.dtype == torch.int32 and got.shape == (M, N)
     # exact: int32 sums of int8 products, float64 in the plain version
     assert torch.equal(got.cpu(), quant_ops.int8_matmul_plain(
@@ -614,36 +631,137 @@ def test_int8_matmul_kernel_bitwise_equals_plain(card, M, K, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("act", ["dynamic", "static"])
+@pytest.mark.parametrize("layout", ["col", "row"])
+@pytest.mark.parametrize("M,K,N", INT8_SHAPES)
+def test_int8_matmul_rescaled_kernel_bitwise_equals_plain(card, M, K, N,
+                                                          layout, act):
+    """K6 with the rescale in its epilogue: f32(acc) * ax[row] * col[n]
+    bit for bit the plain rescale of the plain product, with per-row
+    and static activation scales."""
+    rng = np.random.RandomState(M + K + N + 1)
+    x, w = _int8_operands(rng, M, K, N)
+    xq = torch.from_numpy(x).to(card)
+    wq = _laid_out(torch.from_numpy(w).to(card), layout)
+    col = torch.from_numpy(rng.rand(1, N).astype(np.float32) * 1e-2 + 1e-4
+                           ).to(card)
+    ax = torch.from_numpy(rng.rand(M, 1).astype(np.float32) * 0.1
+                          if act == "dynamic" else
+                          np.full((1, 1), 0.0173, np.float32)).to(card)
+    w8 = quant_ops.int8_matmul_rescaled
+    before = (w8.launches, w8.repacks)
+    got = w8(xq, wq, ax, col)
+    torch.cuda.synchronize()
+    assert (w8.launches, w8.repacks) == (before[0] + 1,
+                                         before[1] + (layout == "row"))
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    ref = quant_ops.rescale(quant_ops.int8_matmul_plain(xq, wq), ax, col)
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+@pytest.mark.cuda
 def test_int8_matmul_kernel_refuses_what_it_does_not_take(card):
+    """Row-major and column-major weights run; any other stride, a
+    non-int8 operand or mismatched shapes raise."""
     x = torch.zeros(4, 8, dtype=torch.int8, device=card)
     w = torch.zeros(8, 4, dtype=torch.int8, device=card)
     with pytest.raises(TypeError, match="int8"):
         quant_ops.int8_matmul_i32(x.float(), w)
-    with pytest.raises(ValueError, match="contiguous"):
-        quant_ops.int8_matmul_i32(x, w.t().contiguous().t())
+    with pytest.raises(ValueError, match="row-major or column-major"):
+        quant_ops.int8_matmul_i32(x, torch.zeros(8, 8, dtype=torch.int8,
+                                                 device=card)[:, ::2])
+    with pytest.raises(ValueError, match="contiguous row-major xq"):
+        quant_ops.int8_matmul_i32(x.t().contiguous().t(), w)
     with pytest.raises(ValueError, match="takes xq"):
         quant_ops.int8_matmul_i32(x, w[:4])
+    with pytest.raises(ValueError, match="ax of M=4 rows"):
+        quant_ops.int8_matmul_rescaled(x, w, torch.ones(3, 1, device=card),
+                                       torch.ones(4, device=card))
+    for wq in (w, w.t().contiguous().t()):
+        assert not quant_ops.int8_matmul_i32(x, wq).any()
+
+
+def _quantize_rows(rng, M, K):
+    """Activations with the rows the quantize must get right: wide and
+    narrow rows, a row of zeros (ax = tiny, xq = 0) and a row of exact
+    halves (max 127 * 2^-3, so ax = 2^-3 and x / ax = k + 1/2: round half
+    to even decides)."""
+    x = rng.randn(M, K).astype(np.float32)
+    x[0] *= 40.0
+    x[1] *= 1e-3
+    x[2] = 0.0
+    if M > 3:
+        x[3] = ((np.arange(K) % 253) - 126 + 0.5) * 0.125
+        x[3, 0] = 127 * 0.125
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["dynamic", "static"])
+@pytest.mark.parametrize("M,K", [(8192, 768), (8192, 3072), (300, 100),
+                                 (5, 33), (4, 1)])
+def test_quantize_kernel_bitwise_equals_plain(card, M, K, act):
+    """The activation quantize kernel against quantize_activations_plain,
+    bit for bit: xq, and ax per row or the clamped static scale."""
+    rng = np.random.RandomState(M + K)
+    x = torch.from_numpy(_quantize_rows(rng, M, K)).to(card)
+    scale = None if act == "dynamic" else torch.tensor([0.0125],
+                                                       device=card)
+    before = quant_ops.quantize_activations.launches
+    xq, ax = quant_ops.quantize_activations(x, scale)
+    torch.cuda.synchronize()
+    assert quant_ops.quantize_activations.launches == before + 1
+    ref_q, ref_ax = quant_ops.quantize_activations_plain(x, scale)
+    assert xq.dtype == torch.int8 and ax.shape == ref_ax.shape
+    assert torch.equal(ax, ref_ax) and torch.equal(xq, ref_q)
+    if act == "dynamic":
+        assert float(ax[2, 0]) == torch.finfo(torch.float32).tiny
+        assert not xq[2].any()
+    if M > 3 and K > 1 and act == "dynamic":
+        assert float(ax[3, 0]) == 0.125     # the tie row hit its halves
+    # a strided row view (every other column) quantizes the same
+    wide = torch.from_numpy(np.repeat(_quantize_rows(rng, 6, K), 2, 1)
+                            ).to(card)[:, ::2]
+    got = quant_ops.quantize_activations(wide, scale)
+    ref = quant_ops.quantize_activations_plain(wide, scale)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["auto", "pallas", "dot"])
-def test_quant_mul_on_the_card_runs_k6_or_raises(card, mode, monkeypatch):
-    """Every flag value takes K6 on a CUDA tensor; when the kernel's
-    library cannot load, quant_mul raises — no dequant route, no plain
+@pytest.mark.parametrize("layout", ["col", "row"])
+def test_quant_mul_on_the_card_runs_k6_or_raises(card, mode, layout,
+                                                 monkeypatch):
+    """Every flag value takes the quantize kernel and K6 with its
+    rescale epilogue on a CUDA tensor, once each, bitwise the plain
+    recompute; a row-major weight is repacked. When the kernels' library
+    cannot load, quant_mul raises — no dequant route, no plain
     fallback."""
     rng = np.random.RandomState(3)
+    y = torch.from_numpy(rng.randint(-127, 128, (64, 32)).astype(np.int8)
+                         ).to(card)
     ins = {"X": [torch.from_numpy(rng.randn(2, 8, 64).astype(np.float32)
                                   ).to(card)],
-           "Y": [torch.from_numpy(rng.randint(-127, 128, (64, 32))
-                                  .astype(np.int8)).to(card)],
+           "Y": [_laid_out(y, layout)],
            "YScale": [torch.full((1, 32), 0.01, device=card)]}
     attrs = {"x_num_col_dims": 2, "y_num_col_dims": 1}
     flags.set_flag("int8_matmul", mode)
+    wrappers = (quant_ops.quantize_activations,
+                quant_ops.int8_matmul_rescaled, quant_ops.int8_matmul_i32)
     try:
-        before = quant_ops.int8_matmul_i32.launches
+        before = [w.launches for w in wrappers]
+        repacks = quant_ops.int8_matmul_rescaled.repacks
         out = get_op("quant_mul").lowering(None, ins, attrs)["Out"][0]
-        assert quant_ops.int8_matmul_i32.launches == before + 1
+        assert [w.launches for w in wrappers] == [before[0] + 1,
+                                                  before[1] + 1, before[2]]
+        assert quant_ops.int8_matmul_rescaled.repacks == repacks + (
+            layout == "row")
         assert out.shape == (2, 8, 32) and out.device.type == "cuda"
+        xq, ax = quant_ops.quantize_activations_plain(
+            ins["X"][0].reshape(16, 64))
+        ref = quant_ops.rescale(quant_ops.int8_matmul_plain(xq, y), ax,
+                                ins["YScale"][0])
+        assert torch.equal(out.reshape(16, 32), ref)
 
         def unloadable(name):
             raise OSError(f"lib{name}.so: cannot open shared object file")
@@ -652,3 +770,49 @@ def test_quant_mul_on_the_card_runs_k6_or_raises(card, mode, monkeypatch):
             get_op("quant_mul").lowering(None, ins, attrs)
     finally:
         flags.set_flag("int8_matmul", "auto")
+
+
+@pytest.mark.cuda
+def test_int8_weights_are_column_major_on_the_card(card, tmp_path):
+    """A quantized model loaded onto the card holds its int8 matmul
+    weights column-major (same values and bytes as on the CPU), saves
+    back the same arrays and runs the int8 path without a repack."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import quant
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        tok = pt.layers.data("tokens", [16], dtype="int64")
+        logits = pt.models.transformer.transformer_lm(
+            tok, 256, hid=128, num_layers=2, num_heads=2, max_len=16)
+    cpu = pt.Executor(pt.CPUPlace())
+    scope = pt.Scope()
+    cpu.run(startup, scope=scope)
+    src, dst = str(tmp_path / "f32"), str(tmp_path / "int8")
+    pt.io.save_inference_model(src, ["tokens"], [logits], cpu,
+                               main_program=main, scope=scope)
+    quant.quantize_inference_model(src, dst, executor=cpu)
+    host, dev = pt.Scope(), pt.Scope()
+    hprog, _, _ = pt.io.load_inference_model(dst, cpu, scope=host)
+    prog, _, fetch = pt.io.load_inference_model(dst, pt.Executor(),
+                                                scope=dev)
+    names = {op.input("Y")[0] for op in prog.global_block().ops
+             if op.type == "quant_mul"}
+    assert len(names) == 2 * 4 + 1
+    for n in names:
+        w, h = dev.get(n), host.get(n)
+        assert quant_ops.is_column_major(w) and h.is_contiguous()
+        assert w.shape == h.shape and torch.equal(w.cpu(), h)
+    assert quant.place_int8_weights(prog, dev) == 0
+    pt.io.save_inference_model(str(tmp_path / "again"), ["tokens"], fetch,
+                               pt.Executor(), main_program=prog, scope=dev)
+    with np.load(str(tmp_path / "again" / "params.npz")) as a, \
+            np.load(str(tmp_path / "int8" / "params.npz")) as b:
+        for k in b.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    repacks = quant_ops.int8_matmul_rescaled.repacks
+    before = quant_ops.int8_matmul_rescaled.launches
+    pt.Executor().run(prog, feed={"tokens": np.arange(32).reshape(2, 16)},
+                      fetch_list=fetch, scope=dev)
+    assert quant_ops.int8_matmul_rescaled.launches == before + len(names)
+    assert quant_ops.int8_matmul_rescaled.repacks == repacks

@@ -100,19 +100,32 @@ CORE_SHAPES = [(256, 128, 256),       # tests/test_quantize.py's case
                (128, 3072, 768)]      # ffn down: K where f32 sums round
 
 
+def _laid_out(q, layout):
+    """The int8 weight as a tensor, row-major or column-major (the
+    layout the port stores on the card: same shape and values, strides
+    (1, K))."""
+    w = _t(q)
+    return w if layout == "row" else w.t().contiguous().t()
+
+
+@pytest.mark.parametrize("layout", ["row", "col"])
 @pytest.mark.parametrize("act", ["dynamic", "static"])
 @pytest.mark.parametrize("M,K,N", CORE_SHAPES)
-def test_int8_core_bitwise_equals_reference_pallas_kernel(M, K, N, act):
+def test_int8_core_bitwise_equals_reference_pallas_kernel(M, K, N, act,
+                                                          layout):
     """The port's plain int8 core against the reference's K6 (Pallas,
     interpret mode): equal int32 accumulators on equal int8 operands,
-    equal activation quantization, equal f32 results."""
+    equal activation quantization, equal f32 results; with the weight
+    row-major and column-major."""
     x, q, col = _core_case(M, K, N, M + K + N)
     act_scale = np.float32(0.02) if act == "static" else None
+    wq = _laid_out(q, layout)
+    assert pquant_ops.is_column_major(wq) == (layout == "col")
     _set_core("pallas")
     # the int32 accumulator, kernel against plain, on the port's xq
     xq, ax = pquant_ops.quantize_activations(
         _t(x), None if act_scale is None else torch.tensor(act_scale))
-    acc = pquant_ops.int8_matmul_plain(xq, _t(q))
+    acc = pquant_ops.int8_matmul_plain(xq, wq)
     ref_acc = jquant_ops._pallas_int8_matmul(
         jnp.asarray(xq.numpy()), jnp.asarray(q), interpret=True)
     assert acc.dtype == torch.int32
@@ -121,7 +134,7 @@ def test_int8_core_bitwise_equals_reference_pallas_kernel(M, K, N, act):
     args = (jnp.asarray(x), jnp.asarray(q), jnp.asarray(col),
             None if act_scale is None else jnp.asarray(act_scale))
     got = pquant_ops.int8_matmul(
-        _t(x), _t(q), _t(col),
+        _t(x), wq, _t(col),
         act_scale=None if act_scale is None else torch.tensor(act_scale))
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), _reference_core(*args))

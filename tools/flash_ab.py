@@ -1,7 +1,7 @@
-"""Time the flash-attention kernels of one checkout of the port, for A/B
-comparisons of kernel variants.
+"""Time the flash-attention and int8 kernels of one checkout of the port,
+for A/B comparisons of kernel variants.
 
-    python3 tools/flash_ab.py TREE LABEL [f32|bf16|all]
+    python3 tools/flash_ab.py TREE LABEL [f32|bf16|int8|all[,...]]
 
 TREE is a directory holding `chip_smoke.py` and `paddle_tpu_torch/` (a
 `git archive` of a commit, or a copy with a variant of csrc/); its
@@ -12,13 +12,21 @@ kernels are built from its own sources. Prints lines tagged "AB LABEL":
   against the plain versions at GPT-2-small's training shapes
   [8, 12, 1024, 64] and [32, 12, 256, 64] causal, then chip_smoke's K1
   serving cases;
-- bf16: K3-bf16 and K4-bf16 at [8, 12, 1024, 64] causal (views of the
-  packed planes) and K2-bf16 at [32, 12, 256, 64] where the tree has
-  it, with their errors relative to the largest plain gradient, beside
-  the device time of cuDNN's SDPA backward on the same inputs;
-  then the SASS check of the built bf16 library: the HGMMA (wgmma) and
-  UTMALDG (TMA load) instructions in bwd_dq_bf16_kernel and
-  bwd_dkv_bf16_kernel (cuobjdump -sass).
+- bf16: K1-bf16 at [8, 12, 1024, 64] causal beside cuDNN's SDPA
+  forward, K3-bf16 and K4-bf16 at the same shape (views of the packed
+  planes) and K2-bf16 at [32, 12, 256, 64] where the tree has it, with
+  their errors relative to the largest plain output, beside the device
+  time of cuDNN's SDPA backward on the same inputs; then the SASS check
+  of the built bf16 library: the HGMMA (wgmma) and UTMALDG (TMA load)
+  instructions in flash_fwd_bf16_kernel, bwd_dq_bf16_kernel and
+  bwd_dkv_bf16_kernel (cuobjdump -sass);
+- int8: the int8 matmul core of a rung-8 dispatch (the five GPT-2-small
+  products at M 8192, weighted by their launches): the whole core as
+  the serving path runs it (`quant_ops.int8_matmul`: the activation
+  quantize, K6, the rescale) and K6 alone, each on the weight layout
+  the tree stores on the card (column-major where the tree has
+  `quant_ops.is_column_major`, else row-major); then the SASS counts of
+  the built int8 library (GMMA / IMMA products, UTMALDG).
 
 Compare two trees only within one call, in turns: parent, change,
 change, parent. Needs a CUDA card.
@@ -77,6 +85,23 @@ def library_backward_ms(cs, args, scale):
     return ms if hasattr(cs, "time_queued") else sum(names.values()) / 1e3
 
 
+def sass_counts(lib, kernels, label):
+    """GMMA / IMMA products and UTMALDG (TMA loads) in each named kernel
+    of a built library (cuobjdump -sass; several template instances of a
+    kernel are summed)."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    for kernel in kernels:
+        text = "".join(re.findall(r"Function : \S*" + kernel + r"\S*\n(.*?)"
+                                  r"(?=\n\s*Function : |\Z)", sass, re.S))
+        ops = {op: len(re.findall(op + r"\b", text))
+               for op in ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG")}
+        print(f"AB {label} SASS {kernel}: "
+              + " ".join(f"{k} {v}" for k, v in ops.items() if v), flush=True)
+
+
 def bf16_kernels(cs, label):
     fa = cs.fa
     lib = cs._build.build_library("flash_attn_bf16")
@@ -85,6 +110,23 @@ def bf16_kernels(cs, label):
     B, T = cs.TRAIN_B, cs.TRAIN_T
     sets = [cs.bf16_attn_inputs(rng, B, T, T, [T] * B, True, scale)[0]
             for _ in range(2)]
+    fsets = [s[:3] for s in sets]
+    lens = sets[0][6]
+    starts = torch.zeros_like(lens)
+    o, lse = fa.flash_attn_fwd_bf16(*fsets[0], lens, starts, True, scale)
+    o_ref, lse_ref = fa.flash_attn_fwd_plain(*fsets[0], lens, starts, True,
+                                             scale)
+    e1 = cs.bf16_err(o, o_ref)[1]
+    e1l = float((lse - lse_ref).abs().max())
+    k1 = cs.time_ms(lambda q, k, v: fa.flash_attn_fwd_bf16(
+        q, k, v, lens, starts, True, scale), fsets, reps=20)
+    sdpa = cs.time_ms(lambda q, k, v: torch.nn.functional
+                      .scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                    scale=scale),
+                      fsets, reps=20)
+    print(f"AB {label} bf16 [{B}, 12, {T}, 64]: K1 {k1:.4f} ms err {e1:.2e} "
+          f"(LSE {e1l:.2e}) | cuDNN SDPA forward {sdpa:.4f} ms", flush=True)
+    del fsets, o, lse, o_ref, lse_ref
     ref = fa.flash_attn_bwd_fused_plain(*sets[0], True, scale)
     dq = fa.flash_attn_bwd_dq_bf16(*sets[0], True, scale)
     dk, dv = fa.flash_attn_bwd_dkv_bf16(*sets[0], True, scale)
@@ -114,28 +156,60 @@ def bf16_kernels(cs, label):
               f"{e2:.2e} | cuDNN SDPA backward {cudnn:.4f} ms", flush=True)
         del sets, ref, got
         torch.cuda.empty_cache()
-    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                             "bin", "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
-                          text=True, check=True).stdout
-    for kernel in ("bwd_dq_bf16_kernel", "bwd_dkv_bf16_kernel"):
-        body = re.search(r"Function : \S*" + kernel + r"\S*\n(.*?)"
-                         r"(?=\n\s*Function : |\Z)", sass, re.S)
-        text = body.group(1) if body else ""
-        print(f"AB {label} SASS {kernel}: HGMMA "
-              f"{len(re.findall(r'HGMMA', text))} UTMALDG "
-              f"{len(re.findall(r'UTMALDG', text))}", flush=True)
+    sass_counts(lib, ("flash_fwd_bf16_kernel", "bwd_dq_bf16_kernel",
+                      "bwd_dkv_bf16_kernel"), label)
+
+
+def int8_path(cs, label):
+    qo = cs.qo
+    lib = cs._build.build_library("int8_matmul")
+    rng = np.random.RandomState(0)
+    M = cs.SERVE_B * cs.TRAIN_T
+    colmajor = hasattr(qo, "is_column_major")
+    core_total = k6_total = 0.0
+    for name, (K, N, count) in cs.INT8_PRODUCTS.items():
+        sets = []
+        for _ in range(2):
+            x = torch.from_numpy(rng.randn(M, K).astype(np.float32)).cuda()
+            w = torch.from_numpy(rng.randint(-127, 128, (K, N))
+                                 .astype(np.int8)).cuda()
+            col = torch.from_numpy(rng.rand(1, N).astype(np.float32)
+                                   * 1e-2).cuda()
+            sets.append((x, w.t().contiguous().t() if colmajor else w, col))
+        reps = 4 if N > 10000 else 20
+        core = cs.time_ms(lambda x, w, col: qo.int8_matmul(x, w, col), sets,
+                          reps=reps)
+        qsets = [(*qo.quantize_activations(x), w, col) for x, w, col in sets]
+        if colmajor:
+            k6 = cs.time_ms(lambda xq, ax, w, col: qo.int8_matmul_rescaled(
+                xq, w, ax, col), qsets, reps=reps)
+        else:
+            k6 = cs.time_ms(lambda xq, ax, w, col: qo.int8_matmul_i32(xq, w),
+                            qsets, reps=reps)
+        print(f"AB {label} int8 {name} [{M},{K}]@[{K},{N}] x{count}: core "
+              f"{core:.4f} ms | K6 {k6:.4f} ms", flush=True)
+        core_total += core * count
+        k6_total += k6 * count
+        del sets, qsets
+        torch.cuda.empty_cache()
+    layout = "column" if colmajor else "row"
+    print(f"AB {label} int8 per rung-8 dispatch ({layout}-major weights): "
+          f"core (quantize + K6 + rescale) {core_total:.4f} ms | K6 "
+          f"{k6_total:.4f} ms", flush=True)
+    sass_counts(lib, ("int8_matmul_kernel",), label)
 
 
 def main():
     tree, label = sys.argv[1], sys.argv[2]
-    what = sys.argv[3] if len(sys.argv) > 3 else "all"
+    what = set((sys.argv[3] if len(sys.argv) > 3 else "all").split(","))
     sys.path.insert(0, tree)
     cs = importlib.import_module("chip_smoke")   # the tree's own script
-    if what in ("f32", "all"):
+    if what & {"f32", "all"}:
         f32_kernels(cs, label)
-    if what in ("bf16", "all"):
+    if what & {"bf16", "all"}:
         bf16_kernels(cs, label)
+    if what & {"int8", "all"}:
+        int8_path(cs, label)
 
 
 if __name__ == "__main__":
