@@ -38,7 +38,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      at the T 1024 shape, K2 at both. Times beside the bound (f32 FMA
      and 3xTF32 tensor cores), the plain version and torch's
      scaled_dot_product_attention forward and backward (a yardstick
-     only), whose device kernels are named from a profiled call;
+     only), whose device kernels are named from a profiled call; one
+     line sets the split pair K3 + K4 against K2 and the SDPA backward
+     at T 1024 (the inputs of the route rule's question);
   6. K5 held against its plain version at the training shape x [8192,
      768] @ w [768, 50304], timed beside torch.logsumexp(x @ w);
   7. training: GPT-2-small at full width (vocab 50304, H 768, 12 layers,
@@ -744,6 +746,13 @@ def backward_kernel_phase(smi):
         if case == "train":
             k1_sets = [(s_[0], s_[1], s_[2]) for s_ in sets]
             k1_lens = sets[0][6]
+            pair = sum(timed[k_][0]["ms"] for k_ in (
+                "flash_attn_bwd_dq", "flash_attn_bwd_dkv"))
+            fused = timed["flash_attn_bwd_fused"][0]["ms"]
+            log(f"backward route at T {t} [{b},{N_HEADS},{t},{HEAD_DIM}]: "
+                f"split K3 + K4 {pair:.4f} ms | fused K2 {fused:.4f} ms | "
+                f"SDPA backward {lib_bwd:.4f} ms; pair / SDPA "
+                f"{pair / lib_bwd:.3f}, pair / K2 {pair / fused:.3f} | {smi}")
     # the top-level numbers are each kernel's main-path shape: T 256 for
     # K2, T 1024 for K3 and K4
     results = {}
@@ -886,8 +895,13 @@ K1_DESIGN = ("Tq > 1: 3xTF32 mma.sync m16n8k8, 64 query rows x 64-key K/V "
 BWD_DESIGN = {
     "flash_attn_bwd_fused": "3xTF32 mma.sync m16n8k8, 8 warps, K/V resident, "
                             "Q/dO/lse/delta cp.async 2-stage",
-    "flash_attn_bwd_dq": "f32 FMA, 4 x 4 register tiles",
-    "flash_attn_bwd_dkv": "f32 FMA, 4 x 4 register tiles"}
+    "flash_attn_bwd_dq": "3xTF32 mma.sync m16n8k8, 64 q rows = 4 warps, "
+                         "Q/dO staged once, K/V tiles by cp.async one at a "
+                         "time, 3 blocks an SM; dS as register A of dS.K",
+    "flash_attn_bwd_dkv": "3xTF32 mma.sync m16n8k8, 64 keys = 4 warps, K/V "
+                          "resident, Q/dO/lse/delta cp.async 2-stage; S^T, "
+                          "dP^T so P^T, dS^T are register A of P^T.dO, "
+                          "dS^T.Q"}
 
 K6_DESIGN = ("s8 wgmma m64n128k32 + TMA, warp-specialised and persistent: "
              "128 x 128 tiles taken in turn by 2 consumer warpgroups (one's "

@@ -57,6 +57,18 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
+// the same with lo left unrounded: the tensor core reads the top 19 bits
+// of a tf32 operand, so lo is truncated there. x - hi is exact and at
+// most 2^-11 |x|, so x = hi + lo to about 2^-21 of |x|, in three
+// instructions a value instead of five, two of them on the half-rate
+// integer pipe instead of four (CUTLASS's fast-f32 split also truncates
+// its small part)
+__device__ __forceinline__ void split_rz(float x, uint32_t& hi,
+                                         uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
 __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
                                          const uint32_t b[2]) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
@@ -75,20 +87,32 @@ __device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4],
   mma_tf32(c, ah, bh);
 }
 
-// A fragment split from four f32 values in fragment order a0..a3
+template <bool kRoundLo>
+__device__ __forceinline__ void split_as(float x, uint32_t& hi,
+                                         uint32_t& lo) {
+  if (kRoundLo)
+    split(x, hi, lo);
+  else
+    split_rz(x, hi, lo);
+}
+
+// A fragment split from four f32 values in fragment order a0..a3 (by
+// split, or by split_rz when kRoundLo is false)
+template <bool kRoundLo = true>
 __device__ __forceinline__ void split_a(float a0, float a1, float a2,
                                         float a3, uint32_t hi[4],
                                         uint32_t lo[4]) {
-  split(a0, hi[0], lo[0]);
-  split(a1, hi[1], lo[1]);
-  split(a2, hi[2], lo[2]);
-  split(a3, hi[3], lo[3]);
+  split_as<kRoundLo>(a0, hi[0], lo[0]);
+  split_as<kRoundLo>(a1, hi[1], lo[1]);
+  split_as<kRoundLo>(a2, hi[2], lo[2]);
+  split_as<kRoundLo>(a3, hi[3], lo[3]);
 }
 
+template <bool kRoundLo = true>
 __device__ __forceinline__ void split_b(float b0, float b1, uint32_t hi[2],
                                         uint32_t lo[2]) {
-  split(b0, hi[0], lo[0]);
-  split(b1, hi[1], lo[1]);
+  split_as<kRoundLo>(b0, hi[0], lo[0]);
+  split_as<kRoundLo>(b1, hi[1], lo[1]);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -230,6 +230,65 @@ def test_flash_backward_fused_kernel_at_main_path_and_ragged_shapes(
     assert max(errs) <= BWD_TOL
 
 
+def _split_plane_case(card, B, n, Tq, Tk, kv_len, causal, seed):
+    """A backward case on strided head views of packed planes, as the
+    training op passes them: q, k, v from one [B, T, 3*n*64] plane when
+    Tq == Tk (else q from its own plane, k and v from one), dO from a
+    [B, Tq, n*64] plane."""
+    rng = np.random.RandomState(seed)
+    H = n * 64
+    plane = (lambda T, w: torch.from_numpy(  # noqa: E731
+        rng.randn(B, T, w).astype(np.float32)).to(card))
+    if Tq == Tk:
+        qkv = plane(Tq, 3 * H)
+        q, k, v = (fa._heads(qkv[..., i * H:(i + 1) * H], n)
+                   for i in range(3))
+    else:
+        kv = plane(Tk, 2 * H)
+        q = fa._heads(plane(Tq, H), n)
+        k, v = fa._heads(kv[..., :H], n), fa._heads(kv[..., H:], n)
+    do = fa._heads(plane(Tq, H), n)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=card)
+    o, lse = fa.flash_attn_fwd(q, k, v, lens, torch.zeros_like(lens), causal)
+    delta = (do * o).sum(-1).contiguous()
+    return q, k, v, do, lse, delta, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,n,Tq,Tk,kv_len", [
+    (8, 12, 1024, 1024, [1024] * 8),    # T 1024 training shape
+    (2, 2, 63, 63, [63, 62]),           # one short of a 64-row tile
+    (2, 2, 64, 64, [64, 63]),           # exactly one tile
+    (2, 2, 65, 65, [65, 64]),           # one into a second tile
+    (2, 2, 127, 127, [127, 126]),       # one short of 128
+    (2, 2, 128, 128, [128, 127]),       # two tiles
+    (2, 2, 129, 129, [129, 128]),       # one into a third tile
+    (3, 2, 65, 129, [129, 65, 0]),      # Tq < Tk, a batch with kv_len 0
+    (3, 2, 129, 63, [63, 0, 1]),        # Tq > Tk, kv_len 0 and 1
+    (2, 3, 128, 127, [127, 64]),        # Tq > Tk by one
+    (2, 3, 127, 128, [128, 65]),        # Tq < Tk by one
+])
+def test_flash_backward_split_kernels_at_main_path_and_ragged_shapes(
+        card, causal, B, n, Tq, Tk, kv_len):
+    """K3 and K4 at their main-path shape [8, 12, 1024, 64] and at the
+    64- and 128-row tile edges, on plane views, against the plain
+    backward."""
+    args = _split_plane_case(card, B, n, Tq, Tk, kv_len, causal,
+                             Tq * 3 + Tk)
+    ref = fa.flash_attn_bwd_fused_plain(*args, causal)
+    counts = (fa.flash_attn_bwd_dq.launches, fa.flash_attn_bwd_dkv.launches)
+    got = (fa.flash_attn_bwd_dq(*args, causal),
+           *fa.flash_attn_bwd_dkv(*args, causal))
+    torch.cuda.synchronize()
+    assert (fa.flash_attn_bwd_dq.launches,
+            fa.flash_attn_bwd_dkv.launches) == (counts[0] + 1, counts[1] + 1)
+    errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+    print(f"K3/K4 [{B},{n},{Tq},{Tk}] causal {causal}: max_abs_err dq "
+          f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}")
+    assert max(errs) <= BWD_TOL
+
+
 @pytest.mark.cuda
 def test_flash_backward_kernels_take_plane_views(card):
     """q/k/v head views of one packed qkv plane and plane-allocated

@@ -77,6 +77,10 @@ CASES = [
     (2, 1, 65, 65, 16, [65, 64]),         # one into a second tile
     (2, 1, 65, 129, 16, [129, 65]),       # kv_len either side of 64, 128
     (2, 1, 70, 33, 16, [33, 32]),         # Tq > Tk across tiles
+    # the edges of 128-row / 128-key blocks
+    (2, 1, 127, 127, 16, [127, 126]),     # one short of two tiles
+    (2, 1, 128, 128, 16, [128, 127]),     # exactly two tiles
+    (2, 1, 129, 129, 16, [129, 128]),     # one into a third tile
 ]
 
 

@@ -1,7 +1,7 @@
 """Time the flash-attention and int8 kernels of one checkout of the port,
 for A/B comparisons of kernel variants.
 
-    python3 tools/flash_ab.py TREE LABEL [f32|bf16|int8|all[,...]]
+    python3 tools/flash_ab.py TREE LABEL [f32|bf16|int8|step|all[,...]]
 
 TREE is a directory holding `chip_smoke.py` and `paddle_tpu_torch/` (a
 `git archive` of a commit, or a copy with a variant of csrc/); its
@@ -10,8 +10,13 @@ kernels are built from its own sources. Prints lines tagged "AB LABEL":
 - f32: K1 (flash forward, Tq > 1) and K2 (fused backward) device ms
   (CUDA-graph replay, chip_smoke's `time_ms`) and their max errors
   against the plain versions at GPT-2-small's training shapes
-  [8, 12, 1024, 64] and [32, 12, 256, 64] causal, then chip_smoke's K1
-  serving cases;
+  [8, 12, 1024, 64] and [32, 12, 256, 64] causal; at [8, 12, 1024, 64]
+  also the split backward K3 (dq) and K4 (dk, dv), each and as a pair,
+  beside the device time of SDPA's f32 backward on the same inputs;
+  then chip_smoke's K1 serving cases and the SASS check of the built
+  f32 backward library: the HMMA (mma.sync) and LDGSTS (cp.async)
+  instructions in bwd_dq_kernel, bwd_dkv_kernel and
+  bwd_fused_tc_kernel;
 - bf16: K1-bf16 at [8, 12, 1024, 64] causal beside cuDNN's SDPA
   forward, K3-bf16 and K4-bf16 at the same shape (views of the packed
   planes) and K2-bf16 at [32, 12, 256, 64] where the tree has it, with
@@ -26,7 +31,11 @@ kernels are built from its own sources. Prints lines tagged "AB LABEL":
   quantize, K6, the rescale) and K6 alone, each on the weight layout
   the tree stores on the card (column-major where the tree has
   `quant_ops.is_column_major`, else row-major); then the SASS counts of
-  the built int8 library (GMMA / IMMA products, UTMALDG).
+  the built int8 library (GMMA / IMMA products, UTMALDG);
+- step (not in `all`): the tree's own f32 training phase (chip_smoke's
+  phase 7: GPT-2-small, T 1024, batch 8, the split K3 + K4 route): the
+  unprofiled step wall and a profiled step's device time, busy share
+  and K3 / K4 device ms.
 
 Compare two trees only within one call, in turns: parent, change,
 change, parent. Needs a CUDA card.
@@ -44,7 +53,8 @@ import torch
 
 def f32_kernels(cs, label):
     fa = cs.fa
-    cs._build.build_libraries(["flash_attn_fwd", "flash_attn_bwd"])
+    lib = cs._build.build_libraries(["flash_attn_fwd", "flash_attn_bwd"])[
+        "flash_attn_bwd"]
     rng = np.random.RandomState(0)
     scale = 1.0 / float(np.sqrt(cs.HEAD_DIM))
     for name, (B, T) in {"train": (cs.TRAIN_B, cs.TRAIN_T),
@@ -70,11 +80,28 @@ def f32_kernels(cs, label):
             *a, True, scale), sets, reps=10)
         print(f"AB {label} {name}: K1 {k1:.4f} ms err {e1:.2e} | K2 "
               f"{k2:.4f} ms err abs {e2a:.2e} rel {e2:.2e}", flush=True)
+        if name == "train":
+            dq = fa.flash_attn_bwd_dq(*sets[0], True, scale)
+            dk, dv = fa.flash_attn_bwd_dkv(*sets[0], True, scale)
+            e3 = float((dq - ref[0]).abs().max())
+            e4 = max(float((dk - ref[1]).abs().max()),
+                     float((dv - ref[2]).abs().max()))
+            k3 = cs.time_ms(lambda *a: fa.flash_attn_bwd_dq(
+                *a, True, scale), sets, reps=10)
+            k4 = cs.time_ms(lambda *a: fa.flash_attn_bwd_dkv(
+                *a, True, scale), sets, reps=10)
+            sdpa = library_backward_ms(cs, sets[0], scale)
+            print(f"AB {label} {name}: K3 {k3:.4f} ms err abs {e3:.2e} | "
+                  f"K4 {k4:.4f} ms err abs {e4:.2e} | pair {k3 + k4:.4f} ms"
+                  f" | SDPA backward (f32) {sdpa:.4f} ms", flush=True)
+            del dq, dk, dv
         del sets, fsets, got, ref
         torch.cuda.empty_cache()
     for case in cs.kernel_phase():
         print(f"AB {label} K1 {case['case']}: {case['ms']:.4f} ms err "
               f"{case['max_abs_err']:.2e}", flush=True)
+    sass_counts(lib, ("bwd_dq_kernel", "bwd_dkv_kernel",
+                      "bwd_fused_tc_kernel"), label)
 
 
 def library_backward_ms(cs, args, scale):
@@ -86,9 +113,9 @@ def library_backward_ms(cs, args, scale):
 
 
 def sass_counts(lib, kernels, label):
-    """GMMA / IMMA products and UTMALDG (TMA loads) in each named kernel
-    of a built library (cuobjdump -sass; several template instances of a
-    kernel are summed)."""
+    """GMMA / MMA products, UTMALDG (TMA loads) and LDGSTS (cp.async
+    loads) in each named kernel of a built library (cuobjdump -sass;
+    several template instances of a kernel are summed)."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
@@ -97,7 +124,8 @@ def sass_counts(lib, kernels, label):
         text = "".join(re.findall(r"Function : \S*" + kernel + r"\S*\n(.*?)"
                                   r"(?=\n\s*Function : |\Z)", sass, re.S))
         ops = {op: len(re.findall(op + r"\b", text))
-               for op in ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG")}
+               for op in ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG",
+                          "LDGSTS")}
         print(f"AB {label} SASS {kernel}: "
               + " ".join(f"{k} {v}" for k, v in ops.items() if v), flush=True)
 
@@ -199,6 +227,23 @@ def int8_path(cs, label):
     sass_counts(lib, ("int8_matmul_kernel",), label)
 
 
+def f32_step(cs, label):
+    _, smi = cs.device_phase()
+    cs._build.build_libraries(cs._build.KERNEL_SOURCES)
+    _, r = cs.training_phase(smi)
+    b = r["breakdown"]
+    if b is None:
+        print(f"AB {label} f32 step: wall {r['step_ms']:.1f} ms; device "
+              f"time not measured", flush=True)
+        return
+    k = b["kernel_ms"]
+    print(f"AB {label} f32 step [T {cs.TRAIN_T}, B {cs.TRAIN_B}]: wall "
+          f"{r['step_ms']:.1f} ms | device {b['device_ms']:.1f} ms | busy "
+          f"{b['device_ms'] / r['step_ms']:.3f} | K3 "
+          f"{k['flash_attn_bwd_dq']:.2f} ms K4 {k['flash_attn_bwd_dkv']:.2f}"
+          f" ms a step", flush=True)
+
+
 def main():
     tree, label = sys.argv[1], sys.argv[2]
     what = set((sys.argv[3] if len(sys.argv) > 3 else "all").split(","))
@@ -210,6 +255,8 @@ def main():
         bf16_kernels(cs, label)
     if what & {"int8", "all"}:
         int8_path(cs, label)
+    if "step" in what:
+        f32_step(cs, label)
 
 
 if __name__ == "__main__":
