@@ -41,8 +41,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      only), whose device kernels are named from a profiled call; one
      line sets the split pair K3 + K4 against K2 and the SDPA backward
      at T 1024 (the inputs of the route rule's question);
-  6. K5 held against its plain version at the training shape x [8192,
-     768] @ w [768, 50304], timed beside torch.logsumexp(x @ w);
+  6. K5 (3xTF32 tensor-core products over 33 vocab splits, merged in
+     order by a second pass) held against its plain version at the
+     training shape x [8192, 768] @ w [768, 50304], two calls bitwise
+     equal; timed beside torch.logsumexp(x @ w) in the same run;
   7. training: GPT-2-small at full width (vocab 50304, H 768, 12 layers,
      12 heads, T 1024, batch 8, f32, TF32 off) built with the port's
      front end (transformer_lm_cost + AdamOptimizer(1e-4).minimize),
@@ -94,8 +96,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      products they feed, O and the gradients once at the end) at the
      training shape [8, 12, 1024, 64] (head views of the packed bf16
      planes), a ragged kv_len case and a Tq != Tk case; K2-bf16 (the
-     fused backward, f32 dq partials summed and cast once) at its main
-     path's [32, 12, 256, 64], a ragged and a Tq > Tk case; K5-bf16 at x
+     fused backward: a cluster of two blocks a (batch, head) that sums dq
+     in f32 on chip and writes it once in bf16) at its main path's [32,
+     12, 256, 64], a ragged and a Tq > Tk case, two calls bitwise equal;
+     K5-bf16 at x
      [8192, 768] @ w [768, 50304]. Tolerance 1e-2 of the largest |plain|
      element on bf16 outputs (two bf16 ulps), 1e-4 absolute on the f32
      LSEs. Times by CUDA-graph replay beside the bf16 bound (989 TFLOP/s
@@ -117,8 +121,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      batch (T 256, B 32) with amp.enable, where the backward route is
      the fused K2-bf16: the checks of phase 12 (against phase 8's f32
      step 1), three more Adam steps; launches per step K1-bf16 12,
-     K2-bf16 12, K5-bf16 1; step wall, tokens/s, peak memory and a
-     profiled step;
+     K2-bf16 12, K5-bf16 1, and no f32 dq partial buffer allocated (the
+     f32 phase 8 allocates one a K2 launch); step wall, tokens/s, peak
+     memory and a profiled step;
  14. the amp program at the reference's headline batch, B 32 at T 1024
      (bench.py's bench_transformer_mfu), or the largest of 24 and 16
      that fits: step wall, peak memory and a profiled step's device time
@@ -796,9 +801,11 @@ def backward_kernel_phase(smi):
 # -- phase 6: K5 vs plain -----------------------------------------------------
 
 def lse_kernel_phase(smi):
-    """K5 against its plain version at the training shape. Tolerance
-    1e-4 absolute on values near log(V) = 10.8: f32 dot products over
-    H = 768 and a sum of 50304 exponentials, in other orders."""
+    """K5 against its plain version at the training shape, and against
+    itself (two calls, bitwise). Tolerance 1e-4 absolute on values near
+    log(V) = 10.8: f32-accurate dot products over H = 768 (3xTF32, summed
+    a 64-wide k tile at a time) and a sum of 50304 exponentials, in other
+    orders."""
     rng = np.random.RandomState(SEED + 4)
     N = TRAIN_B * TRAIN_T
     dev = torch.device("cuda")
@@ -807,13 +814,18 @@ def lse_kernel_phase(smi):
                               .astype(np.float32)).to(dev))
             for _ in range(2)]
     got = ce.lm_head_lse(*sets[0])
+    again = ce.lm_head_lse(*sets[0])
     torch.cuda.synchronize()
     ref = ce.lm_head_lse_plain(*sets[0])
     err = float((got - ref).abs().max())
     log(f"kernel lm_head_lse: x [{N},{HID}] w [{HID},{VOCAB}] "
-        f"max_abs_err {err:.3e} (tol {TOL:g})")
+        f"max_abs_err {err:.3e} (tol {TOL:g}); two calls bitwise equal: "
+        f"{bool(torch.equal(got, again))}")
     if not np.isfinite(err) or err > TOL:
         raise AssertionError("lm_head_lse disagrees with its plain version")
+    if not torch.equal(got, again):
+        raise AssertionError("lm_head_lse: two calls on the same inputs "
+                             "differ (the split merge must be in order)")
     r = {"max_abs_err": err,
          "ms": time_ms(ce.lm_head_lse, sets, reps=6),
          "plain_ms": time_ms(ce.lm_head_lse_plain, sets, reps=3),
@@ -903,6 +915,12 @@ BWD_DESIGN = {
                           "dP^T so P^T, dS^T are register A of P^T.dO, "
                           "dS^T.Q"}
 
+K5_DESIGN = ("3xTF32 mma.sync m16n8k8 (split_rz), 128 rows x 128-column "
+             "logits tiles, 8 warps of 64 x 32, x and w in 64-deep k chunks "
+             "through a 3-stage cp.async ring, a fresh fragment per 64-wide "
+             "k tile summed in f32; the vocab cut into splits (row block "
+             "fastest in the grid), a second kernel merging each row's "
+             "splits in order")
 K6_DESIGN = ("s8 wgmma m64n128k32 + TMA, warp-specialised and persistent: "
              "128 x 128 tiles taken in turn by 2 consumer warpgroups (one's "
              "epilogue under the other's products) + a TMA producer warp, "
@@ -918,11 +936,15 @@ BF16_DESIGN = {
                            "tiles by TMA in a 3-stage mbarrier ring; S_j "
                            "issued before P_{j-1}.V_{j-1}, whose run hides "
                            "the softmax of S_j",
-    "flash_attn_bwd_fused_bf16": "bf16 mma.sync m16n8k16, 64 keys, Q/dO "
-                                 "tiles cp.async 2-stage, P^T and dS^T as "
-                                 "A fragments; dS^T through shared memory "
-                                 "for dS.K into f32 dq partials per kv "
-                                 "tile",
+    "flash_attn_bwd_fused_bf16": "K4-bf16's block (wgmma m64n64k16, 128 "
+                                 "keys = 2 consumer warpgroups + a TMA "
+                                 "producer warp, Q/dO in a 3-stage "
+                                 "mbarrier ring) plus dQ = dS.K: dS^T to "
+                                 "shared memory once, read MN-major with "
+                                 "K; a cluster of ceil(Tk / 128) blocks "
+                                 "sums dQ in f32 through distributed "
+                                 "shared memory in rank order, dq written "
+                                 "once in bf16, no f32 partials",
     "flash_attn_bwd_dq_bf16": "wgmma m64n64k16 (S, dP from shared memory; "
                               "dS as register A, K MN-major), 128 q rows = "
                               "2 consumer warpgroups + a TMA producer warp, "
@@ -967,6 +989,7 @@ def launches_of(**counts):
 def zero_counts():
     for w in wrappers().values():
         w.launches = 0
+    fa.flash_attn_bwd_fused.dq_partials = 0
 
 
 def read_counts():
@@ -1080,7 +1103,7 @@ KERNEL_NAMES = {          # profiler kernel name fragments
     "flash_attn_bwd_fused": ("bwd_fused_tc_kernel",),
     "flash_attn_bwd_dq": ("bwd_dq_kernel",),
     "flash_attn_bwd_dkv": ("bwd_dkv_kernel",),
-    "lm_head_lse": ("lse_kernel",),
+    "lm_head_lse": ("lse_kernel", "lse_merge_kernel"),
 }
 
 
@@ -1135,6 +1158,7 @@ def short_training_phase(smi):
                                     scope=scope)[0][0]))
         wall.append(1e3 * (time.perf_counter() - t_step))
     counts = read_counts()              # the main path ends here
+    partials = fa.flash_attn_bwd_fused.dq_partials
     route = fa.bwd_route(SHORT_T)
     if route != "fused":
         raise AssertionError(f"T={SHORT_T} should take the fused route")
@@ -1143,6 +1167,9 @@ def short_training_phase(smi):
                                      flash_attn_bwd_fused=steps * LAYERS,
                                      lm_head_lse=steps),
                  f"training T={SHORT_T}")
+    if partials != steps * LAYERS:      # the f32 K2 writes f32 partials
+        raise AssertionError(f"training T={SHORT_T}: {partials} f32 dq "
+                             f"partial buffers, expected {steps * LAYERS}")
     if not np.isfinite(losses).all():
         raise AssertionError("non-finite loss at T=256")
     step_ms = float(np.mean(wall))
@@ -1936,8 +1963,10 @@ def fused_bf16_phase(rng, scale, smi):
     """K2-bf16 against the plain bf16 backward at its main-path shape
     [32, 12, 256, 64] (the amp T 256 step), a ragged kv_len case and a
     Tq > Tk case, all views of packed planes (Tk <= 256: the fused
-    route); timed at the main-path shape beside its bf16 bound, the plain
-    version and cuDNN's SDPA backward kernels on the same inputs."""
+    route), and against itself (two calls, bitwise: dq is summed on chip
+    in a fixed order); timed at the main-path shape beside its bf16
+    bound, the plain version and cuDNN's SDPA backward kernels on the
+    same inputs, in the same run."""
     name = "flash_attn_bwd_fused_bf16"
     B, T = SHORT_B, SHORT_T
     cases = {"short": (B, T, T, [T] * B),
@@ -1965,6 +1994,15 @@ def fused_bf16_phase(rng, scale, smi):
     full = [T] * B
     sets = [bf16_attn_inputs(rng, B, T, T, full, True, scale)[0]
             for _ in range(2)]
+    got = fa.flash_attn_bwd_fused_bf16(*sets[0], True, scale)
+    again = fa.flash_attn_bwd_fused_bf16(*sets[0], True, scale)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"bf16 {name} short: two calls bitwise equal: {same}")
+    if not same:
+        raise AssertionError(f"{name}: two calls on the same inputs differ "
+                             "(dq must be summed in a fixed order)")
+    del got, again
     lib_ms, lib_names = sdpa_backward(sets[0], scale)
     replaces, products = BF16_ATTN[name]
     r = {"case": "short", "q": [B, N_HEADS, T, HEAD_DIM],
@@ -2208,9 +2246,14 @@ def amp_training_phase(smi, f32_loss, T, B, feed_seed, timed_steps):
                                     scope=scope)[0][0]))
         wall.append(1e3 * (time.perf_counter() - t_step))
     counts = read_counts()              # the main path ends here
+    partials = fa.flash_attn_bwd_fused.dq_partials
     steps = len(losses)
     route = fa.bwd_route(T)
-    log(f"{what}: losses {[round(x, 5) for x in losses]}")
+    log(f"{what}: losses {[round(x, 5) for x in losses]}; f32 dq partial "
+        f"buffers allocated: {partials}")
+    if partials:                        # the bf16 K2 sums dq on chip
+        raise AssertionError(f"{what}: the bf16 path allocated {partials} "
+                             "f32 dq partial buffers")
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"{what}: the loss did not fall over "
                              f"{timed_steps} Adam steps on a fixed batch")
@@ -2234,7 +2277,8 @@ def amp_training_phase(smi, f32_loss, T, B, feed_seed, timed_steps):
                                    step_ms, smi)
     del scope, exe
     torch.cuda.empty_cache()
-    return counts, {"T": T, "batch": B, "route": route, "step_ms": step_ms,
+    return counts, {"T": T, "batch": B, "route": route,
+                    "dq_partials": partials, "step_ms": step_ms,
                     "tokens_per_s": tokens / step_ms * 1e3,
                     "losses": losses, "loss_rel": loss_rel,
                     "grad_worst": worst[0], "vs_f32_rel": vs_f32,
@@ -2350,6 +2394,7 @@ def main():
     kernels.append({
         "name": "lm_head_lse", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/lm_head_lse.cu",
+        "design": K5_DESIGN,
         "replaces": "paddle_tpu/ops/chunked_ce.py:90",
         "launches": launches["lm_head_lse"],
         "launches_by_path": by_path["lm_head_lse"], **lse})

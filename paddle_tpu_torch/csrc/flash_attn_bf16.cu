@@ -13,59 +13,51 @@
 // rounds P to bf16 before P.V (:260) and O once at the end; K3 rounds
 // dS = P * (dP - delta) to bf16 before dS.K (:440); K4 rounds P before
 // P^T.dO (:498) and dS before dS^T.Q (:502); K2 rounds dS once (:570) for
-// dS.K, dS^T.Q and P for P^T.dO (:575), and writes its per-kv-tile dq
-// partials in f32 (:690), summed and cast once by the caller (:698). The
-// softmax statistics, LSE and delta (computed by the caller from the
-// bf16 dO and O) are f32. The masks are those of flash_attn_fwd.cu /
-// flash_attn_bwd.cu: key column `col` of query row `row` is live when
-// col < kv_len[b] and (not causal or col <= q_start[b] + row), q_start =
-// 0 in the backward; a fully masked row gives O = 0 and LSE = -1e30, and
-// a row whose LSE is that sentinel has P = 0 in the backward.
+// dS.K, dS^T.Q and P for P^T.dO (:575), and keeps dq's contributions of
+// the kv tiles in f32 (:690), summed before one cast (:698): here the sum
+// runs on chip, in f32, in a fixed order. The softmax statistics, LSE and
+// delta (computed by the caller from the bf16 dO and O) are f32. The
+// masks are those of flash_attn_fwd.cu / flash_attn_bwd.cu: key column
+// `col` of query row `row` is live when col < kv_len[b] and (not causal or
+// col <= q_start[b] + row), q_start = 0 in the backward; a fully masked
+// row gives O = 0 and LSE = -1e30, and a row whose LSE is that sentinel
+// has P = 0 in the backward.
 //
 // What bounds them on an H100: at the training shape [8, 12, 1024, 64]
 // causal, K1 does 2 products (12.9 GFLOP), K3 3 and K4 4 of 2 * D flops
 // per live (row, key) pair: 13-26 us at the 989 TFLOP/s of dense bf16
 // tensor cores, against 12-20 us of HBM bytes. K2 at [32, 12, 256, 64]
-// does 5 (8.1 GFLOP, 8 us) against 27 us of bytes: bound by bytes.
+// does 5 (8.1 GFLOP, 8 us) against 27 us of bytes: bound by bytes, which
+// is why its dq is summed on chip and written once in bf16 (the f32
+// partials of the reference's layout would be 100 MB more at that shape).
 //
-// Design of K2 (mma.sync m16n8k16, bf16_mma.cuh). The TPU grid walks
-// its reduction axis sequentially and keeps the accumulators in VMEM; on
-// the card a block owns one 64-key output tile of one (batch, head) with
-// 4 warps of 16 keys, and loops over the q rows itself in 64-row tiles,
-// double-buffered in shared memory by cp.async (16 bytes a thread,
-// zero-filled past the live range, so unwritten memory never enters a
-// product): Q/dO tiles and their LSE / delta rows stream; K and V
-// fragments live in registers; S^T = K.Q^T and dP^T = V.dO^T (keys x
-// rows), then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T as A
-// fragments from registers and dO, Q read by ldmatrix.trans; dS^T,
-// rounded, goes to shared memory, from which each warp reads 16 q rows of
-// dS (ldmatrix.trans) for its rows' dq partial dS.K over the tile's 64
-// keys.
-//
-// Design of K1, K3 and K4 (wgmma + TMA, hopper.cuh): see the sections
-// below. A block is consumer warpgroups of 64 rows (K1: four, K3: two)
-// or 64 keys (K4: two) and one producer warp; every product is a wgmma
-// m64n64k16 with f32 accumulators, the first ones (S, and dP; or S^T and
-// dP^T) from shared memory, the last ones with the rounded P / dS as
-// register A fragments and the shared tile read MN-major (the
-// descriptor's transpose bit), so no tile is copied or transposed: K1's
-// O += P.V reads V as K3's dQ += dS.K reads K. The fixed operand (K1,
-// K3: the block's Q rows) is loaded once and the streamed tiles by TMA
-// through a ring of mbarrier stages. K1 and K3 start the blocks of the
-// longest causal rows first; tiles wholly past the causal diagonal or
-// kv_len are not loaded, and masks run only in the tiles that hold
-// masked pairs. Head dims below 64 are zero-padded to 64 by the wrapper
-// (ops/flash_attention.py).
+// Design (wgmma + TMA, hopper.cuh): see the sections below. A block is
+// consumer warpgroups of 64 rows (K1: four, K3: two) or 64 keys (K4, K2:
+// two) and one producer warp; every product is a wgmma m64n64k16 with f32
+// accumulators, the first ones (S, and dP; or S^T and dP^T) from shared
+// memory, the last ones with the rounded P / dS as register A fragments
+// and the shared tile read MN-major (the descriptor's transpose bit), so
+// no tile is copied or transposed: K1's O += P.V reads V as K3's dQ +=
+// dS.K reads K. K2 is K4 plus dQ = dS.K with both operands read MN-major
+// from shared memory, its blocks in a thread-block cluster along the kv
+// axis that sums dQ through distributed shared memory. The fixed operand
+// (K1, K3: the block's Q rows; K4, K2: its K / V) is loaded once and the
+// streamed tiles by TMA through a ring of mbarrier stages. K1 and K3 start
+// the blocks of the longest causal rows first; tiles wholly past the
+// causal diagonal or kv_len are not loaded, and masks run only in the
+// tiles that hold masked pairs. Head dims below 64 are zero-padded to 64
+// by the wrapper (ops/flash_attention.py).
 //
 // Interface: plain C, bound with ctypes; the arguments of the f32
 // entries (flash_attn_fwd.cu, flash_attn_bwd.cu) with bf16 tensors (K2's
-// dq partials f32). q/k/v/dO/O and the gradients are [B, n, T, D] bf16
+// dq, unlike the f32 K2's partials, a bf16 gradient like K3's). q/k/v/dO/O
+// and the gradients are [B, n, T, D] bf16
 // with arbitrary element strides for B, n and T (D contiguous, strides a
 // multiple of 8, pointers 16-byte aligned: what cp.async and TMA need);
 // lse and delta are contiguous f32 [B, n, Tq]. Returns cudaGetLastError()
 // after the launch, -1 for a head dim other than 64 or Tq = 1 (the decode
-// step has no bf16 kernel), -2 for an unknown kernel, -3 when
-// cuTensorMapEncodeTiled refuses a tensor map.
+// step has no bf16 kernel) or K2 at Tk > 1024, -2 for an unknown kernel,
+// -3 when cuTensorMapEncodeTiled refuses a tensor map.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,294 +70,25 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 64;     // keys of a K2 block's output tile
 constexpr int kCols = 64;     // keys (or rows) of a streamed tile
-constexpr int kThreads = 128;
 constexpr float kNegSentinel = -1e30f;
 constexpr float kDeadLse = -5e29f;  // half the forward's sentinel
-
-// two bf16 at p (4-byte aligned) as one register
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragments of a warp's 16 rows (r0 = 16 * warp + g, r1 = r0 + 8) of a
-// [T, HD] operand read from global memory; rows >= valid are zero
-template <int HD>
-__device__ __forceinline__ void load_rows_a(uint32_t a[HD / 16][4],
-                                            const bf16* base, long long st,
-                                            int r0, int valid, int t) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int c = 16 * kk + 2 * t;
-    const bool v0 = r0 < valid, v1 = r0 + 8 < valid;
-    a[kk][0] = v0 ? ld_pair(base + r0 * st + c) : 0u;
-    a[kk][1] = v1 ? ld_pair(base + (r0 + 8) * st + c) : 0u;
-    a[kk][2] = v0 ? ld_pair(base + r0 * st + c + 8) : 0u;
-    a[kk][3] = v1 ? ld_pair(base + (r0 + 8) * st + c + 8) : 0u;
-  }
-}
-
-// stage rows c0 .. c0 + 63 of a [T, HD] operand into a [64][HD + 8]
-// tile by cp.async; rows at or past `limit` are zero-filled
-template <int HD>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* base,
-                                           long long st, int c0,
-                                           int limit) {
-  constexpr int S = HD + 8, C8 = HD / 8;
-  for (int i = threadIdx.x; i < kCols * C8; i += kThreads) {
-    const int r = i / C8, c = 8 * (i % C8);
-    const bool live = c0 + r < limit;
-    const long long src = live ? c0 + r : 0;
-    bf::cp_async16(dst + r * S + c, base + src * st + c, live);
-  }
-}
-
-// S = A.B^T for a warp's 16 rows x the tile's 64 columns, where the
-// tile is stored [col][HD] (K, V, Q or dO rows): s[nt] is columns 8nt..
-template <int HD>
-__device__ __forceinline__ void rows_x_tile(float s[8][4],
-                                            const uint32_t a[HD / 16][4],
-                                            const bf16* tile, int lane) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      bf::load_b_nk(b, tile, HD + 8, 16 * np, 16 * kk, lane);
-      bf::mma(s[2 * np], a[kk], b);
-      bf::mma(s[2 * np + 1], a[kk], b + 2);
-    }
-  }
-}
-
-// acc[dt] += P.T over the tile's 64 columns, where P is a warp's 16 x 64
-// C fragments (rounded to bf16 here) and the tile is stored [col][HD]
-template <int HD>
-__device__ __forceinline__ void frag_x_tile(float acc[HD / 8][4],
-                                            const float p[8][4],
-                                            const bf16* tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {bf::pack(p[2 * kk][0], p[2 * kk][1]),
-                           bf::pack(p[2 * kk][2], p[2 * kk][3]),
-                           bf::pack(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           bf::pack(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < HD / 16; ++dp) {
-      uint32_t b[4];
-      bf::load_b_kn(b, tile, HD + 8, 16 * kk, 16 * dp, lane);
-      bf::mma(acc[2 * dp], a, b);
-      bf::mma(acc[2 * dp + 1], a, b + 2);
-    }
-  }
-}
-
-// write a warp's 16 x HD f32 fragments, times `mul`, as bf16 rows r0 and
-// r0 + 8 (rows >= valid are skipped)
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* base, long long st,
-                                           const float acc[HD / 8][4],
-                                           float mul0, float mul1, int r0,
-                                           int valid, int t) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + 8 * half;
-    if (r >= valid) continue;
-    const float mul = half ? mul1 : mul0;
-    bf16* out = base + r * st + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(out + 8 * dt) =
-          bf::pack(acc[dt][2 * half] * mul, acc[dt][2 * half + 1] * mul);
-  }
-}
 
 // -- K2, K3, K4: the backward ------------------------------------------------
 
 constexpr int kD = 64;  // the backward's head dim
-constexpr int kS = kD + 8;
-constexpr int kTile = kCols * kS;
 
 struct BwdArgs {
   const bf16 *q, *k, *v, *dout;
   const float *lse, *delta;
   const int* kv_len;
   bf16 *dq, *dk, *dv;
-  float* dq_part;            // K2: the f32 dq partials of the kv tiles
   int n, Tq, Tk;
-  // element strides (batch, head, row) of q, k, v, dO, dq (K2: of one
-  // kv tile's partial), dk, dv
+  // element strides (batch, head, row) of q, k, v, dO, dq, dk, dv
   long long sq[3], sk[3], sv[3], sdo[3], sdq[3], sdk[3], sdv[3];
-  long long dq_tile_stride;  // K2: elements between kv tiles' partials
   int causal;
   float scale;
 };
-
-// K2: dk, dv and the f32 dq partial of one 64-key kv tile of one
-// (batch, head): K4's sweep over the q tiles, plus dQ_j = scale * dS.K
-// of every q tile, written to the tile's partial. dS^T (bf16, the
-// reference's rounding) goes through shared memory: each warp holds 16
-// keys of it, and dS.K sums over all 64, so each warp then reads 16 q
-// rows x 64 keys of it back as A fragments (ldmatrix.trans, no copy).
-__global__ void __launch_bounds__(kThreads)
-bwd_fused_bf16_kernel(const BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [2][row][kS]
-  bf16* os = qs + 2 * kTile;                       // [2][row][kS]
-  bf16* ks = os + 2 * kTile;                       // [key][kS]
-  bf16* dss = ks + kTile;                          // dS^T [key][kS]
-  float* lse_s = reinterpret_cast<float*>(dss + kTile);  // [2][64]
-  float* delta_s = lse_s + 2 * kCols;                     // [2][64]
-
-  const int bh = blockIdx.y, b = bh / a.n, h = bh % a.n;
-  const int key0 = blockIdx.x * kRows;
-  const int keys = min(kRows, a.Tk - key0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int klen = max(min(a.kv_len[b], a.Tk), 0);
-  const int k0 = 16 * warp + g, k1 = k0 + 8;   // this lane's block keys
-  const int key_a = key0 + k0, key_b = key0 + k1;
-
-  float dk[kD / 8][4], dv[kD / 8][4];
-#pragma unroll
-  for (int i = 0; i < kD / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
-
-  const int i0 = a.causal ? key0 / kCols : 0;
-  const int nq = (a.Tq + kCols - 1) / kCols;
-  const int n_tiles = key0 < klen ? max(nq - i0, 0) : 0;
-
-  // q rows before the first live q tile get a zero partial (the
-  // reference's dead blocks), every other row is written below
-  float* part = a.dq_part + blockIdx.x * a.dq_tile_stride + b * a.sdq[0] +
-                h * a.sdq[1];
-  const int dead_rows = n_tiles > 0 ? min(i0 * kCols, a.Tq) : a.Tq;
-  for (int i = threadIdx.x; i < dead_rows * (kD / 4); i += kThreads)
-    reinterpret_cast<float4*>(part + (i / (kD / 4)) * a.sdq[2])[i % (kD / 4)] =
-        make_float4(0.f, 0.f, 0.f, 0.f);
-
-  const bf16* qb = a.q + b * a.sq[0] + h * a.sq[1];
-  const bf16* ob = a.dout + b * a.sdo[0] + h * a.sdo[1];
-  const float* lrow = a.lse + (long long)bh * a.Tq;
-  const float* drow = a.delta + (long long)bh * a.Tq;
-  auto load_tile = [&](int i, int stage) {
-    const int row0 = i * kCols;
-    stage_rows<kD>(qs + stage * kTile, qb, a.sq[2], row0, a.Tq);
-    stage_rows<kD>(os + stage * kTile, ob, a.sdo[2], row0, a.Tq);
-    if (threadIdx.x < kCols) {
-      const int row = row0 + threadIdx.x;
-      const bool in = row < a.Tq;
-      bf::cp_async4(lse_s + stage * kCols + threadIdx.x,
-                    lrow + (in ? row : 0), in);
-      bf::cp_async4(delta_s + stage * kCols + threadIdx.x,
-                    drow + (in ? row : 0), in);
-    }
-    bf::cp_async_commit();
-  };
-  if (n_tiles > 0) {
-    // K for dS.K, zero past kv_len (a dead key's dS is 0, and 0 times
-    // what lies there must not be NaN); in the first tile's group
-    stage_rows<kD>(ks, a.k + b * a.sk[0] + h * a.sk[1], a.sk[2], key0,
-                   klen);
-    load_tile(i0, 0);
-  }
-
-  uint32_t ka[kD / 16][4], va[kD / 16][4];
-  load_rows_a<kD>(ka, a.k + b * a.sk[0] + h * a.sk[1] + key0 * a.sk[2],
-                  a.sk[2], k0, keys, t);
-  load_rows_a<kD>(va, a.v + b * a.sv[0] + h * a.sv[1] + key0 * a.sv[2],
-                  a.sv[2], k0, keys, t);
-  const bool kl0 = key_a < klen, kl1 = key_b < klen;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1, row0 = (i0 + it) * kCols;
-    bf::cp_async_wait<0>();
-    // tile it is visible; every warp is done with tile it - 1's stage
-    // and with its dS^T
-    __syncthreads();
-    if (it + 1 < n_tiles) load_tile(i0 + it + 1, stage ^ 1);
-    const bf16* qt = qs + stage * kTile;
-    const bf16* ot = os + stage * kTile;
-    const float* ls = lse_s + stage * kCols;
-    const float* dls = delta_s + stage * kCols;
-
-    // S^T = K.Q^T and dP^T = V.dO^T: this warp's 16 keys x 64 rows
-    float st[8][4], dpt[8][4];
-    rows_x_tile<kD>(st, ka, qt, lane);
-    rows_x_tile<kD>(dpt, va, ot, lane);
-    // P^T in st, dS^T in dpt
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int rl = 8 * nt + 2 * t + e, row = row0 + rl;
-        const float l = ls[rl], dl = dls[rl];
-        const bool ok = row < a.Tq && l > kDeadLse;
-        const bool ok0 = ok && kl0 && (!a.causal || key_a <= row);
-        const bool ok1 = ok && kl1 && (!a.causal || key_b <= row);
-        const float p0 = ok0 ? expf(a.scale * st[nt][e] - l) : 0.f;
-        const float p1 = ok1 ? expf(a.scale * st[nt][2 + e] - l) : 0.f;
-        st[nt][e] = p0;
-        st[nt][2 + e] = p1;
-        dpt[nt][e] = p0 * (dpt[nt][e] - dl);
-        dpt[nt][2 + e] = p1 * (dpt[nt][2 + e] - dl);
-      }
-    }
-    // dV += P^T.dO and dK += dS^T.Q, P^T and dS^T rounded to bf16
-    frag_x_tile<kD>(dv, st, ot, lane);
-    frag_x_tile<kD>(dk, dpt, qt, lane);
-    // dS^T, rounded to bf16, to shared memory: keys k0 / k1, rows 8nt + 2t
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      *reinterpret_cast<uint32_t*>(dss + k0 * kS + 8 * nt + 2 * t) =
-          bf::pack(dpt[nt][0], dpt[nt][1]);
-      *reinterpret_cast<uint32_t*>(dss + k1 * kS + 8 * nt + 2 * t) =
-          bf::pack(dpt[nt][2], dpt[nt][3]);
-    }
-    __syncthreads();
-    // dQ_j of this warp's 16 q rows = dS.K over the tile's 64 keys: dS's
-    // A fragments from dS^T [key][row] by ldmatrix.trans, K's B
-    // fragments from K [key][d] by ldmatrix.trans
-    float dq[kD / 8][4];
-#pragma unroll
-    for (int i = 0; i < kD / 8; ++i)
-      dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-    const int blk = lane >> 3, rr = lane & 7;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t af[4];
-      bf::ldsm_x4_t(af, dss + (16 * kk + rr + 8 * (blk >> 1)) * kS +
-                            16 * warp + 8 * (blk & 1));
-#pragma unroll
-      for (int dp = 0; dp < kD / 16; ++dp) {
-        uint32_t bfr[4];
-        bf::load_b_kn(bfr, ks, kS, 16 * kk, 16 * dp, lane);
-        bf::mma(dq[2 * dp], af, bfr);
-        bf::mma(dq[2 * dp + 1], af, bfr + 2);
-      }
-    }
-    // the f32 partial (the reference writes dq_part in f32)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row0 + 16 * warp + g + 8 * half;
-      if (row >= a.Tq) continue;
-      float* out = part + row * a.sdq[2] + 2 * t;
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt)
-        *reinterpret_cast<float2*>(out + 8 * dt) =
-            make_float2(dq[dt][2 * half] * a.scale,
-                        dq[dt][2 * half + 1] * a.scale);
-    }
-  }
-  store_rows<kD>(a.dk + b * a.sdk[0] + h * a.sdk[1] + key0 * a.sdk[2],
-                 a.sdk[2], dk, a.scale, a.scale, k0, keys, t);
-  store_rows<kD>(a.dv + b * a.sdv[0] + h * a.sdv[1] + key0 * a.sdv[2],
-                 a.sdv[2], dv, 1.f, 1.f, k0, keys, t);
-}
 
 // -- K3 and K4 on wgmma + TMA ------------------------------------------------
 //
@@ -1012,14 +735,310 @@ bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
             kbase, a.Tk);
 }
 
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream,
-                   Args... args) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
-  return cudaGetLastError();
+// K2: dk, dv and dq of one (batch, head) by a thread-block cluster of
+// ceil(Tk / 128) blocks along gridDim.x. Block r of the cluster is K4's
+// block for keys 128r .. 128r + 127 (two consumer warpgroups of 64 keys, a
+// TMA producer warp streaming the Q / dO tiles its keys reach), plus dQ_i
+// = scale * dS.K of every q tile i it sweeps, summed over the cluster's
+// keys in f32 on chip: each consumer writes its rounded dS^T (the
+// reference's bf16 dS) to shared memory, once, in the 128-byte-swizzled
+// layout TMA gives a tile, and after a barrier of the two consumers one of
+// them (the two take the q tiles in turn) runs dS.K over the block's 128
+// keys as one chain of wgmma m64n64k16 with dS (A) and K (B) read MN-major.
+// The blocks' sums meet in a chain, in the fixed rank order: block r adds
+// the f32 tile block r + 1 sent, then sends the sum to block r - 1
+// through distributed shared memory (st.shared::cluster into a ring of
+// two f32 tiles, an mbarrier arrival released at cluster scope; the
+// receiver frees a slot with an arrival on the sender's mbarrier); block 0
+// writes dq once, in bf16. Causal: block r reaches only the q tiles from
+// 2r on, and sends and receives exactly those, so a block with no tiles
+// (past the diagonal or kv_len) takes no part beyond the start-up cluster
+// barrier. No f32 partial reaches device memory, and dq is the same bits
+// from run to run.
+constexpr int kFusedStages = 3;               // Q / dO tiles in flight
+constexpr int kMaxCluster = 8;                // portable: Tk <= 1024
+constexpr int kDqStride = kD + 8;             // f32 row stride of dq_in
+
+struct alignas(1024) FusedSmem {
+  bf16 k[kConsumers * kBox];      // the block's keys, one box per consumer
+  bf16 v[kConsumers * kBox];
+  bf16 q[kFusedStages][kBox];     // streamed q-row tiles
+  bf16 dout[kFusedStages][kBox];
+  bf16 ds[2][kConsumers * kBox];  // dS^T [key][row], by the tile's parity
+  float dq_in[2][64 * kDqStride]; // the next block's f32 dQ sums (ring)
+  float lse2[kFusedStages][kCols];
+  float delta[kFusedStages][kCols];
+  uint64_t kv_full, full[kFusedStages], empty[kFusedStages];
+  uint64_t dq_full[2], dq_free[2];
+};
+
+// the first q tile the keys of cluster block r reach (nq: none)
+__device__ __forceinline__ int first_tile(int r, int klen, int nq,
+                                          int causal) {
+  const int key0 = r * kBlock;
+  if (key0 >= klen) return nq;
+  return causal ? min(key0 / kCols, nq) : 0;
+}
+
+// a warpgroup's packed dS^T fragments (pack_a's layout: key rows 16w + g
+// and + 8, row columns in pairs) into a 64-key x 64-row box of shared
+// memory, 128-byte swizzled: 16-byte chunk c of key row k at c ^ (k % 8)
+__device__ __forceinline__ void store_box(bf16* box,
+                                          const uint32_t (&pa)[4][4]) {
+  const int w = (threadIdx.x & (kWg - 1)) >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  unsigned char* base = reinterpret_cast<unsigned char*>(box);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int key = 16 * w + g + 8 * (r & 1), chunk = 2 * kk + (r >> 1);
+      *reinterpret_cast<uint32_t*>(base + key * 128 + ((chunk ^ g) << 4) +
+                                   4 * t) = pa[kk][r];
+    }
+}
+
+// dQ (64 rows x D) = dS.K over the block's first 64 keys, or all 128
+// (`both`): dS^T [key][row] and K [key][d] are both read MN-major, the
+// 16-key slices 2048 bytes apart across the two boxes of each
+__device__ __forceinline__ void dq_product(float (&d)[32], const bf16* ds,
+                                           const bf16* k, bool both) {
+  const uint64_t da = hp::desc_sw128(ds), db = hp::desc_sw128(k);
+  hp::wgmma_ss_tt<false>(d, da, db);
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk)
+    hp::wgmma_ss_tt<true>(d, da + kk * kMnStep, db + kk * kMnStep);
+  if (both) {
+#pragma unroll
+    for (int kk = 4; kk < 8; ++kk)
+      hp::wgmma_ss_tt<true>(d, da + kk * kMnStep, db + kk * kMnStep);
+  }
+}
+
+__global__ void __launch_bounds__(kWsThreads, 1)
+bwd_fused_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const BwdArgs a) {
+  FusedSmem& sm = hp::aligned_smem<FusedSmem>();
+  const int bh = blockIdx.y, b = bh / a.n, h = bh % a.n;
+  const int rank = blockIdx.x, ranks = gridDim.x;   // the cluster is x
+  const int key0 = rank * kBlock;
+  const int klen = hp::warp_uniform(max(min(a.kv_len[b], a.Tk), 0));
+  const int nq = (a.Tq + kCols - 1) / kCols;
+  const int i0 = first_tile(rank, klen, nq, a.causal);
+  const int n_tiles = nq - i0;
+  // block rank + 1 sends its dQ sums of the q tiles [i1, nq)
+  const int i1 =
+      rank + 1 < ranks ? first_tile(rank + 1, klen, nq, a.causal) : nq;
+  const int wg = hp::warp_uniform(threadIdx.x / kWg);
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < kFusedStages; ++s) {
+      hp::mbar_init(&sm.full[s], 32);         // the producer warp's lanes
+      hp::mbar_init(&sm.empty[s], kConsumers * kWg);
+    }
+    for (int s = 0; s < 2; ++s) {
+      hp::mbar_init(&sm.dq_full[s], kWg);     // the sender's warpgroup
+      hp::mbar_init(&sm.dq_free[s], kWg);     // the receiver's warpgroup
+    }
+    hp::mbar_init_fence();
+  }
+  // every block's mbarriers are initialised before any remote arrival
+  hp::cluster_sync();
+
+  if (wg == kConsumers) {                     // the producer (K4's)
+    hp::regs_dealloc<24>();
+    const int lane = threadIdx.x & 31;
+    if (threadIdx.x / 32 != kConsumers * 4 || n_tiles == 0) return;
+    if (lane == 0) {
+      hp::mbar_arrive_tx(&sm.kv_full, 2 * kConsumers * kBoxBytes);
+      for (int c = 0; c < kConsumers; ++c) {
+        hp::tma_load_4d(sm.k + c * kBox, &tk, &sm.kv_full, 0, key0 + 64 * c,
+                        h, b);
+        hp::tma_load_4d(sm.v + c * kBox, &tv, &sm.kv_full, 0, key0 + 64 * c,
+                        h, b);
+      }
+    }
+    const float* lrow = a.lse + (long long)bh * a.Tq;
+    const float* drow = a.delta + (long long)bh * a.Tq;
+    float l2[2], dl[2];
+    auto fetch = [&](int it) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int row = (i0 + it) * kCols + lane + 32 * k;
+        l2[k] = row < a.Tq ? lse_base2(lrow[row]) : INFINITY;
+        dl[k] = row < a.Tq ? drow[row] : 0.f;
+      }
+    };
+    fetch(0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kFusedStages, row0 = (i0 + it) * kCols;
+      if (it >= kFusedStages)
+        hp::mbar_wait(&sm.empty[s], (it / kFusedStages - 1) & 1);
+      if (lane == 0) {
+        hp::mbar_expect_tx(&sm.full[s], 2 * kBoxBytes);
+        hp::tma_load_4d(sm.q[s], &tq, &sm.full[s], 0, row0, h, b);
+        hp::tma_load_4d(sm.dout[s], &tdo, &sm.full[s], 0, row0, h, b);
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        sm.lse2[s][lane + 32 * k] = l2[k];
+        sm.delta[s][lane + 32 * k] = dl[k];
+      }
+      hp::mbar_arrive(&sm.full[s]);
+      if (it + 1 < n_tiles) fetch(it + 1);
+    }
+    return;
+  }
+
+  hp::regs_alloc<240>();                      // a consumer: 64 keys
+  const int w = (threadIdx.x & (kWg - 1)) >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kbase = key0 + 64 * wg, kbase1 = key0 + 64;
+  const int ka = kbase + 16 * w + g, kb = ka + 8;   // this thread's keys
+  const bool wg_live = kbase < klen;
+  const float sl2 = a.scale * kLog2e;
+  bf16* dq_base = a.dq + b * a.sdq[0] + h * a.sdq[1];
+
+  if (rank == 0 && n_tiles == 0) {            // no live key: dq = 0
+    for (int i = threadIdx.x; i < a.Tq * (kD / 8); i += kConsumers * kWg)
+      *reinterpret_cast<uint4*>(dq_base + (i / (kD / 8)) * a.sdq[2] +
+                                8 * (i % (kD / 8))) = make_uint4(0, 0, 0, 0);
+  }
+
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  if (n_tiles > 0) hp::mbar_wait(&sm.kv_full, 0);
+  const bf16* kt = sm.k + wg * kBox;
+  const bf16* vt = sm.v + wg * kBox;
+  StageRelease rel;
+  uint32_t pa[4][4], da[4][4];
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kFusedStages, i = i0 + it, row0 = i * kCols;
+    bf16* ds = sm.ds[it & 1];
+    hp::mbar_wait(&sm.full[s], (it / kFusedStages) & 1);
+    // causal: a tile wholly before this warpgroup's first key is dead
+    if (wg_live && !(a.causal && row0 + kCols <= kbase)) {
+      float st[32], dpt[32];
+      hp::wgmma_fence();
+      tile_product(st, kt, sm.q[s]);          // S^T = K.Q^T
+      hp::wgmma_commit();
+      tile_product(dpt, vt, sm.dout[s]);      // dP^T = V.dO^T
+      hp::wgmma_commit();
+      hp::wgmma_wait<1>();                    // the last dV, dK and S^T
+      rel.release(sm.empty);
+      hp::fence_acc(st);
+      const float2* ls = reinterpret_cast<const float2*>(sm.lse2[s]);
+      const float2* dls = reinterpret_cast<const float2*>(sm.delta[s]);
+      if ((a.causal && row0 < kbase + 63) || kbase + 64 > klen) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const float2 l = ls[4 * nt + t];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int e = 4 * nt + c, row = row0 + 8 * nt + 2 * t + (c & 1);
+            const int key = c < 2 ? ka : kb;
+            const bool ok = key < klen && (!a.causal || key <= row);
+            st[e] = ok ? hp::exp2_approx(
+                             fmaf(st[e], sl2, -((c & 1) ? l.y : l.x)))
+                       : 0.f;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const float2 l = ls[4 * nt + t];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            st[4 * nt + c] = hp::exp2_approx(
+                fmaf(st[4 * nt + c], sl2, -((c & 1) ? l.y : l.x)));
+        }
+      }
+      // dV += P^T.dO, P^T rounded to bf16 as register A, dO MN-major
+      pack_a(pa, st);
+      hp::wgmma_fence();
+      tile_product_rs(dv, pa, sm.dout[s]);
+      hp::wgmma_commit();
+      hp::wgmma_wait<1>();                    // dP^T
+      hp::fence_acc(dpt);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 d = dls[4 * nt + t];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          dpt[4 * nt + c] =
+              st[4 * nt + c] * (dpt[4 * nt + c] - ((c & 1) ? d.y : d.x));
+      }
+      // dS^T rounded to bf16 once: the A fragments of dK += dS^T.Q (Q
+      // read MN-major) and, through shared memory, dQ's dS
+      pack_a(da, dpt);
+      store_box(ds + wg * kBox, da);
+      hp::fence_proxy_async();
+      hp::wgmma_fence();
+      tile_product_rs(dk, da, sm.q[s]);
+      hp::wgmma_commit();
+      rel.held = s;
+    } else {
+      rel.skip(sm.empty, s);
+    }
+    // both consumers' dS^T of tile i are in shared memory (and the other
+    // consumer's dQ of tile i - 1 has read the buffer tile i + 1 reuses)
+    hp::named_sync(1, kConsumers * kWg);
+    if (wg != (it & 1)) continue;             // the other one sums dQ_i
+    float dq[32];
+    hp::wgmma_fence();
+    dq_product(dq, ds, sm.k,
+               kbase1 < klen && !(a.causal && row0 + kCols <= kbase1));
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    rel.release(sm.empty);
+    hp::fence_acc(dq);
+    const int rr = 16 * w + g;                // this thread's rows rr, rr + 8
+    if (i >= i1) {                            // + the higher blocks' sum
+      const int p = i - i1, slot = p & 1;
+      hp::mbar_wait_cluster(&sm.dq_full[slot], (p >> 1) & 1);
+      const float* in = sm.dq_in[slot];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float2 x = *reinterpret_cast<const float2*>(
+              in + (rr + 8 * half) * kDqStride + 8 * nt + 2 * t);
+          dq[4 * nt + 2 * half] += x.x;
+          dq[4 * nt + 2 * half + 1] += x.y;
+        }
+      if (p + 2 < nq - i1)                    // the sender reuses the slot
+        hp::mbar_arrive_remote(hp::map_rank(&sm.dq_free[slot], rank + 1));
+    }
+    if (rank == 0) {
+      store_acc(dq_base, a.sdq[2], dq, a.scale, a.scale, row0, a.Tq);
+      continue;
+    }
+    const int slot = it & 1;                  // send the sum to rank - 1
+    if (it >= 2) hp::mbar_wait_cluster(&sm.dq_free[slot], ((it >> 1) - 1) & 1);
+    const uint32_t dst = hp::map_rank(sm.dq_in[slot], rank - 1);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        hp::st_cluster_f2(
+            dst + 4u * ((rr + 8 * half) * kDqStride + 8 * nt + 2 * t),
+            dq[4 * nt + 2 * half], dq[4 * nt + 2 * half + 1]);
+    hp::mbar_arrive_remote(hp::map_rank(&sm.dq_full[slot], rank - 1));
+  }
+  hp::wgmma_wait<0>();
+  rel.release(sm.empty);
+  hp::fence_acc(dv);
+  hp::fence_acc(dk);
+  store_acc(a.dk + b * a.sdk[0] + h * a.sdk[1], a.sdk[2], dk, a.scale,
+            a.scale, kbase, a.Tk);
+  store_acc(a.dv + b * a.sdv[0] + h * a.sdv[1], a.sdv[2], dv, 1.f, 1.f,
+            kbase, a.Tk);
 }
 
 // the 4-D map over (D, T, n, B) of a [B, n, T, 64] bf16 operand with
@@ -1060,6 +1079,35 @@ cudaError_t launch_ws(Kernel kernel, dim3 grid, cudaStream_t stream,
   if (err != cudaSuccess) return err;
   kernel<<<grid, kWsThreads, smem, stream>>>(maps[0], maps[1], maps[2],
                                              maps[3], a);
+  return cudaGetLastError();
+}
+
+
+// K2's launch: one cluster of grid.x blocks per (batch, head)
+cudaError_t launch_fused(dim3 grid, cudaStream_t stream,
+                         const CUtensorMap (&maps)[4], BwdArgs a) {
+  const int smem = static_cast<int>(sizeof(FusedSmem)) + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_fused_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kWsThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = grid.x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  CUtensorMap m0 = maps[0], m1 = maps[1], m2 = maps[2], m3 = maps[3];
+  void* args[5] = {&m0, &m1, &m2, &m3, &a};
+  err = cudaLaunchKernelExC(
+      &cfg, reinterpret_cast<const void*>(bwd_fused_bf16_kernel), args);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -1105,10 +1153,11 @@ extern "C" int pt_flash_attn_fwd_bf16(
   return static_cast<int>(cudaGetLastError());
 }
 
-// which: 0 = K2 (fused; dq is the f32 [nk, ...] partials buffer),
-// 1 = K3 (dq), 2 = K4 (dk, dv). strides: 22 long longs — (batch, head,
-// row) element strides of q, k, v, dO, dq, dk, dv, then K2's element
-// stride between kv tiles' partials.
+// which: 0 = K2 (fused), 1 = K3 (dq), 2 = K4 (dk, dv). strides: 22 long
+// longs — (batch, head, row) element strides of q, k, v, dO, dq, dk, dv,
+// then one the bf16 kernels do not read (the f32 K2's partial stride).
+// K2 writes dq in bf16 like K3; it takes Tk <= 1024 (a cluster of at
+// most 8 blocks; -1 beyond).
 extern "C" int pt_flash_attn_bwd_bf16(
     int which, const void* q, const void* k, const void* v,
     const void* dout, const void* lse, const void* delta,
@@ -1116,6 +1165,7 @@ extern "C" int pt_flash_attn_bwd_bf16(
     int Tk, int D, const long long* strides, int causal, float scale,
     void* stream) {
   if (D != kD) return -1;
+  if (which < 0 || which > 2) return -2;
   BwdArgs a;
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -1124,8 +1174,7 @@ extern "C" int pt_flash_attn_bwd_bf16(
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
   a.kv_len = static_cast<const int*>(kv_len);
-  a.dq = which == 0 ? nullptr : static_cast<bf16*>(dq);
-  a.dq_part = which == 0 ? static_cast<float*>(dq) : nullptr;
+  a.dq = static_cast<bf16*>(dq);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
   a.n = n;
@@ -1134,29 +1183,23 @@ extern "C" int pt_flash_attn_bwd_bf16(
   long long* dsts[7] = {a.sq, a.sk, a.sv, a.sdo, a.sdq, a.sdk, a.sdv};
   for (int t = 0; t < 7; ++t)
     for (int i = 0; i < 3; ++i) dsts[t][i] = strides[3 * t + i];
-  a.dq_tile_stride = strides[21];
   a.causal = causal;
   a.scale = scale;
   auto s = static_cast<cudaStream_t>(stream);
-  if (which == 0) {
-    const int nk = (Tk + kRows - 1) / kRows;
-    const int smem = (6 * kTile) * static_cast<int>(sizeof(bf16)) +
-                     4 * kCols * static_cast<int>(sizeof(float));
-    return static_cast<int>(
-        launch(bwd_fused_bf16_kernel, dim3(nk, B * n), smem, s, a));
-  }
-  if (which != 1 && which != 2) return -2;
+  const int nk = (Tk + kBlock - 1) / kBlock;
+  if (which == 0 && nk > kMaxCluster) return -1;
   CUtensorMap maps[4];
   if (!make_map(&maps[0], q, B, n, Tq, a.sq) ||
       !make_map(&maps[1], k, B, n, Tk, a.sk) ||
       !make_map(&maps[2], v, B, n, Tk, a.sv) ||
       !make_map(&maps[3], dout, B, n, Tq, a.sdo))
     return -3;
+  if (which == 0)
+    return static_cast<int>(launch_fused(dim3(nk, B * n), s, maps, a));
   if (which == 1)
     return static_cast<int>(launch_ws<DqSmem>(
         bwd_dq_bf16_kernel, dim3((Tq + kBlock - 1) / kBlock, B * n), s, maps,
         a));
   return static_cast<int>(launch_ws<DkvSmem>(
-      bwd_dkv_bf16_kernel, dim3((Tk + kBlock - 1) / kBlock, B * n), s, maps,
-      a));
+      bwd_dkv_bf16_kernel, dim3(nk, B * n), s, maps, a));
 }

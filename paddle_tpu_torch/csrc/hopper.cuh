@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the warp-specialised kernels (the
-// bf16 K1, K3 and K4 in flash_attn_bf16.cu, K6 in int8_matmul.cu):
-// mbarriers, TMA tile loads and the host's tensor-map encoder, the
-// 1024-byte-aligned dynamic shared memory, the wgmma shared-memory
-// descriptor and the bf16 wgmma m64n64k16 products.
+// bf16 K1-K4 in flash_attn_bf16.cu, K6 in int8_matmul.cu): mbarriers,
+// TMA tile loads and the host's tensor-map encoder, thread-block cluster
+// barriers and distributed shared memory (K2), the 1024-byte-aligned
+// dynamic shared memory, the wgmma shared-memory descriptor and the bf16
+// wgmma m64n64k16 products.
 //
 // Shared-memory tiles are rows of 128 bytes (64 bf16, or 128 int8 of
 // K6's reduction: one 128-byte swizzle atom a row), written by TMA with
@@ -85,6 +86,68 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
 // 0's), so that branches on it are not divergent to ptxas
 __device__ __forceinline__ int warp_uniform(int v) {
   return __shfl_sync(0xffffffffu, v, 0);
+}
+
+// -- thread-block clusters and distributed shared memory ---------------------
+
+// every thread of every block of the cluster arrives and waits: the
+// cluster-wide __syncthreads (mbarriers initialised before it are
+// visible to the other blocks after it)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared::cluster address of `p` (this block's shared memory) in the
+// block of cluster rank `rank`
+__device__ __forceinline__ uint32_t map_rank(const void* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// two floats into another block's shared memory
+__device__ __forceinline__ void st_cluster_f2(uint32_t addr, float a,
+                                              float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};"
+               :: "r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+// one arrival on an mbarrier of another block (`addr` from map_rank),
+// releasing this thread's earlier writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t addr) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+      :: "r"(addr) : "memory");
+}
+
+// mbar_wait that acquires at cluster scope: what another block wrote
+// before its releasing arrival is visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAITC:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], "
+      "%1;\n"
+      "@!p bra WAITC;\n"
+      "}\n"
+      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// make this thread's ordinary shared-memory writes visible to the async
+// proxy (wgmma's shared-memory operands)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// a barrier among `count` threads (whole warps) of the block, by id (0 is
+// __syncthreads')
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(count) : "memory");
 }
 
 // -- TMA ---------------------------------------------------------------------
@@ -242,6 +305,35 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
         "setp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HP_ACC32
         ", %32, %33, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : HP_OUT32_OPS(d)
+        : "l"(da), "l"(db), "r"(0));
+  }
+}
+
+// d (64 x 64, f32) = A.B, plus d when kAccumulate; A and B bf16 in
+// shared memory, both MN-major (the transpose bits): A's rows and B's
+// columns contiguous
+template <bool kAccumulate>
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t da,
+                                            uint64_t db) {
+  if constexpr (kAccumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HP_ACC32
+        ", %32, %33, p, 1, 1, 1, 1;\n"
+        "}\n"
+        : HP_ACC32_OPS(d)
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HP_ACC32
+        ", %32, %33, p, 1, 1, 1, 1;\n"
         "}\n"
         : HP_OUT32_OPS(d)
         : "l"(da), "l"(db), "r"(0));

@@ -5,10 +5,11 @@ hand-written Hopper kernel.
 loss[i] = logsumexp(x[i] @ w) - (x[i] @ w)[labels[i]], with the [N, V]
 logits never materialized in the forward: the picked logit is one
 row-gather of w^T and a rowwise dot, and the lse comes from
-`lm_head_lse` — K5 (`csrc/lm_head_lse.cu` for f32 operands,
-`csrc/lm_head_lse_bf16.cu` for bf16 amp operands; the counterparts of
-`_lse_kernel`) on a CUDA tensor, its plain chunked version on a CPU
-tensor. The reference elects its Pallas lse with a flag and a VMEM gate
+`lm_head_lse` — K5 (`csrc/lm_head_lse.cu` for f32 operands, 3xTF32
+tensor-core products over a split vocabulary whose per-split (max,
+denominator) a second pass merges in order; `csrc/lm_head_lse_bf16.cu`
+for bf16 amp operands; the counterparts of `_lse_kernel`) on a CUDA
+tensor, its plain chunked version on a CPU tensor. The reference elects its Pallas lse with a flag and a VMEM gate
 (`resolve_lse_mode`, `_lse_supports`); the port uses the kernel whenever
 the tensors are on the card. The backward (`_xent_bwd`) is plain torch
 matmuls over vocab chunks, as the reference leaves it to XLA: it reads
@@ -27,9 +28,10 @@ import torch
 from .registry import register_op
 
 __all__ = ["lm_head_lse", "lm_head_lse_bf16", "lm_head_lse_plain",
-           "chunked_lm_head_xent", "auto_chunks", "LSE_MAX_H"]
+           "chunked_lm_head_xent", "auto_chunks", "lse_splits", "LSE_MAX_H"]
 
-LSE_MAX_H = 768         # K5 keeps the [H, 64] row tile in shared memory
+LSE_MAX_H = 768         # the H the K5 kernels take
+LSE_ROWS = LSE_COLS = 128   # the f32 K5's block tile (csrc/lm_head_lse.cu)
 
 
 def auto_chunks(V):
@@ -40,32 +42,61 @@ def auto_chunks(V):
     return max(1, round(V / 8192.0))
 
 
-def lm_head_lse_plain(x, w, chunk=4096):
+def lm_head_lse_plain(x, w, chunk=4096, splits=1):
     """lse[i] = logsumexp_c (x @ w)[i, c], as an online max/denominator
-    over vocab chunks (the kernel's arithmetic in chunk-sized steps)."""
+    over vocab chunks (the kernel's arithmetic in chunk-sized steps).
+    With `splits` > 1 the vocabulary is cut into ranges of ceil(V /
+    splits) columns, each range's (max, denominator) is taken that way
+    and the ranges are merged in order: the f32 K5's split and merge."""
     N, V = x.shape[0], w.shape[1]
-    m = torch.full((N,), -float("inf"), dtype=torch.float32,
-                   device=x.device)
-    s = torch.zeros((N,), dtype=torch.float32, device=x.device)
-    for c0 in range(0, V, chunk):
-        lg = torch.matmul(x.float(), w[:, c0:c0 + chunk].float())
-        mn = torch.maximum(m, lg.amax(dim=1))
-        s = s * torch.exp(m - mn) + torch.exp(lg - mn[:, None]).sum(dim=1)
-        m = mn
-    return m + torch.log(s)
+    width = max(1, -(-V // splits))
+    parts = []
+    for v0 in range(0, V, width):
+        v1 = min(v0 + width, V)
+        m = torch.full((N,), -float("inf"), dtype=torch.float32,
+                       device=x.device)
+        s = torch.zeros((N,), dtype=torch.float32, device=x.device)
+        for c0 in range(v0, v1, chunk):
+            lg = torch.matmul(x.float(), w[:, c0:min(c0 + chunk, v1)].float())
+            mn = torch.maximum(m, lg.amax(dim=1))
+            s = s * torch.exp(m - mn) + torch.exp(lg - mn[:, None]).sum(dim=1)
+            m = mn
+        parts.append((m, s))
+    if len(parts) == 1:
+        m, s = parts[0]
+        return m + torch.log(s)
+    mx = torch.stack([m for m, _ in parts]).amax(dim=0)
+    s = torch.zeros_like(mx)
+    for m, sj in parts:
+        s = s + sj * torch.exp(m - mx)
+    return mx + torch.log(s)
+
+
+def lse_splits(N, V, sms):
+    """The vocab splits the f32 K5 runs: (row block, split) blocks for
+    about 16 a streaming multiprocessor (one is resident at a time, so
+    the last wave is a small share of the run), at most one split a
+    128-column vocab tile."""
+    row_blocks = max(1, -(-N // LSE_ROWS))
+    tiles = max(1, -(-V // LSE_COLS))
+    return max(1, min(tiles, -(-16 * sms // row_blocks)))
 
 
 def _lse_lib(dtype):
-    """The C entry of K5 for `dtype`: f32 (`lm_head_lse.cu`) or bf16
-    (`lm_head_lse_bf16.cu`); both take the same arguments."""
+    """The C entry of K5 for `dtype`: bf16 (`lm_head_lse_bf16.cu`: x, w,
+    lse, N, H, V, the row strides, the stream) or f32 (`lm_head_lse.cu`:
+    the same with the split scratch after lse and the split count before
+    the stream)."""
     from .._build import load_library
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if dtype == torch.bfloat16:
         fn = load_library("lm_head_lse_bf16").pt_lm_head_lse_bf16
+        argtypes = [vp, vp, vp, i, i, i, ll, ll, vp]
     else:
         fn = load_library("lm_head_lse").pt_lm_head_lse_f32
+        argtypes = [vp, vp, vp, vp, i, i, i, ll, ll, i, vp]
     if fn.argtypes is None:
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp, vp, vp, i, i, i, ll, ll, vp]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -117,12 +148,22 @@ def lm_head_lse(x, w):
     if N == 0 or V == 0:
         return lse
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _lse_lib(x.dtype)(x.data_ptr(), w.data_ptr(), lse.data_ptr(), N,
-                           H, V, x.stride(0), w.stride(0), stream)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        rc = _lse_lib(x.dtype)(x.data_ptr(), w.data_ptr(), lse.data_ptr(),
+                               N, H, V, x.stride(0), w.stride(0), stream)
+    else:
+        # each vocab split's (max, denominator) per row, merged in order
+        splits = lse_splits(N, V, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+        scratch = torch.empty((2, splits, N), dtype=torch.float32,
+                              device=x.device)
+        rc = _lse_lib(x.dtype)(x.data_ptr(), w.data_ptr(), lse.data_ptr(),
+                               scratch.data_ptr(), N, H, V, x.stride(0),
+                               w.stride(0), splits, stream)
     if rc != 0:
         raise RuntimeError(f"lm_head_lse ({x.dtype}) kernel launch failed: "
                            f"cudaError {rc} (N={N}, H={H}, V={V})")
-    bf16 = x.dtype == torch.bfloat16
     (lm_head_lse_bf16 if bf16 else lm_head_lse).launches += 1
     return lse
 

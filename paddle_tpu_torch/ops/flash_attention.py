@@ -35,9 +35,13 @@ before the next product; O and the gradients are rounded once at the
 end; LSE and delta stay f32. K1 (Tq > 1), K2, K3 and K4 have bf16
 kernels (`csrc/flash_attn_bf16.cu`) with their own launch counters
 (`flash_attn_fwd_bf16`, `flash_attn_bwd_fused_bf16`,
-`flash_attn_bwd_dq_bf16`, `flash_attn_bwd_dkv_bf16`); K2's dq partials
-stay f32 and are summed, then cast once (`sum_dq_partials`). The decode
-step (Tq = 1) has no bf16 kernel yet and raises for bf16 on the card.
+`flash_attn_bwd_dq_bf16`, `flash_attn_bwd_dkv_bf16`). K2 keeps dq's
+contributions of the kv tiles in f32 and casts their sum once: the f32
+K2 writes f32 partials that `sum_dq_partials` sums in a fixed order
+(each allocation counted on `flash_attn_bwd_fused.dq_partials`), the
+bf16 K2 sums them on chip in a fixed order and writes dq once, in bf16,
+allocating no partials. The decode step (Tq = 1) has no bf16 kernel yet
+and raises for bf16 on the card.
 
 Head dims: the kernels take D in `KERNEL_HEAD_DIMS` (the f32 forward),
 `BF16_FWD_HEAD_DIMS` (the bf16 forward, whose wgmma tiles are 64 wide)
@@ -451,8 +455,9 @@ def _bwd_launch(which, q, k, v, do, lse, delta, kv_len, dq, dk, dv,
                            ptr(dk), ptr(dv), B, n, Tq, Tk, D, arr,
                            int(bool(causal)), float(scale), stream)
     if rc != 0:
-        what = ("cuTensorMapEncodeTiled refused a TMA tensor map"
-                if rc == -3 else f"cudaError {rc}")
+        what = {-1: "unsupported shape (D 64; the bf16 K2: Tk <= 1024)",
+                -3: "cuTensorMapEncodeTiled refused a TMA tensor map"}.get(
+                    rc, f"cudaError {rc}")
         raise RuntimeError(f"flash-attention backward ({which}, "
                            f"{q.dtype}) kernel launch failed: {what} "
                            f"(B={B}, n={n}, Tq={Tq}, Tk={Tk}, D={D})")
@@ -499,12 +504,22 @@ def _bwd_wrapper(which, plain):
                             dk, dv, causal, scale)
                 counter.launches += 1
             return dk, dv
+        if bf16:
+            # the bf16 K2 sums dq over its kv tiles on chip, in f32 in a
+            # fixed order, and writes it once in bf16
+            dq = _plane_grad(B, n, Tq, D, dev, q.dtype)
+            if B and n and Tk:
+                _bwd_launch("fused", q, k, v, do, lse, delta, kv_len, dq,
+                            dk, dv, causal, scale)
+                counter.launches += 1
+            return dq, dk, dv
         nk = -(-Tk // BWD_TILE)
-        # per-kv-tile dq partials [nk, B, Tq, n, D], summed below in a
-        # fixed order (the reference's way), so the result is
+        # the f32 K2's per-kv-tile dq partials [nk, B, Tq, n, D], summed
+        # below in a fixed order (the reference's way), so the result is
         # deterministic
         part = torch.empty((nk, B, Tq, n, D), dtype=torch.float32,
                            device=dev)
+        wrapper.dq_partials += 1
         part_h = part.permute(0, 1, 3, 2, 4)          # [nk, B, n, Tq, D]
         if B and n and Tk:
             _bwd_launch("fused", q, k, v, do, lse, delta, kv_len, part_h,
@@ -529,6 +544,9 @@ def _bwd_wrapper(which, plain):
                                      kv_len, causal, scale)
 
     wrapper.launches = 0        # kernel launches (the main-path proof)
+    # f32 dq partial buffers allocated on the card (the fused f32 K2's;
+    # the bf16 K2 allocates none)
+    wrapper.dq_partials = 0
     wrapper.__name__ = f"flash_attn_bwd_{which}"
     return wrapper
 

@@ -1,7 +1,9 @@
 """The port's Hopper kernels on the card, held to their plain versions:
 K1 (flash-attention forward), K2-K4 (its backward), K5 (the lm-head
 log-sum-exp), K6 (the int8 x int8 -> int32 matmul); the bf16 (amp) K1,
-K2, K3, K4 and K5; and head dims below the kernels', zero-padded.
+K2, K3, K4 and K5; and head dims below the kernels', zero-padded. The
+kernels that sum in several blocks (K5's vocab splits, K2-bf16's
+cluster) are also held to the same bits from call to call.
 
 Marked `cuda`: they skip on a machine without a CUDA card (the kernels
 have no interpret mode). This file imports neither JAX nor the JAX
@@ -482,6 +484,66 @@ def test_flash_backward_fused_bf16_kernel_matches_plain(card, causal, B, n,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("Tq,Tk,kv_len", [
+    (64, 64, [64, 40]),          # a cluster of one block
+    (65, 65, [65, 65]),          # one key into the second 64-key box
+    (128, 128, [128, 100]),      # one block, both boxes
+    (129, 129, [129, 129]),      # a cluster of 2: one key in block 1
+    (192, 192, [192, 150]),
+    (256, 256, [256, 256]),      # the main path's Tk
+    (256, 256, [256, 128, 0]),   # ragged: block 1 holds no live key
+    (300, 200, [200, 129]),      # Tq > Tk
+    (100, 256, [256, 130]),      # Tq < Tk: causal, block 1 sees no q tile
+    (512, 512, [512, 300]),      # a cluster of 4 (the chain)
+    (1024, 1024, [1024, 700]),   # the largest cluster, 8 blocks
+])
+def test_flash_backward_fused_bf16_sums_dq_on_chip(card, causal, Tq, Tk,
+                                                   kv_len):
+    """K2-bf16 (a cluster of ceil(Tk / 128) blocks summing dq through
+    distributed shared memory) against the plain bf16 backward at 1e-2
+    of the largest plain element, at clusters of 1, 2, 4 and 8 blocks,
+    ragged kv_len and Tq != Tk; two calls give the same bits, and no f32
+    dq partial buffer is allocated."""
+    B, n = len(kv_len), 3
+    q, k, v, do, o, lse, delta, lens = _bf16_case(card, B, n, Tq, Tk, 64,
+                                                  kv_len, causal, Tq + 5 * Tk)
+    ref = fa.flash_attn_bwd_fused_plain(q, k, v, do, lse, delta, lens,
+                                        causal)
+    before = (fa.flash_attn_bwd_fused_bf16.launches,
+              fa.flash_attn_bwd_fused.dq_partials)
+    got = fa.flash_attn_bwd_fused_bf16(q, k, v, do, lse, delta, lens,
+                                       causal)
+    again = fa.flash_attn_bwd_fused_bf16(q, k, v, do, lse, delta, lens,
+                                         causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attn_bwd_fused_bf16.launches,
+            fa.flash_attn_bwd_fused.dq_partials) == (before[0] + 2,
+                                                     before[1])
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    errs = [_bf16_err(g, r) for g, r in zip(got, ref)]
+    print(f"K2-bf16 [{B},{n},{Tq},{Tk}] kv_len {kv_len} causal {causal}: "
+          f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} of max")
+    assert max(errs) <= BF16_REL
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for b, n_live in enumerate(kv_len):
+        if n_live == 0:
+            assert all(float(g[b].float().abs().max()) == 0.0 for g in got)
+
+
+@pytest.mark.cuda
+def test_flash_backward_fused_bf16_refuses_more_than_eight_blocks(card):
+    """K2-bf16's cluster holds at most 8 blocks of 128 keys: Tk 1025
+    raises (no fallback) and launches nothing."""
+    q, k, v, do, o, lse, delta, lens = _bf16_case(card, 1, 2, 64, 1025, 64,
+                                                  [1025], True, 1)
+    before = fa.flash_attn_bwd_fused_bf16.launches
+    with pytest.raises(RuntimeError, match="Tk <= 1024"):
+        fa.flash_attn_bwd_fused_bf16(q, k, v, do, lse, delta, lens, True)
+    assert fa.flash_attn_bwd_fused_bf16.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T", [256, 1024])
 def test_bf16_backward_kernels_take_plane_views(card, T):
     """K2-bf16 (T 256) and the split K3 + K4-bf16 (T 1024) on bf16 head
@@ -628,6 +690,36 @@ def test_lm_head_lse_kernel_matches_plain(card, N, H, V):
     # f32 dot products over H in another order, then a log of a sum of
     # V exponentials: 1e-4 absolute on values of order log(V)
     assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,V", [
+    (8192, 768, 50304),     # the training shape (33 vocab splits)
+    (300, 768, 5000),       # N not a multiple of 128, a ragged last tile
+    (200, 32, 100),         # V below one 128-column tile
+    (129, 64, 1000),        # one row into a second row block
+    (1000, 768, 50257),     # V odd: w read 4 bytes at a time
+    (64, 32, 70),
+])
+def test_lm_head_lse_kernel_splits_and_merges(card, N, H, V):
+    """The f32 K5 (3xTF32 products, the vocab cut into splits whose (max,
+    denominator) a second pass merges in order) against its plain version
+    at 1e-4 absolute, with N, V and the split width ragged and H from 32
+    to 768; two calls give the same bits."""
+    rng = np.random.RandomState(N + H + V)
+    x = torch.from_numpy(rng.randn(N, H).astype(np.float32)).to(card)
+    w = torch.from_numpy((rng.randn(H, V) * 0.05).astype(np.float32)
+                         ).to(card)
+    before = ce.lm_head_lse.launches
+    got = ce.lm_head_lse(x, w)
+    again = ce.lm_head_lse(x, w)
+    torch.cuda.synchronize()
+    assert ce.lm_head_lse.launches == before + 2
+    ref = ce.lm_head_lse_plain(x, w)
+    err = float((got - ref).abs().max())
+    print(f"K5 [{N},{H}] @ [{H},{V}]: max_abs_err {err:.3e}")
+    assert err <= 1e-4
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

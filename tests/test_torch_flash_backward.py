@@ -1,7 +1,8 @@
 """Flash-attention backward (K2-K4) and the lm-head log-sum-exp (K5):
 the port's plain versions against the JAX package's Pallas kernels run
-in interpret mode, the backward route rule, the training op's autograd
-Function, and the wrappers' CPU and meta routing.
+in interpret mode (K5 also as the f32 kernel's split and merge), the
+backward route rule, the training op's autograd Function, and the
+wrappers' CPU and meta routing.
 
 The Hopper kernels themselves (csrc/flash_attn_bwd.cu,
 csrc/lm_head_lse.cu) have no interpret mode:
@@ -189,6 +190,42 @@ def test_plain_lse_matches_jax_pallas_lse_interpret(N, H, V):
     np.testing.assert_allclose(
         ce.lm_head_lse_plain(torch.from_numpy(x), torch.from_numpy(w),
                              chunk=64).numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("N,H,V,splits", [(20, 32, 200, 3),
+                                          (9, 48, 1000, 7),
+                                          (64, 64, 96, 5),
+                                          (33, 32, 131, 2)])
+def test_plain_lse_split_merge_matches_jax_pallas_lse_interpret(N, H, V,
+                                                                splits):
+    """The f32 K5's split and merge as plain arithmetic (each vocab range
+    of ceil(V / splits) columns reduced to a (max, denominator) per row,
+    the ranges merged in order) against the reference's Pallas lse in
+    interpret mode, with V not a multiple of the split width or of the
+    reference's 64-column blocks. Tolerance 1e-5, as the unsplit plain
+    version's."""
+    assert V % -(-V // splits)                   # a ragged last range
+    rng = np.random.RandomState(N * V + splits)
+    x = rng.randn(N, H).astype(np.float32)
+    w = (rng.randn(H, V) * 0.3).astype(np.float32)
+    ref = np.asarray(jce.pallas_lse(jnp.asarray(x), jnp.asarray(w), bn=8,
+                                    bv=64, interpret=True))
+    got = ce.lm_head_lse_plain(torch.from_numpy(x), torch.from_numpy(w),
+                               chunk=16, splits=splits).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_lse_splits_fill_the_card_and_stay_in_range():
+    """The f32 K5's split count: at the training shape (N 8192 in 64
+    row blocks of 128, V 50304 in 393 tiles of 128) ~16 blocks for each
+    of an H100's 132 SMs; never more splits than vocab tiles, never
+    fewer than one."""
+    assert ce.lse_splits(8192, 50304, 132) == 33
+    assert 64 * 33 >= 16 * 132
+    assert ce.lse_splits(5, 70, 132) == 1        # one vocab tile
+    assert ce.lse_splits(10**6, 50304, 132) == 1  # rows alone fill it
+    assert ce.lse_splits(300, 5000, 132) == 40   # at most one a tile
+    assert ce.LSE_ROWS == ce.LSE_COLS == 128
 
 
 def test_chunked_xent_matches_jax_values_and_gradients():

@@ -1,7 +1,7 @@
 """Time the flash-attention and int8 kernels of one checkout of the port,
 for A/B comparisons of kernel variants.
 
-    python3 tools/flash_ab.py TREE LABEL [f32|bf16|int8|step|all[,...]]
+    python3 tools/flash_ab.py TREE LABEL [f32|bf16|int8|lse|step|short|all[,...]]
 
 TREE is a directory holding `chip_smoke.py` and `paddle_tpu_torch/` (a
 `git archive` of a commit, or a copy with a variant of csrc/); its
@@ -21,10 +21,11 @@ kernels are built from its own sources. Prints lines tagged "AB LABEL":
   forward, K3-bf16 and K4-bf16 at the same shape (views of the packed
   planes) and K2-bf16 at [32, 12, 256, 64] where the tree has it, with
   their errors relative to the largest plain output, beside the device
-  time of cuDNN's SDPA backward on the same inputs; then the SASS check
-  of the built bf16 library: the HGMMA (wgmma) and UTMALDG (TMA load)
-  instructions in flash_fwd_bf16_kernel, bwd_dq_bf16_kernel and
-  bwd_dkv_bf16_kernel (cuobjdump -sass);
+  time of cuDNN's SDPA backward on the same inputs; K2-bf16 also without
+  the wrapper's sum of f32 dq partials, where the tree has one; then the
+  SASS check of the built bf16 library: the HGMMA (wgmma) and UTMALDG
+  (TMA load) instructions in flash_fwd_bf16_kernel, bwd_dq_bf16_kernel,
+  bwd_dkv_bf16_kernel and bwd_fused_bf16_kernel (cuobjdump -sass);
 - int8: the int8 matmul core of a rung-8 dispatch (the five GPT-2-small
   products at M 8192, weighted by their launches): the whole core as
   the serving path runs it (`quant_ops.int8_matmul`: the activation
@@ -32,10 +33,17 @@ kernels are built from its own sources. Prints lines tagged "AB LABEL":
   the tree stores on the card (column-major where the tree has
   `quant_ops.is_column_major`, else row-major); then the SASS counts of
   the built int8 library (GMMA / IMMA products, UTMALDG);
+- lse (not in `all`): the f32 K5 at x [8192, 768] @ w [768, 50304]
+  beside torch.logsumexp(x @ w), its error against the plain version,
+  whether two calls give the same bits, and the HMMA / LDGSTS counts of
+  the built lse_kernel;
 - step (not in `all`): the tree's own f32 training phase (chip_smoke's
   phase 7: GPT-2-small, T 1024, batch 8, the split K3 + K4 route): the
   unprofiled step wall and a profiled step's device time, busy share
-  and K3 / K4 device ms.
+  and K3 / K4 / K5 device ms;
+- short (not in `all`): the tree's own T 256, B 32 phases, f32 (phase 8:
+  K2, K5) and amp (phase 13: K2-bf16, K5-bf16): step wall, a profiled
+  step's device time and its K2 / K5 ms.
 
 Compare two trees only within one call, in turns: parent, change,
 change, parent. Needs a CUDA card.
@@ -179,13 +187,63 @@ def bf16_kernels(cs, label):
         e2 = max(cs.bf16_err(g, r)[1] for g, r in zip(got, ref))
         k2 = cs.time_ms(lambda *a: fa.flash_attn_bwd_fused_bf16(
             *a, True, scale), sets, reps=20)
+        k2_alone = cs.time_ms(lambda *a: fused_bf16_kernel_alone(
+            fa, *a, scale), sets, reps=20)
         cudnn = library_backward_ms(cs, sets[0], scale)
         print(f"AB {label} bf16 [{B}, 12, {T}, 64]: K2 {k2:.4f} ms err "
-              f"{e2:.2e} | cuDNN SDPA backward {cudnn:.4f} ms", flush=True)
+              f"{e2:.2e} (without the wrapper's dq sum {k2_alone:.4f} ms) | "
+              f"cuDNN SDPA backward {cudnn:.4f} ms", flush=True)
         del sets, ref, got
         torch.cuda.empty_cache()
     sass_counts(lib, ("flash_fwd_bf16_kernel", "bwd_dq_bf16_kernel",
-                      "bwd_dkv_bf16_kernel"), label)
+                      "bwd_dkv_bf16_kernel", "bwd_fused_bf16_kernel"), label)
+
+
+def fused_bf16_kernel_alone(fa, q, k, v, do, lse, delta, lens, scale):
+    """The bf16 K2 launch without the wrapper's dq sum: a tree whose
+    fused wrapper writes f32 partials (no `dq_partials` counter) gets
+    them allocated and the kernel launched, not summed; a tree whose bf16
+    K2 sums dq on chip has no sum to leave out, and runs its wrapper."""
+    if hasattr(fa.flash_attn_bwd_fused, "dq_partials"):
+        return fa.flash_attn_bwd_fused_bf16(q, k, v, do, lse, delta, lens,
+                                            True, scale)
+    B, n, Tq, D = q.shape
+    Tk = k.shape[2]
+    part = torch.empty((-(-Tk // fa.BWD_TILE), B, Tq, n, D),
+                       dtype=torch.float32, device=q.device)
+    dk = fa._plane_grad(B, n, Tk, D, q.device, k.dtype)
+    dv = fa._plane_grad(B, n, Tk, D, q.device, v.dtype)
+    fa._bwd_launch("fused", q, k, v, do, lse, delta, lens,
+                   part.permute(0, 1, 3, 2, 4), dk, dv, True, scale,
+                   tile_stride=part.stride(0))
+    return part, dk, dv
+
+
+def lse_kernel(cs, label):
+    """The f32 K5 at x [8192, 768] @ w [768, 50304] (chip_smoke's phase 6
+    inputs) beside torch.logsumexp(x @ w), its error against the plain
+    version, and the SASS counts of the built f32 K5 library."""
+    ce = cs.ce
+    lib = cs._build.build_library("lm_head_lse")
+    rng = np.random.RandomState(0)
+    N = cs.TRAIN_B * cs.TRAIN_T
+    sets = [(torch.from_numpy(rng.randn(N, cs.HID).astype(np.float32)).cuda(),
+             torch.from_numpy((rng.randn(cs.HID, cs.VOCAB) * 0.02)
+                              .astype(np.float32)).cuda())
+            for _ in range(2)]
+    got = ce.lm_head_lse(*sets[0])
+    again = ce.lm_head_lse(*sets[0])
+    err = float((got - ce.lm_head_lse_plain(*sets[0])).abs().max())
+    k5 = cs.time_ms(ce.lm_head_lse, sets, reps=6)
+    lib_ms = cs.time_ms(lambda x, w: torch.logsumexp(x @ w, dim=1), sets,
+                        reps=3)
+    print(f"AB {label} lse [{N}, {cs.HID}] @ [{cs.HID}, {cs.VOCAB}]: K5 "
+          f"{k5:.4f} ms err {err:.2e} bitwise-repeatable "
+          f"{bool(torch.equal(got, again))} | logsumexp(x @ w) "
+          f"{lib_ms:.4f} ms", flush=True)
+    del sets
+    torch.cuda.empty_cache()
+    sass_counts(lib, ("lse_kernel",), label)
 
 
 def int8_path(cs, label):
@@ -241,7 +299,32 @@ def f32_step(cs, label):
           f"{r['step_ms']:.1f} ms | device {b['device_ms']:.1f} ms | busy "
           f"{b['device_ms'] / r['step_ms']:.3f} | K3 "
           f"{k['flash_attn_bwd_dq']:.2f} ms K4 {k['flash_attn_bwd_dkv']:.2f}"
-          f" ms a step", flush=True)
+          f" ms K5 {k['lm_head_lse']:.2f} ms a step", flush=True)
+
+
+def short_steps(cs, label):
+    """The tree's own T 256, B 32 training phases, f32 (K2, K5) then amp
+    (K2-bf16, K5-bf16): unprofiled step wall, a profiled step's device
+    time and its K2 / K5 ms."""
+    _, smi = cs.device_phase()
+    cs._build.build_libraries(cs._build.KERNEL_SOURCES)
+    _, r = cs.short_training_phase(smi)
+    b = r["breakdown"]
+    if b is not None:
+        k = b["kernel_ms"]
+        print(f"AB {label} f32 step [T {cs.SHORT_T}, B {cs.SHORT_B}]: wall "
+              f"{r['step_ms']:.1f} ms | device {b['device_ms']:.1f} ms | K2 "
+              f"{k['flash_attn_bwd_fused']:.2f} ms K5 "
+              f"{k['lm_head_lse']:.2f} ms a step", flush=True)
+    _, a = cs.amp_training_phase(smi, r["losses"][0], cs.SHORT_T, cs.SHORT_B,
+                                 cs.SEED + 5, 3)
+    b = a["breakdown"]
+    if b is not None:
+        k = b["kernel_ms"]
+        print(f"AB {label} amp step [T {cs.SHORT_T}, B {cs.SHORT_B}]: wall "
+              f"{a['step_ms']:.1f} ms | device {b['device_ms']:.1f} ms | "
+              f"K2-bf16 {k['flash_attn_bwd_fused_bf16']:.3f} ms K5-bf16 "
+              f"{k['lm_head_lse_bf16']:.2f} ms a step", flush=True)
 
 
 def main():
@@ -255,8 +338,12 @@ def main():
         bf16_kernels(cs, label)
     if what & {"int8", "all"}:
         int8_path(cs, label)
+    if "lse" in what:
+        lse_kernel(cs, label)
     if "step" in what:
         f32_step(cs, label)
+    if "short" in what:
+        short_steps(cs, label)
 
 
 if __name__ == "__main__":
