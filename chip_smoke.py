@@ -95,12 +95,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      versions (the reference's roundings: P and dS to bf16 before the
      products they feed, O and the gradients once at the end) at the
      training shape [8, 12, 1024, 64] (head views of the packed bf16
-     planes), a ragged kv_len case and a Tq != Tk case; K2-bf16 (the
+     planes), a ragged kv_len case and a Tq != Tk case, and K1-bf16 also
+     at phase 14's [32, 12, 1024, 64] (more heads than SMs: its other
+     unit order); K2-bf16 (the
      fused backward: a cluster of two blocks a (batch, head) that sums dq
      in f32 on chip and writes it once in bf16) at its main path's [32,
      12, 256, 64], a ragged and a Tq > Tk case, two calls bitwise equal;
-     K5-bf16 at x
-     [8192, 768] @ w [768, 50304]. Tolerance 1e-2 of the largest |plain|
+     K5-bf16 (wgmma + TMA over vocab splits merged in order by a second
+     kernel) at x [8192, 768] and phase 14's [32768, 768] @ w [768,
+     50304], two calls bitwise equal. Tolerance 1e-2 of the largest |plain|
      element on bf16 outputs (two bf16 ulps), 1e-4 absolute on the f32
      LSEs. Times by CUDA-graph replay beside the bf16 bound (989 TFLOP/s
      dense, 3.35 TB/s), the plain version, and bf16 SDPA forward /
@@ -931,11 +934,14 @@ QUANTIZE_DESIGN = ("one warp a row held in registers (K <= 3072): absmax by "
                    "char4 out")
 BF16_DESIGN = {
     "flash_attn_fwd_bf16": "wgmma m64n64k16 (S from shared memory; P as "
-                           "register A, V MN-major), 256 q rows = 4 "
-                           "consumer warpgroups + a TMA producer warp, K/V "
-                           "tiles by TMA in a 3-stage mbarrier ring; S_j "
-                           "issued before P_{j-1}.V_{j-1}, whose run hides "
-                           "the softmax of S_j",
+                           "register A, V MN-major), units of 256 q rows = "
+                           "4 consumer warpgroups + a TMA producer warp, "
+                           "K/V tiles by TMA in a 3-stage mbarrier ring, Q "
+                           "double-buffered; S_j issued before "
+                           "P_{j-1}.V_{j-1}, whose run hides the softmax "
+                           "of S_j; a persistent grid walking the units "
+                           "heaviest causal block first (all heads' when "
+                           "they fit the grid, else each head's)",
     "flash_attn_bwd_fused_bf16": "K4-bf16's block (wgmma m64n64k16, 128 "
                                  "keys = 2 consumer warpgroups + a TMA "
                                  "producer warp, Q/dO in a 3-stage "
@@ -954,9 +960,15 @@ BF16_DESIGN = {
                                "MN-major), 128 keys = 2 consumer "
                                "warpgroups + a TMA producer warp, Q/dO "
                                "tiles by TMA in a 3-stage mbarrier ring",
-    "lm_head_lse_bf16": "bf16 mma.sync m16n8k16, 64-row x tile resident, "
-                        "w [64 x 128] chunks cp.async 2-stage by "
-                        "ldmatrix.trans, 8 warps"}
+    "lm_head_lse_bf16": "wgmma m64n256k16 + TMA, warp-specialised and "
+                        "persistent: units of (128 rows, vocab split), 2 "
+                        "consumer warpgroups of 64 rows + a TMA producer "
+                        "warp, x [128 x 64] and w [64 x 256] (row-major, "
+                        "read MN-major) in a 4-stage mbarrier ring, each w "
+                        "tile multicast to a 2-block cluster of adjacent "
+                        "row blocks; online max / exp2 sum folded per "
+                        "tile; a second kernel merging each row's splits "
+                        "in order"}
 
 ALL_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_fused",
                "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "lm_head_lse",
@@ -1828,8 +1840,9 @@ BF16_ATTN = {
 def bf16_kernel_phase(smi):
     """K1-, K3- and K4-bf16 against their plain bf16 versions at the
     training shape [8, 12, 1024, 64] (views of the packed planes), a
-    ragged kv_len case and a Tq != Tk case; K5-bf16 at x [8192, 768] @
-    w [768, 50304]. Each timed by CUDA-graph replay over two input sets
+    ragged kv_len case and a Tq != Tk case, and K1-bf16 also at the amp
+    batch step's [32, 12, 1024, 64]; K5-bf16 at x [8192, 768] and
+    [32768, 768] @ w [768, 50304]. Each timed by CUDA-graph replay over two input sets
     (more than the L2 holds) beside its bf16 bound, its plain version
     and one library call: bf16 SDPA forward / backward (kernels named by
     profiler), logsumexp(mm(x, w) with f32 output)."""
@@ -1921,10 +1934,67 @@ def bf16_kernel_phase(smi):
             f"| {smi}")
     del sets, fwd_sets
     torch.cuda.empty_cache()
+    results["flash_attn_fwd_bf16"]["batch"] = bf16_fwd_batch_case(
+        rng, scale, smi)
     results["flash_attn_bwd_fused_bf16"] = fused_bf16_phase(rng, scale, smi)
+    r = lse_bf16_case(rng, TRAIN_B * TRAIN_T, "train", smi)
+    r["batch"] = lse_bf16_case(rng, AMP_BATCHES[0] * TRAIN_T, "batch",
+                               smi)
+    results["lm_head_lse_bf16"] = r
+    return results
 
-    # K5-bf16 at the training shape
-    N = TRAIN_B * TRAIN_T
+
+def bf16_fwd_batch_case(rng, scale, smi):
+    """K1-bf16 at the amp batch step's shape [32, 12, 1024, 64] causal:
+    384 heads, more than the SMs, so its persistent grid takes each
+    head's units side by side (the train case's 96 heads fit the grid and
+    go heaviest unit first). Held to the plain version (1e-2 of its
+    largest element, LSE within TOL) and timed beside it, cuDNN's forward
+    and the bound."""
+    B, T = AMP_BATCHES[0], TRAIN_T
+    full = [T] * B
+    sets = [bf16_attn_inputs(rng, B, T, T, full, True, scale)
+            for _ in range(2)]
+    (q, k, v, _, lse, _, lens), o = sets[0]
+    starts = torch.zeros_like(lens)
+    o_ref, lse_ref = fa.flash_attn_fwd_plain(q, k, v, lens, starts, True,
+                                             scale)
+    ab, rel = bf16_err(o, o_ref)
+    lse_err = float((lse - lse_ref).abs().max())
+    log(f"bf16 flash_attn_fwd_bf16 batch: q [{B},{N_HEADS},{T},{HEAD_DIM}] "
+        f"max_abs_err {ab:.3e}, {rel:.3e} of max |plain| (tol "
+        f"{BF16_REL:g}); LSE {lse_err:.3e} (tol {TOL:g})")
+    if not np.isfinite(rel) or rel > BF16_REL or not lse_err <= TOL:
+        raise AssertionError("flash_attn_fwd_bf16 (batch) disagrees with "
+                             "its plain bf16 version")
+    del o, o_ref, lse_ref
+    fwd_sets = [s_[0][:3] for s_ in sets]
+    del sets
+    r = {"case": "batch", "q": [B, N_HEADS, T, HEAD_DIM],
+         "max_abs_err": ab, "max_rel_err": rel, "lse_err": lse_err,
+         "ms": time_ms(lambda q, k, v: fa.flash_attn_fwd_bf16(
+             q, k, v, lens, starts, True, scale), fwd_sets, reps=20),
+         "plain_ms": time_ms(lambda q, k, v: fa.flash_attn_fwd_plain(
+             q, k, v, lens, starts, True, scale), fwd_sets, reps=3),
+         "library_ms": time_ms(
+             lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+                 q, k, v, is_causal=True, scale=scale), fwd_sets, reps=20)}
+    r["bound_ms"], r["bound_by"] = attn_bound_bf16(B, T, T, full, True, 2,
+                                                   3, (T,))
+    log(f"bf16 flash_attn_fwd_bf16 batch [{B},{N_HEADS},{T},{HEAD_DIM}]: ms "
+        f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+        f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+        f"({r['bound_by']}) | {smi}")
+    del fwd_sets
+    torch.cuda.empty_cache()
+    return r
+
+
+def lse_bf16_case(rng, N, case, smi):
+    """K5-bf16 at x [N, 768] @ w [768, 50304] (N 8192 for the B 8 step,
+    32768 for the amp batch step): within TOL of its plain version, the
+    same bits in two calls, timed beside the plain version,
+    logsumexp(mm(x, w) with f32 output) and the bound."""
     dev = torch.device("cuda")
     lse_sets = [(torch.from_numpy(rng.randn(N, HID).astype(np.float32))
                  .to(dev, torch.bfloat16),
@@ -1932,15 +2002,22 @@ def bf16_kernel_phase(smi):
                                   .astype(np.float32)).to(dev, torch.bfloat16))
                 for _ in range(2)]
     got = ce.lm_head_lse_bf16(*lse_sets[0])
+    again = ce.lm_head_lse_bf16(*lse_sets[0])
     torch.cuda.synchronize()
     ref = ce.lm_head_lse_plain(*lse_sets[0])
     err = float((got - ref).abs().max())
     log(f"bf16 lm_head_lse_bf16: x [{N},{HID}] w [{HID},{VOCAB}] "
-        f"max_abs_err {err:.3e} (tol {TOL:g})")
+        f"max_abs_err {err:.3e} (tol {TOL:g}); two calls bitwise equal: "
+        f"{bool(torch.equal(got, again))}")
     if not np.isfinite(err) or err > TOL:
-        raise AssertionError("lm_head_lse_bf16 disagrees with its plain "
-                             "version")
-    r = {"case": "train", "max_abs_err": err,
+        raise AssertionError(f"lm_head_lse_bf16 (N {N}) disagrees with its "
+                             "plain version")
+    if not torch.equal(got, again):
+        raise AssertionError(f"lm_head_lse_bf16 (N {N}): two calls on the "
+                             "same inputs differ (the split merge must be "
+                             "in order)")
+    del got, again, ref
+    r = {"case": case, "x": [N, HID], "max_abs_err": err,
          "ms": time_ms(ce.lm_head_lse_bf16, lse_sets, reps=10),
          "plain_ms": time_ms(ce.lm_head_lse_plain, lse_sets, reps=3),
          "library_ms": time_ms(lambda x, w: torch.logsumexp(
@@ -1949,14 +2026,13 @@ def bf16_kernel_phase(smi):
          "replaces": "paddle_tpu/ops/chunked_ce.py:90"}
     r["bound_ms"], r["bound_by"] = bound_bf16(
         2.0 * N * HID * VOCAB, 2.0 * (N * HID + HID * VOCAB) + 4.0 * N)
-    log(f"bf16 lm_head_lse_bf16: ms {r['ms']:.4f} plain_ms "
+    log(f"bf16 lm_head_lse_bf16 N {N}: ms {r['ms']:.4f} plain_ms "
         f"{r['plain_ms']:.4f} library_ms (logsumexp(mm(x, w, f32 out))) "
         f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
         f"({r['bound_by']}) | {smi}")
-    results["lm_head_lse_bf16"] = r
     del lse_sets
     torch.cuda.empty_cache()
-    return results
+    return r
 
 
 def fused_bf16_phase(rng, scale, smi):
@@ -2103,7 +2179,8 @@ AMP_KERNELS = {"flash_attn_fwd_bf16": ("flash_fwd_bf16_kernel",),
                "flash_attn_bwd_fused_bf16": ("bwd_fused_bf16_kernel",),
                "flash_attn_bwd_dq_bf16": ("bwd_dq_bf16_kernel",),
                "flash_attn_bwd_dkv_bf16": ("bwd_dkv_bf16_kernel",),
-               "lm_head_lse_bf16": ("lse_bf16_kernel",)}
+               "lm_head_lse_bf16": ("lse_bf16_kernel",
+                                    "lse_bf16_merge_kernel")}
 # cuBLAS's bf16 products (Hopper cuBLAS names its kernels nvjet_* or
 # sm90_xmma_gemm_*) and the dtype conversions / copies, by kernel name
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")

@@ -42,11 +42,13 @@
 // from shared memory, its blocks in a thread-block cluster along the kv
 // axis that sums dQ through distributed shared memory. The fixed operand
 // (K1, K3: the block's Q rows; K4, K2: its K / V) is loaded once and the
-// streamed tiles by TMA through a ring of mbarrier stages. K1 and K3 start
-// the blocks of the longest causal rows first; tiles wholly past the
-// causal diagonal or kv_len are not loaded, and masks run only in the
-// tiles that hold masked pairs. Head dims below 64 are zero-padded to 64
-// by the wrapper (ops/flash_attention.py).
+// streamed tiles by TMA through a ring of mbarrier stages (K1's, on a
+// persistent grid, runs on across its units). K1 and K3 start each
+// (batch, head)'s blocks of the longest causal rows first (K1: all heads'
+// first, when they fit one wave); tiles wholly past the causal diagonal
+// or kv_len are not loaded, and masks run only in the tiles that hold
+// masked pairs. Head dims below 64 are zero-padded to 64 by the wrapper
+// (ops/flash_attention.py).
 //
 // Interface: plain C, bound with ctypes; the arguments of the f32
 // entries (flash_attn_fwd.cu, flash_attn_bwd.cu) with bf16 tensors (K2's
@@ -246,40 +248,78 @@ struct FwdArgs {
   long long so[3];             // O's element strides (batch, head, row)
   int causal;
   float scale;
+  int bh, units;               // (batch, head)s; units = bh * q blocks
 };
 
 constexpr int kFwdStages = 3;                 // K / V tiles in flight
 constexpr int kFwdConsumers = 4;              // consumer warpgroups
-constexpr int kFwdBlock = kFwdConsumers * 64; // q rows of a block
+constexpr int kFwdBlock = kFwdConsumers * 64; // q rows of a unit
 constexpr int kFwdThreads = (kFwdConsumers + 1) * kWg;
 
 struct alignas(1024) FwdSmem {
-  bf16 q[kFwdConsumers * kBox];   // the block's rows, one box per consumer
-  bf16 k[kFwdStages][kBox];       // streamed key tiles
+  bf16 q[2][kFwdConsumers * kBox];  // two units' rows, one box a consumer
+  bf16 k[kFwdStages][kBox];         // streamed key tiles
   bf16 v[kFwdStages][kBox];
-  uint64_t q_full, full[kFwdStages], empty[kFwdStages];
+  uint64_t q_full[2], q_empty[2], full[kFwdStages], empty[kFwdStages];
 };
 
+// A K1 work unit: one 256-row q block of one (batch, head); a head's
+// last rows reach the most causal keys. When the bh (batch, head)s fit
+// the grid, unit u is q block nq - 1 - u / bh of head u % bh: all heads'
+// heaviest blocks come first. Otherwise unit u is q block nq - 1 - u % nq
+// of head u / nq, so a head's blocks run side by side and share its K / V
+// in L2 (at [32, 12, 1024, 64] the heads-first order ran 7 % slower).
+// Block i of G takes the units of round r at r * G + i (r even) or
+// r * G + G - 1 - i (r odd), so a heavy unit of one round meets a light
+// one of the next. n_tiles is -1 past the last unit.
+struct FwdUnit {
+  int b, h, bh, row0, klen, qoff, n_tiles;
+};
+
+__device__ __forceinline__ FwdUnit fwd_unit(const FwdArgs& a, int round) {
+  FwdUnit u;
+  const int G = gridDim.x, i = blockIdx.x;
+  const bool level_major = a.bh <= G;
+  const int id = round * G + ((round & 1) ? G - 1 - i : i);
+  if (id >= a.units) {
+    u.n_tiles = -1;
+    return u;
+  }
+  const int nq = (a.Tq + kFwdBlock - 1) / kFwdBlock;
+  u.bh = level_major ? id % a.bh : id / nq;
+  u.b = u.bh / a.n;
+  u.h = u.bh % a.n;
+  u.row0 = (nq - 1 - (level_major ? id / a.bh : id % nq)) * kFwdBlock;
+  u.klen = hp::warp_uniform(max(min(a.kv_len[u.b], a.Tk), 0));
+  u.qoff = hp::warp_uniform(a.q_start[u.b]);
+  // exclusive bound on the keys any row of the unit attends to
+  const int tile_limit =
+      a.causal ? max(min(u.klen, u.qoff + min(u.row0 + kFwdBlock, a.Tq)), 0)
+               : u.klen;
+  u.n_tiles = (tile_limit + kCols - 1) / kCols;
+  return u;
+}
+
+// K1 on a persistent grid (one block an SM) walking the units above.
+// The K / V ring and the double-buffered Q run on across units, so a
+// unit's first loads are in flight while the one before it finishes and
+// writes O; a Q buffer is free once all four warpgroups have arrived on
+// its q_empty barrier (each does so once a unit: after its last product
+// that reads Q, or at once when none of its rows is live).
 __global__ void __launch_bounds__(kFwdThreads, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       const FwdArgs a) {
   FwdSmem& sm = hp::aligned_smem<FwdSmem>();
-  const int bh = blockIdx.y, b = bh / a.n, h = bh % a.n;
-  // the causal rows reach the most keys at the end: start those first
-  const int row0 = (gridDim.x - 1 - blockIdx.x) * kFwdBlock;
-  const int rows = min(kFwdBlock, a.Tq - row0);
-  const int klen = hp::warp_uniform(max(min(a.kv_len[b], a.Tk), 0));
-  const int qoff = hp::warp_uniform(a.q_start[b]);
-  // exclusive bound on the keys any row of the block attends to
-  const int tile_limit =
-      a.causal ? max(min(klen, qoff + row0 + rows), 0) : klen;
-  const int n_tiles = (tile_limit + kCols - 1) / kCols;
   const int wg = hp::warp_uniform(threadIdx.x / kWg);
+  const int rounds = (a.units + gridDim.x - 1) / gridDim.x;
 
   if (threadIdx.x == 0) {
-    hp::mbar_init(&sm.q_full, 1);
+    for (int i = 0; i < 2; ++i) {
+      hp::mbar_init(&sm.q_full[i], 1);
+      hp::mbar_init(&sm.q_empty[i], kFwdConsumers * kWg);
+    }
     for (int s = 0; s < kFwdStages; ++s) {
       hp::mbar_init(&sm.full[s], 1);
       hp::mbar_init(&sm.empty[s], kFwdConsumers * kWg);
@@ -290,18 +330,26 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (wg == kFwdConsumers) {                  // the producer
     hp::regs_dealloc<24>();
-    if (threadIdx.x != kFwdConsumers * kWg || n_tiles == 0) return;
-    hp::mbar_arrive_tx(&sm.q_full, kFwdConsumers * kBoxBytes);
-    for (int c = 0; c < kFwdConsumers; ++c)
-      hp::tma_load_4d(sm.q + c * kBox, &tq, &sm.q_full, 0, row0 + 64 * c, h,
-                      b);
-    for (int j = 0; j < n_tiles; ++j) {
-      const int s = j % kFwdStages;
-      if (j >= kFwdStages)
-        hp::mbar_wait(&sm.empty[s], (j / kFwdStages - 1) & 1);
-      hp::mbar_arrive_tx(&sm.full[s], 2 * kBoxBytes);
-      hp::tma_load_4d(sm.k[s], &tk, &sm.full[s], 0, j * kCols, h, b);
-      hp::tma_load_4d(sm.v[s], &tv, &sm.full[s], 0, j * kCols, h, b);
+    if (threadIdx.x != kFwdConsumers * kWg) return;
+    int it = 0, qn = 0;                       // K / V tiles, Q loads issued
+    for (int r = 0; r < rounds; ++r) {
+      const FwdUnit u = fwd_unit(a, r);
+      if (u.n_tiles <= 0) continue;
+      const int qb = qn & 1;
+      if (qn >= 2) hp::mbar_wait(&sm.q_empty[qb], ((qn >> 1) - 1) & 1);
+      hp::mbar_arrive_tx(&sm.q_full[qb], kFwdConsumers * kBoxBytes);
+      for (int c = 0; c < kFwdConsumers; ++c)
+        hp::tma_load_4d(sm.q[qb] + c * kBox, &tq, &sm.q_full[qb], 0,
+                        u.row0 + 64 * c, u.h, u.b);
+      ++qn;
+      for (int j = 0; j < u.n_tiles; ++j, ++it) {
+        const int s = it % kFwdStages;
+        if (it >= kFwdStages)
+          hp::mbar_wait(&sm.empty[s], (it / kFwdStages - 1) & 1);
+        hp::mbar_arrive_tx(&sm.full[s], 2 * kBoxBytes);
+        hp::tma_load_4d(sm.k[s], &tk, &sm.full[s], 0, j * kCols, u.h, u.b);
+        hp::tma_load_4d(sm.v[s], &tv, &sm.full[s], 0, j * kCols, u.h, u.b);
+      }
     }
     return;
   }
@@ -309,136 +357,154 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   hp::regs_alloc<112>();                      // a consumer: 64 q rows
   const int w = (threadIdx.x & (kWg - 1)) >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int rbase = row0 + 64 * wg;
-  const int ra = rbase + 16 * w + g, rb = ra + 8;   // this thread's rows
-  // exclusive bounds on the live keys of rows ra, rb, and of the
-  // warpgroup's rows (tiles at or past it are dead for all of them)
-  const int lim_a = a.causal ? max(min(klen, qoff + ra + 1), 0) : klen;
-  const int lim_b = a.causal ? max(min(klen, qoff + rb + 1), 0) : klen;
-  const int wg_limit =
-      rbase >= a.Tq ? 0
-                    : (a.causal ? max(min(klen, qoff + rbase + 64), 0) : klen);
-  const int n_live = min(n_tiles, (wg_limit + kCols - 1) / kCols);
   const float sl2 = a.scale * kLog2e;
+  int it = 0, qn = 0;                         // as the producer's
+  for (int r = 0; r < rounds; ++r) {
+    const FwdUnit u = fwd_unit(a, r);
+    if (u.n_tiles < 0) continue;
+    const int rbase = u.row0 + 64 * wg;
+    const int ra = rbase + 16 * w + g, rb = ra + 8;   // this thread's rows
+    // exclusive bounds on the live keys of rows ra, rb, and of the
+    // warpgroup's rows (tiles at or past it are dead for all of them)
+    const int lim_a =
+        a.causal ? max(min(u.klen, u.qoff + ra + 1), 0) : u.klen;
+    const int lim_b =
+        a.causal ? max(min(u.klen, u.qoff + rb + 1), 0) : u.klen;
+    const int wg_limit =
+        rbase >= a.Tq
+            ? 0
+            : (a.causal ? max(min(u.klen, u.qoff + rbase + 64), 0) : u.klen);
+    const int n_live = min(u.n_tiles, (wg_limit + kCols - 1) / kCols);
 
-  float o[32];
+    float o[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY;     // running raw max (quad-shared)
-  float l_a = 0.f, l_b = 0.f;                 // this thread's share of sums
-  const bf16* qt = sm.q + wg * kBox;
-  float sc[32];
-  uint32_t pa[4][4];
-  float corr_a = 0.f, corr_b = 0.f;
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    float m_a = -INFINITY, m_b = -INFINITY;   // running raw max (quad-shared)
+    float l_a = 0.f, l_b = 0.f;               // this thread's share of sums
+    float sc[32];
+    uint32_t pa[4][4];
+    float corr_a = 0.f, corr_b = 0.f;
 
-  // the online softmax of tile j's scores in sc (in base 2: exp2 of
-  // s * scale * log2(e) minus the running max's), masked only in tiles
-  // with masked pairs; leaves P (f32) in sc and O's corrections for rows
-  // a and b in corr_a, corr_b
-  auto softmax = [&](int j) {
-    const int c0 = j * kCols;
-    if ((a.causal && c0 + 63 > qoff + rbase) || c0 + 64 > klen) {
+    // the online softmax of tile j's scores in sc (in base 2: exp2 of
+    // s * scale * log2(e) minus the running max's), masked only in tiles
+    // with masked pairs; leaves P (f32) in sc and O's corrections for rows
+    // a and b in corr_a, corr_b
+    auto softmax = [&](int j) {
+      const int c0 = j * kCols;
+      if ((a.causal && c0 + 63 > u.qoff + rbase) || c0 + 64 > u.klen) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = c0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          if (col >= (((i >> 1) & 1) ? lim_b : lim_a)) sc[i] = -INFINITY;
+        }
+      }
+      float mx_a = m_a, mx_b = m_b;
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
-        const int col = c0 + 8 * (i >> 2) + 2 * t + (i & 1);
-        if (col >= (((i >> 1) & 1) ? lim_b : lim_a)) sc[i] = -INFINITY;
+        if ((i >> 1) & 1)
+          mx_b = fmaxf(mx_b, sc[i]);
+        else
+          mx_a = fmaxf(mx_a, sc[i]);
       }
-    }
-    float mx_a = m_a, mx_b = m_b;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      if ((i >> 1) & 1)
-        mx_b = fmaxf(mx_b, sc[i]);
-      else
-        mx_a = fmaxf(mx_a, sc[i]);
+      for (int x = 1; x <= 2; x <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, x));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, x));
+      }
+      // a row with no live key yet keeps max -inf: exponents against 0
+      const float base_a = mx_a == -INFINITY ? 0.f : mx_a * sl2;
+      const float base_b = mx_b == -INFINITY ? 0.f : mx_b * sl2;
+      corr_a = hp::exp2_approx(m_a * sl2 - base_a);
+      corr_b = hp::exp2_approx(m_b * sl2 - base_b);
+      m_a = mx_a;
+      m_b = mx_b;
+      l_a *= corr_a;
+      l_b *= corr_b;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const bool hi = (i >> 1) & 1;
+        sc[i] = hp::exp2_approx(fmaf(sc[i], sl2, -(hi ? base_b : base_a)));
+        if (hi)
+          l_b += sc[i];                       // the f32 P sums, as K1's l
+        else
+          l_a += sc[i];
+      }
+    };
+    // O *= the last softmax's corrections (O holds the products of the
+    // tiles before its tile)
+    auto rescale_o = [&]() {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] *= ((i >> 1) & 1) ? corr_b : corr_a;
+    };
+
+    if (u.n_tiles > 0) {
+      const int qb = qn & 1;
+      const bf16* qt = sm.q[qb] + wg * kBox;
+      hp::mbar_wait(&sm.q_full[qb], (qn >> 1) & 1);
+      if (n_live > 0) {
+        int s = it % kFwdStages;
+        hp::mbar_wait(&sm.full[s], (it / kFwdStages) & 1);
+        hp::wgmma_fence();
+        tile_product(sc, qt, sm.k[s]);        // S_0 = Q.K_0^T
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+        hp::fence_acc(sc);
+        softmax(0);
+        pack_a(pa, sc);                       // P rounded to bf16
+        // tile j: S_j, then P_{j-1}.V_{j-1}; the softmax of S_j runs while
+        // that product does; O is rescaled and P_j packed once it is done
+        for (int j = 1; j < n_live; ++j) {
+          const int sp = s;
+          s = (it + j) % kFwdStages;
+          hp::mbar_wait(&sm.full[s], ((it + j) / kFwdStages) & 1);
+          hp::wgmma_fence();
+          tile_product(sc, qt, sm.k[s]);      // S_j = Q.K_j^T
+          hp::wgmma_commit();
+          tile_product_rs(o, pa, sm.v[sp]);   // O += P_{j-1}.V_{j-1}
+          hp::wgmma_commit();
+          hp::wgmma_wait<1>();                // S_j
+          hp::fence_acc(sc);
+          softmax(j);
+          hp::wgmma_wait<0>();                // P_{j-1}.V_{j-1}
+          hp::mbar_arrive(&sm.empty[sp]);
+          hp::fence_acc(o);
+          rescale_o();
+          pack_a(pa, sc);
+        }
+        hp::wgmma_fence();
+        tile_product_rs(o, pa, sm.v[s]);      // the last P.V
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+        hp::mbar_arrive(&sm.empty[s]);
+        hp::fence_acc(o);
+      }
+      hp::mbar_arrive(&sm.q_empty[qb]);       // Q is read no more
+      // tiles past this warpgroup's rows: free their stages
+      for (int j = max(n_live, 0); j < u.n_tiles; ++j) {
+        const int s = (it + j) % kFwdStages;
+        hp::mbar_wait(&sm.full[s], ((it + j) / kFwdStages) & 1);
+        hp::mbar_arrive(&sm.empty[s]);
+      }
+      it += u.n_tiles;
+      ++qn;
     }
 #pragma unroll
     for (int x = 1; x <= 2; x <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, x));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, x));
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, x);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, x);
     }
-    // a row with no live key yet keeps max -inf: exponents against 0
-    const float base_a = mx_a == -INFINITY ? 0.f : mx_a * sl2;
-    const float base_b = mx_b == -INFINITY ? 0.f : mx_b * sl2;
-    corr_a = hp::exp2_approx(m_a * sl2 - base_a);
-    corr_b = hp::exp2_approx(m_b * sl2 - base_b);
-    m_a = mx_a;
-    m_b = mx_b;
-    l_a *= corr_a;
-    l_b *= corr_b;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const bool hi = (i >> 1) & 1;
-      sc[i] = hp::exp2_approx(fmaf(sc[i], sl2, -(hi ? base_b : base_a)));
-      if (hi)
-        l_b += sc[i];                         // the f32 P sums, as K1's l
-      else
-        l_a += sc[i];
+    // a fully masked row keeps max -inf: O = 0 and the LSE sentinel
+    const bool dead_a = m_a == -INFINITY, dead_b = m_b == -INFINITY;
+    store_acc(a.o + u.b * a.so[0] + u.h * a.so[1], a.so[2], o,
+              dead_a ? 0.f : 1.f / l_a, dead_b ? 0.f : 1.f / l_b, rbase,
+              a.Tq);
+    if (t == 0) {
+      float* lrow = a.lse + (long long)u.bh * a.Tq;
+      if (ra < a.Tq)
+        lrow[ra] = dead_a ? kNegSentinel : m_a * a.scale + logf(l_a);
+      if (rb < a.Tq)
+        lrow[rb] = dead_b ? kNegSentinel : m_b * a.scale + logf(l_b);
     }
-  };
-  // O *= the last softmax's corrections (O holds the products of the
-  // tiles before its tile)
-  auto rescale_o = [&]() {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= ((i >> 1) & 1) ? corr_b : corr_a;
-  };
-
-  if (n_live > 0) {
-    hp::mbar_wait(&sm.q_full, 0);
-    hp::mbar_wait(&sm.full[0], 0);
-    hp::wgmma_fence();
-    tile_product(sc, qt, sm.k[0]);            // S_0 = Q.K_0^T
-    hp::wgmma_commit();
-    hp::wgmma_wait<0>();
-    hp::fence_acc(sc);
-    softmax(0);
-    pack_a(pa, sc);                           // P rounded to bf16
-    // tile j: S_j, then P_{j-1}.V_{j-1}; the softmax of S_j runs while
-    // that product does; O is rescaled and P_j packed once it is done
-    for (int j = 1; j < n_live; ++j) {
-      const int s = j % kFwdStages, sp = (j - 1) % kFwdStages;
-      hp::mbar_wait(&sm.full[s], (j / kFwdStages) & 1);
-      hp::wgmma_fence();
-      tile_product(sc, qt, sm.k[s]);          // S_j = Q.K_j^T
-      hp::wgmma_commit();
-      tile_product_rs(o, pa, sm.v[sp]);       // O += P_{j-1}.V_{j-1}
-      hp::wgmma_commit();
-      hp::wgmma_wait<1>();                    // S_j
-      hp::fence_acc(sc);
-      softmax(j);
-      hp::wgmma_wait<0>();                    // P_{j-1}.V_{j-1}
-      hp::mbar_arrive(&sm.empty[sp]);
-      hp::fence_acc(o);
-      rescale_o();
-      pack_a(pa, sc);
-    }
-    const int sl = (n_live - 1) % kFwdStages;
-    hp::wgmma_fence();
-    tile_product_rs(o, pa, sm.v[sl]);         // the last P.V
-    hp::wgmma_commit();
-    hp::wgmma_wait<0>();
-    hp::mbar_arrive(&sm.empty[sl]);
-    hp::fence_acc(o);
-  }
-  // tiles past this warpgroup's rows: free their stages
-  for (int j = max(n_live, 0); j < n_tiles; ++j) {
-    const int s = j % kFwdStages;
-    hp::mbar_wait(&sm.full[s], (j / kFwdStages) & 1);
-    hp::mbar_arrive(&sm.empty[s]);
-  }
-#pragma unroll
-  for (int x = 1; x <= 2; x <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, x);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, x);
-  }
-  // a fully masked row keeps max -inf: O = 0 and the LSE sentinel
-  const bool dead_a = m_a == -INFINITY, dead_b = m_b == -INFINITY;
-  store_acc(a.o + b * a.so[0] + h * a.so[1], a.so[2], o,
-            dead_a ? 0.f : 1.f / l_a, dead_b ? 0.f : 1.f / l_b, rbase, a.Tq);
-  if (t == 0) {
-    float* lrow = a.lse + (long long)bh * a.Tq;
-    if (ra < a.Tq) lrow[ra] = dead_a ? kNegSentinel : m_a * a.scale + logf(l_a);
-    if (rb < a.Tq) lrow[rb] = dead_b ? kNegSentinel : m_b * a.scale + logf(l_b);
   }
 }
 
@@ -1141,13 +1207,16 @@ extern "C" int pt_flash_attn_fwd_bf16(
       !make_map(&maps[1], k, B, n, Tk, sk) ||
       !make_map(&maps[2], v, B, n, Tk, sv))
     return -3;
+  a.bh = B * n;
+  a.units = a.bh * ((Tq + kFwdBlock - 1) / kFwdBlock);
+  if (a.units == 0) return 0;
   const int smem = static_cast<int>(sizeof(FwdSmem)) + 1024;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_bf16_kernel<<<dim3((Tq + kFwdBlock - 1) / kFwdBlock, B * n),
-                          kFwdThreads, smem,
+  const int sms = hp::sm_count();
+  flash_fwd_bf16_kernel<<<a.units < sms ? a.units : sms, kFwdThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], a);
   return static_cast<int>(cudaGetLastError());

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the warp-specialised kernels (the
-// bf16 K1-K4 in flash_attn_bf16.cu, K6 in int8_matmul.cu): mbarriers,
-// TMA tile loads and the host's tensor-map encoder, thread-block cluster
-// barriers and distributed shared memory (K2), the 1024-byte-aligned
+// bf16 K1-K4 in flash_attn_bf16.cu, K6 in int8_matmul.cu, the bf16 K5 in
+// lm_head_lse_bf16.cu): mbarriers, TMA tile loads (multicast to a cluster
+// for K5), the host's tensor-map encoder and SM count, thread-block cluster
+// barriers and distributed shared memory (K2, K5), the 1024-byte-aligned
 // dynamic shared memory, the wgmma shared-memory descriptor and the bf16
 // wgmma m64n64k16 products.
 //
@@ -123,6 +124,16 @@ __device__ __forceinline__ void mbar_arrive_remote(uint32_t addr) {
       :: "r"(addr) : "memory");
 }
 
+// one arrival on an mbarrier of another block with the default
+// (CTA-scope) release: enough to free a buffer that the arriving threads
+// only read through wgmma, as CUTLASS's consumer release does; the
+// cluster-scope release of mbar_arrive_remote cost the bf16 K5 a third
+// of its time
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t addr) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];"
+               :: "r"(addr) : "memory");
+}
+
 // mbar_wait that acquires at cluster scope: what another block wrote
 // before its releasing arrival is visible after it
 __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
@@ -176,6 +187,22 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 2-D tensor map into the shared memory of every block of
+// the cluster in `mask` (same offset), completing its bytes on each
+// block's mbarrier at `bar`'s offset
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global"
+      ".mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1, {%3, %4}], [%2], %5;"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
 // cuTensorMapEncodeTiled, looked up at run time (no link against
 // libcuda); nullptr when the driver does not have it
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -197,6 +224,20 @@ inline EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// the card's SM count (132 on an H100 SXM when the query fails): the
+// persistent grids of K1-bf16, K5-bf16 and K6
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  return sms;
 }
 
 // the dynamic shared memory as a T, rounded up to the 1024-byte boundary
@@ -223,10 +264,13 @@ __device__ __forceinline__ void regs_alloc() {
 // -- wgmma -------------------------------------------------------------------
 
 // descriptor of a 128-byte-swizzled tile at `p` (1024-byte aligned tile
-// base plus the slice offset); SBO 1024 bytes, LBO 16 bytes (unused)
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+// base plus the slice offset); SBO 1024 bytes; LBO the distance between
+// 64-column groups of an MN-major operand wider than 64 (K5-bf16's w),
+// unused otherwise
+__device__ __forceinline__ uint64_t desc_sw128(const void* p,
+                                               uint32_t lbo = 16) {
   const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 

@@ -380,18 +380,6 @@ bool make_map(CUtensorMap* map, const void* base, int rows, int K,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 132;
-  }
-  return sms;
-}
-
 template <bool kF32>
 int launch(const void* x, long long lda, const void* w, long long ldb,
            const Args& a, int K, cudaStream_t stream) {
@@ -403,7 +391,7 @@ int launch(const void* x, long long lda, const void* w, long long ldb,
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = a.tiles < sm_count() ? a.tiles : sm_count();
+  const int grid = a.tiles < hp::sm_count() ? a.tiles : hp::sm_count();
   kernel<<<grid, kThreads, smem, stream>>>(ta, tb, a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,10 +6,11 @@ loss[i] = logsumexp(x[i] @ w) - (x[i] @ w)[labels[i]], with the [N, V]
 logits never materialized in the forward: the picked logit is one
 row-gather of w^T and a rowwise dot, and the lse comes from
 `lm_head_lse` — K5 (`csrc/lm_head_lse.cu` for f32 operands, 3xTF32
-tensor-core products over a split vocabulary whose per-split (max,
-denominator) a second pass merges in order; `csrc/lm_head_lse_bf16.cu`
-for bf16 amp operands; the counterparts of `_lse_kernel`) on a CUDA
-tensor, its plain chunked version on a CPU tensor. The reference elects its Pallas lse with a flag and a VMEM gate
+tensor-core products; `csrc/lm_head_lse_bf16.cu` for bf16 amp operands,
+wgmma + TMA; both over a split vocabulary whose per-split (max,
+denominator) a second pass merges in order; the counterparts of
+`_lse_kernel`) on a CUDA tensor, its plain chunked version on a CPU
+tensor. The reference elects its Pallas lse with a flag and a VMEM gate
 (`resolve_lse_mode`, `_lse_supports`); the port uses the kernel whenever
 the tensors are on the card. The backward (`_xent_bwd`) is plain torch
 matmuls over vocab chunks, as the reference leaves it to XLA: it reads
@@ -32,6 +33,9 @@ __all__ = ["lm_head_lse", "lm_head_lse_bf16", "lm_head_lse_plain",
 
 LSE_MAX_H = 768         # the H the K5 kernels take
 LSE_ROWS = LSE_COLS = 128   # the f32 K5's block tile (csrc/lm_head_lse.cu)
+# the bf16 K5's work unit: 128 rows x 256-column logits tiles
+# (csrc/lm_head_lse_bf16.cu)
+LSE_BF16_ROWS, LSE_BF16_COLS = 128, 256
 
 
 def auto_chunks(V):
@@ -47,7 +51,8 @@ def lm_head_lse_plain(x, w, chunk=4096, splits=1):
     over vocab chunks (the kernel's arithmetic in chunk-sized steps).
     With `splits` > 1 the vocabulary is cut into ranges of ceil(V /
     splits) columns, each range's (max, denominator) is taken that way
-    and the ranges are merged in order: the f32 K5's split and merge."""
+    and the ranges are merged in order: the K5 kernels' split and
+    merge."""
     N, V = x.shape[0], w.shape[1]
     width = max(1, -(-V // splits))
     parts = []
@@ -72,31 +77,30 @@ def lm_head_lse_plain(x, w, chunk=4096, splits=1):
     return mx + torch.log(s)
 
 
-def lse_splits(N, V, sms):
-    """The vocab splits the f32 K5 runs: (row block, split) blocks for
-    about 16 a streaming multiprocessor (one is resident at a time, so
-    the last wave is a small share of the run), at most one split a
-    128-column vocab tile."""
-    row_blocks = max(1, -(-N // LSE_ROWS))
-    tiles = max(1, -(-V // LSE_COLS))
+def lse_splits(N, V, sms, rows=LSE_ROWS, cols=LSE_COLS):
+    """The vocab splits a K5 kernel runs: (row block, split) work units
+    for about 16 a streaming multiprocessor (one is resident at a time,
+    so the last wave is a small share of the run), at most one split a
+    vocab tile. `rows` x `cols` is the kernel's unit of rows and its
+    logits tile: the f32 K5's by default, LSE_BF16_ROWS x LSE_BF16_COLS
+    for the bf16 one."""
+    row_blocks = max(1, -(-N // rows))
+    tiles = max(1, -(-V // cols))
     return max(1, min(tiles, -(-16 * sms // row_blocks)))
 
 
 def _lse_lib(dtype):
-    """The C entry of K5 for `dtype`: bf16 (`lm_head_lse_bf16.cu`: x, w,
-    lse, N, H, V, the row strides, the stream) or f32 (`lm_head_lse.cu`:
-    the same with the split scratch after lse and the split count before
-    the stream)."""
+    """The C entry of K5 for `dtype`, bf16 (`lm_head_lse_bf16.cu`) or
+    f32 (`lm_head_lse.cu`); both take x, w, lse, the split scratch, N, H,
+    V, the row strides, the split count and the stream."""
     from .._build import load_library
-    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if dtype == torch.bfloat16:
         fn = load_library("lm_head_lse_bf16").pt_lm_head_lse_bf16
-        argtypes = [vp, vp, vp, i, i, i, ll, ll, vp]
     else:
         fn = load_library("lm_head_lse").pt_lm_head_lse_f32
-        argtypes = [vp, vp, vp, vp, i, i, i, ll, ll, i, vp]
     if fn.argtypes is None:
-        fn.argtypes = argtypes
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [vp, vp, vp, vp, i, i, i, ll, ll, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -149,18 +153,15 @@ def lm_head_lse(x, w):
         return lse
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bf16 = x.dtype == torch.bfloat16
-    if bf16:
-        rc = _lse_lib(x.dtype)(x.data_ptr(), w.data_ptr(), lse.data_ptr(),
-                               N, H, V, x.stride(0), w.stride(0), stream)
-    else:
-        # each vocab split's (max, denominator) per row, merged in order
-        splits = lse_splits(N, V, torch.cuda.get_device_properties(
-            x.device).multi_processor_count)
-        scratch = torch.empty((2, splits, N), dtype=torch.float32,
-                              device=x.device)
-        rc = _lse_lib(x.dtype)(x.data_ptr(), w.data_ptr(), lse.data_ptr(),
-                               scratch.data_ptr(), N, H, V, x.stride(0),
-                               w.stride(0), splits, stream)
+    # each vocab split's (max, denominator) per row, merged in order
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = (lse_splits(N, V, sms, rows=LSE_BF16_ROWS, cols=LSE_BF16_COLS)
+              if bf16 else lse_splits(N, V, sms))
+    scratch = torch.empty((2, splits, N), dtype=torch.float32,
+                          device=x.device)
+    rc = _lse_lib(x.dtype)(x.data_ptr(), w.data_ptr(), lse.data_ptr(),
+                           scratch.data_ptr(), N, H, V, x.stride(0),
+                           w.stride(0), splits, stream)
     if rc != 0:
         raise RuntimeError(f"lm_head_lse ({x.dtype}) kernel launch failed: "
                            f"cudaError {rc} (N={N}, H={H}, V={V})")

@@ -6,7 +6,8 @@ the card) against the JAX package's Pallas kernel run in interpret mode
 with bf16 inputs: K1 forward, the fused backward K2 (16- or 32-key
 blocks, so the reference takes its fused route) and K2's sum-and-cast of
 its f32 dq partials, the split backward K3 + K4 (Tk 64 in 8-key blocks,
-so the reference takes its split route), K5. And the
+so the reference takes its split route), K5 unsplit and in the vocab
+splits its kernel merges in order (with the split count's rule). And the
 padded-D route the CUDA wrappers take for a head dim below the kernels'
 (the reference's `_pad_d`), applied to CPU tensors through the same
 helpers, against Pallas at D 8, 16 and 48.
@@ -234,6 +235,56 @@ def test_k5_bf16_plain_matches_pallas_lse_interpret(N, H, V):
     assert ce.lm_head_lse_bf16.launches == before
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("N,H,V,splits", [(20, 32, 200, 3),
+                                          (9, 48, 1000, 7),
+                                          (64, 64, 96, 5),
+                                          (33, 32, 525, 2)])
+def test_plain_lse_bf16_split_merge_matches_jax_pallas_lse_interpret(
+        N, H, V, splits):
+    """The bf16 K5's split and merge as plain arithmetic (each vocab
+    range of ceil(V / splits) columns reduced to a (max, denominator) per
+    row, the ranges merged in order) on bf16 x and w, against the
+    reference's Pallas lse in interpret mode on the same bf16 operands,
+    with a ragged last range and V not a multiple of the reference's
+    64-column blocks. Tolerance 1e-5, as the unsplit version's."""
+    assert V % -(-V // splits) and V % 64        # ragged ranges and blocks
+    x, = _bf16_inputs([(N, H)], seed=N * splits)
+    w, = _bf16_inputs([(H, V)], seed=V + splits)
+    w = (torch.from_numpy(w) * 0.25).bfloat16()   # a power of 2: exact
+    ref = np.asarray(jce.pallas_lse(jnp.asarray(x, jnp.bfloat16),
+                                    jnp.asarray(w.float().numpy(),
+                                                jnp.bfloat16),
+                                    bn=8, bv=64, interpret=True))
+    got = ce.lm_head_lse_plain(_bf(x), w, chunk=16, splits=splits)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_lse_splits_for_the_bf16_tile_fill_the_card_and_stay_in_range():
+    """The bf16 K5's split count (units of 128 rows x 256-column
+    logits tiles): at the amp B 8 step's N 8192 (64 row blocks, 197
+    vocab tiles) 2112 units, 16 for each of an H100's 132 SMs, and at
+    B 32's N 32768 at least as many; never more splits than vocab tiles,
+    never fewer than one; the f32 K5's answers unchanged."""
+    rows, cols = ce.LSE_BF16_ROWS, ce.LSE_BF16_COLS
+    assert (rows, cols) == (128, 256)
+
+    def splits(N, V):
+        return ce.lse_splits(N, V, 132, rows=rows, cols=cols)
+    assert splits(8192, 50304) == 33
+    assert 64 * splits(8192, 50304) == 16 * 132
+    assert 256 * splits(32768, 50304) >= 16 * 132
+    assert splits(300, 1000) == 4                  # at most one a tile
+    assert splits(200, 8) == 1                     # V below one tile
+    assert splits(1, 50304) == 197
+    assert splits(10**6, 50304) == 1               # rows alone fill it
+    for N in (1, 129, 8192, 32768):
+        for V in (8, 256, 257, 50304):
+            k = splits(N, V)
+            assert 1 <= k <= -(-V // cols)
+    assert ce.lse_splits(8192, 50304, 132) == 33   # the f32 K5's
 
 
 def test_chunked_xent_bf16_matches_jax_values_and_gradients():

@@ -413,6 +413,50 @@ def test_flash_attn_fwd_bf16_kernel_matches_plain(card, causal, B, Tq, Tk,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal,B,n,Tq,Tk,kv_len,q_start", [
+    # 4 q blocks x 96 (batch, head)s: more units than 132 SMs
+    (True, 8, 12, 1024, 1024, [1024] * 8, [0] * 8),
+    # 2 units: fewer than the SMs; Tq not a multiple of 256
+    (True, 1, 2, 300, 300, [300], [0]),
+    # 144 (batch, head)s, more than the SMs: each head's blocks together
+    (True, 12, 12, 520, 520, [520, 1, 300] * 4, [0] * 12),
+    # ragged kv_len with a zero, Tq not a multiple of 256
+    (True, 4, 3, 700, 700, [700, 513, 0, 1], [0, 0, 0, 0]),
+    # query offsets (a prefix of cached keys), causal and not
+    (True, 3, 2, 260, 900, [900, 520, 700], [640, 260, 0]),
+    (False, 3, 2, 260, 900, [900, 520, 0], [640, 260, 0]),
+    (False, 2, 12, 512, 512, [512, 300], [0, 0]),
+])
+def test_flash_attn_fwd_bf16_kernel_block_order_and_ragged_cases(
+        card, causal, B, n, Tq, Tk, kv_len, q_start):
+    """K1-bf16 on its persistent grid (units taken heaviest causal block
+    first: all heads' when they fit the grid, else each head's) against
+    its plain version: more and fewer units than SMs, more (batch,
+    head)s than SMs, Tq not a multiple of the 256-row unit, ragged
+    kv_len with an empty batch, q_start > 0, non-causal."""
+    rng = np.random.RandomState(Tq + Tk + B)
+    q, k, v = (torch.from_numpy(rng.randn(B, n, T, 64).astype(np.float32))
+               .to(card, torch.bfloat16) for T in (Tq, Tk, Tk))
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=card)
+    starts = torch.tensor(q_start, dtype=torch.int32, device=card)
+    before = fa.flash_attn_fwd_bf16.launches
+    o, lse = fa.flash_attn_fwd_bf16(q, k, v, lens, starts, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attn_fwd_bf16.launches == before + 1
+    ref_o, ref_lse = fa.flash_attn_fwd_plain(q, k, v, lens, starts, causal)
+    err = _bf16_err(o, ref_o)
+    lse_err = float((lse - ref_lse).abs().max())
+    print(f"K1-bf16 [{B},{n},{Tq},{Tk}] causal {causal}: O {err:.3e} of "
+          f"max, LSE {lse_err:.3e}")
+    assert err <= BF16_REL
+    assert lse_err <= 1e-4
+    for b, n_live in enumerate(kv_len):
+        if n_live == 0:
+            assert float(o[b].float().abs().max()) == 0.0
+            assert bool((lse[b] == fa.NEG).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("causal,B,n,Tq,Tk,kv_len", [
     (True, 2, 12, 1024, 1024, [1024, 1024]),    # the training length
     (True, 3, 4, 300, 500, [500, 257, 0]),      # Tq != Tk, ragged
@@ -642,7 +686,10 @@ def test_bf16_paths_without_a_kernel_raise(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,H,V", [(8192, 768, 50304), (300, 768, 5000),
-                                   (64, 64, 96), (5, 32, 72)])
+                                   (64, 64, 96), (5, 32, 72),
+                                   (1, 768, 50304),     # N = 1
+                                   (200, 768, 104),     # V below one tile
+                                   (333, 96, 1000)])    # N, V, H ragged
 def test_lm_head_lse_bf16_kernel_matches_plain(card, N, H, V):
     rng = np.random.RandomState(N + V)
     x = torch.from_numpy(rng.randn(N, H).astype(np.float32)).to(
@@ -659,6 +706,67 @@ def test_lm_head_lse_bf16_kernel_matches_plain(card, N, H, V):
     print(f"K5-bf16 [{N},{H}] @ [{H},{V}]: max_abs_err {err:.3e}")
     # f32 sums of exact bf16 products, in another order: 1e-4 absolute on
     # values of order log(V)
+    assert err <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,V,splits", [
+    (8192, 768, 50304, 1),       # one split: every tile in one unit
+    (8192, 768, 50304, 33),      # the training shape's splits
+    (8192, 768, 50304, 197),     # one 256-column tile a split
+    (300, 768, 5000, 7),         # N not a multiple of 128, ragged splits
+    (129, 64, 50304, 4),         # one row into a third row block
+    (1, 768, 1000, 3),           # N = 1
+    (200, 32, 8, 5),             # V below one tile: one split used
+])
+def test_lm_head_lse_bf16_kernel_splits_and_merges(card, N, H, V, splits):
+    """The bf16 K5's C entry at a given split count (the wrapper picks
+    one by lse_splits) against the plain version at 1e-4 absolute: N, V
+    and the split width ragged, V not a multiple of the 256-column tile,
+    V below one tile; two calls give the same bits."""
+    rng = np.random.RandomState(N + H + V + splits)
+    x = torch.from_numpy(rng.randn(N, H).astype(np.float32)).to(
+        card, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(H, V) * 0.05).astype(np.float32)).to(
+        card, torch.bfloat16)
+    fn = ce._lse_lib(torch.bfloat16)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    outs = []
+    for _ in range(2):
+        lse = torch.empty(N, dtype=torch.float32, device=card)
+        scratch = torch.full((2, splits, N), float("nan"),
+                             dtype=torch.float32, device=card)
+        assert fn(x.data_ptr(), w.data_ptr(), lse.data_ptr(),
+                  scratch.data_ptr(), N, H, V, x.stride(0), w.stride(0),
+                  splits, stream) == 0
+        outs.append(lse)
+    torch.cuda.synchronize()
+    err = float((outs[0] - ce.lm_head_lse_plain(x, w)).abs().max())
+    print(f"K5-bf16 [{N},{H}] @ [{H},{V}] splits {splits}: max_abs_err "
+          f"{err:.3e}")
+    assert err <= 1e-4
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_lm_head_lse_bf16_wrapper_counts_one_launch_and_repeats(card):
+    """One call of the bf16 wrapper (the split kernel and its merge)
+    counts one launch on lm_head_lse_bf16 and none on the f32 K5; two
+    calls at the B 32 amp step's N give the same bits."""
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(32768, 768).astype(np.float32)).to(
+        card, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(768, 50304) * 0.02).astype(np.float32)
+                         ).to(card, torch.bfloat16)
+    before = (ce.lm_head_lse.launches, ce.lm_head_lse_bf16.launches)
+    got = ce.lm_head_lse_bf16(x, w)
+    assert (ce.lm_head_lse.launches,
+            ce.lm_head_lse_bf16.launches) == (before[0], before[1] + 1)
+    again = ce.lm_head_lse(x, w)
+    torch.cuda.synchronize()
+    assert ce.lm_head_lse_bf16.launches == before[1] + 2
+    assert torch.equal(got, again)
+    err = float((got[:4096] - ce.lm_head_lse_plain(x[:4096], w)).abs().max())
     assert err <= 1e-4
 
 

@@ -1,7 +1,7 @@
 """Time the flash-attention and int8 kernels of one checkout of the port,
 for A/B comparisons of kernel variants.
 
-    python3 tools/flash_ab.py TREE LABEL [f32|bf16|int8|lse|step|short|all[,...]]
+    python3 tools/flash_ab.py TREE LABEL [f32|bf16|int8|lse|lse16|step|short|amp32|all[,...]]
 
 TREE is a directory holding `chip_smoke.py` and `paddle_tpu_torch/` (a
 `git archive` of a commit, or a copy with a variant of csrc/); its
@@ -17,9 +17,9 @@ kernels are built from its own sources. Prints lines tagged "AB LABEL":
   f32 backward library: the HMMA (mma.sync) and LDGSTS (cp.async)
   instructions in bwd_dq_kernel, bwd_dkv_kernel and
   bwd_fused_tc_kernel;
-- bf16: K1-bf16 at [8, 12, 1024, 64] causal beside cuDNN's SDPA
-  forward, K3-bf16 and K4-bf16 at the same shape (views of the packed
-  planes) and K2-bf16 at [32, 12, 256, 64] where the tree has it, with
+- bf16: K1-bf16 at [8, 12, 1024, 64] and [32, 12, 1024, 64] causal
+  beside cuDNN's SDPA forward, K3-bf16 and K4-bf16 at the first shape
+  (views of the packed planes) and K2-bf16 at [32, 12, 256, 64] where the tree has it, with
   their errors relative to the largest plain output, beside the device
   time of cuDNN's SDPA backward on the same inputs; K2-bf16 also without
   the wrapper's sum of f32 dq partials, where the tree has one; then the
@@ -37,13 +37,21 @@ kernels are built from its own sources. Prints lines tagged "AB LABEL":
   beside torch.logsumexp(x @ w), its error against the plain version,
   whether two calls give the same bits, and the HMMA / LDGSTS counts of
   the built lse_kernel;
+- lse16 (not in `all`): the bf16 K5 at x [8192, 768] @ w [768, 50304]
+  (the amp B 8 step's shape) and at x [32768, 768] (B 32) beside
+  torch.logsumexp(torch.mm(x, w, out_dtype=float32)), its error against
+  the plain version, whether two calls give the same bits, and the
+  HGMMA / UTMALDG / HMMA counts of the built lse_bf16_kernel;
 - step (not in `all`): the tree's own f32 training phase (chip_smoke's
   phase 7: GPT-2-small, T 1024, batch 8, the split K3 + K4 route): the
   unprofiled step wall and a profiled step's device time, busy share
   and K3 / K4 / K5 device ms;
 - short (not in `all`): the tree's own T 256, B 32 phases, f32 (phase 8:
   K2, K5) and amp (phase 13: K2-bf16, K5-bf16): step wall, a profiled
-  step's device time and its K2 / K5 ms.
+  step's device time and its K2 / K5 ms;
+- amp32 (not in `all`): the tree's own amp phase at T 1024, B 32
+  (chip_smoke's phase 14): step wall, a profiled step's device time,
+  busy share and its bf16 K5 / K1 ms a step.
 
 Compare two trees only within one call, in turns: parent, change,
 change, parent. Needs a CUDA card.
@@ -163,6 +171,23 @@ def bf16_kernels(cs, label):
     print(f"AB {label} bf16 [{B}, 12, {T}, 64]: K1 {k1:.4f} ms err {e1:.2e} "
           f"(LSE {e1l:.2e}) | cuDNN SDPA forward {sdpa:.4f} ms", flush=True)
     del fsets, o, lse, o_ref, lse_ref
+    # K1-bf16 at the amp B 32 step's shape, beside cuDNN's forward
+    B32 = 32
+    big = [cs.bf16_attn_inputs(rng, B32, T, T, [T] * B32, True, scale)[0][:3]
+           for _ in range(2)]
+    lens32 = torch.full((B32,), T, dtype=torch.int32, device="cuda")
+    k1_32 = cs.time_ms(lambda q, k, v: fa.flash_attn_fwd_bf16(
+        q, k, v, lens32, torch.zeros_like(lens32), True, scale), big,
+        reps=20)
+    sdpa_32 = cs.time_ms(lambda q, k, v: torch.nn.functional
+                         .scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True,
+                                                       scale=scale),
+                         big, reps=20)
+    print(f"AB {label} bf16 [{B32}, 12, {T}, 64]: K1 {k1_32:.4f} ms | cuDNN "
+          f"SDPA forward {sdpa_32:.4f} ms", flush=True)
+    del big
+    torch.cuda.empty_cache()
     ref = fa.flash_attn_bwd_fused_plain(*sets[0], True, scale)
     dq = fa.flash_attn_bwd_dq_bf16(*sets[0], True, scale)
     dk, dv = fa.flash_attn_bwd_dkv_bf16(*sets[0], True, scale)
@@ -246,6 +271,36 @@ def lse_kernel(cs, label):
     sass_counts(lib, ("lse_kernel",), label)
 
 
+def lse16_kernel(cs, label):
+    """The bf16 K5 at the amp steps' shapes beside
+    logsumexp(mm(x, w) with f32 output), its error against the plain
+    version, whether two calls give the same bits, and the SASS counts
+    of the built bf16 K5 library."""
+    ce = cs.ce
+    lib = cs._build.build_library("lm_head_lse_bf16")
+    rng = np.random.RandomState(0)
+    for N in (cs.TRAIN_B * cs.TRAIN_T, 32 * cs.TRAIN_T):
+        sets = [(torch.from_numpy(rng.randn(N, cs.HID).astype(np.float32))
+                 .to("cuda", torch.bfloat16),
+                 torch.from_numpy((rng.randn(cs.HID, cs.VOCAB) * 0.02)
+                                  .astype(np.float32)).to("cuda",
+                                                          torch.bfloat16))
+                for _ in range(2)]
+        got = ce.lm_head_lse_bf16(*sets[0])
+        again = ce.lm_head_lse_bf16(*sets[0])
+        err = float((got - ce.lm_head_lse_plain(*sets[0])).abs().max())
+        k5 = cs.time_ms(ce.lm_head_lse_bf16, sets, reps=10)
+        lib_ms = cs.time_ms(lambda x, w: torch.logsumexp(
+            torch.mm(x, w, out_dtype=torch.float32), dim=1), sets, reps=5)
+        print(f"AB {label} lse16 [{N}, {cs.HID}] @ [{cs.HID}, {cs.VOCAB}]: "
+              f"K5-bf16 {k5:.4f} ms err {err:.2e} bitwise-repeatable "
+              f"{bool(torch.equal(got, again))} | logsumexp(mm(x, w, f32 "
+              f"out)) {lib_ms:.4f} ms", flush=True)
+        del sets, got, again
+        torch.cuda.empty_cache()
+    sass_counts(lib, ("lse_bf16_kernel",), label)
+
+
 def int8_path(cs, label):
     qo = cs.qo
     lib = cs._build.build_library("int8_matmul")
@@ -327,6 +382,25 @@ def short_steps(cs, label):
               f"{k['lm_head_lse_bf16']:.2f} ms a step", flush=True)
 
 
+def amp_b32_step(cs, label):
+    """The tree's own amp T 1024, B 32 phase: unprofiled step wall, a
+    profiled step's device time, busy share and K5-bf16 / K1-bf16 ms a
+    step."""
+    _, smi = cs.device_phase()
+    cs._build.build_libraries(cs._build.KERNEL_SOURCES)
+    r = cs.amp_batch_phase(smi)
+    b = r["breakdown"]
+    if b is None:
+        print(f"AB {label} amp step [T {cs.TRAIN_T}, B {r['batch']}]: wall "
+              f"{r['step_ms']:.1f} ms; device time not measured", flush=True)
+        return
+    k = b["kernel_ms"]
+    print(f"AB {label} amp step [T {cs.TRAIN_T}, B {r['batch']}]: wall "
+          f"{r['step_ms']:.1f} ms | device {b['device_ms']:.1f} ms | busy "
+          f"{b['busy']:.3f} | K5-bf16 {k['lm_head_lse_bf16']:.2f} ms K1-bf16 "
+          f"{k['flash_attn_fwd_bf16']:.2f} ms a step", flush=True)
+
+
 def main():
     tree, label = sys.argv[1], sys.argv[2]
     what = set((sys.argv[3] if len(sys.argv) > 3 else "all").split(","))
@@ -340,10 +414,14 @@ def main():
         int8_path(cs, label)
     if "lse" in what:
         lse_kernel(cs, label)
+    if "lse16" in what:
+        lse16_kernel(cs, label)
     if "step" in what:
         f32_step(cs, label)
     if "short" in what:
         short_steps(cs, label)
+    if "amp32" in what:
+        amp_b32_step(cs, label)
 
 
 if __name__ == "__main__":
