@@ -13,14 +13,19 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. kernel: K1 held against its plain PyTorch version at the LM
      server's shapes (GPT-2-small heads: n=12, D=64; prefill b=4,
      t=256 over a 384-key page view, cold and prefix-hit; decode 8
-     slots x 1 row over 384 keys), float32, ragged kv_len, inputs from
-     a numpy seed. Tolerance 1e-4 absolute on O and LSE: the two sum in
-     different orders (online softmax over 64-key tiles with 3xTF32
-     tensor-core products for Tq > 1, over 32-key chunks for decode, vs
-     one softmax over the row). Times: the kernel, the plain version and
-     torch's scaled_dot_product_attention (a yardstick only; the port
-     never calls it), each over input sets that together exceed the
-     50 MB L2, beside the least time the card could take;
+     slots x 1 row over 384 keys, contiguous and through the page table
+     at the engine's geometry: page_len 16, 24 shuffled pages a row in
+     a 100 MB pool that is NaN outside the live rows), float32, ragged
+     kv_len, inputs from a numpy seed. Tolerance 1e-4 absolute on O and
+     LSE: the two sum in different orders (online softmax over 64-key
+     tiles with 3xTF32 tensor-core products for Tq > 1, per-warp states
+     over parts of a row merged in order for decode, vs one softmax
+     over the row). The paged decode also gives the same bits in two
+     calls and for each row alone as in the batch. Times: the kernel,
+     the plain version and torch's scaled_dot_product_attention (a
+     yardstick only; the port never calls it; paged: over the gathered
+     view, and with the gather), each over input sets that together
+     exceed the 50 MB L2, beside the least time the card could take;
   4. engine: GPT-2-small at full width (vocab 50304, H 768, 12 layers,
      12 heads, max_len 1024; random weights from numpy seed 0) behind
      the port's HTTP server with the default paged KV cache and prefix
@@ -28,9 +33,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      buffered, one exact repeat (a full prefix hit) and one sharing a
      page-aligned prefix (a prefix hit that prefills from q_start > 0).
      Checks: token counts, prefix hits, page/slot allocs == frees after
-     drain, K1 launches == layers x (prefills + decode steps), and the
+     drain, K1 launches == layers x (prefills + decode steps), page-view
+     gathers == 2 x layers x prefills (no decode step gathers), and the
      greedy tokens of three requests against a plain full-recompute
-     forward of the same weights on the card;
+     forward of the same weights on the card. Then one decode step at
+     8 slots: host wall, CUDA-graph device time and a profiled step's
+     kernels by class (K1, index, copy, cuBLAS, elementwise);
   5. backward kernels: K2 (fused), K3 (dq) and K4 (dk, dv), each called
      explicitly, held against the plain backward at the GPT-2-small
      training shapes q/k/v [8, 12, 1024, 64] and [32, 12, 256, 64]
@@ -165,6 +173,7 @@ try:
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import quant_ops as qo
     from paddle_tpu_torch.ops import registry as op_registry
+    from paddle_tpu_torch.ops import transformer_ops as T
     from paddle_tpu_torch.serving import (EngineConfig, GenerationConfig,
                                           GenerationEngine, InferenceEngine,
                                           LMSpec, init_lm_weights)
@@ -339,7 +348,106 @@ def kernel_phase():
                         "ms": ms, "plain_ms": plain_ms,
                         "library_ms": library_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "bound_3xtf32_ms": tc_ms})
+    kv_len, q_start = cases["decode"][2:]
+    results.append(paged_decode_case(rng, kv_len, q_start, scale))
     return results
+
+
+PAGE_LEN, POOL_PAGES = 16, 1024    # the engine's page_len; 100 MB of K + V
+
+
+def paged_decode_inputs(rng, kv_len, sets):
+    """`sets` (q [8, 12, 1, 64], tables [8, 24]) over one K and one V
+    pool plane [POOL_PAGES, 12, 16, 64]: every set's rows take their own
+    pages in a shuffled order. The pool is NaN except the live rows
+    (page 0, every unbacked table slot's trash page, pool rows past a
+    row's length): a read of anything but a live key shows."""
+    dev = torch.device("cuda")
+    m = VIEW // PAGE_LEN
+    shape = (POOL_PAGES, N_HEADS, PAGE_LEN, HEAD_DIM)
+    pools = [np.full(shape, np.nan, np.float32) for _ in range(2)]
+    free = iter(rng.permutation(np.arange(1, POOL_PAGES)))
+    out = []
+    for _ in range(sets):
+        tables = np.zeros((len(kv_len), m), np.int32)
+        for b, n_live in enumerate(kv_len):
+            for slot in range(-(-n_live // PAGE_LEN)):
+                page = tables[b, slot] = next(free)
+                rows = min(PAGE_LEN, n_live - slot * PAGE_LEN)
+                for pool in pools:
+                    pool[page, :, :rows] = rng.randn(N_HEADS, rows, HEAD_DIM)
+        q = rng.randn(len(kv_len), N_HEADS, 1, HEAD_DIM).astype(np.float32)
+        out.append((torch.from_numpy(q).to(dev),
+                    torch.from_numpy(tables).to(dev)))
+    kp, vp = (torch.from_numpy(p).to(dev) for p in pools)
+    return out, kp, vp
+
+
+def paged_decode_case(rng, kv_len, q_start, scale):
+    """K1 at Tq = 1 through the page table at the engine's geometry (8
+    rows, page_len 16, 24 pages a row, kv 1-384): held to
+    flash_attn_decode_plain at TOL, the same bits in two calls and for
+    each row alone as in the batch of 8; timed beside its plain version,
+    the decode bound, masked SDPA over the gathered view and the gather
+    + that SDPA (the parent's path: yardsticks only)."""
+    B = len(kv_len)
+    sets, kp, vp = paged_decode_inputs(rng, kv_len, 8)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    starts = torch.tensor(q_start, dtype=torch.int32, device="cuda")
+    q, tables = sets[0]
+
+    def run(q, tables, lens=lens, starts=starts):
+        return fa.flash_attn_decode(q, kp, vp, tables, PAGE_LEN, lens,
+                                    starts, scale)
+
+    o, lse = run(q, tables)
+    again = run(q, tables)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_attn_decode_plain(q, kp, vp, tables, PAGE_LEN,
+                                                lens, starts, scale)
+    err = max(float((o - o_ref).abs().max()),
+              float((lse - lse_ref).abs().max()))
+    same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    alone = all(
+        torch.equal(ob[0], o[b]) and torch.equal(lb[0], lse[b])
+        for b in range(B)
+        for ob, lb in [run(q[b:b + 1], tables[b:b + 1], lens[b:b + 1],
+                           starts[b:b + 1])])
+    log(f"kernel decode_paged: q [{B},{N_HEADS},1,{HEAD_DIM}] page_len "
+        f"{PAGE_LEN} x {VIEW // PAGE_LEN} pages (shuffled, NaN past the "
+        f"live rows) max_abs_err {err:.3e} (tol {TOL:g}); two calls "
+        f"bitwise equal: {same}; each row alone == in the batch: {alone}")
+    if not err <= TOL:
+        raise AssertionError("decode_paged: kernel disagrees with "
+                             "flash_attn_decode_plain")
+    if not (same and alone):
+        raise AssertionError("decode_paged: bits differ between calls or "
+                             "between a row alone and in the batch")
+    mask = torch.from_numpy(live_mask(B, 1, kv_len, q_start))[:, None].cuda()
+
+    def gathered(tables):      # the view with its dead keys zeroed
+        return [torch.where(mask[:, :, 0, :, None], T._gather_pages(p, tables),
+                            0.0) for p in (kp, vp)]
+
+    views = [(q, *gathered(tables)) for q, tables in sets]
+    ms = time_ms(run, sets)
+    plain_ms = time_ms(lambda q, tables: fa.flash_attn_decode_plain(
+        q, kp, vp, tables, PAGE_LEN, lens, starts, scale), sets)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask,
+                                              scale=scale), views)
+    gather_ms = time_ms(lambda q, tables: sdpa(
+        q, T._gather_pages(kp, tables), T._gather_pages(vp, tables),
+        attn_mask=mask, scale=scale), sets)
+    bound_ms, bound_by, tc_ms = bound_of(B, 1, kv_len, q_start)
+    log(f"kernel decode_paged: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms {library_ms:.4f} (SDPA over the gathered view; with "
+        f"the gather {gather_ms:.4f}) bound_ms {bound_ms:.5f} ({bound_by})")
+    return {"case": "decode_paged", "q": [B, N_HEADS, 1, HEAD_DIM],
+            "kv": VIEW, "page_len": PAGE_LEN, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_with_gather_ms": gather_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_3xtf32_ms": tc_ms}
 
 
 # -- phase 4: the engine behind HTTP -----------------------------------------
@@ -449,6 +557,10 @@ def engine_phase(smi):
         except Exception as e:           # re-raised below, in order
             errors.append((key, e))
 
+    gathers = []                        # page-view gathers on the path
+    real_gather = T._gather_pages
+    T._gather_pages = lambda c, tables: (gathers.append(1)
+                                         or real_gather(c, tables))
     fa.flash_attn_fwd.launches = 0      # the main path starts here
     t_start = time.perf_counter()
     threads = [threading.Thread(target=run, args=(i, {
@@ -464,6 +576,7 @@ def engine_phase(smi):
     run("shared", {"prompt": shared, "max_new_tokens": n_new})
     wall = time.perf_counter() - t_start
     launches = fa.flash_attn_fwd.launches
+    T._gather_pages = real_gather
     server.shutdown()
     engine.shutdown(drain=True, timeout=600)
     if errors:
@@ -480,7 +593,8 @@ def engine_phase(smi):
               "page_allocs": st["page_allocs"],
               "page_frees": st["page_frees"],
               "slot_allocs": st["slot_allocs"],
-              "slot_frees": st["slot_frees"], "k1_launches": launches}
+              "slot_frees": st["slot_frees"], "k1_launches": launches,
+              "page_gathers": len(gathers)}
     log(f"engine: {checks}")
     if st["prefix_hits"] < 2:
         raise AssertionError("expected a full and a partial prefix hit")
@@ -492,6 +606,13 @@ def engine_phase(smi):
         raise AssertionError(f"K1 launched {launches} times on the main "
                              f"path, expected layers x (prefills + decode "
                              f"steps) = {want}")
+    # only the prefills gather page views (K and V, each layer): every
+    # decode step reads the pool through its tables
+    if len(gathers) != 2 * spec.num_layers * st["prefills"]:
+        raise AssertionError(f"{len(gathers)} page gathers on the main path,"
+                             f" expected 2 x layers x prefills = "
+                             f"{2 * spec.num_layers * st['prefills']}: a "
+                             f"decode step gathered")
 
     use_full_f32()
     w = lm_weights_from_numpy(weights, spec)
@@ -511,8 +632,28 @@ def engine_phase(smi):
     log(f"engine: TTFT p50 {1e3 * float(np.median(ttfts)):.1f} ms over the 4 "
         f"concurrent streams, decode {decode_ms:.2f} ms/step (8 slots), "
         f"{tokens / wall:.1f} tokens/s over {wall:.2f} s | {smi}")
-    decode_step_breakdown(engine, smi)
-    return launches
+    return launches, decode_step_breakdown(engine, smi)
+
+
+# a decode step's device kernels by class, from their profiler names
+DECODE_CLASSES = (("K1", ("flash_decode_", "flash_fwd_")),
+                  ("index", ("index",)),
+                  ("copy", ("copy",)),
+                  ("cuBLAS", ("gemm", "nvjet", "xmma", "cutlass")))
+
+
+def kernel_classes(kernels, classes):
+    """{class: [us, launches]} of device_kernels(..., launches=True)'s
+    {name: (us, launches)}; a name matching no class counts as
+    "elementwise"."""
+    out = {c: [0.0, 0] for c, _ in classes}
+    out["elementwise"] = [0.0, 0]
+    for name, (us, n) in kernels.items():
+        c = next((c for c, frags in classes
+                  if any(f in name for f in frags)), "elementwise")
+        out[c][0] += us
+        out[c][1] += n
+    return out
 
 
 def decode_step_breakdown(engine, smi, reps=20):
@@ -520,8 +661,10 @@ def decode_step_breakdown(engine, smi, reps=20):
     300 over their own pages: the host-clock wall of the engine's own
     dispatch (inputs to the card, the step, tokens back), against the
     device time of the same step captured in a CUDA graph and replayed
-    between CUDA events. device / wall is the card's busy share while
-    the host dispatches eagerly."""
+    between CUDA events (device / wall is the card's busy share while
+    the host dispatches eagerly), and a profiled step's kernels by class:
+    K1, index and copy kernels (the K/V row writes; the gathers before
+    this design), cuBLAS products, the elementwise rest."""
     cfg = engine.config
     S, m = cfg.max_slots, cfg.pages_per_seq
     host = (np.arange(S, dtype=np.int32), np.full(S, 300, np.int32),
@@ -536,9 +679,20 @@ def decode_step_breakdown(engine, smi, reps=20):
     args = engine._to_device(*host)
     with torch.inference_mode():
         device_ms = time_ms(lambda: engine._decode_fn(*args), [()], reps)
+        kernels = device_kernels(lambda: engine._decode_fn(*args),
+                                 launches=True)
+    classes = kernel_classes(kernels, DECODE_CLASSES)
+    launches = sum(n for _, n in classes.values())
+    shown = {c: (round(us, 1), n) for c, (us, n) in classes.items()}
     log(f"decode step: wall {wall_ms:.3f} ms (eager dispatch, tokens read "
         f"back), device {device_ms:.3f} ms (CUDA-graph replay), busy "
-        f"share {device_ms / wall_ms:.3f} | {smi}")
+        f"share {device_ms / wall_ms:.3f}; profiled step: {launches} "
+        f"kernels, {sum(us for us, _ in classes.values()) / 1e3:.3f} ms, "
+        f"by class (us, launches) {shown} | {smi}")
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "launches": launches,
+            "classes_us": {c: us for c, (us, _) in classes.items()},
+            "classes_launches": {c: n for c, (_, n) in classes.items()}}
 
 
 # -- phase 5: backward kernels vs plain --------------------------------------
@@ -623,12 +777,14 @@ def bwd_inputs(rng, B, Tq, Tk, kv_len, causal, scale):
     return (q, k, v, do, lse, delta, lens)
 
 
-def device_kernels(fn, calls=4):
+def device_kernels(fn, calls=4, launches=False):
     """{device kernel name: us per call} over `calls` profiled calls of
     fn: names the backend behind a library yardstick (its time is
-    measured by events). Several calls, because the profiler now and
-    then drops a call's device events; each name's time is its mean over
-    the calls that recorded it."""
+    measured by events) and breaks a decode step down by kernel. Several
+    calls, because the profiler now and then drops a call's device
+    events; each name's time is its mean over the calls that recorded
+    it. With `launches`, each value is (us, launches a call), the
+    launches the most any call recorded."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -642,16 +798,18 @@ def device_kernels(fn, calls=4):
         for ev in prof.events():
             if getattr(ev, "device_type", None) == \
                     torch.autograd.DeviceType.CUDA:
-                names[ev.name] = names.get(ev.name, 0.0) + float(
-                    ev.time_range.elapsed_us())
+                us, n = names.get(ev.name, (0.0, 0))
+                names[ev.name] = (us + float(ev.time_range.elapsed_us()),
+                                  n + 1)
         per_call.append(names)
     seen = {}
     for call in per_call:
-        for n, us in call.items():
-            seen.setdefault(n, []).append(us)
-    names = {n: float(np.mean(us)) for n, us in seen.items()}
-    return {n: round(us, 1) for n, us in sorted(names.items(),
-                                                key=lambda kv: -kv[1])}
+        for n, got in call.items():
+            seen.setdefault(n, []).append(got)
+    names = {n: (round(float(np.mean([us for us, _ in got])), 1),
+                 max(k for _, k in got)) for n, got in seen.items()}
+    order = sorted(names.items(), key=lambda kv: -kv[1][0])
+    return {n: (v if launches else v[0]) for n, v in order}
 
 
 def sdpa_backward(args, scale):
@@ -905,8 +1063,13 @@ def reference_loss_and_grads(w, feed):
 
 
 K1_DESIGN = ("Tq > 1: 3xTF32 mma.sync m16n8k8, 64 query rows x 64-key K/V "
-             "tiles, cp.async 2-stage; Tq = 1: f32 FMA, 8 warps split "
-             "the keys")
+             "tiles, cp.async 2-stage; Tq = 1 (contiguous or through the "
+             "page table): f32 FMA, a cluster of 4 blocks a (row, head), "
+             "the row's live keys cut by its own length into <= 4 parts "
+             "of >= 32 keys, loaded in rounds of up to 3 x 32-key chunks "
+             "by 16-byte cp.async into an XOR-swizzled ring, one online-"
+             "softmax update per warp a round, the warps' states merged "
+             "in rank order in rank 0 through distributed shared memory")
 BWD_DESIGN = {
     "flash_attn_bwd_fused": "3xTF32 mma.sync m16n8k8, 8 warps, K/V resident, "
                             "Q/dO/lse/delta cp.async 2-stage",
@@ -1111,7 +1274,7 @@ def training_phase(smi):
 
 
 KERNEL_NAMES = {          # profiler kernel name fragments
-    "flash_attn_fwd": ("flash_fwd_",),
+    "flash_attn_fwd": ("flash_fwd_", "flash_decode_"),
     "flash_attn_bwd_fused": ("bwd_fused_tc_kernel",),
     "flash_attn_bwd_dq": ("bwd_dq_kernel",),
     "flash_attn_bwd_dkv": ("bwd_dkv_kernel",),
@@ -2420,7 +2583,7 @@ def main():
     log(f"build: {', '.join(_build.KERNEL_SOURCES)} (nvcc, sm_90a, in "
         f"parallel) in {time.perf_counter() - t0:.1f} s")
     cases = kernel_phase()
-    serving_k1 = engine_phase(smi)
+    serving_k1, decode_step = engine_phase(smi)
     bwd, k1_train = backward_kernel_phase(smi)
     lse = lse_kernel_phase(smi)
     train_counts, train = training_phase(smi)
@@ -2446,7 +2609,7 @@ def main():
     for k, n in launches.items():
         if n == 0:
             raise AssertionError(f"{k} was launched no time on a main path")
-    decode = next(c for c in cases if c["case"] == "decode")
+    decode = next(c for c in cases if c["case"] == "decode_paged")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -2503,7 +2666,8 @@ def main():
                        "paddle_tpu_torch/csrc/flash_attn_bf16.cu"),
             "design": BF16_DESIGN[kname], "launches": launches[kname],
             "launches_by_path": by_path[kname], **r})
-    print(json.dumps({"kernels": kernels, "training": train,
+    print(json.dumps({"kernels": kernels, "decode_step": decode_step,
+                      "training": train,
                       "training_short": short_train,
                       "serving_int8": int8_serving,
                       "training_amp": amp_train,

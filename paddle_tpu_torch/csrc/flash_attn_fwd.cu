@@ -50,11 +50,45 @@
 // Serving prefill (Tq <= 256, a few blocks per head) takes this path
 // too: on an H100 it measured faster than the 16-row f32 FMA path it
 // replaced, so no Tq threshold keeps the old one (PERF.md).
-// Tq = 1 (flash_fwd_kernel<HD, 1, 8>, the decode step): one block per
-// (slot, head), 8 warps split the key axis; lane j holds key j's row
-// and its share of the chunk's V columns in registers; the NW partial
-// softmax states are merged at the end. Plain f32 FMAs: the step is
-// bound by bytes, not operations.
+// Tq = 1 (flash_decode_kernel, the decode step). One query row reads
+// every live key and value once: 2 flops a loaded float, so the kernel
+// is all bytes and latency, and tensor cores do not help. The old design
+// (one block a (row, head), 8 warps) left the card idle: 96 blocks on 132
+// SMs, the longest row setting the time, a dependent load chain a chunk.
+// This one:
+//   * splits each row's live keys [0, lim) into parts that depend only on
+//     lim and on constants: parts = clamp(ceil(lim / 32), 1, 4) of
+//     ceil(lim / parts) keys, so a row's result never depends on the
+//     batch, the grid or the SM count (co-batched generation stays
+//     bitwise equal to solo);
+//   * runs a cluster of 4 blocks a (row, head), rank r owning part r;
+//     ranks past the row's parts exit at once. 4 ranks, not 8: on an
+//     H100 every launched block costs, idle or not, and 8 ranks measured
+//     slower at every batch and length tried; one block a (row, head),
+//     4 or 8 warps and no cluster, took 9-49 % longer over the serving
+//     engine's own decode steps (PERF.md);
+//   * loads a part in rounds of up to 3 chunks of 32 keys, all of a
+//     round's K/V rows in flight at once (16-byte cp.async into an
+//     unpadded, XOR-swizzled ring), the row's page ids fetched beside
+//     its length. In a round each of the 4 warps takes 8 keys of every
+//     chunk: a lane a quarter of one key's dot product, the products of
+//     the chunks independent of each other; one online-softmax update a
+//     round (reductions over the 8 keys only), P.V over a lane's own
+//     output columns;
+//   * merges: each warp's state (m, l, acc[D]) goes to rank 0's shared
+//     memory (distributed shared memory, one remote mbarrier arrival a
+//     block), and rank 0 merges the parts * 4 states in (rank, warp)
+//     order, so each call gives the same bits;
+//   * reads K/V through a page table: key j of row b lives at page
+//     tables[b, j / page_len], row j % page_len, of a pool plane [P, n,
+//     page_len, D]; the contiguous [B, n, Tk, D] layout is the same
+//     kernel with page = b (no table) and page_len = Tk. A key that is not
+//     live is never read (zero-filled in shared memory): unbacked table
+//     slots point at a trash page and pool memory past a row's length may
+//     hold anything, NaN included;
+//   * takes any D <= its HD (32 or 64) that is a multiple of 4, masking
+//     the tail columns, so the paged entry pads nothing.
+// f32 FMAs and expf (no fast math), as the plain version.
 //
 // Interface: plain C, bound with ctypes. q/k/v are [B, n, T, D] float32
 // with arbitrary element strides for B, n and T (D contiguous, strides a
@@ -66,181 +100,287 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "hopper.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
 constexpr float kNegSentinel = -1e30f;
 
-__device__ __forceinline__ float warp_max(float v) {
+// Tq = 1: a cluster of kDecRanks blocks a (row, head), one part each.
+// kDecRanks and kDecMinKeys must equal DECODE_RANKS and DECODE_MIN_KEYS
+// in ops/flash_attention.py (a CPU test reads them here)
+constexpr int kDecRanks = 4;      // most parts a row's keys are cut into
+constexpr int kDecMinKeys = 32;   // keys a part takes before another is cut
+constexpr int kDecWarps = 4;
+constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kDecChunk = 8 * kDecWarps;  // keys a shared-memory stage holds
+constexpr int kDecStages = 3;     // chunks resident at once: one round
+constexpr int kDecStates = kDecRanks * kDecWarps;
+constexpr int kDecTable = 256;    // page ids of a row staged up front
+
+struct DecodeArgs {
+  const float* q;          // [B, n, 1, D]
+  const float* k;          // pool [P, n, page_len, D], or [B, n, Tk, D]
+  const float* v;
+  const int* kv_len;       // [B]
+  const int* q_start;      // [B]
+  const int* tables;       // [B, m] page ids, or null: page = b
+  float* o;                // [B, n, 1, D] through its strides
+  float* lse;              // contiguous [B, n]
+  int n, m, page_len, D, causal;
+  float scale;
+  long long sqb, sqh, skp, skh, skt, svp, svh, svt, sob, soh;
+};
+
+// K/V rows unpadded, the 16-byte chunk c of row r stored at chunk
+// c ^ (r & 7): a lane group's reads of 8 rows' same chunk, and a warp's
+// read of one row, touch each bank once
+template <int HD>
+struct DecodeSmem {
+  float k[kDecStages][kDecChunk][HD];
+  float v[kDecStages][kDecChunk][HD];
+  float st[kDecStates][HD + 2];      // each warp's (acc[HD], m, l)
+  int tab[kDecTable];
+  uint64_t done;                     // rank 0: the other parts' states in
+};
+
+__device__ __forceinline__ int swz(int r, int c4) { return 4 * (c4 ^ (r & 7)); }
+
+// max and sum over the 8 keys a warp holds (lanes 8 apart hold the same)
+__device__ __forceinline__ float max8(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
+  for (int o = 1; o < 8; o <<= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ float sum8(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 1; o < 8; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-template <int HD, int BQ, int NW>
-__global__ void __launch_bounds__(NW * 32)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ kv_len,
-                 const int* __restrict__ q_start, float* __restrict__ o,
-                 float* __restrict__ lse, int n, int Tq, int Tk,
-                 long long sqb, long long sqh, long long sqt,
-                 long long skb, long long skh, long long skt,
-                 long long svb, long long svh, long long svt,
-                 long long sob, long long soh, long long sot,
-                 int causal, float scale) {
-  constexpr int DPL = HD / 32;  // output columns owned by each lane
-  const int h = blockIdx.y, b = blockIdx.z;
+template <int HD>
+__global__ void __cluster_dims__(kDecRanks, 1, 1)
+__launch_bounds__(kDecThreads) flash_decode_kernel(const DecodeArgs a) {
+  constexpr int C4 = HD / 4;                 // 16-byte chunks of a row
+  constexpr int QW = HD / 4;                 // a lane's quarter of a row
+  constexpr int DPL = HD / 32;               // output columns of a lane
+  constexpr int kItems = kDecChunk * C4 / kDecThreads;
+  static_assert(kDecChunk * C4 % kDecThreads == 0, "chunk load split");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<DecodeSmem<HD>*>(smem_raw);
+  const int rank = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * BQ;
-  const int rows = min(BQ, Tq - row0);
 
-  __shared__ __align__(16) float q_s[BQ][HD];
-  __shared__ __align__(16) float p_s[NW][32];
-  __shared__ float acc_s[NW][BQ][HD];
-  __shared__ float m_s[NW][BQ];
-  __shared__ float l_s[NW][BQ];
-
-  const int klen = min(kv_len[b], Tk);
-  const int qoff = q_start[b];
-  // exclusive bound on live key columns of tile row r (monotone in r)
-  auto row_limit = [&](int r) {
-    int lim = klen;
-    if (causal) lim = min(lim, qoff + row0 + r + 1);
-    return max(lim, 0);
-  };
-  const int tile_limit = row_limit(rows - 1);
-
-  const float* qb = q + b * sqb + h * sqh + row0 * sqt;
-  for (int i = threadIdx.x; i < BQ * (HD / 4); i += NW * 32) {
-    const int r = i / (HD / 4), c = i % (HD / 4);
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) val = reinterpret_cast<const float4*>(qb + r * sqt)[c];
-    reinterpret_cast<float4*>(q_s[r])[c] = val;
+  // the row's length and its page-table row, fetched together (the
+  // table by cp.async, so nothing waits on it before the length)
+  const int* tab = a.tables ? a.tables + (long long)b * a.m : nullptr;
+  if (tab) {
+    for (int i = threadIdx.x; i < min(a.m, kDecTable); i += kDecThreads)
+      tc::cp_async4(&sm.tab[i], tab + i, true);
+    tc::cp_async_commit();
   }
-  for (int i = lane; i < BQ * HD; i += 32) (&acc_s[warp][0][0])[i] = 0.f;
-  __syncthreads();
+  int lim = min(a.kv_len[b], a.m * a.page_len);
+  if (a.causal) lim = min(lim, a.q_start[b] + 1);
+  lim = max(lim, 0);
+  // this rank's part [k0, k1) of the live keys [0, lim)
+  const int parts =
+      min(kDecRanks, max(1, (lim + kDecMinKeys - 1) / kDecMinKeys));
+  const int len = (lim + parts - 1) / parts;
+  const int k0 = min(lim, rank * len), k1 = min(lim, k0 + len);
 
-  float m[BQ], l[BQ];
-#pragma unroll
-  for (int r = 0; r < BQ; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
+  if (rank == 0 && threadIdx.x == 0) {
+    hp::mbar_init(&sm.done, max(1, parts - 1));
+    hp::mbar_init_fence();
+  }
+  hp::cluster_arrive();         // releases rank 0's initialised barrier
+  if (rank >= parts) {          // no part here: no K/V is read for it
+    tc::cp_async_wait<0>();
+    hp::cluster_wait();
+    return;
   }
 
-  const float* kb = k + b * skb + h * skh;
-  const float* vb = v + b * svb + h * svh;
-  for (int c0 = warp * 32; c0 < tile_limit; c0 += NW * 32) {
-    const int col = c0 + lane;
-    // columns at or past the tile's limit are never read: their K/V stay
-    // zero in registers, so unwritten cache memory cannot leak in
-    float kr[HD];
-    if (col < tile_limit) {
-      const float4* src = reinterpret_cast<const float4*>(kb + col * skt);
+  const int key = lane & 7, quarter = lane >> 3;
+  float qr[QW];                 // this lane's quarter of q, tail zeroed
+  {
+    const float* qb = a.q + b * a.sqb + h * a.sqh + quarter * QW;
 #pragma unroll
-      for (int c = 0; c < HD / 4; ++c) {
-        const float4 t = src[c];
-        kr[4 * c] = t.x; kr[4 * c + 1] = t.y;
-        kr[4 * c + 2] = t.z; kr[4 * c + 3] = t.w;
-      }
-    } else {
-#pragma unroll
-      for (int d = 0; d < HD; ++d) kr[d] = 0.f;
+    for (int c = 0; c < QW / 4; ++c) {
+      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (quarter * QW + 4 * c < a.D)
+        t = reinterpret_cast<const float4*>(qb)[c];
+      qr[4 * c] = t.x; qr[4 * c + 1] = t.y;
+      qr[4 * c + 2] = t.z; qr[4 * c + 3] = t.w;
     }
-    float vr[32][DPL];
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();              // the table row is in shared memory
+
+  const float* kb = a.k + h * a.skh;
+  const float* vb = a.v + h * a.svh;
+  auto load_chunk = [&](int c, int stage) {
+    const int base = k0 + c * kDecChunk;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const bool live = c0 + j < tile_limit;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i)
-        vr[j][i] = live ? vb[(c0 + j) * svt + lane + 32 * i] : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < BQ; ++r) {
-      if (r >= rows) break;
-      const int lim = row_limit(r);
-      if (c0 >= lim) continue;  // warp-uniform: no live key for this row
-      const float4* qv = reinterpret_cast<const float4*>(q_s[r]);
-      float s = 0.f;
-#pragma unroll
-      for (int c = 0; c < HD / 4; ++c) {
-        const float4 t = qv[c];
-        s = fmaf(t.x, kr[4 * c], s);
-        s = fmaf(t.y, kr[4 * c + 1], s);
-        s = fmaf(t.z, kr[4 * c + 2], s);
-        s = fmaf(t.w, kr[4 * c + 3], s);
-      }
-      s = col < lim ? s * scale : -INFINITY;
-      // the chunk holds >= 1 live column (c0 < lim), so m_new is finite
-      const float m_new = fmaxf(m[r], warp_max(s));
-      const float p = expf(s - m_new);
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + warp_sum(p);
-      m[r] = m_new;
-      p_s[warp][lane] = p;
-      __syncwarp();
-      float a[DPL];
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) a[i] = 0.f;
-      const float4* pv = reinterpret_cast<const float4*>(p_s[warp]);
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float4 t = pv[c];
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          a[i] = fmaf(t.x, vr[4 * c][i], a[i]);
-          a[i] = fmaf(t.y, vr[4 * c + 1][i], a[i]);
-          a[i] = fmaf(t.z, vr[4 * c + 2][i], a[i]);
-          a[i] = fmaf(t.w, vr[4 * c + 3][i], a[i]);
+    for (int it = 0; it < kItems; ++it) {
+      const int i = threadIdx.x + it * kDecThreads;
+      const int r = i / C4, c4 = i % C4;
+      const int j = base + r;
+      const bool ok = j < k1 && 4 * c4 < a.D;
+      const float* ks = kb;     // dead: zero-filled, nothing read
+      const float* vs = vb;
+      if (ok) {
+        long long page = b;
+        int row = j;
+        if (tab) {
+          const int slot = j / a.page_len;
+          page = slot < kDecTable ? sm.tab[slot] : tab[slot];
+          row = j - slot * a.page_len;
         }
+        ks = kb + page * a.skp + row * a.skt + 4 * c4;
+        vs = vb + page * a.svp + row * a.svt + 4 * c4;
       }
-      __syncwarp();
+      tc::cp_async16(&sm.k[stage][r][swz(r, c4)], ks, ok);
+      tc::cp_async16(&sm.v[stage][r][swz(r, c4)], vs, ok);
+    }
+  };
+
+  float m = -INFINITY, l = 0.f, acc[DPL];
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        float* acc = &acc_s[warp][r][lane + 32 * i];
-        *acc = *acc * corr + a[i];
+  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
+  const int nchunks = (k1 - k0 + kDecChunk - 1) / kDecChunk;
+  // rounds of up to kDecStages chunks: all of a round's loads in flight
+  // at once, then each warp's 8 keys of every chunk of it
+  for (int c0 = 0; c0 < nchunks; c0 += kDecStages) {
+    const int nc = min(kDecStages, nchunks - c0);
+    if (c0 > 0) __syncthreads();  // every warp is done with the last round
+    for (int c = 0; c < nc; ++c) load_chunk(c0 + c, c);
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    const int r = 8 * warp + key;   // this lane's row of each chunk
+    float s[kDecStages];
+    float mx = m;
+#pragma unroll
+    for (int c = 0; c < kDecStages; ++c) {
+      s[c] = -INFINITY;
+      const int first = k0 + (c0 + c) * kDecChunk + 8 * warp;
+      if (c < nc && first < k1) {   // warp-uniform
+        const float* kr = sm.k[c][r];
+        float d = 0.f;
+#pragma unroll
+        for (int i = 0; i < QW / 4; ++i) {
+          const float4 t = *reinterpret_cast<const float4*>(
+              kr + swz(r, quarter * (QW / 4) + i));
+          d = fmaf(qr[4 * i], t.x, d);
+          d = fmaf(qr[4 * i + 1], t.y, d);
+          d = fmaf(qr[4 * i + 2], t.z, d);
+          d = fmaf(qr[4 * i + 3], t.w, d);
+        }
+        d += __shfl_xor_sync(0xffffffffu, d, 8);
+        d += __shfl_xor_sync(0xffffffffu, d, 16);
+        if (first + key < k1) s[c] = d * a.scale;
+      }
+      mx = fmaxf(mx, s[c]);
+    }
+    mx = max8(mx);
+    if (mx == -INFINITY) continue;  // warp-uniform: no live key yet
+    const float corr = expf(m - mx);  // 0 from m = -inf
+    float p[kDecStages], ps = 0.f;
+#pragma unroll
+    for (int c = 0; c < kDecStages; ++c) {
+      p[c] = expf(s[c] - mx);         // 0 for a dead key
+      ps += p[c];
+    }
+    l = fmaf(l, corr, sum8(ps));
+    m = mx;
+    float pv[DPL];
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) pv[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kDecStages; ++c) {
+      if (c >= nc) break;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, p[c], j);
+        const int row = 8 * warp + j, col = DPL * lane;
+        const float* vr = &sm.v[c][row][swz(row, col >> 2) + (col & 3)];
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) pv[i] = fmaf(pj, vr[i], pv[i]);
       }
     }
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[i] = fmaf(acc[i], corr, pv[i]);
   }
-  if (lane == 0) {
+
+  // this warp's state into slot (rank, warp) of rank 0's shared memory
+  float* st = sm.st[rank * kDecWarps + warp];
+  hp::cluster_wait();           // rank 0's barrier is initialised
+  if (rank > 0) {
+    const uint32_t dst = hp::map_rank(st, 0);
+    if constexpr (DPL == 2)
+      hp::st_cluster_f2(dst + 8u * lane, acc[0], acc[1]);
+    else
+      hp::st_cluster_f1(dst + 4u * lane, acc[0]);
+    if (lane == 0) hp::st_cluster_f2(dst + 4u * HD, m, l);
+    __syncthreads();            // the block's states are written
+    if (threadIdx.x == 0) hp::mbar_arrive_remote(hp::map_rank(&sm.done, 0));
+    return;
+  }
 #pragma unroll
-    for (int r = 0; r < BQ; ++r) {
-      m_s[warp][r] = m[r];
-      l_s[warp][r] = l[r];
-    }
+  for (int i = 0; i < DPL; ++i) st[DPL * lane + i] = acc[i];
+  if (lane == 0) {
+    st[HD] = m;
+    st[HD + 1] = l;
   }
   __syncthreads();
+  if (parts > 1) hp::mbar_wait_cluster(&sm.done, 0);
 
-  // merge the NW per-warp partial states of every row
-  for (int i = threadIdx.x; i < rows * HD; i += NW * 32) {
-    const int r = i / HD, d = i % HD;
-    float mm = -INFINITY;
+  // merge the parts * 4 states in (rank, warp) order
+  const int nst = parts * kDecWarps;
+  float mm = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) mm = fmaxf(mm, m_s[w][r]);
-    float* out = o + b * sob + h * soh + (row0 + r) * sot;
-    float* lse_out = lse + ((long long)b * n + h) * Tq + row0 + r;
-    if (mm == -INFINITY) {  // fully masked row
-      out[d] = 0.f;
-      if (d == 0) *lse_out = kNegSentinel;
-      continue;
-    }
-    float ll = 0.f, acc = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float f = expf(m_s[w][r] - mm);
-      ll = fmaf(l_s[w][r], f, ll);
-      acc = fmaf(acc_s[w][r][d], f, acc);
-    }
-    out[d] = acc / ll;
-    if (d == 0) *lse_out = mm + logf(ll);
+  for (int i = 0; i < kDecStates; ++i)
+    if (i < nst) mm = fmaxf(mm, sm.st[i][HD]);
+  const int d = threadIdx.x;
+  if (d >= a.D) return;
+  float* out = a.o + b * a.sob + h * a.soh;
+  float* lse = a.lse + (long long)b * a.n + h;
+  if (mm == -INFINITY) {        // no live key: the fully masked row
+    out[d] = 0.f;
+    if (d == 0) *lse = kNegSentinel;
+    return;
   }
+  float ll = 0.f, od = 0.f;
+#pragma unroll
+  for (int i = 0; i < kDecStates; ++i) {
+    if (i >= nst) break;
+    const float mi = sm.st[i][HD];
+    const float f = mi == -INFINITY ? 0.f : expf(mi - mm);
+    ll = fmaf(sm.st[i][HD + 1], f, ll);
+    od = fmaf(sm.st[i][d], f, od);
+  }
+  out[d] = od / ll;
+  if (d == 0) *lse = mm + logf(ll);
+}
+
+template <int HD>
+cudaError_t launch_decode(const DecodeArgs& a, int B, cudaStream_t stream) {
+  constexpr int smem = sizeof(DecodeSmem<HD>);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_decode_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(kDecRanks, a.n, B);
+  flash_decode_kernel<HD><<<grid, kDecThreads, smem, stream>>>(a);
+  return cudaSuccess;
+}
+
+// D (a multiple of 4, <= 64) -> the decode kernel's HD, 32 or 64; a
+// smaller D runs with its tail columns masked
+cudaError_t dispatch_decode(const DecodeArgs& a, int B, cudaStream_t s) {
+  return a.D <= 32 ? launch_decode<32>(a, B, s) : launch_decode<64>(a, B, s);
 }
 
 // Tq > 1: one block per (64-row query tile, head, batch), 4 warps of 16
@@ -470,33 +610,6 @@ cudaError_t launch_tc(const float* q, const float* k, const float* v,
   return cudaSuccess;
 }
 
-template <int HD, int BQ, int NW>
-void launch(const float* q, const float* k, const float* v, const int* kv_len,
-            const int* q_start, float* o, float* lse, int B, int n, int Tq,
-            int Tk, const long long* st, int causal, float scale,
-            cudaStream_t stream) {
-  const dim3 grid((Tq + BQ - 1) / BQ, n, B);
-  flash_fwd_kernel<HD, BQ, NW><<<grid, NW * 32, 0, stream>>>(
-      q, k, v, kv_len, q_start, o, lse, n, Tq, Tk, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      causal, scale);
-}
-
-template <int HD>
-cudaError_t dispatch(const float* q, const float* k, const float* v,
-                     const int* kv_len, const int* q_start, float* o,
-                     float* lse, int B, int n, int Tq, int Tk,
-                     const long long* st, int causal, float scale,
-                     cudaStream_t stream) {
-  if (Tq == 1) {  // decode: one row per block, 8 warps split the keys
-    launch<HD, 1, 8>(q, k, v, kv_len, q_start, o, lse, B, n, Tq, Tk, st,
-                     causal, scale, stream);
-    return cudaSuccess;
-  }
-  return launch_tc<HD>(q, k, v, kv_len, q_start, o, lse, B, n, Tq, Tk, st,
-                       causal, scale, stream);
-}
-
 }  // namespace
 
 extern "C" int pt_flash_attn_fwd_f32(
@@ -506,8 +619,6 @@ extern "C" int pt_flash_attn_fwd_f32(
     long long skh, long long skt, long long svb, long long svh,
     long long svt, long long sob, long long soh, long long sot, int causal,
     float scale, void* stream) {
-  const long long st[12] = {sqb, sqh, sqt, skb, skh, skt,
-                            svb, svh, svt, sob, soh, sot};
   const auto* qp = static_cast<const float*>(q);
   const auto* kp = static_cast<const float*>(k);
   const auto* vp = static_cast<const float*>(v);
@@ -516,19 +627,49 @@ extern "C" int pt_flash_attn_fwd_f32(
   auto* op = static_cast<float*>(o);
   auto* lsep = static_cast<float*>(lse);
   auto s = static_cast<cudaStream_t>(stream);
+  if (D != 32 && D != 64) return -1;
   cudaError_t err;
-  switch (D) {
-    case 32:
-      err = dispatch<32>(qp, kp, vp, lp, sp, op, lsep, B, n, Tq, Tk, st,
-                         causal, scale, s);
-      break;
-    case 64:
-      err = dispatch<64>(qp, kp, vp, lp, sp, op, lsep, B, n, Tq, Tk, st,
-                         causal, scale, s);
-      break;
-    default:
-      return -1;
+  if (Tq == 1) {  // decode: the split-key kernel, page = b, page_len = Tk
+    const DecodeArgs a{qp, kp, vp, lp, sp, nullptr, op, lsep, n, 1, Tk, D,
+                       causal, scale, sqb, sqh, skb, skh, skt, svb, svh,
+                       svt, sob, soh};
+    err = dispatch_decode(a, B, s);
+  } else {
+    const long long st[12] = {sqb, sqh, sqt, skb, skh, skt,
+                              svb, svh, svt, sob, soh, sot};
+    err = D == 32 ? launch_tc<32>(qp, kp, vp, lp, sp, op, lsep, B, n, Tq, Tk,
+                                  st, causal, scale, s)
+                  : launch_tc<64>(qp, kp, vp, lp, sp, op, lsep, B, n, Tq, Tk,
+                                  st, causal, scale, s);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the decode step through page tables: q [B, n, 1, D], K/V pool planes
+// [P, n, page_len, D] (strides skp/svp, skh/svh, skt/svt), tables [B, m]
+// int32, causal (key j live when j < kv_len[b] and j <= q_start[b]).
+// D <= 64, a multiple of 4. Returns cudaGetLastError() after the launch,
+// or -1 for an unsupported head dim.
+extern "C" int pt_flash_attn_decode_f32(
+    const void* q, const void* k, const void* v, const void* tables,
+    const void* kv_len, const void* q_start, void* o, void* lse, int B,
+    int n, int m, int page_len, int D, long long sqb, long long sqh,
+    long long skp, long long skh, long long skt, long long svp,
+    long long svh, long long svt, long long sob, long long soh,
+    float scale, void* stream) {
+  if (D <= 0 || D % 4 != 0 || D > 64) return -1;
+  const DecodeArgs a{static_cast<const float*>(q),
+                     static_cast<const float*>(k),
+                     static_cast<const float*>(v),
+                     static_cast<const int*>(kv_len),
+                     static_cast<const int*>(q_start),
+                     static_cast<const int*>(tables),
+                     static_cast<float*>(o), static_cast<float*>(lse),
+                     n, m, page_len, D, 1, scale, sqb, sqh, skp, skh, skt,
+                     svp, svh, svt, sob, soh};
+  const cudaError_t err =
+      dispatch_decode(a, B, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,8 @@
 // bf16 K1-K4 in flash_attn_bf16.cu, K6 in int8_matmul.cu, the bf16 K5 in
 // lm_head_lse_bf16.cu): mbarriers, TMA tile loads (multicast to a cluster
 // for K5), the host's tensor-map encoder and SM count, thread-block cluster
-// barriers and distributed shared memory (K2, K5), the 1024-byte-aligned
+// barriers and distributed shared memory (K2, K5, the f32 decode K1 in
+// flash_attn_fwd.cu), the 1024-byte-aligned
 // dynamic shared memory, the wgmma shared-memory descriptor and the bf16
 // wgmma m64n64k16 products.
 //
@@ -91,13 +92,24 @@ __device__ __forceinline__ int warp_uniform(int v) {
 
 // -- thread-block clusters and distributed shared memory ---------------------
 
+// the two halves of a cluster-wide barrier: arrive releases, wait
+// acquires. Apart, a block can arrive early and wait just before the
+// first access that needs the other blocks' arrival (the decode K1 hides
+// the barrier behind its loads)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
 // every thread of every block of the cluster arrives and waits: the
 // cluster-wide __syncthreads (mbarriers initialised before it are
 // visible to the other blocks after it)
 __device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  cluster_arrive();
+  cluster_wait();
 }
 
 // the shared::cluster address of `p` (this block's shared memory) in the
@@ -114,6 +126,12 @@ __device__ __forceinline__ void st_cluster_f2(uint32_t addr, float a,
                                               float b) {
   asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};"
                :: "r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+// one float into another block's shared memory
+__device__ __forceinline__ void st_cluster_f1(uint32_t addr, float a) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" :: "r"(addr), "f"(a)
+               : "memory");
 }
 
 // one arrival on an mbarrier of another block (`addr` from map_rank),

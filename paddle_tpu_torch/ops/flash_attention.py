@@ -23,6 +23,28 @@ count is <= 4; the port keeps the rule on its own 64-key tiles
 (`bwd_route`), so Tk <= 256 takes K2 and the training length T = 1024
 takes K3 + K4.
 
+`flash_attn_decode(q, k_pool, v_pool, tables, page_len, kv_len, q_start,
+scale)` is K1 at Tq = 1 read through a page table: q [B, n, 1, D], the
+engine's pool planes [P, n, page_len, D] and int32 tables [B, m]; key j
+of row b lives at page tables[b, j // page_len], row j % page_len, and
+is live when j < kv_len[b] and j <= q_start[b]. It computes what
+`flash_attn_fwd` computes over the row's gathered page view, without
+gathering it. Its launches count on `flash_attn_fwd.launches`: it is
+K1. The card's kernel is one split-key design for both layouts
+(`csrc/flash_attn_fwd.cu::flash_decode_kernel`; `flash_attn_fwd` at Tq
+= 1 runs it on contiguous views): each row's live keys are cut into
+parts that depend only on that row's limit (`decode_parts`), one block
+of a thread-block cluster each, and the parts' softmax states are merged
+in part order, so a row's bits do not depend on the batch it is in.
+`flash_attn_decode_split_plain` is that split with the part-level merge
+formula in plain PyTorch (the kernel's own arithmetic differs: it also
+splits a part across warps); `flash_attn_decode_plain` gathers the view
+and runs
+`flash_attn_fwd_plain`. The decode kernel reads no key that is not
+live (pool memory past a row's length may hold anything) and takes any
+D <= 64 that is a multiple of 4, masking the tail columns, so the paged
+entry pads nothing (`flash_attn_fwd` pads D to 32 or 64 as before).
+
 `flash_attention_plane` is the training op's entry: a
 `torch.autograd.Function` over the packed `[B, T, n*D]` planes (viewed
 head-major by strides, no copy) whose forward is K1 and whose backward
@@ -41,7 +63,7 @@ K2 writes f32 partials that `sum_dq_partials` sums in a fixed order
 (each allocation counted on `flash_attn_bwd_fused.dq_partials`), the
 bf16 K2 sums them on chip in a fixed order and writes dq once, in bf16,
 allocating no partials. The decode step (Tq = 1) has no bf16 kernel yet
-and raises for bf16 on the card.
+and raises for bf16 on the card, through either entry.
 
 Head dims: the kernels take D in `KERNEL_HEAD_DIMS` (the f32 forward),
 `BF16_FWD_HEAD_DIMS` (the bf16 forward, whose wgmma tiles are 64 wide)
@@ -72,6 +94,8 @@ __all__ = ["flash_attn_fwd", "flash_attn_fwd_plain", "flash_attn_bwd",
            "flash_attn_fwd_bf16", "flash_attn_bwd_fused_bf16",
            "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16",
            "sum_dq_partials", "flash_attn_fwd_padded",
+           "flash_attn_decode", "flash_attn_decode_plain",
+           "flash_attn_decode_split_plain", "decode_parts", "gather_pages",
            "flash_attn_bwd_padded", "kernel_head_dim", "bwd_route",
            "fwd_head_dims", "KERNEL_HEAD_DIMS", "BF16_FWD_HEAD_DIMS",
            "BWD_HEAD_DIMS", "BWD_TILE", "NEG"]
@@ -82,6 +106,15 @@ BF16_FWD_HEAD_DIMS = (64,)   # the bf16 forward's tiles are 64 x 64
 BWD_HEAD_DIMS = (64,)   # the backward kernels' tiles are 64 x 64
 BWD_TILE = 64           # q rows / keys per backward kernel tile
 FUSED_MAX_TILES = 4     # the reference's nk <= 4 rule for the fused K2
+# the decode kernel's split of a row's live keys: at most 4 parts, a new
+# one per 32 keys. They must equal kDecRanks and kDecMinKeys in
+# csrc/flash_attn_fwd.cu (tests/test_torch_decode_attention.py reads
+# them there)
+DECODE_RANKS = 4
+DECODE_MIN_KEYS = 32
+# head dims the decode kernel takes: D <= 64, a multiple of 4 (the tail
+# columns of its 32- or 64-wide rows masked)
+DECODE_HEAD_DIMS = tuple(range(4, 65, 4))
 
 
 def flash_attn_fwd_plain(q, k, v, kv_len, q_start, causal=True,
@@ -283,6 +316,195 @@ def flash_attn_fwd(q, k, v, kv_len, q_start, causal=True, scale=None):
         raise ValueError(f"flash_attn_fwd: unsupported device {q.device}")
     return flash_attn_fwd_padded(_checked_launch, q, k, v, kv_len, q_start,
                                  causal, scale)
+
+
+# -- K1 at Tq = 1 read through a page table (the paged decode step) --------
+
+def gather_pages(c, tables):
+    """Pool plane [P, n, page_len, D] + page tables [b, m] -> the per-row
+    contiguous cache view [b, n, m*page_len, D] (the reference's
+    `_gather_pages`). Unbacked table slots carry page id 0 (the trash
+    page); every read of them is masked."""
+    b, m = tables.shape
+    _, n, pl, D = c.shape
+    return c[tables.long()].transpose(1, 2).reshape(b, n, m * pl, D)
+
+
+def _decode_limits(kv_len, q_start, keys):
+    """Each row's live keys [0, lim): j < kv_len, j <= q_start, and no
+    further than the `keys` its table covers; int64 [B]."""
+    lim = torch.minimum(kv_len.long(), q_start.long() + 1)
+    return lim.clamp(0, keys)
+
+
+def decode_parts(lim):
+    """The decode kernel's cut of a row's live keys [0, lim): parts =
+    clamp(ceil(lim / 32), 1, 4) ranges of ceil(lim / parts) keys, the last
+    one shorter. Depends on lim alone, so a row's split (and its bits)
+    never depends on the batch."""
+    parts = min(DECODE_RANKS, max(1, -(-lim // DECODE_MIN_KEYS)))
+    size = -(-lim // parts)
+    return [(min(lim, r * size), min(lim, (r + 1) * size))
+            for r in range(parts)]
+
+
+def flash_attn_decode_plain(q, k_pool, v_pool, tables, page_len, kv_len,
+                            q_start, scale=None):
+    """The reference's decode attention: gather each row's page view
+    through its table and run `flash_attn_fwd_plain` (causal, Tq = 1)
+    over it. The view's keys that are not live are zeroed first, so
+    what unbacked pages or pool rows past a row's length hold (NaN from
+    `torch.empty`, say) cannot reach O through a zero probability."""
+    vk, vv = gather_pages(k_pool, tables), gather_pages(v_pool, tables)
+    lim = _decode_limits(kv_len, q_start, vk.shape[2]).to(vk.device)
+    live = (torch.arange(vk.shape[2], device=vk.device)[None]
+            < lim[:, None])[:, None, :, None]                 # [B,1,Tk,1]
+    zero = torch.zeros((), dtype=vk.dtype, device=vk.device)
+    return flash_attn_fwd_plain(q, torch.where(live, vk, zero),
+                                torch.where(live, vv, zero), kv_len,
+                                q_start, True, _scale_of(q, scale))
+
+
+def flash_attn_decode_split_plain(q, k_pool, v_pool, tables, page_len,
+                                  kv_len, q_start, scale=None):
+    """The decode kernel's split with the part-level merge formula, in
+    plain f32 PyTorch, row by row: the row's live keys cut by
+    `decode_parts`, each part's softmax
+    state (its max m_r, sum l_r = sum exp(s - m_r), acc_r = sum exp(s -
+    m_r) v) from that part's keys alone, then the states merged in part
+    order: m = max m_r, l = sum_r l_r exp(m_r - m), O = sum_r acc_r
+    exp(m_r - m) / l, LSE = m + log l. A part with no live key adds
+    nothing; a row with none gives O = 0 and LSE = -1e30. Only live keys
+    are read. It shows the split and the formula right, not the kernel's
+    arithmetic: the kernel also cuts each part across its 4 warps and
+    merges parts x 4 warp states in (part, warp) order; the card's
+    tests hold the kernel to the plain versions."""
+    B, n, _, D = q.shape
+    scale = _scale_of(q, scale)
+    lim = _decode_limits(kv_len, q_start, tables.shape[1] * page_len)
+    o = torch.zeros((B, n, 1, D), dtype=torch.float32, device=q.device)
+    lse = torch.full((B, n, 1), NEG, dtype=torch.float32, device=q.device)
+    for b in range(B):
+        rows = int(lim[b])
+        if rows == 0:
+            continue
+        view_k = gather_pages(k_pool, tables[b:b + 1])[0, :, :rows].float()
+        view_v = gather_pages(v_pool, tables[b:b + 1])[0, :, :rows].float()
+        qb = q[b, :, 0].float()                                   # [n, D]
+        states = []
+        for k0, k1 in decode_parts(rows):
+            if k1 <= k0:
+                continue
+            s = torch.einsum("nd,ntd->nt", qb, view_k[:, k0:k1]) * scale
+            m = s.amax(-1)                                        # [n]
+            p = torch.exp(s - m[:, None])
+            states.append((m, p.sum(-1), torch.einsum(
+                "nt,ntd->nd", p, view_v[:, k0:k1])))
+        mm = torch.stack([m for m, _, _ in states]).amax(0)
+        ll = torch.zeros_like(mm)
+        acc = torch.zeros((n, D), dtype=torch.float32, device=q.device)
+        for m, l_r, acc_r in states:
+            f = torch.exp(m - mm)
+            ll = ll + l_r * f
+            acc = acc + acc_r * f[:, None]
+        o[b, :, 0] = acc / ll[:, None]
+        lse[b, :, 0] = mm + torch.log(ll)
+    return o.to(q.dtype), lse
+
+
+def _check_decode(q, k_pool, v_pool, tables, page_len, kv_len, q_start):
+    if q.dim() != 4 or q.shape[2] != 1:
+        raise ValueError(f"flash_attn_decode takes q [B, n, 1, D], got "
+                         f"{tuple(q.shape)}")
+    B, n, _, D = q.shape
+    if (k_pool.dim() != 4 or v_pool.shape != k_pool.shape
+            or k_pool.shape[1] != n or k_pool.shape[3] != D
+            or k_pool.shape[2] != page_len):
+        raise ValueError(f"k_pool {tuple(k_pool.shape)} / v_pool "
+                         f"{tuple(v_pool.shape)} must be [P, n={n}, "
+                         f"page_len={page_len}, D={D}]")
+    if tables.dim() != 2 or tables.shape[0] != B:
+        raise ValueError(f"tables must be [B={B}, m], got "
+                         f"{tuple(tables.shape)}")
+    for name, t in (("kv_len", kv_len), ("q_start", q_start)):
+        if t.shape != (B,):
+            raise ValueError(f"{name} must be [B]={B}, got "
+                             f"{tuple(t.shape)}")
+    devs = {t.device for t in (q, k_pool, v_pool, tables, kv_len, q_start)}
+    if len(devs) != 1:
+        raise ValueError(f"flash_attn_decode operands on several devices: "
+                         f"{sorted(map(str, devs))}")
+
+
+def _decode_lib():
+    from .._build import load_library
+    fn = load_library("flash_attn_fwd").pt_flash_attn_decode_f32
+    if fn.argtypes is None:
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([vp] * 8 + [i] * 5 + [ll] * 10
+                       + [ctypes.c_float, vp])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _decode_launch(q, k_pool, v_pool, tables, page_len, kv_len, q_start,
+                   scale):
+    _check_kernel_operands(q, k_pool, v_pool, kv_len, q_start,
+                           DECODE_HEAD_DIMS)
+    if q.dtype != torch.float32:
+        raise NotImplementedError(
+            "flash_attn_decode: the decode step (Tq = 1) has no bf16 "
+            "kernel yet")
+    if tables.dtype != torch.int32 or not tables.is_contiguous():
+        raise TypeError(f"tables must be a contiguous int32 tensor, got "
+                        f"{tables.dtype}")
+    B, n, _, D = q.shape
+    o_plane = torch.empty((B, 1, n, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, n, 1), dtype=torch.float32, device=q.device)
+    o = o_plane.permute(0, 2, 1, 3)
+    if B == 0 or n == 0:
+        return o, lse
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _decode_lib()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                       tables.data_ptr(), kv_len.data_ptr(),
+                       q_start.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                       B, n, tables.shape[1], page_len, D,
+                       *q.stride()[:2], *k_pool.stride()[:3],
+                       *v_pool.stride()[:3], *o.stride()[:2],
+                       float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attn_decode kernel launch failed: "
+                           f"{'unsupported shape ' if rc < 0 else ''}"
+                           f"cudaError {rc} (B={B}, n={n}, m="
+                           f"{tables.shape[1]}, page_len={page_len}, D={D})")
+    flash_attn_fwd.launches += 1
+    return o, lse
+
+
+def flash_attn_decode(q, k_pool, v_pool, tables, page_len, kv_len, q_start,
+                      scale=None):
+    """K1 at Tq = 1 through page tables; see the module docstring.
+    Returns (o [B, n, 1, D], lse [B, n, 1]). CPU tensors run
+    `flash_attn_decode_plain`, meta tensors give shapes, CUDA tensors
+    launch the decode kernel (or raise). On every device a row attends
+    to at most the m * page_len keys its table covers, as
+    `flash_attn_fwd` clamps kv_len to Tk: refusing a longer kv_len would
+    read it back from the card once a layer (a wait, and no CUDA-graph
+    capture). The engine checks its positions against its tables on the
+    host instead (`GenerationEngine._dispatch_decode`)."""
+    _check_decode(q, k_pool, v_pool, tables, page_len, kv_len, q_start)
+    scale = _scale_of(q, scale)
+    if q.device.type == "cpu":
+        return flash_attn_decode_plain(q, k_pool, v_pool, tables, page_len,
+                                       kv_len, q_start, scale)
+    if q.device.type == "meta":
+        B, n, _, D = q.shape
+        return (torch.empty(q.shape, dtype=q.dtype, device="meta"),
+                torch.empty((B, n, 1), dtype=torch.float32, device="meta"))
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attn_decode: unsupported device {q.device}")
+    return _decode_launch(q, k_pool, v_pool, tables, page_len, kv_len,
+                          q_start, scale)
 
 
 def _bf16_only(wrapper, name):

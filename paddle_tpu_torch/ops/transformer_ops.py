@@ -18,9 +18,13 @@ Differences from the JAX functions, none of them visible in the tokens:
     a row (every prompt has plen >= 1, and pad rows and dead decode
     slots attend to column 0), so the two agree on every row it reads;
   * the paged functions scatter the new K/V rows into their pages
-    first and then gather each row's page view to attend over, instead
-    of writing into the gathered view and scattering back. Positions
-    < plen read the same values either way; the rest are masked.
+    first and then attend, instead of writing into a gathered view and
+    scattering back. Positions < plen read the same values either way;
+    the rest are masked;
+  * the paged decode step gathers nothing: its attention
+    (`flash_attn_decode`) reads each row's keys through its page table
+    straight from the pool planes. The paged prefill still gathers each
+    row's page view (K1 at Tq > 1 takes contiguous views).
 Float32 throughout, as the reference engine.
 """
 
@@ -30,7 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import flash_attn_fwd
+from .flash_attention import flash_attn_decode, flash_attn_fwd
+from .flash_attention import gather_pages as _gather_pages
 
 __all__ = ["slot_prefill", "slot_decode_step", "paged_prefill",
            "paged_decode_step", "page_copy"]
@@ -60,10 +65,12 @@ def _cached_block(params, x, write_idx, attend_len, num_heads, store):
     x [B,S,H] new positions at global positions write_idx[b] + s;
     attend_len [B] valid cache entries after the write. `store(k, v)`
     takes the new K/V rows [B,n,S,D], writes them into the cache and
-    returns the [B,n,Tk,D] K/V views to attend over (the slab planes,
-    the gathered page views, or the new rows themselves for a fresh
-    prefill cache). Causality inside the S window follows position
-    order. Returns the block output [B,S,H]."""
+    returns what to attend over: the [B,n,Tk,D] K/V views (the slab
+    planes, the gathered page views, or the new rows themselves for a
+    fresh prefill cache), or, for the paged decode step (S = 1), the
+    pool planes [P,n,page_len,D] and the page tables [B,m], which
+    `flash_attn_decode` reads through. Causality inside the S window
+    follows position order. Returns the block output [B,S,H]."""
     (ln1g, ln1b, wqkv, bqkv, wproj, bproj,
      ln2g, ln2b, wup, bup, wdown, bdown) = params
     B, S, H = x.shape
@@ -73,9 +80,15 @@ def _cached_block(params, x, write_idx, attend_len, num_heads, store):
     h = _ln_f32(x, ln1g, ln1b)
     qkv = (torch.matmul(h, wqkv) + bqkv).view(B, S, n, 3, D)
     q, k, v = (qkv[:, :, :, m].transpose(1, 2) for m in range(3))  # [B,n,S,D]
-    ck, cv = store(k, v)
-    attn, _ = flash_attn_fwd(q, ck, cv, attend_len, write_idx, causal=True,
-                             scale=1.0 / float(np.sqrt(D)))
+    kv = store(k, v)
+    scale = 1.0 / float(np.sqrt(D))
+    if len(kv) == 3:            # pool planes + page tables
+        ck, cv, tables = kv
+        attn, _ = flash_attn_decode(q, ck, cv, tables, ck.shape[2],
+                                    attend_len, write_idx, scale)
+    else:
+        attn, _ = flash_attn_fwd(q, *kv, attend_len, write_idx, causal=True,
+                                 scale=scale)
     attn = attn.transpose(1, 2).reshape(B, S, H)
     x = x + torch.matmul(attn, wproj) + bproj
 
@@ -154,15 +167,6 @@ def slot_decode_step(params, emb, pos_tab, lnfg, lnfb, headw, num_heads,
     return torch.where(live, nxt, torch.zeros_like(nxt))
 
 
-def _gather_pages(c, tables):
-    """Pool plane [P, n, page_len, D] + page tables [b, m] -> the per-row
-    contiguous cache view [b, n, m*page_len, D]. Unbacked table slots
-    carry page id 0 (the trash page); every read of them is masked."""
-    b, m = tables.shape
-    _, n, pl, D = c.shape
-    return c[tables.long()].transpose(1, 2).reshape(b, n, m * pl, D)
-
-
 def _page_targets(tables, pos, valid, pl):
     """(page id, offset) per position, flattened; invalid positions
     (bucket padding, pad rows) go to the trash page 0."""
@@ -208,10 +212,12 @@ def paged_prefill(params, emb, pos_tab, lnfg, lnfb, headw, num_heads,
 def paged_decode_step(params, emb, pos_tab, lnfg, lnfb, headw, num_heads,
                       ck, cv, tok, pos_idx, live, tables):
     """One fused greedy decode step through page tables at the constant
-    [max_slots] shape; each row's view holds only its own pages, so
-    co-batched rows stay bitwise independent. Dead rows carry all-zero
-    tables and live=False: their write lands on the trash page and their
-    next token is forced to 0. Returns nxt [S] int32."""
+    [max_slots] shape. Attention reads each row's keys through its own
+    table, straight from the pool planes (no gathered view), and cuts
+    them by the row's own length only, so co-batched rows stay bitwise
+    independent. Dead rows carry all-zero tables and live=False: their
+    write lands on the trash page and their next token is forced to 0.
+    Returns nxt [S] int32."""
     L = ck.shape[0]
     pl = ck.shape[3]
     x = _embed(emb, pos_tab, tok, pos_idx)[:, None]          # [S,1,H]
@@ -222,7 +228,7 @@ def paged_decode_step(params, emb, pos_tab, lnfg, lnfb, headw, num_heads,
         def store(k, v, l=l):
             ck[l, pid, :, off] = k[:, :, 0]
             cv[l, pid, :, off] = v[:, :, 0]
-            return _gather_pages(ck[l], tables), _gather_pages(cv[l], tables)
+            return ck[l], cv[l], tables
         x = _cached_block(_layer(params, l), x, pos_idx, pos_idx + 1,
                           num_heads, store)
     nxt = _greedy_pick(x[:, 0], lnfg, lnfb, headw)

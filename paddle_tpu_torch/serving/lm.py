@@ -645,7 +645,8 @@ class GenerationEngine:
         """Price the resident engine in closed form BEFORE allocating
         anything — weights + both KV planes + the largest step's
         transients (activations of the biggest prefill rung or the
-        decode step, one layer's gathered page views, the head logits)
+        decode step, one prefill layer's gathered page views, the head
+        logits)
         — and refuse to construct when it exceeds the card's free
         memory (`torch.cuda.mem_get_info`). On the CPU there is no
         limit to check."""
@@ -660,10 +661,11 @@ class GenerationEngine:
 
         def step(b, t):
             # x, h, qkv (3H), attention out + projection (2H), ffn up
-            # and gelu (2F) per position; O/LSE rows; K/V views (paged
-            # gathers one layer's pages per row); head logits per row
+            # and gelu (2F) per position; O/LSE rows; K/V views (the
+            # paged prefill gathers one layer's pages per row, the
+            # decode step reads them in place); head logits per row
             act = b * t * (7 * H + 2 * F + n)
-            views = 2 * b * H * view if cfg.paged else 0
+            views = 2 * b * H * view if cfg.paged and t > 1 else 0
             return 4 * (act + views + b * V)
 
         transient = max(step(cfg.prefill_batch, cfg.max_prompt_len),
@@ -699,6 +701,15 @@ class GenerationEngine:
             return tok0.cpu().numpy()
 
     def _dispatch_decode(self, tok, pos_idx, live, tables=None):
+        if tables is not None:
+            # the decode attention attends to at most the keys a table
+            # covers (it does not read kv_len back); refuse here, where
+            # the positions are on the host
+            keys = tables.shape[1] * self.config.page_len
+            if int(np.max(pos_idx, initial=0)) >= keys:
+                raise ValueError(f"decode position {int(np.max(pos_idx))} "
+                                 f"is past the {keys} keys a page table "
+                                 f"covers")
         args = ((tok, pos_idx, live) if tables is None
                 else (tok, pos_idx, live, tables))
         with self._dispatch_lock, torch.inference_mode():

@@ -159,6 +159,146 @@ def test_flash_attn_fwd_kernel_refuses_what_it_does_not_take(card):
         fa.flash_attn_fwd(q64, q64, q64, lens.long(), lens.long())
 
 
+# -- K1 at Tq = 1: the split-key decode kernel, paged and contiguous --------
+
+def _paged_case(card, B, n, D, page_len, m, kv, seed, extra_pages=5):
+    """q [B, n, 1, D] and K/V pools whose pages are handed out to the rows
+    in a shuffled order; page 0 (the trash page every unbacked table
+    slot names) and every pool row past a row's kv hold NaN, which the
+    kernel must never read. q_start = kv - 1 (the decode step)."""
+    rng = np.random.RandomState(seed)
+    need = [-(-k // page_len) for k in kv]
+    P = 1 + sum(need) + extra_pages
+    ids = rng.permutation(np.arange(1, P))
+    tables = np.zeros((B, m), np.int32)
+    pools = [rng.randn(P, n, page_len, D).astype(np.float32)
+             for _ in range(2)]
+    used = 0
+    for b in range(B):
+        tables[b, :need[b]] = ids[used:used + need[b]]
+        used += need[b]
+        if need[b] and kv[b] % page_len:
+            for pool in pools:       # rows past kv in the last page
+                pool[tables[b, need[b] - 1], :, kv[b] % page_len:] = np.nan
+    for pool in pools:
+        pool[0] = np.nan
+    q = rng.randn(B, n, 1, D).astype(np.float32)
+    lens = np.asarray(kv, np.int32)
+    return (*(torch.from_numpy(a).to(card) for a in (q, *pools, tables)),
+            torch.from_numpy(lens).to(card),
+            torch.from_numpy(lens - 1).to(card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 8, 48])
+@pytest.mark.parametrize("page_len,m,kv", [
+    (16, 24, [384, 1, 17, 250, 100, 64, 333, 5]),   # the engine's geometry
+    (1, 300, [0, 1, 31, 32, 33, 127, 128, 129, 300]),   # part edges
+    (384, 1, [384, 0, 383, 64, 1]),                 # one page a row
+    (16, 64, [1024, 513, 1000]),                    # several rounds a part
+])
+def test_flash_attn_decode_kernel_matches_plain(card, D, page_len, m, kv):
+    """Shuffled pages, NaN on the trash page and past each row's length,
+    kv from 0 to the whole table; D 8 and 48 run with the tail columns
+    of the 32- or 64-wide kernel masked, nothing padded."""
+    q, kp, vp, tables, lens, starts = _paged_case(
+        card, len(kv), 3, D, page_len, m, kv, seed=page_len + D)
+    before = fa.flash_attn_fwd.launches
+    o, lse = fa.flash_attn_decode(q, kp, vp, tables, page_len, lens, starts)
+    torch.cuda.synchronize()
+    assert fa.flash_attn_fwd.launches == before + 1
+    ref_o, ref_lse = fa.flash_attn_decode_plain(q, kp, vp, tables, page_len,
+                                                lens, starts)
+    err = max(float((o - ref_o).abs().max()),
+              float((lse - ref_lse).abs().max()))
+    print(f"K1 decode paged page_len {page_len} D {D}: max_abs_err "
+          f"{err:.3e}")
+    assert err <= 1e-4
+    for b, n_live in enumerate(kv):
+        if n_live == 0:
+            assert float(o[b].abs().max()) == 0.0
+            assert bool((lse[b] == fa.NEG).all())
+    again = fa.flash_attn_decode(q, kp, vp, tables, page_len, lens, starts)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [True, False])
+def test_flash_attn_decode_rows_alone_equal_rows_in_the_batch(card, paged):
+    """Each row's split depends on its own length only: its O and LSE
+    bits are the same computed alone as in a batch of 8."""
+    kv = [384, 1, 17, 250, 100, 64, 333, 5]
+    q, kp, vp, tables, lens, starts = _paged_case(card, 8, 12, 64, 16, 24,
+                                                  kv, seed=5)
+    if paged:
+        run = (lambda s: fa.flash_attn_decode(
+            q[s], kp, vp, tables[s], 16, lens[s], starts[s]))
+    else:
+        k, v = (fa.gather_pages(p, tables) for p in (kp, vp))
+        run = (lambda s: fa.flash_attn_fwd(q[s], k[s], v[s], lens[s],
+                                           starts[s]))
+    o, lse = run(slice(0, 8))
+    for b in range(8):
+        ob, lseb = run(slice(b, b + 1))
+        assert torch.equal(ob[0], o[b]) and torch.equal(lseb[0], lse[b])
+
+
+@pytest.mark.cuda
+def test_flash_attn_fwd_decode_on_slab_plane_views(card):
+    """The contiguous layout as the slab engine passes it: ck[l] of a
+    [L, S, n, Tcap, D] plane and q out of a packed qkv plane, one fully
+    masked row; one K1 launch, the same bits in two calls."""
+    rng = np.random.RandomState(17)
+    S, n, Tcap, D = 5, 12, 384, 64
+    ck, cv = (torch.from_numpy(rng.randn(2, S, n, Tcap, D).astype(
+        np.float32)).to(card) for _ in range(2))
+    qkv = torch.from_numpy(rng.randn(S, 1, n, 3, D).astype(np.float32)
+                           ).to(card)
+    q = qkv[:, :, :, 0].transpose(1, 2)
+    kv = [384, 0, 1, 200, 33]
+    lens = torch.tensor(kv, dtype=torch.int32, device=card)
+    starts = lens - 1
+    before = fa.flash_attn_fwd.launches
+    o, lse = fa.flash_attn_fwd(q, ck[1], cv[1], lens, starts)
+    torch.cuda.synchronize()
+    assert fa.flash_attn_fwd.launches == before + 1
+    ref_o, ref_lse = fa.flash_attn_fwd_plain(q, ck[1], cv[1], lens, starts)
+    err = max(float((o - ref_o).abs().max()),
+              float((lse - ref_lse).abs().max()))
+    print(f"K1 decode slab plane: max_abs_err {err:.3e}")
+    assert err <= 1e-4
+    assert float(o[1].abs().max()) == 0.0 and bool((lse[1] == fa.NEG).all())
+    again = fa.flash_attn_fwd(q, ck[1], cv[1], lens, starts)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.cuda
+def test_flash_attn_decode_refuses_what_it_does_not_take(card):
+    q, kp, vp, tables, lens, starts = _paged_case(card, 2, 2, 64, 4, 3,
+                                                  [5, 12], seed=3)
+    with pytest.raises(TypeError, match="int32"):
+        fa.flash_attn_decode(q, kp, vp, tables.long(), 4, lens, starts)
+    with pytest.raises(ValueError, match="tables"):
+        fa.flash_attn_decode(q, kp, vp, tables[:1], 4, lens, starts)
+    q80 = torch.zeros(2, 2, 1, 80, device=card)
+    k80 = torch.zeros(4, 2, 4, 80, device=card)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attn_decode(q80, k80, k80, tables, 4, lens, starts)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        fa.flash_attn_decode(q.bfloat16(), kp.bfloat16(), vp.bfloat16(),
+                             tables, 4, lens, starts)
+    # a table shorter than kv_len is not refused on any device (that
+    # would read kv_len back): the kernel reads no key past the table's
+    # m * page_len keys, clamping as the plain version does
+    short = tables[:, :2].contiguous()       # 8 keys; row 1 has 12
+    o, lse = fa.flash_attn_decode(q, kp, vp, short, 4, lens, starts)
+    ref_o, ref_lse = fa.flash_attn_decode_plain(q, kp, vp, short, 4, lens,
+                                                starts)
+    assert bool(torch.isfinite(o).all())
+    assert float((o - ref_o).abs().max()) <= 1e-4
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+
+
 # -- K2-K4: the flash-attention backward ------------------------------------
 
 def _bwd_case(card, B, n, Tq, Tk, D, kv_len, causal, seed):

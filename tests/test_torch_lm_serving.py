@@ -147,23 +147,33 @@ def test_prefix_hit_past_the_page_view_equals_cold():
 def test_no_attention_row_is_fully_masked_while_serving(monkeypatch):
     """K1 zeroes a fully masked row where the reference's plain softmax
     would average it; the engine must never produce one: every row's
-    first column is live (kv_len >= 1, q_start >= 0)."""
-    seen = []
-    real = PT.flash_attn_fwd
+    first column is live (kv_len >= 1, q_start >= 0). Both K1 entries
+    are watched: `flash_attn_fwd` (prefills, slab decode) and
+    `flash_attn_decode` (the paged decode step)."""
+    seen = {"fwd": 0, "decode": 0}
+    real_fwd, real_decode = PT.flash_attn_fwd, PT.flash_attn_decode
 
     def checked(q, k, v, kv_len, q_start, **kw):
-        seen.append(1)
+        seen["fwd"] += 1
         assert int(kv_len.min()) >= 1 and int(q_start.min()) >= 0
-        return real(q, k, v, kv_len, q_start, **kw)
+        return real_fwd(q, k, v, kv_len, q_start, **kw)
+
+    def checked_decode(q, k_pool, v_pool, tables, page_len, kv_len,
+                       q_start, scale=None):
+        seen["decode"] += 1
+        assert int(kv_len.min()) >= 1 and int(q_start.min()) >= 0
+        return real_decode(q, k_pool, v_pool, tables, page_len, kv_len,
+                           q_start, scale)
 
     monkeypatch.setattr(PT, "flash_attn_fwd", checked)
+    monkeypatch.setattr(PT, "flash_attn_decode", checked_decode)
     for paged in (True, False):
         with make_engine(paged=paged, page_len=4) as eng:
             eng.warmup()
             streams = [eng.submit(p) for p in PROMPTS + PROMPTS[:2]]
             for s in streams:
                 s.result(timeout=120)
-    assert seen
+    assert seen["fwd"] and seen["decode"]
 
 
 def test_warmup_and_stats():
@@ -178,6 +188,20 @@ def test_warmup_and_stats():
                                      + hbm["kv_cache_bytes"]
                                      + hbm["transient_bytes"])
     assert hbm["weight_bytes"] == 4 * sum(v.size for v in WEIGHTS.values())
+
+
+def test_decode_refuses_positions_past_its_page_tables():
+    """The decode attention attends to at most the keys a page table
+    covers and does not read kv_len back: the engine refuses a position
+    past its tables on the host, before the step runs."""
+    with make_engine(paged=True, page_len=4) as eng:
+        S, m = eng.config.max_slots, eng.config.pages_per_seq
+        pos = np.zeros(S, np.int32)
+        pos[1] = m * 4
+        with pytest.raises(ValueError, match="past the 16 keys"):
+            eng._dispatch_decode(np.zeros(S, np.int32), pos,
+                                 np.zeros(S, bool),
+                                 np.zeros((S, m), np.int32))
 
 
 def test_lm_weights_from_numpy_validates_names_and_shapes():

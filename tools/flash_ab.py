@@ -1,7 +1,7 @@
 """Time the flash-attention and int8 kernels of one checkout of the port,
 for A/B comparisons of kernel variants.
 
-    python3 tools/flash_ab.py TREE LABEL [f32|bf16|int8|lse|lse16|step|short|amp32|all[,...]]
+    python3 tools/flash_ab.py TREE LABEL [f32|bf16|int8|lse|lse16|step|short|amp32|traffic|decode|decodek|all[,...]]
 
 TREE is a directory holding `chip_smoke.py` and `paddle_tpu_torch/` (a
 `git archive` of a commit, or a copy with a variant of csrc/); its
@@ -51,7 +51,27 @@ kernels are built from its own sources. Prints lines tagged "AB LABEL":
   step's device time and its K2 / K5 ms;
 - amp32 (not in `all`): the tree's own amp phase at T 1024, B 32
   (chip_smoke's phase 14): step wall, a profiled step's device time,
-  busy share and its bf16 K5 / K1 ms a step.
+  busy share and its bf16 K5 / K1 ms a step;
+- traffic (not in `all`): runs the tree's engine phase (chip_smoke's
+  phase 4: GPT-2-small, seven requests over HTTP) and saves the host
+  inputs of every decode step its scheduler dispatched (positions, live
+  slots, page tables) to build/decode_traffic.npz beside this script's
+  checkout, with their row-length mix; run it once before `decode`;
+- decode (not in `all`): the f32 decode attention and the paged decode
+  step. K1 at Tq = 1 at chip_smoke's "decode" case (contiguous [8, 12,
+  1, 64], kv 1-384) and at the engine's paged geometry (page_len 16, 24
+  shuffled pages a row of a 100 MB pool): the tree's `flash_attn_decode`
+  where it has one, else what its decode step runs there (the K and V
+  page gathers, then `flash_attn_fwd`); the contiguous K1 with one key a
+  row (B 8: the fixed cost) and at kv 384 for B 1-16 (where the bytes
+  take over); the same attention over the recorded engine traffic (12
+  layers a step, each over its own pool planes), K1's us a launch by
+  kind of step, and K1 alone at the position-300 step's geometry in and
+  past the L2; then GPT-2-small's paged decode step (chip_smoke's phase
+  4 engine, 8 slots at position 300, no requests): host wall,
+  CUDA-graph device time and one profiled step's kernels by class (K1,
+  index, copy, cuBLAS, the rest). `decodek` is `decode` without the
+  step.
 
 Compare two trees only within one call, in turns: parent, change,
 change, parent. Needs a CUDA card.
@@ -62,6 +82,8 @@ import os
 import re
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import torch
@@ -401,6 +423,268 @@ def amp_b32_step(cs, label):
           f"{k['flash_attn_fwd_bf16']:.2f} ms a step", flush=True)
 
 
+DECODE_KV = [384, 1, 17, 250, 100, 64, 333, 5]   # chip_smoke's decode case
+PAGE_LEN, PAGES_A_ROW, POOL_PAGES = 16, 24, 1024
+DECODE_CLASSES = (("K1", ("flash_decode_", "flash_fwd_")),
+                  ("index", ("index",)), ("copy", ("copy",)),
+                  ("cuBLAS", ("gemm", "nvjet", "xmma", "cutlass")))
+# the engine phase's decode steps, as `traffic` records them
+TRAFFIC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "build", "decode_traffic.npz")
+
+
+def profiled_events(fn, calls=3):
+    """The device kernels [(name, us)] of one call of fn under
+    torch.profiler, in launch order: of `calls` profiled calls the one
+    that recorded the most (the profiler now and then drops events)."""
+    from torch.profiler import ProfilerActivity, profile
+    best = []
+    for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = [(ev.name, float(ev.time_range.elapsed_us()))
+               for ev in prof.events()
+               if getattr(ev, "device_type", None)
+               == torch.autograd.DeviceType.CUDA]
+        best = got if len(got) > len(best) else best
+    return best
+
+
+def by_class(events):
+    """{class: (us, launches)} of profiled events by DECODE_CLASSES; a
+    name matching none is "rest"."""
+    out = {c: [0.0, 0] for c, _ in DECODE_CLASSES + (("rest", ()),)}
+    for name, us in events:
+        c = next((c for c, frags in DECODE_CLASSES
+                  if any(f in name for f in frags)), "rest")
+        out[c][0] += us
+        out[c][1] += 1
+    return {c: (round(us, 1), n) for c, (us, n) in out.items()}
+
+
+def engine_config(cs):
+    """chip_smoke's phase 4 engine configuration."""
+    return cs.GenerationConfig(max_slots=8, prefill_batch=4,
+                               max_prompt_len=256, max_new_tokens=128,
+                               paged=True, page_len=PAGE_LEN,
+                               prefix_cache=True)
+
+
+def record_traffic(cs, label):
+    """Run the tree's engine phase (chip_smoke phase 4: GPT-2-small, the
+    seven requests over HTTP) and save the host inputs of every decode
+    step its scheduler dispatched (pos_idx, live, page tables) to
+    TRAFFIC, with the size of its page pool; print their row-length
+    mix."""
+    _, smi = cs.device_phase()
+    cs._build.build_library("flash_attn_fwd")
+    steps = []
+    real = cs.GenerationEngine._dispatch_decode
+
+    def spy(self, tok, pos_idx, live, tables=None):
+        # the scheduler's thread: not warmup's or the breakdown's calls
+        if threading.current_thread() is not threading.main_thread():
+            steps.append((pos_idx.copy(), live.copy(), tables.copy()))
+        return real(self, tok, pos_idx, live, tables)
+
+    cs.GenerationEngine._dispatch_decode = spy
+    try:
+        cs.engine_phase(smi)
+    finally:
+        cs.GenerationEngine._dispatch_decode = real
+    pos, live, tables = (np.stack(x) for x in zip(*steps))
+    os.makedirs(os.path.dirname(TRAFFIC), exist_ok=True)
+    np.savez(TRAFFIC, pos=pos, live=live, tables=tables,
+             pages=engine_config(cs).num_pages + 1)
+    kv = (pos + 1)[live]
+    rows = {int(r): int(c) for r, c in zip(*np.unique(
+        live.sum(1), return_counts=True))}
+    print(f"AB {label} decode traffic: {len(pos)} steps of {pos.shape[1]} "
+          f"slots; steps by live rows {rows}; "
+          f"live kv min {kv.min()} p25 {np.percentile(kv, 25):.0f} median "
+          f"{np.median(kv):.0f} p75 {np.percentile(kv, 75):.0f} max "
+          f"{kv.max()}; dead slots (kv 1) {int((~live).sum())}", flush=True)
+    for name, steps_of in traffic_groups(pos, live):
+        k = (pos[steps_of] + 1)[live[steps_of]]
+        print(f"AB {label} decode traffic: {name}: {len(steps_of)} steps, "
+              f"live kv {k.min()}-{k.max()}", flush=True)
+
+
+def traffic_groups(pos, live):
+    """The recorded steps by kind: [(name, step indices)]."""
+    nlive = live.sum(1)
+    top = np.where(live, pos + 1, 0).max(1)
+    kinds = [("several live rows", nlive > 1),
+             ("one live row, kv < 128", (nlive == 1) & (top < 128)),
+             ("one live row, kv >= 128", (nlive == 1) & (top >= 128))]
+    return [(name, np.flatnonzero(sel)) for name, sel in kinds]
+
+
+def attention_of(fa, scale):
+    """(name, fn(q, k plane, v plane, tables, lens, starts)): what the
+    tree's paged decode step runs for one layer's attention."""
+    if hasattr(fa, "flash_attn_decode"):
+        return "flash_attn_decode", (
+            lambda q, kp, vp, t, lens, starts: fa.flash_attn_decode(
+                q, kp, vp, t, PAGE_LEN, lens, starts, scale))
+    gather = importlib.import_module(
+        "paddle_tpu_torch.ops.transformer_ops")._gather_pages
+    return "gather K, V + flash_attn_fwd", (
+        lambda q, kp, vp, t, lens, starts: fa.flash_attn_fwd(
+            q, gather(kp, t), gather(vp, t), lens, starts, True, scale))
+
+
+def paged_inputs(rng, sets, lens, starts, n=12, D=64):
+    """`sets` (q [8, n, 1, D], K pool, V pool, tables [8, 24], lens,
+    starts) over one K and one V pool [POOL_PAGES, n, 16, D]: each set's
+    rows take their own pages of the pool in a shuffled order (page 0,
+    the trash page, on unbacked slots)."""
+    kp, vp = (torch.randn(POOL_PAGES, n, PAGE_LEN, D, device="cuda")
+              for _ in range(2))
+    free = iter(rng.permutation(np.arange(1, POOL_PAGES)))
+    out = []
+    for _ in range(sets):
+        tables = np.zeros((len(DECODE_KV), PAGES_A_ROW), np.int32)
+        for b, kv in enumerate(DECODE_KV):
+            for slot in range(-(-kv // PAGE_LEN)):
+                tables[b, slot] = next(free)
+        q = torch.from_numpy(rng.randn(len(DECODE_KV), n, 1, D).astype(
+            np.float32)).cuda()
+        out.append((q, kp, vp, torch.from_numpy(tables).cuda(), lens,
+                    starts))
+    return out
+
+
+def traffic_replay(cs, fa, label, rng, scale):
+    """K1 over the engine phase's own decode steps (TRAFFIC): every step
+    runs the tree's attention in each of the 12 layers, each layer over
+    its own K and V pool planes (228 MB of pools, past the L2), as the
+    engine's step does. Device ms of the whole replay (CUDA-graph) and,
+    from a profiled replay, K1's us and launches, whole and by kind of
+    step. Then K1 alone at the position-300 step's geometry (8 rows at kv
+    301 on contiguous pages): over one input set (it stays in the L2)
+    and over the 12 layers' sets."""
+    if not os.path.exists(TRAFFIC):
+        print(f"AB {label} decode traffic: {TRAFFIC} not recorded (run "
+              f"the `traffic` mode first)", flush=True)
+        return
+    rec = np.load(TRAFFIC)
+    pos, live, tables = rec["pos"], rec["live"], rec["tables"]
+    L, n, D = 12, cs.N_HEADS, cs.HEAD_DIM
+    kp, vp = (torch.randn(L, int(rec["pages"]), n, PAGE_LEN, D,
+                          device="cuda") for _ in range(2))
+    what, attend = attention_of(fa, scale)
+    sets = []
+    for s in range(len(pos)):
+        q = torch.from_numpy(rng.randn(pos.shape[1], n, 1, D).astype(
+            np.float32)).cuda()
+        lens, starts, tab = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                             for a in (pos[s] + 1, pos[s], tables[s]))
+        sets += [(q, kp[l], vp[l], tab, lens, starts) for l in range(L)]
+    total = len(sets) * cs.time_ms(attend, sets, reps=len(sets))
+    events = [us for name, us in profiled_events(
+        lambda: [attend(*a) for a in sets])
+        if any(f in name for f in DECODE_CLASSES[0][1])]
+    groups = []
+    if len(events) == len(sets):       # every K1 launch recorded: by step
+        per_step = np.asarray(events).reshape(len(pos), L).sum(1)
+        for name, steps_of in traffic_groups(pos, live):
+            us = per_step[steps_of].sum() / (L * len(steps_of))
+            groups.append(f"{name} {us:.2f}")
+    print(f"AB {label} decode traffic ({what}): {len(pos)} steps x {L} "
+          f"layers: {total:.4f} ms (graph replay); K1 {sum(events):.1f} us "
+          f"over {len(events)} launches, mean {np.mean(events):.2f} us; by "
+          f"kind of step (K1 us a launch) {' | '.join(groups)}", flush=True)
+    del sets
+
+    m = tables.shape[2]
+    tab = torch.arange(1, 8 * m + 1, dtype=torch.int32,
+                       device="cuda").view(8, m)
+    lens = torch.full((8,), 301, dtype=torch.int32, device="cuda")
+    starts = lens - 1
+    q = torch.randn(8, n, 1, D, device="cuda")
+    if what == "flash_attn_decode":
+        k1 = attend
+        step_sets = [(q, kp[l], vp[l], tab, lens, starts) for l in range(L)]
+    else:                                # the parent's K1 on its views
+        def k1(q, k, v, lens, starts):
+            return fa.flash_attn_fwd(q, k, v, lens, starts, True, scale)
+        gather = importlib.import_module(
+            "paddle_tpu_torch.ops.transformer_ops")._gather_pages
+        step_sets = [(q, gather(kp[l], tab), gather(vp[l], tab), lens,
+                      starts) for l in range(L)]
+    warm = 1e3 * cs.time_ms(k1, step_sets[:1])
+    cold = 1e3 * cs.time_ms(k1, step_sets)
+    print(f"AB {label} decode K1 at the step geometry [8 rows, kv 301]: "
+          f"one set (in the L2) {warm:.2f} us | 12 layers' sets {cold:.2f} "
+          f"us", flush=True)
+    del step_sets, kp, vp
+    torch.cuda.empty_cache()
+
+
+def decode_path(cs, label, step=True):
+    fa = cs.fa
+    _, smi = cs.device_phase()
+    cs._build.build_library("flash_attn_fwd")   # the serving path's only
+    rng = np.random.RandomState(0)
+    scale = 1.0 / float(np.sqrt(cs.HEAD_DIM))
+    starts_np = [kv - 1 for kv in DECODE_KV]
+    # 8 sets: 57 MB of live K/V, more than the L2 holds (chip_smoke's
+    # decode case cycles 6, 43 MB)
+    sets, lens, starts = cs.make_case(rng, len(DECODE_KV), 1, DECODE_KV,
+                                      starts_np, 8)
+    k1 = cs.time_ms(lambda q, k, v: fa.flash_attn_fwd(
+        q, k, v, lens, starts, True, scale), sets)
+    del sets
+    what, attend = attention_of(fa, scale)
+    psets = paged_inputs(rng, 8, lens, starts)
+    paged = cs.time_ms(attend, psets)
+    print(f"AB {label} decode [8, 12, 1, 64] kv 1-384: contiguous K1 "
+          f"{k1:.4f} ms | paged ({what}) {paged:.4f} ms | {smi}", flush=True)
+    del psets
+    steps = []
+    for B, kv in [(8, 1)] + [(B, 384) for B in (1, 2, 4, 6, 8, 12, 16)]:
+        sets, lens, starts = cs.make_case(rng, B, 1, [kv] * B,
+                                          [kv - 1] * B, 4)
+        us = 1e3 * cs.time_ms(lambda q, k, v: fa.flash_attn_fwd(
+            q, k, v, lens, starts, True, scale), sets)
+        steps.append(f"B {B} kv {kv}: {us:.2f}")
+        del sets
+    print(f"AB {label} decode contiguous K1 (us): {' | '.join(steps)}",
+          flush=True)
+    torch.cuda.empty_cache()
+    traffic_replay(cs, fa, label, rng, scale)
+    if not step:
+        return
+
+    spec = cs.LMSpec(50304, 768, 12, 12, 1024)
+    cfg = engine_config(cs)
+    engine = cs.GenerationEngine(spec, cs.init_lm_weights(spec, seed=cs.SEED),
+                                 config=cfg, ready=False, start=False)
+    S, m = cfg.max_slots, cfg.pages_per_seq
+    host = (np.arange(S, dtype=np.int32), np.full(S, 300, np.int32),
+            np.ones(S, bool),
+            np.arange(1, S * m + 1, dtype=np.int32).reshape(S, m))
+    for _ in range(3):
+        engine._dispatch_decode(*host)
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        engine._dispatch_decode(*host)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    args = engine._to_device(*host)
+    with torch.inference_mode():
+        device_ms = cs.time_ms(lambda: engine._decode_fn(*args), [()], 20)
+        events = profiled_events(lambda: engine._decode_fn(*args))
+    print(f"AB {label} decode step [8 slots, position 300]: wall median "
+          f"{float(np.median(walls)):.3f} ms (min {min(walls):.3f}) | device "
+          f"{device_ms:.4f} ms (graph replay) | profiled step "
+          f"{len(events)} kernels, (us, launches) {by_class(events)}",
+          flush=True)
+
+
 def main():
     tree, label = sys.argv[1], sys.argv[2]
     what = set((sys.argv[3] if len(sys.argv) > 3 else "all").split(","))
@@ -422,6 +706,10 @@ def main():
         short_steps(cs, label)
     if "amp32" in what:
         amp_b32_step(cs, label)
+    if "traffic" in what:
+        record_traffic(cs, label)
+    if what & {"decode", "decodek"}:
+        decode_path(cs, label, step="decode" in what)
 
 
 if __name__ == "__main__":
