@@ -29,16 +29,29 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. engine: GPT-2-small at full width (vocab 50304, H 768, 12 layers,
      12 heads, max_len 1024; random weights from numpy seed 0) behind
      the port's HTTP server with the default paged KV cache and prefix
-     cache. Seven /v1/generate requests: four concurrent streams, one
-     buffered, one exact repeat (a full prefix hit) and one sharing a
-     page-aligned prefix (a prefix hit that prefills from q_start > 0).
-     Checks: token counts, prefix hits, page/slot allocs == frees after
-     drain, K1 launches == layers x (prefills + decode steps), page-view
-     gathers == 2 x layers x prefills (no decode step gathers), and the
-     greedy tokens of three requests against a plain full-recompute
-     forward of the same weights on the card. Then one decode step at
-     8 slots: host wall, CUDA-graph device time and a profiled step's
-     kernels by class (K1, index, copy, cuBLAS, elementwise);
+     cache, every rung (decode, 27 prefill rungs, page copy) captured by
+     warmup as a CUDA graph (aot_status "cuda_graph"; memory around the
+     warmup beside the engine's price). Seven /v1/generate requests:
+     four concurrent streams, one buffered, one exact repeat (a full
+     prefix hit) and one sharing a page-aligned prefix (a prefix hit
+     that prefills from q_start > 0). Checks: token counts, prefix hits,
+     page/slot allocs == frees after drain, K1 launches == layers x
+     (prefills + decode steps) and page-view gathers == 2 x layers x
+     prefills (no decode step gathers), both counted through the graphs'
+     replays, and the greedy tokens of three requests against a plain
+     full-recompute forward of the same weights on the card. One replay
+     of the decode graph and of prefill:4x256, profiled, runs the eager
+     function's kernels name by name, as many K1 kernels as the rung
+     adds to the counter a replay, and the page gathers the eager
+     function counts (none in the decode step). The five
+     concurrent requests again on an engine of the same weights with
+     eager rungs: its tokens equal, TTFT, decode ms/step and tokens/s
+     beside the graphs'. Then one decode step at 8 slots and the
+     prefill rungs 4x256 and 1x64: the eager step's host wall against
+     the graph's (turns eager, graph, graph, eager; tokens bitwise
+     equal) beside the device time of the graph's replay, and a
+     profiled step's kernels by class (K1, index, copy, cuBLAS,
+     elementwise);
   5. backward kernels: K2 (fused), K3 (dq) and K4 (dk, dv), each called
      explicitly, held against the plain backward at the GPT-2-small
      training shapes q/k/v [8, 12, 1024, 64] and [32, 12, 256, 64]
@@ -85,8 +98,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      width (T 1024, f32, TF32 off, the port's startup, generator seed
      0) saved by save_inference_model, quantized by the port's
      quantize_inference_model (50 quantized ops), loaded and served by
-     InferenceEngine.from_program (rungs 1, 2, 4, 8) behind the HTTP
-     server — the code of `serve --model_dir`. The int8 matmul weights
+     InferenceEngine.from_program (rungs 1, 2, 4, 8, each a CUDA graph
+     of Executor.run) behind the HTTP server — the code of `serve
+     --model_dir`. The int8 matmul weights
      are column-major on the card, their bytes unchanged. Eight
      /v1/infer requests of 1-3 rows from four client threads must
      co-batch; launches a dispatch: the quantize kernel 49, K6 49 (no
@@ -95,8 +109,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      plain recompute (plain quantize, int8_matmul_plain, rescale) from
      its own input; logits within 5e-2 of max |logit| of a plain full
      recompute (plain attention, the plain int8 ops), ids equal where its
-     top-2 margin exceeds twice the largest difference. Printed: the f32
-     model on the same batch, both dispatch walls, tokens/s, peak memory,
+     top-2 margin exceeds twice the largest difference; the rung-8
+     dispatch through the engine's graph against Executor.run, walls in
+     turns, ids bitwise equal, beside the graph replay's device time.
+     Printed: the f32 model on the same batch, both dispatch walls,
+     tokens/s, peak memory,
      weight bytes, and a profiled dispatch's device time split into K6,
      the quantize kernel, K1, an eager rescale (none) and the rest;
  11. bf16 kernels: K1-, K3- and K4-bf16 held against their plain bf16
@@ -171,6 +188,7 @@ try:
     from paddle_tpu_torch import quant
     from paddle_tpu_torch.ops import chunked_ce as ce
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import launch_counts
     from paddle_tpu_torch.ops import quant_ops as qo
     from paddle_tpu_torch.ops import registry as op_registry
     from paddle_tpu_torch.ops import transformer_ops as T
@@ -479,6 +497,26 @@ def post(port, body):
     return toks, ttft
 
 
+def post_concurrently(port, bodies):
+    """POST every {key: body} to /v1/generate at once, one thread each;
+    returns ({key: post()'s result}, [(key, error)])."""
+    results, errors = {}, []
+
+    def run(key, body):
+        try:
+            results[key] = post(port, body)
+        except Exception as e:           # re-raised by the caller
+            errors.append((key, e))
+
+    threads = [threading.Thread(target=run, args=kv)
+               for kv in bodies.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return results, errors
+
+
 def reference_greedy(w, spec, prompt, n_new):
     """Greedy tokens by recomputing the full causal forward for every
     new token — no KV cache, plain softmax attention — with the same
@@ -532,10 +570,19 @@ def engine_phase(smi):
     log(f"engine: GPT-2-small {spec.to_meta()} on {engine.device}, "
         f"paged page_len {cfg.page_len} x {cfg.num_pages} pages, "
         f"built in {time.perf_counter() - t0:.1f} s; hbm {engine.stats()['hbm']}")
+    resident = engine_memory()
     t0 = time.perf_counter()
     rungs = engine.warmup()
+    st = engine.stats()
     log(f"engine: warmed {len(rungs)} rungs in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s: aot_status {st['aot_status']}, "
+        f"{len(st['aot_rungs'])} CUDA graphs {st['aot_rungs']}; "
+        f"{memory_line(resident, st['hbm'])}")
+    if st["aot_status"] != "cuda_graph" or st["aot_rungs"] != rungs \
+            or rungs != cfg.rung_keys():
+        raise AssertionError(f"expected every rung {cfg.rung_keys()} "
+                             f"captured as a CUDA graph, got "
+                             f"{st['aot_status']} {st['aot_rungs']}")
     server = make_server(engine, port=0)
     port = server.server_address[1]
     srv = threading.Thread(target=server.serve_forever, daemon=True)
@@ -548,35 +595,20 @@ def engine_phase(smi):
     # shares the first 128 tokens (8 whole pages) of prompts[0]
     shared = prompts[0][:128] + rng.randint(0, spec.vocab_size,
                                             size=40).tolist()
-    results = {}
-    errors = []
-
-    def run(key, body):
-        try:
-            results[key] = post(port, body)
-        except Exception as e:           # re-raised below, in order
-            errors.append((key, e))
-
-    gathers = []                        # page-view gathers on the path
-    real_gather = T._gather_pages
-    T._gather_pages = lambda c, tables: (gathers.append(1)
-                                         or real_gather(c, tables))
-    fa.flash_attn_fwd.launches = 0      # the main path starts here
+    # the main path starts here: K1 launches and page-view gathers,
+    # counted through the graphs' replays
+    fa.flash_attn_fwd.launches = fa.gather_pages.calls = 0
     t_start = time.perf_counter()
-    threads = [threading.Thread(target=run, args=(i, {
-        "prompt": prompts[i], "max_new_tokens": n_new}))
-        for i in range(4)]
-    threads.append(threading.Thread(target=run, args=(4, {
-        "prompt": prompts[4], "max_new_tokens": n_new, "stream": False})))
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(600)
-    run("repeat", {"prompt": prompts[1], "max_new_tokens": n_new})
-    run("shared", {"prompt": shared, "max_new_tokens": n_new})
+    results, errors = post_concurrently(port, {
+        i: {"prompt": prompts[i], "max_new_tokens": n_new,
+            "stream": i < 4} for i in range(5)})
+    for key, prompt in (("repeat", prompts[1]), ("shared", shared)):
+        got, failed = post_concurrently(port, {key: {
+            "prompt": prompt, "max_new_tokens": n_new}})
+        results.update(got)
+        errors += failed
     wall = time.perf_counter() - t_start
-    launches = fa.flash_attn_fwd.launches
-    T._gather_pages = real_gather
+    launches, gathers = fa.flash_attn_fwd.launches, fa.gather_pages.calls
     server.shutdown()
     engine.shutdown(drain=True, timeout=600)
     if errors:
@@ -594,7 +626,7 @@ def engine_phase(smi):
               "page_frees": st["page_frees"],
               "slot_allocs": st["slot_allocs"],
               "slot_frees": st["slot_frees"], "k1_launches": launches,
-              "page_gathers": len(gathers)}
+              "page_gathers": gathers}
     log(f"engine: {checks}")
     if st["prefix_hits"] < 2:
         raise AssertionError("expected a full and a partial prefix hit")
@@ -608,8 +640,8 @@ def engine_phase(smi):
                              f"steps) = {want}")
     # only the prefills gather page views (K and V, each layer): every
     # decode step reads the pool through its tables
-    if len(gathers) != 2 * spec.num_layers * st["prefills"]:
-        raise AssertionError(f"{len(gathers)} page gathers on the main path,"
+    if gathers != 2 * spec.num_layers * st["prefills"]:
+        raise AssertionError(f"{gathers} page gathers on the main path,"
                              f" expected 2 x layers x prefills = "
                              f"{2 * spec.num_layers * st['prefills']}: a "
                              f"decode step gathered")
@@ -624,15 +656,242 @@ def engine_phase(smi):
                                  f"the full-recompute reference\n"
                                  f"{results[key][0]}\n{ref}")
     log("engine: served tokens == full-recompute reference for 3 requests")
+    graph_kernels(engine, launches, gathers, smi)
 
     ttfts = [results[i][1] for i in range(4)]
     tokens = sum(len(t) for t, _ in results.values())
     decode_ms = 1e3 * monitor.snapshot()["histograms"][
         "serving_lm.decode_step_s"]["mean"]
-    log(f"engine: TTFT p50 {1e3 * float(np.median(ttfts)):.1f} ms over the 4 "
-        f"concurrent streams, decode {decode_ms:.2f} ms/step (8 slots), "
-        f"{tokens / wall:.1f} tokens/s over {wall:.2f} s | {smi}")
-    return launches, decode_step_breakdown(engine, smi)
+    log(f"engine (CUDA graphs): TTFT p50 {1e3 * float(np.median(ttfts)):.1f} "
+        f"ms over the 4 concurrent streams, decode {decode_ms:.2f} ms/step "
+        f"(8 slots), {tokens / wall:.1f} tokens/s over {wall:.2f} s | {smi}")
+    served = {"graph": {"ttft_p50_ms": 1e3 * float(np.median(ttfts)),
+                        "decode_step_ms": decode_ms,
+                        "tokens_per_s": tokens / wall}}
+    served["eager"] = eager_engine_run(spec, weights, cfg, prompts, n_new,
+                                       results, smi)
+    steps = decode_step_breakdown(engine, smi)
+    steps["prefill"] = prefill_rung_walls(engine, smi)
+    steps["served"] = served
+    return launches, steps
+
+
+def graph_kernels(engine, launches, gathers, smi):
+    """What one replay of the engine's decode graph and of its
+    prefill:4x256 graph runs on the card, read by the profiler: the same
+    kernels, name by name and launch by launch (memsets by count), as
+    the eager function on the same inputs; as many K1 launches as the rung adds to
+    `flash_attn_fwd.launches` on each replay (the main path's counts);
+    and as many page gathers as the eager function counts, which for
+    the decode step is none."""
+    cfg, L = engine.config, engine.spec.num_layers
+    S, m = cfg.max_slots, cfg.pages_per_seq
+    rng = np.random.RandomState(SEED + 11)
+    cases = {
+        "decode": (engine._decode_fn, 0, (
+            np.arange(S, dtype=np.int32), np.full(S, 300, np.int32),
+            np.ones(S, bool),
+            np.arange(1, S * m + 1, dtype=np.int32).reshape(S, m))),
+        "prefill:4x256": (engine._prefill_fn, 2 * L, (
+            rng.randint(0, engine.spec.vocab_size, (4, 256)).astype(
+                np.int32), np.zeros(4, np.int32), np.full(4, 256, np.int32),
+            np.arange(1, 4 * m + 1, dtype=np.int32).reshape(4, m)))}
+    out = {}
+    for key, (eager_fn, want_gathers, host) in cases.items():
+        engine._dispatch(key, eager_fn, *host)      # the graph's inputs
+        rung = engine._graphs._rungs[key]
+        carried = {(w, a): n for w, a, n in rung.deltas}
+        replay = device_kernels(rung.graph.replay, launches=True)
+        args = engine._to_device(*host)
+        with torch.inference_mode():
+            with launch_counts.tallied() as counted:
+                eager_fn(*args)
+            eager = device_kernels(lambda: eager_fn(*args), launches=True)
+        k1 = carried.get((fa.flash_attn_fwd, "launches"), 0)
+        carried_gathers = carried.get((fa.gather_pages, "calls"), 0)
+        eager_gathers = counted.get((fa.gather_pages, "calls"), 0)
+        same = launches_by_name(replay) == launches_by_name(eager)
+        out[key] = {"replay_kernels": sum(c for _, c in replay.values()),
+                    "eager_kernels": sum(c for _, c in eager.values()),
+                    "same_kernels": same, "replay_k1": k1_of(replay),
+                    "carried_k1": k1, "carried_gathers": carried_gathers,
+                    "eager_gathers": eager_gathers}
+        log(f"graph kernels, {key}: one replay runs {out[key]}; the main "
+            f"path's counts: K1 {launches}, page gathers {gathers} | {smi}")
+        if not same:
+            r, e = launches_by_name(replay), launches_by_name(eager)
+            diff = {n: (r.get(n, 0), e.get(n, 0)) for n in set(r) | set(e)
+                    if r.get(n, 0) != e.get(n, 0)}
+            raise AssertionError(f"{key}: the graph's replay and the eager "
+                                 f"step run other kernels (name: replay, "
+                                 f"eager launches) {diff}")
+        if not k1_of(replay) == k1 == L:
+            raise AssertionError(f"{key}: a replay ran {k1_of(replay)} K1 "
+                                 f"kernels, the rung carries {k1}, the "
+                                 f"model has {L} layers")
+        if not carried_gathers == eager_gathers == want_gathers:
+            raise AssertionError(f"{key}: the rung carries "
+                                 f"{carried_gathers} page gathers, the "
+                                 f"eager step made {eager_gathers}, "
+                                 f"expected {want_gathers}")
+    return out
+
+
+def launches_by_name(kernels):
+    """{kernel name: launches} of device_kernels(..., launches=True)'s
+    result, memsets counted as one name: the profiler names a graph's
+    memset nodes "memset32" or "Memset (Unknown)", the same memsets
+    launched eagerly "Memset (Device)"."""
+    out = {}
+    for name, (_, n) in kernels.items():
+        name = "memset" if "memset" in name.lower() else name
+        out[name] = out.get(name, 0) + n
+    return out
+
+
+def k1_of(kernels):
+    """K1's launches in device_kernels(..., launches=True)'s result."""
+    return sum(n for name, (_, n) in kernels.items()
+               if "flash_decode_" in name or "flash_fwd_" in name)
+
+
+def eager_engine_run(spec, weights, cfg, prompts, n_new, results, smi):
+    """The five concurrent requests again, on a second engine of the same
+    weights whose rungs run eagerly (its graph runner removed): the
+    yardstick for the graphs' TTFT and decode step. Its tokens must equal
+    the graph engine's, bit for bit."""
+    engine = GenerationEngine(spec, weights, config=cfg, ready=False)
+    engine._graphs = None
+    resident = engine_memory()
+    engine.warmup()
+    log(f"engine (eager rungs): warmed; {memory_line(resident, engine._hbm)}")
+    server = make_server(engine, port=0)
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    monitor.reset()
+    t_start = time.perf_counter()
+    got, errors = post_concurrently(port, {
+        i: {"prompt": prompts[i], "max_new_tokens": n_new,
+            "stream": i < 4} for i in range(5)})
+    wall = time.perf_counter() - t_start
+    server.shutdown()
+    engine.shutdown(drain=True, timeout=600)
+    if errors:
+        raise AssertionError(f"eager engine requests failed: {errors}")
+    for i in range(5):
+        if got[i][0] != results[i][0]:
+            raise AssertionError(f"request {i}: the eager engine's tokens "
+                                 f"differ from the CUDA-graph engine's")
+    ttft = 1e3 * float(np.median([got[i][1] for i in range(4)]))
+    decode_ms = 1e3 * monitor.snapshot()["histograms"][
+        "serving_lm.decode_step_s"]["mean"]
+    tokens = sum(len(t) for t, _ in got.values())
+    log(f"engine (eager rungs, the same 5 concurrent requests): TTFT p50 "
+        f"{ttft:.1f} ms, decode {decode_ms:.2f} ms/step, "
+        f"{tokens / wall:.1f} tokens/s over {wall:.2f} s; tokens == the "
+        f"CUDA-graph engine's | {smi}")
+    del engine
+    torch.cuda.empty_cache()
+    return {"ttft_p50_ms": ttft, "decode_step_ms": decode_ms,
+            "tokens_per_s": tokens / wall}
+
+
+def engine_memory():
+    """(allocated, reserved) bytes of a just-built engine (weights and KV
+    planes), the peak counter reset: the baseline of memory_line."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def memory_line(resident, hbm):
+    """What an engine's warmup added on the card, beside its price."""
+    a0, r0 = resident
+    return (f"memory: resident {a0} B allocated / {r0} B reserved before "
+            f"warmup; after it {torch.cuda.memory_allocated() - a0} B more "
+            f"allocated, {torch.cuda.memory_reserved() - r0} B more "
+            f"reserved, peak {torch.cuda.max_memory_allocated() - a0} B "
+            f"above the resident; priced transients "
+            f"{hbm['transient_bytes']} B, priced peak "
+            f"{hbm['peak_hbm_bytes']} B, reserved now "
+            f"{torch.cuda.memory_reserved()} B")
+
+
+def graph_replay_ms(graphs, key, reps=20):
+    """Device ms of one replay of an engine's captured rung (its inputs
+    as the last dispatch left them), between CUDA events."""
+    graph = graphs._rungs[key].graph
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def eager_and_graph_walls(eager, graph, reps):
+    """Host-clock ms a call of eager() and graph(), each timed over reps
+    calls after 3 warm ones, in turns eager, graph, graph, eager; the
+    outputs of the two must be equal, bit for bit. Returns ({"eager":
+    [ms, ms], "graph": [ms, ms]}, the graph's output)."""
+    walls = {"eager": [], "graph": []}
+    outs = {}
+    for name in ("eager", "graph", "graph", "eager"):
+        fn = eager if name == "eager" else graph
+        for _ in range(3):
+            outs[name] = fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        walls[name].append(1e3 * (time.perf_counter() - t0) / reps)
+    if not all(np.array_equal(a, b) for a, b in zip(outs["eager"],
+                                                   outs["graph"])):
+        raise AssertionError("the CUDA graph's output differs from the "
+                             "eager step's on the same inputs")
+    return walls, outs["graph"]
+
+
+def prefill_rung_walls(engine, smi, reps=10):
+    """Two prefill rungs on fixed inputs: prefill:4x256 (the four
+    concurrent prompts' rung) and prefill:1x64 (one short prompt), each
+    row over its own real pages: the eager function's wall (inputs to
+    the card, tokens back) against the rung's CUDA graph through the
+    engine's dispatch, their tokens bitwise equal, beside the device
+    time of the graph's replay."""
+    cfg = engine.config
+    m = cfg.pages_per_seq
+    rng = np.random.RandomState(SEED + 9)
+    out = {}
+    for b, t in ((4, 256), (1, 64)):
+        host = (rng.randint(0, engine.spec.vocab_size, (b, t)).astype(
+                    np.int32), np.zeros(b, np.int32),
+                np.full(b, t, np.int32),
+                np.arange(1, b * m + 1, dtype=np.int32).reshape(b, m))
+
+        def eager():
+            with torch.inference_mode():
+                return [engine._prefill_fn(
+                    *engine._to_device(*host)).cpu().numpy()]
+
+        walls, _ = eager_and_graph_walls(
+            eager, lambda: [engine._dispatch_prefill(*host)], reps)
+        key = f"prefill:{b}x{t}"
+        device_ms = graph_replay_ms(engine._graphs, key, reps)
+        out[key] = {"eager_wall_ms": walls["eager"],
+                    "graph_wall_ms": walls["graph"],
+                    "device_ms": device_ms}
+        log(f"{key}: wall eager {walls['eager'][0]:.3f} / "
+            f"{walls['eager'][1]:.3f} ms, CUDA graph {walls['graph'][0]:.3f}"
+            f" / {walls['graph'][1]:.3f} ms (turns eager, graph, graph, "
+            f"eager; tokens equal, bitwise), device {device_ms:.3f} ms (the "
+            f"graph's replay); busy share eager "
+            f"{device_ms / np.mean(walls['eager']):.3f}, graph "
+            f"{device_ms / np.mean(walls['graph']):.3f} | {smi}")
+    return out
 
 
 # a decode step's device kernels by class, from their profiler names
@@ -658,24 +917,31 @@ def kernel_classes(kernels, classes):
 
 def decode_step_breakdown(engine, smi, reps=20):
     """Where one paged decode step's time goes, 8 live slots at position
-    300 over their own pages: the host-clock wall of the engine's own
-    dispatch (inputs to the card, the step, tokens back), against the
-    device time of the same step captured in a CUDA graph and replayed
-    between CUDA events (device / wall is the card's busy share while
-    the host dispatches eagerly), and a profiled step's kernels by class:
-    K1, index and copy kernels (the K/V row writes; the gathers before
-    this design), cuBLAS products, the elementwise rest."""
+    300 over their own pages, three ways on the same inputs: the host-
+    clock wall of the eager step (inputs to the card, `_decode_fn`,
+    tokens back), the wall of the engine's own dispatch (its CUDA graph:
+    inputs staged, one replay, tokens back), their tokens bitwise equal,
+    and the device time of the step (the engine's graph replayed, and
+    the eager function captured anew, between CUDA events); device /
+    wall is the card's busy share. Then a profiled eager step's kernels
+    by class: K1, index and copy kernels (the K/V row writes), cuBLAS
+    products, the elementwise rest."""
     cfg = engine.config
     S, m = cfg.max_slots, cfg.pages_per_seq
     host = (np.arange(S, dtype=np.int32), np.full(S, 300, np.int32),
             np.ones(S, bool),
             np.arange(1, S * m + 1, dtype=np.int32).reshape(S, m))
-    for _ in range(3):
-        engine._dispatch_decode(*host)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        engine._dispatch_decode(*host)
-    wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+
+    def eager():
+        with torch.inference_mode():
+            return [engine._decode_fn(
+                *engine._to_device(*host)).cpu().numpy()]
+
+    walls, _ = eager_and_graph_walls(
+        eager, lambda: [engine._dispatch_decode(*host)], reps)
+    eager_ms, graph_ms = (float(np.mean(walls[k]))
+                          for k in ("eager", "graph"))
+    graph_device_ms = graph_replay_ms(engine._graphs, "decode", reps)
     args = engine._to_device(*host)
     with torch.inference_mode():
         device_ms = time_ms(lambda: engine._decode_fn(*args), [()], reps)
@@ -684,13 +950,19 @@ def decode_step_breakdown(engine, smi, reps=20):
     classes = kernel_classes(kernels, DECODE_CLASSES)
     launches = sum(n for _, n in classes.values())
     shown = {c: (round(us, 1), n) for c, (us, n) in classes.items()}
-    log(f"decode step: wall {wall_ms:.3f} ms (eager dispatch, tokens read "
-        f"back), device {device_ms:.3f} ms (CUDA-graph replay), busy "
-        f"share {device_ms / wall_ms:.3f}; profiled step: {launches} "
-        f"kernels, {sum(us for us, _ in classes.values()) / 1e3:.3f} ms, "
-        f"by class (us, launches) {shown} | {smi}")
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "launches": launches,
+    log(f"decode step: wall eager {walls['eager'][0]:.3f} / "
+        f"{walls['eager'][1]:.3f} ms, CUDA graph {walls['graph'][0]:.3f} / "
+        f"{walls['graph'][1]:.3f} ms (turns eager, graph, graph, eager; "
+        f"tokens equal, bitwise); device {graph_device_ms:.3f} ms (the "
+        f"engine's graph) / {device_ms:.3f} ms (the eager step captured "
+        f"anew); busy share eager {graph_device_ms / eager_ms:.3f}, graph "
+        f"{graph_device_ms / graph_ms:.3f}; profiled eager step: "
+        f"{launches} kernels, "
+        f"{sum(us for us, _ in classes.values()) / 1e3:.3f} ms, by class "
+        f"(us, launches) {shown} | {smi}")
+    return {"wall_ms": eager_ms, "graph_wall_ms": graph_ms,
+            "walls_ms": walls, "device_ms": device_ms,
+            "graph_device_ms": graph_device_ms, "launches": launches,
             "classes_us": {c: us for c, (us, _) in classes.items()},
             "classes_launches": {c: n for c, (_, n) in classes.items()}}
 
@@ -1787,8 +2059,13 @@ def int8_serving_phase(smi):
                             batch_timeout_ms=20))
     t0 = time.perf_counter()
     rungs = engine.warmup()
+    st = engine.stats()
     log(f"int8 serving: warmed rungs {rungs} in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s: aot_status {st['aot_status']}, "
+        f"CUDA graphs of buckets {st['aot_buckets']}; memory reserved "
+        f"{torch.cuda.memory_reserved()} B")
+    if st["aot_status"] != "cuda_graph" or st["aot_buckets"] != [1, 2, 4, 8]:
+        raise AssertionError("expected a CUDA graph for every bucket rung")
     server = make_server(engine, port=0)
     port = server.server_address[1]
     threading.Thread(target=server.serve_forever, daemon=True).start()
@@ -1881,11 +2158,28 @@ def int8_serving_phase(smi):
     del ref, top2, sure
 
     # timings: the rung-8 dispatch of the int8 and the f32 programs
+    tokens = SERVE_B * TRAIN_T
     torch.cuda.reset_peak_memory_stats()
     int8_ms, int8_min = timed_dispatch(exe, prog, qscope, feed, fetch)
     int8_peak = torch.cuda.max_memory_allocated() / 2**30
     breakdown = dispatch_breakdown("int8", exe, prog, qscope, feed, fetch,
                                    int8_ms, smi)
+    # the same rung-8 dispatch through the engine's CUDA graph against
+    # Executor.run, in turns; replies bitwise equal
+    walls, _ = eager_and_graph_walls(
+        lambda: exe.run(prog, feed=feed, fetch_list=fetch, scope=qscope),
+        lambda: engine._dispatch([feed["tokens"]]), reps=5)
+    graph_device_ms = graph_replay_ms(
+        engine._graphs, (((SERVE_B, TRAIN_T), "<i8"),), reps=5)
+    log(f"int8 serving: rung-8 dispatch wall eager (Executor.run) "
+        f"{walls['eager'][0]:.2f} / {walls['eager'][1]:.2f} ms, CUDA graph "
+        f"{walls['graph'][0]:.2f} / {walls['graph'][1]:.2f} ms (turns eager, "
+        f"graph, graph, eager; ids equal, bitwise), device "
+        f"{graph_device_ms:.2f} ms (the graph's replay); busy share eager "
+        f"{graph_device_ms / np.mean(walls['eager']):.3f}, graph "
+        f"{graph_device_ms / np.mean(walls['graph']):.3f}; "
+        f"{tokens / np.mean(walls['graph']) * 1e3:.0f} tokens/s "
+        f"through the graph | {smi}")
     int8_bytes = scope_bytes(qscope)
     if int8_bytes != saved_bytes:
         raise AssertionError(f"scope bytes {int8_bytes} after serving, "
@@ -1908,7 +2202,6 @@ def int8_serving_phase(smi):
     f32_breakdown = dispatch_breakdown("f32", exe, fprog, fscope, feed,
                                        ffetch, f32_ms, smi)
     f32_bytes = scope_bytes(fscope)
-    tokens = SERVE_B * TRAIN_T
     log(f"int8 serving vs the f32 model (printed, not gated: random "
         f"weights have near-tied top-1 margins): max |int8 - f32| / max "
         f"|f32| {vs_f32:.4e}, top-1 agreement {top1:.4f}")
@@ -1923,6 +2216,9 @@ def int8_serving_phase(smi):
     return counts, {"dispatches": batches, "requests": done,
                     "logit_rel_err": rel, "vs_f32_rel": vs_f32,
                     "int8_ms": int8_ms,
+                    "int8_eager_walls_ms": walls["eager"],
+                    "int8_graph_walls_ms": walls["graph"],
+                    "int8_graph_device_ms": graph_device_ms,
                     "f32_ms": f32_ms, "int8_tokens_per_s":
                         tokens / int8_ms * 1e3,
                     "f32_tokens_per_s": tokens / f32_ms * 1e3,

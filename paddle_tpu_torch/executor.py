@@ -9,7 +9,9 @@ block directly, on the card unless the caller asks for the CPU:
     state and feeds, with the reference's error messages for an unfed
     data var and an uninitialised persistable;
   * feeds are coerced to their var's dtype (`host_cast_feed`) and moved
-    to the device;
+    to the device; a tensor already on the device in that dtype is
+    taken as it is (the one-shot engine's CUDA graphs feed their static
+    input buffers this way);
   * each op runs its lowering (ops/registry.py); a forward op whose
     `<type>_grad` op appears later (`_ops_needing_tape`) runs under the
     autograd tape, and its grad op replays the tape (ops/grad.py);
@@ -18,7 +20,9 @@ block directly, on the card unless the caller asks for the CPU:
     are then stored back into the scope.
 
 There is no jit, no donation and no compile cache: PyTorch dispatches
-each op's kernels as the interpreter reaches it.
+each op's kernels as the interpreter reaches it. The one-shot serving
+engine captures a `run` per bucket rung as a CUDA graph
+(serving/graphs.py), with `return_numpy=False`.
 """
 
 from __future__ import annotations
@@ -252,5 +256,10 @@ class Executor:
         return val if val.device == self.device else val.to(self.device)
 
     def _coerce_feed(self, program, name, val):
+        if isinstance(val, torch.Tensor) and val.device == self.device:
+            var = program.global_block()._find_var(name)
+            if var is None or var.dtype is None \
+                    or val.dtype == op_registry.torch_dtype(var.dtype):
+                return val
         arr = host_cast_feed(program, name, np.asarray(val))
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)

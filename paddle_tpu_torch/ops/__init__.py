@@ -7,7 +7,7 @@ transformer functions: transformer_ops.py. The op registry, the
 autograd tape and the lowerings the programs run: registry.py, grad.py,
 math_ops.py, nn_ops.py, tensor_ops.py, attention_ops.py, chunked_ce.py,
 optimizer_ops.py, quant_ops.py — imported here so that every lowering
-is registered.
+is registered. The wrappers' launch counts: launch_counts.py.
 """
 
 from . import registry  # noqa: F401

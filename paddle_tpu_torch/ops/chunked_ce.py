@@ -26,6 +26,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .launch_counts import count, counted
 from .registry import register_op
 
 __all__ = ["lm_head_lse", "lm_head_lse_bf16", "lm_head_lse_plain",
@@ -165,7 +166,7 @@ def lm_head_lse(x, w):
     if rc != 0:
         raise RuntimeError(f"lm_head_lse ({x.dtype}) kernel launch failed: "
                            f"cudaError {rc} (N={N}, H={H}, V={V})")
-    (lm_head_lse_bf16 if bf16 else lm_head_lse).launches += 1
+    count(lm_head_lse_bf16 if bf16 else lm_head_lse, "launches")
     return lse
 
 
@@ -180,8 +181,8 @@ def lm_head_lse_bf16(x, w):
 
 # kernel launches made through these wrappers (the main-path proof): the
 # f32 K5 on lm_head_lse, the bf16 K5 on lm_head_lse_bf16
-lm_head_lse.launches = 0
-lm_head_lse_bf16.launches = 0
+counted(lm_head_lse, "launches")
+counted(lm_head_lse_bf16, "launches")
 
 
 def _mm_f32(a, b):

@@ -87,6 +87,8 @@ import ctypes
 import numpy as np
 import torch
 
+from .launch_counts import count, counted
+
 __all__ = ["flash_attn_fwd", "flash_attn_fwd_plain", "flash_attn_bwd",
            "flash_attn_bwd_fused", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
            "flash_attn_bwd_dq_plain", "flash_attn_bwd_dkv_plain",
@@ -289,7 +291,7 @@ def _launch(q, k, v, kv_len, q_start, causal, scale):
         raise RuntimeError(f"flash_attn_fwd ({q.dtype}) kernel launch "
                            f"failed: {what} (B={B}, n={n}, Tq={Tq}, "
                            f"Tk={Tk}, D={D})")
-    (flash_attn_fwd_bf16 if bf16 else flash_attn_fwd).launches += 1
+    count(flash_attn_fwd_bf16 if bf16 else flash_attn_fwd, "launches")
     return o, lse
 
 
@@ -324,7 +326,10 @@ def gather_pages(c, tables):
     """Pool plane [P, n, page_len, D] + page tables [b, m] -> the per-row
     contiguous cache view [b, n, m*page_len, D] (the reference's
     `_gather_pages`). Unbacked table slots carry page id 0 (the trash
-    page); every read of them is masked."""
+    page); every read of them is masked. Each call counts on
+    `gather_pages.calls` (the paged prefill gathers; the paged decode
+    step must not)."""
+    count(gather_pages, "calls")
     b, m = tables.shape
     _, n, pl, D = c.shape
     return c[tables.long()].transpose(1, 2).reshape(b, n, m * pl, D)
@@ -477,7 +482,7 @@ def _decode_launch(q, k_pool, v_pool, tables, page_len, kv_len, q_start,
                            f"{'unsupported shape ' if rc < 0 else ''}"
                            f"cudaError {rc} (B={B}, n={n}, m="
                            f"{tables.shape[1]}, page_len={page_len}, D={D})")
-    flash_attn_fwd.launches += 1
+    count(flash_attn_fwd, "launches")
     return o, lse
 
 
@@ -518,14 +523,15 @@ def _bf16_only(wrapper, name):
                             f"{q.dtype}")
         return wrapper(q, *args, **kwargs)
 
-    bf16_wrapper.launches = 0
+    counted(bf16_wrapper, "launches")
     bf16_wrapper.__name__ = name
     return bf16_wrapper
 
 
 # kernel launches made through this wrapper (the main-path proof): the
 # f32 K1 here, the bf16 K1 on flash_attn_fwd_bf16
-flash_attn_fwd.launches = 0
+counted(flash_attn_fwd, "launches")
+counted(gather_pages, "calls")
 flash_attn_fwd_bf16 = _bf16_only(flash_attn_fwd, "flash_attn_fwd_bf16")
 
 
@@ -716,7 +722,7 @@ def _bwd_wrapper(which, plain):
             if B and n and Tq:
                 _bwd_launch("dq", q, k, v, do, lse, delta, kv_len, dq,
                             None, None, causal, scale)
-                counter.launches += 1
+                count(counter, "launches")
             return dq
         dk = _plane_grad(B, n, Tk, D, dev, k.dtype)
         dv = _plane_grad(B, n, Tk, D, dev, v.dtype)
@@ -724,7 +730,7 @@ def _bwd_wrapper(which, plain):
             if B and n and Tk:
                 _bwd_launch("dkv", q, k, v, do, lse, delta, kv_len, None,
                             dk, dv, causal, scale)
-                counter.launches += 1
+                count(counter, "launches")
             return dk, dv
         if bf16:
             # the bf16 K2 sums dq over its kv tiles on chip, in f32 in a
@@ -733,7 +739,7 @@ def _bwd_wrapper(which, plain):
             if B and n and Tk:
                 _bwd_launch("fused", q, k, v, do, lse, delta, kv_len, dq,
                             dk, dv, causal, scale)
-                counter.launches += 1
+                count(counter, "launches")
             return dq, dk, dv
         nk = -(-Tk // BWD_TILE)
         # the f32 K2's per-kv-tile dq partials [nk, B, Tq, n, D], summed
@@ -741,12 +747,12 @@ def _bwd_wrapper(which, plain):
         # deterministic
         part = torch.empty((nk, B, Tq, n, D), dtype=torch.float32,
                            device=dev)
-        wrapper.dq_partials += 1
+        count(wrapper, "dq_partials")
         part_h = part.permute(0, 1, 3, 2, 4)          # [nk, B, n, Tq, D]
         if B and n and Tk:
             _bwd_launch("fused", q, k, v, do, lse, delta, kv_len, part_h,
                         dk, dv, causal, scale, tile_stride=part.stride(0))
-            counter.launches += 1
+            count(counter, "launches")
         return sum_dq_partials(part, q.dtype), dk, dv
 
     def wrapper(q, k, v, do, lse, delta, kv_len, causal=True, scale=None):
@@ -765,10 +771,10 @@ def _bwd_wrapper(which, plain):
         return flash_attn_bwd_padded(launch, q, k, v, do, lse, delta,
                                      kv_len, causal, scale)
 
-    wrapper.launches = 0        # kernel launches (the main-path proof)
-    # f32 dq partial buffers allocated on the card (the fused f32 K2's;
-    # the bf16 K2 allocates none)
-    wrapper.dq_partials = 0
+    # kernel launches (the main-path proof), and the f32 dq partial
+    # buffers allocated on the card (the fused f32 K2's; the bf16 K2
+    # allocates none)
+    counted(wrapper, "launches", "dq_partials")
     wrapper.__name__ = f"flash_attn_bwd_{which}"
     return wrapper
 

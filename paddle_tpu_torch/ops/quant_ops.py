@@ -50,6 +50,7 @@ import math
 import numpy as np
 import torch
 
+from .launch_counts import count, counted
 from .registry import register_op, torch_dtype
 
 __all__ = ["KERNEL_ID", "META_ATTRS", "dequantize", "resolve_int8_core",
@@ -138,7 +139,7 @@ def _k6_operands(wrapper, xq, wq):
         wt = wq.t()
     elif wq.is_contiguous():
         wt = wq.t().contiguous()
-        wrapper.repacks += 1
+        count(wrapper, "repacks")
     else:
         raise ValueError(f"{name} kernel takes wq [K, N] row-major or "
                          f"column-major, got strides {wq.stride()}")
@@ -149,7 +150,7 @@ def _k6_operands(wrapper, xq, wq):
         xq = torch.nn.functional.pad(xq, (0, Kp - K))
         wt = torch.nn.functional.pad(wt, (0, Kp - K))
         K = Kp
-        wrapper.k_pads += 1
+        count(wrapper, "k_pads")
     return xq, wt, K
 
 
@@ -175,7 +176,7 @@ def _k6_launch(wrapper, xq, wq, out, ax=None, col=None):
                 if rc == -3 else f"code {rc}")
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
                            f"{what} (M={M}, K={K}, N={N})")
-    wrapper.launches += 1
+    count(wrapper, "launches")
     return out
 
 
@@ -226,7 +227,7 @@ def int8_matmul_rescaled(xq, wq, ax, col):
 # the per-call operand fixes K6 needed: a row-major weight transposed, K
 # zero-padded (both 0 on the serving path)
 for _w in (int8_matmul_i32, int8_matmul_rescaled):
-    _w.launches = _w.repacks = _w.k_pads = 0
+    counted(_w, "launches", "repacks", "k_pads")
 
 
 # The reference writes the dynamic scale as `absmax / 127`; XLA's
@@ -290,12 +291,12 @@ def quantize_activations(xf, act_scale=None):
     if rc != 0:
         raise RuntimeError(f"quantize_activations kernel launch failed: "
                            f"code {rc} (M={M}, K={K})")
-    quantize_activations.launches += 1
+    count(quantize_activations, "launches")
     return xq, ax
 
 
 # kernel launches made through this wrapper (the main-path proof)
-quantize_activations.launches = 0
+counted(quantize_activations, "launches")
 
 
 def rescale(acc, ax, col):

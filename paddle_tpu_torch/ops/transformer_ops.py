@@ -24,7 +24,13 @@ Differences from the JAX functions, none of them visible in the tokens:
   * the paged decode step gathers nothing: its attention
     (`flash_attn_decode`) reads each row's keys through its page table
     straight from the pool planes. The paged prefill still gathers each
-    row's page view (K1 at Tq > 1 takes contiguous views).
+    row's page view (K1 at Tq > 1 takes contiguous views);
+  * the slab prefill drops its pad rows' writes by sending each to a
+    slot that no row writes, which takes its own values back (the
+    reference scatters with mode="drop"), and `page_copy` takes its
+    page ids as device tensors:
+    no function reads a value back to the host, so the engine captures
+    each as a CUDA graph (serving/graphs.py).
 Float32 throughout, as the reference engine.
 """
 
@@ -108,29 +114,60 @@ def _embed(emb, pos_tab, toks, pos):
     return emb[toks.long()] + pos_tab[pos.long()]
 
 
+def _slot_targets(slots, S):
+    """The slab prefill's writes without a value-dependent shape: (tgt
+    [b] int64, writes [b] bool). A row writes its slot when the id is in
+    [0, S) and it is the slot's first row; every other row (the pad rows
+    and ids >= S, which the reference's scatter drops, or a second row
+    on one slot) gets its own slot that no row writes, and writes that
+    slot's own values back. So tgt holds b distinct slots (b <= S) and
+    no two writes hit one slot."""
+    b = slots.shape[0]
+    if b > S:
+        raise ValueError(f"slot_prefill: {b} rows for {S} slots")
+    dev = slots.device
+    dst = slots.long()
+    rows = torch.arange(b, device=dev)
+    hits = dst[None, :] == torch.arange(S, device=dev)[:, None]   # [S,b]
+    used = hits.any(dim=1)
+    first = hits.int().argmax(dim=1)                # each slot's writer
+    inside = (dst >= 0) & (dst < S)
+    writes = inside & (first[dst.clamp(0, S - 1)] == rows)
+    # the k-th dropped row takes the k-th slot that no row writes
+    k = torch.cumsum((~writes).long(), 0) - 1
+    free = torch.cumsum((~used).long(), 0) - 1
+    spare = ((free[None, :] == k[:, None]) & ~used[None, :]).int().argmax(1)
+    return torch.where(writes, dst.clamp(0, S - 1), spare), writes
+
+
 def slot_prefill(params, emb, pos_tab, lnfg, lnfb, headw, num_heads,
                  ck, cv, toks, plen, slots):
     """Prefill padded prompts into per-slot KV planes.
 
     ck/cv [L,S,n,Tcap,D] slot planes (updated in place); toks [b,t]
-    right-padded prompts, plen [b] valid lengths, slots [b] destination
-    slot ids. Pad rows carry slot ids >= S: the reference drops their
-    writes (scatter mode="drop"); here they are masked out explicitly.
-    Each real row's cache rows 0..t-1 are written fresh. Returns tok0
-    [b] int32, the greedy token at each row's last valid position."""
+    right-padded prompts (b <= S), plen [b] valid lengths, slots [b]
+    destination slot ids. Pad rows carry slot ids >= S: the reference
+    drops their writes (scatter mode="drop"). Here every row copies its
+    K/V into cache rows 0..t-1 of one slot of `_slot_targets`: its own,
+    or a spare slot that takes its own values back, so no shape depends
+    on the data (the dispatch can be captured in a CUDA graph) and no
+    two writes hit one slot. Returns tok0 [b] int32, the greedy token
+    at each row's last valid position."""
     b, t = toks.shape
     L, S = ck.shape[0], ck.shape[1]
     dev = toks.device
     zero = torch.zeros((b,), dtype=torch.int32, device=dev)
     x = _embed(emb, pos_tab, toks, torch.arange(t, device=dev)[None])
-    keep = torch.nonzero(slots < S).flatten()    # real rows
-    dst = slots[keep].long()
+    tgt, writes = _slot_targets(slots, S)
+    writes = writes[:, None, None, None]
 
     for l in range(L):
         def store(k, v, l=l):
             # attention runs over the fresh cache = exactly the new rows
-            ck[l, dst, :, :t] = k[keep]
-            cv[l, dst, :, :t] = v[keep]
+            for c, new in ((ck, k), (cv, v)):
+                view = c[l, :, :, :t]
+                view.index_copy_(0, tgt, torch.where(
+                    writes, new, view.index_select(0, tgt)))
             return k, v
         x = _cached_block(_layer(params, l), x, zero, plen, num_heads,
                           store)
@@ -238,6 +275,11 @@ def paged_decode_step(params, emb, pos_tab, lnfg, lnfb, headw, num_heads,
 def page_copy(ck, cv, src, dst):
     """Copy one page's K/V rows across the pool planes in place — the
     copy-on-write split of a shared partial tail page. dst must be
-    exclusively owned."""
-    ck[:, dst] = ck[:, src]
-    cv[:, dst] = cv[:, src]
+    exclusively owned. src and dst are page ids: Python ints, or int64
+    tensors [1] on the planes' device (the engine's captured rung reads
+    them from its static inputs)."""
+    src, dst = (torch.as_tensor(p, dtype=torch.long,
+                                device=ck.device).reshape(1)
+                for p in (src, dst))
+    for c in (ck, cv):
+        c.index_copy_(1, dst, c.index_select(1, src))

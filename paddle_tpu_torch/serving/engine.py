@@ -9,7 +9,12 @@ The port of `paddle_tpu/serving/engine.py`'s one-shot engine:
     (batching.py), runs ONE call of the model, and splits the rows back
     per request.
   * the ladder bounds the distinct dispatch shapes, so `warmup()` runs
-    every rung once before traffic.
+    every rung once before traffic. On the card each rung is a CUDA
+    graph (serving/graphs.py) of one `Executor.run` on static device
+    feeds, the counterpart of the reference's executable per bucket:
+    `warmup()` captures them largest first (a rung first dispatched
+    before it is captured then), and every dispatch replays its rung's
+    graph under the engine's dispatch lock.
   * **admission control**: a bounded queue — `submit` on a full queue
     raises `ServerOverloadedError` (nothing enqueued). Per-request
     deadlines are enforced while queued and again immediately before
@@ -40,6 +45,7 @@ import numpy as np
 
 from .. import monitor
 from . import batching
+from .graphs import StepGraphs
 from .errors import (DeadlineExceededError, EngineClosedError,
                      ServerOverloadedError)
 
@@ -154,12 +160,17 @@ class InferenceEngine:
     array's axis 0 is the batch dim. `feed_names` fixes the positional
     order (dict submissions are reordered to it); `input_specs`
     ([{"name", "dtype", "shape"}] with -1 batch dims) enables feed
-    validation, dtype coercion, and `warmup()`.
+    validation, dtype coercion, and `warmup()`. `from_program` on the
+    card gives the engine a graph runner: its `infer_fn` takes and
+    returns tensors on the card, and each padded feed signature is a
+    CUDA graph of it on static inputs.
     """
 
     def __init__(self, infer_fn, feed_names, fetch_names,
                  input_specs=None, config=None, start=True, ready=True):
         self._infer_fn = infer_fn
+        self._graphs = None           # from_program's, on the card
+        self._dispatch_lock = threading.Lock()
         self.feed_names = list(feed_names)
         self.fetch_names = list(fetch_names)
         self.input_specs = ({s["name"]: s for s in input_specs}
@@ -282,8 +293,10 @@ class InferenceEngine:
     def warmup(self):
         """Run every ladder rung once with zero-filled feeds, largest
         first, so no request pays a first-call cost (kernel builds,
-        allocator growth). Needs input_specs (from_program derives
-        them). Returns the rung list."""
+        allocator growth; on the card the rung's CUDA-graph capture,
+        which raises with the rung's signature if it fails). Needs
+        input_specs (from_program derives them). Returns the rung
+        list."""
         if not self.input_specs:
             raise RuntimeError("warmup() needs input_specs describing "
                                "the feed shapes/dtypes")
@@ -321,6 +334,9 @@ class InferenceEngine:
             snap = dict(self._stats)
             shapes = len(self._shapes)
             warmup_s = dict(self._warmup_s)
+        # not under the dispatch lock, which a dispatch holds throughout
+        graphs = (sorted(key[0][0][0] for key in self._graphs.keys())
+                  if self._graphs is not None else [])
         return {"queue_depth": depth, "queue_limit": self.config.queue_limit,
                 "max_batch_size": self.config.max_batch_size,
                 "batch_timeout_ms": self.config.batch_timeout_ms,
@@ -330,6 +346,9 @@ class InferenceEngine:
                              for b, s in sorted(warmup_s.items())},
                 "quant": self._quant,
                 "distinct_dispatch_shapes": shapes,
+                "aot_buckets": graphs,
+                "aot_status": ("cuda_graph" if self._graphs is not None
+                               else "none"),
                 "closed": self._closed,
                 "ready": self._ready,
                 **{k: snap.get(k, 0) for k in
@@ -540,9 +559,11 @@ class InferenceEngine:
             req._fulfill(outs)
 
     def _dispatch(self, padded):
-        """One call of the model; tracks the distinct dispatch
-        signatures so 'dispatch shapes == warmed buckets' is
-        observable."""
+        """One call of the model (on the card: the replay of its rung's
+        graph); tracks the distinct dispatch signatures so 'dispatch
+        shapes == warmed buckets' is observable, and sets
+        `serving.compiled_shapes` to the captured graphs (the distinct
+        signatures on the CPU)."""
         sig = tuple(a.shape for a in padded)
         with self._cond:
             if sig not in self._shapes:
@@ -550,9 +571,15 @@ class InferenceEngine:
                 n = len(self._shapes)
             else:
                 n = None
+        with self._dispatch_lock:
+            if self._graphs is not None:
+                key = tuple((a.shape, a.dtype.str) for a in padded)
+                outputs = self._graphs.run(key, self._infer_fn, *padded)
+                n = len(self._graphs) if n is not None else None
+            else:
+                outputs = self._infer_fn(*padded)
         if n is not None:
             monitor.gauge_set("serving.compiled_shapes", n)
-        outputs = self._infer_fn(*padded)
         return [np.asarray(o) for o in outputs]
 
     # -- constructors -------------------------------------------------------
@@ -583,9 +610,17 @@ class InferenceEngine:
             input_specs.append({"name": name, "dtype": var.dtype,
                                 "shape": dims})
 
-        def infer_fn(*arrays):
-            return exe.run(pruned, feed=dict(zip(sorted_names, arrays)),
-                           fetch_list=fetch_names, scope=scope)
+        card = exe.device.type == "cuda"
 
-        return cls(infer_fn, sorted_names, fetch_names,
-                   input_specs=input_specs, config=config, start=start)
+        def infer_fn(*feeds):
+            # numpy in and out on the CPU; on the card, captured per
+            # rung: its static device tensors in, device tensors out
+            return exe.run(pruned, feed=dict(zip(sorted_names, feeds)),
+                           fetch_list=fetch_names, scope=scope,
+                           return_numpy=not card)
+
+        engine = cls(infer_fn, sorted_names, fetch_names,
+                     input_specs=input_specs, config=config, start=False)
+        if card:
+            engine._graphs = StepGraphs(exe.device)
+        return engine.start() if start else engine

@@ -32,8 +32,17 @@ batching:
 The host scheduler (`_loop`, `_admit_pages`, `_admit_and_prefill`,
 `_decode_step`) is the reference's, nearly line for line. Telemetry
 lands in the `serving_lm.*` registry family and the always-on `stats()`
-dict (the /healthz payload). There are no AOT rungs: PyTorch runs
-eagerly, so `aot_status` is "none".
+dict (the /healthz payload).
+
+The rungs — the decode step, each `prefill:{b}x{t}` and the page copy
+(`GenerationConfig.rung_keys`) — are the reference's jit-compiled (or
+AOT-baked) steps. On the card each is a CUDA graph (serving/graphs.py):
+captured by `warmup()`, largest first, or at the rung's first dispatch,
+and replayed in place of the eager step, under the dispatch lock;
+`stats()` lists the captured keys in `aot_rungs` and reads
+`aot_status` "cuda_graph". On the CPU the steps run eagerly and
+`aot_status` is "none". The eager functions stay callable as
+`_prefill_fn`, `_decode_fn` and `_copy_fn`.
 """
 
 from __future__ import annotations
@@ -51,11 +60,19 @@ from .._device import resolve_device, use_full_f32
 from ..ops import transformer_ops as T
 from ..weights import lm_weights_from_numpy
 from . import batching
+from .graphs import StepGraphs
 from .errors import (DeadlineExceededError, EngineClosedError,
                      ServerOverloadedError)
 
 __all__ = ["LMSpec", "GenerationConfig", "GenerationStream",
            "GenerationEngine", "init_lm_weights", "price_kv_cache"]
+
+# PyTorch's cuBLAS workspace per stream on sm_90 (CUBLAS_WORKSPACE_CONFIG
+# unset: 4096 KiB x 8). The rungs' capture stream takes one at its
+# first product: chip_smoke.py's engine phase reads 33,636,864 B live
+# after warmup on an H100 (this and the rungs' static buffers).
+_CUBLAS_WORKSPACE_BYTES = 4096 * 8 * 1024
+
 
 def _finish(span, error=None):
     """Close a maybe-None span (span recording off => None everywhere).
@@ -631,6 +648,8 @@ class GenerationEngine:
                 *head, self._ck, self._cv, *a)
             self._decode_fn = lambda *a: T.slot_decode_step(
                 *head, self._ck, self._cv, *a)
+        self._copy_fn = lambda src, dst: T.page_copy(self._ck, self._cv,
+                                                     src, dst)
         # the planes are updated IN PLACE by every dispatch (the
         # counterpart of the reference's buffer donation: no step ever
         # holds two copies); created in inference mode like every
@@ -640,16 +659,22 @@ class GenerationEngine:
                                    device=self.device)
             self._cv = torch.zeros(shape, dtype=torch.float32,
                                    device=self.device)
+        # the rungs' graphs, on the card only; the planes above stay
+        # outside their memory pool
+        self._graphs = (StepGraphs(self.device)
+                        if self.device.type == "cuda" else None)
 
     def _price_hbm(self):
         """Price the resident engine in closed form BEFORE allocating
         anything — weights + both KV planes + the largest step's
         transients (activations of the biggest prefill rung or the
         decode step, one prefill layer's gathered page views, the head
-        logits)
-        — and refuse to construct when it exceeds the card's free
-        memory (`torch.cuda.mem_get_info`). On the CPU there is no
-        limit to check."""
+        logits; on the card the rungs' CUDA graphs share one memory
+        pool, which holds the largest rung's transients, and run on
+        their own capture stream, which holds a cuBLAS workspace) — and
+        refuse to construct when it exceeds the card's free memory
+        (`torch.cuda.mem_get_info`). On the CPU there is no limit to
+        check."""
         spec, cfg = self.spec, self.config
         H, F, V = spec.hidden_size, spec.ffn_hidden, spec.vocab_size
         n = spec.num_heads
@@ -670,8 +695,10 @@ class GenerationEngine:
 
         transient = max(step(cfg.prefill_batch, cfg.max_prompt_len),
                         step(cfg.max_slots, 1))
-        limit = (torch.cuda.mem_get_info(self.device)[0]
-                 if self.device.type == "cuda" else None)
+        limit = None
+        if self.device.type == "cuda":
+            transient += _CUBLAS_WORKSPACE_BYTES
+            limit = torch.cuda.mem_get_info(self.device)[0]
         out = {"kv_cache_bytes": kv, "weight_bytes": weight_bytes,
                "transient_bytes": transient,
                "peak_hbm_bytes": weight_bytes + kv + transient,
@@ -692,13 +719,23 @@ class GenerationEngine:
         return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                 for a in arrays]
 
+    def _dispatch(self, key, fn, *host):
+        """One rung: its CUDA graph on the card, the eager function on
+        the CPU. Returns the outputs as numpy arrays; the read-back is
+        the one point the host waits for the device."""
+        with self._dispatch_lock, torch.inference_mode():
+            if self._graphs is not None:
+                return self._graphs.run(key, fn, *host)
+            out = fn(*self._to_device(*host))
+            return [] if out is None else [out.cpu().numpy()]
+
     def _dispatch_prefill(self, toks, *rest):
         """rest = (plen, slots) in slab mode, (start, plen, tables) in
-        paged mode. The token read-back (`.cpu()`) is the one point the
-        host waits for the device."""
-        with self._dispatch_lock, torch.inference_mode():
-            tok0 = self._prefill_fn(*self._to_device(toks, *rest))
-            return tok0.cpu().numpy()
+        paged mode."""
+        b, t = toks.shape
+        tok0, = self._dispatch(f"prefill:{b}x{t}", self._prefill_fn, toks,
+                               *rest)
+        return tok0
 
     def _dispatch_decode(self, tok, pos_idx, live, tables=None):
         if tables is not None:
@@ -712,13 +749,12 @@ class GenerationEngine:
                                  f"covers")
         args = ((tok, pos_idx, live) if tables is None
                 else (tok, pos_idx, live, tables))
-        with self._dispatch_lock, torch.inference_mode():
-            nxt = self._decode_fn(*self._to_device(*args))
-            return nxt.cpu().numpy()
+        nxt, = self._dispatch("decode", self._decode_fn, *args)
+        return nxt
 
     def _dispatch_copy(self, src, dst):
-        with self._dispatch_lock, torch.inference_mode():
-            T.page_copy(self._ck, self._cv, int(src), int(dst))
+        self._dispatch("page_copy", self._copy_fn,
+                       np.array([src], np.int64), np.array([dst], np.int64))
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -859,13 +895,14 @@ class GenerationEngine:
     def warmup(self):
         """Run every dispatch shape once before traffic: every
         (batch x prompt-length) prefill rung plus the one decode step,
-        largest first (this builds the CUDA kernel and warms PyTorch's
-        allocator; there is nothing to compile ahead). Prefill warmups
+        largest first. On the card this builds the kernels and captures
+        each rung's CUDA graph (a capture that fails raises with the
+        rung key); on the CPU it runs each step once. Prefill warmups
         write through out-of-range slot ids (paged: the trash page),
         decode through an all-dead live mask — no slot state is
         perturbed, so warming a serving engine is safe. Per-rung
-        seconds land in `serving_lm.warmup_s|rung=` histograms and
-        stats()["warmup_s"]."""
+        seconds (on the card: capture and first replay) land in
+        `serving_lm.warmup_s|rung=` histograms and stats()["warmup_s"]."""
         cfg = self.config
         S, m = cfg.max_slots, cfg.pages_per_seq
         rungs = []
@@ -971,8 +1008,10 @@ class GenerationEngine:
                "hbm": dict(self._hbm),
                "warmed_rungs": list(self._warmed),
                "warmup_s": dict(sorted(warmup_s.items())),
-               "aot_rungs": [],
-               "aot_status": "none",
+               "aot_rungs": (self._graphs.keys()
+                             if self._graphs is not None else []),
+               "aot_status": ("cuda_graph" if self._graphs is not None
+                              else "none"),
                "device": str(self.device),
                "closed": self._closed, "ready": self._ready,
                **{k: snap.get(k, 0) for k in

@@ -1,7 +1,7 @@
 """Time the flash-attention and int8 kernels of one checkout of the port,
 for A/B comparisons of kernel variants.
 
-    python3 tools/flash_ab.py TREE LABEL [f32|bf16|int8|lse|lse16|step|short|amp32|traffic|decode|decodek|all[,...]]
+    python3 tools/flash_ab.py TREE LABEL [f32|bf16|int8|lse|lse16|step|short|amp32|traffic|decode|decodek|serve|slabprefill|all[,...]]
 
 TREE is a directory holding `chip_smoke.py` and `paddle_tpu_torch/` (a
 `git archive` of a commit, or a copy with a variant of csrc/); its
@@ -71,7 +71,25 @@ kernels are built from its own sources. Prints lines tagged "AB LABEL":
   4 engine, 8 slots at position 300, no requests): host wall,
   CUDA-graph device time and one profiled step's kernels by class (K1,
   index, copy, cuBLAS, the rest). `decodek` is `decode` without the
-  step.
+  step;
+- serve (not in `all`): a serving window on the tree's GPT-2-small
+  engine (the engine phase's configuration: 8 slots, prefill batch 4,
+  paged, prefix cache; random weights, seed 0): SERVE_REQUESTS
+  /v1/generate requests over HTTP, prompts of 16-256 random tokens and
+  16-64 new tokens (numpy seed), from SERVE_CLIENTS client threads, in
+  a process of their own, that each send their next request when their
+  last one ends. Run in turns on
+  an engine whose rungs are CUDA graphs and on one whose rungs run
+  eagerly (graph, eager, eager, graph); every run's tokens must equal
+  the first's. Prints per run TTFT p50 / p99 (client side), tokens/s
+  over the whole window, the engine's decode step wall (mean, p50, p99)
+  and, for the graph engine, the device time of its decode replays and
+  of every replay over the window, between CUDA events;
+- slabprefill (not in `all`): the slab engine's prefill:4x256 rung at
+  GPT-2-small (8 slots, rows on slots 5, 2, 7 and one pad row): its
+  profiled kernels by class and their sum, the eager dispatch's wall,
+  and, where the tree captures its rungs, the graph's wall and replay
+  device time. For parent / change comparisons of the slab writes.
 
 Compare two trees only within one call, in turns: parent, change,
 change, parent. Needs a CUDA card.
@@ -480,12 +498,17 @@ def record_traffic(cs, label):
     mix."""
     _, smi = cs.device_phase()
     cs._build.build_library("flash_attn_fwd")
-    steps = []
+    steps, engines = [], []
     real = cs.GenerationEngine._dispatch_decode
 
     def spy(self, tok, pos_idx, live, tables=None):
-        # the scheduler's thread: not warmup's or the breakdown's calls
-        if threading.current_thread() is not threading.main_thread():
+        # the phase's first engine (warmed first), on its scheduler's
+        # thread: not warmup's or the breakdown's calls, nor those of an
+        # eager yardstick engine the phase builds after it
+        if not engines:
+            engines.append(self)
+        if self is engines[0] and \
+                threading.current_thread() is not threading.main_thread():
             steps.append((pos_idx.copy(), live.copy(), tables.copy()))
         return real(self, tok, pos_idx, live, tables)
 
@@ -685,7 +708,217 @@ def decode_path(cs, label, step=True):
           flush=True)
 
 
+SERVE_REQUESTS, SERVE_CLIENTS = 400, 8
+
+
+def serve_windows(cs, label):
+    _, smi = cs.device_phase()
+    cs.flags.set_flag("metrics", True)         # serving_lm.* histograms
+    spec = cs.LMSpec(50304, 768, 12, 12, 1024)
+    weights = cs.init_lm_weights(spec, seed=cs.SEED)
+    rng = np.random.RandomState(cs.SEED + 21)
+    bodies = [{"prompt": rng.randint(0, spec.vocab_size,
+                                     rng.randint(16, 257)).tolist(),
+               "max_new_tokens": int(rng.randint(16, 65))}
+              for _ in range(SERVE_REQUESTS)]
+    first = None
+    for run, kind in enumerate(("graph", "eager", "eager", "graph")):
+        engine = cs.GenerationEngine(spec, weights,
+                                     config=engine_config(cs), ready=False)
+        if kind == "eager":
+            engine._graphs = None
+        t0 = time.perf_counter()
+        engine.warmup()
+        warm = time.perf_counter() - t0
+        got = serve_window(cs, engine, bodies)
+        engine.shutdown(drain=True, timeout=600)
+        toks = got.pop("tokens")
+        if first is None:
+            first = toks
+        elif toks != first:
+            raise AssertionError(f"run {run} ({kind}): tokens differ from "
+                                 f"run 0's")
+        print(f"AB {label} serve window {run} ({kind} rungs, warmed in "
+              f"{warm:.1f} s): {SERVE_REQUESTS} requests from "
+              f"{SERVE_CLIENTS} clients: {got} | {smi}", flush=True)
+        del engine
+        torch.cuda.empty_cache()
+
+
+def serve_window(cs, engine, bodies):
+    """Serve `bodies` through engine behind HTTP to SERVE_CLIENTS
+    closed-loop clients in a process of their own (`--clients`: the
+    server's process runs no client code); returns the window's numbers
+    (ms) and each request's tokens."""
+    import json
+    import tempfile
+    server = cs.make_server(engine, port=0)
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    graphs = engine._graphs
+    keys = ({id(r.graph): k for k, r in graphs._rungs.items()}
+            if graphs is not None else {})
+    marks = []                  # (rung key, start event, end event)
+    real = torch.cuda.CUDAGraph.replay
+
+    def timed(graph):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        real(graph)
+        end.record()
+        marks.append((keys.get(id(graph)), start, end))
+
+    os.makedirs(os.path.dirname(TRAFFIC), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(TRAFFIC)) as tmp:
+        src, dst = os.path.join(tmp, "in.json"), os.path.join(tmp, "out.json")
+        with open(src, "w") as f:
+            json.dump(bodies, f)
+        cs.monitor.reset()
+        torch.cuda.CUDAGraph.replay = timed
+        try:
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--clients", str(port), src, dst,
+                            str(SERVE_CLIENTS)], check=True, timeout=1200)
+        finally:
+            torch.cuda.CUDAGraph.replay = real
+            server.shutdown()
+        with open(dst) as f:
+            got = json.load(f)
+    if got["errors"]:
+        raise AssertionError(f"serve window: {len(got['errors'])} requests "
+                             f"failed: {got['errors'][:3]}")
+    torch.cuda.synchronize()
+    hist = cs.monitor.snapshot()["histograms"]
+    step = hist["serving_lm.decode_step_s"]
+    wall, results = got["wall_s"], got["results"]
+    ttft = np.array([t for _, t in results]) * 1e3
+    generated = sum(len(t) for t, _ in results)
+    out = {"wall_s": wall, "generated": generated,
+           "tokens_per_s": generated / wall,
+           "ttft_p50_ms": float(np.percentile(ttft, 50)),
+           "ttft_p99_ms": float(np.percentile(ttft, 99)),
+           "decode_steps": step["count"],
+           "decode_step_ms": {q: 1e3 * step[q] for q in
+                              ("mean", "p50", "p99")},
+           "prefills": hist["serving_lm.prefill_batch_size"]["count"]}
+    if marks:
+        ms = [(k, s.elapsed_time(e)) for k, s, e in marks]
+        dec = [t for k, t in ms if k == "decode"]
+        device = sum(t for _, t in ms)
+        out.update({"decode_device_ms": {"mean": float(np.mean(dec)),
+                                         "p50": float(np.median(dec))},
+                    "decode_busy": float(np.mean(dec))
+                    / out["decode_step_ms"]["mean"],
+                    "replays": len(ms), "device_s": device / 1e3,
+                    "window_busy": device / 1e3 / wall})
+    out["tokens"] = [t for t, _ in results]
+    return out
+
+
+def clients(port, src, dst, n):
+    """The serve window's clients: n threads, each POSTing the next of
+    src's bodies to /v1/generate as a stream when its last one ended;
+    writes {"wall_s", "results": [[tokens, ttft_s]], "errors"} to dst."""
+    import http.client
+    import json
+    with open(src) as f:
+        bodies = json.load(f)
+    todo = list(range(len(bodies)))
+    results, errors = [None] * len(bodies), []
+    lock = threading.Lock()
+
+    def post(body):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/generate", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise RuntimeError(f"/v1/generate -> {resp.status}")
+        toks, ttft = [], None
+        for line in resp:
+            ev = json.loads(line)
+            if ev["event"] == "token":
+                ttft = time.perf_counter() - t0 if ttft is None else ttft
+                toks.append(ev["token"])
+            elif ev["event"] == "error":
+                raise RuntimeError(f"in-band error: {ev}")
+        conn.close()
+        return toks, ttft
+
+    def client():
+        while True:
+            with lock:
+                if not todo:
+                    return
+                i = todo.pop(0)
+            try:
+                results[i] = post(dict(bodies[i], stream=True))
+            except Exception as e:
+                errors.append([i, repr(e)])
+
+    threads = [threading.Thread(target=client) for _ in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    with open(dst, "w") as f:
+        json.dump({"wall_s": time.perf_counter() - t0, "results": results,
+                   "errors": errors}, f)
+
+
+def slab_prefill(cs, label):
+    _, smi = cs.device_phase()
+    spec = cs.LMSpec(50304, 768, 12, 12, 1024)
+    cfg = cs.GenerationConfig(max_slots=8, prefill_batch=4,
+                              max_prompt_len=256, max_new_tokens=128,
+                              paged=False)
+    engine = cs.GenerationEngine(spec, cs.init_lm_weights(spec,
+                                                          seed=cs.SEED),
+                                 config=cfg, ready=False, start=False)
+    rng = np.random.RandomState(cs.SEED + 5)
+    host = (rng.randint(0, spec.vocab_size, (4, 256)).astype(np.int32),
+            np.array([256, 200, 256, 1], np.int32),
+            np.array([5, 2, 7, cfg.max_slots], np.int32))
+
+    def eager():
+        with torch.inference_mode():
+            return engine._prefill_fn(*engine._to_device(*host)).cpu()
+
+    def walls(fn, reps=20):
+        for _ in range(3):
+            fn()
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(out))
+
+    args = engine._to_device(*host)
+    with torch.inference_mode():
+        events = profiled_events(lambda: engine._prefill_fn(*args))
+    line = (f"AB {label} slab prefill:4x256 (3 rows + a pad row): profiled "
+            f"{len(events)} kernels, {sum(us for _, us in events):.1f} us, "
+            f"(us, launches) {by_class(events)} | eager wall median "
+            f"{walls(eager):.3f} ms")
+    if getattr(engine, "_graphs", None) is not None:
+        graph_wall = walls(lambda: engine._dispatch_prefill(*host))
+        device = cs.graph_replay_ms(engine._graphs, "prefill:4x256")
+        line += (f" | graph wall median {graph_wall:.3f} ms, device "
+                 f"{device:.4f} ms (replay)")
+        if not np.array_equal(eager().numpy(),
+                              engine._dispatch_prefill(*host)):
+            raise AssertionError("slab prefill: graph != eager")
+    print(f"{line} | {smi}", flush=True)
+
+
 def main():
+    if sys.argv[1] == "--clients":
+        port, src, dst, n = sys.argv[2:6]
+        return clients(int(port), src, dst, int(n))
     tree, label = sys.argv[1], sys.argv[2]
     what = set((sys.argv[3] if len(sys.argv) > 3 else "all").split(","))
     sys.path.insert(0, tree)
@@ -710,6 +943,10 @@ def main():
         record_traffic(cs, label)
     if what & {"decode", "decodek"}:
         decode_path(cs, label, step="decode" in what)
+    if "serve" in what:
+        serve_windows(cs, label)
+    if "slabprefill" in what:
+        slab_prefill(cs, label)
 
 
 if __name__ == "__main__":
