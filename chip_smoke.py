@@ -155,7 +155,40 @@ Phases, in order; any failure raises and the script exits non-zero:
  14. the amp program at the reference's headline batch, B 32 at T 1024
      (bench.py's bench_transformer_mfu), or the largest of 24 and 16
      that fits: step wall, peak memory and a profiled step's device time
-     and busy share.
+     and busy share;
+ 15. GPT-2-medium's kernel shapes (vocab 50304, H 1024, 16 heads of 64):
+     K5 at x [8192, 1024] and K5-bf16 at [32768, 1024] @ w [1024,
+     50304], both also at H 1000 (a ragged last k chunk); K1-, K3- and
+     K4-bf16 at [32, 16, 1024, 64] causal, the f32 K1, K3 and K4 at [4,
+     16, 1024, 64]: each held to its plain version (the tolerances of
+     phases 5, 6 and 11) and timed beside it, its library yardstick and
+     its bound;
+ 16. amp GPT-2-medium training as bench.py's bench_gpt2_medium_mfu
+     builds it (24 layers, T 1024, tokens drawn inside the program, one
+     stacked transformer_stack op, the remat flag on): step 1 at B 4
+     with its loss and every gradient against a plain amp recompute
+     (phase 12's tolerances); B 32, a warm-up step and three timed steps
+     (wall, tokens/s, peak memory) and a profiled one; B 8 with remat on
+     and off, one step each, for their peak memory. Launches per step:
+     K1-bf16 48 with remat (the backward's recompute), 24 without;
+     K3-bf16 24, K4-bf16 24, K5-bf16 1;
+ 17. f32 GPT-2-medium training, B 4, remat on, two steps: step 1's loss
+     and gradients against the plain f32 recompute (phase 7's
+     tolerances); launches K1 48, K3 24, K4 24, K5 1 a step;
+ 18. generation from phase 16's trained weights: the LM engine (default
+     paged KV and prefix cache, every rung a CUDA graph) and
+     transformer_lm_generate in a program over a scope of the same
+     weights, three prompts of 16 new tokens each; greedy tokens ==
+     a plain full-recompute forward; K1 launches == layers x (prefills
+     + decode steps) in the engine, layers x 16 in the program;
+ 19. the stacked inference program (transformer_lm + argmax) with those
+     weights quantized by the port (quant_transformer_stack over four
+     int8 planes, dequantized a layer at a time; quant_mul for the
+     head), served one-shot at rungs 1-8 (CUDA graphs) over /v1/infer:
+     a dispatch launches K6 and the quantize kernel once (the head) and
+     K1 24 times, no repack; replies == Executor.run; logits and ids
+     against the plain recompute over the dequantized weights (phase
+     10's gates); the rung-8 dispatch wall, eager and graph.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -196,7 +229,8 @@ try:
                                           GenerationEngine, InferenceEngine,
                                           LMSpec, init_lm_weights)
     from paddle_tpu_torch.serving.http import make_server
-    from paddle_tpu_torch.weights import lm_weights_from_numpy
+    from paddle_tpu_torch.weights import (lm_weights_from_numpy,
+                                          scope_from_numpy)
     from paddle_tpu_torch._device import use_full_f32
 except ImportError as e:
     sys.exit(f"chip_smoke: the paddle_tpu_torch package is not beside "
@@ -978,17 +1012,17 @@ def live_pairs(B, Tq, Tk, kv_len, causal):
     return int(np.maximum(lim, 0).sum())
 
 
-def attn_bound(B, Tq, Tk, kv_len, causal, products, ins, outs):
+def attn_bound(B, Tq, Tk, kv_len, causal, products, ins, outs, n=N_HEADS):
     """The least time for `products` T x T x D products over the live
-    pairs, against `ins` q-sized inputs read, `outs` outputs written and
-    the [B, n, Tq] row statistics (lse and, backward, delta): (ms,
-    bound_by, ms with 3xTF32 tensor cores)."""
-    pairs = live_pairs(B, Tq, Tk, kv_len, causal) * N_HEADS
-    elems = B * N_HEADS * HEAD_DIM
+    pairs of n heads, against `ins` q-sized inputs read, `outs` outputs
+    written and the [B, n, Tq] row statistics (lse and, backward,
+    delta): (ms, bound_by, ms with 3xTF32 tensor cores)."""
+    pairs = live_pairs(B, Tq, Tk, kv_len, causal) * n
+    elems = B * n * HEAD_DIM
     nbytes = 4 * (elems * (Tq + 2 * Tk)                 # q, k, v
                   + elems * (ins - 3) * Tq               # dO (backward)
                   + elems * sum(outs)                    # outputs
-                  + B * N_HEADS * Tq * (1 if ins == 3 else 2))
+                  + B * n * Tq * (1 if ins == 3 else 2))
     flops = 2.0 * HEAD_DIM * pairs * products
     return (*bound(flops, nbytes), bound_3xtf32(flops, nbytes))
 
@@ -1037,9 +1071,9 @@ def rel_err(got, ref):
                                                 float(ref.abs().max()))
 
 
-def bwd_inputs(rng, B, Tq, Tk, kv_len, causal, scale):
+def bwd_inputs(rng, B, Tq, Tk, kv_len, causal, scale, n=N_HEADS):
     dev = torch.device("cuda")
-    q, k, v, do = (torch.from_numpy(rng.randn(B, N_HEADS, T, HEAD_DIM)
+    q, k, v, do = (torch.from_numpy(rng.randn(B, n, T, HEAD_DIM)
                                     .astype(np.float32)).to(dev)
                    for T in (Tq, Tk, Tk, Tq))
     lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
@@ -1233,17 +1267,16 @@ def backward_kernel_phase(smi):
 
 # -- phase 6: K5 vs plain -----------------------------------------------------
 
-def lse_kernel_phase(smi):
-    """K5 against its plain version at the training shape, and against
-    itself (two calls, bitwise). Tolerance 1e-4 absolute on values near
-    log(V) = 10.8: f32-accurate dot products over H = 768 (3xTF32, summed
-    a 64-wide k tile at a time) and a sum of 50304 exponentials, in other
-    orders."""
-    rng = np.random.RandomState(SEED + 4)
-    N = TRAIN_B * TRAIN_T
+def lse_case(rng, N, hid, case, smi):
+    """K5 against its plain version at x [N, hid] @ w [hid, 50304], and
+    against itself (two calls, bitwise), timed beside the plain version,
+    logsumexp(x @ w) and the bound. Tolerance 1e-4 absolute on values
+    near log(V) = 10.8: f32-accurate dot products over hid (3xTF32,
+    summed a 64-wide k tile at a time) and a sum of 50304 exponentials,
+    in other orders."""
     dev = torch.device("cuda")
-    sets = [(torch.from_numpy(rng.randn(N, HID).astype(np.float32)).to(dev),
-             torch.from_numpy((rng.randn(HID, VOCAB) * 0.02)
+    sets = [(torch.from_numpy(rng.randn(N, hid).astype(np.float32)).to(dev),
+             torch.from_numpy((rng.randn(hid, VOCAB) * 0.02)
                               .astype(np.float32)).to(dev))
             for _ in range(2)]
     got = ce.lm_head_lse(*sets[0])
@@ -1251,7 +1284,7 @@ def lse_kernel_phase(smi):
     torch.cuda.synchronize()
     ref = ce.lm_head_lse_plain(*sets[0])
     err = float((got - ref).abs().max())
-    log(f"kernel lm_head_lse: x [{N},{HID}] w [{HID},{VOCAB}] "
+    log(f"kernel lm_head_lse: x [{N},{hid}] w [{hid},{VOCAB}] "
         f"max_abs_err {err:.3e} (tol {TOL:g}); two calls bitwise equal: "
         f"{bool(torch.equal(got, again))}")
     if not np.isfinite(err) or err > TOL:
@@ -1259,17 +1292,20 @@ def lse_kernel_phase(smi):
     if not torch.equal(got, again):
         raise AssertionError("lm_head_lse: two calls on the same inputs "
                              "differ (the split merge must be in order)")
-    r = {"max_abs_err": err,
+    r = {"case": case, "x": [N, hid], "max_abs_err": err,
          "ms": time_ms(ce.lm_head_lse, sets, reps=6),
          "plain_ms": time_ms(ce.lm_head_lse_plain, sets, reps=3),
          "library_ms": time_ms(lambda x, w: torch.logsumexp(x @ w, dim=1),
                                sets, reps=3)}
-    flops, nbytes = 2.0 * N * HID * VOCAB, 4.0 * (N * HID + HID * VOCAB + N)
+    flops, nbytes = 2.0 * N * hid * VOCAB, 4.0 * (N * hid + hid * VOCAB + N)
     r["bound_ms"], r["bound_by"] = bound(flops, nbytes)
     r["bound_3xtf32_ms"] = bound_3xtf32(flops, nbytes)
-    log(f"kernel lm_head_lse: ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f}"
-        f" library_ms (logsumexp(x @ w)) {r['library_ms']:.4f} bound_ms "
-        f"{r['bound_ms']:.5f} ({r['bound_by']}) | {smi}")
+    log(f"kernel lm_head_lse {case}: ms {r['ms']:.4f} plain_ms "
+        f"{r['plain_ms']:.4f} library_ms (logsumexp(x @ w)) "
+        f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+        f"({r['bound_by']}) | {smi}")
+    del sets, got, again, ref
+    torch.cuda.empty_cache()
     return r
 
 
@@ -2244,16 +2280,17 @@ def bound_bf16(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def attn_bound_bf16(B, Tq, Tk, kv_len, causal, products, ins, outs):
+def attn_bound_bf16(B, Tq, Tk, kv_len, causal, products, ins, outs,
+                    n=N_HEADS):
     """attn_bound's work with bf16 operands: `products` T x T x D
-    products over the live pairs at the bf16 peak, against `ins`
-    q-sized bf16 inputs, the bf16 outputs `outs` (lengths) and the f32
-    row statistics."""
-    pairs = live_pairs(B, Tq, Tk, kv_len, causal) * N_HEADS
-    elems = B * N_HEADS * HEAD_DIM
+    products over the live pairs of n heads at the bf16 peak, against
+    `ins` q-sized bf16 inputs, the bf16 outputs `outs` (lengths) and the
+    f32 row statistics."""
+    pairs = live_pairs(B, Tq, Tk, kv_len, causal) * n
+    elems = B * n * HEAD_DIM
     nbytes = (2 * (elems * (Tq + 2 * Tk) + elems * (ins - 3) * Tq
                    + elems * sum(outs))
-              + 4 * B * N_HEADS * Tq * (1 if ins == 3 else 2))
+              + 4 * B * n * Tq * (1 if ins == 3 else 2))
     return bound_bf16(2.0 * HEAD_DIM * pairs * products, nbytes)
 
 
@@ -2263,21 +2300,21 @@ def bf16_err(got, ref):
     return diff, diff / max(float(ref.float().abs().max()), 1e-30)
 
 
-def bf16_attn_inputs(rng, B, Tq, Tk, kv_len, causal, scale):
-    """bf16 q/k/v head views of packed [B, T, 3 * 768] planes, as the qkv
-    fc writes them (q from a plane of its own when Tq != Tk), dO a head
-    view of a [B, Tq, 768] plane, and the forward's LSE and delta (f32).
-    Returns the backward's arguments and the forward's O."""
-    dev, H = torch.device("cuda"), N_HEADS * HEAD_DIM
+def bf16_attn_inputs(rng, B, Tq, Tk, kv_len, causal, scale, n=N_HEADS):
+    """bf16 q/k/v head views of packed [B, T, 3 * n * 64] planes, as the
+    qkv fc writes them (q from a plane of its own when Tq != Tk), dO a
+    head view of a [B, Tq, n * 64] plane, and the forward's LSE and
+    delta (f32). Returns the backward's arguments and the forward's O."""
+    dev, H = torch.device("cuda"), n * HEAD_DIM
 
     def plane(T, width):
         return torch.from_numpy(rng.randn(B, T, width).astype(np.float32)
                                 ).to(dev, torch.bfloat16)
     kv = plane(Tk, 3 * H)
     qp = kv if Tq == Tk else plane(Tq, 3 * H)
-    q, k, v = (fa._heads(t, N_HEADS) for t in
+    q, k, v = (fa._heads(t, n) for t in
                (qp[..., :H], kv[..., H:2 * H], kv[..., 2 * H:]))
-    do = fa._heads(plane(Tq, H), N_HEADS)
+    do = fa._heads(plane(Tq, H), n)
     lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     o, lse = fa.flash_attn_fwd_bf16(q, k, v, lens, torch.zeros_like(lens),
                                     causal, scale)
@@ -2449,15 +2486,16 @@ def bf16_fwd_batch_case(rng, scale, smi):
     return r
 
 
-def lse_bf16_case(rng, N, case, smi):
-    """K5-bf16 at x [N, 768] @ w [768, 50304] (N 8192 for the B 8 step,
-    32768 for the amp batch step): within TOL of its plain version, the
-    same bits in two calls, timed beside the plain version,
-    logsumexp(mm(x, w) with f32 output) and the bound."""
+def lse_bf16_case(rng, N, case, smi, hid=HID):
+    """K5-bf16 at x [N, hid] @ w [hid, 50304] (N 8192 for the B 8 step,
+    32768 for the amp batch steps; hid 768, 1024 for GPT-2-medium):
+    within TOL of its plain version, the same bits in two calls, timed
+    beside the plain version, logsumexp(mm(x, w) with f32 output) and
+    the bound."""
     dev = torch.device("cuda")
-    lse_sets = [(torch.from_numpy(rng.randn(N, HID).astype(np.float32))
+    lse_sets = [(torch.from_numpy(rng.randn(N, hid).astype(np.float32))
                  .to(dev, torch.bfloat16),
-                 torch.from_numpy((rng.randn(HID, VOCAB) * 0.02)
+                 torch.from_numpy((rng.randn(hid, VOCAB) * 0.02)
                                   .astype(np.float32)).to(dev, torch.bfloat16))
                 for _ in range(2)]
     got = ce.lm_head_lse_bf16(*lse_sets[0])
@@ -2465,7 +2503,7 @@ def lse_bf16_case(rng, N, case, smi):
     torch.cuda.synchronize()
     ref = ce.lm_head_lse_plain(*lse_sets[0])
     err = float((got - ref).abs().max())
-    log(f"bf16 lm_head_lse_bf16: x [{N},{HID}] w [{HID},{VOCAB}] "
+    log(f"bf16 lm_head_lse_bf16: x [{N},{hid}] w [{hid},{VOCAB}] "
         f"max_abs_err {err:.3e} (tol {TOL:g}); two calls bitwise equal: "
         f"{bool(torch.equal(got, again))}")
     if not np.isfinite(err) or err > TOL:
@@ -2476,7 +2514,7 @@ def lse_bf16_case(rng, N, case, smi):
                              "same inputs differ (the split merge must be "
                              "in order)")
     del got, again, ref
-    r = {"case": case, "x": [N, HID], "max_abs_err": err,
+    r = {"case": case, "x": [N, hid], "max_abs_err": err,
          "ms": time_ms(ce.lm_head_lse_bf16, lse_sets, reps=10),
          "plain_ms": time_ms(ce.lm_head_lse_plain, lse_sets, reps=3),
          "library_ms": time_ms(lambda x, w: torch.logsumexp(
@@ -2484,7 +2522,7 @@ def lse_bf16_case(rng, N, case, smi):
              reps=5),
          "replaces": "paddle_tpu/ops/chunked_ce.py:90"}
     r["bound_ms"], r["bound_by"] = bound_bf16(
-        2.0 * N * HID * VOCAB, 2.0 * (N * HID + HID * VOCAB) + 4.0 * N)
+        2.0 * N * hid * VOCAB, 2.0 * (N * hid + hid * VOCAB) + 4.0 * N)
     log(f"bf16 lm_head_lse_bf16 N {N}: ms {r['ms']:.4f} plain_ms "
         f"{r['plain_ms']:.4f} library_ms (logsumexp(mm(x, w, f32 out))) "
         f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
@@ -2872,6 +2910,749 @@ def amp_batch_phase(smi):
     raise AssertionError(f"amp: none of the batches {AMP_BATCHES} fits")
 
 
+# -- phases 15-19: GPT-2-medium ------------------------------------------------
+
+# bench.py's bench_gpt2_medium_mfu: vocab 50304, H 1024, 24 layers, 16
+# heads (D 64), T 1024, B 32, bf16 amp, the scan-stacked block
+# (transformer_stack) with remat on
+MED_HID, MED_LAYERS, MED_HEADS, MED_B = 1024, 24, 16, 32
+MED_SPEC_ARGS = (VOCAB, MED_HID, MED_LAYERS, MED_HEADS, TRAIN_T)
+MED_LEAVES = T._LEAVES
+# the f32 checks' batch (phase 15's f32 attention kernels, phase 17)
+MED_F32_B = 4
+MED_AMP_CHECK_B, MED_MEM_B = 4, 8
+
+
+def medium_kernel_phase(smi):
+    """GPT-2-medium's kernel shapes: K5 at x [8192, 1024] and K5-bf16 at
+    [32768, 1024] @ w [1024, 50304]; both K5 kernels at H 1000, whose
+    last 64-deep k chunk is ragged; K1-, K3- and K4-bf16 at [32, 16,
+    1024, 64] causal and the f32 K1, K3, K4 at [4, 16, 1024, 64]. Each
+    held to its plain version and timed beside the plain version, its
+    library yardstick and its bound."""
+    rng = np.random.RandomState(SEED + 15)
+    out = {"lm_head_lse": lse_case(rng, TRAIN_B * TRAIN_T, MED_HID,
+                                   "gpt2_medium", smi),
+           "lm_head_lse_bf16": lse_bf16_case(rng, MED_B * TRAIN_T,
+                                             "gpt2_medium", smi,
+                                             hid=MED_HID)}
+    dev = torch.device("cuda")
+    for dtype, fn in ((torch.float32, ce.lm_head_lse),
+                      (torch.bfloat16, ce.lm_head_lse_bf16)):
+        x = torch.from_numpy(rng.randn(2048, 1000).astype(np.float32)).to(
+            dev, dtype)
+        w = torch.from_numpy((rng.randn(1000, VOCAB) * 0.02).astype(
+            np.float32)).to(dev, dtype)
+        err = float((fn(x, w) - ce.lm_head_lse_plain(x, w)).abs().max())
+        log(f"kernel {fn.__name__} ragged k: x [2048,1000] w [1000,{VOCAB}]"
+            f" max_abs_err {err:.3e} (tol {TOL:g})")
+        if not err <= TOL:
+            raise AssertionError(f"{fn.__name__} at H 1000 disagrees with "
+                                 "its plain version")
+        out[fn.__name__]["ragged_h1000_err"] = err
+        del x, w
+    scale = 1.0 / float(np.sqrt(HEAD_DIM))
+    out.update(medium_attn_bf16(rng, scale, smi))
+    out.update(medium_attn_f32(rng, scale, smi))
+    torch.cuda.empty_cache()
+    return out
+
+
+def medium_attn_bf16(rng, scale, smi):
+    """K1-, K3- and K4-bf16 at [32, 16, 1024, 64] causal: each within
+    BF16_REL of its plain bf16 version (LSE within TOL), then timed
+    beside the plain version, cuDNN's SDPA forward / backward and the
+    bound."""
+    B, n, T_ = MED_B, MED_HEADS, TRAIN_T
+    full = [T_] * B
+    sets = [bf16_attn_inputs(rng, B, T_, T_, full, True, scale, n=n)
+            for _ in range(2)]
+    (q, k, v, do, lse, delta, lens), o = sets[0]
+    args = sets[0][0]
+    starts = torch.zeros_like(lens)
+    o_ref, lse_ref = fa.flash_attn_fwd_plain(q, k, v, lens, starts, True,
+                                             scale)
+    lse_err = float((lse - lse_ref).abs().max())
+    errs = {"flash_attn_fwd_bf16": bf16_err(o, o_ref)}
+    del o_ref, lse_ref
+    ref = fa.flash_attn_bwd_fused_plain(*args, True, scale)
+    dq = fa.flash_attn_bwd_dq_bf16(*args, True, scale)
+    dk, dv = fa.flash_attn_bwd_dkv_bf16(*args, True, scale)
+    torch.cuda.synchronize()
+    errs["flash_attn_bwd_dq_bf16"] = bf16_err(dq, ref[0])
+    e_k, e_v = bf16_err(dk, ref[1]), bf16_err(dv, ref[2])
+    errs["flash_attn_bwd_dkv_bf16"] = (max(e_k[0], e_v[0]),
+                                       max(e_k[1], e_v[1]))
+    del ref, dq, dk, dv
+    for name, (ab, rel) in errs.items():
+        log(f"bf16 {name} gpt2_medium: q [{B},{n},{T_},{HEAD_DIM}] "
+            f"max_abs_err {ab:.3e}, {rel:.3e} of max |plain| (tol "
+            f"{BF16_REL:g})" + (f"; LSE {lse_err:.3e} (tol {TOL:g})"
+                                if "fwd" in name else ""))
+        if not np.isfinite(rel) or rel > BF16_REL:
+            raise AssertionError(f"{name} (gpt2_medium) disagrees with its "
+                                 f"plain bf16 version beyond {BF16_REL:g}")
+    if not lse_err <= TOL:
+        raise AssertionError("K1-bf16 (gpt2_medium) LSE disagrees with the "
+                             "plain version")
+    bwd_sets = [s_[0] for s_ in sets]
+    fwd_sets = [a[:3] for a in bwd_sets]
+    del sets, o
+    sdpa = (lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale))
+    lib_bwd, lib_names = sdpa_backward(bwd_sets[0], scale)
+    timed = {
+        "flash_attn_fwd_bf16": (
+            lambda q, k, v: fa.flash_attn_fwd_bf16(q, k, v, lens, starts,
+                                                   True, scale),
+            lambda q, k, v: fa.flash_attn_fwd_plain(q, k, v, lens, starts,
+                                                    True, scale),
+            fwd_sets, time_ms(sdpa, fwd_sets, reps=10),
+            device_kernels(lambda: sdpa(*fwd_sets[0])), (3, (T_,))),
+        "flash_attn_bwd_dq_bf16": (
+            lambda *a: fa.flash_attn_bwd_dq_bf16(*a, True, scale),
+            lambda *a: fa.flash_attn_bwd_dq_plain(*a, True, scale),
+            bwd_sets, lib_bwd, lib_names, (4, (T_,))),
+        "flash_attn_bwd_dkv_bf16": (
+            lambda *a: fa.flash_attn_bwd_dkv_bf16(*a, True, scale),
+            lambda *a: fa.flash_attn_bwd_dkv_plain(*a, True, scale),
+            bwd_sets, lib_bwd, lib_names, (4, (T_, T_))),
+    }
+    results = {}
+    for name, (call, plain, sets_, lib_ms, lib_k, (ins, outs)) in \
+            timed.items():
+        _, products = BF16_ATTN[name]
+        r = {"case": "gpt2_medium", "q": [B, n, T_, HEAD_DIM],
+             "ms": time_ms(call, sets_, reps=10),
+             "plain_ms": time_ms(plain, sets_, reps=2),
+             "library_ms": lib_ms, "library_kernels": lib_k,
+             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1]}
+        r["bound_ms"], r["bound_by"] = attn_bound_bf16(
+            B, T_, T_, full, True, products, ins, outs, n=n)
+        results[name] = r
+        log(f"bf16 {name} gpt2_medium [{B},{n},{T_},{HEAD_DIM}]: ms "
+            f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+            f"{lib_ms:.4f} bound_ms {r['bound_ms']:.5f} ({r['bound_by']}) "
+            f"| {smi}")
+    del bwd_sets, fwd_sets
+    torch.cuda.empty_cache()
+    return results
+
+
+MED_F32_KERNELS = {
+    # name: (call, which of (dq, dk, dv) it returns, T x T x D products,
+    # outputs' lengths)
+    "flash_attn_bwd_dq": (lambda *a: (fa.flash_attn_bwd_dq(*a),), (0,), 3,
+                          (TRAIN_T,)),
+    "flash_attn_bwd_dkv": (lambda *a: fa.flash_attn_bwd_dkv(*a), (1, 2), 4,
+                           (TRAIN_T, TRAIN_T)),
+}
+
+
+def medium_attn_f32(rng, scale, smi):
+    """The f32 K1, K3 and K4 at [4, 16, 1024, 64] causal (phase 17's
+    shapes): within TOL (relative to the larger of 1 and the plain
+    output's largest element) of the plain versions, timed beside the
+    plain versions, torch's SDPA forward / backward and the bounds."""
+    B, n, T_ = MED_F32_B, MED_HEADS, TRAIN_T
+    full = [T_] * B
+    sets = [bwd_inputs(rng, B, T_, T_, full, True, scale, n=n)
+            for _ in range(2)]
+    q, k, v, do, lse, delta, lens = sets[0]
+    starts = torch.zeros_like(lens)
+    o, lse_k = fa.flash_attn_fwd(q, k, v, lens, starts, True, scale)
+    o_ref, lse_ref = fa.flash_attn_fwd_plain(q, k, v, lens, starts, True,
+                                             scale)
+    errs = {"flash_attn_fwd": max(float((o - o_ref).abs().max()),
+                                  float((lse_k - lse_ref).abs().max()))}
+    ref = fa.flash_attn_bwd_fused_plain(*sets[0], True, scale)
+    for name, (call, idx, _, _) in MED_F32_KERNELS.items():
+        got = call(*sets[0], True, scale)
+        errs[name] = max(rel_err(g, ref[i]) for g, i in zip(got, idx))
+    torch.cuda.synchronize()
+    del o, o_ref, lse_k, lse_ref, ref
+    for name, err in errs.items():
+        log(f"kernel {name} gpt2_medium: q [{B},{n},{T_},{HEAD_DIM}] "
+            f"max err {err:.3e} (tol {TOL:g})")
+        if not np.isfinite(err) or err > TOL:
+            raise AssertionError(f"{name} (gpt2_medium) disagrees with its "
+                                 "plain version")
+    lib_bwd, lib_names = sdpa_backward(sets[0], scale)
+    fwd_sets = [s_[:3] for s_ in sets]
+    sdpa = (lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale))
+    results = {"flash_attn_fwd": {
+        "ms": time_ms(lambda q, k, v: fa.flash_attn_fwd(
+            q, k, v, lens, starts, True, scale), fwd_sets, reps=20),
+        "plain_ms": time_ms(lambda q, k, v: fa.flash_attn_fwd_plain(
+            q, k, v, lens, starts, True, scale), fwd_sets, reps=4),
+        "library_ms": time_ms(sdpa, fwd_sets, reps=20)}}
+    results["flash_attn_fwd"].update(zip(
+        ("bound_ms", "bound_by", "bound_3xtf32_ms"),
+        attn_bound(B, T_, T_, full, True, 2, 3, (T_,), n=n)))
+    plains = {"flash_attn_bwd_dq": fa.flash_attn_bwd_dq_plain,
+              "flash_attn_bwd_dkv": fa.flash_attn_bwd_dkv_plain}
+    for name, (call, _, products, outs) in MED_F32_KERNELS.items():
+        r = {"ms": time_ms(lambda *a: call(*a, True, scale), sets, reps=10),
+             "plain_ms": time_ms(lambda *a: plains[name](*a, True, scale),
+                                 sets, reps=4),
+             "library_ms": lib_bwd, "library_kernels": lib_names}
+        r.update(zip(("bound_ms", "bound_by", "bound_3xtf32_ms"),
+                     attn_bound(B, T_, T_, full, True, products, 4, outs,
+                                n=n)))
+        results[name] = r
+    for name, r in results.items():
+        r.update(case="gpt2_medium", q=[B, n, T_, HEAD_DIM],
+                 max_abs_err=errs[name])
+        log(f"kernel {name} gpt2_medium [{B},{n},{T_},{HEAD_DIM}]: ms "
+            f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+            f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+            f"({r['bound_by']}), 3xTF32 {r['bound_3xtf32_ms']:.5f} | {smi}")
+    del sets, fwd_sets
+    torch.cuda.empty_cache()
+    return results
+
+
+def build_gpt2_medium(B):
+    """bench.py's _mfu_bench program at GPT-2-medium: tokens drawn by
+    uniform_random, floor and cast inside the program, the stacked
+    transformer_lm_cost, Adam(1e-4). Returns (main, startup, cost,
+    params_grads, tok, nxt)."""
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        lf = pt.layers.uniform_random([B, TRAIN_T, 1], min=1.0,
+                                      max=float(VOCAB) - 0.01)
+        tok = pt.layers.cast(pt.layers.floor(lf), "int64")
+        nxt = pt.layers.cast(pt.layers.floor(pt.layers.uniform_random(
+            [B, TRAIN_T, 1], min=1.0, max=float(VOCAB) - 0.01)), "int64")
+        cost = pt.models.transformer.transformer_lm_cost(
+            tok, nxt, VOCAB, hid=MED_HID, num_layers=MED_LAYERS,
+            num_heads=MED_HEADS, max_len=TRAIN_T, stacked=True)
+        _, params_grads = pt.AdamOptimizer(LR).minimize(cost)
+    return main, startup, cost, params_grads, tok, nxt
+
+
+def stacked_reference_loss_and_grads(w, tok, nxt, bf16):
+    """The stacked GPT-2-medium as plain PyTorch on the card, from the
+    same weights `w` (f32 leaves) and tokens: attention through plain
+    softmax over the full [T, T] scores (f32) or the plain bf16 K1 / K3
+    + K4 versions (PlainAttention, bf16); with `bf16`, the amp role
+    casts written out (the embeddings' sum and every stacked leaf cast
+    to bf16 at the stack, layer norm's statistics in f32 and its output
+    in its input's dtype, the head's product on bf16 operands with f32
+    output). Loss by cross-entropy over the full [B*T, V] logits;
+    gradients by torch autograd."""
+    dt = torch.bfloat16 if bf16 else torch.float32
+    B, T_ = tok.shape
+    n, H = MED_HEADS, MED_HID
+    D = H // n
+    causal = torch.ones(T_, T_, dtype=torch.bool, device=tok.device).tril()
+
+    def ln(x, g, b):
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        return ((xf - mu) / torch.sqrt(var + 1e-5) * g + b).to(x.dtype)
+
+    def attention(q, k, v):
+        q, k, v = (fa._heads(t, n) for t in (q, k, v))
+        if bf16:
+            return fa._merge(PlainAttention.apply(q, k, v))
+        s = (q @ k.transpose(-1, -2)) / float(np.sqrt(D))
+        return fa._merge(torch.softmax(
+            s.masked_fill(~causal, float("-inf")), -1) @ v)
+
+    x = (w["tok_emb"][tok] + w["pos_emb"][:T_]).to(dt)
+    layers = zip(*(w[f"stack.{leaf}"].to(dt).unbind(0)
+                   for leaf in MED_LEAVES))
+    for (ln1g, ln1b, wqkv, bqkv, wproj, bproj, ln2g, ln2b, wup, bup,
+         wdown, bdown) in layers:
+        h = ln(x, ln1g, ln1b)
+        qkv = (h @ wqkv + bqkv).view(B, T_, n, 3, D)
+        q, k, v = (qkv[:, :, :, m].reshape(B, T_, H) for m in range(3))
+        x = x + attention(q, k, v) @ wproj + bproj
+        h = ln(x, ln2g, ln2b)
+        up = torch.nn.functional.gelu(h @ wup + bup, approximate="tanh")
+        x = x + up @ wdown + bdown
+    x = ln(x, w["ln_f.w_0"], w["ln_f.w_1"])
+    logits = x.reshape(B * T_, H).float() @ w["lm_head.w"].to(dt).float()
+    loss = torch.nn.functional.cross_entropy(logits, nxt.reshape(-1))
+    names = sorted(w)
+    grads = torch.autograd.grad(loss, [w[n_] for n_ in names])
+    return loss.detach(), dict(zip(names, grads))
+
+
+def medium_checked_step(exe, main, cost, params_grads, tok, nxt, scope,
+                        bf16, what, smi):
+    """One step with every gradient and the drawn tokens fetched, its
+    loss and gradients held against the plain (amp) recompute of the
+    weights before the step: loss within 1e-5 relative (amp) or 1e-4
+    absolute (f32), gradients within 2e-2 (amp) or 1e-3 (f32) of their
+    largest element. Returns (loss, loss error, worst gradient error,
+    step ms, peak GiB)."""
+    names = [p.name for p, _ in params_grads]
+    snapshot = {n_: scope.get(n_).detach().clone().requires_grad_()
+                for n_ in names}
+    torch.cuda.reset_peak_memory_stats()
+    t_step = time.perf_counter()
+    out = exe.run(main, fetch_list=[cost, tok, nxt]
+                  + [g for _, g in params_grads], scope=scope,
+                  return_numpy=False)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t_step)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    loss = float(out[0][0])
+    grads = dict(zip(names, out[3:]))
+    if {str(g.dtype) for g in grads.values()} != {"torch.float32"} or \
+            float_state_dtypes(scope) != {"torch.float32"}:
+        raise AssertionError(f"{what}: a gradient, master weight or Adam "
+                             "moment is not float32")
+    ref_loss, ref_grads = stacked_reference_loss_and_grads(
+        snapshot, out[1][..., 0], out[2], bf16)
+    del snapshot, out
+    loss_err = (abs(loss - float(ref_loss)) / abs(float(ref_loss)) if bf16
+                else abs(loss - float(ref_loss)))
+    worst = max((float((g - ref_grads[n_]).abs().max())
+                 / max(float(ref_grads[n_].abs().max()), 1e-30), n_)
+                for n_, g in grads.items())
+    loss_tol, grad_tol = ((AMP_LOSS_RTOL, AMP_GRAD_RTOL) if bf16
+                          else (LOSS_ATOL, GRAD_RTOL))
+    log(f"{what} step 1: loss {loss:.6f} vs plain recompute "
+        f"{float(ref_loss):.6f} ({loss_err:.2e} "
+        f"{'relative' if bf16 else 'absolute'}, tol {loss_tol:g}); worst "
+        f"gradient {worst[1]} at {worst[0]:.2e} of its largest element "
+        f"(tol {grad_tol:g}) over {len(names)} parameters; step {step_ms:.0f}"
+        f" ms with the fetches, peak {peak_gb:.2f} GiB | {smi}")
+    if not np.isfinite(loss) or loss_err > loss_tol:
+        raise AssertionError(f"{what}: step-1 loss differs from the plain "
+                             "recompute")
+    if not worst[0] <= grad_tol:
+        raise AssertionError(f"{what}: gradient of {worst[1]} differs from "
+                             f"the plain recompute by {worst[0]:.3e}")
+    return loss, loss_err, worst[0], step_ms, peak_gb
+
+
+def medium_launches(steps, remat, bf16):
+    """The kernel launches of `steps` GPT-2-medium training steps at T
+    1024 (route K3 + K4): K1 once a layer a step, twice with remat (the
+    backward's recompute), K3 and K4 once a layer, K5 once."""
+    sfx = "_bf16" if bf16 else ""
+    return launches_of(**{
+        f"flash_attn_fwd{sfx}": MED_LAYERS * steps * (2 if remat else 1),
+        f"flash_attn_bwd_dq{sfx}": MED_LAYERS * steps,
+        f"flash_attn_bwd_dkv{sfx}": MED_LAYERS * steps,
+        f"lm_head_lse{sfx}": steps})
+
+
+def medium_program(B, bf16, remat):
+    """A fresh GPT-2-medium program at batch B, initialised by the
+    port's startup (its generator, seeded 0), remat set."""
+    torch.cuda.empty_cache()
+    flags.set_flag("remat", remat)
+    main, startup, cost, params_grads, tok, nxt = build_gpt2_medium(B)
+    if bf16:
+        amp.enable(main)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    return main, cost, params_grads, tok, nxt, exe, scope
+
+
+def medium_amp_phase(smi):
+    """Phase 16: amp GPT-2-medium training as bench.py's
+    bench_gpt2_medium_mfu builds it (stacked, remat on, T 1024): step 1
+    at B 4 against the plain amp recompute; B 32 (one warm-up step and
+    three timed steps, a profiled step); then B 8 with remat on and off,
+    one step each, for their peak memory. Launches per step checked.
+    Returns (the path's launch counts, the trained B 32 weights as
+    numpy, the results)."""
+    res = {}
+    main, cost, params_grads, tok, nxt, exe, scope = medium_program(
+        MED_AMP_CHECK_B, True, True)
+    n_params = sum(int(np.prod(p.shape)) for p, _ in params_grads)
+    log(f"gpt2-medium: {MED_LAYERS} layers, H {MED_HID}, {MED_HEADS} heads, "
+        f"vocab {VOCAB}, T {TRAIN_T}, {n_params} parameters, "
+        f"{len(main.global_block().ops)} ops (one transformer_stack)")
+    zero_counts()                       # the main path starts here
+    loss, loss_rel, worst, _, _ = medium_checked_step(
+        exe, main, cost, params_grads, tok, nxt, scope, True,
+        f"gpt2-medium amp B {MED_AMP_CHECK_B}", smi)
+    res["check"] = {"batch": MED_AMP_CHECK_B, "loss": loss,
+                    "loss_rel": loss_rel, "grad_worst": worst}
+    del main, scope, exe
+    main, cost, _, _, _, exe, scope = medium_program(MED_B, True, True)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(exe.run(main, fetch_list=[cost], scope=scope)[0][0])]
+    torch.cuda.synchronize()
+    wall = []
+    for _ in range(3):
+        t_step = time.perf_counter()
+        losses.append(float(exe.run(main, fetch_list=[cost],
+                                    scope=scope)[0][0]))
+        wall.append(1e3 * (time.perf_counter() - t_step))
+    counts = read_counts()              # the main path ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check_counts(counts, medium_launches(5, True, True),
+                 "gpt2-medium amp (B 4 + 4 steps at B 32, remat)")
+    if not np.isfinite(losses).all():
+        raise AssertionError("gpt2-medium amp B 32: non-finite loss")
+    step_ms = float(np.mean(wall))
+    tokens = MED_B * TRAIN_T
+    flops = 3 * (24 * MED_HID ** 2 * MED_LAYERS
+                 + 4 * TRAIN_T * MED_HID * MED_LAYERS * 0.5
+                 + 2 * MED_HID * VOCAB) * tokens
+    log(f"gpt2-medium amp B {MED_B} T {TRAIN_T} (remat): losses "
+        f"{[round(x, 5) for x in losses]}; step wall {step_ms:.1f} ms (mean "
+        f"of 3 after a warm step, min {min(wall):.1f}), "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s, "
+        f"{flops / step_ms / 1e9:.1f} TFLOP/s by bench.py's formula, peak "
+        f"memory {peak_gb:.2f} GiB | {smi}")
+    breakdown = amp_step_breakdown(f"gpt2-medium amp B {MED_B}", exe, main,
+                                   {}, cost, scope, step_ms, smi)
+    res["batch"] = {"batch": MED_B, "step_ms": step_ms,
+                    "step_walls_ms": wall, "losses": losses,
+                    "tokens_per_s": tokens / step_ms * 1e3,
+                    "model_tflops": flops / step_ms / 1e9,
+                    "peak_gib": peak_gb, "breakdown": breakdown}
+    names = LMSpec(*MED_SPEC_ARGS).weight_specs()
+    weights = {n_: scope.get(n_).detach().cpu().numpy() for n_ in names}
+    del main, scope, exe
+    res["memory_B8"] = {}
+    for remat in (True, False):
+        main, cost, _, _, _, exe, scope = medium_program(MED_MEM_B, True,
+                                                         remat)
+        exe.run(main, fetch_list=[cost], scope=scope)   # Adam's moments
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t_step = time.perf_counter()
+        loss = float(exe.run(main, fetch_list=[cost], scope=scope)[0][0])
+        ms = 1e3 * (time.perf_counter() - t_step)
+        one = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_counts(one, medium_launches(1, remat, True),
+                     f"gpt2-medium amp B {MED_MEM_B} remat {remat}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"gpt2-medium amp B {MED_MEM_B} remat "
+                                 f"{remat}: non-finite loss")
+        log(f"gpt2-medium amp B {MED_MEM_B} remat {'on' if remat else 'off'}"
+            f": peak memory {peak:.2f} GiB over a step, step wall "
+            f"{ms:.1f} ms, K1-bf16 {one['flash_attn_fwd_bf16']} launches | "
+            f"{smi}")
+        res["memory_B8"]["remat_on" if remat else "remat_off"] = {
+            "peak_gib": peak, "step_ms": ms}
+        del main, scope, exe
+    flags.set_flag("remat", False)
+    torch.cuda.empty_cache()
+    return counts, weights, res
+
+
+def medium_f32_phase(smi):
+    """Phase 17: f32 GPT-2-medium training (TF32 off), T 1024, B 4, remat
+    on, two steps; step 1's loss and gradients against the plain f32
+    recompute. Puts the f32 K1, K3, K4 and K5 at H 1024 on a main
+    path."""
+    main, cost, params_grads, tok, nxt, exe, scope = medium_program(
+        MED_F32_B, False, True)
+    zero_counts()                       # the main path starts here
+    loss, loss_err, worst, step1_ms, peak_gb = medium_checked_step(
+        exe, main, cost, params_grads, tok, nxt, scope, False,
+        f"gpt2-medium f32 B {MED_F32_B}", smi)
+    t_step = time.perf_counter()
+    loss2 = float(exe.run(main, fetch_list=[cost], scope=scope)[0][0])
+    step_ms = 1e3 * (time.perf_counter() - t_step)
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, medium_launches(2, True, False),
+                 f"gpt2-medium f32 B {MED_F32_B} (2 steps, remat)")
+    if not np.isfinite(loss2):
+        raise AssertionError("gpt2-medium f32: non-finite loss")
+    log(f"gpt2-medium f32 B {MED_F32_B} (remat): losses {loss:.5f}, "
+        f"{loss2:.5f}; step 2 wall {step_ms:.1f} ms, "
+        f"{MED_F32_B * TRAIN_T / step_ms * 1e3:.0f} tokens/s, step-1 peak "
+        f"{peak_gb:.2f} GiB | {smi}")
+    flags.set_flag("remat", False)
+    del main, scope, exe
+    torch.cuda.empty_cache()
+    return counts, {"batch": MED_F32_B, "losses": [loss, loss2],
+                    "loss_err": loss_err, "grad_worst": worst,
+                    "step_ms": step_ms, "peak_gib": peak_gb}
+
+
+def medium_generation_phase(weights, smi):
+    """Phase 18: the trained amp weights served by the LM engine (default
+    paged cache and prefix cache, every rung a CUDA graph) and generated
+    from by transformer_lm_generate in a program sharing a scope of the
+    same weights. Greedy tokens of three prompts against a plain
+    full-recompute forward on the card."""
+    spec = LMSpec(*MED_SPEC_ARGS)
+    t0 = time.perf_counter()
+    engine = GenerationEngine(spec, weights, ready=False)
+    rungs = engine.warmup()
+    st = engine.stats()
+    log(f"gpt2-medium engine: {spec.to_meta()}, {len(rungs)} rungs warmed "
+        f"in {time.perf_counter() - t0:.1f} s, aot_status "
+        f"{st['aot_status']}; {memory_line(engine_memory(), st['hbm'])}")
+    if st["aot_status"] != "cuda_graph" or st["aot_rungs"] != rungs:
+        raise AssertionError("gpt2-medium engine: not every rung captured "
+                             "as a CUDA graph")
+    rng = np.random.RandomState(SEED + 18)
+    n_new = 16
+    prompts = [rng.randint(0, VOCAB, size=n_).tolist()
+               for n_ in (150, 23, 64)]
+    zero_counts()                       # the main path starts here
+    t_start = time.perf_counter()
+    streams = [engine.submit(np.asarray(p), max_new_tokens=n_new)
+               for p in prompts]
+    served = [s_.result(600)[0].tolist() for s_ in streams]
+    wall = time.perf_counter() - t_start
+    engine_k1 = fa.flash_attn_fwd.launches
+    engine.shutdown(drain=True, timeout=600)
+    st = engine.stats()
+    want = MED_LAYERS * (st["prefills"] + st["decode_steps"])
+    if engine_k1 != want:
+        raise AssertionError(f"gpt2-medium engine: K1 launched {engine_k1} "
+                             f"times, expected {want}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # the same prompts through transformer_lm_generate (right-padded)
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    Tp = max(len(p) for p in prompts)
+    with pt.program_guard(main, startup):
+        prompt = pt.layers.data("prompt", [Tp], dtype="int64")
+        plen = pt.layers.data("plen", [1], dtype="int64")
+        ids, lens = pt.models.transformer.transformer_lm_generate(
+            prompt, plen, VOCAB, hid=MED_HID, num_layers=MED_LAYERS,
+            num_heads=MED_HEADS, max_len=TRAIN_T, max_new=n_new,
+            adopt_pos_emb=False)
+    scope = scope_from_numpy(weights)
+    batch = np.zeros((len(prompts), Tp), np.int64)
+    for b, p in enumerate(prompts):
+        batch[b, :len(p)] = p
+    before = fa.flash_attn_fwd.launches
+    got_ids, got_lens = pt.Executor().run(
+        main, feed={"prompt": batch,
+                    "plen": np.asarray([[len(p)] for p in prompts])},
+        fetch_list=[ids, lens], scope=scope)
+    program_k1 = fa.flash_attn_fwd.launches - before
+    counts = read_counts()              # the main path ends here
+    if program_k1 != MED_LAYERS * n_new:
+        raise AssertionError(f"transformer_lm_generate: K1 launched "
+                             f"{program_k1} times, expected layers x "
+                             f"(1 prefill + {n_new - 1} steps)")
+    check_counts(counts, launches_of(flash_attn_fwd=engine_k1 + program_k1),
+                 "gpt2-medium generation")
+    w = lm_weights_from_numpy(weights, spec)
+    for b, p in enumerate(prompts):
+        ref = reference_greedy(w, spec, p, n_new)
+        if served[b] != ref or got_ids[b].tolist() != ref \
+                or int(got_lens[b]) != n_new:
+            raise AssertionError(
+                f"gpt2-medium prompt {b}: tokens differ from the plain "
+                f"full recompute\nengine    {served[b]}\nprogram   "
+                f"{got_ids[b].tolist()}\nreference {ref}")
+    tokens = len(prompts) * n_new
+    log(f"gpt2-medium generation: engine and transformer_lm_generate "
+        f"tokens == the plain full recompute for {len(prompts)} prompts "
+        f"({n_new} new each); engine {tokens / wall:.1f} tokens/s over "
+        f"{wall:.2f} s (3 streams), K1 launches engine {engine_k1}, "
+        f"program {program_k1} | {smi}")
+    del scope, w
+    torch.cuda.empty_cache()
+    return counts, {"prompts": len(prompts), "new_tokens": n_new,
+                    "engine_tokens_per_s": tokens / wall,
+                    "engine_k1": engine_k1, "program_k1": program_k1}
+
+
+def build_gpt2_medium_lm():
+    """GPT-2-medium's stacked inference program: logits and argmax."""
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        tok = pt.layers.data("tokens", [TRAIN_T], dtype="int64")
+        logits = pt.models.transformer.transformer_lm(
+            tok, VOCAB, hid=MED_HID, num_layers=MED_LAYERS,
+            num_heads=MED_HEADS, max_len=TRAIN_T, stacked=True)
+        ids = pt.layers.argmax(logits, axis=-1)
+    return main, logits, ids
+
+
+def int8_stack_reference_logits(scope, tokens):
+    """The int8 stacked model as plain PyTorch on the card: each layer's
+    planes dequantized (wq * scale), plain softmax attention over the
+    full [T, T] scores, plain layer norm and gelu, the head by the plain
+    quantize, int8_matmul_plain and rescale; no kernel of the port."""
+    w = {n_: scope.get(n_) for n_ in scope.keys() if not n_.startswith("__")}
+    B, T_ = tokens.shape
+    n, H = MED_HEADS, MED_HID
+    D = H // n
+    causal = torch.ones(T_, T_, dtype=torch.bool,
+                        device=tokens.device).tril()
+
+    def ln(x, g, b):
+        mu = x.mean(-1, keepdim=True)
+        var = (x - mu).square().mean(-1, keepdim=True)
+        return (x - mu) / torch.sqrt(var + 1e-5) * g + b
+
+    def leaf(name, l):
+        p = w[f"stack.{name}"][l]
+        scale = w.get(f"stack.{name}@QSCALE")
+        return p.float() * scale[l] if scale is not None else p
+
+    x = (w["tok_emb"][tokens].float() * w["tok_emb@QSCALE"][tokens]
+         + w["pos_emb"][:T_])
+    for l in range(MED_LAYERS):
+        g = {name: leaf(name, l) for name in MED_LEAVES}
+        h = ln(x, g["Ln1G"], g["Ln1B"])
+        qkv = (h @ g["Wqkv"] + g["Bqkv"]).view(B, T_, n, 3, D)
+        q, k, v = (qkv[:, :, :, m].transpose(1, 2) for m in range(3))
+        s = (q @ k.transpose(-1, -2)) / float(np.sqrt(D))
+        a = torch.softmax(s.masked_fill(~causal, float("-inf")), -1) @ v
+        del q, k, v, s, qkv
+        x = x + a.transpose(1, 2).reshape(B, T_, H) @ g["Wproj"] + g["Bproj"]
+        h = ln(x, g["Ln2G"], g["Ln2B"])
+        up = torch.nn.functional.gelu(h @ g["Wup"] + g["Bup"],
+                                      approximate="tanh")
+        x = x + up @ g["Wdown"] + g["Bdown"]
+    h = ln(x, w["ln_f.w_0"], w["ln_f.w_1"]).reshape(B * T_, H)
+    xq, ax = qo.quantize_activations_plain(h)
+    out = int8_plain(xq, w["lm_head.w"], ax,
+                     w["lm_head.w@QSCALE"].reshape(1, -1))
+    return out.reshape(B, T_, -1)
+
+
+def medium_int8_phase(weights, smi):
+    """Phase 19: the stacked GPT-2-medium transformer_lm + argmax with the
+    trained weights, quantized by the port (quant_transformer_stack over
+    four int8 planes, quant_mul for the head, quant_lookup_table) and
+    served one-shot by InferenceEngine.from_program at rungs 1-8, each a
+    CUDA graph, behind the HTTP server. A dispatch: one K6 launch and one
+    activation quantize (the head), 24 K1, no repack. Reply ids ==
+    Executor.run; logits and ids against the plain recompute over the
+    dequantized weights (phase 10's gates)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    main, logits, ids = build_gpt2_medium_lm()
+    scope = scope_from_numpy(weights)
+    pruned = pt.io._prune_for_inference(main, ["tokens"], [ids.name])
+    prog, qscope, report = quant.quantize_program(pruned, scope)
+    del scope
+    torch.cuda.empty_cache()
+    types = [op.type for op in prog.global_block().ops]
+    log(f"gpt2-medium int8: quantized {report['quantized_ops']} ops "
+        f"({types.count('quant_transformer_stack')} quant_transformer_stack,"
+        f" {types.count('quant_mul')} quant_mul), bytes "
+        f"{report['bytes_before']} -> {report['bytes_after']} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if (types.count("quant_transformer_stack"), types.count("quant_mul"),
+            types.count("quant_lookup_table")) != (1, 1, 1):
+        raise AssertionError("expected the stack, the head and the "
+                             "embedding quantized")
+    exe = pt.Executor()
+    engine = InferenceEngine.from_program(
+        prog, ["tokens"], [ids.name], executor=exe, scope=qscope,
+        config=EngineConfig(max_batch_size=SERVE_B, buckets=(1, 2, 4, 8),
+                            batch_timeout_ms=20))
+    rungs = engine.warmup()
+    st = engine.stats()
+    if st["aot_status"] != "cuda_graph" or st["aot_buckets"] != [1, 2, 4, 8]:
+        raise AssertionError("gpt2-medium int8: expected a CUDA graph for "
+                             "every bucket rung")
+    server = make_server(engine, port=0)
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    rng = np.random.RandomState(SEED + 19)
+    reqs = [rng.randint(0, VOCAB, (r, TRAIN_T)).astype(np.int64)
+            for r in (1, 3, 2, 2)]
+    replies, errors = {}, []
+
+    def client(i):
+        try:
+            replies[i] = post_infer(port, reqs[i])
+        except Exception as e:           # re-raised below
+            errors.append((i, e))
+
+    before = engine.stats()
+    k6 = qo.int8_matmul_rescaled
+    zero_counts()                       # the main path starts here
+    k6.repacks = k6.k_pads = 0
+    t_start = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(reqs))]
+    for t_ in threads:
+        t_.start()
+    for t_ in threads:
+        t_.join(600)
+    wall = time.perf_counter() - t_start
+    counts = read_counts()              # the main path ends here
+    fixes = (k6.repacks, k6.k_pads)
+    server.shutdown()
+    engine.shutdown(drain=True, timeout=600)
+    if errors:
+        raise AssertionError(f"gpt2-medium int8 requests failed: {errors}")
+    batches = engine.stats()["batches"] - before["batches"]
+    check_counts(counts, launches_of(
+        int8_matmul=batches, quantize_activations=batches,
+        flash_attn_fwd=MED_LAYERS * batches),
+        f"gpt2-medium int8 serving ({batches} dispatches)")
+    if fixes != (0, 0):
+        raise AssertionError("gpt2-medium int8: a weight repacked or K "
+                             "padded")
+    for i, x in enumerate(reqs):
+        mine, = exe.run(prog, feed={"tokens": x}, fetch_list=[ids.name],
+                        scope=qscope)
+        if not np.array_equal(replies[i], mine):
+            raise AssertionError(f"gpt2-medium int8 request {i}: reply ids "
+                                 "differ from Executor.run")
+    feed = {"tokens": np.random.RandomState(SEED + 20).randint(
+        0, VOCAB, (4, TRAIN_T)).astype(np.int64)}
+    got_ids, got_logits = exe.run(prog, feed=feed,
+                                  fetch_list=[ids.name, logits.name],
+                                  scope=qscope, return_numpy=False)
+    with torch.inference_mode():
+        ref = int8_stack_reference_logits(
+            qscope, torch.from_numpy(feed["tokens"]).cuda())
+    max_d = float((got_logits - ref).abs().max())
+    rel = max_d / float(ref.abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * max_d
+    agree = bool((got_ids[sure] == ref.argmax(-1)[sure]).all())
+    exact = float((got_ids == ref.argmax(-1)).float().mean())
+    log(f"gpt2-medium int8 serving: {len(reqs)} requests "
+        f"({sum(len(r) for r in reqs)} rows) in {batches} dispatches over "
+        f"{wall:.2f} s, launches { {k: n_ for k, n_ in counts.items() if n_} }"
+        f"; replies == Executor.run; logits vs the plain recompute over the "
+        f"dequantized weights: max |diff| {max_d:.4e}, / max |logit| "
+        f"{rel:.4e} (gate {INT8_E2E_RTOL:g}); ids equal at all "
+        f"{int(sure.sum())} of {sure.numel()} positions whose top-2 margin "
+        f"exceeds 2 x max |diff|: {agree} (equal at {exact:.4f} of all) | "
+        f"{smi}")
+    if not np.isfinite(rel) or rel > INT8_E2E_RTOL or not agree:
+        raise AssertionError("gpt2-medium int8 disagrees with its plain "
+                             "recompute")
+    del ref, top2, sure, got_logits
+    walls, _ = eager_and_graph_walls(
+        lambda: exe.run(prog, feed={"tokens": feed["tokens"][:1].repeat(
+            SERVE_B, 0)}, fetch_list=[ids.name], scope=qscope),
+        lambda: engine._dispatch([feed["tokens"][:1].repeat(SERVE_B, 0)]),
+        reps=3)
+    graph_ms = float(np.mean(walls["graph"]))
+    log(f"gpt2-medium int8: rung-8 dispatch wall eager "
+        f"{float(np.mean(walls['eager'])):.2f} ms, CUDA graph "
+        f"{graph_ms:.2f} ms, {SERVE_B * TRAIN_T / graph_ms * 1e3:.0f} "
+        f"tokens/s through the graph; weights {scope_bytes(qscope)} B | "
+        f"{smi}")
+    del engine, qscope
+    torch.cuda.empty_cache()
+    return {k: n_ for k, n_ in counts.items() if n_}, {
+        "dispatches": batches, "logit_rel_err": rel,
+        "ids_equal_share": exact, "graph_dispatch_ms": graph_ms,
+        "eager_dispatch_ms": float(np.mean(walls["eager"])),
+        "weight_bytes_int8": report["bytes_after"],
+        "weight_bytes_f32": report["bytes_before"]}
+
+
 def main():
     name, smi = device_phase()
     t0 = time.perf_counter()
@@ -2881,7 +3662,8 @@ def main():
     cases = kernel_phase()
     serving_k1, decode_step = engine_phase(smi)
     bwd, k1_train = backward_kernel_phase(smi)
-    lse = lse_kernel_phase(smi)
+    lse = lse_case(np.random.RandomState(SEED + 4), TRAIN_B * TRAIN_T, HID,
+                   "train", smi)
     train_counts, train = training_phase(smi)
     short_counts, short_train = short_training_phase(smi)
     k6, k6_cases, quantize = int8_kernel_phase(smi)
@@ -2892,12 +3674,22 @@ def main():
     amp_short_counts, amp_short = amp_training_phase(
         smi, short_train["losses"][0], SHORT_T, SHORT_B, SEED + 5, 3)
     amp_batch = amp_batch_phase(smi)
+    medium = medium_kernel_phase(smi)
+    med_amp_counts, med_weights, med_amp = medium_amp_phase(smi)
+    med_f32_counts, med_f32 = medium_f32_phase(smi)
+    med_gen_counts, med_gen = medium_generation_phase(med_weights, smi)
+    med_int8_counts, med_int8 = medium_int8_phase(med_weights, smi)
+    del med_weights
     paths = {"serving": {"flash_attn_fwd": serving_k1},
              f"training_T{TRAIN_T}": train_counts,
              f"training_T{SHORT_T}": short_counts,
              "serving_int8": int8_counts,
              f"training_amp_T{TRAIN_T}": amp_counts,
-             f"training_amp_T{SHORT_T}": amp_short_counts}
+             f"training_amp_T{SHORT_T}": amp_short_counts,
+             "gpt2_medium_training_amp": med_amp_counts,
+             "gpt2_medium_training_f32": med_f32_counts,
+             "gpt2_medium_generation": med_gen_counts,
+             "gpt2_medium_serving_int8": med_int8_counts}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ALL_KERNELS}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()}
@@ -2962,13 +3754,21 @@ def main():
                        "paddle_tpu_torch/csrc/flash_attn_bf16.cu"),
             "design": BF16_DESIGN[kname], "launches": launches[kname],
             "launches_by_path": by_path[kname], **r})
+    for entry in kernels:
+        if entry["name"] in medium:
+            entry["gpt2_medium"] = medium[entry["name"]]
     print(json.dumps({"kernels": kernels, "decode_step": decode_step,
                       "training": train,
                       "training_short": short_train,
                       "serving_int8": int8_serving,
                       "training_amp": amp_train,
                       "training_amp_short": amp_short,
-                      "training_amp_batch": amp_batch}), flush=True)
+                      "training_amp_batch": amp_batch,
+                      "gpt2_medium": {"training_amp": med_amp,
+                                      "training_f32": med_f32,
+                                      "generation": med_gen,
+                                      "serving_int8": med_int8}}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -57,7 +57,7 @@ from .framework import (CPUPlace, CUDAPlace, Program, default_main_program,
                         reset_default_programs)
 from .executor import Executor, Scope, global_scope, scope_guard
 from .backward import append_backward
-from . import amp, initializer, layers, models, optimizer, regularizer
+from . import amp, flags, initializer, layers, models, optimizer, regularizer
 from . import io, quant
 from .optimizer import AdamOptimizer, SGDOptimizer
 from .param_attr import ParamAttr

@@ -52,7 +52,9 @@
 // float32 with row stride sw (read 16 bytes at a time when sw and V are
 // multiples of 4 and w is 16-byte aligned, else 4), lse is contiguous
 // [N], scratch holds 2 * splits * N floats. Returns cudaGetLastError()
-// after the launches, or -1 for H outside the kernel's range.
+// after the launches, or -1 for H < 1 or splits < 1. H has no upper
+// bound: x and w stream through shared memory in 64-deep k chunks, and
+// nothing in the kernel is sized by H.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,7 +76,6 @@ constexpr int kThreads = 256;   // 2 row halves x 4 column quarters
 constexpr int kXS = kK + 4;     // x chunk row stride (floats)
 constexpr int kWS = kCols + 8;  // w chunk row stride (floats)
 constexpr int kStageFloats = kRows * kXS + kK * kWS;
-constexpr int kMaxH = 768;      // the wrapper's LSE_MAX_H
 
 // four 8 x 8 b16 blocks of shared memory (row addresses from the lanes
 // of each eight): as f32, rows g / g + 8 x columns t / t + 4 of a 16 x 8
@@ -340,7 +341,7 @@ extern "C" int pt_lm_head_lse_f32(const void* x, const void* w, void* lse,
                                   void* scratch, int N, int H, int V,
                                   long long sx, long long sw, int splits,
                                   void* stream) {
-  if (H < 1 || H > kMaxH || splits < 1) return -1;
+  if (H < 1 || splits < 1) return -1;
   const int ntiles = (V + kCols - 1) / kCols;
   const int per = (ntiles + splits - 1) / splits;
   const int used = (ntiles + per - 1) / per;

@@ -45,7 +45,9 @@
 //     through the descriptor's transpose bit (four 64-column groups 8 KB
 //     apart), so no transposed copy of w is made; 128 f32 accumulators a
 //     thread, one wgmma group in flight;
-//   * after a tile's 12 k-steps (H 768) its logits are folded into each
+//   * after a tile's ceil(H / 64) k-steps (12 at H 768, 16 at H 1024; H
+//     has no upper bound, nothing here is sized by it, and a ragged last
+//     step reads TMA's zero fill) its logits are folded into each
 //     row's running (m, l): columns >= V set to -inf, the tile's row max
 //     over a quad by shuffles, then exp2(fma(v, log2 e, -m log2 e)) by
 //     the special-function unit (hp::exp2_approx), summed into four
@@ -90,7 +92,6 @@ constexpr uint32_t kXBytes = kBM * kBK * 2;
 constexpr uint32_t kBoxBytes = 64 * kBK * 2;
 constexpr uint32_t kWBytes = kWBoxes * kBoxBytes;
 constexpr int kStages = (192 * 1024) / (kXBytes + kWBytes);
-constexpr int kMaxH = 768;                  // the wrapper's LSE_MAX_H
 constexpr float kLog2e = 1.4426950408889634f;
 // descriptor steps (16-byte units) between the four 16-deep slices of a
 // stage: 32 bytes along x's K-major rows, 16 rows (2048 bytes) down w
@@ -403,7 +404,7 @@ extern "C" int pt_lm_head_lse_bf16(const void* x, const void* w, void* lse,
                                    void* scratch, int N, int H, int V,
                                    long long sx, long long sw, int splits,
                                    void* stream) {
-  if (H < 1 || H > kMaxH || splits < 1 || N < 1 || V < 1 || sx % 8 ||
+  if (H < 1 || splits < 1 || N < 1 || V < 1 || sx % 8 ||
       sw % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(w) % 16)
     return -1;

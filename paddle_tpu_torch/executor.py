@@ -217,6 +217,7 @@ class Executor:
             grad_mod.lower_grad_op(ctx, op)
             return
         opdef = op_registry.get_op(op.type)
+        ctx.op = op
         ins = {slot: [ctx.lookup(n) for n in names if n]
                for slot, names in op.inputs.items() if any(names)}
         if op.id in taped and opdef.differentiable:

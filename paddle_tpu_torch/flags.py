@@ -1,7 +1,8 @@
 """Runtime flags the port reads: env-tunable knobs (`PADDLE_TPU_*`).
 
 The port's own copy of the slice of `paddle_tpu/flags.py` that LM
-serving, one-shot serving and the int8 quantized ops read, with the
+serving, one-shot serving, the int8 quantized ops and the stacked
+transformer's remat read, with the
 same names, defaults and environment spellings
 (`PADDLE_TPU_<NAME>`), so one deployment environment configures both
 packages alike. Values resolve from the environment at first use and
@@ -45,6 +46,9 @@ _DEFS = {
     "metrics": (_parse_bool, False,
                 "record structured telemetry (counters/gauges/histograms) "
                 "into the monitor registry; off = zero-overhead no-ops"),
+    "remat": (_parse_bool, False,
+              "rematerialise each transformer_stack layer in the backward "
+              "(torch.utils.checkpoint): activation memory for FLOPs"),
     "int8_matmul": (_parse_choice("auto", "pallas", "dot"), "auto",
                     "quantized-matmul core (quant_mul/quant_matmul, "
                     "ops/quant_ops.py): on a CUDA tensor every value runs "

@@ -2,14 +2,15 @@
 
 Kernels with their wrappers and plain versions: flash attention K1-K4
 (flash_attention.py), the lm-head log-sum-exp K5 (chunked_ce.py) and
-the int8 matmul K6 (quant_ops.py). The LM server's KV-cached
-transformer functions: transformer_ops.py. The op registry, the
-autograd tape and the lowerings the programs run: registry.py, grad.py,
-math_ops.py, nn_ops.py, tensor_ops.py, attention_ops.py, chunked_ce.py,
-optimizer_ops.py, quant_ops.py — imported here so that every lowering
-is registered. The wrappers' launch counts: launch_counts.py.
+the int8 matmul K6 (quant_ops.py). The stacked transformer (the
+training op, the generation ops and the LM server's KV-cached
+functions): transformer_ops.py. The op registry, the autograd tape and
+the lowerings the programs run: registry.py, grad.py, math_ops.py,
+nn_ops.py, tensor_ops.py, attention_ops.py, chunked_ce.py,
+optimizer_ops.py, quant_ops.py, transformer_ops.py — imported here so
+that every lowering is registered. The wrappers' launch counts: launch_counts.py.
 """
 
 from . import registry  # noqa: F401
 from . import (attention_ops, chunked_ce, math_ops, nn_ops,  # noqa: F401
-               optimizer_ops, quant_ops, tensor_ops)
+               optimizer_ops, quant_ops, tensor_ops, transformer_ops)

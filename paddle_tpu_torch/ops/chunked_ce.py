@@ -17,6 +17,12 @@ matmuls over vocab chunks, as the reference leaves it to XLA: it reads
 only the lse residual and recomputes each chunk's logits. Under amp the
 operands are bf16 and every product gives f32 (`_mm_f32`), the
 reference's preferred_element_type.
+
+`cache_logits=True` (the reference's `_resolve_cache`) keeps each
+chunk's logits, in x's dtype, from the forward for the backward instead
+of recomputing them; the forward's lse then comes from the same chunk
+sweep and K5 does not run, as the reference disables its Pallas lse in
+that mode. "auto" (the default) never caches.
 """
 
 from __future__ import annotations
@@ -30,9 +36,8 @@ from .launch_counts import count, counted
 from .registry import register_op
 
 __all__ = ["lm_head_lse", "lm_head_lse_bf16", "lm_head_lse_plain",
-           "chunked_lm_head_xent", "auto_chunks", "lse_splits", "LSE_MAX_H"]
+           "chunked_lm_head_xent", "auto_chunks", "lse_splits"]
 
-LSE_MAX_H = 768         # the H the K5 kernels take
 LSE_ROWS = LSE_COLS = 128   # the f32 K5's block tile (csrc/lm_head_lse.cu)
 # the bf16 K5's work unit: 128 rows x 256-column logits tiles
 # (csrc/lm_head_lse_bf16.cu)
@@ -108,8 +113,8 @@ def _lse_lib(dtype):
 
 def _check_kernel_operands(x, w):
     """What K5 takes (x and w both float32 or both bfloat16, row-major,
-    16-byte aligned rows, H up to LSE_MAX_H); raises on anything
-    else."""
+    16-byte aligned rows; any H, since both kernels stream x and w in
+    64-deep k chunks); raises on anything else."""
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
         raise TypeError(f"lm_head_lse kernel takes float32 or bfloat16 x "
                         f"and w of one dtype, got {x.dtype} and {w.dtype}")
@@ -117,11 +122,10 @@ def _check_kernel_operands(x, w):
         raise ValueError("lm_head_lse kernel takes row-major x and w")
     per16 = 16 // x.element_size()
     H = x.shape[1]
-    if H % per16 or x.stride(0) % per16 or x.data_ptr() % 16 \
-            or H > LSE_MAX_H:
+    if H % per16 or x.stride(0) % per16 or x.data_ptr() % 16:
         raise ValueError(f"lm_head_lse kernel takes H a multiple of "
-                         f"{per16} up to {LSE_MAX_H} with 16-byte aligned "
-                         f"rows, got H={H}, row stride {x.stride(0)}")
+                         f"{per16} with 16-byte aligned rows, got H={H}, "
+                         f"row stride {x.stride(0)}")
     if x.dtype == torch.bfloat16 and (w.shape[1] % per16 or w.stride(0)
                                       % per16 or w.data_ptr() % 16):
         raise ValueError(f"the bf16 lm_head_lse kernel streams w in 16-byte "
@@ -196,22 +200,42 @@ def _mm_f32(a, b):
     return torch.matmul(a.float(), b.float())
 
 
-def _xent_bwd(x, w, labels, lse, g, C):
+def _cached_lse(x, w, C):
+    """(lse [N] f32, the chunk logits in x's dtype): the reference's
+    chunk sweep with cache_logits, an online max / denominator over
+    ceil(V / C)-column chunks of f32 logits."""
+    N, V = x.shape[0], w.shape[1]
+    Vc = -(-V // C)
+    m = torch.full((N,), -float("inf"), dtype=torch.float32,
+                   device=x.device)
+    s = torch.zeros((N,), dtype=torch.float32, device=x.device)
+    lgs = []
+    for c0 in range(0, V, Vc):
+        lg = _mm_f32(x, w[:, c0:c0 + Vc])
+        mn = torch.maximum(m, lg.amax(dim=1))
+        s = s * torch.exp(m - mn) + torch.exp(lg - mn[:, None]).sum(dim=1)
+        m = mn
+        lgs.append(lg.to(x.dtype))
+    return m + torch.log(s), lgs
+
+
+def _xent_bwd(x, w, labels, lse, g, C, lgs=None):
     """d_logits = (softmax - onehot) * g, formed chunk-wise from
-    recomputed chunk logits (the reference's `_xent_bwd`): dx
-    accumulates over the chunks, each chunk writes its [H, Vc] slice of
-    dw. The products take x's dtype and give f32; d is rounded to x's
-    dtype before its two products, dx returns in x's dtype and dw in
-    w's, as the reference's."""
+    recomputed chunk logits, or the cached ones `lgs` (the reference's
+    `_xent_bwd`): dx accumulates over the chunks, each chunk writes its
+    [H, Vc] slice of dw. The products take x's dtype and give f32; d is
+    rounded to x's dtype before its two products, dx returns in x's
+    dtype and dw in w's, as the reference's."""
     N, H = x.shape
     V = w.shape[1]
     Vc = -(-V // C)
     gf = g.float()
     dx = torch.zeros((N, H), dtype=torch.float32, device=x.device)
     dw = torch.empty((H, V), dtype=torch.float32, device=x.device)
-    for c0 in range(0, V, Vc):
+    for i, c0 in enumerate(range(0, V, Vc)):
         wc = w[:, c0:c0 + Vc]
-        p = torch.exp(_mm_f32(x, wc) - lse[:, None])
+        lg = lgs[i].float() if lgs is not None else _mm_f32(x, wc)
+        p = torch.exp(lg - lse[:, None])
         # minus the one-hot of each label that falls in this chunk
         local = labels - c0
         hit = (local >= 0) & (local < wc.shape[1])
@@ -225,51 +249,55 @@ def _xent_bwd(x, w, labels, lse, g, C):
 
 class _ChunkedXent(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, labels, C):
+    def forward(ctx, x, w, labels, C, cache):
         labels = labels.to(torch.int64)
         # the picked logit x[i] . w[:, lab_i]: one row-gather of w^T and a
         # rowwise dot instead of a per-chunk gather over the logits
         picked = (x.float() * w.t()[labels].float()).sum(dim=1)
-        lse = lm_head_lse(x, w)
-        ctx.save_for_backward(x, w, labels, lse)
-        ctx.C = C
+        lgs = []
+        if cache:
+            lse, lgs = _cached_lse(x, w, C)
+        else:
+            lse = lm_head_lse(x, w)
+        ctx.save_for_backward(x, w, labels, lse, *lgs)
+        ctx.C, ctx.cache = C, cache
         return lse - picked
 
     @staticmethod
     def backward(ctx, g):
-        x, w, labels, lse = ctx.saved_tensors
-        dx, dw = _xent_bwd(x, w, labels, lse, g, ctx.C)
-        return dx, dw, None, None
+        x, w, labels, lse, *lgs = ctx.saved_tensors
+        dx, dw = _xent_bwd(x, w, labels, lse, g, ctx.C,
+                           lgs if ctx.cache else None)
+        return dx, dw, None, None, None
 
 
-def chunked_lm_head_xent(x, w, labels, num_chunks):
+def chunked_lm_head_xent(x, w, labels, num_chunks, cache=False):
     """loss[i] = logsumexp(x[i] @ w) - (x[i] @ w)[labels[i]].
 
     x [N, H] float, w [H, V] float, labels [N] int. Returns [N] f32,
-    differentiable in x and w."""
+    differentiable in x and w. cache=True keeps the chunk logits for the
+    backward (and does not run K5)."""
     if x.device.type == "meta":
         return torch.empty((x.shape[0],), dtype=torch.float32,
                            device="meta")
-    return _ChunkedXent.apply(x, w, labels, num_chunks)
+    return _ChunkedXent.apply(x, w, labels, num_chunks, cache)
+
 
 
 @register_op("fused_lm_head_xent")
 def _fused_lm_head_xent(ctx, ins, attrs):
     """X [.., H] hidden states, W [H, V] head weight, Label [.., 1] int
-    -> Loss [.., 1] f32 per-position cross-entropy. `cache_logits` (the
-    reference's option to keep the chunk logits for the backward) is
-    not ported: the port always recomputes them, which is the
-    reference's default ("auto")."""
+    -> Loss [.., 1] f32 per-position cross-entropy. attrs: num_chunks
+    (0 = auto), cache_logits (see the module docstring)."""
     x = ins["X"][0]
     w = ins["W"][0]
     label = ins["Label"][0]
-    if attrs.get("cache_logits", "auto") not in ("auto", False, 0):
-        raise NotImplementedError("fused_lm_head_xent: cache_logits=True "
-                                  "is not ported")
     lead = tuple(x.shape[:-1])
     N = int(np.prod(lead)) if lead else 1
     V = int(w.shape[1])
     C = int(attrs.get("num_chunks", 0)) or auto_chunks(V)
+    # True / 1 cache; False / 0 and "auto" do not (_resolve_cache)
+    cache = attrs.get("cache_logits", "auto") in (True, 1)
     loss = chunked_lm_head_xent(x.reshape(N, x.shape[-1]), w,
-                                label.reshape(N), C)
+                                label.reshape(N), C, cache=cache)
     return {"Loss": [loss.reshape(lead + (1,))]}

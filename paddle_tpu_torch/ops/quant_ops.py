@@ -37,9 +37,11 @@ zero-padded per call, counted on `k_pads`; zeros add nothing to an exact
 integer sum.
 
 `quant_lookup_table` gathers int8 rows and their per-row scales and
-dequantizes only the gathered rows. `quant_conv2d`,
-`quant_depthwise_conv2d` and `quant_transformer_stack` wrap ops the
-port does not have yet (conv2d, transformer_stack) and are not ported.
+dequantizes only the gathered rows. `quant_transformer_stack`
+dequantizes its four int8 planes one layer at a time inside the stack's
+layer loop (K6 does not run on them, as the reference's dot path does
+not). `quant_conv2d` and `quant_depthwise_conv2d` wrap conv2d, which the
+port does not have yet, and are not ported.
 """
 
 from __future__ import annotations
@@ -401,4 +403,34 @@ def _quant_lookup_table(ctx, ins, attrs):
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx)[..., None].to(out.dtype)
+    return {"Out": [out]}
+
+
+@register_op("quant_transformer_stack", differentiable=False)
+def _quant_transformer_stack(ctx, ins, attrs):
+    """The transformer stack over int8 Wqkv / Wproj / Wup / Wdown planes
+    with per-layer, per-output-channel scales ([L, 1, N]).
+
+    The reference dequantizes the four planes at the op boundary and
+    runs its scan. Here each layer's planes are dequantized inside the
+    layer loop, just before the layer runs: dequantization is
+    elementwise, so every value is the one the reference computes, but
+    one layer's f32 planes are live at a time instead of all L layers'
+    (at GPT-2-medium 302M f32 elements, 1.21 GB, in every captured
+    bucket graph's pool)."""
+    from .transformer_ops import _LEAVES, run_stack, stacked_layers
+    scales = {s: ins[s + "Scale"][0] for s in ("Wqkv", "Wproj", "Wup",
+                                               "Wdown")
+              if s + "Scale" in ins}
+    clean, f32_attrs = _strip_quant(ins, attrs, ())
+
+    def layers():
+        params = tuple(clean[name][0] for name in _LEAVES)
+        for l, lp in enumerate(stacked_layers(params)):
+            yield tuple(dequantize(w, scales[name][l], "float32")
+                        if name in scales else w
+                        for name, w in zip(_LEAVES, lp))
+
+    out = run_stack(clean["X"][0], layers(), f32_attrs.get("num_heads", 1),
+                    f32_attrs.get("causal", True))
     return {"Out": [out]}

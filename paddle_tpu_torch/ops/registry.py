@@ -77,7 +77,8 @@ class LoweringContext:
     `generator`: the `torch.Generator` the random ops draw from, seeded
     from `Program.seed` (the counterpart of the JAX package's threaded
     PRNG key; the two produce different numbers from the same seed);
-    `amp_dtype`: the program's amp compute dtype (amp.py), or None.
+    `amp_dtype`: the program's amp compute dtype (amp.py), or None;
+    `op`: the op being lowered (its var names), set by the executor.
     """
 
     def __init__(self, program, block, env, device, generator=None):
@@ -89,6 +90,7 @@ class LoweringContext:
         self.tape = {}
         self.generator = generator
         self.amp_dtype = amp_dtype_of(program)
+        self.op = None
 
     def lookup(self, name):
         if name not in self.env:
@@ -117,6 +119,7 @@ class _MetaCtx:
     device = torch.device("meta")
     generator = None
     amp_dtype = None
+    op = None
 
     def lookup(self, name):
         raise KeyError(name)

@@ -4,7 +4,7 @@ The port's copy of `paddle_tpu/quant.py` (all but `quantize_artifact`,
 which rewrites StableHLO artifacts and stays with the JAX package). It
 quantizes a PRUNED INFERENCE program post-training: weights symmetric
 per-channel to int8 (matmul, conv, embedding and the fused transformer
-planes; the port runs the matmul and embedding ones), optionally
+planes; the port runs all but conv), optionally
 activations through calibrated absmax / percentile observers, and
 rewrites the ops to their `quant_*` twins (ops/quant_ops.py). The
 rewritten Program text and the int8 arrays are the reference's, so a
@@ -139,9 +139,11 @@ def _matmul_ok(op, w_by_slot):
 
 
 # The reference's whole table, so a rewritten program's text is the
-# reference's. conv2d, depthwise_conv2d and transformer_stack rewrite to
-# quant_* ops the port has no lowering for yet (their f32 ops are not
-# ported); a program holding them does not run here either way.
+# reference's. conv2d and depthwise_conv2d rewrite to quant_* ops the
+# port has no lowering for yet (their f32 ops are not ported); a program
+# holding them does not run here either way. transformer_stack's four
+# matmul planes take per-layer, per-output-channel scales ([L, 1, N])
+# and run quant_transformer_stack.
 _SPECS = {
     "mul": _Spec({"Y": _mul_axes}, act_slot="X"),
     "matmul": _Spec({"Y": lambda op, w: (0,)}, act_slot="X",

@@ -91,7 +91,8 @@ _STACK_LEAF_SHAPES = {
 
 class LMSpec:
     """The generative-LM model contract: hyperparameters plus the
-    weight-name/shape layout the reference trains (stacked
+    weight-name/shape layout the stacked transformer_lm trains in
+    either package (stacked
     `stack.<Leaf>` planes, head-major qkv columns — see
     ops/transformer_ops.py's layout docstring)."""
 

@@ -318,6 +318,38 @@ def test_chunked_xent_bf16_matches_jax_values_and_gradients():
     _close(tw.grad.float(), np.asarray(ref_dw, np.float32), "dw")
 
 
+
+def test_cached_logits_xent_bf16_matches_jax_cached_path():
+    """cache_logits=True with bf16 x and w: the chunk logits are kept in
+    bf16 (the reference's `lg.astype(x.dtype)`) and the backward's
+    softmax reads them back; loss and gradients against the reference's
+    cached chunked_lm_head_xent, at the uncached bf16 test's
+    tolerances."""
+    N, H, V, C = 24, 32, 250, 3
+    rng = np.random.RandomState(8)
+    x, w = _bf16_inputs([(N, H), (H, V)], seed=9)
+    w = w * np.float32(0.125)
+    lab = rng.randint(0, V, N)
+    g = rng.rand(N).astype(np.float32)
+
+    def jloss(x, w):
+        return jnp.sum(jce.chunked_lm_head_xent(
+            x, w, jnp.asarray(lab), C, cache=True) * jnp.asarray(g))
+
+    jx, jw = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    ref_loss = np.asarray(jce.chunked_lm_head_xent(
+        jx, jw, jnp.asarray(lab), C, cache=True))
+    ref_dx, ref_dw = jax.grad(jloss, argnums=(0, 1))(jx, jw)
+    tx, tw = _bf(x).requires_grad_(), _bf(w).requires_grad_()
+    loss = ce.chunked_lm_head_xent(tx, tw, torch.from_numpy(lab), C,
+                                   cache=True)
+    np.testing.assert_allclose(loss.detach().numpy(), ref_loss, rtol=1e-5,
+                               atol=1e-5)
+    (loss * torch.from_numpy(g)).sum().backward()
+    assert tx.grad.dtype == tw.grad.dtype == torch.bfloat16
+    _close(tx.grad.float(), np.asarray(ref_dx, np.float32), "dx")
+    _close(tw.grad.float(), np.asarray(ref_dw, np.float32), "dw")
+
 # -- head-dim padding (the card's route for D below the kernels') ----------
 
 @pytest.mark.parametrize("D", [8, 16, 48])

@@ -971,10 +971,33 @@ def test_lm_head_lse_kernel_splits_and_merges(card, N, H, V):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,V", [
+    (2048, 1024, 50304),    # GPT-2-medium's head: 16 k chunks
+    (300, 1000, 5000),      # the last 64-deep k chunk ragged (40 deep)
+    (129, 1600, 1000),      # past any H a kernel held before (768)
+])
+def test_lm_head_lse_kernels_past_h_768(card, dtype, N, H, V):
+    """Both K5 kernels stream x and w in 64-deep k chunks, so H is not
+    bounded: against the plain version at 1e-4 absolute, two calls the
+    same bits."""
+    rng = np.random.RandomState(N + H)
+    x = torch.from_numpy(rng.randn(N, H).astype(np.float32)).to(card, dtype)
+    w = torch.from_numpy((rng.randn(H, V) * 0.03).astype(np.float32)).to(
+        card, dtype)
+    got, again = ce.lm_head_lse(x, w), ce.lm_head_lse(x, w)
+    torch.cuda.synchronize()
+    err = float((got - ce.lm_head_lse_plain(x, w)).abs().max())
+    print(f"K5 {dtype} [{N},{H}] @ [{H},{V}]: max_abs_err {err:.3e}")
+    assert err <= 1e-4
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
 def test_lm_head_lse_kernel_refuses_what_it_does_not_take(card):
-    x = torch.zeros(4, 1024, device=card)
-    with pytest.raises(ValueError, match="multiple of 4 up"):
-        ce.lm_head_lse(x, torch.zeros(1024, 10, device=card))
+    x = torch.zeros(4, 1022, device=card)
+    with pytest.raises(ValueError, match="a multiple of 4 with"):
+        ce.lm_head_lse(x, torch.zeros(1022, 10, device=card))
     with pytest.raises(TypeError, match="float32"):
         ce.lm_head_lse(x[:, :64].double(),
                        torch.zeros(64, 10, device=card).double())
@@ -1215,3 +1238,59 @@ def test_int8_weights_are_column_major_on_the_card(card, tmp_path):
                       fetch_list=fetch, scope=dev)
     assert quant_ops.int8_matmul_rescaled.launches == before + len(names)
     assert quant_ops.int8_matmul_rescaled.repacks == repacks
+
+
+# -- the stacked transformer ------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("remat", [False, True])
+def test_transformer_stack_on_the_card_matches_its_cpu_plain_run(
+        card, dtype, remat):
+    """The transformer_stack op (2 layers, H 128, 2 heads of D 64, T 130)
+    on the card, where K1 and K3 + K4 run (T > 256), against the same op
+    on the CPU, where their plain versions run: Out and the 13 input
+    gradients within 1e-4 of their largest element in f32, 3e-2 in bf16
+    (other summation orders, bf16 roundings in other places). The
+    launches: K1 twice a layer with remat, once without."""
+    from paddle_tpu_torch.ops import transformer_ops as T
+    rng = np.random.RandomState(3)
+    B, L, H, Tn = 2, 2, 128, 130
+    shapes = {"X": (B, Tn, H), "Ln1G": (L, H), "Ln1B": (L, H),
+              "Wqkv": (L, H, 3 * H), "Bqkv": (L, 3 * H), "Wproj": (L, H, H),
+              "Bproj": (L, H), "Ln2G": (L, H), "Ln2B": (L, H),
+              "Wup": (L, H, 4 * H), "Bup": (L, 4 * H), "Wdown": (L, 4 * H, H),
+              "Bdown": (L, H)}
+    arrays = {n: (rng.randn(*s) * (1.0 if n in ("X", "Ln1G", "Ln2G")
+                                   else 0.1)).astype(np.float32)
+              for n, s in shapes.items()}
+    cot = rng.randn(B, Tn, H).astype(np.float32)
+    attrs = {"num_heads": 2, "causal": True}
+    fwd = (fa.flash_attn_fwd_bf16 if dtype == torch.bfloat16
+           else fa.flash_attn_fwd)
+    prev = flags.get("remat")
+    flags.set_flag("remat", remat)
+    try:
+        runs = []
+        for dev in ("cpu", card):
+            leaves = {n: torch.from_numpy(a).to(dev, dtype).requires_grad_()
+                      for n, a in arrays.items()}
+            before = fwd.launches
+            out = T._transformer_stack(None, {n: [v] for n, v in
+                                              leaves.items()},
+                                       attrs)["Out"][0]
+            grads = torch.autograd.grad(
+                out, list(leaves.values()),
+                torch.from_numpy(cot).to(dev, dtype))
+            launched = fwd.launches - before
+            runs.append([out.detach().float().cpu()]
+                        + [g.float().cpu() for g in grads])
+        assert launched == (2 * L if remat else L)
+    finally:
+        flags.set_flag("remat", prev)
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, ref, got in zip(["Out"] + list(arrays), *runs):
+        scale = max(float(ref.abs().max()), 1e-30)
+        err = float((got - ref).abs().max())
+        print(f"stack {dtype} remat {remat} {name}: {err / scale:.2e}")
+        assert err <= tol * scale, (name, err, scale)

@@ -20,6 +20,7 @@ from paddle_tpu.ops import chunked_ce as jce
 from paddle_tpu.ops import pallas_attention as pal
 from paddle_tpu_torch.ops import chunked_ce as ce
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops.registry import get_op
 
 TOL = 2e-5   # the JAX suite's own flash tolerance (test_pallas_attention)
 
@@ -249,6 +250,46 @@ def test_chunked_xent_matches_jax_values_and_gradients():
     tx = torch.from_numpy(x).requires_grad_()
     tw = torch.from_numpy(w).requires_grad_()
     loss = ce.chunked_lm_head_xent(tx, tw, torch.from_numpy(lab), C)
+    (loss * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(loss.detach().numpy(), ref_loss, rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(ref_dx),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(ref_dw),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_cached_logits_xent_matches_jax_cached_path(C, monkeypatch):
+    """cache_logits=True: the chunk logits kept from the forward feed the
+    backward, and K5 does not run (its wrapper is made to raise); loss
+    and gradients against the reference's cached chunked_lm_head_xent,
+    at the uncached test's tolerances."""
+    N, H, V = 24, 32, 250
+    rng = np.random.RandomState(7)
+    x = rng.randn(N, H).astype(np.float32)
+    w = (rng.randn(H, V) * 0.2).astype(np.float32)
+    lab = rng.randint(0, V, N)
+    g = rng.rand(N).astype(np.float32)
+
+    def f(x, w):
+        return jnp.sum(jce.chunked_lm_head_xent(
+            x, w, jnp.asarray(lab), C, cache=True) * g)
+    ref_loss = np.asarray(jce.chunked_lm_head_xent(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(lab), C, cache=True))
+    ref_dx, ref_dw = jax.grad(f, argnums=(0, 1))(jnp.asarray(x),
+                                                 jnp.asarray(w))
+
+    def no_k5(*a):
+        raise AssertionError("K5 ran with cache_logits")
+    monkeypatch.setattr(ce, "lm_head_lse", no_k5)
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    out = get_op("fused_lm_head_xent").lowering(
+        None, {"X": [tx[None]], "W": [tw],
+               "Label": [torch.from_numpy(lab)[None, :, None]]},
+        {"num_chunks": C, "cache_logits": True})["Loss"][0]
+    loss = out.reshape(N)
     (loss * torch.from_numpy(g)).sum().backward()
     np.testing.assert_allclose(loss.detach().numpy(), ref_loss, rtol=1e-5,
                                atol=1e-5)

@@ -501,3 +501,111 @@ def test_quant_modules_import_no_jax_or_reference():
             bad += [(m, n) for n in names
                     if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")]
     assert not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# the stacked transformer, quantized
+# ---------------------------------------------------------------------------
+
+_QSTACK = ("Wqkv", "Wproj", "Wup", "Wdown")
+
+
+def _stack_case(seed, T_=33, L_=2, H_=64, n=2):
+    """X, the twelve stacked leaves, and the four matmul planes
+    quantized per layer and output channel (axes (1,), as the
+    quantizer's transformer_stack spec)."""
+    from paddle_tpu.ops.transformer_ops import _LEAVES
+    rng = np.random.RandomState(seed)
+    F = 4 * H_
+    shapes = {"Ln1G": (L_, H_), "Ln1B": (L_, H_), "Wqkv": (L_, H_, 3 * H_),
+              "Bqkv": (L_, 3 * H_), "Wproj": (L_, H_, H_), "Bproj": (L_, H_),
+              "Ln2G": (L_, H_), "Ln2B": (L_, H_), "Wup": (L_, H_, F),
+              "Bup": (L_, F), "Wdown": (L_, F, H_), "Bdown": (L_, H_)}
+    ins = {"X": [rng.randn(2, T_, H_).astype(np.float32)]}
+    for name in _LEAVES:
+        scale = 0.15 if name.startswith("W") else 0.05
+        v = (rng.randn(*shapes[name]) * scale).astype(np.float32)
+        if name in ("Ln1G", "Ln2G"):
+            v += 1.0
+        if name in _QSTACK:
+            q, s = jquant.quantize_array(v, (1,))
+            ins[name], ins[name + "Scale"] = [q], [s]
+        else:
+            ins[name] = [v]
+    attrs = {"num_heads": n, "causal": True, "pp_axis": "", "tp_axis": "",
+             "num_microbatches": 4, "pp_schedule": "gpipe",
+             "quant_kernel": pquant_ops.KERNEL_ID}
+    return ins, attrs
+
+
+def test_quant_transformer_stack_lowering_matches_reference():
+    """Each layer's dequantized planes are bitwise the reference's
+    boundary dequantization; the output is within 1e-5 of its largest
+    element (f32, the stack's sums in other orders)."""
+    import types
+    ins, attrs = _stack_case(21)
+    for name in _QSTACK:
+        q, s = ins[name][0], ins[name + "Scale"][0]
+        ref = np.asarray(jquant_ops.dequantize(jnp.asarray(q),
+                                               jnp.asarray(s), np.float32))
+        for l in range(q.shape[0]):
+            got = pquant_ops.dequantize(_t(q[l]), _t(s[l]), "float32")
+            np.testing.assert_array_equal(got.numpy(), ref[l],
+                                          err_msg=f"{name}[{l}]")
+    jins = {k: [jnp.asarray(v) for v in vs] for k, vs in ins.items()}
+    ref = np.asarray(jget_op("quant_transformer_stack").lowering(
+        types.SimpleNamespace(mesh=None), jins, attrs)["Out"][0])
+    pins = {k: [_t(v) for v in vs] for k, vs in ins.items()}
+    with torch.no_grad():
+        got = pget_op("quant_transformer_stack").lowering(
+            None, pins, attrs)["Out"][0].numpy()
+    assert got.shape == ref.shape == (2, 33, 64)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def _build_stacked_lm(P):
+    P.framework.reset_default_programs()
+    main, startup = P.Program(), P.Program()
+    with P.program_guard(main, startup):
+        tok = P.layers.data("tokens", [T], dtype="int64")
+        logits = P.models.transformer.transformer_lm(
+            tok, V, hid=H, num_layers=L, num_heads=N_HEADS, max_len=T,
+            stacked=True)
+        ids = P.layers.argmax(logits, axis=-1)
+    return main, startup, logits, ids
+
+
+def test_quantized_stacked_program_equals_reference_and_runs_alike():
+    """A stacked transformer_lm quantized in both packages: the same
+    Program text (quant_transformer_stack with four int8 planes, and
+    quant_mul for the head), int8 arrays and scales bitwise, and logits
+    within 1e-5 of their largest element on the CPU's dequant core."""
+    jmain, jstart, jlogits, _ = _build_stacked_lm(jpt)
+    pmain, _, plogits, _ = _build_stacked_lm(pt)
+    assert pmain.to_dict() == jmain.to_dict()
+    jexe, jscope = jpt.Executor(jpt.CPUPlace()), jpt.Scope()
+    jexe.run(jstart, scope=jscope)
+    init = {k: np.array(jscope.get(k)) for k in jscope.keys()
+            if not k.startswith("__")}
+    jpruned = jpt.io._prune_for_inference(jmain, ["tokens"],
+                                          [jlogits.name])
+    ppruned = pt.io._prune_for_inference(pmain, ["tokens"], [plogits.name])
+    jq, jqscope, _ = jquant.quantize_program(jpruned, jscope)
+    pq, pqscope, _ = pquant.quantize_program(
+        ppruned, scope_from_numpy(init, "cpu"))
+    assert pq.to_dict() == jq.to_dict()
+    stack = next(op for op in pq.global_block().ops
+                 if op.type == "quant_transformer_stack")
+    assert sorted(s for s in stack.inputs if s.endswith("Scale")) == [
+        "WdownScale", "WprojScale", "WqkvScale", "WupScale"]
+    for name, arr in scope_to_numpy(pqscope).items():
+        np.testing.assert_array_equal(arr, np.asarray(jqscope.get(name)),
+                                      err_msg=name)
+    tokens = np.random.RandomState(6).randint(0, V, (B, T)).astype(np.int64)
+    got, = pt.Executor(pt.CPUPlace()).run(
+        pq, feed={"tokens": tokens}, fetch_list=[plogits.name],
+        scope=pqscope)
+    ref, = jexe.run(jq, feed={"tokens": tokens}, fetch_list=[jlogits.name],
+                    scope=jqscope)
+    assert np.abs(got - np.asarray(ref)).max() <= \
+        1e-5 * np.abs(np.asarray(ref)).max()
