@@ -188,7 +188,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      a dispatch launches K6 and the quantize kernel once (the head) and
      K1 24 times, no repack; replies == Executor.run; logits and ids
      against the plain recompute over the dequantized weights (phase
-     10's gates); the rung-8 dispatch wall, eager and graph.
+     10's gates); the rung-8 dispatch wall, eager and graph;
+ 20. the trainer: phase 7's GPT-2-small (f32, TF32 off, T 1024, B 8)
+     built with the reference's recipe — AdamOptimizer over an
+     exponentially decayed LR under set_gradient_clip(
+     GradientClipByGlobalNorm(1.0)) — and trained by the port's Trainer
+     (on the card by default) over a deterministic reader of numpy
+     token examples through reader.batch and a one-worker DeviceFeeder,
+     2 passes of 3 batches. Run A uninterrupted (the main path: K1, K3,
+     K4 12 a step, K5 1); B checkpoints and is preempted from its event
+     handler after (pass 1, batch 0); C, a new Trainer in a fresh
+     scope, resumes B at (1, 1) from disk and finishes: every step's
+     loss and every persistable == A's bitwise; D, a transient fault
+     injected at step 2 and retried: == A bitwise; E, skip_batch with
+     the NaN guard on: the update of (0, 1) turned non-finite (one
+     Beta2Pow poked to 2.0) fires IterationSkipped with every
+     persistable bitwise its pre-step value and none written in place,
+     then training goes on. Each trainer step's launches == a bare
+     Executor.run step's; the trainer's step wall beside the bare
+     step's, checkpoint bytes and io.checkpoint_save_s / _load_s, peak
+     memory with the guard off and on, the feed counters;
+ 21. the optimizer suite: every update op once at [768, 3072] on the
+     card, held to the same op on the CPU (1e-6 of each output's
+     largest element: FMA contraction may differ), the guard's
+     new-tensor mode == the in-place mode bitwise.
 
 The second-to-last line is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -202,6 +225,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 
@@ -3653,6 +3677,440 @@ def medium_int8_phase(weights, smi):
         "weight_bytes_f32": report["bytes_before"]}
 
 
+# -- phases 20-21: the trainer and the optimizer suite ------------------------
+
+TRAINER_BATCHES, TRAINER_PASSES = 3, 2
+TRAINER_LR_STEPS, TRAINER_LR_RATE, TRAINER_CLIP = 2, 0.7, 1.0
+TRAINER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "smoke_trainer_ckpt")
+SKIP_POKE = "tok_emb_beta2_pow_0"   # a Beta2Pow of 2.0: sqrt(1 - b2^t) NaN
+
+
+def build_trainer_gpt2():
+    """Phase 7's GPT-2-small with the reference's training recipe: Adam
+    over an exponentially decayed LR, global-norm gradient clipping."""
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        tok = pt.layers.data("tok", [TRAIN_T, 1], dtype="int64")
+        nxt = pt.layers.data("nxt", [TRAIN_T, 1], dtype="int64")
+        cost = pt.models.transformer.transformer_lm_cost(
+            tok, nxt, VOCAB, hid=HID, num_layers=LAYERS, num_heads=N_HEADS,
+            max_len=TRAIN_T)
+        pt.clip.set_gradient_clip(
+            pt.clip.GradientClipByGlobalNorm(TRAINER_CLIP))
+        try:
+            lr = pt.learning_rate_decay.exponential_decay(
+                LR, TRAINER_LR_STEPS, TRAINER_LR_RATE)
+            pt.AdamOptimizer(lr).minimize(cost)
+        finally:
+            pt.clip.set_gradient_clip(None)
+    return main, startup, cost
+
+
+def trainer_reader():
+    """A deterministic reader of numpy token examples, batched."""
+    rng = np.random.RandomState(SEED + 7)
+    n = TRAIN_B * TRAINER_BATCHES
+    tok = rng.randint(0, VOCAB, (n, TRAIN_T, 1)).astype(np.int64)
+    nxt = rng.randint(0, VOCAB, (n, TRAIN_T, 1)).astype(np.int64)
+    return pt.reader.batch(lambda: zip(tok, nxt), TRAIN_B)
+
+
+class TrainerRun:
+    """One Trainer of the phase with an event handler that logs every
+    step's loss, wall (BeginIteration to EndIteration) and the kernel
+    launches the step made, and can request preemption or poke the
+    scope."""
+
+    def __init__(self, checkpoint_dir=None, **kw):
+        main, startup, cost = build_trainer_gpt2()
+        self.trainer = pt.Trainer(cost, main_program=main,
+                                  startup_program=startup,
+                                  checkpoint_dir=checkpoint_dir,
+                                  feed_workers=1, **kw)
+        self.losses, self.walls, self.counts = [], [], []
+        self.preempt_after = None
+        self.on_begin = self.on_skip = None
+
+    def handler(self, ev):
+        kind = type(ev).__name__
+        if kind == "BeginIteration":
+            torch.cuda.synchronize()
+            self._t0, self._c0 = time.perf_counter(), read_counts()
+            if self.on_begin is not None:
+                self.on_begin(ev)
+        elif kind == "EndIteration":
+            self.walls.append(1e3 * (time.perf_counter() - self._t0))
+            c1 = read_counts()
+            self.counts.append({k: c1[k] - self._c0[k] for k in c1})
+            self.losses.append(((ev.pass_id, ev.batch_id), float(ev.cost)))
+            if (ev.pass_id, ev.batch_id) == self.preempt_after:
+                self.trainer.request_preemption()
+        elif kind == "IterationSkipped" and self.on_skip is not None:
+            self.on_skip(ev)
+
+    def train(self, passes=TRAINER_PASSES):
+        self.trainer.train(trainer_reader(), passes, ["tok", "nxt"],
+                           self.handler)
+        return self
+
+    def state(self):
+        """Every persistable, as device clones."""
+        block = self.trainer.main_program.global_block()
+        return {n: self.trainer.scope.get(n).clone()
+                for n, v in block.vars.items() if v.persistable}
+
+
+def same_bits(a, b):
+    """Names of the tensors that differ (or are missing) between two
+    {name: tensor} dicts."""
+    return sorted(n for n in set(a) | set(b)
+                  if n not in a or n not in b or not torch.equal(a[n], b[n]))
+
+
+def histogram_sum(name):
+    h = monitor.snapshot()["histograms"].get(name)
+    return (h["count"], h["sum"]) if h else (0, 0.0)
+
+
+def device_time(fn):
+    """(device ms, kernels) of one profiled call of fn."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.events() if getattr(ev, "device_type", None)
+               == torch.autograd.DeviceType.CUDA]
+    return (sum(float(ev.time_range.elapsed_us()) for ev in kernels) / 1e3,
+            len(kernels))
+
+
+def bare_steps(run, reps=3):
+    """The trainer's program and scope stepped by a bare Executor.run
+    (batch 0, on the card): launches of one step, wall of each (numpy
+    fetch, so synchronised), peak memory and one profiled step's device
+    time and kernel count, with the guard off and on."""
+    t = run.trainer
+    feed = {k: torch.from_numpy(v).cuda()
+            for k, v in t._feeder(["tok", "nxt"]).feed(
+                next(iter(trainer_reader()()))).items()}
+    out = {}
+    for guard in (False, True):
+        flags.set_flag("check_nan_inf", guard)
+        walls = []
+        for i in range(reps):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            c0 = read_counts()
+            t0 = time.perf_counter()
+            t.exe.run(t.main_program, feed=feed, fetch_list=[t.cost],
+                      scope=t.scope)
+            walls.append(1e3 * (time.perf_counter() - t0))
+            c1 = read_counts()
+        out[guard] = {"walls": walls,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "counts": {k: c1[k] - c0[k] for k in c1}}
+        out[guard]["device_ms"], out[guard]["kernels"] = device_time(
+            lambda: t.exe.run(t.main_program, feed=feed, fetch_list=[t.cost],
+                              scope=t.scope))
+    flags.set_flag("check_nan_inf", False)
+    return out
+
+
+def trainer_phase(smi):
+    """Phase 20: GPT-2-small f32 (TF32 off) trained by the port's Trainer
+    at full width, T 1024, B 8, 2 passes of 3 batches through
+    reader.batch and a one-worker DeviceFeeder; Adam over an
+    exponentially decayed LR under a global-norm clip.
+
+    A: uninterrupted (the main path: K1, K3, K4, K5). B: checkpointing,
+    preempted after (pass 1, batch 0). C: a fresh Trainer resumes B at
+    (1, 1) and finishes: its losses and final state == A's bitwise. D: a
+    transient fault at step 2, retried: == A bitwise. E: skip_batch with
+    the guard on; the update of (0, 1) turned non-finite (a Beta2Pow
+    poked to 2.0): IterationSkipped, every persistable bitwise its
+    pre-step value, training goes on. Each trainer step's launches ==
+    a bare Executor.run step's; the trainer's step wall beside the bare
+    step's; checkpoint bytes and seconds; peak memory guard off / on;
+    the feed counters."""
+    torch.cuda.empty_cache()
+    monitor.set_enabled(True)
+    monitor.reset()
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    for suffix in (".old", ".tmp"):
+        shutil.rmtree(TRAINER_DIR + suffix, ignore_errors=True)
+    n_steps = TRAINER_PASSES * TRAINER_BATCHES
+
+    zero_counts()                       # the main path starts here
+    a = TrainerRun().train()
+    counts = read_counts()              # the main path ends here
+    route = fa.bwd_route(TRAIN_T)
+    step_want = launches_of(
+        flash_attn_fwd=LAYERS, lm_head_lse=1,
+        flash_attn_bwd_fused=LAYERS if route == "fused" else 0,
+        flash_attn_bwd_dq=LAYERS if route == "split" else 0,
+        flash_attn_bwd_dkv=LAYERS if route == "split" else 0)
+    check_counts(counts, {k: v * n_steps for k, v in step_want.items()},
+                 f"trainer run A ({n_steps} steps, route {route})")
+    losses = [l for _, l in a.losses]
+    # each batch's loss falls from pass 0 to pass 1
+    if not np.isfinite(losses).all() or not all(
+            l1 < l0 for l0, l1 in zip(losses[:TRAINER_BATCHES],
+                                      losses[TRAINER_BATCHES:])):
+        raise AssertionError(f"trainer run A: losses {losses}")
+    a_state, a_losses, a_walls = a.state(), a.losses, a.walls
+    feed_stats = pt.reader.feed_stats()
+    log(f"trainer A: losses {[round(x, 5) for x in losses]}, "
+        f"global step {a.trainer.global_step}, launches {counts} | {smi}")
+
+    bare = bare_steps(a)
+    for guard, b in bare.items():
+        check_counts(b["counts"], step_want,
+                     f"bare Executor.run step (guard {guard})")
+    for i, c in enumerate(a.counts):
+        check_counts(c, step_want, f"trainer step {i}")
+    trainer_ms = float(np.mean(a_walls[1:]))
+    bare_ms = float(np.mean(bare[False]["walls"]))
+    guard_ms = float(np.mean(bare[True]["walls"]))
+    log(f"trainer step wall {trainer_ms:.1f} ms (mean of steps 2-{n_steps}; "
+        f"all {[round(w, 1) for w in a_walls]}) against a bare "
+        f"Executor.run step {bare_ms:.1f} ms "
+        f"({[round(w, 1) for w in bare[False]['walls']]}), guard on "
+        f"{guard_ms:.1f} ms ({[round(w, 1) for w in bare[True]['walls']]});"
+        f" profiled step device {bare[False]['device_ms']:.1f} ms in "
+        f"{bare[False]['kernels']} kernels, guard on "
+        f"{bare[True]['device_ms']:.1f} ms in {bare[True]['kernels']}; peak "
+        f"memory guard off {bare[False]['peak_gib']:.2f} GiB, on "
+        f"{bare[True]['peak_gib']:.2f} GiB; the same launches a step "
+        f"{step_want} | {smi}")
+    log(f"trainer feed (one worker, prefetch 2): {feed_stats} | {smi}")
+    del a
+    torch.cuda.empty_cache()
+
+    # B: preempted after (1, 0); C: resumes in a fresh Trainer
+    b = TrainerRun(TRAINER_DIR)
+    b.preempt_after = (1, 0)
+    try:
+        b.train()
+        raise AssertionError("trainer run B was not preempted")
+    except pt.resilience.PreemptionShutdown as e:
+        log(f"trainer B: {e} | {smi}")
+    meta = pt.io.read_checkpoint_meta(TRAINER_DIR)
+    ckpt_bytes = sum(os.path.getsize(os.path.join(TRAINER_DIR, f))
+                     for f in os.listdir(TRAINER_DIR))
+    b_losses = b.losses
+    del b
+    torch.cuda.empty_cache()
+    c = TrainerRun(TRAINER_DIR)
+    pos = (c.trainer.global_step, c.trainer._start_pass,
+           c.trainer._start_batch)
+    if pos != (4, 1, 1) or meta["extra"] != {"pass_id": 1, "batch_id": 1}:
+        raise AssertionError(f"trainer resume position {pos}, meta {meta}")
+    c.train()
+    resumed = b_losses + c.losses
+    diff = same_bits(c.state(), a_state)
+    if resumed != a_losses:
+        raise AssertionError(f"trainer resume: losses {resumed} != run A's "
+                             f"{a_losses}")
+    if diff:
+        raise AssertionError(f"trainer resume: {len(diff)} persistables "
+                             f"differ from run A's, e.g. {diff[:5]}")
+    saves, save_s = histogram_sum("io.checkpoint_save_s")
+    loads, load_s = histogram_sum("io.checkpoint_load_s")
+    log(f"trainer resume (B preempted after (1, 0), C from disk at (1, 1)) "
+        f"== A bitwise: {n_steps} losses and {len(a_state)} persistables; "
+        f"checkpoint {ckpt_bytes} bytes; {saves} saves {save_s:.2f} s "
+        f"({save_s / max(saves, 1):.2f} s each), {loads} load "
+        f"{load_s:.2f} s (io.checkpoint_save_s / io.checkpoint_load_s) "
+        f"| {smi}")
+    del c
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+
+    # D: a transient fault at step 2, retried
+    flags.set_flag("faults", "step:2:RuntimeError")
+    pt.resilience.faults.reset()
+    try:
+        d = TrainerRun(retry_policy=pt.resilience.RetryPolicy(
+            max_attempts=3, backoff_base_s=0.001)).train()
+    finally:
+        flags.set_flag("faults", "")
+        pt.resilience.faults.reset()
+    retries = monitor.snapshot()["counters"].get("resilience.step_retries")
+    d_diff = same_bits(d.state(), a_state)
+    if d.losses != a_losses or d_diff or retries != 1:
+        raise AssertionError(f"trainer transient retry: retries {retries}, "
+                             f"losses {d.losses}, differing {d_diff[:5]}")
+    log(f"trainer D: a transient fault at step 2 retried once "
+        f"(resilience.step_retries {retries}); trajectory == A bitwise | "
+        f"{smi}")
+    del d, a_state
+    torch.cuda.empty_cache()
+
+    # E: skip_batch, the guard on; the update of (0, 1) turns non-finite
+    e = TrainerRun(anomaly_policy=pt.resilience.AnomalyPolicy("skip_batch"))
+    seen = {}
+    scope = e.trainer.scope
+    kept = float(scope.get(SKIP_POKE)[0])
+
+    def poke(ev):
+        if (ev.pass_id, ev.batch_id) == (0, 1):
+            scope.get(SKIP_POKE).fill_(2.0)
+            seen["before"] = e.state()
+            seen["objects"] = {n: (v, v._version)
+                               for n, v in scope.vars.items()
+                               if isinstance(v, torch.Tensor)}
+
+    def skipped(ev):
+        seen["skipped"] = (ev.pass_id, ev.batch_id)
+        seen["diff"] = same_bits(e.state(), seen["before"])
+        seen["moved"] = sorted(n for n, (v, ver) in seen["objects"].items()
+                               if scope.get(n) is not v or v._version != ver)
+        scope.get(SKIP_POKE).fill_(kept)
+
+    e.on_begin, e.on_skip = poke, skipped
+    e.train(passes=1)
+    trips = monitor.snapshot()["counters"].get("executor.nan_guard_trips")
+    e_losses = [l for _, l in e.losses]
+    if (seen.get("skipped") != (0, 1) or seen["diff"] or seen["moved"]
+            or trips != 1 or len(e_losses) != TRAINER_BATCHES - 1
+            or not np.isfinite(e_losses).all()):
+        raise AssertionError(f"trainer skip: {seen.get('skipped')}, trips "
+                             f"{trips}, differing {seen.get('diff')}, "
+                             f"written {seen.get('moved')}, losses "
+                             f"{e_losses}")
+    log(f"trainer E (skip_batch, guard on): the update of (0, 1) turned "
+        f"non-finite, the guard tripped, IterationSkipped; "
+        f"{len(seen['before'])} persistables bitwise their pre-step "
+        f"values, none written in place; then losses {e_losses}; "
+        f"guard-on step walls {[round(w, 1) for w in e.walls]} ms | {smi}")
+    del e, scope, seen
+    monitor.set_enabled(False)
+    torch.cuda.empty_cache()
+    return counts, {
+        "losses": losses, "trainer_step_ms": trainer_ms,
+        "trainer_step_walls": a_walls, "bare_step_ms": bare_ms,
+        "bare_step_guard_ms": guard_ms,
+        "bare_step_walls": bare[False]["walls"],
+        "bare_step_guard_walls": bare[True]["walls"],
+        "device_ms_guard_off": bare[False]["device_ms"],
+        "device_ms_guard_on": bare[True]["device_ms"],
+        "kernels_guard_off": bare[False]["kernels"],
+        "kernels_guard_on": bare[True]["kernels"],
+        "peak_gib_guard_off": bare[False]["peak_gib"],
+        "peak_gib_guard_on": bare[True]["peak_gib"],
+        "checkpoint_bytes": ckpt_bytes, "checkpoint_saves": saves,
+        "checkpoint_save_s": save_s, "checkpoint_loads": loads,
+        "checkpoint_load_s": load_s, "feed": feed_stats}
+
+
+SUITE_SHAPE = (768, 3072)        # a GPT-2-small ffn_up weight
+# card vs CPU on the same inputs, of each output's largest element: the
+# same float32 operations in the same order, but nvcc may contract a
+# multiply and an add into one FMA (one rounding instead of two) and
+# powf may differ by an ulp, so not bitwise
+SUITE_RTOL = 1e-6
+
+
+def suite_cases():
+    rng = np.random.RandomState(SEED + 8)
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, SUITE_SHAPE).astype(np.float32)
+
+    p, g = u(-1, 1), u(-1, 1)
+    base = {"Param": p, "Grad": g,
+            "LearningRate": np.asarray([0.1], np.float32)}
+    i64 = lambda v: np.asarray([v], np.int64)  # noqa: E731
+    sums = {"Sum1": u(-1, 1), "Sum2": u(-1, 1), "Sum3": u(-1, 1)}
+    return {
+        "sgd": ("sgd", base, {}),
+        "adam": ("adam", {**base, "Moment1": u(-0.1, 0.1),
+                          "Moment2": u(0, 0.1),
+                          "Beta1Pow": np.asarray([0.729], np.float32),
+                          "Beta2Pow": np.asarray([0.997], np.float32)}, {}),
+        "momentum": ("momentum", {**base, "Velocity": u(-1, 1)},
+                     {"mu": 0.9}),
+        "momentum_nesterov": ("momentum", {**base, "Velocity": u(-1, 1)},
+                              {"mu": 0.9, "use_nesterov": True}),
+        "adagrad": ("adagrad", {**base, "Moment": u(0, 0.5)}, {}),
+        "decayed_adagrad": ("decayed_adagrad", {**base, "Moment": u(0, 0.5)},
+                            {}),
+        "adadelta": ("adadelta", {"Param": p, "Grad": g,
+                                  "AvgSquaredGrad": u(0, 0.5),
+                                  "AvgSquaredUpdate": u(0, 0.5)}, {}),
+        "adamax": ("adamax", {**base, "Moment": u(-0.1, 0.1),
+                              "InfNorm": u(0, 0.5),
+                              "Beta1Pow": np.asarray([0.81], np.float32)},
+                   {}),
+        "rmsprop": ("rmsprop", {**base, "MeanSquare": u(0, 0.5),
+                                "Moment": u(-0.1, 0.1)}, {"momentum": 0.5}),
+        "ftrl": ("ftrl", {**base, "SquaredAccumulator": u(0.1, 0.5),
+                          "LinearAccumulator": u(-0.1, 0.1)},
+                 {"l1": 0.1, "l2": 0.1}),
+        "ftrl_power": ("ftrl", {**base, "SquaredAccumulator": u(0.1, 0.5),
+                                "LinearAccumulator": u(-0.1, 0.1)},
+                       {"l1": 0.1, "l2": 0.1, "lr_power": -0.3}),
+        "proximal_gd": ("proximal_gd", base, {"l1": 0.05, "l2": 0.05}),
+        "proximal_adagrad": ("proximal_adagrad",
+                             {**base, "Moment": u(0, 0.5)},
+                             {"l1": 0.05, "l2": 0.05}),
+        "gen_pruning_mask": ("gen_pruning_mask", {"Param": p},
+                             {"sparsity_ratio": 0.6}),
+        "average_accumulates": (
+            "average_accumulates",
+            {"Param": p, **sums, "NumAccumulates": i64(3),
+             "OldNumAccumulates": i64(2), "NumUpdates": i64(9)},
+            {"average_window": 0.5, "min_average_window": 2,
+             "max_average_window": 4}),
+        "average_apply": ("average_apply",
+                          {"Param": p, **sums, "NumAccumulates": i64(3),
+                           "OldNumAccumulates": i64(4)}, {}),
+    }
+
+
+def run_update_op(op_type, ins, attrs, device, in_place):
+    ctx = types.SimpleNamespace(in_place=in_place, op=None,
+                                device=torch.device(device))
+    tins = {k: [torch.from_numpy(v.copy()).to(device)]
+            for k, v in ins.items()}
+    out = op_registry.get_op(op_type).lowering(ctx, tins, dict(attrs))
+    return {k: v[0].detach().cpu() for k, v in out.items()}
+
+
+def optimizer_suite_phase(smi):
+    """Phase 21: every update op once at a GPT-2 parameter's shape
+    [768, 3072] on the card, held to the same op on the CPU (SUITE_RTOL
+    of each output's largest element); on the card, the guard's
+    new-tensor mode == the in-place mode bitwise."""
+    worst = {}
+    for name, (op_type, ins, attrs) in suite_cases().items():
+        cpu = run_update_op(op_type, ins, attrs, "cpu", True)
+        card = run_update_op(op_type, ins, attrs, "cuda", True)
+        fresh = run_update_op(op_type, ins, attrs, "cuda", False)
+        err = 0.0
+        for slot, ref in cpu.items():
+            if not torch.equal(card[slot], fresh[slot]):
+                raise AssertionError(f"{name}: {slot} differs between the "
+                                     "in-place and new-tensor modes")
+            scale = max(float(ref.abs().max()), 1e-30)
+            err = max(err, float((card[slot].double() - ref.double())
+                                 .abs().max()) / scale)
+        worst[name] = err
+        if not err <= SUITE_RTOL:
+            raise AssertionError(f"{name} on the card differs from the CPU "
+                                 f"by {err:.3e} of its largest element "
+                                 f"(tolerance {SUITE_RTOL:g})")
+    log(f"optimizer suite at {list(SUITE_SHAPE)}: card vs CPU, worst "
+        f"relative difference per op "
+        f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } "
+        f"(tolerance {SUITE_RTOL:g}) | {smi}")
+    return worst
+
+
 def main():
     name, smi = device_phase()
     t0 = time.perf_counter()
@@ -3680,6 +4138,8 @@ def main():
     med_gen_counts, med_gen = medium_generation_phase(med_weights, smi)
     med_int8_counts, med_int8 = medium_int8_phase(med_weights, smi)
     del med_weights
+    trainer_counts, trainer = trainer_phase(smi)
+    suite = optimizer_suite_phase(smi)
     paths = {"serving": {"flash_attn_fwd": serving_k1},
              f"training_T{TRAIN_T}": train_counts,
              f"training_T{SHORT_T}": short_counts,
@@ -3689,7 +4149,8 @@ def main():
              "gpt2_medium_training_amp": med_amp_counts,
              "gpt2_medium_training_f32": med_f32_counts,
              "gpt2_medium_generation": med_gen_counts,
-             "gpt2_medium_serving_int8": med_int8_counts}
+             "gpt2_medium_serving_int8": med_int8_counts,
+             "trainer": trainer_counts}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ALL_KERNELS}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()}
@@ -3767,7 +4228,8 @@ def main():
                       "gpt2_medium": {"training_amp": med_amp,
                                       "training_f32": med_f32,
                                       "generation": med_gen,
-                                      "serving_int8": med_int8}}),
+                                      "serving_int8": med_int8},
+                      "trainer": trainer, "optimizer_suite": suite}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

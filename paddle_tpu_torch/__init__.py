@@ -49,6 +49,17 @@ casts, f32 master weights and Adam; the flash-attention forward and
 split backward and the lm-head log-sum-exp as bf16 Hopper kernels):
 
     pt.amp.enable(main)                 # before the first exe.run(main)
+
+The supervised trainer (slice 15): `Trainer` with events, passes, atomic
+npz checkpoints that resume across packages, retry / skip / rollback /
+preemption, the optimizer suite with LR schedules and gradient clipping,
+and the `DeviceFeeder` input pipeline:
+
+    pt.clip.set_gradient_clip(pt.clip.GradientClipByGlobalNorm(1.0))
+    lr = pt.learning_rate_decay.exponential_decay(1e-4, 100, 0.9)
+    trainer = pt.Trainer(cost, pt.AdamOptimizer(lr), checkpoint_dir="ck")
+    trainer.train(pt.reader.batch(examples, 8), num_passes=2,
+                  feed_order=["tok", "nxt"], event_handler=handler)
 """
 
 from . import framework
@@ -58,14 +69,23 @@ from .framework import (CPUPlace, CUDAPlace, Program, default_main_program,
 from .executor import Executor, Scope, global_scope, scope_guard
 from .backward import append_backward
 from . import amp, flags, initializer, layers, models, optimizer, regularizer
-from . import io, quant
-from .optimizer import AdamOptimizer, SGDOptimizer
-from .param_attr import ParamAttr
+from . import clip, event, io, learning_rate_decay, quant, reader, resilience
+from .data_feeder import DataFeeder
+from .optimizer import (AdadeltaOptimizer, AdagradOptimizer,
+                        AdamaxOptimizer, AdamOptimizer,
+                        DecayedAdagradOptimizer, FtrlOptimizer, ModelAverage,
+                        MomentumOptimizer, RMSPropOptimizer, SGDOptimizer)
+from .param_attr import HookAttribute, ParamAttr
+from .trainer import Trainer
 
 __all__ = ["amp", "framework", "CPUPlace", "CUDAPlace", "Program",
            "default_main_program", "default_startup_program",
            "program_guard", "reset_default_programs", "Executor", "Scope",
            "global_scope", "scope_guard", "append_backward", "initializer",
            "layers", "models", "optimizer", "regularizer", "AdamOptimizer",
-           "SGDOptimizer", "ParamAttr", "flags", "io", "monitor", "ops",
-           "quant", "serving", "weights"]
+           "SGDOptimizer", "MomentumOptimizer", "AdagradOptimizer",
+           "DecayedAdagradOptimizer", "AdamaxOptimizer", "AdadeltaOptimizer",
+           "RMSPropOptimizer", "FtrlOptimizer", "ModelAverage", "ParamAttr",
+           "HookAttribute", "flags", "io", "monitor", "ops", "quant",
+           "serving", "weights", "clip", "event", "learning_rate_decay",
+           "reader", "resilience", "DataFeeder", "Trainer"]

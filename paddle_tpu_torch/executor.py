@@ -19,6 +19,20 @@ block directly, on the card unless the caller asks for the CPU:
     reference donates their buffers; the persistables the block writes
     are then stored back into the scope.
 
+The NaN guard (flag `check_nan_inf`, the reference's :309-317): the
+reference's step is functional and turns donation off under the guard,
+so a tripped step leaves the pre-step state. The port's counterpart:
+with the guard on, every op that writes a persistable var writes a new
+tensor (`LoweringContext.in_place` is False: the optimizer ops,
+`increment`, `average_accumulates`), the scope's generator state is
+kept, and the executor scans every fetch and every updated state var,
+then commits all of them to the scope or none. It costs one more copy
+of the updated state, as the reference without donation. With the guard
+off, updates stay in place; a run that fails after an op wrote a
+scope tensor in place (its autograd version counter moved) marks the
+scope `state_invalidated`: that state holds half an update, so the
+Trainer restores it from a checkpoint and never retries the step.
+
 There is no jit, no donation and no compile cache: PyTorch dispatches
 each op's kernels as the interpreter reaches it. The one-shot serving
 engine captures a `run` per bucket rung as a CUDA graph
@@ -28,19 +42,21 @@ engine captures a `run` per bucket rung as a CUDA graph
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
 
 from . import amp as amp_mod
-from . import framework
+from . import flags as flags_mod
+from . import framework, monitor
 from ._device import resolve_device, use_full_f32
 from .framework import CPUPlace, CUDAPlace
 from .ops import grad as grad_mod
 from .ops import registry as op_registry
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard",
-           "host_cast_feed"]
+           "host_cast_feed", "error_context"]
 
 _GENERATOR_KEY = "__rng_generator__"
 
@@ -51,6 +67,9 @@ class Scope:
 
     def __init__(self):
         self.vars = {}
+        # set by a run that failed after writing one of these tensors in
+        # place (guard off); cleared by io.load_checkpoint
+        self.state_invalidated = False
 
     def set(self, name, value):
         self.vars[name] = value
@@ -81,6 +100,35 @@ def scope_guard(scope):
         yield
     finally:
         _global_scope = prev
+
+
+# Ambient annotation appended to the NaN guard's message: the Trainer
+# sets it to "global step N (pass P, batch B)" around each supervised
+# step. Thread-local, so a serving thread's run never inherits it.
+_error_context = threading.local()
+
+
+def _current_error_context():
+    return getattr(_error_context, "msg", None)
+
+
+@contextlib.contextmanager
+def error_context(msg):
+    """Context manager: annotate executor-raised diagnostics with
+    `msg` (e.g. the trainer's current global step)."""
+    prev = _current_error_context()
+    _error_context.msg = msg
+    try:
+        yield
+    finally:
+        _error_context.msg = prev
+
+
+def _feed_signature(feed):
+    """(name, shape, dtype) of every feed, sorted: a batch's shape key."""
+    return tuple(sorted((k, tuple(np.shape(v)), str(v.dtype)
+                         if hasattr(v, "dtype") else str(np.asarray(v).dtype))
+                        for k, v in feed.items()))
 
 
 def host_cast_feed(program, name, arr):
@@ -141,27 +189,74 @@ class Executor:
 
         (block, state_mut, state_ro, state_out, feed_names,
          uses_key) = self._analyze(program, feed, fetch_names, scope)
+        guard = flags_mod.get("check_nan_inf")
         env = {}
         for n in state_mut + state_ro:
             env[n] = self._to_device(scope.get(n), n)
         for n in feed_names:
             env[n] = self._coerce_feed(program, n, feed[n])
-        ctx = op_registry.LoweringContext(
-            program, block, env, self.device,
-            generator=self._generator(program, scope) if uses_key else None)
+        gen = self._generator(program, scope) if uses_key else None
+        gen_state = gen.get_state() if guard and gen is not None else None
+        # the scope's own tensors and their version counters: an in-place
+        # write by a run that then fails invalidates the scope's state
+        held = [(t, t._version) for n in state_mut
+                if (t := scope.get(n)) is env[n]]
+        ctx = op_registry.LoweringContext(program, block, env, self.device,
+                                          generator=gen, in_place=not guard)
         taped = self._ops_needing_tape(block)
-        for op in block.ops:
-            self._lower_op(ctx, op, taped)
-        missing = [n for n in fetch_names if n not in env]
-        if missing:
-            raise KeyError(f"fetch var(s) {missing} were not computed by "
-                           "the program")
-        fetches = [env[n] for n in fetch_names]
+        try:
+            for op in block.ops:
+                self._lower_op(ctx, op, taped)
+            missing = [n for n in fetch_names if n not in env]
+            if missing:
+                raise KeyError(f"fetch var(s) {missing} were not computed "
+                               "by the program")
+            fetches = [env[n] for n in fetch_names]
+            if guard:
+                self._check_nan_inf(fetch_names, fetches, state_out,
+                                    [env[n] for n in state_out])
+        except BaseException:
+            if gen_state is not None:
+                gen.set_state(gen_state)
+            if any(t._version != v for t, v in held):
+                scope.state_invalidated = True
+            raise
         for name in state_out:
             scope.set(name, env[name])
         if return_numpy:
             return [_to_numpy(f) for f in fetches]
         return fetches
+
+    @staticmethod
+    def _check_nan_inf(fetch_names, fetches, state_names, state):
+        """FLAGS_check_nan_inf (the reference's `_check_nan_inf`): every
+        fetch and every updated state var is scanned, and ALL offending
+        variables are named in one FloatingPointError, with the
+        Trainer's step context when one is set. One host sync for the
+        whole scan."""
+        named = [(n, v) for n, v in list(zip(fetch_names, fetches))
+                 + list(zip(state_names, state))
+                 if isinstance(v, torch.Tensor) and v.is_floating_point()
+                 and v.numel()]
+        if not named:
+            return
+        # max |v| is finite iff every element is (amax propagates NaN):
+        # two launches a var, where isfinite(v).all() takes five
+        peaks = torch.stack([v.detach().abs().amax().float()
+                             for _, v in named])
+        finite = torch.isfinite(peaks).tolist()
+        bad = [n for (n, _), ok in zip(named, finite) if not ok]
+        if bad:
+            monitor.counter_inc("executor.nan_guard_trips")
+            ctx = _current_error_context()
+            err = FloatingPointError(
+                "NaN/Inf detected in variable(s) "
+                + ", ".join(repr(n) for n in bad)
+                + (f" at {ctx}" if ctx else "")
+                + " (PADDLE_TPU_CHECK_NAN_INF is enabled)")
+            monitor.blackbox.maybe_dump("nan_guard", error=err,
+                                        extra={"bad_vars": bad})
+            raise err
 
     # -- analysis -----------------------------------------------------------
     def _analyze(self, program, feed, fetch_names, scope):

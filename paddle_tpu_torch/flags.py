@@ -1,8 +1,9 @@
 """Runtime flags the port reads: env-tunable knobs (`PADDLE_TPU_*`).
 
 The port's own copy of the slice of `paddle_tpu/flags.py` that LM
-serving, one-shot serving, the int8 quantized ops and the stacked
-transformer's remat read, with the
+serving, one-shot serving, the int8 quantized ops, the stacked
+transformer's remat, the executor's NaN guard, the input pipeline and
+the fault injector read, with the
 same names, defaults and environment spellings
 (`PADDLE_TPU_<NAME>`), so one deployment environment configures both
 packages alike. Values resolve from the environment at first use and
@@ -30,6 +31,10 @@ def _parse_float(s):
     return float(str(s).strip())
 
 
+def _parse_str(s):
+    return str(s)
+
+
 def _parse_choice(*choices):
     def parse(s):
         t = str(s).strip().lower()
@@ -46,6 +51,29 @@ _DEFS = {
     "metrics": (_parse_bool, False,
                 "record structured telemetry (counters/gauges/histograms) "
                 "into the monitor registry; off = zero-overhead no-ops"),
+    "check_nan_inf": (_parse_bool, False,
+                      "scan run outputs/state for NaN/Inf and raise; while "
+                      "on, every op that writes a persistable var writes a "
+                      "new tensor and the executor commits all of the "
+                      "run's state or none of it"),
+    "feed_workers": (_parse_int, 1,
+                     "reader/convert worker threads of the device input "
+                     "pipeline (reader/pipeline.py): 0 = synchronous "
+                     "inline feed (no threads; the same batches), N>=1 = "
+                     "async prefetch through the ordered staging buffer "
+                     "— any N yields the same batch order"),
+    "feed_prefetch_depth": (_parse_int, 2,
+                            "device-side prefetch queue depth of the "
+                            "input pipeline: batches copied to the card "
+                            "ahead of the consumer; 2 = double buffering "
+                            "(batch n+1's host-to-device copy rides under "
+                            "step n)"),
+    "faults": (_parse_str, "",
+               "deterministic fault-injection schedule "
+               "(resilience/faults.py), comma-separated "
+               "site:trigger:kind items, e.g. "
+               "step:7:RuntimeError,ckpt_save:1:crash — empty = no "
+               "injection (zero overhead)"),
     "remat": (_parse_bool, False,
               "rematerialise each transformer_stack layer in the backward "
               "(torch.utils.checkpoint): activation memory for FLOPs"),

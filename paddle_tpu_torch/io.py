@@ -19,6 +19,26 @@ column-major on the card (`quant.place_int8_weights`).
 on the device, so the file is the same for either layout. The
 reference's binary ProgramDesc format ("pb") is not ported.
 
+Training checkpoints (the reference's `save_checkpoint` /
+`load_checkpoint`): a directory with `params.npz` (every persistable),
+`trainer_state.npz` (the random stream's state) and `checkpoint.json`
+(format version 1, global step, md5 digests of both files, the saved
+names and the caller's `extra`, e.g. the Trainer's pass / batch
+position). The write is atomic (`<dir>.tmp`, then a swap through
+`<dir>.old`); a load verifies the digests and falls back to an intact
+`.old` copy. A checkpoint either package wrote loads in the other: every
+persistable, the step and the position bit-exact. The random streams
+differ by nature: the reference keeps its JAX key as `__rng_key__`, the
+port the state of the scope's `torch.Generator` as
+`__torch_rng_state_<device type>__`; each package restores its own key
+and ignores the other's, so a run that crosses packages continues with
+the receiving package's own stream.
+
+    save_checkpoint(executor, dirname, main_program=None, scope=None,
+                    global_step=0, extra_meta=None)
+    step = load_checkpoint(executor, dirname, main_program=None,
+                           scope=None)
+
 LM artifacts: `read_lm_artifact(path)` parses the version-3 container
 of `paddle_tpu.io.export_lm_artifact`:
 
@@ -33,19 +53,50 @@ cannot run; they are skipped, never read.
 
 from __future__ import annotations
 
+import functools
 import io as _bytesio
 import json
 import os
+import shutil
+import time
+import warnings
 
 import numpy as np
 import torch
 
-from . import framework
-from .executor import global_scope
+from . import framework, monitor
+from .executor import _GENERATOR_KEY, global_scope
 from .framework import Program
 
 __all__ = ["save_persistables", "load_persistables", "save_inference_model",
-           "load_inference_model", "read_lm_artifact", "ARTIFACT_MAGIC"]
+           "load_inference_model", "read_lm_artifact", "ARTIFACT_MAGIC",
+           "save_checkpoint", "load_checkpoint", "checkpoint_exists",
+           "read_checkpoint_meta", "resolve_checkpoint_dir",
+           "CHECKPOINT_VERSION", "BF16PersistableError"]
+
+
+class BF16PersistableError(TypeError):
+    """A bfloat16 tensor reached save_persistables: numpy has no
+    bfloat16, and persistables stay float32 or integer (amp keeps f32
+    master weights), so one in bf16 is a program fault."""
+
+
+def _timed_io(metric):
+    """Route an IO entry point's wall time into the telemetry registry
+    (histogram `metric`, seconds) and a span. Free when telemetry is
+    off."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not monitor.enabled():
+                return fn(*args, **kwargs)
+            t0 = time.perf_counter()
+            with monitor.span(f"io/{fn.__name__}"):
+                out = fn(*args, **kwargs)
+            monitor.histogram_observe(metric, time.perf_counter() - t0)
+            return out
+        return wrapper
+    return deco
 
 
 def _persistable_names(program):
@@ -53,23 +104,31 @@ def _persistable_names(program):
             if v.persistable]
 
 
+def _host_array(name, val):
+    if isinstance(val, torch.Tensor):
+        if val.dtype == torch.bfloat16:
+            raise BF16PersistableError(
+                f"persistable {name!r} is bfloat16: persistables stay "
+                "float32 or integer (amp keeps f32 master weights), and "
+                "npz has no bfloat16")
+        val = val.detach().cpu().numpy()
+    return np.asarray(val, order="C")
+
+
+@_timed_io("io.save_persistables_s")
 def save_persistables(executor, dirname, main_program=None, scope=None):
     """Write the program's persistables that the scope holds to
     `dirname/params.npz`; returns their sorted names."""
     program = main_program or framework.default_main_program()
     scope = scope or global_scope()
     os.makedirs(dirname, exist_ok=True)
-    arrays = {}
-    for name in _persistable_names(program):
-        if scope.has(name):
-            val = scope.get(name)
-            arrays[name] = np.asarray(
-                val.detach().cpu().numpy() if isinstance(val, torch.Tensor)
-                else val, order="C")
+    arrays = {name: _host_array(name, scope.get(name))
+              for name in _persistable_names(program) if scope.has(name)}
     np.savez(os.path.join(dirname, "params.npz"), **arrays)
     return sorted(arrays)
 
 
+@_timed_io("io.load_persistables_s")
 def load_persistables(executor, dirname, main_program=None, scope=None):
     """Read `dirname/params.npz` into the scope: each of the program's
     persistables, as a tensor on `executor.device`."""
@@ -165,6 +224,247 @@ def load_inference_model(dirname, executor, scope=None):
         quant.place_int8_weights(program, scope or global_scope())
     fetch_vars = [program.global_block().var(n) for n in meta["fetch_names"]]
     return program, meta["feed_names"], fetch_vars
+
+# ---------------------------------------------------------------------------
+# Training checkpoints
+# ---------------------------------------------------------------------------
+
+CHECKPOINT_VERSION = 2          # readers accept <= this
+_PLAIN_FORMAT_VERSION = 1       # the single-writer npz format
+
+
+def _rng_state_key(device):
+    return f"__torch_rng_state_{torch.device(device).type}__"
+
+
+def _is_primary():
+    """True on the process that writes checkpoints: the port runs on one
+    card in one process, so always."""
+    return True
+
+
+def _md5_file(path, chunk=1 << 20):
+    import hashlib
+    h = hashlib.md5()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(chunk), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _probe_checkpoint_dir(dirname, check_integrity=True):
+    """(meta, None) when `dirname` holds a complete, digest-clean
+    checkpoint; (None, reason) otherwise — one source of truth for both
+    usability decisions and error messages, naming the exact file whose
+    digest failed."""
+    try:
+        with open(os.path.join(dirname, "checkpoint.json")) as f:
+            meta = json.load(f)
+    except (OSError, json.JSONDecodeError, UnicodeDecodeError):
+        return None, "missing or corrupt checkpoint.json"
+    if not isinstance(meta, dict):
+        return None, "corrupt checkpoint.json"
+    if meta.get("format") == "orbax-sharded":
+        state_dir = meta.get("state_dir", "sharded_state")
+        if not os.path.isdir(os.path.join(dirname, state_dir)):
+            return None, f"missing sharded state dir {state_dir!r}"
+        return meta, None
+    if check_integrity:
+        for fname, key in (("params.npz", "md5"),
+                           ("trainer_state.npz", "md5_state")):
+            if key not in meta:
+                continue
+            try:
+                if _md5_file(os.path.join(dirname, fname)) != meta[key]:
+                    return None, f"{fname} digest mismatch"
+            except OSError:
+                return None, f"{fname} missing or unreadable"
+    return meta, None
+
+
+def _integrity_failure(dirname):
+    return _probe_checkpoint_dir(dirname)[1] or "unusable contents"
+
+
+def resolve_checkpoint_dir(dirname, check_integrity=True):
+    """(usable_dir, meta) for a checkpoint location: `dirname` itself
+    when intact, else the `.old` sibling the atomic swap leaves behind
+    (a crash between save_checkpoint's two renames, or a corrupted
+    params.npz, must not strand an otherwise-recoverable run), else
+    (None, None)."""
+    meta, _ = _probe_checkpoint_dir(dirname, check_integrity)
+    if meta is not None:
+        return dirname, meta
+    olddir = dirname.rstrip("/\\") + ".old"
+    meta, _ = _probe_checkpoint_dir(olddir, check_integrity)
+    if meta is not None:
+        return olddir, meta
+    return None, None
+
+
+def checkpoint_exists(dirname, check_integrity=True):
+    """True when `dirname` (or its `.old` fallback) holds a loadable
+    checkpoint. check_integrity=False skips digest hashing — the cheap
+    probe for hot restore decisions; load_checkpoint verifies for
+    real."""
+    return resolve_checkpoint_dir(dirname, check_integrity)[0] is not None
+
+
+def read_checkpoint_meta(dirname):
+    """The checkpoint.json contents (version, global_step, digests, and
+    any caller `extra` — e.g. the Trainer's pass position), resolved
+    through the same primary / .old fallback as load_checkpoint, with
+    the cheap probe only (a meta peek must not hash a multi-GB
+    params.npz)."""
+    _, meta = resolve_checkpoint_dir(dirname, check_integrity=False)
+    if meta is not None:
+        return meta
+    with open(os.path.join(dirname, "checkpoint.json")) as f:
+        return json.load(f)
+
+
+@_timed_io("io.checkpoint_save_s")
+def save_checkpoint(executor, dirname, main_program=None, scope=None,
+                    global_step=0, extra_meta=None, sharded=False,
+                    retry_policy=None):
+    """Resume-complete checkpoint: persistable vars + the random
+    stream's state + step.
+
+    Unlike `save_persistables` (parameters only), a checkpoint restores
+    a *run*: the scope generator's state and the global step travel with
+    the arrays, and md5 digests of both files are kept in
+    checkpoint.json. The write is atomic: everything lands in
+    `<dirname>.tmp`, which replaces `dirname` only on success, so every
+    crash window leaves a loadable copy in `dirname` or `<dirname>.old`
+    (load_checkpoint's fallback). Fault sites `ckpt_save` (temp dir
+    written, before the swap) and `ckpt_swap` (between the two renames).
+    Transient IO failures are retried per `retry_policy` (default: 3
+    attempts, exponential backoff), counted as resilience.ckpt_retries.
+    Returns the path. `sharded=True` (the reference's orbax per-shard
+    save) is not ported: the port runs on one card.
+    """
+    from .resilience import RetryPolicy, call_with_retry
+    from .resilience import faults as _faults
+
+    if sharded:
+        raise NotImplementedError(
+            "save_checkpoint(sharded=True): sharded (orbax) checkpoints are "
+            "not ported; the port checkpoints one card's state (ROADMAP "
+            "A11)")
+    program = main_program or framework.default_main_program()
+    scope = scope or global_scope()
+    if not _is_primary():
+        return None
+
+    def _write_and_swap():
+        tmpdir = dirname.rstrip("/\\") + ".tmp"
+        if os.path.exists(tmpdir):
+            shutil.rmtree(tmpdir)
+        os.makedirs(tmpdir)
+        saved = save_persistables(executor, tmpdir, program, scope)
+        extra = {}
+        gen = scope.get(_GENERATOR_KEY)
+        if gen is not None:
+            extra[_rng_state_key(gen.device)] = gen.get_state().numpy()
+        np.savez(os.path.join(tmpdir, "trainer_state.npz"), **extra)
+        meta = {"version": _PLAIN_FORMAT_VERSION,
+                "global_step": int(global_step),
+                "md5": _md5_file(os.path.join(tmpdir, "params.npz")),
+                "md5_state": _md5_file(os.path.join(tmpdir,
+                                                    "trainer_state.npz")),
+                "vars": saved, "extra": dict(extra_meta or {})}
+        with open(os.path.join(tmpdir, "checkpoint.json"), "w") as f:
+            json.dump(meta, f)
+        # the previous checkpoint survives a crash anywhere before here
+        _faults.fire("ckpt_save")
+        # atomic swap. A stale `.old` (left by a crash between the two
+        # renames of an earlier save) is deleted only once a NEWER copy
+        # is in place — it may be the only loadable checkpoint until then
+        olddir = dirname.rstrip("/\\") + ".old"
+        if os.path.exists(dirname):
+            if os.path.exists(olddir):
+                shutil.rmtree(olddir)
+            os.rename(dirname, olddir)
+        # the half-swapped window: `dirname` gone, previous copy in .old
+        _faults.fire("ckpt_swap")
+        os.rename(tmpdir, dirname)
+        if os.path.exists(olddir):
+            shutil.rmtree(olddir)
+        return dirname
+
+    return call_with_retry(_write_and_swap,
+                           policy=retry_policy or RetryPolicy(),
+                           counter="resilience.ckpt_retries")
+
+
+def _restore_rng_state(executor, scope, path):
+    """Set the scope's generator on the executor's device to the state
+    this package saved for that device type; another package's key
+    (`__rng_key__`) or another device type's state is ignored."""
+    if not os.path.exists(path):
+        return
+    key = _rng_state_key(executor.device)
+    with np.load(path) as data:
+        if key not in data.files:
+            return
+        state = torch.from_numpy(np.ascontiguousarray(data[key]))
+    gen = scope.get(_GENERATOR_KEY)
+    if gen is None or gen.device != executor.device:
+        gen = torch.Generator(device=executor.device)
+        scope.set(_GENERATOR_KEY, gen)
+    gen.set_state(state)
+
+
+@_timed_io("io.checkpoint_load_s")
+def load_checkpoint(executor, dirname, main_program=None, scope=None,
+                    check_integrity=True, return_meta=False):
+    """Restore a `save_checkpoint` directory (either package's). Returns
+    the global step (or `(global_step, meta)` with return_meta=True).
+
+    The md5 / md5_state digests recorded in checkpoint.json are verified
+    before anything enters the scope (check_integrity=False skips). On a
+    digest mismatch, a missing or corrupt checkpoint.json, or a
+    half-swapped directory, the load falls back to the `.old` directory
+    — counted as resilience.ckpt_fallback_loads. Only when neither copy
+    is trustworthy does it raise. Fault site `ckpt_load`, before
+    reading. The loaded state replaces the scope's, so the scope's
+    `state_invalidated` mark is cleared."""
+    from .resilience import faults as _faults
+
+    program = main_program or framework.default_main_program()
+    scope = scope or global_scope()
+    _faults.fire("ckpt_load")
+    src, meta = resolve_checkpoint_dir(dirname, check_integrity)
+    if meta is None:
+        if not os.path.exists(os.path.join(dirname, "checkpoint.json")):
+            raise FileNotFoundError(
+                f"no loadable checkpoint at {dirname}: checkpoint.json "
+                "is missing and there is no intact .old fallback")
+        raise IOError(
+            f"checkpoint {dirname}: {_integrity_failure(dirname)} — "
+            "truncated or corrupted write, and no intact .old fallback")
+    if src != dirname:
+        monitor.counter_inc("resilience.ckpt_fallback_loads")
+        warnings.warn(
+            f"checkpoint {dirname} is missing or corrupt — loading the "
+            f"previous checkpoint from {src}", RuntimeWarning,
+            stacklevel=2)
+    if meta.get("version", 0) > CHECKPOINT_VERSION:
+        raise ValueError(
+            f"checkpoint version {meta['version']} is newer than this "
+            f"runtime supports ({CHECKPOINT_VERSION})")
+    if meta.get("format") == "orbax-sharded":
+        raise NotImplementedError(
+            f"checkpoint {dirname} is a sharded (orbax) checkpoint: not "
+            "ported; the port loads the single-writer npz format (ROADMAP "
+            "A11)")
+    load_persistables(executor, src, program, scope)
+    _restore_rng_state(executor, scope,
+                       os.path.join(src, "trainer_state.npz"))
+    scope.state_invalidated = False
+    step = int(meta.get("global_step", 0))
+    return (step, meta) if return_meta else step
+
 
 ARTIFACT_MAGIC = "PTART"
 ARTIFACT_VERSION = 3

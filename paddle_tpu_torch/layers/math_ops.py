@@ -1,6 +1,6 @@
 """Elementwise / scalar math layers + Variable operator-sugar support
 (the port's copy of the part of `paddle_tpu/layers/math_ops.py` the
-training path calls)."""
+training path, the LR schedules and the gradient clips call)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,10 @@ import numpy as np
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["elementwise_add", "scale", "floor"]
+__all__ = ["elementwise_add", "elementwise_sub", "elementwise_mul",
+           "elementwise_div", "elementwise_max", "elementwise_min", "scale",
+           "floor", "clip_by_norm", "sqrt", "square", "exp", "sign", "pow",
+           "reduce_sum"]
 
 
 def _elementwise(op_type):
@@ -24,6 +27,11 @@ def _elementwise(op_type):
 
 
 elementwise_add = _elementwise("elementwise_add")
+elementwise_sub = _elementwise("elementwise_sub")
+elementwise_mul = _elementwise("elementwise_mul")
+elementwise_div = _elementwise("elementwise_div")
+elementwise_max = _elementwise("elementwise_max")
+elementwise_min = _elementwise("elementwise_min")
 
 
 def binary_helper(x, other, op_type, reverse=False):
@@ -52,4 +60,44 @@ def floor(x, name=None):
     out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
     out.seq_len_var = x.seq_len_var
     helper.append_op("floor", {"X": [x.name]}, {"Out": [out.name]}, {})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("clip_by_norm", {"X": [x.name]}, {"Out": [out.name]},
+                     {"max_norm": float(max_norm)})
+    return out
+
+
+def _unary(op_type, attr_names=()):
+    def layer(x, name=None, **kwargs):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
+        out.seq_len_var = x.seq_len_var
+        attrs = {k: kwargs[k] for k in attr_names if k in kwargs}
+        helper.append_op(op_type, {"X": [x.name]}, {"Out": [out.name]}, attrs)
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+sqrt = _unary("sqrt")
+square = _unary("square")
+exp = _unary("exp")
+sign = _unary("sign")
+pow = _unary("pow", ("factor",))
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    attrs = {"keep_dim": keep_dim}
+    if dim is None:
+        attrs["reduce_all"] = True
+    else:
+        attrs["dim"] = [dim] if isinstance(dim, int) else list(dim)
+    helper.append_op("reduce_sum", {"X": [input.name]}, {"Out": [out.name]},
+                     attrs)
     return out

@@ -7,7 +7,7 @@ from .. import framework
 from ..layer_helper import LayerHelper
 
 __all__ = ["create_parameter", "cast", "fill_constant", "slice",
-           "uniform_random", "argmax"]
+           "uniform_random", "argmax", "assign", "increment", "less_than"]
 
 
 def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, name=None):
@@ -66,4 +66,29 @@ def argmax(x, axis=-1, name=None):
     out = helper.create_tmp_variable("int64")
     helper.append_op("arg_max", {"X": [x.name]}, {"Out": [out.name]},
                      {"axis": axis})
+    return out
+
+
+def assign(input, output=None, name=None):
+    helper = LayerHelper("assign", name=name)
+    if output is None:
+        output = helper.create_tmp_variable(input.dtype)
+    helper.append_op("assign", {"X": [input.name]}, {"Out": [output.name]}, {})
+    return output
+
+
+def increment(x, value=1.0, in_place=True, name=None):
+    helper = LayerHelper("increment", name=name)
+    out = x if in_place else helper.create_tmp_variable(x.dtype)
+    helper.append_op("increment", {"X": [x.name]}, {"Out": [out.name]},
+                     {"step": float(value)})
+    return out
+
+
+def less_than(x, y, cond=None, name=None):
+    """x < y elementwise, bool; `cond` is an existing var to write."""
+    helper = LayerHelper("less_than", name=name)
+    out = cond if cond is not None else helper.create_tmp_variable("bool")
+    helper.append_op("less_than", {"X": [x.name], "Y": [y.name]},
+                     {"Out": [out.name]}, {})
     return out

@@ -11,7 +11,8 @@ The slice of `paddle_tpu/monitor` the LM server calls:
     monitor.snapshot() / monitor.format_prometheus(snap)   # /metrics
 
 Enablement: flag `metrics` (env PADDLE_TPU_METRICS=1) gates the
-registry and the spans. `blackbox.maybe_dump` is a documented no-op
+registry and the spans. `blackbox.maybe_dump` and `blackbox.note_event`
+are documented no-ops
 until the flight recorder is ported.
 """
 

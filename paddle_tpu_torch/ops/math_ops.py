@@ -1,5 +1,7 @@
 """Math / tensor op lowerings (the port of the part of
-`paddle_tpu/ops/math_ops.py` the training path runs).
+`paddle_tpu/ops/math_ops.py` and `ops/tensor_ops.py` the training path
+runs, with the ops the LR schedules, the gradient clips and the
+regularizers append).
 
 Each lowering is a few lines of torch, run eagerly by the executor; the
 large products (`mul`) go to `torch.matmul`, as the reference leaves
@@ -36,6 +38,88 @@ def _elementwise(fn):
 
 
 register_op("elementwise_add")(_elementwise(lambda x, y: x + y))
+register_op("elementwise_sub")(_elementwise(lambda x, y: x - y))
+register_op("elementwise_mul")(_elementwise(lambda x, y: x * y))
+register_op("elementwise_div")(_elementwise(lambda x, y: x / y))
+register_op("elementwise_max")(_elementwise(torch.maximum))
+register_op("elementwise_min")(_elementwise(torch.minimum))
+
+
+def _unary(fn):
+    def lowering(ctx, ins, attrs):
+        return {"Out": [fn(ins["X"][0], attrs)]}
+    return lowering
+
+
+register_op("exp")(_unary(lambda x, a: torch.exp(x)))
+register_op("sqrt")(_unary(lambda x, a: torch.sqrt(x)))
+register_op("square")(_unary(lambda x, a: torch.square(x)))
+register_op("sign")(_unary(lambda x, a: torch.sign(x)))
+register_op("pow")(_unary(lambda x, a: torch.pow(x, a.get("factor", 1.0))))
+
+
+@register_op("reduce_sum")
+def _reduce_sum(ctx, ins, attrs):
+    """Sum over `dim` (default [0]) or every axis (`reduce_all`); a
+    scalar result is shape [1] unless `keep_dim` (the reference's
+    `_reduce`)."""
+    x = ins["X"][0]
+    if attrs.get("reduce_all", False):
+        dims = tuple(range(x.dim()))
+    else:
+        dim = attrs.get("dim", [0])
+        if isinstance(dim, int):
+            dim = [dim]
+        dims = tuple(d % x.dim() for d in dim)
+    out = torch.sum(x, dim=dims, keepdim=bool(attrs.get("keep_dim", False)))
+    if out.dim() == 0:
+        out = out.reshape(1)
+    return {"Out": [out]}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    """x * min(max_norm / max(||x||_2, 1e-12), 1) (operators/
+    clip_by_norm_op.h)."""
+    x = ins["X"][0]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.clamp_max(attrs["max_norm"] / torch.clamp_min(norm, 1e-12),
+                            1.0)
+    return {"Out": [x * scale]}
+
+
+@register_op("less_than", differentiable=False)
+def _less_than(ctx, ins, attrs):
+    return {"Out": [ins["X"][0] < ins["Y"][0]]}
+
+
+@register_op("select_where")
+def _select_where(ctx, ins, attrs):
+    return {"Out": [torch.where(ins["Condition"][0], ins["X"][0],
+                                ins["Y"][0])]}
+
+
+@register_op("increment", differentiable=False)
+def _increment(ctx, ins, attrs):
+    """X + step, the step cast to X's dtype (an int64 counter stays
+    int64). When the op writes its own input (the LR schedules'
+    `@LR_DECAY_COUNTER@`, an optimizer's `global_step`) and the context
+    allows it, in place on the scope's tensor."""
+    x = ins["X"][0]
+    step = attrs.get("step", 1.0)
+    step = int(step) if not x.is_floating_point() else float(step)
+    op = ctx.op
+    if ctx.in_place and op is not None and op.inputs["X"] == op.outputs["Out"]:
+        with torch.no_grad():
+            return {"Out": [x.add_(step)]}
+    return {"Out": [x + step]}
+
+
+@register_op("assign")
+def _assign(ctx, ins, attrs):
+    """A copy of X: the output may be a persistable that an optimizer
+    then updates in place, which must not write through to X."""
+    return {"Out": [ins["X"][0].clone()]}
 
 
 @register_op("mul")

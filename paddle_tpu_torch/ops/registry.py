@@ -78,10 +78,14 @@ class LoweringContext:
     from `Program.seed` (the counterpart of the JAX package's threaded
     PRNG key; the two produce different numbers from the same seed);
     `amp_dtype`: the program's amp compute dtype (amp.py), or None;
-    `op`: the op being lowered (its var names), set by the executor.
+    `op`: the op being lowered (its var names), set by the executor;
+    `in_place`: whether ops that write a persistable var may update the
+    scope's tensor in place (False under the NaN guard: they write a new
+    tensor, and the executor commits the run's state or none of it).
     """
 
-    def __init__(self, program, block, env, device, generator=None):
+    def __init__(self, program, block, env, device, generator=None,
+                 in_place=True):
         from ..amp import amp_dtype_of
         self.program = program
         self.block = block
@@ -91,6 +95,7 @@ class LoweringContext:
         self.generator = generator
         self.amp_dtype = amp_dtype_of(program)
         self.op = None
+        self.in_place = in_place
 
     def lookup(self, name):
         if name not in self.env:
@@ -120,6 +125,7 @@ class _MetaCtx:
     generator = None
     amp_dtype = None
     op = None
+    in_place = False
 
     def lookup(self, name):
         raise KeyError(name)
