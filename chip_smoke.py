@@ -90,10 +90,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      against rescale(int8_matmul_plain) and with its int32 epilogue
      bitwise against int8_matmul_plain; times beside the bound, the plain
      version and torch._int_mm on the same column-major weight (a
-     yardstick only). The activation quantize kernel bitwise against
-     quantize_activations_plain on a dispatch's activations (K 768 and
-     3072), rows of zeros, rows of exact halves and a static scale; its
-     time beside its bytes bound and the plain version;
+     yardstick only); the same checks and times at ResNet-50's int8 fc
+     (M 16, K 2048, N 1000: phase 25's rung 16). The activation
+     quantize kernel bitwise against quantize_activations_plain on a
+     dispatch's activations (K 768 and 3072) and on the ResNet-50 fc's
+     input (M 16, K 2048), rows of zeros, rows of exact halves and a
+     static scale; its time beside its bytes bound and the plain
+     version;
  10. int8 one-shot serving: GPT-2-small transformer_lm + argmax at full
      width (T 1024, f32, TF32 off, the port's startup, generator seed
      0) saved by save_inference_model, quantized by the port's
@@ -211,9 +214,45 @@ Phases, in order; any failure raises and the script exits non-zero:
  21. the optimizer suite: every update op once at [768, 3072] on the
      card, held to the same op on the CPU (1e-6 of each output's
      largest element: FMA contraction may differ), the guard's
-     new-tensor mode == the in-place mode bitwise.
+     new-tensor mode == the in-place mode bitwise;
+ 22. ResNet-50 amp training (R1): bench.py's bench_resnet50 program
+     exactly (224 x 224, 1000 classes, in-graph uniform_random images
+     and labels, Momentum(0.1, 0.9), amp.enable) at RESNET_B, the
+     largest of 1024, 512, 256, 128 that fits on one H100:
+     images/s median, low and high of 10 steps after 3, peak memory, a
+     profiled step's device time by class (cuDNN forward, data and
+     weight gradients, layout transforms, GEMM kernels, casts, Momentum,
+     batch norm and the other elementwise kernels) beside the step
+     wall, its 12 largest kernels;
+ 23. ResNet-50 on the card against the port on the CPU (R2): f32, TF32
+     off, B 4, one forward and one Momentum step from one scope, run
+     free: the loss, the fc weight and the first and last running stats
+     within 1e-4, the updated stem filter and first batch-norm scale
+     within 5e-2 (a relu input within f32 rounding of 0 flips); op by
+     op, every op on the CPU's values of its inputs within 1e-4; two
+     identical
+     two-step runs, f32 and amp, bitwise equal; the stem conv's
+     space-to-depth rewrite against the direct conv in f32 at RESNET_B,
+     and both timed forward + backward in bf16;
+ 24. host-fed training (R3): bench.py's bench_resnet50_hostfed program,
+     uint8 images through the DeviceFeeder with the port's defaults:
+     images/s against phase 22's and the feed counters;
+ 25. ResNet-50 serving (R4), the clone(for_test=True) program over
+     phase 22's weights, f32: in-process fed images/s at B 1 and 16;
+     the one-shot engine's rungs 1-16 as CUDA graphs, each rung's
+     dispatch wall against its replay's device time, each replay
+     bitwise == Executor.run, the running stats unchanged; int8 (53
+     quant_conv2d, which dequantize the filter and run the f32 conv, and
+     a quant_mul for the fc): the rung-16 wall against f32's, the
+     dequantize's share of a dispatch's device time, weight bytes, top-1
+     agreement with f32 on 256 images. The timed steps of 22 and 24 and
+     the f32 rung-16 dispatches of 25 launch none of the hand-written
+     kernels (their counts are checked to be 0); the int8 engine's fc
+     launches the quantize kernel and K6 once a dispatch, counted as the
+     path resnet50_serving_int8.
 
-The second-to-last line is the kernel table as JSON; the last line is
+The second-to-last line is the kernel table as JSON (with the ResNet-50
+results under "resnet50"); the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no CUDA card is visible or when run outside a checkout of the repo.
 """
@@ -243,6 +282,7 @@ try:
     from paddle_tpu_torch import _build, amp, flags, monitor
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import quant
+    from paddle_tpu_torch.executor import lower_ops_on
     from paddle_tpu_torch.ops import chunked_ce as ce
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import launch_counts
@@ -1751,7 +1791,8 @@ def int8_plain(x, w, ax, col):
 
 def int8_kernel_phase(smi):
     """K6 against its plain versions at the five GPT-2-small products of
-    a rung-8 dispatch (M = 8192) and a ragged case, the weight
+    a rung-8 dispatch (M = 8192), a ragged case and the ResNet-50 int8
+    fc of phase 25's rung 16 (M 16, K 2048, N 1000), the weight
     column-major: with the rescale epilogue (int8_matmul_rescaled)
     bitwise against rescale(int8_matmul_plain), with the int32 epilogue
     bitwise against int8_matmul_plain. Times: the rescaled kernel, its
@@ -1763,6 +1804,7 @@ def int8_kernel_phase(smi):
     M = SERVE_B * TRAIN_T
     cases = {k: (M, K, N) for k, (K, N, _) in INT8_PRODUCTS.items()}
     cases["ragged"] = (1000, 100, 130)
+    cases["resnet50_fc"] = RESNET_FC
     k6 = (qo.int8_matmul_rescaled, qo.int8_matmul_i32)
     results = {}
     for case, (m, k, n) in cases.items():
@@ -1847,22 +1889,25 @@ def quantize_inputs(rng, M, K):
 def quantize_kernel_phase(rng, smi):
     """The activation quantize kernel against quantize_activations_plain,
     bit for bit, at the dispatch's two activation widths (K 768: qkv,
-    proj, ffn_up, lm head; K 3072: ffn_down), dynamic and static scales;
-    timed per width and summed over a dispatch (37 x K 768, 12 x K 3072)
-    beside its bytes bound (f32 in, int8 out) and the plain version."""
+    proj, ffn_up, lm head; K 3072: ffn_down) and at the ResNet-50 int8
+    fc's input (M 16, K 2048), dynamic and static scales; timed per
+    shape, the GPT-2 widths summed over a dispatch (37 x K 768, 12 x
+    K 3072), beside its bytes bound (f32 in, int8 out) and the plain
+    version."""
     M = SERVE_B * TRAIN_T
     per_dispatch = {HID: 3 * LAYERS + 1, 4 * HID: LAYERS}
+    shapes = [(M, K) for K in per_dispatch] + [RESNET_FC[:2]]
     static = torch.tensor([0.0125], device="cuda")
     results = {}
-    for K, count in per_dispatch.items():
-        sets = [(quantize_inputs(rng, M, K),) for _ in range(3)]
+    for m, K in shapes:
+        sets = [(quantize_inputs(rng, m, K),) for _ in range(3)]
         for scale in (None, static):
             xq, ax = qo.quantize_activations(sets[0][0], scale)
             torch.cuda.synchronize()
             ref_q, ref_ax = qo.quantize_activations_plain(sets[0][0], scale)
             if not (torch.equal(xq, ref_q) and torch.equal(ax, ref_ax)):
                 raise AssertionError(
-                    f"quantize_activations [{M},{K}] "
+                    f"quantize_activations [{m},{K}] "
                     f"{'static' if scale is not None else 'dynamic'}: "
                     f"{int((xq != ref_q).sum())} xq and "
                     f"{int((ax != ref_ax).sum())} ax differ from the "
@@ -1873,17 +1918,20 @@ def quantize_kernel_phase(rng, smi):
                                      "the zero row's not tiny")
         ms = time_ms(qo.quantize_activations, sets, reps=20)
         plain_ms = time_ms(qo.quantize_activations_plain, sets, reps=6)
-        bound_ms = 5.0 * M * K / PEAK_HBM_BYTES * 1e3
-        results[K] = (count, ms, plain_ms, bound_ms)
-        log(f"kernel quantize_activations [{M},{K}]: bitwise == plain "
+        bound_ms = 5.0 * m * K / PEAK_HBM_BYTES * 1e3
+        results[m, K] = (per_dispatch[K] if m == M else 0, ms, plain_ms,
+                         bound_ms)
+        log(f"kernel quantize_activations [{m},{K}]: bitwise == plain "
             f"(dynamic and static; zero row, exact halves); ms {ms:.4f} "
             f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} (bytes) | "
             f"{smi}")
         del sets
     total = {"max_abs_err": 0.0, "library_ms": None, "bound_by": "bytes",
-             "cases": [{"M": M, "K": K, "per_dispatch": c, "ms": ms,
-                        "plain_ms": p, "bound_ms": b}
-                       for K, (c, ms, p, b) in results.items()]}
+             "cases": [{"M": m, "K": K, "per_dispatch": c, "ms": ms,
+                        "plain_ms": p, "bound_ms": b, "path": (
+                            "serving_int8" if m == M
+                            else "resnet50_serving_int8")}
+                       for (m, K), (c, ms, p, b) in results.items()]}
     for i, key in enumerate(("ms", "plain_ms", "bound_ms")):
         total[key] = sum(v[0] * v[1 + i] for v in results.values())
     log(f"kernel quantize_activations per rung-8 dispatch "
@@ -4111,6 +4159,639 @@ def optimizer_suite_phase(smi):
     return worst
 
 
+# -- phases 22-25: ResNet-50, the image model --------------------------------
+
+# bench.py's ResNet-50 programs at full width (224 x 224, 1000 classes,
+# MomentumOptimizer(0.1, 0.9), bf16 amp). bench.py trains B 1024 on the
+# TPU; RESNET_B is the largest of 1024, 512, 256 and 128 that fits on
+# one H100 (tools/resnet_probe.py: B 512 runs out of memory).
+RESNET_HW, RESNET_CLASSES = 224, 1000
+RESNET_B = 256
+RESNET_WARM, RESNET_TIMED = 3, 10
+RESNET_CHECK_B = 4                # R2: the card against the port on the CPU
+RESNET_TOL = 1e-4
+RESNET_BUCKETS = (1, 2, 4, 8, 16)
+RESNET_AGREE_IMAGES = 256
+RESNET_INT8_DISPATCHES = 10       # R4: rung-16 dispatches timed and counted
+# R4's int8 fc at rung 16: M, K (ResNet-50's 2048 features), N
+RESNET_FC = (RESNET_BUCKETS[-1], 2048, RESNET_CLASSES)
+
+
+def resnet_train_program(B, source, use_amp):
+    """bench.py's training program: `source` "random" draws the images
+    and labels inside the program (bench_resnet50), "uint8" feeds uint8
+    images cast and scaled in the program (bench_resnet50_hostfed),
+    "data" feeds float32 images."""
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        shape = [3, RESNET_HW, RESNET_HW]
+        if source == "random":
+            img = pt.layers.uniform_random([B] + shape, min=0.0, max=1.0)
+            lf = pt.layers.uniform_random([B, 1], min=0.0,
+                                          max=RESNET_CLASSES - 0.01)
+            label = pt.layers.cast(pt.layers.floor(lf), "int64")
+        elif source == "uint8":
+            raw = pt.layers.data("img_u8", shape, dtype="uint8")
+            img = pt.layers.scale(pt.layers.cast(raw, "float32"),
+                                  scale=1.0 / 255.0)
+            label = pt.layers.data("label", [1], dtype="int64")
+        else:
+            img = pt.layers.data("img", shape)
+            label = pt.layers.data("label", [1], dtype="int64")
+        probs = pt.models.resnet.resnet50(img, class_dim=RESNET_CLASSES)
+        cost = pt.layers.mean(pt.layers.cross_entropy(probs, label))
+        pt.MomentumOptimizer(learning_rate=0.1, momentum=0.9).minimize(cost)
+    if use_amp:
+        amp.enable(main)
+    return main, startup, cost
+
+
+def resnet_feed(B, seed):
+    rng = np.random.RandomState(seed)
+    return {"img": rng.rand(B, 3, RESNET_HW, RESNET_HW).astype(np.float32),
+            "label": rng.randint(0, RESNET_CLASSES, (B, 1)).astype(np.int64)}
+
+
+def tensors_of(scope):
+    return {k: v.clone() for k, v in scope.vars.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def scope_of(tensors, device):
+    scope = pt.Scope()
+    for k, v in tensors.items():
+        scope.set(k, (v.cuda() if device == "cuda" else v.cpu()).clone())
+    return scope
+
+
+def median_lo_hi(values):
+    return float(np.median(values)), float(min(values)), float(max(values))
+
+
+CONV_CLASSES = (("conv_wgrad", ("wgrad",)), ("conv_dgrad", ("dgrad",)),
+                ("conv_fprop", ("fprop", "fwd", "convolve", "conv2d",
+                                "implicit_gemm", "implicit_sgemm")),
+                ("conv_layout", ("nchwtonhwc", "nhwctonchw")))
+
+
+def resnet_step_breakdown(what, exe, main, feed, cost, scope, step_ms, smi):
+    """One more step under torch.profiler: its device time split into
+    cuDNN's convolutions (forward, data gradient, weight gradient, layout
+    transforms and other cuDNN kernels, by kernel name), GEMM kernels
+    (cuDNN runs 1 x 1 convolutions as GEMMs; the fc's cuBLAS product is
+    ~0.01 ms of them), casts, Momentum (the momentum ops' kernels,
+    marked by record_function around the op's lowering) and the rest
+    (batch norm, relu, pooling and the other elementwise kernels); busy
+    share = device time / the unprofiled step wall; the 12 largest
+    kernels by name."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    momentum = op_registry._REGISTRY["momentum"]
+
+    def marked(ctx, ins, attrs):
+        with record_function("resnet/momentum"):
+            return momentum.lowering(ctx, ins, attrs)
+    op_registry._REGISTRY["momentum"] = momentum._replace(lowering=marked)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+            torch.cuda.synchronize()
+    finally:
+        op_registry._REGISTRY["momentum"] = momentum
+    parts = dict.fromkeys([c for c, _ in CONV_CLASSES] + [
+        "cudnn_other", "gemm", "casts", "other"], 0.0)
+    top, momentum_us, device_us = {}, 0.0, 0.0
+    for ev in prof.events():
+        cuda = getattr(ev, "device_type", None) == \
+            torch.autograd.DeviceType.CUDA
+        if ev.name == "resnet/momentum":
+            if not cuda:
+                momentum_us += float(getattr(ev, "device_time_total", 0.0)
+                                     or 0.0)
+            continue
+        if not cuda:
+            continue
+        us = float(ev.time_range.elapsed_us())
+        device_us += us
+        top[ev.name[:120]] = top.get(ev.name[:120], 0.0) + us
+        low = ev.name.lower()
+        cls = next((c for c, frags in CONV_CLASSES
+                    if any(f in low for f in frags)), None)
+        if cls is None and "cudnn" in low:
+            cls = "cudnn_other"
+        if cls is None and any(f in low for f in GEMM_NAMES):
+            cls = "gemm"
+        if cls is None and any(f in ev.name for f in CAST_NAMES):
+            cls = "casts"
+        parts[cls or "other"] += us
+    if device_us <= 0:
+        log(f"{what} breakdown: the profiler recorded no device time; "
+            "device time not measured")
+        return None
+    ms = {k: v / 1e3 for k, v in parts.items()}
+    ms["momentum"] = momentum_us / 1e3
+    ms["bn_and_elementwise"] = ms.pop("other") - ms["momentum"]
+    device_ms = device_us / 1e3
+    top = sorted(top.items(), key=lambda kv: -kv[1])[:12]
+    log(f"{what} breakdown (profiled step): device {device_ms:.1f} ms of "
+        f"kernels against a {step_ms:.1f} ms unprofiled step wall (busy "
+        f"share {device_ms / step_ms:.3f}); ms "
+        f"{ {k: round(v, 2) for k, v in ms.items()} } | {smi}")
+    log(f"{what}: largest device kernels (ms) "
+        f"{[(n, round(us / 1e3, 2)) for n, us in top]}")
+    return {"device_ms": device_ms, "ms": ms,
+            "share": {k: v / device_ms for k, v in ms.items()},
+            "busy": device_ms / step_ms,
+            "top_kernels_ms": [(n, us / 1e3) for n, us in top]}
+
+
+def resnet_train_phase(smi):
+    """Phase 22 (R1): bench.py's bench_resnet50 program exactly (in-graph
+    uniform_random images and labels, Momentum(0.1, 0.9), amp) at 224 x
+    224, 1000 classes, B RESNET_B: RESNET_WARM warm-up steps, then
+    RESNET_TIMED timed steps (each ends in the loss's fetch, so the card
+    has finished): images/s median, low and high, peak memory, and a
+    profiled step's device time by class beside the step wall. Returns
+    the trained scope's persistables (phase 25 serves them)."""
+    torch.cuda.empty_cache()
+    main, startup, cost = resnet_train_program(RESNET_B, "random", True)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    for _ in range(RESNET_WARM):
+        exe.run(main, fetch_list=[cost], scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    zero_counts()                       # the main path starts here
+    for _ in range(RESNET_TIMED):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main, fetch_list=[cost],
+                                    scope=scope)[0][0]))
+        walls.append(1e3 * (time.perf_counter() - t0))
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, launches_of(), "R1")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"ResNet-50 amp training: non-finite loss "
+                             f"{losses}")
+    ips = median_lo_hi([RESNET_B / w * 1e3 for w in walls])
+    step_ms = float(np.median(walls))
+    log(f"ResNet-50 amp training B {RESNET_B} at {RESNET_HW} x {RESNET_HW}: "
+        f"{ips[0]:.1f} images/s median of {RESNET_TIMED} steps after "
+        f"{RESNET_WARM} warm-up (low {ips[1]:.1f}, high {ips[2]:.1f}), "
+        f"step wall {step_ms:.1f} ms, peak memory {peak_gib:.2f} GiB, "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} | {smi}")
+    breakdown = resnet_step_breakdown(
+        f"ResNet-50 amp training B {RESNET_B}", exe, main, {}, cost, scope,
+        step_ms, smi)
+    weights = {n: scope.get(n) for n, v in main.global_block().vars.items()
+               if v.persistable and scope.has(n)
+               and "velocity" not in n}
+    del scope, exe
+    torch.cuda.empty_cache()
+    return counts, weights, {"batch": RESNET_B, "images_per_s": ips[0],
+                     "images_per_s_lo": ips[1], "images_per_s_hi": ips[2],
+                     "step_ms": step_ms, "peak_gib": peak_gib,
+                     "losses": losses, "breakdown": breakdown}
+
+
+def resnet_stem_case(smi):
+    """The stem conv (7 x 7 / 2, 3 -> 64, pad 3) at the training batch:
+    the space-to-depth rewrite against the direct conv in f32 on the card
+    (tests/test_conv_s2d.py's tolerances: rtol 1e-4, atol 1e-5 of the
+    largest |output|; the filter gradient rtol 1e-3), then each timed
+    forward + backward in bf16 between CUDA events."""
+    from paddle_tpu_torch.ops import nn_ops
+    rng = np.random.RandomState(SEED + 22)
+    x = torch.from_numpy(rng.randn(RESNET_B, 3, RESNET_HW, RESNET_HW)
+                         .astype(np.float32)).cuda()
+    w = torch.from_numpy(rng.randn(64, 3, 7, 7).astype(np.float32)).cuda()
+    attrs = {"strides": [2, 2], "paddings": [3, 3], "dilations": [1, 1],
+             "groups": 1}
+    conv = op_registry.get_op("conv2d").lowering
+
+    def run(x, w, s2d):
+        prev = flags.get("conv_s2d_stem")
+        flags.set_flag("conv_s2d_stem", s2d)
+        try:
+            return conv(None, {"Input": [x], "Filter": [w]},
+                        attrs)["Output"][0]
+        finally:
+            flags.set_flag("conv_s2d_stem", prev)
+    assert nn_ops._s2d_eligible(x, w, (2, 2), (3, 3), (1, 1), 1)
+    outs, grads = {}, {}
+    for s2d in (False, True):
+        wl = w.clone().requires_grad_(True)
+        y = run(x, wl, s2d)
+        g, = torch.autograd.grad(y.square().mean(), wl)
+        outs[s2d], grads[s2d] = y.detach(), g
+    scale = float(outs[False].abs().max())
+    err = float((outs[True] - outs[False]).abs().max())
+    gscale = float(grads[False].abs().max())
+    gerr = float((grads[True] - grads[False]).abs().max())
+    if not (torch.allclose(outs[True], outs[False], rtol=1e-4,
+                           atol=1e-5 * max(scale, 1.0))
+            and torch.allclose(grads[True], grads[False], rtol=1e-3,
+                               atol=1e-5 * max(gscale, 1.0))):
+        raise AssertionError(f"stem: s2d differs from the direct conv: "
+                             f"output {err:.3e} of {scale:.3e}, filter "
+                             f"gradient {gerr:.3e} of {gscale:.3e}")
+    xb, wb = x.bfloat16(), w.bfloat16().requires_grad_(True)
+    times = {}
+    for s2d in (False, True, True, False):
+        def step():
+            y = run(xb, wb, s2d)
+            torch.autograd.grad(y, wb, torch.ones_like(y))
+        for _ in range(2):
+            step()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(10):
+            step()
+        end.record()
+        end.synchronize()
+        times.setdefault("s2d" if s2d else "direct", []).append(
+            start.elapsed_time(end) / 10)
+    faster = min(times, key=lambda k: min(times[k]))
+    log(f"stem 7x7/2 at B {RESNET_B}: s2d vs direct f32 output error "
+        f"{err:.3e} (max |y| {scale:.3e}), filter gradient {gerr:.3e}; "
+        f"bf16 forward + backward ms direct {times['direct']}, s2d "
+        f"{times['s2d']} (turns direct, s2d, s2d, direct): {faster} is "
+        f"faster; the default stays s2d (the reference's) | {smi}")
+    return {"max_abs_err": err, "grad_max_abs_err": gerr,
+            "bf16_fwd_bwd_ms": times, "faster": faster}
+
+
+# R2's free-running tolerance for the parameters whose gradient passes
+# through every residual block: a relu input within f32 rounding of 0
+# takes the other side on the card, and its element's gradient (up to
+# ~1e-2 of the tensor's largest) moves the stem's filter gradient by a
+# few percent; each op on identical inputs is held to RESNET_TOL
+RESNET_DEEP_TOL = 5e-2
+
+
+def resnet_parity_phase(smi):
+    """Phase 23 (R2): ResNet-50 f32 (TF32 off) at 224 x 224, 1000
+    classes, B RESNET_CHECK_B, from one scope (the port's startup on the
+    CPU): one forward and one Momentum step on the card and on the CPU.
+    Run free: the loss, the fc weight and the running mean and variance
+    of the first and the last batch norm within RESNET_TOL (relative;
+    of each array's largest element), the updated stem filter and first
+    batch-norm scale within RESNET_DEEP_TOL. Op by op: every op of the
+    step (forward, grad, momentum) on the card on the CPU's values of
+    its inputs within RESNET_TOL of each output's largest element. Then
+    two identical two-step runs from one scope, f32 and amp, on the
+    card: bitwise-equal losses, parameters and running stats. Then the
+    stem rewrite (R2's last part)."""
+    main, startup, cost = resnet_train_program(RESNET_CHECK_B, "data",
+                                               False)
+    cpu_scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=cpu_scope)
+    init = tensors_of(cpu_scope)
+    feed = resnet_feed(RESNET_CHECK_B, SEED + 23)
+    block = main.global_block()
+    names = [n for n, v in block.vars.items()
+             if not v.persistable and n not in feed]
+    losses, scopes = {}, {}
+    for dev in ("cpu", "cuda"):
+        scope = scope_of(init, dev)
+        exe = pt.Executor(pt.CPUPlace() if dev == "cpu" else None)
+        out = exe.run(main, feed=feed, fetch_list=[cost] + (
+            names if dev == "cpu" else []), scope=scope, return_numpy=False)
+        losses[dev] = float(out[0][0])
+        if dev == "cpu":
+            values = dict(zip(names, out[1:]))
+        scopes[dev] = scope
+    loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    tols = {"conv2d_0.w_0": RESNET_DEEP_TOL,
+            "batch_norm_0.w_0": RESNET_DEEP_TOL, "fc_0.w_0": RESNET_TOL,
+            "batch_norm_0.mean_0": RESNET_TOL,
+            "batch_norm_0.var_0": RESNET_TOL,
+            "batch_norm_52.mean_0": RESNET_TOL,
+            "batch_norm_52.var_0": RESNET_TOL}
+    errs = {}
+    for n in tols:
+        ref = scopes["cpu"].get(n)
+        got = scopes["cuda"].get(n).cpu()
+        if torch.equal(ref, init[n]):
+            raise AssertionError(f"R2: {n} was not updated by the step")
+        errs[n] = float((got - ref).abs().max()) / float(ref.abs().max())
+    log(f"ResNet-50 f32 B {RESNET_CHECK_B} one Momentum step run free, card "
+        f"vs the port on the CPU: loss {losses['cuda']:.6f} vs "
+        f"{losses['cpu']:.6f} (relative {loss_err:.2e}); updated state, "
+        f"error / largest element "
+        f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tolerance "
+        f"{RESNET_TOL:g}; stem filter and first scale {RESNET_DEEP_TOL:g}) "
+        f"| {smi}")
+    if not loss_err <= RESNET_TOL or any(e > tols[n]
+                                         for n, e in errs.items()):
+        raise AssertionError(f"R2: the card differs from the CPU: loss "
+                             f"{loss_err:.3e}, state {errs}")
+    for n, t in scopes["cpu"].vars.items():
+        if isinstance(t, torch.Tensor) and block._find_var(n) is not None:
+            values[n] = t
+    values.update({k: torch.from_numpy(v) for k, v in feed.items()})
+    op_errs = {n: float((got.double() - ref.double()).abs().max())
+               / max(float(ref.double().abs().max()), 1e-30)
+               for n, (got, ref) in lower_ops_on(main, exe.device, init,
+                                                 values).items()}
+    worst = max(op_errs, key=op_errs.get)
+    log(f"ResNet-50 f32 B {RESNET_CHECK_B} op by op on the card, on the "
+        f"CPU's inputs: {len(op_errs)} outputs of {len(block.ops)} ops, "
+        f"worst {op_errs[worst]:.3e} of the largest element ({worst}; "
+        f"tolerance {RESNET_TOL:g}) | {smi}")
+    if op_errs[worst] > RESNET_TOL:
+        bad = sorted((e, n) for n, e in op_errs.items()
+                     if e > RESNET_TOL)[-5:]
+        raise AssertionError(f"R2: ops on the card differ from the CPU: "
+                             f"{bad}")
+    del scopes, values
+    same = {}
+    for use_amp in (False, True):
+        main2, _, cost2 = resnet_train_program(RESNET_CHECK_B, "data",
+                                               use_amp)
+        exe = pt.Executor()
+        runs = []
+        for _ in range(2):
+            scope = scope_of(init, "cuda")
+            ls = [exe.run(main2, feed=resnet_feed(RESNET_CHECK_B, s),
+                          fetch_list=[cost2], scope=scope)[0]
+                  for s in (SEED + 24, SEED + 25)]
+            runs.append((ls, tensors_of(scope)))
+        diff = same_bits(runs[0][1], runs[1][1])
+        if diff or not all(np.array_equal(a, b) for a, b in
+                           zip(runs[0][0], runs[1][0])):
+            what = "amp" if use_amp else "f32"
+            raise AssertionError(f"R2: two identical {what} runs differ: "
+                                 f"losses {runs[0][0]} vs "
+                                 f"{runs[1][0]}, tensors {diff[:5]}")
+        same["amp" if use_amp else "f32"] = len(runs[0][1])
+    log(f"ResNet-50 B {RESNET_CHECK_B}: two identical two-step runs on the "
+        f"card are bitwise equal (losses, and every scope tensor: {same}) "
+        f"| {smi}")
+    stem = resnet_stem_case(smi)
+    return {"loss_card": losses["cuda"], "loss_cpu": losses["cpu"],
+            "loss_rel_err": loss_err, "state_rel_err": errs,
+            "tolerance": RESNET_TOL, "deep_tolerance": RESNET_DEEP_TOL,
+            "op_by_op_worst": op_errs[worst], "op_by_op_outputs":
+            len(op_errs), "bitwise_runs": same, "stem": stem}
+
+
+def resnet_hostfed_phase(smi, r1):
+    """Phase 24 (R3): bench.py's bench_resnet50_hostfed program (uint8
+    images on the wire, cast and scaled in the program, labels int64) at
+    B RESNET_B through the DeviceFeeder with the port's defaults (one
+    convert worker, prefetch 2) over a pool of three host batches:
+    images/s over RESNET_TIMED steps after RESNET_WARM, against phase
+    22's, and the feeder's counters."""
+    from paddle_tpu_torch.reader import DeviceFeeder
+    torch.cuda.empty_cache()
+    main, startup, cost = resnet_train_program(RESNET_B, "uint8", True)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED + 26)
+    pool = [{"img_u8": rng.randint(0, 256, (RESNET_B, 3, RESNET_HW,
+                                            RESNET_HW), dtype=np.uint8),
+             "label": rng.randint(0, RESNET_CLASSES, (RESNET_B, 1))
+             .astype(np.int64)} for _ in range(3)]
+
+    def reader():
+        i = 0
+        while True:
+            yield pool[i % len(pool)]
+            i += 1
+
+    feeder = DeviceFeeder(reader, main, exe)
+    it = iter(feeder)
+    first = next(it)
+    if first["img_u8"].dtype != torch.uint8 or \
+            first["img_u8"].device != exe.device:
+        raise AssertionError(f"R3: the feed reached the program as "
+                             f"{first['img_u8'].dtype} on "
+                             f"{first['img_u8'].device}")
+    exe.run(main, feed=first, fetch_list=[cost], scope=scope)
+    for _ in range(RESNET_WARM - 1):
+        exe.run(main, feed=next(it), fetch_list=[cost], scope=scope)
+    walls, losses = [], []
+    zero_counts()                       # the main path starts here
+    for _ in range(RESNET_TIMED):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main, feed=next(it), fetch_list=[cost],
+                                    scope=scope)[0][0]))
+        walls.append(1e3 * (time.perf_counter() - t0))
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, launches_of(), "R3")
+    it.close()
+    stats = feeder.stats()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"R3: non-finite loss {losses}")
+    ips = median_lo_hi([RESNET_B / w * 1e3 for w in walls])
+    log(f"ResNet-50 host-fed amp training B {RESNET_B} (uint8 over the "
+        f"DeviceFeeder, defaults): {ips[0]:.1f} images/s median (low "
+        f"{ips[1]:.1f}, high {ips[2]:.1f}) against {r1['images_per_s']:.1f}"
+        f" in-graph ({ips[0] / r1['images_per_s']:.3f}); feed {stats} | "
+        f"{smi}")
+    del scope, exe, feeder
+    torch.cuda.empty_cache()
+    return counts, {"images_per_s": ips[0], "images_per_s_lo": ips[1],
+                    "images_per_s_hi": ips[2],
+                    "vs_in_graph": ips[0] / r1["images_per_s"],
+                    "feed": stats}
+
+
+def resnet_infer_program():
+    """bench.py's bench_resnet50_inference program: the image feed and
+    ResNet-50; returns (main, its clone(for_test=True), probs)."""
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        img = pt.layers.data("img", [3, RESNET_HW, RESNET_HW])
+        probs = pt.models.resnet.resnet50(img, class_dim=RESNET_CLASSES)
+    return main, main.clone(for_test=True), probs
+
+
+def running_stats(scope):
+    return {n: t.clone() for n, t in scope.vars.items()
+            if ".mean_" in n or ".var_" in n}
+
+
+def program_weight_bytes(program, scope):
+    return sum(scope.get(n).numel() * scope.get(n).element_size()
+               for n, v in program.global_block().vars.items()
+               if v.persistable and scope.has(n))
+
+
+def resnet_serving_phase(weights, smi):
+    """Phase 25 (R4): the clone(for_test=True) inference program over
+    phase 22's trained weights, f32 (TF32 off). In-process fed (bench.py's
+    inprocess_fed_img_per_sec): a numpy batch fed every step, 20 steps a
+    window with the probabilities fetched on the last, median of 3
+    windows, at B 1 and 16. The one-shot engine (from_program, rungs 1,
+    2, 4, 8, 16 captured as CUDA graphs by warmup): each rung's dispatch
+    wall against its graph replay's device time, each rung's output
+    against the eager Executor.run of the same batch, and the running
+    stats unchanged after serving. int8: the pruned program quantized by
+    the port (quant_conv2d x 53, quant_mul for the fc): the rung-16
+    dispatch wall of a one-rung engine against f32's, the dequantize's
+    share of a profiled int8 dispatch's device time, weight bytes, and
+    top-1 agreement with f32 on RESNET_AGREE_IMAGES seeded images."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    main, test, probs = resnet_infer_program()
+    scope = pt.Scope()
+    for n, t in weights.items():
+        if test.global_block()._find_var(n) is not None:
+            scope.set(n, t)
+    exe = pt.Executor()
+    before = running_stats(scope)
+    rng = np.random.RandomState(SEED + 27)
+    fed = {}
+    for bs in (1, 16):
+        x = rng.rand(bs, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+        exe.run(test, feed={"img": x}, fetch_list=[probs], scope=scope)
+        exe.run(test, feed={"img": x}, fetch_list=[], scope=scope)
+        rates = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(19):
+                exe.run(test, feed={"img": x}, fetch_list=[], scope=scope)
+            exe.run(test, feed={"img": x}, fetch_list=[probs], scope=scope)
+            rates.append(bs * 20 / (time.perf_counter() - t0))
+        fed[bs] = float(np.median(rates))
+    log(f"ResNet-50 f32 in-process fed inference: images/s "
+        f"{ {k: round(v, 1) for k, v in fed.items()} } (B 1, 16) | {smi}")
+
+    engine = InferenceEngine.from_program(
+        main, ["img"], [probs], executor=exe, scope=scope,
+        config=EngineConfig(buckets=RESNET_BUCKETS, batch_timeout_ms=0),
+        start=False)
+    if list(engine.warmup()) != list(RESNET_BUCKETS):
+        raise AssertionError("R4: the engine's rungs are not "
+                             f"{RESNET_BUCKETS}")
+    rungs = {}
+    for b in RESNET_BUCKETS:
+        x = rng.rand(b, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+        for _ in range(2):
+            out = engine._dispatch([x])[0]
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            engine._dispatch([x])
+            walls.append(1e3 * (time.perf_counter() - t0))
+        key = (((b, 3, RESNET_HW, RESNET_HW), "<f4"),)
+        device_ms = graph_replay_ms(engine._graphs, key)
+        eager, = exe.run(test, feed={"img": x}, fetch_list=[probs],
+                         scope=scope)
+        err = float(np.abs(out - eager).max())
+        rungs[b] = {"wall_ms": float(np.median(walls)),
+                    "device_ms": device_ms, "bitwise": err == 0.0,
+                    "max_abs_err": err}
+        if err != 0.0:
+            raise AssertionError(f"R4: rung {b}'s graph replay differs from "
+                                 f"Executor.run by {err:.3e} (expected "
+                                 f"the same bits)")
+    changed = same_bits(before, running_stats(scope))
+    if changed:
+        raise AssertionError(f"R4: serving changed running stats "
+                             f"{changed[:5]}")
+    shown = {b: (round(r["wall_ms"], 2), round(r["device_ms"], 2))
+             for b, r in rungs.items()}
+    log(f"ResNet-50 one-shot engine (CUDA graph a rung): dispatch wall / "
+        f"replay device ms {shown}; each replay bitwise == Executor.run; "
+        f"the {len(before)} running stats unchanged | {smi}")
+
+    pruned = pt.io._prune_for_inference(main, ["img"], [probs.name])
+    qprog, qscope, _ = quant.quantize_program(pruned, scope)
+    types = [op.type for op in qprog.global_block().ops]
+    if types.count("quant_conv2d") != 53 or "conv2d" in types \
+            or types.count("quant_mul") != 1:
+        raise AssertionError(f"R4: the quantized program runs "
+                             f"{types.count('quant_conv2d')} quant_conv2d")
+    f32_bytes = program_weight_bytes(pruned, scope)
+    int8_bytes = program_weight_bytes(qprog, qscope)
+    # the rung-16 engines' dispatches are the main paths: the f32 one
+    # launches no hand-written kernel; the int8 one's fc (quant_mul)
+    # launches the quantize kernel and K6 once a dispatch, its weight
+    # column-major (no repack) and K 2048 (no padding)
+    walls, counts = {}, {}
+    k6 = qo.int8_matmul_rescaled
+    for name, prog, sc in (("f32", pruned, scope), ("int8", qprog, qscope)):
+        eng = InferenceEngine.from_program(
+            prog, ["img"], [probs], executor=exe, scope=sc,
+            config=EngineConfig(buckets=(16,), batch_timeout_ms=0),
+            start=False)
+        eng.warmup()
+        x = rng.rand(16, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+        ws = []
+        zero_counts()                   # the main path starts here
+        k6.repacks = k6.k_pads = 0
+        for _ in range(RESNET_INT8_DISPATCHES):
+            t0 = time.perf_counter()
+            eng._dispatch([x])
+            ws.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        counts[name] = read_counts()    # the main path ends here
+        walls[name] = float(np.median(ws))
+        del eng
+        if name == "int8" and (k6.repacks or k6.k_pads):
+            raise AssertionError(f"R4: the int8 fc's K6 made {k6.repacks} "
+                                 f"repacks and {k6.k_pads} K paddings")
+    n = RESNET_INT8_DISPATCHES
+    check_counts(counts["f32"], launches_of(), "R4 f32 rung 16")
+    check_counts(counts["int8"], launches_of(
+        int8_matmul=n, quantize_activations=n), "R4 int8 rung 16")
+    dequantize = qo.dequantize
+
+    def marked(*a, **k):
+        with record_function("int8/dequantize"):
+            return dequantize(*a, **k)
+    qo.dequantize = marked
+    x = rng.rand(16, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            exe.run(qprog, feed={"img": x}, fetch_list=[probs], scope=qscope)
+            torch.cuda.synchronize()
+    finally:
+        qo.dequantize = dequantize
+    deq_us = sum(float(getattr(ev, "device_time_total", 0.0) or 0.0)
+                 for ev in prof.events() if ev.name == "int8/dequantize"
+                 and getattr(ev, "device_type", None)
+                 != torch.autograd.DeviceType.CUDA)
+    dev_us = sum(float(ev.time_range.elapsed_us()) for ev in prof.events()
+                 if getattr(ev, "device_type", None)
+                 == torch.autograd.DeviceType.CUDA)
+    agree = 0
+    for i in range(RESNET_AGREE_IMAGES // 16):
+        x = np.random.RandomState(SEED + 100 + i).rand(
+            16, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+        p32, = exe.run(pruned, feed={"img": x}, fetch_list=[probs],
+                       scope=scope)
+        p8, = exe.run(qprog, feed={"img": x}, fetch_list=[probs],
+                      scope=qscope)
+        agree += int((p32.argmax(1) == p8.argmax(1)).sum())
+    int8 = {"rung16_wall_ms": walls["int8"], "f32_rung16_wall_ms":
+            walls["f32"], "dequantize_device_ms": deq_us / 1e3,
+            "dispatch_device_ms": dev_us / 1e3,
+            "dequantize_share": deq_us / dev_us if dev_us else None,
+            "weight_bytes": int8_bytes, "f32_weight_bytes": f32_bytes,
+            "top1_agreement": agree / RESNET_AGREE_IMAGES}
+    log(f"ResNet-50 int8 (53 quant_conv2d + quant_mul): rung-16 dispatch "
+        f"wall {walls['int8']:.2f} ms against f32 {walls['f32']:.2f} ms "
+        f"({n} dispatches each; launches {counts['int8']['int8_matmul']} "
+        f"K6 and {counts['int8']['quantize_activations']} quantize in the "
+        f"int8 one's, none in the f32 one's); "
+        f"the dequantize {deq_us / 1e3:.2f} ms of a profiled eager "
+        f"dispatch's {dev_us / 1e3:.2f} ms of kernels; weights "
+        f"{int8_bytes / 2**20:.1f} MiB against {f32_bytes / 2**20:.1f} MiB; "
+        f"top-1 agreement with f32 {agree}/{RESNET_AGREE_IMAGES} | {smi}")
+    return counts, {"inprocess_fed_images_per_s": fed, "rungs": rungs,
+                    "running_stats_unchanged": True, "int8": int8}
+
+
 def main():
     name, smi = device_phase()
     t0 = time.perf_counter()
@@ -4140,6 +4821,14 @@ def main():
     del med_weights
     trainer_counts, trainer = trainer_phase(smi)
     suite = optimizer_suite_phase(smi)
+    resnet_train_counts, resnet_weights, resnet_train = \
+        resnet_train_phase(smi)
+    resnet_parity = resnet_parity_phase(smi)
+    resnet_hostfed_counts, resnet_hostfed = resnet_hostfed_phase(
+        smi, resnet_train)
+    resnet_serving_counts, resnet_serving = resnet_serving_phase(
+        resnet_weights, smi)
+    del resnet_weights
     paths = {"serving": {"flash_attn_fwd": serving_k1},
              f"training_T{TRAIN_T}": train_counts,
              f"training_T{SHORT_T}": short_counts,
@@ -4150,7 +4839,11 @@ def main():
              "gpt2_medium_training_f32": med_f32_counts,
              "gpt2_medium_generation": med_gen_counts,
              "gpt2_medium_serving_int8": med_int8_counts,
-             "trainer": trainer_counts}
+             "trainer": trainer_counts,
+             "resnet50_training_amp": resnet_train_counts,
+             "resnet50_hostfed_amp": resnet_hostfed_counts,
+             "resnet50_serving_f32": resnet_serving_counts["f32"],
+             "resnet50_serving_int8": resnet_serving_counts["int8"]}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ALL_KERNELS}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()}
@@ -4229,7 +4922,11 @@ def main():
                                       "training_f32": med_f32,
                                       "generation": med_gen,
                                       "serving_int8": med_int8},
-                      "trainer": trainer, "optimizer_suite": suite}),
+                      "trainer": trainer, "optimizer_suite": suite,
+                      "resnet50": {"training_amp": resnet_train,
+                                   "parity": resnet_parity,
+                                   "hostfed": resnet_hostfed,
+                                   "serving": resnet_serving}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

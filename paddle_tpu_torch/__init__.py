@@ -68,7 +68,8 @@ from .framework import (CPUPlace, CUDAPlace, Program, default_main_program,
                         reset_default_programs)
 from .executor import Executor, Scope, global_scope, scope_guard
 from .backward import append_backward
-from . import amp, flags, initializer, layers, models, optimizer, regularizer
+from . import amp, flags, initializer, layers, nets, models, optimizer
+from . import regularizer
 from . import clip, event, io, learning_rate_decay, quant, reader, resilience
 from .data_feeder import DataFeeder
 from .optimizer import (AdadeltaOptimizer, AdagradOptimizer,
@@ -82,9 +83,10 @@ __all__ = ["amp", "framework", "CPUPlace", "CUDAPlace", "Program",
            "default_main_program", "default_startup_program",
            "program_guard", "reset_default_programs", "Executor", "Scope",
            "global_scope", "scope_guard", "append_backward", "initializer",
-           "layers", "models", "optimizer", "regularizer", "AdamOptimizer",
-           "SGDOptimizer", "MomentumOptimizer", "AdagradOptimizer",
-           "DecayedAdagradOptimizer", "AdamaxOptimizer", "AdadeltaOptimizer",
+           "layers", "nets", "models", "optimizer", "regularizer",
+           "AdamOptimizer", "SGDOptimizer", "MomentumOptimizer",
+           "AdagradOptimizer", "DecayedAdagradOptimizer", "AdamaxOptimizer",
+           "AdadeltaOptimizer",
            "RMSPropOptimizer", "FtrlOptimizer", "ModelAverage", "ParamAttr",
            "HookAttribute", "flags", "io", "monitor", "ops", "quant",
            "serving", "weights", "clip", "event", "learning_rate_decay",

@@ -56,7 +56,7 @@ from .ops import grad as grad_mod
 from .ops import registry as op_registry
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard",
-           "host_cast_feed", "error_context"]
+           "host_cast_feed", "error_context", "lower_ops_on"]
 
 _GENERATOR_KEY = "__rng_generator__"
 
@@ -162,6 +162,47 @@ def _place_device(place):
     if isinstance(place, CUDAPlace):
         return resolve_device(f"cuda:{place.device_id}")
     return resolve_device(place)
+
+
+def lower_ops_on(program, device, before, values):
+    """Lower every op of `program` on `device` through the executor's own
+    op dispatch, each op on given values of its inputs: `before[name]`
+    for a persistable (its value before the step) and `values[name]` for
+    every other var (feeds, and what another implementation computed);
+    a grad op replays its forward op's tape. So two implementations are
+    compared op by op instead of run free. Values are torch tensors or
+    numpy arrays (a bfloat16 one, ml_dtypes' type, is taken exactly).
+    Returns {output name: (the port's value, on the CPU, values[name] as
+    a tensor)} for every float output `values` holds."""
+    def tensor(v):
+        if isinstance(v, torch.Tensor):
+            return v
+        a = np.array(v)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        return torch.from_numpy(a)
+
+    device = resolve_device(device)
+    if device.type == "cuda":
+        use_full_f32()
+    block = program.global_block()
+    ctx = op_registry.LoweringContext(program, block, {}, device,
+                                      in_place=False)
+    taped = Executor._ops_needing_tape(block)
+    persistable = {n for n, v in block.vars.items() if v.persistable}
+    pairs = {}
+    for op in block.ops:
+        for names in op.inputs.values():
+            for n in names:
+                if n:
+                    ctx.env[n] = tensor(before[n] if n in persistable
+                                        else values[n]).to(device)
+        Executor._lower_op(ctx, op, taped)
+        for names in op.outputs.values():
+            for n in names:
+                if n and n in values and tensor(values[n]).is_floating_point():
+                    pairs[n] = (ctx.env[n].detach().cpu(), tensor(values[n]))
+    return pairs
 
 
 class Executor:
@@ -298,6 +339,7 @@ class Executor:
 
         uses_key = any(op_registry.has_op(op.type)
                        and op_registry.get_op(op.type).stateful
+                       and not op.attrs.get("is_test", False)
                        for op in block.ops)
         return block, state_mut, state_ro, state_out, feed_names, uses_key
 

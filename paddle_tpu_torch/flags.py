@@ -2,12 +2,11 @@
 
 The port's own copy of the slice of `paddle_tpu/flags.py` that LM
 serving, one-shot serving, the int8 quantized ops, the stacked
-transformer's remat, the executor's NaN guard, the input pipeline and
-the fault injector read, with the
-same names, defaults and environment spellings
-(`PADDLE_TPU_<NAME>`), so one deployment environment configures both
-packages alike. Values resolve from the environment at first use and
-can be set from Python.
+transformer's remat, the conv stem rewrite, the executor's NaN guard,
+the input pipeline and the fault injector read, with the same names,
+defaults and environment spellings (`PADDLE_TPU_<NAME>`), so one
+deployment environment configures both packages alike. Values resolve
+from the environment at first use and can be set from Python.
 """
 
 from __future__ import annotations
@@ -77,6 +76,10 @@ _DEFS = {
     "remat": (_parse_bool, False,
               "rematerialise each transformer_stack layer in the backward "
               "(torch.utils.checkpoint): activation memory for FLOPs"),
+    "conv_s2d_stem": (_parse_bool, True,
+                      "rewrite small-channel strided convs (image stems) "
+                      "as space-to-depth + stride-1 conv — exact same "
+                      "math, MXU-friendlier shapes"),
     "int8_matmul": (_parse_choice("auto", "pallas", "dot"), "auto",
                     "quantized-matmul core (quant_mul/quant_matmul, "
                     "ops/quant_ops.py): on a CUDA tensor every value runs "

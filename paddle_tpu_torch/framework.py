@@ -337,18 +337,21 @@ class Program:
     # -- clone / serialise --------------------------------------------------
     def clone(self, for_test=False):
         """Deep-copy the program (a fresh uid, version bumped). With
-        for_test=True, every op that carries the standard `is_test` attr
-        flips it on (inference behaviour). The reference also flips ops
-        its registry marks test-aware (dropout, batch_norm); the port
-        has none of those yet."""
+        for_test=True, ops flip to inference behaviour (dropout off,
+        batch_norm on its running stats) through the standard `is_test`
+        attr: every op that carries it, and every op whose registry
+        entry is test-aware, gets `is_test` True (the reference's
+        contract)."""
         cloned = copy.deepcopy(self)
         Program._uid_counter += 1
         cloned.uid = Program._uid_counter
         cloned.bump()
         if for_test:
+            from .ops.registry import get_op, has_op
             for blk in cloned.blocks:
                 for op in blk.ops:
-                    if "is_test" in op.attrs:
+                    if "is_test" in op.attrs or (
+                            has_op(op.type) and get_op(op.type).test_aware):
                         op.attrs["is_test"] = True
         return cloned
 

@@ -1,12 +1,13 @@
 """Tensor creation / manipulation layers (the port's copy of the part of
-`paddle_tpu/layers/tensor.py` the training path calls)."""
+`paddle_tpu/layers/tensor.py` the training path and the image models
+call)."""
 
 from __future__ import annotations
 
 from .. import framework
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "cast", "fill_constant", "slice",
+__all__ = ["create_parameter", "cast", "concat", "fill_constant", "slice",
            "uniform_random", "argmax", "assign", "increment", "less_than"]
 
 
@@ -36,6 +37,15 @@ def cast(x, dtype, name=None):
     out = helper.create_tmp_variable(dtype, lod_level=x.lod_level)
     helper.append_op("cast", {"X": [x.name]}, {"Out": [out.name]},
                      {"out_dtype": dtype, "in_dtype": x.dtype})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_tmp_variable(input[0].dtype,
+                                     lod_level=input[0].lod_level)
+    helper.append_op("concat", {"X": [v.name for v in input]},
+                     {"Out": [out.name]}, {"axis": axis})
     return out
 
 

@@ -1,7 +1,7 @@
 """Math / tensor op lowerings (the port of the part of
 `paddle_tpu/ops/math_ops.py` and `ops/tensor_ops.py` the training path
 runs, with the ops the LR schedules, the gradient clips and the
-regularizers append).
+regularizers append, and the channel concat of the image models).
 
 Each lowering is a few lines of torch, run eagerly by the executor; the
 large products (`mul`) go to `torch.matmul`, as the reference leaves
@@ -182,6 +182,11 @@ def _arg_max(ctx, ins, attrs):
 @register_op("cast")
 def _cast(ctx, ins, attrs):
     return {"Out": [ins["X"][0].to(torch_dtype(attrs["out_dtype"]))]}
+
+
+@register_op("concat")
+def _concat(ctx, ins, attrs):
+    return {"Out": [torch.cat(ins["X"], dim=attrs.get("axis", 0))]}
 
 
 @register_op("slice")

@@ -40,8 +40,11 @@ integer sum.
 dequantizes only the gathered rows. `quant_transformer_stack`
 dequantizes its four int8 planes one layer at a time inside the stack's
 layer loop (K6 does not run on them, as the reference's dot path does
-not). `quant_conv2d` and `quant_depthwise_conv2d` wrap conv2d, which the
-port does not have yet, and are not ported.
+not). `quant_conv2d` and `quant_depthwise_conv2d` dequantize their
+per-output-channel int8 filter and run the f32 conv (bf16 when the
+activations are: the filter follows x), the reference's lowering; it is
+not an int8 convolution. XLA folds an exported artifact's dequantize as
+a constant; eager PyTorch pays it on every dispatch.
 """
 
 from __future__ import annotations
@@ -386,6 +389,26 @@ def _strip_quant(ins, attrs, weight_slots):
         clean[slot] = [dequantize(wq, ws, "float32")]
     f32_attrs = {k: v for k, v in attrs.items() if k not in META_ATTRS}
     return clean, f32_attrs
+
+
+@register_op("quant_conv2d", differentiable=False)
+def _quant_conv2d(ctx, ins, attrs):
+    """conv2d over an int8 per-output-channel filter: dequantize at the
+    boundary and reuse the f32 conv (the s2d stem rewrite included)."""
+    from .nn_ops import _conv2d
+    clean, f32_attrs = _strip_quant(ins, attrs, ("Filter",))
+    x = ins["Input"][0]
+    if x.dtype != torch.float32:
+        # bf16 activations keep their dtype contract: filter follows x
+        clean["Filter"] = [clean["Filter"][0].to(x.dtype)]
+    return _conv2d(ctx, clean, f32_attrs)
+
+
+@register_op("quant_depthwise_conv2d", differentiable=False)
+def _quant_depthwise_conv2d(ctx, ins, attrs):
+    attrs = dict(attrs)
+    attrs["groups"] = int(ins["Input"][0].shape[1])
+    return _quant_conv2d(ctx, ins, attrs)
 
 
 @register_op("quant_lookup_table", differentiable=False)

@@ -28,20 +28,22 @@ class OpDef(NamedTuple):
     differentiable: bool          # participates in autodiff at all
     stateful: bool                # draws from the executor's generator
     is_optimizer: bool = False    # parameter-update op: pruned for inference
+    test_aware: bool = False      # behaves differently under is_test
+                                  # (clone(for_test) forces is_test=True)
 
 
 _REGISTRY: Dict[str, OpDef] = {}
 
 
 def register_op(type, *, differentiable=True, stateful=False,
-                is_optimizer=False):
+                is_optimizer=False, test_aware=False):
     """Decorator: register `fn(ctx, ins, attrs) -> {slot: [values]}`.
     The lowering modules register on import; the ops package imports
     them all, and the package's __init__ imports the ops package."""
 
     def deco(fn):
         _REGISTRY[type] = OpDef(type, fn, differentiable, stateful,
-                                is_optimizer)
+                                is_optimizer, test_aware)
         return fn
 
     return deco
@@ -79,6 +81,10 @@ class LoweringContext:
     PRNG key; the two produce different numbers from the same seed);
     `amp_dtype`: the program's amp compute dtype (amp.py), or None;
     `op`: the op being lowered (its var names), set by the executor;
+    `is_test`: inference behaviour for every test-aware op (batch_norm
+    on its running stats, dropout the identity), besides each op's own
+    `is_test` attr; the executor runs programs with it False, as the
+    reference does;
     `in_place`: whether ops that write a persistable var may update the
     scope's tensor in place (False under the NaN guard: they write a new
     tensor, and the executor commits the run's state or none of it).
@@ -96,6 +102,7 @@ class LoweringContext:
         self.amp_dtype = amp_dtype_of(program)
         self.op = None
         self.in_place = in_place
+        self.is_test = False
 
     def lookup(self, name):
         if name not in self.env:
@@ -120,12 +127,14 @@ def _restore_dyn(shape):
 
 class _MetaCtx:
     """Context for shape inference: meta tensors, a meta device, no RNG
-    state (random ops draw on the meta device, which has none)."""
+    state (random ops draw on the meta device, which has none), and the
+    test-aware ops in test mode, as the reference's shape context."""
     device = torch.device("meta")
     generator = None
     amp_dtype = None
     op = None
     in_place = False
+    is_test = True
 
     def lookup(self, name):
         raise KeyError(name)
