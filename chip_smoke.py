@@ -251,6 +251,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      launches the quantize kernel and K6 once a dispatch, counted as the
      path resnet50_serving_int8.
 
+ 26. telemetry (monitor/, profiler.py): (a) GPT-2-small amp at T 1024,
+     B 32 (bench.py's transformer_mfu) under the port's Trainer, three
+     steps without health_metrics and three with: step walls, the
+     perf.mfu gauge, and one more step's grad_norm, param_norm and every
+     update ratio against float64 recomputes of the same tensors on the
+     card (1e-5 relative); the health launches (device events of a
+     profiled step with the health fetches less without); (b)
+     deviceprof.profile_program on that step: device mode, at least 0.9
+     of the device time attributed to Program ops, and each hand-written
+     kernel's events a step (the most of three profiled steps) equal to
+     its launch counter a step; the top 12 ops; (c) a step:N:nan fault
+     under check_nan_inf with blackbox_dir set: one blackbox bundle with
+     spans, the health section and torch.cuda memory; (d) GPT-2-small
+     behind the HTTP server (graph rungs) with metrics, trace_path and a
+     0.5 s sampler: 36 generations of 64 tokens from 6 clients, /debug/vars with
+     metrics, perf, timeseries rates and the SLO table, every request's
+     span in the trace file under the x-trace-id its client sent,
+     tokens/s and the decode dispatch wall with telemetry on and off
+     (the same tokens); (e) the int8 GPT-2-small one-shot engine with
+     profile_sample_n=4: per-rung serving.device_time histograms and a
+     deviceprof section whose rows name K6 and the quantize kernel.
+
 The second-to-last line is the kernel table as JSON (with the ResNet-50
 results under "resnet50"); the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -4792,6 +4814,504 @@ def resnet_serving_phase(weights, smi):
                     "running_stats_unchanged": True, "int8": int8}
 
 
+# -- phase 26: telemetry -----------------------------------------------------
+
+TEL_B = 32                       # bench.py's transformer_mfu batch (amp)
+TEL_STEPS = 3
+TEL_HEALTH_RTOL = 1e-5
+TEL_COVERAGE = 0.9
+TEL_CLIENTS, TEL_REQUESTS, TEL_NEW = 6, 36, 64
+TEL_SAMPLE_N = 4
+
+
+def tel_reader(n_batches, seed):
+    rng = np.random.RandomState(seed)
+    n = TEL_B * n_batches
+    tok = rng.randint(0, VOCAB, (n, TRAIN_T, 1)).astype(np.int64)
+    nxt = rng.randint(0, VOCAB, (n, TRAIN_T, 1)).astype(np.int64)
+    return pt.reader.batch(lambda: zip(tok, nxt), TEL_B)
+
+
+class TelTrainer:
+    """The amp GPT-2-small program (T 1024, B 32) under the port's
+    Trainer, with a handler that times every step (BeginIteration to
+    EndIteration) and keeps its health snapshot."""
+
+    def __init__(self, health):
+        main, startup, cost, _ = build_gpt2(TRAIN_T)
+        amp.enable(main)
+        self.cost = cost
+        self.trainer = pt.Trainer(cost, main_program=main,
+                                  startup_program=startup,
+                                  health_metrics=health, feed_workers=1)
+        self.walls, self.health, self.skipped = [], [], []
+
+    def handler(self, ev):
+        kind = type(ev).__name__
+        if kind == "BeginIteration":
+            torch.cuda.synchronize()
+            self._t0 = time.perf_counter()
+        elif kind == "EndIteration":
+            self.walls.append(1e3 * (time.perf_counter() - self._t0))
+            self.health.append(ev.health)
+        elif kind == "IterationSkipped":
+            self.skipped.append((ev.pass_id, ev.batch_id))
+
+    def train(self, n_batches, seed):
+        t = self.trainer
+        t.train(tel_reader(n_batches, seed), t._start_pass + 1,
+                ["tok", "nxt"], self.handler)
+
+
+def rel_vec_err(got, ref):
+    """max |got - ref| / |ref| elementwise, in float64."""
+    got, ref = got.double().ravel(), ref.double().ravel()
+    return float(((got - ref).abs() / ref.abs().clamp_min(1e-300)).max())
+
+
+def health_check(tt, smi):
+    """One more executor step of the health trainer's program with every
+    gradient fetched beside the health fetches: grad_norm, param_norm and
+    each update ratio against float64 recomputes of the same tensors."""
+    H = monitor.health
+    t = tt.trainer
+    pairs = H.param_grad_pairs(t.main_program)
+    scope = t.scope
+    pre = {p: scope.get(p).detach().double() for p, _ in pairs}
+    rng = np.random.RandomState(SEED + 41)
+    feed = {k: rng.randint(0, VOCAB, (TEL_B, TRAIN_T, 1)).astype(np.int64)
+            for k in ("tok", "nxt")}
+    out = t.exe.run(t.main_program, feed=feed,
+                    fetch_list=[tt.cost.name] + [g for _, g in pairs]
+                    + list(H.FETCHES), scope=scope, return_numpy=False)
+    grads = out[1:1 + len(pairs)]
+    gn, pn, ratios = out[-3], out[-2], out[-1]
+    gn64 = torch.sqrt(sum(g.double().square().sum() for g in grads))
+    post = {p: scope.get(p).detach().double() for p, _ in pairs}
+    pn64 = torch.sqrt(sum(v.square().sum() for v in post.values()))
+    r64 = torch.stack([torch.linalg.vector_norm(post[p] - pre[p])
+                       / (torch.linalg.vector_norm(pre[p]) + 1e-12)
+                       for p, _ in pairs])
+    errs = {"grad_norm": rel_vec_err(gn, gn64),
+            "param_norm": rel_vec_err(pn, pn64),
+            "update_ratios": rel_vec_err(ratios, r64)}
+    log(f"telemetry (a): health values vs float64 recomputes on the card "
+        f"over {len(pairs)} parameters: grad_norm {float(gn):.6g} "
+        f"({errs['grad_norm']:.2e} relative), param_norm {float(pn):.6g} "
+        f"({errs['param_norm']:.2e}), update ratios worst "
+        f"{errs['update_ratios']:.2e} (tol {TEL_HEALTH_RTOL:g}) | {smi}")
+    bad = {k: v for k, v in errs.items() if not v <= TEL_HEALTH_RTOL}
+    if bad:
+        raise AssertionError(f"health values differ from the float64 "
+                             f"recomputes: {bad}")
+    return errs, feed
+
+
+def kernel_events(report, fragment):
+    return sum(k["events_per_step"] for name, k in report["kernels"].items()
+               if fragment in name)
+
+
+def attribution_check(tt, feed, smi):
+    """deviceprof.profile_program on the health trainer's step: device
+    mode, coverage, and each hand-written kernel's events a step equal
+    to its launch counter; then the health launches: one profiled step
+    with the health fetches and one without."""
+    t = tt.trainer
+    dp = monitor.deviceprof
+    zero_counts()
+    rep = dp.profile_program(t.main_program, feed, [tt.cost.name], t.scope,
+                             t.exe, steps=3, warmup=1)
+    runs = 4                            # warm-up + 3 profiled steps
+    per_step = {k: v / runs for k, v in read_counts().items()}
+    log(f"telemetry (b): profile_program mode {rep['mode']}, coverage "
+        f"{rep['coverage']:.4f} (floor {TEL_COVERAGE}), device time "
+        f"{rep['total_us'] / 1e3:.2f} ms a step, unattributed "
+        f"{rep['unresolved_us'] / 1e3:.3f} ms, step wall "
+        f"{1e3 * rep['step_time_s']:.1f} ms (profiled) | {smi}")
+    log("telemetry (b): top 12 Program ops of the amp step:\n"
+        + dp.format_rows(rep["rows"], top=12))
+    by_type = {}
+    for r in rep["rows"]:
+        by_type[r["op_type"]] = by_type.get(r["op_type"], 0.0) \
+            + r["device_time_us"] / 1e3
+    by_type = dict(sorted(((k, round(v, 3)) for k, v in by_type.items()),
+                          key=lambda kv: -kv[1]))
+    log(f"telemetry (b): device ms a step by op type {by_type}; device "
+        f"events' launches over the 3 steps {rep['links']} | {smi}")
+    matched = {}
+    for w, frags in AMP_KERNELS.items():
+        for frag in frags:
+            matched[frag] = (kernel_events(rep, frag), per_step[w])
+    log(f"telemetry (b): kernel events a step (the most of 3 profiled "
+        f"steps) vs launch counter a step: {matched}")
+    if rep["mode"] != "device":
+        raise AssertionError(f"profile_program mode {rep['mode']}, "
+                             "expected device")
+    if not rep["coverage"] >= TEL_COVERAGE:
+        raise AssertionError(f"deviceprof coverage {rep['coverage']:.4f} "
+                             f"< {TEL_COVERAGE}")
+    wrong = {f: v for f, v in matched.items() if v[0] != v[1]}
+    if wrong or not any(v[1] for v in matched.values()):
+        raise AssertionError(f"deviceprof kernel events != launch "
+                             f"counters: {wrong}")
+    unscoped = [r for r in rep["rows"]
+                if dp.SCOPE_RE.fullmatch(r["scope"]) is None]
+    if unscoped:
+        raise AssertionError(f"rows not named by a Program op: {unscoped}")
+
+    def events_of(fetch):
+        r = dp.profile_fn(lambda: t.exe.run(
+            t.main_program, feed=feed, fetch_list=fetch, scope=t.scope,
+            return_numpy=False), steps=1, warmup=0)
+        return sum(k["events_per_step"] for k in r["kernels"].values()), r
+    plain, _ = events_of([tt.cost.name])
+    with_health, rh = events_of([tt.cost.name]
+                                + list(monitor.health.FETCHES))
+    health_launches = with_health - plain
+    log(f"telemetry (a): device events a step {plain} without health, "
+        f"{with_health} with: {health_launches} health launches; step "
+        f"wall {1e3 * rh['step_time_s']:.1f} ms profiled | {smi}")
+    brief = dp.brief_rows(rep["rows"], top=12)
+    return {"mode": rep["mode"], "coverage": rep["coverage"],
+            "device_ms": rep["total_us"] / 1e3,
+            "unresolved_ms": rep["unresolved_us"] / 1e3,
+            "links": rep["links"], "ms_by_op_type": by_type,
+            "kernel_events_vs_launches": matched, "top": brief,
+            "health_launches": health_launches}
+
+
+def bundle_check(tt, smi):
+    """A step:N:nan fault under check_nan_inf with blackbox_dir set: one
+    blackbox bundle that parses and holds spans, the health section and
+    the card's memory."""
+    import glob
+    import tempfile
+    bb = tempfile.mkdtemp(prefix="chip_smoke_bb_")
+    t = tt.trainer
+    step = t.global_step + 1
+    flags.set_flag("blackbox_dir", bb)
+    flags.set_flag("check_nan_inf", True)
+    flags.set_flag("faults", f"step:{step}:nan")
+    pt.resilience.faults.reset()
+    t.anomaly_policy = pt.resilience.AnomalyPolicy("skip_batch")
+    try:
+        tt.train(3, SEED + 43)
+    finally:
+        flags.set_flag("faults", "")
+        pt.resilience.faults.reset()
+        flags.set_flag("check_nan_inf", False)
+        flags.set_flag("blackbox_dir", "")
+        t.anomaly_policy = None
+    files = glob.glob(os.path.join(bb, "blackbox-*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"expected one blackbox bundle, got {files}")
+    with open(files[0]) as f:
+        bundle = json.load(f)
+    spans = [r for r in bundle["records"] if r.get("kind") == "span"]
+    mem = bundle["device_memory"]
+    health = bundle.get("health") or {}
+    log(f"telemetry (c): {os.path.basename(files[0])} "
+        f"({os.path.getsize(files[0])} B): reason {bundle['reason']}, "
+        f"error {bundle['error']!r}, {len(spans)} spans, health last "
+        f"{health.get('last')}, device memory {mem[0].get('bytes_in_use')} "
+        f"B in use / peak {mem[0].get('peak_bytes_in_use')} B "
+        f"({mem[0].get('source')}); skipped {tt.skipped} | {smi}")
+    if not spans or not health.get("last") or \
+            mem[0].get("source") != "torch.cuda" or \
+            not mem[0].get("bytes_in_use"):
+        raise AssertionError("the bundle lacks spans, the health section "
+                             "or the card's memory")
+    size = os.path.getsize(files[0])
+    shutil.rmtree(bb, ignore_errors=True)
+    return {"bundle_bytes": size, "spans": len(spans),
+            "reason": bundle["reason"]}
+
+
+def telemetry_trainer_phase(smi):
+    """(a)-(c): the amp GPT-2-small step under the Trainer without and
+    with health_metrics (the path telemetry_trainer_amp), the health
+    values against float64, deviceprof's attribution of the step, and a
+    blackbox bundle from an injected NaN."""
+    torch.cuda.empty_cache()
+    monitor.reset()
+    monitor.introspect.reset()
+    flags.set_flag("metrics", True)
+    route = fa.bwd_route(TRAIN_T)
+    steps = 2 * TEL_STEPS
+    zero_counts()                       # the main path starts here
+    walls = {}
+    off = TelTrainer(health=False)
+    off.train(TEL_STEPS, SEED + 40)
+    walls["off"] = off.walls
+    del off
+    torch.cuda.empty_cache()
+    tt = TelTrainer(health=True)
+    tt.train(TEL_STEPS, SEED + 40)
+    walls["on"] = tt.walls
+    counts = read_counts()              # the main path ends here
+    split = LAYERS * steps if route == "split" else 0
+    check_counts(counts, launches_of(
+        flash_attn_fwd_bf16=LAYERS * steps,
+        flash_attn_bwd_fused_bf16=LAYERS * steps - split,
+        flash_attn_bwd_dq_bf16=split, flash_attn_bwd_dkv_bf16=split,
+        lm_head_lse_bf16=steps), f"telemetry trainer ({steps} steps)")
+    gauges = monitor.snapshot()["gauges"]
+    mfu = {k: v for k, v in gauges.items() if k.startswith("perf.mfu|")}
+    hl = tt.health[-1]
+    log(f"telemetry (a): Trainer amp T {TRAIN_T} B {TEL_B}: step walls "
+        f"without health {[round(w, 1) for w in walls['off']]} ms, with "
+        f"{[round(w, 1) for w in walls['on']]} ms (steps 2-3: "
+        f"{np.mean(walls['off'][1:]):.1f} vs {np.mean(walls['on'][1:]):.1f}"
+        f" ms); {mfu}, perf.step_flops {gauges.get('perf.step_flops')}; "
+        f"last health {hl} | {smi}")
+    if not mfu or not all(0 < v < 1 for v in mfu.values()):
+        raise AssertionError(f"perf.mfu gauge missing or out of (0, 1): "
+                             f"{mfu}")
+    if any(h is None for h in tt.health):
+        raise AssertionError("EndIteration.health missing")
+    errs, feed = health_check(tt, smi)
+    attribution = attribution_check(tt, feed, smi)
+    bundle = bundle_check(tt, smi)
+    del tt
+    torch.cuda.empty_cache()
+    return counts, {"step_ms_off": walls["off"], "step_ms_on": walls["on"],
+                    "mfu": mfu, "health_rel_err": errs,
+                    "attribution": attribution, "bundle": bundle}
+
+
+def get_json(port, path):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    body = resp.read()
+    conn.close()
+    if resp.status != 200:
+        raise AssertionError(f"GET {path} -> {resp.status}: {body[:300]!r}")
+    return json.loads(body)
+
+
+def post_traced(port, body, trace_id):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("POST", "/v1/generate", json.dumps(body),
+                 {"Content-Type": "application/json",
+                  "x-trace-id": trace_id})
+    resp = conn.getresponse()
+    data = resp.read()
+    echoed = resp.getheader("x-trace-id")
+    conn.close()
+    if resp.status != 200 or echoed != trace_id:
+        raise AssertionError(f"/v1/generate -> {resp.status}, x-trace-id "
+                             f"{echoed!r} for {trace_id!r}: {data[:200]!r}")
+    lines = [json.loads(x) for x in data.splitlines() if x.strip()]
+    if body.get("stream", True):
+        return [ev["token"] for ev in lines if ev["event"] == "token"]
+    return lines[0]["tokens"]
+
+
+def lm_load(port, tag):
+    """TEL_REQUESTS generations from TEL_CLIENTS client threads, each
+    with its own x-trace-id; returns ({trace id: tokens}, wall s)."""
+    rng = np.random.RandomState(SEED + 50)
+    bodies = [{"prompt": rng.randint(0, VOCAB, int(n)).tolist(),
+               "max_new_tokens": TEL_NEW, "stream": bool(i % 2)}
+              for i, n in enumerate(rng.randint(16, 96, TEL_REQUESTS))]
+    ids = [f"{tag}{i:012x}" for i in range(TEL_REQUESTS)]
+    out, errors = {}, []
+
+    def client(c):
+        for i in range(c, TEL_REQUESTS, TEL_CLIENTS):
+            try:
+                out[ids[i]] = post_traced(port, bodies[i], ids[i])
+            except Exception as e:       # re-raised below
+                errors.append((i, e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(TEL_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    wall = time.perf_counter() - t0
+    if errors or len(out) != TEL_REQUESTS:
+        raise AssertionError(f"telemetry (d): requests failed: {errors}")
+    return out, wall
+
+
+def lm_telemetry_phase(smi):
+    """(d): GPT-2-small behind the HTTP server on graph rungs with
+    metrics, an ambient trace and the 0.5 s sampler on, then off."""
+    import tempfile
+    tdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    trace_file = os.path.join(tdir, "trace.json")
+    spec = LMSpec(50304, 768, 12, 12, 1024)
+    weights = init_lm_weights(spec, seed=SEED)
+    cfg = GenerationConfig(max_slots=8, prefill_batch=4, max_prompt_len=256,
+                           max_new_tokens=128, paged=True, page_len=16,
+                           prefix_cache=True)
+    engine = GenerationEngine(spec, weights, config=cfg, ready=False)
+    engine.warmup()
+    server = make_server(engine, port=0)
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    walls = []
+    real = engine._dispatch_decode
+
+    def timed_decode(*a, **k):
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    engine._dispatch_decode = timed_decode
+    monitor.reset()
+    flags.set_flag("metrics", True)
+    flags.set_flag("trace_path", trace_file)
+    flags.set_flag("metrics_sample_s", 0.5)
+    try:
+        time.sleep(0.6)                 # a sampler tick before the load
+        zero_counts()                   # the main path starts here
+        steps0 = engine.stats()["decode_steps"]
+        on, wall_on = lm_load(port, "cafe")
+        time.sleep(1.1)                 # two sampler ticks after the load
+        counts = read_counts()          # the main path ends here
+        steps_on = engine.stats()["decode_steps"] - steps0
+        dv = get_json(port, "/debug/vars")
+    finally:
+        flags.set_flag("metrics_sample_s", 0)
+        monitor.trace.stop(save=True)
+    dec_on = list(walls)
+    monitor.set_enabled(False)
+    walls.clear()
+    off, wall_off = lm_load(port, "beef")
+    dec_off = list(walls)
+    server.shutdown()
+    engine.shutdown(drain=True, timeout=600)
+    flags.set_flag("metrics", True)
+    tokens = TEL_REQUESTS * TEL_NEW
+    ts = dv.get("timeseries") or {}
+    rates = {n: c["rate"] for n, c in (ts.get("window") or {}).get(
+        "counters", {}).items() if n.startswith("serving_lm.")}
+    slo = ts.get("slo") or []
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    traced = {(ev.get("args") or {}).get("trace_id") for ev in events
+              if ev.get("name") == "serving_lm/request"}
+    missing = sorted(set(on) - traced)
+    log(f"telemetry (d): /debug/vars sections {sorted(dv)}; timeseries "
+        f"ticks {ts.get('ticks')}, rates {rates}; slo table "
+        f"{[(r.get('rule'), r.get('state')) for r in slo]}; trace file "
+        f"{os.path.getsize(trace_file)} B, {len(events)} events, "
+        f"{len(set(on)) - len(missing)} of {len(on)} request ids found")
+    log(f"telemetry (d): telemetry on: {tokens / wall_on:.1f} tokens/s "
+        f"({wall_on:.2f} s), decode dispatch {1e3 * np.mean(dec_on):.3f} ms "
+        f"(median {1e3 * np.median(dec_on):.3f}, {len(dec_on)} steps); off: "
+        f"{tokens / wall_off:.1f} tokens/s ({wall_off:.2f} s), decode "
+        f"dispatch {1e3 * np.mean(dec_off):.3f} ms (median "
+        f"{1e3 * np.median(dec_off):.3f}, {len(dec_off)} steps); K1 "
+        f"launches {counts['flash_attn_fwd']} | {smi}")
+    for key in ("metrics", "perf", "timeseries"):
+        if key not in dv:
+            raise AssertionError(f"/debug/vars lacks {key!r}")
+    if not rates.get("serving_lm.tokens") or not slo:
+        raise AssertionError("/debug/vars timeseries has no token rate or "
+                             "no SLO table")
+    if missing:
+        raise AssertionError(f"trace file lacks request spans {missing}")
+    if any(on[k] != off[k.replace("cafe", "beef", 1)] for k in on):
+        raise AssertionError("telemetry on and off served other tokens")
+    if not counts["flash_attn_fwd"] or steps_on <= 0:
+        raise AssertionError("the LM server launched no K1")
+    shutil.rmtree(tdir, ignore_errors=True)
+    del engine, weights
+    torch.cuda.empty_cache()
+    return counts, {"tokens_per_s_on": tokens / wall_on,
+                    "tokens_per_s_off": tokens / wall_off,
+                    "decode_ms_on": 1e3 * float(np.mean(dec_on)),
+                    "decode_ms_off": 1e3 * float(np.mean(dec_off)),
+                    "slo_rules": len(slo), "ticks": ts.get("ticks")}
+
+
+def sampler_phase(smi):
+    """(e): the int8 GPT-2-small one-shot engine with profile_sample_n=4:
+    per-rung serving.device_time histograms and a deviceprof section
+    whose rows name K6 and the quantize kernel."""
+    import tempfile
+    torch.cuda.empty_cache()
+    main, startup, logits, ids = build_gpt2_lm()
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sampler_")
+    src, out = os.path.join(tmp, "f32"), os.path.join(tmp, "int8")
+    pt.io.save_inference_model(src, ["tokens"], [ids], exe,
+                               main_program=main, scope=scope)
+    del scope
+    quant.quantize_inference_model(src, out)
+    qscope = pt.Scope()
+    prog, feeds, fetch = pt.io.load_inference_model(out, exe, scope=qscope)
+    monitor.reset()
+    monitor.deviceprof.reset()
+    flags.set_flag("metrics", True)
+    flags.set_flag("profile_sample_n", TEL_SAMPLE_N)
+    try:
+        engine = InferenceEngine.from_program(
+            prog, feeds, fetch, executor=exe, scope=qscope,
+            config=EngineConfig(max_batch_size=4, buckets=(1, 2, 4),
+                                batch_timeout_ms=5))
+    finally:
+        flags.set_flag("profile_sample_n", 0)
+    engine.warmup()
+    rng = np.random.RandomState(SEED + 60)
+    reqs = [rng.randint(0, VOCAB, (int(r), TRAIN_T)).astype(np.int64)
+            for r in rng.randint(1, 5, 16)]
+    zero_counts()                       # the main path starts here
+    for r in reqs:
+        engine.infer({"tokens": r}, timeout=300)
+    counts = read_counts()              # the main path ends here
+    st = engine.stats()
+    engine.shutdown()
+    shutil.rmtree(tmp, ignore_errors=True)
+    dp = st.get("deviceprof") or {}
+    hists = {k: v["count"] for k, v in monitor.snapshot()[
+        "histograms"].items() if k.startswith("serving.device_time")}
+    top = dp.get("top_ops") or []
+    names = [r["op"] for r in top]
+    log(f"telemetry (e): {st['batches']} batches, sampler {dict((k, dp.get(k)) for k in ('batches_seen', 'sampled', 'captures', 'capture_errors'))}; "
+        f"serving.device_time counts {hists}; last sample "
+        f"{ {k: v for k, v in (dp.get('last') or {}).items() if k != 'top_ops'} }; "
+        f"launches {counts}; top rows {top} | {smi}")
+    if not hists or not all("|rung=" in k for k in hists):
+        raise AssertionError("no per-rung serving.device_time histogram")
+    if not dp.get("captures") or not any("int8_matmul_kernel" in n
+                                         for n in names) \
+            or not any("quantize_rows" in n for n in names):
+        raise AssertionError(f"the sampler's rows do not name K6 and the "
+                             f"quantize kernel: {names}")
+    if not counts["int8_matmul"] or not counts["quantize_activations"]:
+        raise AssertionError("the int8 engine launched no K6 / quantize")
+    del engine, qscope
+    torch.cuda.empty_cache()
+    return counts, {"device_time_counts": hists, "sampler": {
+        k: dp.get(k) for k in ("batches_seen", "sampled", "captures")},
+        "top_ops": top}
+
+
+def telemetry_phase(smi):
+    """Phase 26, (a)-(e)."""
+    t0 = time.perf_counter()
+    trainer_counts, trainer = telemetry_trainer_phase(smi)
+    lm_counts, lm = lm_telemetry_phase(smi)
+    sampler_counts, sampler = sampler_phase(smi)
+    log(f"telemetry: phase 26 in {time.perf_counter() - t0:.1f} s | {smi}")
+    return ({"telemetry_trainer_amp": trainer_counts,
+             "telemetry_lm_server": lm_counts,
+             "telemetry_sampler_int8": sampler_counts},
+            {"trainer": trainer, "lm_server": lm, "sampler": sampler})
+
+
 def main():
     name, smi = device_phase()
     t0 = time.perf_counter()
@@ -4829,6 +5349,7 @@ def main():
     resnet_serving_counts, resnet_serving = resnet_serving_phase(
         resnet_weights, smi)
     del resnet_weights
+    telemetry_paths, telemetry = telemetry_phase(smi)
     paths = {"serving": {"flash_attn_fwd": serving_k1},
              f"training_T{TRAIN_T}": train_counts,
              f"training_T{SHORT_T}": short_counts,
@@ -4843,7 +5364,8 @@ def main():
              "resnet50_training_amp": resnet_train_counts,
              "resnet50_hostfed_amp": resnet_hostfed_counts,
              "resnet50_serving_f32": resnet_serving_counts["f32"],
-             "resnet50_serving_int8": resnet_serving_counts["int8"]}
+             "resnet50_serving_int8": resnet_serving_counts["int8"],
+             **telemetry_paths}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ALL_KERNELS}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()}
@@ -4926,7 +5448,8 @@ def main():
                       "resnet50": {"training_amp": resnet_train,
                                    "parity": resnet_parity,
                                    "hostfed": resnet_hostfed,
-                                   "serving": resnet_serving}}),
+                                   "serving": resnet_serving},
+                      "telemetry": telemetry}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -71,6 +71,7 @@ from .backward import append_backward
 from . import amp, flags, initializer, layers, nets, models, optimizer
 from . import regularizer
 from . import clip, event, io, learning_rate_decay, quant, reader, resilience
+from . import monitor, profiler
 from .data_feeder import DataFeeder
 from .optimizer import (AdadeltaOptimizer, AdagradOptimizer,
                         AdamaxOptimizer, AdamOptimizer,
@@ -90,4 +91,4 @@ __all__ = ["amp", "framework", "CPUPlace", "CUDAPlace", "Program",
            "RMSPropOptimizer", "FtrlOptimizer", "ModelAverage", "ParamAttr",
            "HookAttribute", "flags", "io", "monitor", "ops", "quant",
            "serving", "weights", "clip", "event", "learning_rate_decay",
-           "reader", "resilience", "DataFeeder", "Trainer"]
+           "reader", "resilience", "DataFeeder", "Trainer", "profiler"]

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 __all__ = ["load_library", "build_library", "build_libraries",
            "KERNEL_SOURCES", "BUILD_DIR", "CSRC_DIR"]
@@ -67,6 +68,7 @@ def build_libraries(names):
     {name: library path}. Raises naming each source that failed."""
     targets = {name: _target(name) for name in names}
     procs = {}
+    t0 = time.perf_counter()
     for name, (src, out) in targets.items():
         if os.path.exists(out):
             continue
@@ -83,6 +85,12 @@ def build_libraries(names):
                           f"{proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
+        # a kernel build is the port's counterpart of a compile (the
+        # seconds from the builds' start to this one's end)
+        from . import monitor
+        if monitor.enabled():
+            monitor.introspect.note_compile(f"kernel_build:{name}",
+                                            time.perf_counter() - t0)
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: out for name, (_, out) in targets.items()}

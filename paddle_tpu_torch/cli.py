@@ -5,6 +5,12 @@
     python -m paddle_tpu_torch serve --generate --artifact lm.pdmodel
         [--port 8080] [--host 127.0.0.1] [--device cpu]
 
+Telemetry: `--set flag=value,...` sets any flag (as the env spelling
+PADDLE_TPU_<FLAG> would), e.g. `--set metrics_sample_s=1,trace_path=
+/tmp/t.json,blackbox_dir=/tmp/bb,profile_sample_n=16`; `--metrics_path
+FILE` dumps the registry there at exit (`monitor.maybe_dump()`, also
+when serving fails). `GET /debug/vars` serves the introspection payload.
+
 `--model_dir` serves a `save_inference_model` directory (f32, or int8
 from `quant.quantize_inference_model`; either package's) through the
 micro-batching engine behind `POST /v1/infer`. `--artifact` serves an
@@ -66,7 +72,26 @@ def _parser():
                         "the serving_read_timeout_s flag)")
     p.add_argument("--no_warmup", action="store_true",
                    help="skip running every rung before reporting ready")
+    p.add_argument("--set", dest="set_flags", default="",
+                   help="comma-separated flag=value pairs, e.g. "
+                        "metrics_sample_s=1,trace_path=/tmp/t.json "
+                        "(the PADDLE_TPU_<FLAG> env spelling)")
+    p.add_argument("--metrics_path", default=None,
+                   help="write the metrics registry here at exit "
+                        "(.json snapshot or .jsonl lines)")
     return p
+
+
+def _parse_kv(text):
+    out = {}
+    for item in (text or "").split(","):
+        if not item.strip():
+            continue
+        if "=" not in item:
+            raise SystemExit(f"--set expects flag=value, got {item!r}")
+        k, v = item.split("=", 1)
+        out[k.strip()] = v.strip()
+    return out
 
 
 def _serve(args):
@@ -76,11 +101,28 @@ def _serve(args):
         raise SystemExit("--generate needs an LM artifact (--artifact); "
                          f"{args.model_dir} is a one-shot inference model "
                          "(it serves without --generate)")
+    for k, v in _parse_kv(args.set_flags).items():
+        flags.set_flag(k, v)
+    if args.metrics_path:
+        flags.set_flag("metrics_path", args.metrics_path)
     # GET /metrics is part of the serve contract: recording is on
     flags.set_flag("metrics", True)
-    if args.model_dir:
-        return _serve_model_dir(args)
-    return _serve_lm(args)
+    # resolve the telemetry flags now: trace_path starts the ambient
+    # trace and metrics_sample_s the sampler (their side effects)
+    flags.get("trace_path")
+    flags.get("metrics_sample_s")
+    from . import monitor
+    try:
+        if args.model_dir:
+            return _serve_model_dir(args)
+        return _serve_lm(args)
+    finally:
+        # written even when serving raises; a dump failure never masks
+        # the job's own exception
+        try:
+            monitor.maybe_dump()
+        except OSError as e:
+            _log(f"metrics dump failed: {e}")
 
 
 def _run_until_sigterm(server, engine):

@@ -40,8 +40,8 @@ class EndIteration(WithMetric):
         self.pass_id = pass_id
         self.batch_id = batch_id
         self.cost = cost
-        # model-health snapshot for this step; the port's Trainer has
-        # no health_metrics yet, so it is None
+        # model-health snapshot for this step (Trainer(health_metrics=
+        # True), monitor/health.py); None otherwise
         self.health = health
         # input-pipeline snapshot (feed.* family: stalls, queue depth,
         # wait/staging times, bytes/sec) when telemetry is enabled —

@@ -19,6 +19,15 @@ block directly, on the card unless the caller asks for the CPU:
     reference donates their buffers; the persistables the block writes
     are then stored back into the scope.
 
+Telemetry: the reserved `__health.*__` fetches (monitor/health.py)
+make a run also compute the global gradient and parameter norms and the
+per-parameter update ratios, eagerly, beside the ops; while a device
+profile is active (monitor/deviceprof.py) every op runs inside a
+`record_function` scope named "<block>/<idx>:<op_type>", the
+reference's named-scope string, so the profile attributes each device
+kernel to the Program op that launched it. Neither costs anything when
+off.
+
 The NaN guard (flag `check_nan_inf`, the reference's :309-317): the
 reference's step is functional and turns donation off under the guard,
 so a tripped step leaves the pre-step state. The port's counterpart:
@@ -52,6 +61,8 @@ from . import flags as flags_mod
 from . import framework, monitor
 from ._device import resolve_device, use_full_f32
 from .framework import CPUPlace, CUDAPlace
+from .monitor import deviceprof
+from .monitor import health as health_mod
 from .ops import grad as grad_mod
 from .ops import registry as op_registry
 
@@ -245,9 +256,12 @@ class Executor:
         ctx = op_registry.LoweringContext(program, block, env, self.device,
                                           generator=gen, in_place=not guard)
         taped = self._ops_needing_tape(block)
+        health = (health_mod.StepHealth(program, block)
+                  if health_mod.check_fetch_names(fetch_names) else None)
         try:
-            for op in block.ops:
-                self._lower_op(ctx, op, taped)
+            self._lower_block(ctx, block, taped, health)
+            if health is not None:
+                health.finish(env, self.device)
             missing = [n for n in fetch_names if n not in env]
             if missing:
                 raise KeyError(f"fetch var(s) {missing} were not computed "
@@ -342,6 +356,27 @@ class Executor:
                        and not op.attrs.get("is_test", False)
                        for op in block.ops)
         return block, state_mut, state_ro, state_out, feed_names, uses_key
+
+    @staticmethod
+    def _lower_block(ctx, block, taped, health=None):
+        """Lower every op of `block`. While a device profile is active
+        (monitor/deviceprof.py; read once a run) each op runs inside a
+        `record_function` scope named "<block>/<idx>:<op_type>", which
+        the profile attributes the op's kernels to; otherwise no scope
+        is entered. `health` (a StepHealth) sees each op before and
+        after it runs."""
+        scoped = deviceprof.scopes_active()
+        for idx, op in enumerate(block.ops):
+            if health is not None:
+                health.before(op, ctx.env, ctx.in_place)
+            if scoped:
+                with torch.profiler.record_function(
+                        deviceprof.op_scope(block.idx, idx, op.type)):
+                    Executor._lower_op(ctx, op, taped)
+            else:
+                Executor._lower_op(ctx, op, taped)
+            if health is not None:
+                health.after(op, ctx.env)
 
     @staticmethod
     def _ops_needing_tape(block):

@@ -3,7 +3,9 @@
 The port's own copy of the slice of `paddle_tpu/flags.py` that LM
 serving, one-shot serving, the int8 quantized ops, the stacked
 transformer's remat, the conv stem rewrite, the executor's NaN guard,
-the input pipeline and the fault injector read, with the same names,
+the input pipeline, the fault injector and the telemetry (metrics,
+trace, flight recorder, time series and SLOs, the serving sampler)
+read, with the same names,
 defaults and environment spellings (`PADDLE_TPU_<NAME>`), so one
 deployment environment configures both packages alike. Values resolve
 from the environment at first use and can be set from Python.
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["get", "set_flag", "reset"]
+__all__ = ["get", "set_flag", "reset", "snapshot"]
 
 
 def _parse_bool(s):
@@ -50,6 +52,49 @@ _DEFS = {
     "metrics": (_parse_bool, False,
                 "record structured telemetry (counters/gauges/histograms) "
                 "into the monitor registry; off = zero-overhead no-ops"),
+    "metrics_path": (_parse_str, "",
+                     "where monitor.maybe_dump() writes the registry "
+                     "snapshot (.json object or .jsonl lines) — the "
+                     "serve CLI dumps here on exit"),
+    "metrics_sample_s": (_parse_float, 0.0,
+                         "background time-series sampler cadence in "
+                         "seconds (monitor/timeseries.py): each tick "
+                         "snapshots the metric registry into bounded "
+                         "per-metric ring buffers — windowed rates, "
+                         "min/max/mean and quantiles are computed on "
+                         "read — and evaluates the SLO rules "
+                         "(monitor/slo.py) with hysteresis. 0 "
+                         "(default) = disabled: ZERO threads, registry "
+                         "write cost unchanged"),
+    "slo_rules": (_parse_str, "",
+                  "path to a JSON file of extra SLO rules "
+                  "(monitor/slo.py rules_from_json grammar: threshold "
+                  "rules and good/total burn-rate rules) evaluated "
+                  "alongside the default serving/training pack; rules "
+                  "with scope='fleet' load into the fleet router's "
+                  "aggregator instead"),
+    "trace_path": (_parse_str, "",
+                   "write a Chrome-trace JSON (chrome://tracing / "
+                   "Perfetto) of host spans and record_event regions to "
+                   "this path at exit; profiler(trace_dir=...) needs no "
+                   "flag"),
+    "blackbox_dir": (_parse_str, "",
+                     "where the flight recorder (monitor/blackbox.py) "
+                     "writes post-mortem blackbox-<ts>.json bundles on "
+                     "NaN-guard trips, rollback/restore, preemption and "
+                     "serving batch failures — last-N spans/events, "
+                     "metrics snapshot, flags, device memory; empty = "
+                     "no dumps (the in-memory ring still records when "
+                     "telemetry is on)"),
+    "profile_sample_n": (_parse_int, 0,
+                         "serving: profile 1-in-N dispatched batches "
+                         "(monitor/deviceprof.py) — sampled batches "
+                         "time the dispatch with CUDA events into "
+                         "per-rung serving.device_time histograms and, "
+                         "rate-limited, capture a full per-op device "
+                         "trace for the stats()/debug-vars top-op "
+                         "table. 0 (default) disables: no sampler "
+                         "object, no threads, zero per-dispatch cost"),
     "check_nan_inf": (_parse_bool, False,
                       "scan run outputs/state for NaN/Inf and raise; while "
                       "on, every op that writes a persistable var writes a "
@@ -162,7 +207,22 @@ def reset():
     _values.clear()
 
 
+def snapshot():
+    """Resolved flag values only (no env side effects): what /debug/vars
+    and blackbox bundles report. Flags never read stay unreported rather
+    than being resolved from the environment here — resolving
+    `trace_path` / `metrics` has side effects a diagnostics read must
+    not trigger."""
+    return dict(_values)
+
+
 def _apply_side_effects(name, val):
     if name == "metrics":
         from .monitor import registry
         registry.set_enabled(bool(val))
+    elif name == "trace_path":
+        from .monitor import trace
+        trace.configure_from_flag(val)
+    elif name == "metrics_sample_s":
+        from .monitor import timeseries
+        timeseries.configure(val)

@@ -80,6 +80,13 @@ class Optimizer:
         lr_var = self._create_lr_var(self.helper)
         self._create_accumulators(list(params_grads))
         ops = [self._append_optimize_op(pg, lr_var) for pg in params_grads]
+        # health telemetry (monitor/health.py): the FINAL (param, grad)
+        # pairing, after regularization / clip / pruning-mask renames,
+        # so the health reductions read the gradients the updates consume
+        prog = loss.block.program
+        stamped = list(getattr(prog, "_health_param_grads", []) or [])
+        stamped.extend((p.name, g.name) for p, g in params_grads)
+        prog._health_param_grads = stamped
         if self._global_step is not None:
             self.helper.append_op(
                 "increment", {"X": [self._global_step.name]},

@@ -31,8 +31,10 @@ on the card unless the caller passes a CPU executor:
 
 Serving the JAX package's StableHLO artifacts (`from_artifact`) is not
 ported. Observability lands in the `monitor` registry (when the
-`metrics` flag is on) and in the engine's always-on `stats()` dict (the
-/healthz payload).
+`metrics` flag is on), in the engine's always-on `stats()` dict (the
+/healthz payload, and /debug/vars's `engine` section) and, with the
+`profile_sample_n` flag, in the sampled device times of
+monitor/deviceprof.py (`stats()["deviceprof"]`).
 """
 
 from __future__ import annotations
@@ -188,9 +190,10 @@ class InferenceEngine:
         self._warmup_s = {}           # rung -> warmup seconds
         self._quant = None            # quant summary of the model
         self._stats = collections.Counter()
-        # the reference's sampled device profiler (its `deviceprof`
-        # module, ROADMAP A12) is not ported: no sampler, no section
-        self._profiler = None
+        # sampled device profiling (flag profile_sample_n=N): None when
+        # disabled — the off path constructs nothing and costs one
+        # attribute test a batch
+        self._profiler = monitor.deviceprof.sampler_from_flags()
         self._thread = None
         if start:
             self.start()
@@ -337,23 +340,27 @@ class InferenceEngine:
         # not under the dispatch lock, which a dispatch holds throughout
         graphs = (sorted(key[0][0][0] for key in self._graphs.keys())
                   if self._graphs is not None else [])
-        return {"queue_depth": depth, "queue_limit": self.config.queue_limit,
-                "max_batch_size": self.config.max_batch_size,
-                "batch_timeout_ms": self.config.batch_timeout_ms,
-                "buckets": list(self.config.buckets),
-                "warmed_buckets": list(self._warmed),
-                "warmup_s": {str(b): s
-                             for b, s in sorted(warmup_s.items())},
-                "quant": self._quant,
-                "distinct_dispatch_shapes": shapes,
-                "aot_buckets": graphs,
-                "aot_status": ("cuda_graph" if self._graphs is not None
-                               else "none"),
-                "closed": self._closed,
-                "ready": self._ready,
-                **{k: snap.get(k, 0) for k in
-                   ("submitted", "completed", "batches", "rejected",
-                    "shed", "errors", "abandoned")}}
+        out = {"queue_depth": depth, "queue_limit": self.config.queue_limit,
+               "max_batch_size": self.config.max_batch_size,
+               "batch_timeout_ms": self.config.batch_timeout_ms,
+               "buckets": list(self.config.buckets),
+               "warmed_buckets": list(self._warmed),
+               "warmup_s": {str(b): s
+                            for b, s in sorted(warmup_s.items())},
+               "quant": self._quant,
+               "distinct_dispatch_shapes": shapes,
+               "aot_buckets": graphs,
+               "aot_status": ("cuda_graph" if self._graphs is not None
+                              else "none"),
+               "closed": self._closed,
+               "ready": self._ready,
+               **{k: snap.get(k, 0) for k in
+                  ("submitted", "completed", "batches", "rejected",
+                   "shed", "errors", "abandoned")}}
+        if self._profiler is not None:
+            # optional section: absent when sampling is off
+            out["deviceprof"] = self._profiler.section()
+        return out
 
     # -- internals ----------------------------------------------------------
 
@@ -527,7 +534,7 @@ class InferenceEngine:
                 "serving/batch/dispatch", parent=batch_span,
                 attrs={"rows": rows, "bucket": bucket,
                        "trace_ids": trace_ids})
-            outputs = self._dispatch(padded)
+            outputs = self._profiled_dispatch(padded, bucket, trace_ids)
             _finish(dispatch_span)
             with monitor.span("serving/batch/split", parent=batch_span,
                               attrs={"trace_ids": trace_ids}):
@@ -557,6 +564,17 @@ class InferenceEngine:
                                    dispatch_span.span_id)
                 req._span.set_attr("cobatched", len(live))
             req._fulfill(outs)
+
+    def _profiled_dispatch(self, padded, bucket, trace_ids):
+        """Route an elected 1-in-N batch through the sampling profiler
+        (its device time into serving.device_time|rung=, a rate-limited
+        full capture, stamped with the batch's trace ids); everything
+        else goes straight to _dispatch."""
+        prof = self._profiler
+        if prof is not None and prof.tick():
+            return prof.sample(self._dispatch, padded, rung=bucket,
+                               trace_ids=trace_ids)
+        return self._dispatch(padded)
 
     def _dispatch(self, padded):
         """One call of the model (on the card: the replay of its rung's

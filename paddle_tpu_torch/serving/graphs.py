@@ -53,10 +53,12 @@ from __future__ import annotations
 import contextlib
 import gc
 import threading
+import time
 
 import numpy as np
 import torch
 
+from .. import monitor
 from ..ops.launch_counts import count, tallied
 
 __all__ = ["StepGraphs"]
@@ -114,8 +116,14 @@ class StepGraphs:
         host = [np.asarray(a) for a in host]
         rung = self._rungs.get(key)
         if rung is None:
+            t0 = time.perf_counter()
             rung = self._rungs[key] = self._capture(key, fn, host)
             self._keys = self._keys + (key,)
+            # a capture is the port's counterpart of the reference's
+            # compile of a rung: the executor.compile_last_s table
+            if monitor.enabled():
+                monitor.introspect.note_compile(
+                    f"cuda_graph:{key}", time.perf_counter() - t0)
         return self._replay(key, rung, host)
 
     def _capture(self, key, fn, host):

@@ -32,6 +32,11 @@ The port of `paddle_tpu/serving/http.py`:
                    `?live` answers 200 "alive" through boot and drain.
   GET  /metrics    Prometheus text of the monitor registry
                    (?format=json for the raw snapshot dict).
+  GET  /debug/vars expvar-style JSON (monitor.introspect.debug_vars):
+                   metrics snapshot, resolved flags, the card's memory,
+                   compile stats, flight recorder, perf (MFU), and when
+                   running the `timeseries` (windows + SLO table) and
+                   `deviceprof` sections, plus the engine's stats().
 
 Every reply carries the request's trace id in `x-trace-id`: an inbound
 `x-trace-id` header (bounded, header-safe) is adopted, otherwise one is
@@ -147,6 +152,8 @@ class ServingHandler(BaseHTTPRequestHandler):
             else:
                 self._reply(200, monitor.format_prometheus(snap).encode(),
                             content_type="text/plain; version=0.0.4")
+        elif path == "/debug/vars":
+            self._reply(200, monitor.introspect.debug_vars(engine))
         else:
             self._reply(404, {"error": f"no route {path!r}"})
 

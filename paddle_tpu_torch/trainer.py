@@ -52,9 +52,15 @@ resilience.retries, .step_retries, .rollbacks, .skipped_batches,
 trainer.step_time_s, .steps, .samples, .samples_per_sec, per pass
 trainer.pass_time_s, .passes.
 
-Not ported yet: `health_metrics=True` (the in-step model-health
-reductions and the live MFU accounting, ROADMAP A12) and `parallelism=`
-(the SPMD transpiler, A11) raise NotImplementedError.
+Model health (`health_metrics=True`, monitor/health.py): each step also
+fetches the global gradient and parameter norms and the per-parameter
+update ratios, exported as `health.*` gauges, attached to EndIteration
+(`.health`), carried into every blackbox bundle and into the anomaly
+reports; with telemetry on, the step's FLOP tally over its wall time
+sets `perf.mfu|device=<card>`.
+
+Not ported yet: `parallelism=` (the SPMD transpiler, A11) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -99,17 +105,19 @@ class Trainer:
         rollbacks and unrecoverable-failure recovery.
         place: CUDAPlace(0) when None (raises without a card);
         CPUPlace() runs the plain PyTorch path on the CPU.
-        health_metrics / parallelism: not ported yet (A12 / A11); a
-        true value raises NotImplementedError.
+        health_metrics: compute model-health telemetry each step (global
+        grad norm, parameter norm, per-parameter update ratios, loss
+        EMA; monitor/health.py): extra eager reductions beside the step,
+        exported as health.* gauges, attached to EndIteration (.health),
+        included in blackbox bundles and anomaly reports; with telemetry
+        on it also drives the perf.mfu / perf.flops_per_sec gauges.
+        parallelism: not ported yet (A11); a true value raises
+        NotImplementedError.
         feed_workers / feed_prefetch_depth: input-pipeline knobs
         forwarded to the DeviceFeeder (reader/pipeline.py): convert
         worker threads (0 = synchronous, the same batches) and
         device-side prefetch queue depth. None = the feed_workers /
         feed_prefetch_depth flags."""
-        if health_metrics:
-            raise NotImplementedError(
-                "Trainer(health_metrics=True): the in-step model-health "
-                "telemetry is not ported yet (ROADMAP A12)")
         if parallelism:
             raise NotImplementedError(
                 "Trainer(parallelism=...): the SPMD transpiler is not "
@@ -143,6 +151,12 @@ class Trainer:
         self._last_rollback_pos = None  # (pass, batch) that rolled back
         self._test_prog = None        # pruned clone cached per version
         self._test_prog_version = None
+        self.health = None
+        if health_metrics:
+            self.health = monitor.health.HealthMonitor(self.main_program)
+            # every blackbox bundle gets the active monitor's section
+            monitor.health.activate(self.health)
+        self._flops_cache = {}   # (uid, version, feed sig) -> static FLOPs
 
         self._run_startup_preserving_existing()
         if checkpoint_dir and io.checkpoint_exists(checkpoint_dir,
@@ -254,18 +268,25 @@ class Trainer:
                     test_reader):
         feeder = self._feeder(feed_order)
         fetch = [self.cost] + self.extra_fetch
+        # health fetches ride the same run (monitor/health.py)
+        hm = (self.health if self.health is not None
+              and self.health.enabled else None)
+        health_fetch = hm.fetch_names() if hm else []
+        fetch = fetch + health_fetch
+        nh = len(health_fetch)
         mon = monitor.enabled()
         try:
-            self._run_pass_loop(reader, num_passes, feeder, fetch, mon,
-                                event_handler, test_reader, feed_order)
+            self._run_pass_loop(reader, num_passes, feeder, fetch, nh,
+                                hm, mon, event_handler, test_reader,
+                                feed_order)
         finally:
             # only the anomaly handler inside the pass loop reads it;
             # keeping the feeder past train() would pin the reader
             # closure, the program and the executor
             self._active_pipeline = None
 
-    def _run_pass_loop(self, reader, num_passes, feeder, fetch, mon,
-                       event_handler, test_reader, feed_order):
+    def _run_pass_loop(self, reader, num_passes, feeder, fetch, nh, hm,
+                       mon, event_handler, test_reader, feed_order):
         from .reader import DeviceFeeder
         while self._start_pass < num_passes:
             pass_id = self._start_pass
@@ -303,7 +324,11 @@ class Trainer:
                         event_handler(events.IterationSkipped(
                             pass_id, batch_id, reason="anomaly policy"))
                         continue
+                    health_vals = out[len(out) - nh:] if nh else []
+                    out = out[:len(out) - nh] if nh else out
                     cost = float(np.ravel(out[0])[0])
+                    health = (hm.observe(self.global_step, cost,
+                                         health_vals) if hm else None)
                     metrics = [np.asarray(m) for m in out[1:]]
                     bs = int(feed[feed_order[0]].shape[0])
                     pass_metrics.update(metrics, bs)
@@ -317,9 +342,16 @@ class Trainer:
                         if dt > 0:
                             monitor.gauge_set("trainer.samples_per_sec",
                                               bs / dt)
+                            if hm:
+                                # live MFU: the program's static FLOP
+                                # tally over the measured step time
+                                flops = self._program_flops(feed)
+                                if flops:
+                                    monitor.introspect.note_step_flops(
+                                        flops, dt)
                     event_handler(events.EndIteration(
                         pass_id, batch_id, cost, metrics,
-                        self.metric_names,
+                        self.metric_names, health=health,
                         feed=(pipeline.counters() if mon else None)))
             self._start_pass = pass_id + 1
             self._start_batch = 0
@@ -340,6 +372,24 @@ class Trainer:
             event_handler(end)
             if self.checkpoint_dir:
                 self._save_checkpoint(pass_id + 1, 0)
+
+    def _program_flops(self, feed):
+        """Static per-step FLOP tally of the main program
+        (monitor.introspect.program_flops), cached per (program, feed
+        signature). Never raises: MFU accounting is telemetry."""
+        key = (self.main_program.uid, self.main_program.version,
+               executor_mod._feed_signature(feed))
+        flops = self._flops_cache.get(key)
+        if flops is None:
+            try:
+                flops = monitor.introspect.program_flops(
+                    self.main_program, feed=feed,
+                    fetch_list=[self.cost.name], scope=self.scope,
+                    executor=self.exe)
+            except Exception:   # noqa: BLE001 — accounting only
+                flops = 0
+            self._flops_cache[key] = flops
+        return flops
 
     # -- failure supervision ------------------------------------------------
     def _supervised_step(self, feed, fetch, pass_id, batch_id):
@@ -368,6 +418,13 @@ class Trainer:
             # same batch reproduces the same NaN
             extra = {"global_step": self.global_step,
                      "pass_id": pass_id, "batch_id": batch_id}
+            if self.health is not None and self.health.enabled:
+                # what led up to it: the grad-norm trend, hottest param
+                extra["health_context"] = self.health.explain()
+                monitor.blackbox.note_event(
+                    "anomaly_health_context",
+                    context=extra["health_context"],
+                    global_step=self.global_step)
             if self._active_pipeline is not None:
                 # the feed's side of the story: "feed stalled 12x"
                 extra["feed_context"] = self._active_pipeline.explain()
@@ -439,6 +496,10 @@ class Trainer:
         msg = (f"loss spike at global step {self.global_step - 1}: "
                f"{cost:.6g} exceeds {pol.loss_spike_factor}x the running "
                "mean")
+        if self.health is not None and self.health.enabled:
+            # the health monitor explains the spike instead of the bare
+            # loss number: "grad_norm jumped 40.0x at step N; ..."
+            msg += f" [{self.health.explain()}]"
         err = FloatingPointError(msg)
         if self._anomaly_action(err, pass_id, batch_id) != "skip":
             raise resilience.RollbackRequested(
