@@ -272,6 +272,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      (the same tokens); (e) the int8 GPT-2-small one-shot engine with
      profile_sample_n=4: per-rung serving.device_time histograms and a
      deviceprof section whose rows name K6 and the quantize kernel.
+ 27. seq2seq-attention training: bench.py's bench_seq2seq program, card
+     config and feed (amp, Adam 1e-3, B 256, T 64, vocab 30000, emb /
+     hid 512, lengths fed int64): 3 warm-up and 10 timed steps, losses
+     finite and falling; tokens/s, step ms, peak memory, MFU from
+     program_flops, one step under deviceprof.profile_program (busy
+     share, top ops); then a batch with lengths 16-64 from the seed;
+ 28. its beam decode (seq2seq_attention_infer over phase 27's weights,
+     64 sentences, beam 4, max_len 32): sentences/s; the card against
+     the plain CPU run of gru_attention_beam_decode on the card's
+     EncStates (ids and lengths equal but on rows excused by a near tie,
+     at most 2; scores within 1e-4 relative);
+ 29. the book's stacked-LSTM sentiment net (emb 128, hidden 512, 3
+     LSTMs, B 128, lengths 32-128 through the DataFeeder), f32 with TF32
+     off: ms a batch beside the reference's K40m figure;
+ 30. the seq2seq training program at width 32 for two Adam steps, every
+     op on the card on the CPU's values of its inputs within 1e-4.
+     No TPU kernel lies on these paths: their launch counts are checked
+     to be 0.
 
 The second-to-last line is the kernel table as JSON (with the ResNet-50
 results under "resnet50"); the last line is
@@ -5312,6 +5330,388 @@ def telemetry_phase(smi):
             {"trainer": trainer, "lm_server": lm, "sampler": sampler})
 
 
+
+# -- phases 27-30: sequence (LoD) programs -----------------------------------
+# No TPU kernel lies on this path: the reference runs the recurrences as
+# lax.scan and the attention as two batched matmuls (XLA), so the port's
+# lowerings are plain torch; the paths' kernel counts are checked to be 0.
+
+# bench.py's bench_seq2seq card config (bench.py:216-217)
+S2S_B, S2S_T, S2S_VOCAB, S2S_EMB, S2S_HID = 256, 64, 30000, 512, 512
+S2S_LR, S2S_WARM, S2S_TIMED = 1e-3, 3, 10
+S2S_RAGGED = (16, 64)            # the extra batch's lengths, from the seed
+DEC_SENTENCES, DEC_BEAM, DEC_MAX_LEN = 64, 4, 32
+DEC_SRC_LENS = (8, 64)
+DEC_SCORE_RTOL = 1e-4
+DEC_TIE_LEAD = 1e-5              # a step's choice led the next by less
+DEC_MAX_TIE_ROWS = 2
+# the book's stacked-LSTM sentiment net (benchmark/paddle/rnn's width)
+LSTM_B, LSTM_VOCAB, LSTM_EMB, LSTM_HID, LSTM_STACKED = 128, 30000, 128, 512, 3
+LSTM_LENS = (32, 128)
+LSTM_WARM, LSTM_TIMED = 2, 5
+LSTM_K40M_MS = 261.0             # BASELINE.md:17, B 128, hidden 512, K40m
+# phase 30: the seq2seq training program at a small width, op by op
+SEQ_PAR_B, SEQ_PAR_T, SEQ_PAR_VOCAB, SEQ_PAR_W = 8, 12, 64, 32
+SEQ_PAR_TOL = 1e-4
+
+
+def seq2seq_program(vocab, emb, hid, lr, use_amp):
+    """bench.py's bench_seq2seq program: seq2seq_attention_cost with
+    Adam(lr), amp when asked."""
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        src, tgt, nxt = [pt.layers.data(n, [1], dtype="int64", lod_level=1)
+                         for n in ("src", "tgt", "nxt")]
+        cost = pt.models.seq2seq.seq2seq_attention_cost(
+            src, tgt, nxt, vocab, vocab, emb, hid)
+        pt.AdamOptimizer(lr).minimize(cost)
+    if use_amp:
+        amp.enable(main)
+    return main, startup, cost
+
+
+def seq2seq_feed(B, T, vocab, seed, lens=None):
+    """bench.py's feed (:235-240): random source and target ids, the
+    next-token labels the target rolled by one, every length T fed as
+    int64 to the int32 @SEQLEN vars; or `lens`, with the padded tail 0."""
+    rng = np.random.RandomState(seed)
+    s = rng.randint(1, vocab, (B, T)).astype(np.int64)
+    t = rng.randint(1, vocab, (B, T)).astype(np.int64)
+    n = np.roll(t, -1, 1)
+    if lens is None:
+        lens = np.full((B,), T, np.int64)
+    else:
+        pad = np.arange(T)[None, :] >= lens[:, None]
+        s[pad] = t[pad] = n[pad] = 0
+    return {"src": s, "src@SEQLEN": lens, "tgt": t, "tgt@SEQLEN": lens,
+            "nxt": n, "nxt@SEQLEN": lens}
+
+
+def timed_steps(exe, main, feed, cost, scope, warm, timed):
+    """`warm` then `timed` steps, each ending in the loss's fetch (so the
+    card has finished it): (losses, step walls in ms)."""
+    losses, walls = [], []
+    for i in range(warm + timed):
+        t0 = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+        if i >= warm:
+            walls.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss.ravel()[0]))
+    return losses, walls
+
+
+def seq2seq_train_phase(smi):
+    """Phase 27: bench.py's seq2seq-attention training program at its card
+    config (B 256, T 64, vocab 30000, emb / hid 512, Adam 1e-3, amp),
+    fed as bench.py feeds it: S2S_WARM warm-up steps, then S2S_TIMED
+    timed steps on one batch (losses finite and falling); tokens/s, step
+    ms median and range, peak memory, MFU from program_flops; one step
+    under deviceprof.profile_program (busy share = its device time over
+    the unprofiled median step, the top ops); then one step of a batch
+    with lengths from the seed in S2S_RAGGED. Returns (launch counts,
+    the trained scope, results)."""
+    torch.cuda.empty_cache()
+    main, startup, cost = seq2seq_program(S2S_VOCAB, S2S_EMB, S2S_HID,
+                                          S2S_LR, True)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = seq2seq_feed(S2S_B, S2S_T, S2S_VOCAB, SEED + 27)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()                       # the main path starts here
+    losses, walls = timed_steps(exe, main, feed, cost, scope, S2S_WARM,
+                                S2S_TIMED)
+    counts = read_counts()              # the main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    check_counts(counts, launches_of(), "seq2seq training (no TPU kernel "
+                 "on this path)")
+    med, lo, hi = median_lo_hi(walls)
+    tokens_s = S2S_B * S2S_T / (med / 1e3)
+    flops = monitor.introspect.program_flops(main, feed)
+    peak_flops, label = monitor.introspect.peak_flops()
+    mfu = flops / (med / 1e3) / peak_flops
+    log(f"seq2seq amp training B {S2S_B} T {S2S_T} vocab {S2S_VOCAB} emb/hid "
+        f"{S2S_EMB}: {tokens_s:.0f} tokens/s, step {med:.2f} ms median "
+        f"({lo:.2f}-{hi:.2f}, {S2S_TIMED} steps after {S2S_WARM}); losses "
+        f"{[round(x, 4) for x in losses]}; peak memory "
+        f"{peak / 2**30:.2f} GiB; program_flops {flops / 1e12:.3f} TFLOP a "
+        f"step, MFU {mfu:.4f} of {label} {peak_flops / 1e12:.0f} TFLOP/s "
+        f"| {smi}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"seq2seq losses not finite and falling: "
+                             f"{losses}")
+    rep = monitor.deviceprof.profile_program(main, feed, [cost.name], scope,
+                                             exe, steps=1, warmup=0)
+    device_ms = rep["total_us"] / 1e3
+    by_type = {}
+    for r in rep["rows"]:
+        by_type[r["op_type"]] = by_type.get(r["op_type"], 0.0) \
+            + (r["device_time_us"] or 0.0) / 1e3
+    by_type = dict(sorted(((k, round(v, 3)) for k, v in by_type.items()),
+                          key=lambda kv: -kv[1])[:12])
+    log(f"seq2seq amp step under profile_program: mode {rep['mode']}, "
+        f"device {device_ms:.2f} ms against the {med:.2f} ms median step "
+        f"(busy share {device_ms / med:.3f}), coverage "
+        f"{rep['coverage']:.4f}; device ms by op type {by_type} | {smi}")
+    log(f"seq2seq amp step: top 12 Program ops | {smi}\n"
+        + monitor.deviceprof.format_rows(rep["rows"], top=12))
+    rng = np.random.RandomState(SEED + 28)
+    lens = rng.randint(S2S_RAGGED[0], S2S_RAGGED[1] + 1, S2S_B).astype(
+        np.int64)
+    ragged = seq2seq_feed(S2S_B, S2S_T, S2S_VOCAB, SEED + 29, lens)
+    r_losses, r_walls = timed_steps(exe, main, ragged, cost, scope, 1, 2)
+    log(f"seq2seq amp ragged batch (lengths {lens.min()}-{lens.max()}, "
+        f"mean {lens.mean():.1f}): losses {[round(x, 4) for x in r_losses]}"
+        f", step {np.median(r_walls):.2f} ms | {smi}")
+    if not all(np.isfinite(r_losses)):
+        raise AssertionError(f"seq2seq ragged losses {r_losses}")
+    return counts, scope, {
+        "tokens_per_s": tokens_s, "step_ms": med, "step_ms_lo": lo,
+        "step_ms_hi": hi, "losses": losses, "peak_gib": peak / 2**30,
+        "program_tflop": flops / 1e12, "mfu": mfu,
+        "profile": {"mode": rep["mode"], "device_ms": device_ms,
+                    "busy": device_ms / med, "coverage": rep["coverage"],
+                    "by_op_type_ms": by_type,
+                    "top": monitor.deviceprof.brief_rows(rep["rows"], 12)},
+        "ragged": {"losses": r_losses, "step_ms": float(np.median(r_walls)),
+                   "len_min": int(lens.min()), "len_max": int(lens.max())}}
+
+
+def decode_leads(record):
+    """A wrapper of beam_ops.beam_step that appends, for each step, every
+    batch row's smallest lead among the step's K + 1 best candidates
+    (the chosen K in order, then the first one left out)."""
+    from paddle_tpu_torch.ops import beam_ops
+    real = beam_ops.beam_step
+
+    def step(pre_scores, logprobs, finished, end_id, beam_size,
+             first_step=False):
+        out = real(pre_scores, logprobs, finished, end_id, beam_size,
+                   first_step)
+        B, K, V = logprobs.shape
+        cont = torch.where(finished[..., None],
+                           torch.where(torch.arange(V) == end_id,
+                                       torch.tensor(0.0),
+                                       torch.tensor(-1e9)), logprobs)
+        total = pre_scores[..., None] + cont
+        if first_step:
+            total[:, 1:] += -1e9
+        top = torch.sort(total.reshape(B, -1), dim=1, descending=True,
+                         stable=True).values[:, :beam_size + 1]
+        record.append((top[:, :-1] - top[:, 1:]).amin(dim=1))
+        return out
+    return beam_ops, real, step
+
+
+def seq2seq_decode_phase(scope, smi):
+    """Phase 28: seq2seq_attention_infer at phase 27's width over its
+    trained weights (the stable names find them in the scope),
+    DEC_SENTENCES ragged source sentences, beam DEC_BEAM, max_len
+    DEC_MAX_LEN: sentences/s and ms a decode; then the card against the
+    plain CPU run of gru_attention_beam_decode fed the card's own
+    EncStates and the same weights: SentenceIds and SentenceLen equal
+    on every row, except a row where some step's chosen candidate led
+    the next by under DEC_TIE_LEAD (rounding may pick the other one
+    there); such excused rows are counted, at most DEC_MAX_TIE_ROWS;
+    SentenceScores within DEC_SCORE_RTOL relative on every row whose
+    sentences are equal. The rows with a near tie at all are counted
+    and printed too."""
+    from paddle_tpu_torch.ops import beam_ops
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        src = pt.layers.data("src", [1], dtype="int64", lod_level=1)
+        ids, scores, lens = pt.models.seq2seq.seq2seq_attention_infer(
+            src, S2S_VOCAB, S2S_VOCAB, S2S_EMB, S2S_HID,
+            beam_size=DEC_BEAM, max_len=DEC_MAX_LEN)
+    op = next(o for o in main.global_block().ops
+              if o.type == "gru_attention_beam_decode")
+    rng = np.random.RandomState(SEED + 30)
+    slens = rng.randint(DEC_SRC_LENS[0], DEC_SRC_LENS[1] + 1,
+                        DEC_SENTENCES).astype(np.int32)
+    T = int(pt.data_feeder.bucket_length(int(slens.max())))
+    s = rng.randint(1, S2S_VOCAB, (DEC_SENTENCES, T, 1)).astype(np.int64)
+    s[np.arange(T)[None, :] >= slens[:, None]] = 0
+    feed = {"src": s, "src@SEQLEN": slens}
+    exe = pt.Executor()
+    fetch = [ids, scores, lens, op.input("EncStates")[0],
+             op.input("SrcMask")[0]]
+    zero_counts()                       # the main path starts here
+    walls = []
+    for i in range(4):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        torch.cuda.synchronize()
+        if i:
+            walls.append(1e3 * (time.perf_counter() - t0))
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, launches_of(), "seq2seq beam decode (no TPU "
+                 "kernel on this path)")
+    med = float(np.median(walls))
+    card_ids, card_scores, card_lens = (t.cpu() for t in out[:3])
+    w = {slot: scope.get(op.input(slot)[0]).cpu()
+         for slot in op.inputs if slot not in ("EncStates", "SrcMask")}
+    record = []
+    mod, real, wrapped = decode_leads(record)
+    mod.beam_step = wrapped
+    try:
+        t0 = time.perf_counter()
+        cpu_ids, cpu_scores, cpu_lens = beam_ops.gru_attention_beam_decode(
+            out[3].cpu(), out[4].cpu(), w, DEC_BEAM, DEC_MAX_LEN,
+            op.attrs["bos_id"], op.attrs["end_id"])
+        cpu_s = time.perf_counter() - t0
+    finally:
+        mod.beam_step = real
+    lead = torch.stack(record).amin(dim=0)          # [B]
+    near = lead < DEC_TIE_LEAD
+    same = ((card_ids == cpu_ids).flatten(1).all(1)
+            & (card_lens == cpu_lens).all(1))
+    differ = ~same
+    excused = differ & near
+    rel = ((card_scores - cpu_scores).abs()
+           / cpu_scores.abs().clamp_min(1e-30))[same]
+    rel_max = float(rel.max()) if rel.numel() else 0.0
+    log(f"seq2seq beam decode: {DEC_SENTENCES} sentences (source lengths "
+        f"{slens.min()}-{slens.max()}, padded {T}), beam {DEC_BEAM}, "
+        f"max_len {DEC_MAX_LEN}: {med:.1f} ms a decode median of 3 "
+        f"({DEC_SENTENCES / (med / 1e3):.1f} sentences/s); mean length "
+        f"{float(card_lens[:, 0].float().mean()):.1f} | {smi}")
+    log(f"seq2seq beam decode, card vs the plain CPU run on the card's "
+        f"EncStates ({cpu_s:.1f} s): scores max relative error "
+        f"{rel_max:.2e} (tolerance {DEC_SCORE_RTOL:g}) on the "
+        f"{int(same.sum())} rows whose sentences are equal; rows whose ids "
+        f"or lengths differ: {int(differ.sum())}, excused by a near tie: "
+        f"{int(excused.sum())} (at most {DEC_MAX_TIE_ROWS}); rows with a "
+        f"step lead under {DEC_TIE_LEAD:g} at all: {int(near.sum())}; "
+        f"smallest lead {float(lead.min()):.3e} | {smi}")
+    if rel_max > DEC_SCORE_RTOL or bool((differ & ~near).any()) \
+            or int(excused.sum()) > DEC_MAX_TIE_ROWS:
+        raise AssertionError("the card's beam decode differs from the "
+                             "plain CPU run")
+    return counts, {"ms_per_decode": med,
+                    "sentences_per_s": DEC_SENTENCES / (med / 1e3),
+                    "scores_rel_err": rel_max,
+                    "near_tie_rows": int(near.sum()),
+                    "differing_rows": int(differ.sum()),
+                    "excused_rows": int(excused.sum()),
+                    "smallest_lead": float(lead.min()),
+                    "cpu_decode_s": cpu_s}
+
+
+def lstm_phase(smi):
+    """Phase 29: the book's stacked-LSTM sentiment net (emb LSTM_EMB,
+    hidden LSTM_HID, stacked_num LSTM_STACKED, vocab LSTM_VOCAB, 2
+    classes, Adam 1e-3), f32 with TF32 off, B LSTM_B, lengths from the
+    seed in LSTM_LENS through the DataFeeder (bucketed to 128):
+    LSTM_WARM + LSTM_TIMED batches, ms a batch beside the reference's
+    published K40m figure."""
+    torch.cuda.empty_cache()
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        words = pt.layers.data("words", [1], dtype="int64", lod_level=1)
+        label = pt.layers.data("label", [1], dtype="int64")
+        probs = pt.models.lstm_text.stacked_lstm_net(
+            words, LSTM_VOCAB, class_dim=2, emb_dim=LSTM_EMB,
+            hid_dim=LSTM_HID, stacked_num=LSTM_STACKED)
+        cost = pt.layers.mean(pt.layers.cross_entropy(probs, label))
+        pt.AdamOptimizer(1e-3).minimize(cost)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED + 31)
+    rows = [(rng.randint(1, LSTM_VOCAB, int(n)).tolist(), int(n) % 2)
+            for n in rng.randint(LSTM_LENS[0], LSTM_LENS[1] + 1, LSTM_B)]
+    feed = pt.DataFeeder([words, label]).feed(rows)
+    T = feed["words"].shape[1]
+    zero_counts()                       # the main path starts here
+    losses, walls = timed_steps(exe, main, feed, cost, scope, LSTM_WARM,
+                                LSTM_TIMED)
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, launches_of(), "stacked-LSTM training (no TPU "
+                 "kernel on this path)")
+    med, lo, hi = median_lo_hi(walls)
+    log(f"stacked-LSTM f32 (TF32 off) B {LSTM_B}, padded T {T} (lengths "
+        f"{LSTM_LENS[0]}-{LSTM_LENS[1]}), emb {LSTM_EMB}, hidden {LSTM_HID}, "
+        f"{LSTM_STACKED} LSTMs: {med:.1f} ms a batch median ({lo:.1f}-"
+        f"{hi:.1f}, {LSTM_TIMED} after {LSTM_WARM}); the reference's "
+        f"published figure for B 128 at hidden 512 is {LSTM_K40M_MS:g} ms "
+        f"on its own card, a K40m (BASELINE.md:17), not this one; losses "
+        f"{[round(x, 4) for x in losses]} | {smi}")
+    if T != 128 or not all(np.isfinite(losses)):
+        raise AssertionError(f"stacked-LSTM: padded T {T}, losses {losses}")
+    return counts, {"ms_per_batch": med, "ms_lo": lo, "ms_hi": hi,
+                    "padded_T": int(T), "losses": losses,
+                    "reference_k40m_ms": LSTM_K40M_MS}
+
+
+def seq_parity_phase(smi):
+    """Phase 30: the seq2seq training program at emb / hid SEQ_PAR_W,
+    vocab SEQ_PAR_VOCAB, B SEQ_PAR_B, ragged lengths <= SEQ_PAR_T (a
+    zero-length row), f32, two Adam steps: each step run on the CPU,
+    then every op lowered on the card (executor.lower_ops_on) on the
+    CPU's values of its inputs, each output within SEQ_PAR_TOL of its
+    largest element."""
+    main, startup, cost = seq2seq_program(SEQ_PAR_VOCAB, SEQ_PAR_W,
+                                          SEQ_PAR_W, 1e-2, False)
+    cpu = pt.Executor(pt.CPUPlace())
+    scope = pt.Scope()
+    cpu.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED + 32)
+    lens = rng.randint(1, SEQ_PAR_T + 1, SEQ_PAR_B).astype(np.int32)
+    lens[-1] = 0
+    feed = seq2seq_feed(SEQ_PAR_B, SEQ_PAR_T, SEQ_PAR_VOCAB, SEED + 33, lens)
+    block = main.global_block()
+    names = [n for n, v in block.vars.items()
+             if not v.persistable and n not in feed]
+    worst, n_out = {}, 0
+    for step in (1, 2):
+        before = tensors_of(scope)
+        out = cpu.run(main, feed=feed, fetch_list=names, scope=scope,
+                      return_numpy=False)
+        values = dict(zip(names, out))
+        for n, t in scope.vars.items():
+            if isinstance(t, torch.Tensor) and block._find_var(n) is not None:
+                values[n] = t
+        values.update({k: torch.from_numpy(v) for k, v in feed.items()})
+        errs = {n: float((got.double() - ref.double()).abs().max())
+                / max(float(ref.double().abs().max()), 1e-30)
+                for n, (got, ref) in lower_ops_on(main, "cuda", before,
+                                                  values).items()}
+        n_out += len(errs)
+        k = max(errs, key=errs.get)
+        worst[step] = (k, errs[k])
+        if errs[k] > SEQ_PAR_TOL:
+            bad = sorted((e, n) for n, e in errs.items()
+                         if e > SEQ_PAR_TOL)[-5:]
+            raise AssertionError(f"seq2seq op by op, step {step}: the card "
+                                 f"differs from the CPU: {bad}")
+    log(f"seq2seq f32 op by op on the card, on the CPU's inputs (emb/hid "
+        f"{SEQ_PAR_W}, vocab {SEQ_PAR_VOCAB}, B {SEQ_PAR_B}, lengths "
+        f"{lens.tolist()}): {n_out} outputs of {len(block.ops)} ops over 2 "
+        f"Adam steps, worst {worst} of the largest element (tolerance "
+        f"{SEQ_PAR_TOL:g}) | {smi}")
+    return {"outputs": n_out, "ops": len(block.ops),
+            "worst": {str(k): v for k, v in worst.items()}}
+
+
+def sequence_phase(smi):
+    """Phases 27-30."""
+    t0 = time.perf_counter()
+    train_counts, scope, train = seq2seq_train_phase(smi)
+    decode_counts, decode = seq2seq_decode_phase(scope, smi)
+    del scope
+    lstm_counts, lstm = lstm_phase(smi)
+    parity = seq_parity_phase(smi)
+    log(f"sequence programs: phases 27-30 in {time.perf_counter() - t0:.1f}"
+        f" s | {smi}")
+    return ({"seq2seq_training_amp": train_counts,
+             "seq2seq_beam_decode": decode_counts,
+             "stacked_lstm_training": lstm_counts},
+            {"seq2seq_training_amp": train, "seq2seq_beam_decode": decode,
+             "stacked_lstm_training": lstm, "seq2seq_op_by_op": parity})
+
+
 def main():
     name, smi = device_phase()
     t0 = time.perf_counter()
@@ -5350,6 +5750,7 @@ def main():
         resnet_weights, smi)
     del resnet_weights
     telemetry_paths, telemetry = telemetry_phase(smi)
+    sequence_paths, sequence = sequence_phase(smi)
     paths = {"serving": {"flash_attn_fwd": serving_k1},
              f"training_T{TRAIN_T}": train_counts,
              f"training_T{SHORT_T}": short_counts,
@@ -5365,7 +5766,7 @@ def main():
              "resnet50_hostfed_amp": resnet_hostfed_counts,
              "resnet50_serving_f32": resnet_serving_counts["f32"],
              "resnet50_serving_int8": resnet_serving_counts["int8"],
-             **telemetry_paths}
+             **telemetry_paths, **sequence_paths}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ALL_KERNELS}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()}
@@ -5449,7 +5850,7 @@ def main():
                                    "parity": resnet_parity,
                                    "hostfed": resnet_hostfed,
                                    "serving": resnet_serving},
-                      "telemetry": telemetry}),
+                      "telemetry": telemetry, "sequence": sequence}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

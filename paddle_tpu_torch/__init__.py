@@ -60,6 +60,11 @@ and the `DeviceFeeder` input pipeline:
     trainer = pt.Trainer(cost, pt.AdamOptimizer(lr), checkpoint_dir="ck")
     trainer.train(pt.reader.batch(examples, 8), num_passes=2,
                   feed_order=["tok", "nxt"], event_handler=handler)
+
+Sequence (LoD) programs (slice 19): `layers.data(..., lod_level=1|2)`
+with the `<name>@SEQLEN` lengths the DataFeeder pads and fills, the
+sequence, recurrent and beam-search ops, and the book's sequence models
+(`models.seq2seq`, `lstm_text`, `word2vec`, `recommender`).
 """
 
 from . import framework

@@ -81,10 +81,27 @@ def unique_name(prefix: str) -> str:
 
 
 GRAD_SUFFIX = "@GRAD"
+SEQLEN_SUFFIX = "@SEQLEN"
 
 
 def grad_var_name(name: str) -> str:
     return name + GRAD_SUFFIX
+
+
+def seq_len_name(name: str) -> str:
+    """Companion int32 [batch] vector of per-row valid lengths: a
+    sequence (lod_level >= 1) tensor is padded to a static shape and its
+    LoD offsets ride in this var, which sequence ops read through their
+    "SeqLen" slot."""
+    return name + SEQLEN_SUFFIX
+
+
+def sub_seq_len_name(name: str) -> str:
+    """Companion int32 [batch, S] matrix of a NESTED sequence
+    (lod_level 2): the valid inner length of each (example,
+    sub-sequence). The outer level (how many sub-sequences an example
+    has) stays in `seq_len_name`."""
+    return name + SEQLEN_SUFFIX + "@SUB"
 
 
 # ---------------------------------------------------------------------------
@@ -108,9 +125,10 @@ class Variable:
         self.stop_gradient = stop_gradient
         self.trainable = trainable
         self.is_data = is_data
-        # carried so Program.to_dict matches the JAX package's; the port
-        # builds no sequence (LoD) programs yet
+        # name of the int32 [batch] lengths var of a padded sequence
+        # tensor (seq_len_name), carried by sequence-preserving layers
         self.seq_len_var = None
+        # lod_level 2: name of the [batch, S] inner-lengths var
         self.sub_seq_len_var = None
 
     @property
@@ -121,15 +139,38 @@ class Variable:
         from .layers import tensor as tensor_layers
         return tensor_layers.cast(self, dtype)
 
-    # -- operator sugar: `+` emits elementwise_add (a scalar: scale) ------
-    def __add__(self, other):
+    # -- operator sugar: + - * / emit elementwise ops (a scalar: scale) ---
+    def _binary(self, other, op, reverse=False):
         from .layers import math_ops
-        return math_ops.binary_helper(self, other, "elementwise_add")
+        return math_ops.binary_helper(self, other, op, reverse)
+
+    def __add__(self, other):
+        return self._binary(other, "elementwise_add")
 
     def __radd__(self, other):
+        return self._binary(other, "elementwise_add", reverse=True)
+
+    def __sub__(self, other):
+        return self._binary(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        return self._binary(other, "elementwise_sub", reverse=True)
+
+    def __mul__(self, other):
+        return self._binary(other, "elementwise_mul")
+
+    def __rmul__(self, other):
+        return self._binary(other, "elementwise_mul", reverse=True)
+
+    def __truediv__(self, other):
+        return self._binary(other, "elementwise_div")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "elementwise_div", reverse=True)
+
+    def __neg__(self):
         from .layers import math_ops
-        return math_ops.binary_helper(self, other, "elementwise_add",
-                                      reverse=True)
+        return math_ops.scale(self, scale=-1.0)
 
     def __repr__(self):
         flags = []

@@ -95,6 +95,8 @@ class LayerHelper:
             return out_var
         tmp = self.create_tmp_variable(out_var.dtype,
                                        lod_level=out_var.lod_level)
+        tmp.seq_len_var = out_var.seq_len_var
+        tmp.sub_seq_len_var = out_var.sub_seq_len_var
         self.append_op(act, {"X": [out_var.name]}, {"Out": [tmp.name]}, {})
         return tmp
 

@@ -1,6 +1,7 @@
 """Elementwise / scalar math layers + Variable operator-sugar support
 (the port's copy of the part of `paddle_tpu/layers/math_ops.py` the
-training path, the LR schedules and the gradient clips call)."""
+training path, the LR schedules, the gradient clips and the sequence
+models call)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from ..layer_helper import LayerHelper
 __all__ = ["elementwise_add", "elementwise_sub", "elementwise_mul",
            "elementwise_div", "elementwise_max", "elementwise_min", "scale",
            "floor", "clip_by_norm", "sqrt", "square", "exp", "sign", "pow",
-           "reduce_sum"]
+           "reduce_sum", "matmul"]
 
 
 def _elementwise(op_type):
@@ -35,10 +36,26 @@ elementwise_min = _elementwise("elementwise_min")
 
 
 def binary_helper(x, other, op_type, reverse=False):
-    """Implements Variable `+` with a scalar (a scale op) or another
-    Variable (elementwise_add), as the JAX package emits them."""
+    """Implements Variable + - * / with a scalar (a scale op; a scalar
+    divided by a Variable: a [1] constant and elementwise_div) or another
+    Variable (elementwise_*), as the JAX package emits them."""
+    from . import tensor as tensor_layers
     if np.isscalar(other):
-        return scale(x, scale=1.0, bias=float(other))
+        if op_type == "elementwise_add":
+            return scale(x, scale=1.0, bias=float(other))
+        if op_type == "elementwise_sub":
+            if reverse:
+                return scale(x, scale=-1.0, bias=float(other))
+            return scale(x, scale=1.0, bias=-float(other))
+        if op_type == "elementwise_mul":
+            return scale(x, scale=float(other))
+        if op_type == "elementwise_div":
+            if not reverse:
+                return scale(x, scale=1.0 / float(other))
+            other = tensor_layers.fill_constant(
+                shape=[1], dtype=x.dtype, value=float(other))
+            return _elementwise(op_type)(other, x)
+        raise NotImplementedError(op_type)
     if reverse:
         return _elementwise(op_type)(other, x)
     return _elementwise(op_type)(x, other)
@@ -53,6 +70,19 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
                      {"scale": float(scale), "bias": float(bias),
                       "bias_after_scale": bias_after_scale})
     return helper.append_activation(out, act)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
+           name=None):
+    """Batched matmul of the last two axes (fluid layers matmul), with
+    optional transposes and an output scale."""
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("matmul", {"X": [x.name], "Y": [y.name]},
+                     {"Out": [out.name]},
+                     {"transpose_X": transpose_x, "transpose_Y": transpose_y,
+                      "alpha": float(alpha)})
+    return out
 
 
 def floor(x, name=None):

@@ -1,10 +1,16 @@
 """Neural-network layers (the port's copy of the part of
-`paddle_tpu/layers/nn.py` the GPT-2 training program and the image
-models call: fc, embedding, conv2d, conv2d_transpose, pool2d,
-batch_norm, layer_norm, dropout, the activations, the classification
-losses, the fused lm-head cross-entropy, mean and the fused attention;
-and square_error_cost, for regressions). Layer functions build IR; the
-work happens in the op lowerings (ops/)."""
+`paddle_tpu/layers/nn.py` the GPT-2 training program, the image models
+and the sequence models call: fc, embedding, conv2d, conv2d_transpose,
+pool2d, batch_norm, layer_norm, dropout, the activations, the
+classification losses, the fused lm-head cross-entropy, mean, the fused
+attention and square_error_cost; the recurrences (dynamic_lstm,
+dynamic_gru, simple_rnn, lstm_unit), the sequence layers, cos_sim,
+edit_distance, row_conv and the beam-search steps). Layer functions
+build IR; the work happens in the op lowerings (ops/).
+
+A sequence input (lod_level >= 1) is a padded [B, T, ...] tensor whose
+`seq_len_var` names its lengths: the layers carry it to their outputs
+and wire it into the sequence ops' "SeqLen" slot."""
 
 from __future__ import annotations
 
@@ -21,28 +27,40 @@ __all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "pool2d",
            "cross_entropy", "softmax_with_cross_entropy",
            "sigmoid_cross_entropy_with_logits", "smooth_l1",
            "fused_lm_head_xent", "mean", "square_error_cost",
-           "scaled_dot_product_attention"]
+           "scaled_dot_product_attention", "dynamic_lstm", "dynamic_gru",
+           "simple_rnn", "lstm_unit", "cos_sim", "sequence_pool",
+           "sequence_first_step", "sequence_last_step", "sequence_softmax",
+           "sequence_expand", "sequence_conv", "sequence_reshape",
+           "sequence_concat", "sequence_mask", "edit_distance", "row_conv",
+           "beam_search", "beam_search_decode"]
 
 
-def _num_cols(input, num_flatten_dims):
+def _sequence_aware_num_cols(input, num_flatten_dims):
+    shape = input.shape
+    if num_flatten_dims == 1 and input.lod_level > 0 and len(shape) >= 3:
+        # padded sequence [B, T, ...]: flatten all but the feature dim
+        return len(shape) - 1
     if num_flatten_dims < 0:
-        return len(input.shape) + num_flatten_dims
+        return len(shape) + num_flatten_dims
     return num_flatten_dims
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None):
-    """Fully connected (fluid layers/nn.py:75): out = act(X W + b)."""
+    """Fully connected (fluid layers/nn.py:75): out = act(sum_i X_i W_i
+    + b). A padded sequence input multiplies as one [B*T, D] product."""
     helper = LayerHelper("fc", name=name)
     inputs = input if isinstance(input, (list, tuple)) else [input]
     dtype = helper.input_dtype(inputs)
 
     mul_results = []
     for inp in inputs:
-        xnc = _num_cols(inp, num_flatten_dims)
+        xnc = _sequence_aware_num_cols(inp, num_flatten_dims)
         in_features = int(np.prod([s for s in inp.shape[xnc:]]))
         w = helper.create_parameter(param_attr, [in_features, size], dtype)
         out = helper.create_tmp_variable(dtype, lod_level=inp.lod_level)
+        out.seq_len_var = inp.seq_len_var
+        out.sub_seq_len_var = inp.sub_seq_len_var
         helper.append_op("mul", {"X": [inp.name], "Y": [w.name]},
                          {"Out": [out.name]},
                          {"x_num_col_dims": xnc, "y_num_col_dims": 1})
@@ -53,6 +71,7 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
     else:
         pre_bias = helper.create_tmp_variable(dtype,
                                               lod_level=inputs[0].lod_level)
+        pre_bias.seq_len_var = inputs[0].seq_len_var
         helper.append_op("sum", {"X": [v.name for v in mul_results]},
                          {"Out": [pre_bias.name]}, {})
 
@@ -62,6 +81,8 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
         b = helper.create_parameter(bias_attr, [size], dtype, is_bias=True)
         pre_act = helper.create_tmp_variable(dtype,
                                              lod_level=pre_bias.lod_level)
+        pre_act.seq_len_var = pre_bias.seq_len_var
+        pre_act.sub_seq_len_var = pre_bias.sub_seq_len_var
         helper.append_op("elementwise_add",
                          {"X": [pre_bias.name], "Y": [b.name]},
                          {"Out": [pre_act.name]},
@@ -78,6 +99,8 @@ def embedding(input, size, is_sparse=False, padding_idx=None,
     w = helper.create_parameter(param_attr, size, dtype,
                                 default_initializer=XavierInitializer())
     out = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
+    out.seq_len_var = input.seq_len_var
+    out.sub_seq_len_var = input.sub_seq_len_var
     helper.append_op("lookup_table", {"W": [w.name], "Ids": [input.name]},
                      {"Out": [out.name]},
                      {"is_sparse": is_sparse,
@@ -231,6 +254,8 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None):
     helper = LayerHelper("dropout", name=name)
     out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
+    out.seq_len_var = x.seq_len_var
+    out.sub_seq_len_var = x.sub_seq_len_var
     mask = helper.create_tmp_variable(x.dtype)
     helper.append_op("dropout", {"X": [x.name]},
                      {"Out": [out.name], "Mask": [mask.name]},
@@ -242,6 +267,8 @@ def _simple(op_type, out_slot="Out"):
     def layer(x, name=None, **attrs):
         helper = LayerHelper(op_type, name=name)
         out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
+        out.seq_len_var = x.seq_len_var
+        out.sub_seq_len_var = x.sub_seq_len_var
         helper.append_op(op_type, {"X": [x.name]}, {out_slot: [out.name]},
                          attrs)
         return out
@@ -311,6 +338,7 @@ def fused_lm_head_xent(input, label, vocab_size, param_attr=None,
                                 helper.input_dtype([input]))
     loss = helper.create_tmp_variable("float32",
                                       lod_level=input.lod_level)
+    loss.seq_len_var = input.seq_len_var
     helper.append_op("fused_lm_head_xent",
                      {"X": [input.name], "W": [w.name],
                       "Label": [label.name]},
@@ -358,16 +386,396 @@ def smooth_l1(x, y, sigma=1.0, name=None):
 def scaled_dot_product_attention(queries, keys, values, num_heads=1,
                                  causal=False, seq_axis=None, name=None):
     """Fused multi-head attention over [B, T, H] planes (head h owns
-    columns h*D:(h+1)*D). `seq_axis` (ring attention over a mesh axis in
-    the JAX package) is kept as an attr so the program text matches;
-    the port runs one card and refuses a sequence-sharded program at
-    run time."""
+    columns h*D:(h+1)*D). A sequence `keys` masks its padded keys by its
+    lengths. `seq_axis` (ring attention over a mesh axis in the JAX
+    package) is kept as an attr so the program text matches; the port
+    runs one card and refuses a sequence-sharded program at run time."""
     helper = LayerHelper("sdpa", name=name)
     out = helper.create_tmp_variable(queries.dtype,
                                      lod_level=queries.lod_level)
+    out.seq_len_var = queries.seq_len_var
+    out.sub_seq_len_var = queries.sub_seq_len_var
     ins = {"Q": [queries.name], "K": [keys.name], "V": [values.name]}
+    if keys.seq_len_var:
+        ins["SeqLen"] = [keys.seq_len_var]
     helper.append_op("scaled_dot_product_attention", ins,
                      {"Out": [out.name]},
                      {"num_heads": num_heads, "causal": causal,
                       "seq_axis": seq_axis or ""})
     return out
+
+
+def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
+                 bias_attr=None, use_peepholes=True, is_reverse=False,
+                 gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", dtype="float32", name=None):
+    """Fused LSTM over padded sequences (fluid layers/nn.py:255).
+
+    `input` is the pre-projected gate input [B, T, 4D] (size == 4D), as in
+    the reference where an fc feeds dynamic_lstm. Returns (hidden, cell).
+    """
+    helper = LayerHelper("lstm", name=name)
+    D = size // 4
+    w = helper.create_parameter(param_attr, [D, 4 * D], dtype)
+    bias_size = 7 * D if use_peepholes else 4 * D
+    b = helper.create_parameter(bias_attr, [1, bias_size], dtype, is_bias=True)
+    hidden = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
+    cell = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
+    hidden.seq_len_var = input.seq_len_var
+    hidden.sub_seq_len_var = input.sub_seq_len_var
+    cell.seq_len_var = input.seq_len_var
+    cell.sub_seq_len_var = input.sub_seq_len_var
+    ins = {"Input": [input.name], "Weight": [w.name], "Bias": [b.name],
+           "SeqLen": [input.seq_len_var]}
+    if h_0 is not None:
+        ins["H0"] = [h_0.name]
+    if c_0 is not None:
+        ins["C0"] = [c_0.name]
+    helper.append_op("lstm", ins,
+                     {"Hidden": [hidden.name], "Cell": [cell.name]},
+                     {"use_peepholes": use_peepholes,
+                      "is_reverse": is_reverse,
+                      "gate_activation": gate_activation,
+                      "cell_activation": cell_activation,
+                      "candidate_activation": candidate_activation})
+    return hidden, cell
+
+
+def dynamic_gru(input, size, h_0=None, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", dtype="float32", name=None):
+    """Fused GRU over padded sequences; input [B, T, 3*size]."""
+    helper = LayerHelper("gru", name=name)
+    D = size
+    w = helper.create_parameter(param_attr, [D, 3 * D], dtype)
+    b = helper.create_parameter(bias_attr, [1, 3 * D], dtype, is_bias=True)
+    hidden = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
+    hidden.seq_len_var = input.seq_len_var
+    hidden.sub_seq_len_var = input.sub_seq_len_var
+    ins = {"Input": [input.name], "Weight": [w.name], "Bias": [b.name],
+           "SeqLen": [input.seq_len_var]}
+    if h_0 is not None:
+        ins["H0"] = [h_0.name]
+    helper.append_op("gru", ins, {"Hidden": [hidden.name]},
+                     {"is_reverse": is_reverse,
+                      "gate_activation": gate_activation,
+                      "activation": candidate_activation})
+    return hidden
+
+
+def simple_rnn(input, size, h_0=None, param_attr=None, act="tanh",
+               is_reverse=False, dtype="float32", name=None):
+    helper = LayerHelper("simple_rnn", name=name)
+    w = helper.create_parameter(param_attr, [size, size], dtype)
+    hidden = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
+    hidden.seq_len_var = input.seq_len_var
+    hidden.sub_seq_len_var = input.sub_seq_len_var
+    ins = {"Input": [input.name], "Weight": [w.name],
+           "SeqLen": [input.seq_len_var]}
+    if h_0 is not None:
+        ins["H0"] = [h_0.name]
+    helper.append_op("simple_rnn", ins, {"Hidden": [hidden.name]},
+                     {"activation": act, "is_reverse": is_reverse})
+    return hidden
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """Single LSTM step (fluid layers/nn.py lstm_unit) for custom loops."""
+    from . import tensor as T
+    helper = LayerHelper("lstm_unit", name=name)
+    size = int(cell_t_prev.shape[-1])
+    concat_in = T.concat([x_t, hidden_t_prev], axis=-1)
+    gates = fc(concat_in, 4 * size, param_attr=param_attr,
+               bias_attr=bias_attr)
+    ig, fg, cg, og = (T.slice(gates, [len(gates.shape) - 1], [i * size],
+                              [(i + 1) * size]) for i in range(4))
+    i = sigmoid(ig)
+    f = sigmoid(fg + forget_bias) if forget_bias else sigmoid(fg)
+    c = f * cell_t_prev + i * tanh(cg)
+    o = sigmoid(og)
+    h = o * tanh(c)
+    return h, c
+
+
+def cos_sim(x, y, name=None):
+    helper = LayerHelper("cos_sim", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    xn = helper.create_tmp_variable(x.dtype)
+    yn = helper.create_tmp_variable(x.dtype)
+    helper.append_op("cos_sim", {"X": [x.name], "Y": [y.name]},
+                     {"Out": [out.name], "XNorm": [xn.name],
+                      "YNorm": [yn.name]}, {})
+    return out
+
+
+# -- sequence layers --------------------------------------------------------
+
+
+def _require_level1(x, op):
+    """Ops whose nested (lod_level=2) semantics are not implemented must
+    refuse rather than silently apply OUTER lengths to the sub-sequence
+    axis (feeding nested data became possible with _pad_level2)."""
+    _require_seq(x, op)
+    if x.lod_level >= 2:
+        raise NotImplementedError(
+            f"{op}: nested (lod_level=2) input is not supported — pool "
+            "the inner level first (sequence_pool) to get a level-1 "
+            "sequence")
+
+
+def _require_seq(x, op):
+    if not x.seq_len_var:
+        raise ValueError(f"{op} requires a sequence input (lod_level>=1)")
+
+
+def sequence_pool(input, pool_type="average", name=None):
+    """Level-1 input [B, T, ...] pools to [B, ...]. NESTED input
+    (lod_level=2, [B, S, T, ...]) pools the INNER level over its
+    sub-sequence lengths, producing a level-1 sequence [B, S, ...] that
+    keeps the outer lengths — the reference's sequence_pool over the
+    deepest LoD level (sequence_pool_op.cc on a 2-level LoDTensor)."""
+    _require_seq(input, "sequence_pool")
+    helper = LayerHelper("sequence_pool", name=name)
+    if input.lod_level >= 2:
+        out = helper.create_tmp_variable(input.dtype, lod_level=1)
+        out.seq_len_var = input.seq_len_var        # outer level remains
+        helper.append_op("sequence_pool",
+                         {"X": [input.name],
+                          "SeqLen": [input.sub_seq_len_var]},
+                         {"Out": [out.name]},
+                         {"pooltype": pool_type.upper()})
+        return out
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("sequence_pool",
+                     {"X": [input.name], "SeqLen": [input.seq_len_var]},
+                     {"Out": [out.name]}, {"pooltype": pool_type.upper()})
+    return out
+
+
+def sequence_first_step(input, name=None, level="top"):
+    """First timestep. Nested (lod_level=2) input: level="top" gives
+    the first token of the first subsequence ([B, ...]); level="inner"
+    gives the first token of EACH subsequence ([B, S, ...] level-1
+    sequence)."""
+    _require_seq(input, "sequence_first_step")
+    if level == "inner" and input.lod_level < 2:
+        raise ValueError(
+            "sequence_first_step(level='inner') needs a nested "
+            f"(lod_level=2) input; this input is level {input.lod_level}")
+    helper = LayerHelper("sequence_first_step", name=name)
+    ins = {"X": [input.name], "SeqLen": [input.seq_len_var]}
+    attrs = {}
+    if input.lod_level >= 2:
+        ins["SubSeqLen"] = [input.sub_seq_len_var]
+        if level == "inner":
+            attrs["inner_level"] = True
+            out = helper.create_tmp_variable(input.dtype, lod_level=1)
+            out.seq_len_var = input.seq_len_var
+            helper.append_op("sequence_first_step", ins,
+                             {"Out": [out.name]}, attrs)
+            return out
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("sequence_first_step", ins, {"Out": [out.name]},
+                     attrs)
+    return out
+
+
+def sequence_last_step(input, name=None, level="top"):
+    """Last VALID timestep. Nested (lod_level=2) input: level="top"
+    yields the last token of the last subsequence ([B, ...], the
+    reference's LastSeqLayer over the top LoD level); level="inner"
+    yields the last token of EACH subsequence ([B, S, ...] level-1
+    sequence — legacy AggregateLevel.TO_SEQUENCE)."""
+    _require_seq(input, "sequence_last_step")
+    if level == "inner" and input.lod_level < 2:
+        raise ValueError(
+            "sequence_last_step(level='inner') needs a nested "
+            "(lod_level=2) input; this input is level "
+            f"{input.lod_level}")
+    helper = LayerHelper("sequence_last_step", name=name)
+    ins = {"X": [input.name], "SeqLen": [input.seq_len_var]}
+    attrs = {}
+    if input.lod_level >= 2:
+        ins["SubSeqLen"] = [input.sub_seq_len_var]
+        if level == "inner":
+            attrs["inner_level"] = True
+            out = helper.create_tmp_variable(input.dtype, lod_level=1)
+            out.seq_len_var = input.seq_len_var
+            helper.append_op("sequence_last_step", ins,
+                             {"Out": [out.name]}, attrs)
+            return out
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("sequence_last_step", ins, {"Out": [out.name]},
+                     attrs)
+    return out
+
+
+def sequence_softmax(input, name=None):
+    _require_level1(input, "sequence_softmax")
+    helper = LayerHelper("sequence_softmax", name=name)
+    out = helper.create_tmp_variable(input.dtype, lod_level=input.lod_level)
+    out.seq_len_var = input.seq_len_var
+    out.sub_seq_len_var = input.sub_seq_len_var
+    helper.append_op("sequence_softmax",
+                     {"X": [input.name], "SeqLen": [input.seq_len_var]},
+                     {"Out": [out.name]}, {})
+    return out
+
+
+def sequence_expand(x, y, name=None):
+    _require_seq(y, "sequence_expand")
+    helper = LayerHelper("sequence_expand", name=name)
+    out = helper.create_tmp_variable(x.dtype, lod_level=y.lod_level)
+    out.seq_len_var = y.seq_len_var
+    out.sub_seq_len_var = y.sub_seq_len_var
+    helper.append_op("sequence_expand", {"X": [x.name], "Y": [y.name]},
+                     {"Out": [out.name]}, {})
+    return out
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, act=None, param_attr=None, bias_attr=None,
+                  name=None):
+    _require_level1(input, "sequence_conv")
+    helper = LayerHelper("sequence_conv", name=name)
+    dtype = input.dtype
+    D = int(input.shape[-1])
+    w = helper.create_parameter(param_attr, [filter_size * D, num_filters],
+                                dtype)
+    pre_bias = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
+    pre_bias.seq_len_var = input.seq_len_var
+    pre_bias.sub_seq_len_var = input.sub_seq_len_var
+    helper.append_op("sequence_conv",
+                     {"X": [input.name], "Filter": [w.name],
+                      "SeqLen": [input.seq_len_var]},
+                     {"Out": [pre_bias.name]},
+                     {"contextLength": filter_size,
+                      "contextStart": -(filter_size // 2),
+                      "contextStride": filter_stride})
+    if bias_attr is False:
+        pre_act = pre_bias
+    else:
+        b = helper.create_parameter(bias_attr, [num_filters], dtype,
+                                    is_bias=True)
+        pre_act = helper.create_tmp_variable(dtype,
+                                             lod_level=input.lod_level)
+        pre_act.seq_len_var = input.seq_len_var
+        pre_act.sub_seq_len_var = input.sub_seq_len_var
+        helper.append_op("elementwise_add",
+                         {"X": [pre_bias.name], "Y": [b.name]},
+                         {"Out": [pre_act.name]},
+                         {"axis": len(pre_bias.shape or (0, 0, 0)) - 1})
+    return helper.append_activation(pre_act, act)
+
+
+def sequence_reshape(input, new_dim, name=None):
+    _require_level1(input, "sequence_reshape")
+    helper = LayerHelper("sequence_reshape", name=name)
+    out = helper.create_tmp_variable(input.dtype, lod_level=input.lod_level)
+    out.seq_len_var = input.seq_len_var
+    out.sub_seq_len_var = input.sub_seq_len_var
+    helper.append_op("sequence_reshape", {"X": [input.name]},
+                     {"Out": [out.name]}, {"new_dim": new_dim})
+    return out
+
+
+def sequence_concat(input, name=None):
+    helper = LayerHelper("sequence_concat", name=name)
+    out = helper.create_tmp_variable(input[0].dtype,
+                                     lod_level=input[0].lod_level)
+    out.seq_len_var = input[0].seq_len_var
+    helper.append_op("sequence_concat", {"X": [v.name for v in input]},
+                     {"Out": [out.name]}, {})
+    return out
+
+
+def sequence_mask(x, dtype="float32", name=None):
+    """[B, T] 0/1 validity mask for a padded sequence tensor — the explicit
+    form of the reference's LoD bounds, used for masked attention and
+    masked losses."""
+    _require_seq(x, "sequence_mask")
+    helper = LayerHelper("sequence_mask", name=name)
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op("sequence_mask",
+                     {"X": [x.name], "SeqLen": [x.seq_len_var]},
+                     {"Out": [out.name]}, {"dtype": dtype})
+    return out
+
+
+def edit_distance(input, label, normalized=True, name=None):
+    _require_seq(input, "edit_distance")
+    _require_seq(label, "edit_distance")
+    helper = LayerHelper("edit_distance", name=name)
+    out = helper.create_tmp_variable("float32")
+    seq_num = helper.create_tmp_variable("int64")
+    helper.append_op("edit_distance",
+                     {"Hyps": [input.name], "HypsLen": [input.seq_len_var],
+                      "Refs": [label.name], "RefsLen": [label.seq_len_var]},
+                     {"Out": [out.name], "SequenceNum": [seq_num.name]},
+                     {"normalized": normalized})
+    return out, seq_num
+
+
+def beam_search(pre_scores, probs, pre_finished=None, beam_size=4,
+                end_id=0, is_first_step=False, name=None):
+    """One beam expansion step (fluid layers/nn.py:1911,
+    operators/beam_search_op.cc) on the STATIC [batch, beam]
+    layout: probs [B, K, V] post-softmax, pre_scores [B, K] cumulative
+    log-probs. Returns (selected_ids, parent_idx, selected_scores,
+    finished); a finished mask replaces the reference's shrinking LoD
+    beam set."""
+    helper = LayerHelper("beam_search", name=name)
+    ids = helper.create_tmp_variable("int32")
+    parents = helper.create_tmp_variable("int32")
+    scores = helper.create_tmp_variable("float32")
+    fin = helper.create_tmp_variable("int32")
+    ins = {"PreScores": [pre_scores.name], "Probs": [probs.name]}
+    if pre_finished is not None:
+        ins["PreFinished"] = [pre_finished.name]
+    helper.append_op("beam_search", ins,
+                     {"SelectedIds": [ids.name], "ParentIdx": [parents.name],
+                      "SelectedScores": [scores.name],
+                      "Finished": [fin.name]},
+                     {"beam_size": beam_size, "end_id": end_id,
+                      "is_first_step": is_first_step})
+    return ids, parents, scores, fin
+
+
+def beam_search_decode(ids, parent_idx, final_scores, name=None):
+    """Backtrack stacked beam_search steps into ranked sentences
+    (operators/beam_search_decode_op.cc). ids/parent_idx [L, B, K],
+    final_scores [B, K] -> (sentence_ids [B, K, L], sentence_scores)."""
+    helper = LayerHelper("beam_search_decode", name=name)
+    sids = helper.create_tmp_variable("int32")
+    sscores = helper.create_tmp_variable("float32")
+    helper.append_op("beam_search_decode",
+                     {"Ids": [ids.name], "ParentIdx": [parent_idx.name],
+                      "FinalScores": [final_scores.name]},
+                     {"SentenceIds": [sids.name],
+                      "SentenceScores": [sscores.name]}, {})
+    return sids, sscores
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None,
+             name=None):
+    """Lookahead row convolution (fluid layers/nn.py row_conv,
+    operators/row_conv_op.cc — DeepSpeech2's streaming-friendly context
+    layer). input: padded [B, T, D] sequence."""
+    _require_seq(input, "row_conv")
+    helper = LayerHelper("row_conv", name=name)
+    D = input.shape[-1]
+    # fluid contract: the filter covers the CURRENT step plus
+    # future_context_size future steps -> future_context_size + 1 rows
+    filt = helper.create_parameter(param_attr,
+                                   [future_context_size + 1, D],
+                                   input.dtype)
+    out = helper.create_tmp_variable(input.dtype, shape=input.shape,
+                                     lod_level=input.lod_level)
+    out.seq_len_var = input.seq_len_var
+    out.sub_seq_len_var = input.sub_seq_len_var
+    helper.append_op("row_conv",
+                     {"X": [input.name], "Filter": [filt.name],
+                      "SeqLen": [input.seq_len_var]},
+                     {"Out": [out.name]}, {})
+    return helper.append_activation(out, act)

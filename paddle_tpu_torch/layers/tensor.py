@@ -1,6 +1,6 @@
 """Tensor creation / manipulation layers (the port's copy of the part of
-`paddle_tpu/layers/tensor.py` the training path and the image models
-call)."""
+`paddle_tpu/layers/tensor.py` the training path, the image models and
+the sequence models call)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,8 @@ from .. import framework
 from ..layer_helper import LayerHelper
 
 __all__ = ["create_parameter", "cast", "concat", "fill_constant", "slice",
-           "uniform_random", "argmax", "assign", "increment", "less_than"]
+           "uniform_random", "argmax", "assign", "increment", "less_than",
+           "squeeze", "unsqueeze"]
 
 
 def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, name=None):
@@ -35,6 +36,8 @@ def cast(x, dtype, name=None):
     helper = LayerHelper("cast", name=name)
     dtype = framework.canonical_dtype(dtype)
     out = helper.create_tmp_variable(dtype, lod_level=x.lod_level)
+    out.seq_len_var = x.seq_len_var
+    out.sub_seq_len_var = x.sub_seq_len_var
     helper.append_op("cast", {"X": [x.name]}, {"Out": [out.name]},
                      {"out_dtype": dtype, "in_dtype": x.dtype})
     return out
@@ -44,6 +47,7 @@ def concat(input, axis=0, name=None):
     helper = LayerHelper("concat", name=name)
     out = helper.create_tmp_variable(input[0].dtype,
                                      lod_level=input[0].lod_level)
+    out.seq_len_var = input[0].seq_len_var
     helper.append_op("concat", {"X": [v.name for v in input]},
                      {"Out": [out.name]}, {"axis": axis})
     return out
@@ -101,4 +105,22 @@ def less_than(x, y, cond=None, name=None):
     out = cond if cond is not None else helper.create_tmp_variable("bool")
     helper.append_op("less_than", {"X": [x.name], "Y": [y.name]},
                      {"Out": [out.name]}, {})
+    return out
+
+
+def squeeze(input, axes=None, name=None):
+    """Drop the size-1 axes `axes` (every size-1 axis when empty)."""
+    helper = LayerHelper("squeeze", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("squeeze", {"X": [input.name]}, {"Out": [out.name]},
+                     {"axes": list(axes or [])})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    """Insert size-1 axes at `axes` (in ascending order)."""
+    helper = LayerHelper("unsqueeze", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("unsqueeze", {"X": [input.name]}, {"Out": [out.name]},
+                     {"axes": list(axes)})
     return out

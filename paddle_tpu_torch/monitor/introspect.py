@@ -15,7 +15,10 @@ The port's counterpart of `paddle_tpu/monitor/introspect.py`, on
     {signature: {count, total_s, last_s}}, capped at 128 signatures.
   * live MFU — `program_flops(program, feed)` is a static tally of the
     products a step runs, forward and gradient ops, from the Program's
-    ops and their var shapes (the feed's batch dim in place of -1);
+    ops and their var shapes: the shapes the feed gives each var (every
+    op run on meta tensors from the feed's shapes, so a sequence's
+    padded time dim is the fed one), else the declared shape with the
+    feed's batch dim in place of -1;
     `note_step_flops(flops, seconds)` joins it with a measured step into
     the `perf.*` gauges over `peak_flops()`.
   * `sample_device_gauges()` / `debug_vars(engine)` — the `device.*`
@@ -143,8 +146,9 @@ def peak_flops():
 # as the reference's trace holds them. Attention counts the full Tq x Tk
 # score matrix even when causal (the kernels skip the masked tiles; the
 # reference's dots do not). The fused lm-head loss's gradient recomputes
-# the logits: three products. transformer_stack counts every layer (the
-# reference's scan body counts once: ROADMAP C).
+# the logits: three products. transformer_stack counts every layer, and
+# a recurrence (gru, lstm, lstmp, simple_rnn) every time step: the
+# reference's scan body counts once (ROADMAP C12).
 
 
 def _prod(dims):
@@ -190,10 +194,41 @@ def _stack_flops(x, ins_shapes):
     return L * per_layer
 
 
+def _matmul_flops(xs, ys, attrs, out):
+    # 2 * prod(out) * K, K the contracted axis of X
+    k = int(xs[-2] if attrs.get("transpose_X") and len(xs) > 1 else xs[-1])
+    return 2 * _prod(out) * k
+
+
+def _recurrence_flops(op_type, shapes):
+    """The recurrent products of every time step: h [B, D] @ W [D, gD]
+    (lstmp: r [B, P] @ W [P, 4D] and h [B, D] @ ProjWeight [D, P], plus
+    the projection of H0 once)."""
+    b, t = int(shapes["Input"][0]), int(shapes["Input"][1])
+    w = shapes["Weight"]
+    flops = 2 * b * t * _prod(w)
+    if op_type == "lstmp":
+        wp = shapes["ProjWeight"]
+        flops += 2 * b * t * _prod(wp)
+        if "H0" in shapes:
+            flops += 2 * b * _prod(wp)
+    return flops
+
+
 def _op_flops(op_type, shapes, attrs, out_shapes):
     """FLOPs of one forward op from its input shapes ({slot: shape})."""
     if op_type in ("mul", "quant_mul"):
         return _mul_flops(shapes["X"], shapes["Y"], attrs)
+    if op_type == "matmul":
+        out = out_shapes.get("Out")
+        if out is None:
+            return 0
+        return _matmul_flops(shapes["X"], shapes["Y"], attrs, out)
+    if op_type in ("gru", "lstm", "lstmp", "simple_rnn"):
+        return _recurrence_flops(op_type, shapes)
+    if op_type == "sequence_conv":
+        xs = shapes["X"]
+        return 2 * int(xs[0]) * int(xs[1]) * _prod(shapes["Filter"])
     if op_type == "quant_matmul":
         xs, ys = shapes["X"], shapes["Y"]
         return 2 * _prod(xs[:-1]) * int(xs[-1]) * int(ys[-1])
@@ -222,7 +257,8 @@ def _op_flops(op_type, shapes, attrs, out_shapes):
 
 _GRAD_FACTOR = {"mul": 2, "scaled_dot_product_attention": 2,
                 "fused_lm_head_xent": 3, "transformer_stack": 2,
-                "conv2d_transpose": 2}
+                "conv2d_transpose": 2, "matmul": 2, "gru": 2, "lstm": 2,
+                "lstmp": 2, "simple_rnn": 2, "sequence_conv": 2}
 
 
 def _grad_flops(op_type, shapes, attrs, out_shapes):
@@ -238,16 +274,73 @@ def _grad_flops(op_type, shapes, attrs, out_shapes):
     return factor * _op_flops(op_type, shapes, attrs, out_shapes)
 
 
-def _var_shape(block, name, dyn):
+def _var_shape(block, name, dyn, fed=None):
+    if fed:
+        base = name[:-len("@GRAD")] if name.endswith("@GRAD") else name
+        if base in fed:
+            return fed[base]
     v = block._find_var(name)
     if v is None or v.shape is None:
         return None
     return tuple(dyn if int(s) < 0 else int(s) for s in v.shape)
 
 
-def _var_bytes(block, name, dyn):
+def _fed_shapes(block, feed):
+    """{var: shape} under `feed`: the feeds' own shapes, and each
+    forward op's outputs from its lowering run on meta tensors (no data,
+    no device) over its inputs' fed or declared shapes, in program
+    order. An op whose inputs are not all known, or whose lowering
+    refuses meta tensors, adds nothing."""
     import numpy as np
-    shape = _var_shape(block, name, dyn)
+    import torch
+    from ..ops import registry as op_registry
+    shapes = {n: tuple(int(d) for d in np.shape(v))
+              for n, v in (feed or {}).items()}
+    if not shapes:
+        return shapes
+    ctx = op_registry._MetaCtx()
+    for op in block.ops:
+        if op.type.endswith("_grad") or not op_registry.has_op(op.type):
+            continue
+        ins = {}
+        for slot, names in op.inputs.items():
+            vals = []
+            for n in names:
+                if not n:
+                    continue
+                v = block._find_var(n)
+                shape = shapes.get(n)
+                if shape is None and v is not None and v.shape is not None \
+                        and all(int(d) >= 0 for d in v.shape):
+                    shape = tuple(int(d) for d in v.shape)
+                if shape is None or v is None:
+                    ins = None
+                    break
+                vals.append(torch.empty(shape, device="meta",
+                                        dtype=op_registry.torch_dtype(
+                                            v.dtype)))
+            if ins is None:
+                break
+            if vals:
+                ins[slot] = vals
+        if ins is None:
+            continue
+        try:
+            with torch.no_grad():
+                outs = op_registry.get_op(op.type).lowering(
+                    ctx, ins, dict(op.attrs))
+        except Exception:      # noqa: BLE001 — the tally must not break
+            continue
+        for slot, names in op.outputs.items():
+            for n, t in zip(names, outs.get(slot) or ()):
+                if n and isinstance(t, torch.Tensor):
+                    shapes[n] = tuple(int(d) for d in t.shape)
+    return shapes
+
+
+def _var_bytes(block, name, dyn, fed=None):
+    import numpy as np
+    shape = _var_shape(block, name, dyn, fed)
     v = block._find_var(name)
     if shape is None or v is None or v.dtype is None:
         return 0
@@ -274,6 +367,7 @@ def program_op_costs(program, feed=None, block=None):
     and output var bytes."""
     block = block if block is not None else program.global_block()
     dyn = _feed_batch(feed)
+    fed = _fed_shapes(block, feed)
     by_id = {op.id: op for op in block.ops}
     out = []
     for idx, op in enumerate(block.ops):
@@ -281,10 +375,10 @@ def program_op_costs(program, feed=None, block=None):
         src = by_id.get(op.attrs["fwd_op_id"]) if grad else op
         flops = 0
         if src is not None:
-            shapes = {slot: _var_shape(block, names[0], dyn)
+            shapes = {slot: _var_shape(block, names[0], dyn, fed)
                       for slot, names in src.inputs.items()
                       if names and names[0]}
-            out_shapes = {slot: _var_shape(block, names[0], dyn)
+            out_shapes = {slot: _var_shape(block, names[0], dyn, fed)
                           for slot, names in src.outputs.items()
                           if names and names[0]}
             if all(s is not None for s in shapes.values()):
@@ -294,7 +388,7 @@ def program_op_costs(program, feed=None, block=None):
                                    out_shapes))
                 except (KeyError, IndexError, TypeError, ValueError):
                     flops = 0
-        nbytes = sum(_var_bytes(block, n, dyn)
+        nbytes = sum(_var_bytes(block, n, dyn, fed)
                      for names in list(op.inputs.values())
                      + list(op.outputs.values()) for n in names if n)
         out.append((idx, op.type, flops, nbytes))

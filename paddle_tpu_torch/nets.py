@@ -1,12 +1,12 @@
-"""Composed network blocks (the port's copy of the image half of
-`paddle_tpu/nets.py`, fluid nets.py: simple_img_conv_pool and
-img_conv_group)."""
+"""Composed network blocks (the port's copy of `paddle_tpu/nets.py`'s
+simple_img_conv_pool, img_conv_group and sequence_conv_pool, fluid
+nets.py)."""
 
 from __future__ import annotations
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -41,3 +41,10 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                 tmp = layers.dropout(tmp, conv_batchnorm_drop_rate[i])
     return layers.pool2d(tmp, pool_size=pool_size, pool_stride=pool_stride,
                          pool_type=pool_type)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, act="sigmoid",
+                       pool_type="max"):
+    conv_out = layers.sequence_conv(input, num_filters=num_filters,
+                                    filter_size=filter_size, act=act)
+    return layers.sequence_pool(conv_out, pool_type=pool_type)

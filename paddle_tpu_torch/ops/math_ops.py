@@ -1,7 +1,9 @@
 """Math / tensor op lowerings (the port of the part of
 `paddle_tpu/ops/math_ops.py` and `ops/tensor_ops.py` the training path
 runs, with the ops the LR schedules, the gradient clips and the
-regularizers append, and the channel concat of the image models).
+regularizers append, the channel concat of the image models, and the
+batched matmul, squeeze / unsqueeze and cosine similarity of the
+sequence models).
 
 Each lowering is a few lines of torch, run eagerly by the executor; the
 large products (`mul`) go to `torch.matmul`, as the reference leaves
@@ -134,6 +136,57 @@ def _mul(ctx, ins, attrs):
     out = torch.matmul(x2, y2).to(x.dtype)
     return {"Out": [out.reshape(tuple(x.shape[:xnc])
                                 + tuple(y.shape[ync:]))]}
+
+
+@register_op("matmul")
+def _matmul(ctx, ins, attrs):
+    """Batched product of the last two axes (operators/matmul_op.cc):
+    `transpose_X` / `transpose_Y` swap a (rank >= 2) operand's last two
+    axes, `alpha` scales the product; torch.matmul broadcasts the batch
+    axes as jnp.matmul does."""
+    x, y = ins["X"][0], ins["Y"][0]
+    if attrs.get("transpose_X", False) and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False) and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": [out.to(x.dtype)]}
+
+
+@register_op("squeeze")
+def _squeeze(ctx, ins, attrs):
+    x = ins["X"][0]
+    axes = attrs.get("axes", [])
+    if not axes:
+        return {"Out": [x.squeeze()]}
+    for a in sorted((a % x.dim() for a in axes), reverse=True):
+        if x.shape[a] != 1:
+            raise ValueError(f"squeeze: axis {a} of {tuple(x.shape)} is "
+                             "not 1")
+        x = x.squeeze(a)
+    return {"Out": [x]}
+
+
+@register_op("unsqueeze")
+def _unsqueeze(ctx, ins, attrs):
+    x = ins["X"][0]
+    for a in sorted(attrs["axes"]):
+        x = x.unsqueeze(a)
+    return {"Out": [x]}
+
+
+@register_op("cos_sim")
+def _cos_sim(ctx, ins, attrs):
+    """Cosine similarity over the last axis (operators/cos_sim_op.cc);
+    the norms are outputs too."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xn = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(y), dim=-1, keepdim=True))
+    out = torch.sum(x * y, dim=-1, keepdim=True) / (xn * yn + 1e-12)
+    return {"Out": [out], "XNorm": [xn], "YNorm": [yn]}
 
 
 @register_op("sum")

@@ -6,7 +6,7 @@ jittering converter makes multi-worker completion out of order), the
 same training trajectory for every worker count, a reader error and a
 conversion error raised once in batch order with every pipeline thread
 stopped, early exit, the flags, the counters; and DataFeeder's dtype
-semantics against the JAX package's. On the CPU a batch is
+semantics and its sequence (LoD) feeds against the JAX package's. On the CPU a batch is
 `torch.from_numpy` of the converted array; the side-stream copy to the
 card is held by tests/test_torch_trainer_cuda.py.
 """
@@ -21,7 +21,6 @@ import torch
 import paddle_tpu as jpt
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import flags, monitor
-from paddle_tpu_torch.data_feeder import LoDFeedNotPorted
 from paddle_tpu_torch.reader import DeviceFeeder
 from paddle_tpu_torch.reader.pipeline import THREAD_PREFIX
 
@@ -320,9 +319,64 @@ def test_datafeeder_dtype_semantics_match_jax_package():
 
 
 def test_datafeeder_refuses_sequence_feeds():
-    pt.framework.reset_default_programs()
-    var = pt.default_main_program().global_block().create_var(
-        name="seq", shape=[-1, -1, 1], dtype="int64", lod_level=1,
-        is_data=True)
-    with pytest.raises(LoDFeedNotPorted, match="seq"):
-        pt.DataFeeder([var])
+    """Sequence feeds are ported up to the reference's two LoD levels; a
+    deeper one is refused when fed, in both packages, with the same
+    error."""
+    rows = [([[[[1]]]],)]
+    for P in (pt, jpt):
+        P.framework.reset_default_programs()
+        var = P.default_main_program().global_block().create_var(
+            name="seq", shape=[-1, -1, -1, -1, 1], dtype="int64",
+            lod_level=3, is_data=True)
+        feeder = P.DataFeeder([var])
+        with pytest.raises(NotImplementedError, match="lod_level=3"):
+            feeder.feed(rows)
+
+
+def _sequence_rows(lod_level, ragged):
+    """Rows of (ids, features, label): ids a sequence of int ids (lod 1)
+    or of sub-sequences (lod 2); features [n, 3] float rows; ragged
+    lengths or all rows full (the bucket's edge, 16)."""
+    rng = np.random.RandomState(lod_level * 10 + ragged)
+    rows = []
+    for i in range(5):
+        n = int(rng.randint(1, 20)) if ragged else 16
+        if lod_level == 1:
+            ids = rng.randint(0, 50, n).tolist()
+        else:
+            ids = [rng.randint(0, 50, int(rng.randint(1, 9)) if ragged
+                               else 16).tolist()
+                   for _ in range(int(rng.randint(1, 5)) if ragged else 4)]
+        feats = rng.randn(n, 3).astype(np.float64).tolist()
+        rows.append((ids, feats, i % 2))
+    return rows
+
+
+@pytest.mark.parametrize("ragged", [True, False], ids=["ragged", "full"])
+@pytest.mark.parametrize("lod_level", [1, 2])
+def test_datafeeder_sequence_feeds_match_jax_package(lod_level, ragged):
+    """The port's DataFeeder on sequence vars gives the JAX package's
+    arrays: the padded values, their dtypes (int64 ids, float32
+    features), the bucketed pad length, `@SEQLEN` (int32) and, for
+    lod_level 2, `@SEQLEN@SUB`."""
+    rows = _sequence_rows(lod_level, ragged)
+    out = {}
+    for P in (pt, jpt):
+        P.framework.reset_default_programs()
+        ids = P.layers.data("ids", [1], dtype="int64", lod_level=lod_level)
+        feats = P.layers.data("feats", [3], lod_level=1)
+        lab = P.layers.data("lab", [1], dtype="int64")
+        out[P] = P.DataFeeder([ids, feats, lab]).feed(rows)
+    got, want = out[pt], out[jpt]
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert got[name].dtype == want[name].dtype, name
+        assert got[name].shape == want[name].shape, name
+        np.testing.assert_array_equal(got[name], want[name])
+    assert got["ids@SEQLEN"].dtype == np.int32
+    assert got["ids"].dtype == np.int64 and got["feats"].dtype == np.float32
+    T = max(len(r[1]) for r in rows)
+    assert got["feats"].shape == (5, pt.data_feeder.bucket_length(T), 3)
+    if lod_level == 2:
+        assert got["ids@SEQLEN@SUB"].shape == got["ids"].shape[:2]
+        assert "ids@SEQLEN@SUB" in want
