@@ -290,6 +290,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      op on the card on the CPU's values of its inputs within 1e-4.
      No TPU kernel lies on these paths: their launch counts are checked
      to be 0.
+ 31. CTR training: bench.py's bench_ctr_sparse card config (wide&deep
+     over 10M x 32 and 10M x 1 is_sparse tables, 26 fields, hidden
+     (64, 32), Adam 1e-3, ids uniform over the vocab) at B 512 and 4096
+     under each sparse_grad mode (auto, selected_rows, dense), timed as
+     bench.py's _train_throughput (2 warm-up steps, 3 x 10 steps):
+     examples/s median, low, high; a profiled step's device ms, busy
+     share and device kernels; syncs of a step (torch's sync debug
+     mode); peak memory; the dispatch counters (auto must take the
+     dense path at this size); losses finite and falling;
+     auto_vs_best_forced; the host-fed row (B 4096, auto, DeviceFeeder)
+     and DeepFM at B 4096 under selected_rows; 5 steps under the NaN
+     guard against 5 without;
+ 32. CTR on the card: (a) both CTR programs at vocab 200, 8 fields,
+     emb 8, hidden 16, B 64, a dense input of 4, selected_rows, two
+     Adam steps, every op on the card on the CPU's values of its inputs
+     (SelectedRows rows equal, values and merged sums) within 1e-5 of
+     its largest element; (b) selected_rows against dense under SGD at
+     phase 31's config, B 4096, 3 steps, within rtol 1e-5 atol 1e-6;
+     (c) lazy Adam: phase 31's selected_rows B 4096 run leaves every
+     untouched table row bitwise equal and moves every looked-up one;
+     (d) two selected_rows Adam runs from one seed bitwise equal;
+ 33. scoring: an InGraphAuc over phase 31's batches, its histograms
+     equal to numpy's of the fetched scores exactly, its AUC within
+     1e-6 of the host Auc's; the book's MLP MNIST trained on the card
+     with an InGraphAccuracy (the loss below a fifth, accuracy > 0.9,
+     the in-graph counts equal to the batches'). No TPU kernel lies on
+     these paths either: their launch counts are checked to be 0.
 
 The second-to-last line is the kernel table as JSON (with the ResNet-50
 results under "resnet50"); the last line is
@@ -5712,6 +5739,564 @@ def sequence_phase(smi):
              "stacked_lstm_training": lstm, "seq2seq_op_by_op": parity})
 
 
+# -- phases 31-33: CTR with SelectedRows sparse gradients ---------------------
+
+# bench.py's bench_ctr_sparse card config (:537): wide&deep over a 10M-row
+# table, 26 fields, embedding 32, hidden (64, 32) (wide_deep's default),
+# Adam 1e-3, ids uniform over the vocab, B 512 and 4096, three gradient
+# paths; _train_throughput's 2 warm-up steps, 10 steps, 3 repeats
+CTR_V, CTR_F, CTR_DIM, CTR_HIDDEN, CTR_LR = 10_000_000, 26, 32, (64, 32), 1e-3
+CTR_BATCHES = (512, 4096)
+CTR_MODES = ("auto", "selected_rows", "dense")
+CTR_WARM, CTR_STEPS, CTR_REPEATS = 2, 10, 3
+CTR_GUARD_STEPS = 5
+# phase 32 (a): both CTR programs at a small width, op by op
+CTR_PAR_V, CTR_PAR_F, CTR_PAR_EMB, CTR_PAR_HID, CTR_PAR_B = 200, 8, 8, 16, 64
+CTR_PAR_TOL = 1e-5
+CTR_SGD_RTOL, CTR_SGD_ATOL, CTR_SGD_LR = 1e-5, 1e-6, 0.5   # phase 32 (b)
+CTR_AUC_BUCKETS, CTR_AUC_TOL = 200, 1e-6
+MNIST_STEPS = 80
+
+
+def ctr_program(model, with_auc=False, opt=None, dense_input=False,
+                width=None):
+    """bench.py's CTR program (`model` over is_sparse tables, mean
+    sigmoid log-loss, Adam 1e-3 unless `opt`), optionally scored by an
+    InGraphAuc over sigmoid(logit): (main, startup, cost, auc). `width`:
+    (vocab, fields, embedding, hidden), phase 31's by default."""
+    V, F, emb, hidden = width or (CTR_V, CTR_F, CTR_DIM, CTR_HIDDEN)
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        ids = pt.layers.data("ids", [F, 1], dtype="int64")
+        label = pt.layers.data("label", [1], dtype="float32")
+        dense = pt.layers.data("dense", [4]) if dense_input else None
+        logit = getattr(pt.models.ctr, model)(
+            ids, V, F, emb_dim=emb, hidden=hidden, dense_input=dense,
+            is_sparse=True)
+        cost = pt.layers.mean(
+            pt.layers.sigmoid_cross_entropy_with_logits(logit, label))
+        auc = None
+        if with_auc:
+            auc = pt.evaluator.InGraphAuc(
+                pt.layers.sigmoid(logit), label,
+                num_thresholds=CTR_AUC_BUCKETS)
+        (opt or pt.AdamOptimizer(CTR_LR)).minimize(cost)
+    return main, startup, cost, auc
+
+
+def ctr_feed(rng, B, V=None, F=None):
+    """bench.py's feed: ids uniform over the vocab [B, F, 1] int64,
+    click labels 0 / 1 float32."""
+    V, F = V or CTR_V, F or CTR_F
+    return {"ids": rng.randint(0, V, (B, F, 1)).astype(np.int64),
+            "label": rng.randint(0, 2, (B, 1)).astype(np.float32)}
+
+
+def ctr_throughput(exe, scope, main, cost, feed, B):
+    """bench.py's _train_throughput: CTR_WARM steps, one with the loss's
+    fetch, then CTR_REPEATS x CTR_STEPS steps, each repeat fetching only
+    on its last step: (examples/s median, low, high, the losses)."""
+    for _ in range(CTR_WARM):
+        exe.run(main, feed=feed, fetch_list=[], scope=scope)
+    losses = [float(exe.run(main, feed=feed, fetch_list=[cost],
+                            scope=scope)[0][0])]
+    rates = []
+    for _ in range(CTR_REPEATS):
+        t0 = time.perf_counter()
+        for _ in range(CTR_STEPS - 1):
+            exe.run(main, feed=feed, fetch_list=[], scope=scope)
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[cost],
+                                    scope=scope)[0][0]))
+        rates.append(B * CTR_STEPS / (time.perf_counter() - t0))
+    return (*median_lo_hi(rates), losses)
+
+
+def ctr_step_syncs(exe, main, feed, scope):
+    """The device -> host syncs of one step with no fetch, counted by
+    torch's sync debug mode (each warns once; the feed's copies from
+    pageable host memory count too)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            exe.run(main, feed=feed, fetch_list=[], scope=scope)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def ctr_dispatch(exe, main, feed, scope):
+    """One step with the monitor on: (dense_dispatch, selected_rows)
+    counts of that step."""
+    monitor.reset()
+    monitor.set_enabled(True)
+    try:
+        exe.run(main, feed=feed, fetch_list=[], scope=scope)
+        c = monitor.snapshot().get("counters", {})
+    finally:
+        monitor.set_enabled(False)
+        monitor.reset()
+    return (int(c.get("sparse.dense_dispatch", 0)),
+            int(c.get("sparse.selected_rows", 0)))
+
+
+def ctr_profile(exe, main, feed, cost, scope, step_ms):
+    """One step under deviceprof.profile_program: device ms, busy share
+    against `step_ms`, device kernels a step, the top op types."""
+    rep = monitor.deviceprof.profile_program(main, feed, [cost.name], scope,
+                                             exe, steps=1, warmup=0)
+    device_ms = rep["total_us"] / 1e3
+    by_type = {}
+    for r in rep["rows"]:
+        by_type[r["op_type"]] = by_type.get(r["op_type"], 0.0) \
+            + (r["device_time_us"] or 0.0) / 1e3
+    top = dict(sorted(((k, round(v, 3)) for k, v in by_type.items()),
+                      key=lambda kv: -kv[1])[:6])
+    launches = int(sum(k["events_per_step"]
+                       for k in rep["kernels"].values()))
+    return {"device_ms": device_ms, "busy": device_ms / step_ms,
+            "kernels_per_step": launches, "mode": rep["mode"],
+            "top_op_types_ms": top}
+
+
+def ctr_losses_fall(losses, what):
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{what}: losses not finite and falling: "
+                             f"{losses}")
+
+
+def ctr_run(model, B, mode, smi, untouched=False, guard=False):
+    """One cell of phase 31: `model` at bench.py's config, B, `mode`;
+    returns (launch counts, results). `untouched`: also phase 32 (c),
+    lazy Adam's untouched rows bitwise equal after the run; `guard`:
+    CTR_GUARD_STEPS more steps under the NaN guard, timed."""
+    torch.cuda.empty_cache()
+    flags.set_flag("sparse_grad", mode)
+    main, startup, cost, _ = ctr_program(model)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = ctr_feed(np.random.RandomState(SEED), B)
+    tables = [n for n in scope.vars if n.endswith("_emb")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()                       # the main path starts here
+    med, lo, hi, losses = ctr_throughput(exe, scope, main, cost, feed, B)
+    counts = read_counts()              # the main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    what = f"CTR {model} B {B} {mode}"
+    check_counts(counts, launches_of(), f"{what} (no TPU kernel on this "
+                 "path)")
+    ctr_losses_fall(losses, what)
+    step_ms = 1e3 * B / med
+    dense, sparse = ctr_dispatch(exe, main, feed, scope)
+    syncs = ctr_step_syncs(exe, main, feed, scope)
+    prof = ctr_profile(exe, main, feed, cost, scope, step_ms)
+    out = {"examples_per_s": med, "lo": lo, "hi": hi, "step_ms": step_ms,
+           "losses": losses, "peak_gib": peak / 2**30,
+           "dense_dispatch_per_step": dense,
+           "selected_rows_per_step": sparse, "syncs_per_step": syncs,
+           **prof}
+    log(f"{what}: {med:.1f} examples/s median ({lo:.1f}-{hi:.1f}, "
+        f"{CTR_REPEATS} x {CTR_STEPS} steps after {CTR_WARM + 1}), step "
+        f"{step_ms:.2f} ms, device {prof['device_ms']:.2f} ms (busy "
+        f"{prof['busy']:.3f}), {prof['kernels_per_step']} kernels a step, "
+        f"{syncs} syncs a step (no fetch), peak {peak / 2**30:.2f} GiB, "
+        f"dispatch dense {dense} / selected_rows {sparse} a step; losses "
+        f"{[round(x, 5) for x in losses]}; device ms by op type "
+        f"{prof['top_op_types_ms']} | {smi}")
+    if mode == "auto" and (dense, sparse) != (2, 0):
+        raise AssertionError(f"{what}: auto did not take the dense path at "
+                             f"this size (dense {dense}, selected_rows "
+                             f"{sparse} a step)")
+    if mode == "selected_rows" and (dense, sparse) != (0, 2):
+        raise AssertionError(f"{what}: dispatch dense {dense}, "
+                             f"selected_rows {sparse} a step")
+    if untouched:
+        # the tables as the startup program made them: its generator
+        # draws the same values again from the program's seed
+        start = pt.Scope()
+        exe.run(startup, scope=start)
+        start = {n: start.get(n) for n in tables}
+        touched = torch.zeros(CTR_V, dtype=torch.bool, device="cuda")
+        touched[torch.from_numpy(feed["ids"]).reshape(-1).cuda()] = True
+        for n in tables:
+            same = torch.equal(scope.get(n)[~touched], start[n][~touched])
+            moved = bool((scope.get(n)[touched] != start[n][touched])
+                         .any(dim=-1).all())
+            if not (same and moved):
+                raise AssertionError(f"{what}: lazy Adam: untouched rows of "
+                                     f"{n} bitwise {same}, every touched "
+                                     f"row moved {moved}")
+        out["untouched_rows"] = int((~touched).sum())
+        log(f"{what}: lazy Adam left the {out['untouched_rows']} untouched "
+            f"rows of {tables} bitwise equal; every looked-up row moved | "
+            f"{smi}")
+        del start
+    if guard:
+        flags.set_flag("check_nan_inf", True)
+        try:
+            walls = []
+            for _ in range(CTR_GUARD_STEPS):
+                t0 = time.perf_counter()
+                exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+                walls.append(1e3 * (time.perf_counter() - t0))
+        finally:
+            flags.set_flag("check_nan_inf", False)
+        walls_off = []
+        for _ in range(CTR_GUARD_STEPS):
+            t0 = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+            walls_off.append(1e3 * (time.perf_counter() - t0))
+        out["guard_step_ms"] = median_lo_hi(walls)
+        out["unguarded_step_ms"] = median_lo_hi(walls_off)
+        log(f"{what}: NaN guard on {out['guard_step_ms'][0]:.2f} ms a step "
+            f"(fetching the loss; {out['guard_step_ms'][1]:.2f}-"
+            f"{out['guard_step_ms'][2]:.2f}) against "
+            f"{out['unguarded_step_ms'][0]:.2f} off | {smi}")
+    del scope, exe
+    torch.cuda.empty_cache()
+    flags.set_flag("sparse_grad", "auto")
+    return counts, out
+
+
+def ctr_hostfed(smi):
+    """Phase 31's host-fed row (bench.py's run_hostfed): B 4096 under
+    the default `auto` through the DeviceFeeder with the port's defaults
+    over a pool of three host batches, 2 warm-up then CTR_STEPS steps
+    each fetching the loss: examples/s and the feeder's counters."""
+    from paddle_tpu_torch.reader import DeviceFeeder
+    B = max(CTR_BATCHES)
+    torch.cuda.empty_cache()
+    main, startup, cost, _ = ctr_program("wide_deep")
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    pool = [ctr_feed(rng, B) for _ in range(3)]
+
+    def reader():
+        i = 0
+        while True:
+            yield pool[i % len(pool)]
+            i += 1
+
+    feeder = DeviceFeeder(reader, main, exe)
+    it = iter(feeder)
+    for _ in range(2):
+        exe.run(main, feed=next(it), fetch_list=[cost], scope=scope)
+    losses = []
+    zero_counts()                       # the main path starts here
+    t0 = time.perf_counter()
+    for _ in range(CTR_STEPS):
+        losses.append(float(exe.run(main, feed=next(it), fetch_list=[cost],
+                                    scope=scope)[0][0]))
+    rate = B * CTR_STEPS / (time.perf_counter() - t0)
+    counts = read_counts()              # the main path ends here
+    it.close()
+    stats = feeder.stats()
+    check_counts(counts, launches_of(), "CTR host-fed (no TPU kernel on "
+                 "this path)")
+    ctr_losses_fall(losses, "CTR host-fed")
+    log(f"CTR wide_deep B {B} auto host-fed (DeviceFeeder, defaults): "
+        f"{rate:.1f} examples/s over {CTR_STEPS} steps; losses "
+        f"{[round(x, 5) for x in losses]}; feed {stats} | {smi}")
+    del scope, exe, feeder
+    torch.cuda.empty_cache()
+    return counts, {"examples_per_s": rate, "losses": losses,
+                    "feed": stats}
+
+
+def ctr_train_phase(smi):
+    """Phase 31: bench.py's bench_ctr_sparse on the card (wide&deep,
+    10M x 32 and 10M x 1 tables, 26 fields, Adam 1e-3) at B 512 and
+    4096 under each sparse_grad mode: examples/s (median, low, high),
+    step ms, device ms and busy share of a profiled step, peak memory,
+    device kernels and syncs a step, the dispatch counters (auto must
+    take the dense path here), losses finite and falling; bench.py's
+    auto_vs_best_forced; the host-fed row; DeepFM at B 4096 under
+    selected_rows. The selected_rows B 4096 cell also checks phase 32
+    (c) and times CTR_GUARD_STEPS steps under the NaN guard."""
+    paths, out = {}, {}
+    for B in CTR_BATCHES:
+        row = {}
+        for mode in CTR_MODES:
+            big_sparse = B == max(CTR_BATCHES) and mode == "selected_rows"
+            counts, row[mode] = ctr_run("wide_deep", B, mode, smi,
+                                        untouched=big_sparse,
+                                        guard=big_sparse)
+            paths[f"ctr_wide_deep_B{B}_{mode}"] = counts
+        best = max(row["selected_rows"]["examples_per_s"],
+                   row["dense"]["examples_per_s"])
+        row["auto_vs_best_forced"] = row["auto"]["examples_per_s"] / best
+        log(f"CTR wide_deep B {B}: auto_vs_best_forced "
+            f"{row['auto_vs_best_forced']:.3f} (auto "
+            f"{row['auto']['examples_per_s']:.1f}, selected_rows "
+            f"{row['selected_rows']['examples_per_s']:.1f}, dense "
+            f"{row['dense']['examples_per_s']:.1f} examples/s) | {smi}")
+        out[f"B{B}"] = row
+    counts, out[f"B{max(CTR_BATCHES)}_hostfed"] = ctr_hostfed(smi)
+    paths["ctr_hostfed"] = counts
+    counts, out["deepfm"] = ctr_run("deepfm", max(CTR_BATCHES),
+                                    "selected_rows", smi)
+    paths["ctr_deepfm"] = counts
+    return paths, out
+
+
+def ctr_err(got, ref):
+    """max |got - ref| / max |ref| of two tensors, or of two
+    SelectedRows (rows equal, else inf; then the larger of the values'
+    and the merged sums' errors)."""
+    from paddle_tpu_torch.selected_rows import is_selected_rows, merge_rows
+    if not is_selected_rows(ref):
+        got, ref = got.double(), ref.double()
+        return float((got - ref).abs().max()) / max(
+            float(ref.abs().max()), 1e-30)
+    if not torch.equal(got.rows.cpu(), ref.rows.cpu()):
+        return float("inf")
+    (gu, gs), (ru, rs) = merge_rows(got.to("cuda")), merge_rows(ref)
+    if not torch.equal(gu.cpu(), ru):
+        return float("inf")
+    return max(ctr_err(got.values.cpu(), ref.values),
+               ctr_err(gs.cpu(), rs))
+
+
+def ctr_parity_phase(smi):
+    """Phase 32 (a): both CTR programs at vocab CTR_PAR_V, CTR_PAR_F
+    fields, embedding CTR_PAR_EMB, hidden CTR_PAR_HID, B CTR_PAR_B with a
+    dense input of 4, under selected_rows, two Adam steps: each step run
+    on the CPU, then every op lowered on the card on the CPU's values of
+    its inputs; every output, the SelectedRows gradients' rows (equal),
+    values and merged sums included, within CTR_PAR_TOL of its largest
+    element."""
+    flags.set_flag("sparse_grad", "selected_rows")
+    out = {}
+    try:
+        for model in ("wide_deep", "deepfm"):
+            main, startup, cost, _ = ctr_program(
+                model, opt=pt.AdamOptimizer(1e-2), dense_input=True,
+                width=(CTR_PAR_V, CTR_PAR_F, CTR_PAR_EMB, (CTR_PAR_HID,)))
+            cpu, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+            cpu.run(startup, scope=scope)
+            rng = np.random.RandomState(SEED + 40)
+            feed = ctr_feed(rng, CTR_PAR_B, CTR_PAR_V, CTR_PAR_F)
+            feed["dense"] = rng.rand(CTR_PAR_B, 4).astype(np.float32)
+            block = main.global_block()
+            names = [n for n, v in block.vars.items()
+                     if not v.persistable and n not in feed]
+            worst, n_out, n_sparse = {}, 0, 0
+            for step in (1, 2):
+                before = tensors_of(scope)
+                res = cpu.run(main, feed=feed, fetch_list=names, scope=scope,
+                              return_numpy=False)
+                values = dict(zip(names, res))
+                for n, t in scope.vars.items():
+                    if isinstance(t, torch.Tensor) \
+                            and block._find_var(n) is not None:
+                        values[n] = t
+                values.update({k: torch.from_numpy(v)
+                               for k, v in feed.items()})
+                pairs = lower_ops_on(main, "cuda", before, values)
+                errs = {n: ctr_err(g, r) for n, (g, r) in pairs.items()}
+                n_out += len(errs)
+                n_sparse += sum(hasattr(r, "rows") for _, r in pairs.values())
+                k = max(errs, key=errs.get)
+                worst[step] = (k, errs[k])
+                if errs[k] > CTR_PAR_TOL:
+                    bad = sorted((e, n) for n, e in errs.items()
+                                 if e > CTR_PAR_TOL)[-5:]
+                    raise AssertionError(f"CTR {model} op by op, step "
+                                         f"{step}: the card differs from "
+                                         f"the CPU: {bad}")
+            log(f"CTR {model} (vocab {CTR_PAR_V}, {CTR_PAR_F} fields, emb "
+                f"{CTR_PAR_EMB}, hidden {CTR_PAR_HID}, B {CTR_PAR_B}, dense "
+                f"4) selected_rows op by op on the card on the CPU's inputs:"
+                f" {n_out} outputs of {len(block.ops)} ops over 2 Adam steps"
+                f" ({n_sparse} SelectedRows), worst {worst} of the largest "
+                f"element (tolerance {CTR_PAR_TOL:g}) | {smi}")
+            out[model] = {"outputs": n_out, "selected_rows": n_sparse,
+                          "ops": len(block.ops),
+                          "worst": {str(k): v for k, v in worst.items()}}
+    finally:
+        flags.set_flag("sparse_grad", "auto")
+    return out
+
+
+def ctr_steps(mode, opt, feeds, init=None):
+    """wide&deep at phase 31's config under `mode`: the startup
+    program's state (or a copy of `init`), one step per feed; (losses,
+    the state before, the state after)."""
+    flags.set_flag("sparse_grad", mode)
+    main, startup, cost, _ = ctr_program("wide_deep", opt=opt)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    if init is not None:
+        for n, t in init.items():
+            scope.set(n, t.clone())
+    start = tensors_of(scope) if init is None else None
+    losses = [float(exe.run(main, feed=f, fetch_list=[cost],
+                            scope=scope)[0][0]) for f in feeds]
+    flags.set_flag("sparse_grad", "auto")
+    return losses, start, {n: t for n, t in scope.vars.items()
+                           if isinstance(t, torch.Tensor)}
+
+
+def ctr_card_checks_phase(smi):
+    """Phase 32 (b) and (d) at phase 31's config, B 4096, three batches:
+    (b) selected_rows against dense under SGD (lr CTR_SGD_LR) from one
+    initialisation, losses and every parameter within rtol CTR_SGD_RTOL,
+    atol CTR_SGD_ATOL (tests/test_sparse.py's tolerance); (d) two
+    selected_rows Adam runs from one seed, every state tensor bitwise
+    equal."""
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(SEED + 41)
+    feeds = [ctr_feed(rng, max(CTR_BATCHES)) for _ in range(3)]
+    sgd = lambda: pt.SGDOptimizer(CTR_SGD_LR)   # noqa: E731
+    d_losses, init, dense = ctr_steps("dense", sgd(), feeds)
+    s_losses, _, sparse = ctr_steps("selected_rows", sgd(), feeds, init)
+    del init
+    worst = {}
+    for n, t in dense.items():
+        diff = (sparse[n] - t).abs()
+        worst[n] = float(diff.max())
+        if not torch.allclose(sparse[n], t, rtol=CTR_SGD_RTOL,
+                              atol=CTR_SGD_ATOL):
+            raise AssertionError(f"CTR (b): {n} under selected_rows differs "
+                                 f"from dense by {worst[n]:.3e}")
+    if not np.allclose(s_losses, d_losses, rtol=CTR_SGD_RTOL,
+                       atol=CTR_SGD_ATOL):
+        raise AssertionError(f"CTR (b): losses {s_losses} against {d_losses}")
+    log(f"CTR (b) wide_deep B {max(CTR_BATCHES)} SGD({CTR_SGD_LR}) 3 steps: "
+        f"selected_rows against dense within rtol {CTR_SGD_RTOL:g} atol "
+        f"{CTR_SGD_ATOL:g}; largest differences {worst}; losses "
+        f"{s_losses} / {d_losses} | {smi}")
+    del dense, sparse
+    torch.cuda.empty_cache()
+    adam = lambda: pt.AdamOptimizer(CTR_LR)   # noqa: E731
+    a_losses, _, a = ctr_steps("selected_rows", adam(), feeds)
+    a = {n: t.clone() for n, t in a.items()}
+    b_losses, _, b = ctr_steps("selected_rows", adam(), feeds)
+    same = all(torch.equal(t, b[n]) for n, t in a.items())
+    log(f"CTR (d) two selected_rows Adam runs of 3 steps from one seed: "
+        f"{len(a)} state tensors bitwise equal {same}; losses {a_losses} / "
+        f"{b_losses} | {smi}")
+    if not same or a_losses != b_losses:
+        raise AssertionError("CTR (d): two selected_rows runs from one seed "
+                             "differ")
+    del a, b
+    torch.cuda.empty_cache()
+    return {"sgd_max_abs_diff": worst, "sgd_losses": [s_losses, d_losses],
+            "repeat_bitwise": same}
+
+
+def ctr_auc_phase(smi):
+    """Phase 33 (a): InGraphAuc (CTR_AUC_BUCKETS buckets) over
+    sigmoid(logit) of wide&deep at phase 31's config under
+    selected_rows, accumulated in the training step over phase 31's
+    host-fed batches and its throughput batch: the histograms equal a
+    numpy histogram of the fetched scores (bucket floor(clip(s) * n) in
+    float32) exactly; the AUC within CTR_AUC_TOL of the host Auc's."""
+    torch.cuda.empty_cache()
+    flags.set_flag("sparse_grad", "selected_rows")
+    main, startup, cost, auc = ctr_program("wide_deep", with_auc=True)
+    score = next(op.input("X")[0] for op in main.global_block().ops
+                 if op.type == "clip")
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    B = max(CTR_BATCHES)
+    feeds = [ctr_feed(rng, B) for _ in range(3)]
+    feeds.append(ctr_feed(np.random.RandomState(SEED), B))
+    host = pt.evaluator.Auc(num_thresholds=CTR_AUC_BUCKETS)
+    want = np.zeros((2, CTR_AUC_BUCKETS + 1), np.float64)
+    zero_counts()                       # the main path starts here
+    for f in feeds:
+        s, = exe.run(main, feed=f, fetch_list=[score], scope=scope)
+        host.update(s, f["label"])
+        idx = np.floor(np.clip(s, 0, 1) * np.float32(CTR_AUC_BUCKETS))
+        np.add.at(want, (1 - f["label"].astype(np.int64).ravel(),
+                         idx.astype(np.int64).ravel()), 1)
+    counts = read_counts()              # the main path ends here
+    flags.set_flag("sparse_grad", "auto")
+    check_counts(counts, launches_of(), "CTR InGraphAuc (no TPU kernel on "
+                 "this path)")
+    pos, neg = (scope.get(v.name).cpu().numpy() for v in auc.states)
+    got = auc.eval(exe, scope)
+    exact = bool((pos == want[0]).all() and (neg == want[1]).all())
+    log(f"CTR InGraphAuc over {len(feeds)} batches of {B}: histograms equal "
+        f"numpy's exactly {exact} ({int(pos.sum())} positives, "
+        f"{int(neg.sum())} negatives); AUC {got:.7f} against the host Auc's "
+        f"{host.eval():.7f} (tolerance {CTR_AUC_TOL:g}) | {smi}")
+    if not exact or abs(got - host.eval()) > CTR_AUC_TOL:
+        raise AssertionError("CTR InGraphAuc differs from numpy / host Auc")
+    del scope, exe
+    torch.cuda.empty_cache()
+    return counts, {"auc": got, "host_auc": host.eval(),
+                    "histograms_exact": exact,
+                    "examples": int(pos.sum() + neg.sum())}
+
+
+def mnist_accuracy_phase(smi):
+    """Phase 33 (b): the book's MLP MNIST (tests/test_book_models.py:34's
+    synthetic digits: 64 x 784 from numpy seed 1234, label = argmax of
+    |x[:, :10]|), Adam 1e-2, MNIST_STEPS steps on the card with an
+    InGraphAccuracy: the loss falls below a fifth, the last batch's
+    accuracy exceeds 0.9, the in-graph correct / total equal the sum of
+    the batches' counts exactly."""
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        img = pt.layers.data("img", [784])
+        label = pt.layers.data("label", [1], dtype="int64")
+        probs = pt.models.mnist.mlp(img)
+        cost = pt.layers.mean(pt.layers.cross_entropy(probs, label))
+        acc = pt.evaluator.InGraphAccuracy(input=probs, label=label)
+        pt.AdamOptimizer(learning_rate=1e-2).minimize(cost)
+    rng = np.random.RandomState(1234)
+    x = rng.randn(64, 784).astype(np.float32)
+    y = (np.abs(x[:, :10]).argmax(axis=1)).astype(np.int64)[:, None]
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    losses, n_correct = [], 0
+    zero_counts()                       # the main path starts here
+    for _ in range(MNIST_STEPS):
+        loss, a = exe.run(main, feed={"img": x, "label": y},
+                          fetch_list=[cost, acc.batch_accuracy], scope=scope)
+        losses.append(float(loss[0]))
+        n_correct += int(round(float(a[0]) * 64))
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, launches_of(), "MLP MNIST (no TPU kernel on this "
+                 "path)")
+    correct, total = (float(scope.get(v.name)[0]) for v in acc.states)
+    value = acc.eval(exe, scope)
+    log(f"MLP MNIST on the card, {MNIST_STEPS} Adam steps: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, last batch accuracy "
+        f"{float(a[0]):.4f}; InGraphAccuracy {value:.6f} = {correct:.0f} / "
+        f"{total:.0f} (the batches' counts sum to {n_correct}) | {smi}")
+    if not (losses[-1] < 0.2 * losses[0] and float(a[0]) > 0.9
+            and correct == n_correct and total == 64 * MNIST_STEPS):
+        raise AssertionError("MLP MNIST with InGraphAccuracy failed")
+    return counts, {"losses": [losses[0], losses[-1]],
+                    "accuracy": float(a[0]), "ingraph_accuracy": value,
+                    "correct": correct, "total": total}
+
+
+def ctr_phase(smi):
+    """Phases 31-33."""
+    t0 = time.perf_counter()
+    paths, train = ctr_train_phase(smi)
+    parity = ctr_parity_phase(smi)
+    checks = ctr_card_checks_phase(smi)
+    paths["ctr_ingraph_auc"], auc = ctr_auc_phase(smi)
+    paths["mnist_mlp"], mnist = mnist_accuracy_phase(smi)
+    log(f"CTR: phases 31-33 in {time.perf_counter() - t0:.1f} s | {smi}")
+    return paths, {"training": train, "op_by_op": parity,
+                   "card_checks": checks, "ingraph_auc": auc,
+                   "mnist_mlp": mnist}
+
+
 def main():
     name, smi = device_phase()
     t0 = time.perf_counter()
@@ -5751,6 +6336,7 @@ def main():
     del resnet_weights
     telemetry_paths, telemetry = telemetry_phase(smi)
     sequence_paths, sequence = sequence_phase(smi)
+    ctr_paths, ctr = ctr_phase(smi)
     paths = {"serving": {"flash_attn_fwd": serving_k1},
              f"training_T{TRAIN_T}": train_counts,
              f"training_T{SHORT_T}": short_counts,
@@ -5766,7 +6352,7 @@ def main():
              "resnet50_hostfed_amp": resnet_hostfed_counts,
              "resnet50_serving_f32": resnet_serving_counts["f32"],
              "resnet50_serving_int8": resnet_serving_counts["int8"],
-             **telemetry_paths, **sequence_paths}
+             **telemetry_paths, **sequence_paths, **ctr_paths}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ALL_KERNELS}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()}
@@ -5850,7 +6436,8 @@ def main():
                                    "parity": resnet_parity,
                                    "hostfed": resnet_hostfed,
                                    "serving": resnet_serving},
-                      "telemetry": telemetry, "sequence": sequence}),
+                      "telemetry": telemetry, "sequence": sequence,
+                      "ctr": ctr}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

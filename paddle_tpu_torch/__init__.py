@@ -65,6 +65,13 @@ Sequence (LoD) programs (slice 19): `layers.data(..., lod_level=1|2)`
 with the `<name>@SEQLEN` lengths the DataFeeder pads and fills, the
 sequence, recurrent and beam-search ops, and the book's sequence models
 (`models.seq2seq`, `lstm_text`, `word2vec`, `recommender`).
+
+CTR with SelectedRows sparse gradients (slice 20): `models.ctr.wide_deep`
+and `deepfm` over is_sparse embeddings, whose gradients are SelectedRows
+(`selected_rows.py`; the `sparse_grad` flag picks dense or sparse) that
+the sgd / momentum / adam / adagrad ops apply row by row; scored by the
+evaluators (`evaluator.InGraphAuc`, `InGraphAccuracy`, `Auc`,
+`Accuracy`).
 """
 
 from . import framework
@@ -77,6 +84,7 @@ from . import amp, flags, initializer, layers, nets, models, optimizer
 from . import regularizer
 from . import clip, event, io, learning_rate_decay, quant, reader, resilience
 from . import monitor, profiler
+from . import evaluator, selected_rows
 from .data_feeder import DataFeeder
 from .optimizer import (AdadeltaOptimizer, AdagradOptimizer,
                         AdamaxOptimizer, AdamOptimizer,
@@ -96,4 +104,5 @@ __all__ = ["amp", "framework", "CPUPlace", "CUDAPlace", "Program",
            "RMSPropOptimizer", "FtrlOptimizer", "ModelAverage", "ParamAttr",
            "HookAttribute", "flags", "io", "monitor", "ops", "quant",
            "serving", "weights", "clip", "event", "learning_rate_decay",
-           "reader", "resilience", "DataFeeder", "Trainer", "profiler"]
+           "reader", "resilience", "DataFeeder", "Trainer", "profiler",
+           "evaluator", "selected_rows"]

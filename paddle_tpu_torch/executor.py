@@ -14,7 +14,9 @@ block directly, on the card unless the caller asks for the CPU:
     input buffers this way);
   * each op runs its lowering (ops/registry.py); a forward op whose
     `<type>_grad` op appears later (`_ops_needing_tape`) runs under the
-    autograd tape, and its grad op replays the tape (ops/grad.py);
+    autograd tape, and its grad op replays the tape (ops/grad.py); an
+    op that does not consume SelectedRows gets the dense form of a
+    sparse gradient (`densify_ins`, selected_rows.py);
   * the optimizer ops update the scope's tensors in place, where the
     reference donates their buffers; the persistables the block writes
     are then stored back into the scope.
@@ -65,6 +67,7 @@ from .monitor import deviceprof
 from .monitor import health as health_mod
 from .ops import grad as grad_mod
 from .ops import registry as op_registry
+from .selected_rows import SelectedRows, densify_ins, is_selected_rows
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard",
            "host_cast_feed", "error_context", "lower_ops_on"]
@@ -156,7 +159,11 @@ def host_cast_feed(program, name, arr):
 def _to_numpy(t):
     """A fetched tensor as numpy. numpy has no bfloat16, so a bf16 var
     (an amp activation) comes back upcast to float32, exactly; the JAX
-    package returns an ml_dtypes bfloat16 array there."""
+    package returns an ml_dtypes bfloat16 array there. A SelectedRows
+    gradient comes back as a SelectedRows of numpy arrays."""
+    if is_selected_rows(t):
+        return SelectedRows(_to_numpy(t.rows), _to_numpy(t.values),
+                            t.height)
     t = t.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
@@ -184,8 +191,11 @@ def lower_ops_on(program, device, before, values):
     compared op by op instead of run free. Values are torch tensors or
     numpy arrays (a bfloat16 one, ml_dtypes' type, is taken exactly).
     Returns {output name: (the port's value, on the CPU, values[name] as
-    a tensor)} for every float output `values` holds."""
+    a tensor)} for every float output `values` holds; a SelectedRows
+    output pairs two SelectedRows of tensors."""
     def tensor(v):
+        if is_selected_rows(v):
+            return SelectedRows(tensor(v.rows), tensor(v.values), v.height)
         if isinstance(v, torch.Tensor):
             return v
         a = np.array(v)
@@ -211,8 +221,13 @@ def lower_ops_on(program, device, before, values):
         Executor._lower_op(ctx, op, taped)
         for names in op.outputs.values():
             for n in names:
-                if n and n in values and tensor(values[n]).is_floating_point():
-                    pairs[n] = (ctx.env[n].detach().cpu(), tensor(values[n]))
+                if not n or n not in values:
+                    continue
+                ref = tensor(values[n])
+                if is_selected_rows(ref):
+                    pairs[n] = (ctx.env[n].to("cpu"), ref)
+                elif ref.is_floating_point():
+                    pairs[n] = (ctx.env[n].detach().cpu(), ref)
     return pairs
 
 
@@ -392,6 +407,7 @@ class Executor:
         ctx.op = op
         ins = {slot: [ctx.lookup(n) for n in names if n]
                for slot, names in op.inputs.items() if any(names)}
+        ins = densify_ins(op.type, ins)
         if op.id in taped and opdef.differentiable:
             # amp casts happen INSIDE the tape (grad.py) so gradients
             # come back in the original (f32 master) dtypes

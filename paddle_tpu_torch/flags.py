@@ -2,10 +2,10 @@
 
 The port's own copy of the slice of `paddle_tpu/flags.py` that LM
 serving, one-shot serving, the int8 quantized ops, the stacked
-transformer's remat, the conv stem rewrite, the executor's NaN guard,
-the input pipeline, the fault injector and the telemetry (metrics,
-trace, flight recorder, time series and SLOs, the serving sampler)
-read, with the same names,
+transformer's remat, the conv stem rewrite, the sparse embedding
+gradient's dispatch, the executor's NaN guard, the input pipeline, the
+fault injector and the telemetry (metrics, trace, flight recorder, time
+series and SLOs, the serving sampler) read, with the same names,
 defaults and environment spellings (`PADDLE_TPU_<NAME>`), so one
 deployment environment configures both packages alike. Values resolve
 from the environment at first use and can be set from Python.
@@ -131,6 +131,14 @@ _DEFS = {
                     "K6, the int8 x int8 -> int32 Hopper kernel; on a CPU "
                     "tensor auto (default) = dequantize-to-f32 matmul, "
                     "pallas / dot = the plain int8 x int8 -> int32 core"),
+    "sparse_grad": (_parse_choice("auto", "selected_rows", "dense"),
+                    "auto",
+                    "lookup_table is_sparse=True gradient dispatch: auto "
+                    "(default) takes the dense gradient (a scatter-add "
+                    "into a table-sized zero) when the table carries no "
+                    "sharding hint and fits the dense-update budget, "
+                    "else a SelectedRows; selected_rows / dense force "
+                    "one path"),
     "serving_max_batch_size": (_parse_int, 16,
                                "serving.EngineConfig default: admission "
                                "bound and largest bucket-ladder rung of "

@@ -125,6 +125,9 @@ class Variable:
         self.stop_gradient = stop_gradient
         self.trainable = trainable
         self.is_data = is_data
+        # sharding hint: None or a tuple of mesh axis names / None per
+        # dim (ParamAttr.sharding); not part of the program text
+        self.sharding = None
         # name of the int32 [batch] lengths var of a padded sequence
         # tensor (seq_len_name), carried by sequence-preserving layers
         self.seq_len_var = None

@@ -53,12 +53,16 @@ class LayerHelper:
         param = main_block.create_parameter(
             name, shape, dtype=dtype, trainable=attr.trainable,
             regularizer=attr.regularizer, gradient_clip=attr.gradient_clip)
+        if attr.sharding is not None:
+            param.sharding = tuple(attr.sharding)
         if attr.update_hooks:
             param.update_hooks = list(attr.update_hooks)
         # twin persistable var + init op in the startup program
         sblock = self.startup_program.global_block()
         svar = sblock.create_var(name=name, shape=shape, dtype=dtype,
                                  persistable=True)
+        if attr.sharding is not None:
+            svar.sharding = tuple(attr.sharding)
         init(svar, sblock)
         self.startup_program.bump()
         self.main_program.bump()

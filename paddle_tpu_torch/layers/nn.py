@@ -26,7 +26,7 @@ __all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "pool2d",
            "relu", "sigmoid", "tanh", "lrn", "maxout", "l2_normalize",
            "cross_entropy", "softmax_with_cross_entropy",
            "sigmoid_cross_entropy_with_logits", "smooth_l1",
-           "fused_lm_head_xent", "mean", "square_error_cost",
+           "fused_lm_head_xent", "mean", "accuracy", "square_error_cost",
            "scaled_dot_product_attention", "dynamic_lstm", "dynamic_gru",
            "simple_rnn", "lstm_unit", "cos_sim", "sequence_pool",
            "sequence_first_step", "sequence_last_step", "sequence_softmax",
@@ -92,9 +92,11 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 
 def embedding(input, size, is_sparse=False, padding_idx=None,
               param_attr=None, dtype="float32", name=None):
-    """Lookup table (fluid layers/nn.py:196). The gradient is dense
-    (a scatter-add into the table); `is_sparse` is kept as an attr so
-    the program text matches, and the port has no SelectedRows path."""
+    """Lookup table (fluid layers/nn.py:196). The gradient is a dense
+    scatter-add into the table; with `is_sparse=True` it is a
+    SelectedRows of the looked-up rows instead, under the `sparse_grad`
+    flag's dispatch (ops/math_ops.py `_lookup_table_sparse_grad`), and
+    the optimizers' sparse branches move only those rows."""
     helper = LayerHelper("embedding", name=name)
     w = helper.create_parameter(param_attr, size, dtype,
                                 default_initializer=XavierInitializer())
@@ -353,6 +355,24 @@ def mean(x, name=None):
     out = helper.create_tmp_variable(x.dtype)
     helper.append_op("mean", {"X": [x.name]}, {"Out": [out.name]}, {})
     return out
+
+
+def accuracy(input, label, k=1, name=None):
+    """Top-k accuracy (fluid layers accuracy): `input` = logits or
+    probabilities [N, C], `label` int64 [N, 1]; the batch's accuracy
+    [1] f32 (the op's Correct and Total, int64 [1], are its other
+    outputs)."""
+    from . import tensor as T
+    helper = LayerHelper("accuracy", name=name)
+    _, indices = T.topk(input, k)
+    acc = helper.create_tmp_variable("float32")
+    correct = helper.create_tmp_variable("int64")
+    total = helper.create_tmp_variable("int64")
+    helper.append_op("accuracy",
+                     {"Out": [indices.name], "Label": [label.name]},
+                     {"Accuracy": [acc.name], "Correct": [correct.name],
+                      "Total": [total.name]}, {})
+    return acc
 
 
 def square_error_cost(input, label, name=None):

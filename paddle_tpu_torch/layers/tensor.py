@@ -1,6 +1,6 @@
 """Tensor creation / manipulation layers (the port's copy of the part of
-`paddle_tpu/layers/tensor.py` the training path, the image models and
-the sequence models call)."""
+`paddle_tpu/layers/tensor.py` the training path, the image models, the
+sequence models, the CTR models and the evaluators call)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["create_parameter", "cast", "concat", "fill_constant", "slice",
            "uniform_random", "argmax", "assign", "increment", "less_than",
-           "squeeze", "unsqueeze"]
+           "squeeze", "unsqueeze", "reshape", "topk"]
 
 
 def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, name=None):
@@ -124,3 +124,23 @@ def unsqueeze(input, axes, name=None):
     helper.append_op("unsqueeze", {"X": [input.name]}, {"Out": [out.name]},
                      {"axes": list(axes)})
     return out
+
+
+def reshape(x, shape, act=None, name=None):
+    helper = LayerHelper("reshape", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("reshape", {"X": [x.name]}, {"Out": [out.name]},
+                     {"shape": list(shape)})
+    return helper.append_activation(out, act)
+
+
+def topk(input, k, name=None):
+    """(values, int64 indices) of the k largest of the last axis, the
+    lower index first among equal values."""
+    helper = LayerHelper("topk", name=name)
+    values = helper.create_tmp_variable(input.dtype)
+    indices = helper.create_tmp_variable("int64")
+    helper.append_op("topk", {"X": [input.name]},
+                     {"Out": [values.name], "Indices": [indices.name]},
+                     {"k": k})
+    return values, indices

@@ -21,9 +21,11 @@ The port's counterpart of `paddle_tpu/monitor/health.py`. Two halves:
     pre-update value is taken just before the op that writes it (a
     clone only when that op updates in place) and reduced right after,
     so at most one parameter's copy is alive at a time. Norms accumulate
-    in f32 whatever the tensors' dtype. Gradients are dense (sparse
-    gradients are not ported). With no health fetch the executor runs
-    none of this.
+    in f32 whatever the tensors' dtype. A SelectedRows gradient (an
+    is_sparse embedding's) is reduced over its merged rows: duplicate
+    rows summed first, as the reference's densified norm, never
+    Σ values² over the raw lookups. With no health fetch the executor
+    runs none of this.
 
   * **`HealthMonitor`** (host side, owned by the Trainer via
     `Trainer(health_metrics=True)`): splits the fetched health values
@@ -119,13 +121,21 @@ def _dedupe(pairs):
     return out
 
 
+def _dense_rows(val):
+    """A gradient's values for its norm: a SelectedRows' merged rows
+    (each touched row's summed gradient: the norm of its dense form),
+    a tensor as it is (the reference's `_dense_f32`)."""
+    from ..selected_rows import is_selected_rows, merge_rows
+    return merge_rows(val)[1] if is_selected_rows(val) else val
+
+
 def _norms(tensors):
     """f32 L2 norm of each tensor, as one [n] f32 tensor: one
     multi-tensor launch where torch offers it."""
     import torch
     if not tensors:
         return None
-    ts = [t.detach() for t in tensors]
+    ts = [_dense_rows(t).detach() for t in tensors]
     if all(t.dtype == torch.float32 for t in ts):
         try:
             return torch.stack(torch._foreach_norm(ts, 2))

@@ -6,15 +6,17 @@ the int8 matmul K6 (quant_ops.py). The stacked transformer (the
 training op, the generation ops and the LM server's KV-cached
 functions): transformer_ops.py. The sequence (LoD) programs: the masked
 sequence ops (sequence_ops.py), the recurrences as time loops
-(rnn_ops.py) and beam search (beam_ops.py), all plain torch. The op
+(rnn_ops.py) and beam search (beam_ops.py), all plain torch. The
+evaluators' in-graph histogram and AUC ops: metric_ops.py. The op
 registry, the autograd tape and the lowerings the programs run:
 registry.py, grad.py, math_ops.py, nn_ops.py, tensor_ops.py,
 attention_ops.py, chunked_ce.py, optimizer_ops.py, quant_ops.py,
-transformer_ops.py, sequence_ops.py, rnn_ops.py, beam_ops.py — imported
+transformer_ops.py, sequence_ops.py, rnn_ops.py, beam_ops.py,
+metric_ops.py — imported
 here so that every lowering is registered. The wrappers' launch counts: launch_counts.py.
 """
 
 from . import registry  # noqa: F401
 from . import (attention_ops, chunked_ce, math_ops, nn_ops,  # noqa: F401
                optimizer_ops, quant_ops, tensor_ops, transformer_ops)
-from . import beam_ops, rnn_ops, sequence_ops  # noqa: F401
+from . import beam_ops, metric_ops, rnn_ops, sequence_ops  # noqa: F401

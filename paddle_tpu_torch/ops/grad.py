@@ -63,6 +63,26 @@ def lower_with_tape(ctx, op, opdef, ins, attrs):
                    for t in vals] for slot, vals in outs.items()}
 
 
+def _grad_hook(ctx, op, fwd_id):
+    """The forward op's registered `grad` hook's result, stored into the
+    env under the grad op's output names; None when the op has no hook
+    or the hook declines."""
+    from . import registry
+    base = op.type[:-len("_grad")]
+    hook = registry.get_op(base).grad if registry.has_op(base) else None
+    if hook is None:
+        return None
+    fwd_op = next((o for o in ctx.block.ops if o.id == fwd_id), None)
+    results = hook(ctx, fwd_op, op)
+    if results is None:
+        return None
+    for slot, names in op.outputs.items():
+        for name, val in zip(names, results.get(slot, ())):
+            if name:
+                ctx.env[name] = val
+    return results
+
+
 def lower_grad_op(ctx, op):
     """Lower a `<type>_grad` op by replaying the taped graph.
 
@@ -78,8 +98,17 @@ def lower_grad_op(ctx, op):
     An output with no incoming grad, and an integer output (which JAX
     gives a float0 cotangent), contributes nothing: it is left out of
     the `autograd.grad` call, which is the same as a zero cotangent.
+
+    A forward op registered with a `grad=` hook gets it first (the
+    reference's :116-135): values it returns become the grad op's
+    outputs, and the taped graph is freed unused; None falls back to
+    the tape.
     """
     fwd_id = op.attrs["fwd_op_id"]
+    results = _grad_hook(ctx, op, fwd_id)
+    if results is not None:
+        ctx.tape.pop(fwd_id, None)
+        return results
     entry = ctx.tape.pop(fwd_id, None)
     if entry is None:
         raise RuntimeError(

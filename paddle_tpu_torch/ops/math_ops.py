@@ -1,9 +1,11 @@
 """Math / tensor op lowerings (the port of the part of
 `paddle_tpu/ops/math_ops.py` and `ops/tensor_ops.py` the training path
 runs, with the ops the LR schedules, the gradient clips and the
-regularizers append, the channel concat of the image models, and the
+regularizers append, the channel concat of the image models, the
 batched matmul, squeeze / unsqueeze and cosine similarity of the
-sequence models).
+sequence models, and the CTR models' reshape, the SelectedRows gradient
+of an is_sparse lookup_table and `sum` over it, and the top-k and
+accuracy the evaluators read).
 
 Each lowering is a few lines of torch, run eagerly by the executor; the
 large products (`mul`) go to `torch.matmul`, as the reference leaves
@@ -191,8 +193,18 @@ def _cos_sim(ctx, ins, attrs):
 
 @register_op("sum")
 def _sum(ctx, ins, attrs):
-    """Variadic add (gradient accumulation, operators/sum_op.cc)."""
+    """Variadic add (gradient accumulation, operators/sum_op.cc). Over
+    SelectedRows like the reference's sum op: all-sparse inputs stay
+    sparse (rows and values concatenated); mixed inputs densify."""
+    from ..selected_rows import SelectedRows, is_selected_rows
     xs = ins["X"]
+    sparse = [x for x in xs if is_selected_rows(x)]
+    if sparse:
+        if len(sparse) == len(xs):
+            return {"Out": [SelectedRows(
+                torch.cat([x.rows for x in xs]),
+                torch.cat([x.values for x in xs]), xs[0].height)]}
+        xs = [x.to_dense() if is_selected_rows(x) else x for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x
@@ -242,6 +254,11 @@ def _concat(ctx, ins, attrs):
     return {"Out": [torch.cat(ins["X"], dim=attrs.get("axis", 0))]}
 
 
+@register_op("reshape")
+def _reshape(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].reshape(tuple(attrs["shape"]))]}
+
+
 @register_op("slice")
 def _slice(ctx, ins, attrs):
     """A view of X (no copy): the attention op takes the q/k/v slices of
@@ -253,11 +270,73 @@ def _slice(ctx, ins, attrs):
     return {"Out": [x[tuple(idx)]]}
 
 
-@register_op("lookup_table")
+# Dense-update budget of the sparse auto-dispatch, in elements: the
+# reference's (`paddle_tpu/ops/math_ops.py:299`), from a TPU finding
+# (XLA's copy-insertion around the sparse path's in-place scatters cost
+# more than one dense optimizer pass over a table up to 10M x 32). The
+# port keeps the rule as it is; what it costs on the card is measured
+# by chip_smoke.py's CTR phase (PERF.md).
+_DENSE_UPDATE_BUDGET_ELEMS = 512 * 1024 * 1024
+
+
+def _table_is_sharded(ctx, wname):
+    """True when the table parameter carries a sharding hint on any dim
+    (ParamAttr.sharding: an EP vocab-sharded table keeps SelectedRows
+    semantics)."""
+    block = getattr(ctx, "block", None)
+    var = block._find_var(wname) if block is not None else None
+    spec = getattr(var, "sharding", None) if var is not None else None
+    return spec is not None and any(s is not None for s in spec)
+
+
+def _lookup_table_sparse_grad(ctx, fwd_op, grad_op):
+    """SelectedRows gradient of an is_sparse embedding (the reference's
+    `_lookup_table_sparse_grad`): the (rows, values) pair of the batch's
+    lookups instead of a scatter-add into a table-sized zero; None (the
+    taped dense vjp) when is_sparse is off.
+
+    Dispatch (flag `sparse_grad`): `dense` always takes the dense vjp;
+    `auto` takes it when the table carries no sharding hint and fits
+    `_DENSE_UPDATE_BUDGET_ELEMS`, so auto trains exactly like
+    is_sparse=False; `selected_rows` always emits the pair. Sparse
+    Adam / Adagrad / Momentum are lazy (only touched rows move), so
+    with ids that vary from step to step the SelectedRows trajectory
+    legitimately differs from the dense one. Each choice counts on
+    `sparse.dense_dispatch` or `sparse.selected_rows`."""
+    if fwd_op is None or not fwd_op.attrs.get("is_sparse", False):
+        return None
+    from .. import flags, monitor
+    from ..selected_rows import SelectedRows
+    mode = flags.get("sparse_grad")
+    wname = fwd_op.inputs["W"][0]
+    w = ctx.lookup(wname)
+    if mode == "dense" or (
+            mode == "auto" and w.numel() <= _DENSE_UPDATE_BUDGET_ELEMS
+            and not _table_is_sharded(ctx, wname)):
+        monitor.counter_inc("sparse.dense_dispatch")
+        return None
+    monitor.counter_inc("sparse.selected_rows")
+    ids = ctx.lookup(fwd_op.inputs["Ids"][0])
+    g = ctx.lookup(grad_op.inputs["Out@GRAD"][0])
+    if ids.dim() and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    rows = ids.reshape(-1).to(torch.int32)
+    vals = g.reshape(rows.shape[0], w.shape[-1]).float()
+    padding_idx = fwd_op.attrs.get("padding_idx", -1)
+    if padding_idx is not None and padding_idx >= 0:
+        vals = torch.where((rows == padding_idx)[:, None],
+                           torch.zeros((), dtype=vals.dtype,
+                                       device=vals.device), vals)
+    return {"W@GRAD": [SelectedRows(rows, vals, int(w.shape[0]))]}
+
+
+@register_op("lookup_table", grad=_lookup_table_sparse_grad)
 def _lookup_table(ctx, ins, attrs):
-    """Embedding gather (operators/lookup_table_op.cc); the gradient is
-    the dense scatter-add into the table (the reference's dense path;
-    its SelectedRows sparse gradient is not ported)."""
+    """Embedding gather (operators/lookup_table_op.cc). The gradient is
+    the dense scatter-add into the table (the taped vjp), or with
+    is_sparse=True a SelectedRows (rows, values) pair
+    (`_lookup_table_sparse_grad`, selected_rows.py) that the
+    optimizers' sparse branches consume."""
     w = ins["W"][0]
     ids = ins["Ids"][0]
     if ids.dim() and ids.shape[-1] == 1:
@@ -267,3 +346,27 @@ def _lookup_table(ctx, ins, attrs):
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx)[..., None].to(out.dtype)
     return {"Out": [out]}
+
+
+@register_op("topk", differentiable=False)
+def _topk(ctx, ins, attrs):
+    """The k largest of the last axis and their int64 indices, the lower
+    index first among equal values (jax.lax.top_k's order)."""
+    from .sequence_ops import topk_lower_index_first
+    vals, idx = topk_lower_index_first(ins["X"][0], attrs["k"])
+    return {"Out": [vals], "Indices": [idx]}
+
+
+@register_op("accuracy", differentiable=False)
+def _accuracy(ctx, ins, attrs):
+    """Out = top-k indices [N, k], Label [N, 1] -> Accuracy [1] f32,
+    Correct and Total [1] int64 (operators/accuracy_op.cc)."""
+    idx = ins["Out"][0]
+    label = ins["Label"][0]
+    if label.dim() == 1:
+        label = label[:, None]
+    correct = (idx == label).any(dim=1)
+    n = torch.full((1,), idx.shape[0], dtype=torch.int64, device=idx.device)
+    return {"Accuracy": [correct.float().mean().reshape(1)],
+            "Correct": [correct.long().sum().reshape(1)],
+            "Total": [n]}

@@ -15,30 +15,25 @@ tripped step can leave the scope at its pre-step state: `sgd` and
 their functional results. Either way the values are the same bits.
 
 The arithmetic is the reference's, in float32 and in its order of
-operations. Only dense gradients are ported: the reference's
-SelectedRows branches wait for the sparse `lookup_table`, and a sparse
-gradient raises `SparseGradientNotPorted`.
+operations.
+
+A SelectedRows gradient (an is_sparse lookup_table's, selected_rows.py)
+takes the reference's sparse branches of `sgd`, `momentum`, `adam` and
+`adagrad`: only the touched rows move, read with `index_select` and
+written back with `index_copy_` (each row's new value computed from the
+sum of all its gradient rows, so a duplicated row is written with the
+same bits each time); Adam's bias correction stays global. Every index
+is a real row. Under the NaN guard these write into copies of the
+state, the table included. Every other update op gets the dense
+gradient (the executor's `densify_ins`), as in the reference.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..selected_rows import is_selected_rows, row_sums
 from .registry import register_op
-
-
-class SparseGradientNotPorted(NotImplementedError):
-    """A SelectedRows (sparse) gradient reached an update op: the port
-    has dense gradients only until the sparse `lookup_table` is
-    ported (ROADMAP A8)."""
-
-
-def _dense(g, op):
-    if not isinstance(g, torch.Tensor) or g.layout != torch.strided:
-        raise SparseGradientNotPorted(
-            f"{op}: got a sparse gradient ({type(g).__name__}); the port "
-            "updates dense gradients only (sparse lookup_table: ROADMAP A8)")
-    return g
 
 
 def _f32(x):
@@ -57,10 +52,24 @@ def _out(ctx, dst, val):
     return val.to(dst.dtype)
 
 
+def _rows_out(ctx, dst, rows, val):
+    """A sparse update's result for state var `dst`: `val` written at
+    `rows`, into the scope's tensor in place or (under the NaN guard)
+    into a copy of it."""
+    if not ctx.in_place:
+        dst = dst.clone()
+    return dst.index_copy_(0, rows, val.to(dst.dtype))
+
+
 @register_op("sgd", differentiable=False, is_optimizer=True)
 def _sgd(ctx, ins, attrs):
-    p, g = ins["Param"][0], _dense(ins["Grad"][0], "sgd")
+    p, g = ins["Param"][0], ins["Grad"][0]
     lr = _lr(ins)
+    if is_selected_rows(g):
+        with torch.no_grad():
+            rows, gsum = row_sums(g)
+            p_row = _f32(p.index_select(0, rows)) - lr * gsum
+            return {"ParamOut": [_rows_out(ctx, p, rows, p_row)]}
     with torch.no_grad():
         if not ctx.in_place:
             p = p.clone()
@@ -71,9 +80,18 @@ def _sgd(ctx, ins, attrs):
 @register_op("momentum", differentiable=False, is_optimizer=True)
 def _momentum(ctx, ins, attrs):
     p, v = ins["Param"][0], ins["Velocity"][0]
-    g = _dense(ins["Grad"][0], "momentum")
+    g = ins["Grad"][0]
     lr = _lr(ins)
     mu = attrs.get("mu", 0.9)
+    if is_selected_rows(g):
+        with torch.no_grad():
+            rows, gsum = row_sums(g)
+            v_row = mu * _f32(v.index_select(0, rows)) + gsum
+            upd = (gsum + mu * v_row if attrs.get("use_nesterov", False)
+                   else v_row)
+            p_row = _f32(p.index_select(0, rows)) - lr * upd
+            return {"ParamOut": [_rows_out(ctx, p, rows, p_row)],
+                    "VelocityOut": [_rows_out(ctx, v, rows, v_row)]}
     with torch.no_grad():
         v_out = mu * _f32(v) + _f32(g)
         if attrs.get("use_nesterov", False):
@@ -86,13 +104,15 @@ def _momentum(ctx, ins, attrs):
 
 @register_op("adam", differentiable=False, is_optimizer=True)
 def _adam(ctx, ins, attrs):
-    p, g = ins["Param"][0], _dense(ins["Grad"][0], "adam")
+    p, g = ins["Param"][0], ins["Grad"][0]
     m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
     b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
     lr = _lr(ins)
     b1 = attrs.get("beta1", 0.9)
     b2 = attrs.get("beta2", 0.999)
     eps = attrs.get("epsilon", 1e-8)
+    if is_selected_rows(g):
+        return _sparse_adam(ctx, p, g, m1, m2, b1p, b2p, lr, b1, b2, eps)
     with torch.no_grad():
         if not ctx.in_place:
             p, m1, m2, b1p, b2p = (t.clone() for t in (p, m1, m2, b1p, b2p))
@@ -106,12 +126,41 @@ def _adam(ctx, ins, attrs):
             "Beta1PowOut": [b1p], "Beta2PowOut": [b2p]}
 
 
+def _sparse_adam(ctx, p, g, m1, m2, b1p, b2p, lr, b1, b2, eps):
+    """Lazy sparse Adam (the reference's): the moments and the parameter
+    move on the touched rows only; the beta powers, and so the bias
+    correction, advance every step."""
+    with torch.no_grad():
+        b1po = _f32(b1p) * b1
+        b2po = _f32(b2p) * b2
+        lr_t = lr * torch.sqrt(1 - b2po.reshape(())) / (1 - b1po.reshape(()))
+        rows, gsum = row_sums(g)
+        m1_row = b1 * _f32(m1.index_select(0, rows)) + (1 - b1) * gsum
+        m2_row = (b2 * _f32(m2.index_select(0, rows))
+                  + (1 - b2) * torch.square(gsum))
+        upd = lr_t * m1_row / (torch.sqrt(m2_row) + eps)
+        p_row = _f32(p.index_select(0, rows)) - upd
+        return {"ParamOut": [_rows_out(ctx, p, rows, p_row)],
+                "Moment1Out": [_rows_out(ctx, m1, rows, m1_row)],
+                "Moment2Out": [_rows_out(ctx, m2, rows, m2_row)],
+                "Beta1PowOut": [_out(ctx, b1p, b1po)],
+                "Beta2PowOut": [_out(ctx, b2p, b2po)]}
+
+
 @register_op("adagrad", differentiable=False, is_optimizer=True)
 def _adagrad(ctx, ins, attrs):
     p, mom = ins["Param"][0], ins["Moment"][0]
-    g = _dense(ins["Grad"][0], "adagrad")
+    g = ins["Grad"][0]
     lr = _lr(ins)
     eps = attrs.get("epsilon", 1e-6)
+    if is_selected_rows(g):
+        with torch.no_grad():
+            rows, gsum = row_sums(g)
+            m_row = _f32(mom.index_select(0, rows)) + torch.square(gsum)
+            p_row = (_f32(p.index_select(0, rows))
+                     - lr * gsum / (torch.sqrt(m_row) + eps))
+            return {"ParamOut": [_rows_out(ctx, p, rows, p_row)],
+                    "MomentOut": [_rows_out(ctx, mom, rows, m_row)]}
     with torch.no_grad():
         gf = _f32(g)
         m_out = _f32(mom) + torch.square(gf)
@@ -123,7 +172,7 @@ def _adagrad(ctx, ins, attrs):
 @register_op("decayed_adagrad", differentiable=False, is_optimizer=True)
 def _decayed_adagrad(ctx, ins, attrs):
     p, mom = ins["Param"][0], ins["Moment"][0]
-    g = _dense(ins["Grad"][0], "decayed_adagrad")
+    g = ins["Grad"][0]
     lr = _lr(ins)
     decay = attrs.get("decay", 0.95)
     eps = attrs.get("epsilon", 1e-6)
@@ -138,7 +187,7 @@ def _decayed_adagrad(ctx, ins, attrs):
 @register_op("adadelta", differentiable=False, is_optimizer=True)
 def _adadelta(ctx, ins, attrs):
     p = ins["Param"][0]
-    g = _dense(ins["Grad"][0], "adadelta")
+    g = ins["Grad"][0]
     avg_sq_g = ins["AvgSquaredGrad"][0]
     avg_sq_u = ins["AvgSquaredUpdate"][0]
     rho = attrs.get("rho", 0.95)
@@ -156,7 +205,7 @@ def _adadelta(ctx, ins, attrs):
 
 @register_op("adamax", differentiable=False, is_optimizer=True)
 def _adamax(ctx, ins, attrs):
-    p, g = ins["Param"][0], _dense(ins["Grad"][0], "adamax")
+    p, g = ins["Param"][0], ins["Grad"][0]
     m, inf_norm = ins["Moment"][0], ins["InfNorm"][0]
     b1p = ins["Beta1Pow"][0]
     lr = _lr(ins)
@@ -176,7 +225,7 @@ def _adamax(ctx, ins, attrs):
 
 @register_op("rmsprop", differentiable=False, is_optimizer=True)
 def _rmsprop(ctx, ins, attrs):
-    p, g = ins["Param"][0], _dense(ins["Grad"][0], "rmsprop")
+    p, g = ins["Param"][0], ins["Grad"][0]
     ms, mom = ins["MeanSquare"][0], ins["Moment"][0]
     lr = _lr(ins)
     rho = attrs.get("decay", 0.9)
@@ -194,7 +243,7 @@ def _rmsprop(ctx, ins, attrs):
 
 @register_op("ftrl", differentiable=False, is_optimizer=True)
 def _ftrl(ctx, ins, attrs):
-    p, g = ins["Param"][0], _dense(ins["Grad"][0], "ftrl")
+    p, g = ins["Param"][0], ins["Grad"][0]
     sq_acc = ins["SquaredAccumulator"][0]
     lin_acc = ins["LinearAccumulator"][0]
     lr = _lr(ins)
@@ -229,7 +278,7 @@ def _shrink(prox, lr, l1, l2):
 
 @register_op("proximal_gd", differentiable=False, is_optimizer=True)
 def _proximal_gd(ctx, ins, attrs):
-    p, g = ins["Param"][0], _dense(ins["Grad"][0], "proximal_gd")
+    p, g = ins["Param"][0], ins["Grad"][0]
     lr = _lr(ins)
     l1 = attrs.get("l1", 0.0)
     l2 = attrs.get("l2", 0.0)
@@ -241,7 +290,7 @@ def _proximal_gd(ctx, ins, attrs):
 @register_op("proximal_adagrad", differentiable=False, is_optimizer=True)
 def _proximal_adagrad(ctx, ins, attrs):
     p, mom = ins["Param"][0], ins["Moment"][0]
-    g = _dense(ins["Grad"][0], "proximal_adagrad")
+    g = ins["Grad"][0]
     lr = _lr(ins)
     l1 = attrs.get("l1", 0.0)
     l2 = attrs.get("l2", 0.0)

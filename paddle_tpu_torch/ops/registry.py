@@ -30,20 +30,26 @@ class OpDef(NamedTuple):
     is_optimizer: bool = False    # parameter-update op: pruned for inference
     test_aware: bool = False      # behaves differently under is_test
                                   # (clone(for_test) forces is_test=True)
+    grad: Callable = None         # (ctx, fwd_op, grad_op) -> {slot: [val]}
+                                  # or None for the taped vjp (ops/grad.py)
 
 
 _REGISTRY: Dict[str, OpDef] = {}
 
 
 def register_op(type, *, differentiable=True, stateful=False,
-                is_optimizer=False, test_aware=False):
+                is_optimizer=False, test_aware=False, grad=None):
     """Decorator: register `fn(ctx, ins, attrs) -> {slot: [values]}`.
     The lowering modules register on import; the ops package imports
-    them all, and the package's __init__ imports the ops package."""
+    them all, and the package's __init__ imports the ops package.
+
+    `grad`: the op's own gradient for its `<type>_grad` op, where that
+    is not the taped vjp (lookup_table's SelectedRows); it may return
+    None to fall back to the tape."""
 
     def deco(fn):
         _REGISTRY[type] = OpDef(type, fn, differentiable, stateful,
-                                is_optimizer, test_aware)
+                                is_optimizer, test_aware, grad)
         return fn
 
     return deco

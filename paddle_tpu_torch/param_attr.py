@@ -1,6 +1,6 @@
 """ParamAttr: per-parameter configuration (the port's copy of
-`paddle_tpu/param_attr.py`, with the update hooks and without the
-per-parameter learning rate and the sharding hint, which no ported path
+`paddle_tpu/param_attr.py`, with the update hooks and the sharding hint
+and without the per-parameter learning rate, which no ported path
 reads)."""
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ class HookAttribute:
 
 class ParamAttr:
     def __init__(self, name=None, initializer=None, regularizer=None,
-                 trainable=True, gradient_clip=None, update_hooks=None):
+                 trainable=True, gradient_clip=None, sharding=None,
+                 update_hooks=None):
         self.name = name
         self.initializer = initializer
         self.regularizer = regularizer
@@ -36,6 +37,11 @@ class ParamAttr:
                                                        (list, tuple)):
             update_hooks = [update_hooks]
         self.update_hooks = list(update_hooks or [])
+        # optional tuple of mesh axis names / None per dim: how the
+        # reference partitions this parameter (an EP vocab-sharded
+        # table). One card has no mesh; the hint is kept on the
+        # Variable, and the sparse-gradient dispatch reads it.
+        self.sharding = sharding
 
     @staticmethod
     def to_attr(arg):

@@ -1,6 +1,7 @@
 """The image "book" models trained in the port on the CPU.
 
 The port twins of tests/test_book_models.py's
+test_recognize_digits_mlp (with its `accuracy`),
 test_recognize_digits_conv, test_image_classification_resnet,
 test_image_classification_vgg and
 test_image_classification_googlenet_smallnet: the same synthetic data,
@@ -47,20 +48,24 @@ def _same_program_as_reference(build):
     return out
 
 
-def _train(cost, feeds, steps=60):
+def _train(cost, feeds, steps=60, fetch_extra=()):
     """tests/test_book_models.py's _train, in the port (the program's Adam
     is built by _classifier): the startup program, `steps` runs on one
-    batch; (first loss, last loss)."""
+    batch; (first loss, last loss), and the last run's `fetch_extra`
+    values when asked for."""
     exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
     exe.run(pt.default_startup_program(), scope=scope)
     first = last = None
     for _ in range(steps):
-        out = exe.run(feed=feeds, fetch_list=[cost], scope=scope)
+        out = exe.run(feed=feeds, fetch_list=[cost] + list(fetch_extra),
+                      scope=scope)
         loss = float(np.asarray(out[0]).ravel()[0])
         if first is None:
             first = loss
         last = loss
     assert np.isfinite(last), last
+    if fetch_extra:
+        return first, last, out[1:]
     return first, last
 
 
@@ -71,6 +76,32 @@ def _classifier(P, model, shape, lr, **kw):
     cost = P.layers.mean(P.layers.cross_entropy(probs, label))
     P.AdamOptimizer(learning_rate=lr).minimize(cost)
     return cost
+
+
+def test_recognize_digits_mlp():
+    """The MLP on the reference's synthetic digits (64 rows, 784
+    features, label = the argmax of |x[:, :10]|), Adam 1e-2, 80 steps:
+    the loss falls below a fifth and the batch's `accuracy` (top-1,
+    exact: a count over the batch) exceeds 0.9."""
+    rng = np.random.RandomState(_SEED)
+    x = rng.randn(64, 784).astype(np.float32)
+    y = (np.abs(x[:, :10]).argmax(axis=1)).astype(np.int64)[:, None]
+
+    def build(P):
+        img = P.layers.data("img", [784])
+        label = P.layers.data("label", [1], dtype="int64")
+        probs = P.models.mnist.mlp(img)
+        cost = P.layers.mean(P.layers.cross_entropy(probs, label))
+        acc = P.layers.accuracy(input=probs, label=label)
+        P.AdamOptimizer(learning_rate=1e-2).minimize(cost)
+        return cost, acc
+
+    cost, acc = _same_program_as_reference(build)
+    first, last, (acc_v,) = _train(cost, {"img": x, "label": y}, steps=80,
+                                   fetch_extra=[acc])
+    assert last < first * 0.2, (first, last)
+    assert acc_v.dtype == np.float32 and acc_v.shape == (1,)
+    assert float(acc_v[0]) > 0.9
 
 
 def test_recognize_digits_conv():

@@ -4,7 +4,9 @@ Every update op runs on golden-style inputs (the shapes, ranges and
 attributes of tests/test_optimizer_op_suite.py, drawn from numpy seed
 71) through both packages' lowerings, in place and under the NaN guard's
 new-tensor mode (the two give the same bits, and the second leaves its
-inputs untouched). The five LR schedules run 10 steps each, staircase
+inputs untouched); momentum also with a SelectedRows gradient against
+the reference's sparse branch (the other sparse branches are in
+tests/test_torch_sparse.py). The five LR schedules run 10 steps each, staircase
 on and off. Clip by norm, clip by global norm and L1 decay run on the
 same fed gradients and parameters in both packages. Every optimizer
 class (and the clip and L1 variants of a model) builds Program text
@@ -33,7 +35,6 @@ import torch
 
 import paddle_tpu as jpt
 import paddle_tpu_torch as pt
-from paddle_tpu_torch.ops import optimizer_ops
 from paddle_tpu_torch.ops import registry as op_registry
 from paddle_tpu_torch.weights import scope_from_numpy
 
@@ -172,13 +173,43 @@ def test_all_update_ops_tagged_like_the_reference():
     assert optimizer_op_types() <= jtypes()
 
 
-def test_sparse_gradient_raises_named_error():
+def test_sparse_gradient_updates_like_the_reference():
+    """`momentum` with a SelectedRows gradient (rows 2, 0, 2, 3, 0, 2 of
+    CASES["momentum"]'s [4, 5] parameter: duplicates, row 1 untouched)
+    against the reference's sparse momentum on the same numpy inputs,
+    in place and under the guard's new-tensor mode (the same bits, the
+    inputs untouched); the untouched row keeps its bits."""
+    import jax.numpy as jnp
+    from paddle_tpu.selected_rows import SelectedRows as JRows
+    from paddle_tpu_torch.selected_rows import SelectedRows
     ins, attrs = CASES["momentum"]
-    tins = {k: [torch.from_numpy(v.copy())] for k, v in ins.items()}
-    tins["Grad"] = [torch.from_numpy(ins["Grad"]).to_sparse()]
-    ctx = types.SimpleNamespace(in_place=True, op=None)
-    with pytest.raises(optimizer_ops.SparseGradientNotPorted, match="A8"):
-        op_registry.get_op("momentum").lowering(ctx, tins, attrs)
+    rows = np.asarray([2, 0, 2, 3, 0, 2], np.int32)
+    vals = (ins["Grad"][[0, 1, 2, 3, 1, 0]] * 0.5).astype(np.float32)
+    dense_ins = {k: jnp.asarray(v) for k, v in ins.items() if k != "Grad"}
+    jout = jpt.ops.registry.get_op("momentum").lowering(
+        None, {**{k: [v] for k, v in dense_ins.items()},
+               "Grad": [JRows(jnp.asarray(rows), jnp.asarray(vals), 4)]},
+        dict(attrs))
+    outs = []
+    for in_place in (True, False):
+        ctx = types.SimpleNamespace(in_place=in_place, op=None)
+        tins = {k: [torch.from_numpy(v.copy())] for k, v in ins.items()
+                if k != "Grad"}
+        before = {k: v[0].clone() for k, v in tins.items()}
+        tins["Grad"] = [SelectedRows(torch.from_numpy(rows),
+                                     torch.from_numpy(vals), 4)]
+        out = op_registry.get_op("momentum").lowering(ctx, tins,
+                                                      dict(attrs))
+        if not in_place:
+            for k, v in before.items():
+                assert torch.equal(tins[k][0], v), k
+        outs.append({k: v[0].numpy().copy() for k, v in out.items()})
+    assert sorted(outs[0]) == sorted(jout)
+    for slot, vals_ in jout.items():
+        assert np.array_equal(outs[0][slot], outs[1][slot]), slot
+        assert_close(outs[0][slot], np.asarray(vals_[0]), slot)
+    assert np.array_equal(outs[0]["ParamOut"][1], ins["Param"][1])
+    assert np.array_equal(outs[0]["VelocityOut"][1], ins["Velocity"][1])
 
 
 # ---------------------------------------------------------------------------
