@@ -317,6 +317,40 @@ Phases, in order; any failure raises and the script exits non-zero:
      with an InGraphAccuracy (the loss below a fifth, accuracy > 0.9,
      the in-graph counts equal to the batches'). No TPU kernel lies on
      these paths either: their launch counts are checked to be 0.
+ 34. control flow, f32 with TF32 off: (a) a While-RNN (array_read over
+     x [T 64, B 64, D 512], matmul, tanh, assign, increment, less_than)
+     against the simple_rnn op on the same weight, the final state
+     within 1e-5 of its largest element, the condition read on the host
+     T + 1 times a run; (b) an IfElse row-wise merge at B 4096, width
+     512, with dW, against a plain torch recompute within 1e-5; (c) a
+     recurrent_group whose step is simple_rnn's cell (a memory of 512, a
+     StaticInput bias): its output and the gradients of W and b against
+     the simple_rnn op within 1e-5, then 20 Adam steps with the loss
+     falling. Each: step wall, device ms, busy share, syncs a step;
+ 35. OCR: models.ocr.crnn_ctc_cost at its own widths on 1 x 32 x 256
+     images (T 64), 95 classes + blank, B 128, labels of 5-20 ids with
+     repeats, image widths 160-256: step 1's loss and every gradient
+     against the same program on the CPU (1e-5 relative; 1e-4 of each
+     gradient's largest element), 200 Adam 5e-3 steps on the batch, the
+     loss below half of step 1's; the greedy decode (ctc_align,
+     edit_distance) at the initial state and after training, each row's
+     ids, length and edit distance equal to numpy's on the card's own
+     logits, and its mean edit distance (EditDistance); examples/s,
+     device ms, busy, syncs;
+ 36. SRL: the book's db_lstm + CRF (word_dim 32, mark_dim 5, hidden 512,
+     depth 8, conll05's 5000 words, 3000 predicates, 59 labels), B 64,
+     lengths 8-64: step 1 against the CPU (the loss within 1e-5
+     relative, each gradient within 2e-3 of its largest element: relu
+     candidates move a few by more than one op's rounding), the Viterbi
+     paths equal but where the two paths' scores are within 1e-5 (a near
+     tie), 20 Adam steps with the loss falling, the InGraphChunkEvaluator
+     counts equal to the host ChunkEvaluator's on the decoded tags
+     exactly; then step 1 op by op on the card within 1e-4, and a control
+     with tanh candidates whose step 1 is held as 35's; tokens/s, device
+     ms, busy. No TPU kernel lies on the phases 34-36 paths: their launch
+     counts are checked to be 0. A profile that lost device events (fewer
+     than its host side launched) is taken again, up to 3 times, and
+     else its device ms and busy share are not reported.
 
 The second-to-last line is the kernel table as JSON (with the ResNet-50
 results under "resnet50"); the last line is
@@ -329,6 +363,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
@@ -2183,7 +2218,6 @@ def int8_serving_phase(smi):
     served one-shot: save_inference_model -> quantize -> load ->
     InferenceEngine.from_program behind make_server (the code of `serve
     --model_dir`), eight /v1/infer requests from four client threads."""
-    import tempfile
     torch.cuda.empty_cache()
     flags.set_flag("metrics", True)     # quant.fallback_ops is counted
     t0 = time.perf_counter()
@@ -5031,7 +5065,6 @@ def bundle_check(tt, smi):
     blackbox bundle that parses and holds spans, the health section and
     the card's memory."""
     import glob
-    import tempfile
     bb = tempfile.mkdtemp(prefix="chip_smoke_bb_")
     t = tt.trainer
     step = t.global_step + 1
@@ -5189,7 +5222,6 @@ def lm_load(port, tag):
 def lm_telemetry_phase(smi):
     """(d): GPT-2-small behind the HTTP server on graph rungs with
     metrics, an ambient trace and the 0.5 s sampler on, then off."""
-    import tempfile
     tdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
     trace_file = os.path.join(tdir, "trace.json")
     spec = LMSpec(50304, 768, 12, 12, 1024)
@@ -5284,7 +5316,6 @@ def sampler_phase(smi):
     """(e): the int8 GPT-2-small one-shot engine with profile_sample_n=4:
     per-rung serving.device_time histograms and a deviceprof section
     whose rows name K6 and the quantize kernel."""
-    import tempfile
     torch.cuda.empty_cache()
     main, startup, logits, ids = build_gpt2_lm()
     exe, scope = pt.Executor(), pt.Scope()
@@ -5672,6 +5703,40 @@ def lstm_phase(smi):
                     "reference_k40m_ms": LSTM_K40M_MS}
 
 
+def max_rel(got, ref):
+    """max |got - ref| / max |ref| (float64)."""
+    got = torch.as_tensor(got).double().cpu()
+    ref = torch.as_tensor(ref).double().cpu()
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                1e-30)
+
+
+def op_by_op_step(main, feed, scope, what, tol, err=max_rel):
+    """One step of `main` on the CPU from `scope` (a CPU scope, which the
+    step advances), then every op lowered on the card on the CPU's values
+    of its inputs (executor.lower_ops_on); raises if an output's `err`
+    exceeds `tol`. Returns ({output: err}, {output: (card, CPU)})."""
+    block = main.global_block()
+    names = [n for n, v in block.vars.items()
+             if not v.persistable and n not in feed]
+    before = tensors_of(scope)
+    out = pt.Executor(pt.CPUPlace()).run(main, feed=feed, fetch_list=names,
+                                         scope=scope, return_numpy=False)
+    values = dict(zip(names, out))
+    for n, t in scope.vars.items():
+        if isinstance(t, torch.Tensor) and block._find_var(n) is not None:
+            values[n] = t
+    values.update({k: torch.from_numpy(np.asarray(v))
+                   for k, v in feed.items()})
+    pairs = lower_ops_on(main, "cuda", before, values)
+    errs = {n: err(got, ref) for n, (got, ref) in pairs.items()}
+    bad = sorted((e, n) for n, e in errs.items() if not e <= tol)
+    if bad:
+        raise AssertionError(f"{what} op by op: the card differs from the "
+                             f"CPU: {bad[-5:]}")
+    return errs, pairs
+
+
 def seq_parity_phase(smi):
     """Phase 30: the seq2seq training program at emb / hid SEQ_PAR_W,
     vocab SEQ_PAR_VOCAB, B SEQ_PAR_B, ragged lengths <= SEQ_PAR_T (a
@@ -5681,38 +5746,20 @@ def seq_parity_phase(smi):
     largest element."""
     main, startup, cost = seq2seq_program(SEQ_PAR_VOCAB, SEQ_PAR_W,
                                           SEQ_PAR_W, 1e-2, False)
-    cpu = pt.Executor(pt.CPUPlace())
     scope = pt.Scope()
-    cpu.run(startup, scope=scope)
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
     rng = np.random.RandomState(SEED + 32)
     lens = rng.randint(1, SEQ_PAR_T + 1, SEQ_PAR_B).astype(np.int32)
     lens[-1] = 0
     feed = seq2seq_feed(SEQ_PAR_B, SEQ_PAR_T, SEQ_PAR_VOCAB, SEED + 33, lens)
-    block = main.global_block()
-    names = [n for n, v in block.vars.items()
-             if not v.persistable and n not in feed]
     worst, n_out = {}, 0
     for step in (1, 2):
-        before = tensors_of(scope)
-        out = cpu.run(main, feed=feed, fetch_list=names, scope=scope,
-                      return_numpy=False)
-        values = dict(zip(names, out))
-        for n, t in scope.vars.items():
-            if isinstance(t, torch.Tensor) and block._find_var(n) is not None:
-                values[n] = t
-        values.update({k: torch.from_numpy(v) for k, v in feed.items()})
-        errs = {n: float((got.double() - ref.double()).abs().max())
-                / max(float(ref.double().abs().max()), 1e-30)
-                for n, (got, ref) in lower_ops_on(main, "cuda", before,
-                                                  values).items()}
+        errs, _ = op_by_op_step(main, feed, scope, f"seq2seq, step {step}",
+                                SEQ_PAR_TOL)
         n_out += len(errs)
         k = max(errs, key=errs.get)
         worst[step] = (k, errs[k])
-        if errs[k] > SEQ_PAR_TOL:
-            bad = sorted((e, n) for n, e in errs.items()
-                         if e > SEQ_PAR_TOL)[-5:]
-            raise AssertionError(f"seq2seq op by op, step {step}: the card "
-                                 f"differs from the CPU: {bad}")
+    block = main.global_block()
     log(f"seq2seq f32 op by op on the card, on the CPU's inputs (emb/hid "
         f"{SEQ_PAR_W}, vocab {SEQ_PAR_VOCAB}, B {SEQ_PAR_B}, lengths "
         f"{lens.tolist()}): {n_out} outputs of {len(block.ops)} ops over 2 "
@@ -5844,11 +5891,12 @@ def ctr_dispatch(exe, main, feed, scope):
             int(c.get("sparse.selected_rows", 0)))
 
 
-def ctr_profile(exe, main, feed, cost, scope, step_ms):
+def ctr_profile(exe, main, feed, cost, scope, step_ms, trace_dir=None):
     """One step under deviceprof.profile_program: device ms, busy share
     against `step_ms`, device kernels a step, the top op types."""
     rep = monitor.deviceprof.profile_program(main, feed, [cost.name], scope,
-                                             exe, steps=1, warmup=0)
+                                             exe, steps=1, warmup=0,
+                                             trace_dir=trace_dir)
     device_ms = rep["total_us"] / 1e3
     by_type = {}
     for r in rep["rows"]:
@@ -6051,9 +6099,7 @@ def ctr_err(got, ref):
     and the merged sums' errors)."""
     from paddle_tpu_torch.selected_rows import is_selected_rows, merge_rows
     if not is_selected_rows(ref):
-        got, ref = got.double(), ref.double()
-        return float((got - ref).abs().max()) / max(
-            float(ref.abs().max()), 1e-30)
+        return max_rel(got, ref)
     if not torch.equal(got.rows.cpu(), ref.rows.cpu()):
         return float("inf")
     (gu, gs), (ru, rs) = merge_rows(got.to("cuda")), merge_rows(ref)
@@ -6078,38 +6124,21 @@ def ctr_parity_phase(smi):
             main, startup, cost, _ = ctr_program(
                 model, opt=pt.AdamOptimizer(1e-2), dense_input=True,
                 width=(CTR_PAR_V, CTR_PAR_F, CTR_PAR_EMB, (CTR_PAR_HID,)))
-            cpu, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
-            cpu.run(startup, scope=scope)
+            scope = pt.Scope()
+            pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
             rng = np.random.RandomState(SEED + 40)
             feed = ctr_feed(rng, CTR_PAR_B, CTR_PAR_V, CTR_PAR_F)
             feed["dense"] = rng.rand(CTR_PAR_B, 4).astype(np.float32)
             block = main.global_block()
-            names = [n for n, v in block.vars.items()
-                     if not v.persistable and n not in feed]
             worst, n_out, n_sparse = {}, 0, 0
             for step in (1, 2):
-                before = tensors_of(scope)
-                res = cpu.run(main, feed=feed, fetch_list=names, scope=scope,
-                              return_numpy=False)
-                values = dict(zip(names, res))
-                for n, t in scope.vars.items():
-                    if isinstance(t, torch.Tensor) \
-                            and block._find_var(n) is not None:
-                        values[n] = t
-                values.update({k: torch.from_numpy(v)
-                               for k, v in feed.items()})
-                pairs = lower_ops_on(main, "cuda", before, values)
-                errs = {n: ctr_err(g, r) for n, (g, r) in pairs.items()}
+                errs, pairs = op_by_op_step(
+                    main, feed, scope, f"CTR {model}, step {step}",
+                    CTR_PAR_TOL, ctr_err)
                 n_out += len(errs)
                 n_sparse += sum(hasattr(r, "rows") for _, r in pairs.values())
                 k = max(errs, key=errs.get)
                 worst[step] = (k, errs[k])
-                if errs[k] > CTR_PAR_TOL:
-                    bad = sorted((e, n) for n, e in errs.items()
-                                 if e > CTR_PAR_TOL)[-5:]
-                    raise AssertionError(f"CTR {model} op by op, step "
-                                         f"{step}: the card differs from "
-                                         f"the CPU: {bad}")
             log(f"CTR {model} (vocab {CTR_PAR_V}, {CTR_PAR_F} fields, emb "
                 f"{CTR_PAR_EMB}, hidden {CTR_PAR_HID}, B {CTR_PAR_B}, dense "
                 f"4) selected_rows op by op on the card on the CPU's inputs:"
@@ -6297,6 +6326,692 @@ def ctr_phase(smi):
                    "mnist_mlp": mnist}
 
 
+# -- phases 34-36: control flow, OCR (CTC) and SRL (CRF) ----------------------
+
+# phase 34 (a): a While-RNN against the simple_rnn op (x [T, B, D])
+CF_T, CF_B, CF_D = 64, 64, 512
+CF_RTOL = 1e-5
+# phase 34 (b): an IfElse row-wise merge at B 4096, width 512
+IE_B, IE_D, IE_TOL = 4096, 512, 1e-5
+# phase 34 (c): recurrent_group with simple_rnn's cell (memory 512, a
+# StaticInput bias), B 64, T CF_T; then RG_STEPS Adam steps
+RG_TOL, RG_STEPS, RG_LR = 1e-5, 20, 1e-3
+CF_TIMED = 5
+# phase 35: models.ocr.crnn_ctc_cost at its own widths (conv 16 / 32,
+# hidden 96, future_context 2) on 1 x 32 x 256 images (T 64), 95 classes
+# plus the blank, B 128, labels of 5-20 ids; Adam 5e-3, OCR_STEPS steps
+OCR_B, OCR_H, OCR_W, OCR_CLASSES = 128, 32, 256, 95
+OCR_LABELS, OCR_LR, OCR_STEPS = (5, 20), 5e-3, 200
+# step 1 on the card against the same program on the CPU from the same
+# state: the loss within 1e-5 relative, each gradient within
+# SEQ_CPU_TOL of its largest element (f32 with TF32 off; the conv and
+# CTC sums in other orders); op by op, each op on the CPU's values of
+# its inputs, within SEQ_CPU_TOL too
+SEQ_CPU_TOL = 1e-4
+# run free, the SRL network's relu candidates (8 LSTMs x 64 steps) move
+# a few gradients by more (ROADMAP C11's kink): a control, the same
+# network with tanh candidates, is held to SEQ_CPU_TOL run free; the
+# relu network's free run to SRL_FREE_TOL of each gradient's largest
+# element (its reading on an H100 80GB HBM3 at 700 W: 7.63e-4), and op
+# by op to SEQ_CPU_TOL
+SRL_FREE_TOL = 2e-3
+# phase 36: the book's db_lstm + CRF (label_semantic_roles): word_dim 32,
+# mark_dim 5, hidden 512, depth 8; the vocabularies of
+# paddle_tpu/dataset/conll05.py's synthetic dicts (5000 words, 3000
+# predicates, 59 labels); B 64, lengths 8-64, Adam 1e-3, SRL_STEPS steps
+SRL_WORDS, SRL_PREDS, SRL_LABELS, SRL_MARKS = 5000, 3000, 59, 2
+SRL_WORD_DIM, SRL_MARK_DIM, SRL_HIDDEN, SRL_DEPTH = 32, 5, 512, 8
+SRL_B, SRL_LENS, SRL_LR, SRL_STEPS = 64, (8, 64), 1e-3, 20
+SRL_TIE = 1e-5        # a decoded path may differ only at a near tie
+
+
+def whole_profile(exe, main, feed, cost, scope, step_ms, what, smi,
+                  tries=3):
+    """ctr_profile of one step from a capture that kept its device
+    events: the device events (kernels, copies, sets) must be at least
+    0.95 of the launch calls (runtime or driver Launch, Memcpy, Memset)
+    that the capture's host side recorded. A capture short of that is
+    taken again, up to `tries` times; if none is whole, device ms and
+    busy are None (not measured)."""
+    for n in range(1, tries + 1):
+        tdir = tempfile.mkdtemp(prefix="chip_smoke_prof_")
+        try:
+            prof = ctr_profile(exe, main, feed, cost, scope, step_ms, tdir)
+            events = monitor.deviceprof.load_trace_events(
+                os.path.join(tdir, "step0.trace.json")) or []
+        finally:
+            shutil.rmtree(tdir, ignore_errors=True)
+        launched = sum(
+            str(e.get("cat", "")).lower() in ("cuda_runtime", "cuda_driver")
+            and any(k in str(e.get("name", ""))
+                    for k in ("Launch", "Memcpy", "Memset"))
+            for e in events)
+        prof.update(host_launches=launched, captures=n)
+        if launched and prof["kernels_per_step"] >= 0.95 * launched:
+            return prof
+        log(f"{what}: profile {n} kept {prof['kernels_per_step']} device "
+            f"events of {launched} launched | {smi}")
+    prof.update(device_ms=None, busy=None, top_op_types_ms=None)
+    return prof
+
+
+def step_costs(exe, main, feed, cost, scope, walls, what, smi):
+    """What a step costs on the card: the median wall of `walls`, one
+    profiled step's device ms and busy share (whole_profile), the
+    device -> host syncs of a step (torch's sync debug mode) and the
+    While conditions read on the host (the monitor's
+    control_flow.host_syncs)."""
+    med, lo, hi = median_lo_hi(walls)
+    prof = whole_profile(exe, main, feed, cost, scope, med, what, smi)
+    syncs = ctr_step_syncs(exe, main, feed, scope)
+    monitor.reset()
+    monitor.set_enabled(True)
+    try:
+        exe.run(main, feed=feed, fetch_list=[], scope=scope)
+        cond_reads = int(monitor.snapshot().get("counters", {}).get(
+            "control_flow.host_syncs", 0))
+    finally:
+        monitor.set_enabled(False)
+        monitor.reset()
+    device = ("not measured" if prof["device_ms"] is None else
+              f"{prof['device_ms']:.2f} ms (busy {prof['busy']:.3f})")
+    log(f"{what}: step {med:.2f} ms median ({lo:.2f}-{hi:.2f}), device "
+        f"{device}, {prof['kernels_per_step']} kernels a step of "
+        f"{prof['host_launches']} launched, {syncs} syncs a step "
+        f"({cond_reads} While conditions read on the host); top ops "
+        f"{prof['top_op_types_ms']} | {smi}")
+    return {"step_ms": med, "step_ms_lo": lo, "step_ms_hi": hi,
+            "device_ms": prof["device_ms"], "busy": prof["busy"],
+            "kernels_per_step": prof["kernels_per_step"],
+            "host_launches_per_step": prof["host_launches"],
+            "profile_captures": prof["captures"],
+            "syncs_per_step": syncs, "while_host_reads": cond_reads,
+            "top_op_types_ms": prof["top_op_types_ms"]}
+
+
+def while_rnn_phase(smi):
+    """Phase 34 (a): a While-RNN (array_read over x [T, B, D], matmul,
+    tanh, assign, increment, less_than) and the simple_rnn op on one
+    weight, f32 with TF32 off: the final states within CF_RTOL of the
+    largest element."""
+    cf = pt.layers.control_flow
+    T, B, D = CF_T, CF_B, CF_D
+    rng = np.random.RandomState(SEED + 40)
+    w = torch.from_numpy((rng.uniform(-1, 1, (D, D)) / np.sqrt(D)).astype(
+        np.float32)).cuda()
+    xd = rng.randn(B, T, D).astype(np.float32)
+    feed = {"x": xd, "x@SEQLEN": np.full((B,), T, np.int32)}
+    pt.framework.reset_default_programs()
+    main_w, start_w = pt.Program(), pt.Program()
+    with pt.program_guard(main_w, start_w):
+        x = pt.layers.data("x", [D], lod_level=1)
+        w_p = pt.layers.create_parameter([D, D], name="w_rnn")
+        x_tbd = pt.layers.transpose(x, [1, 0, 2])          # [T, B, D]
+        h = pt.layers.fill_constant([B, D], "float32", 0.0)
+        i = pt.layers.fill_constant([1], "int64", 0)
+        n = pt.layers.fill_constant([1], "int64", T)
+        cond = pt.layers.less_than(i, n)
+        loop = cf.While(cond)
+        with loop.block():
+            x_t = cf.array_read(x_tbd, i)
+            pt.layers.assign(pt.layers.tanh(x_t + pt.layers.matmul(h, w_p)),
+                             output=h)
+            pt.layers.increment(i)
+            pt.layers.less_than(i, n, cond=cond)
+    main_s, start_s = pt.Program(), pt.Program()
+    with pt.program_guard(main_s, start_s):
+        x = pt.layers.data("x", [D], lod_level=1)
+        hidden = pt.layers.simple_rnn(x, D, act="tanh",
+                                      param_attr=pt.ParamAttr(name="w_rnn"))
+    exe, scope = pt.Executor(), pt.Scope()
+    scope.set("w_rnn", w)
+    zero_counts()                       # the main path starts here
+    h_w, = exe.run(main_w, feed=feed, fetch_list=[h], scope=scope,
+                   return_numpy=False)
+    walls = timed_steps(exe, main_w, feed, h, scope, 0, CF_TIMED)[1]
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, launches_of(), "While-RNN (no TPU kernel on this "
+                 "path)")
+    hid, = exe.run(main_s, feed=feed, fetch_list=[hidden], scope=scope,
+                   return_numpy=False)
+    err = max_rel(h_w, hid[:, -1])
+    log(f"While-RNN T {T} B {B} D {D} (f32, TF32 off) against simple_rnn on "
+        f"one weight: final state within {err:.2e} of its largest element "
+        f"(tol {CF_RTOL:g}) | {smi}")
+    if not err <= CF_RTOL:
+        raise AssertionError(f"While-RNN differs from simple_rnn by {err}")
+    costs = step_costs(exe, main_w, feed, h, scope, walls,
+                       f"While-RNN T {T} B {B} D {D}", smi)
+    if costs["while_host_reads"] != T + 1:
+        raise AssertionError(f"While-RNN read its condition "
+                             f"{costs['while_host_reads']} times, not {T + 1}")
+    return counts, {"T": T, "B": B, "D": D, "max_rel_err": err, **costs}
+
+
+def ifelse_phase(smi):
+    """Phase 34 (b): an IfElse row-wise merge, tanh(x W) on the rows
+    whose condition holds and 0.5 x W on the others, at B IE_B and width
+    IE_D, with the gradient of W through both branches: the merged rows
+    and dW against a plain torch recompute, within IE_TOL of each
+    largest element."""
+    cf = pt.layers.control_flow
+    rng = np.random.RandomState(SEED + 41)
+    xd = rng.randn(IE_B, IE_D).astype(np.float32)
+    cd = rng.rand(IE_B, 1) < 0.5
+    w = torch.from_numpy((rng.uniform(-1, 1, (IE_D, IE_D))
+                          / np.sqrt(IE_D)).astype(np.float32)).cuda()
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = pt.layers.data("x", [IE_D])
+        c = pt.layers.data("c", [1], dtype="bool")
+        w_p = pt.layers.create_parameter([IE_D, IE_D], name="ie_w")
+        ie = cf.IfElse(c)
+        with ie.true_block():
+            ie.output(pt.layers.tanh(pt.layers.matmul(ie.input(x), w_p)))
+        with ie.false_block():
+            ie.output(pt.layers.matmul(ie.input(x), w_p) * 0.5)
+        out, = ie()
+        loss = pt.layers.mean(out)
+        (_p, grad), = pt.backward.append_backward(loss)
+    exe, scope = pt.Executor(), pt.Scope()
+    scope.set("ie_w", w)
+    feed = {"x": xd, "c": cd}
+    zero_counts()                       # the main path starts here
+    out_v, g_v = exe.run(main, feed=feed, fetch_list=[out, grad],
+                         scope=scope, return_numpy=False)
+    walls = timed_steps(exe, main, feed, loss, scope, 0, CF_TIMED)[1]
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, launches_of(), "IfElse (no TPU kernel on this path)")
+    wr = w.clone().requires_grad_()
+    xw = torch.from_numpy(xd).cuda() @ wr
+    ref = torch.where(torch.from_numpy(cd).cuda(), torch.tanh(xw), xw * 0.5)
+    g_ref, = torch.autograd.grad(ref.mean(), wr)
+    errs = {"out": max_rel(out_v, ref.detach()), "dW": max_rel(g_v, g_ref)}
+    log(f"IfElse B {IE_B} width {IE_D}: merged rows and dW against the plain "
+        f"recompute {errs} of the largest element (tol {IE_TOL:g}) | {smi}")
+    if not max(errs.values()) <= IE_TOL:
+        raise AssertionError(f"IfElse differs from the plain recompute: "
+                             f"{errs}")
+    costs = step_costs(exe, main, feed, loss, scope, walls,
+                       f"IfElse B {IE_B} width {IE_D} with dW", smi)
+    return counts, {"B": IE_B, "width": IE_D, "max_rel_err": errs, **costs}
+
+
+def rg_cell(w, D):
+    """simple_rnn's cell as a recurrent_group step over (x_t, a bias):
+    h = tanh(x_t + b + h @ W), the memory "rg_h" of width D."""
+    def step(y, bias):
+        mem = pt.layers.memory(name="rg_h", size=D)
+        return pt.layers.tanh(y + bias + pt.layers.matmul(mem, w),
+                              name="rg_h")
+    return step
+
+
+def rnn_group_programs(T, B, D):
+    """[(main, output, loss, params_grads)] of a recurrent_group whose
+    step is simple_rnn's cell, h = tanh(x_t + b + h @ W) (a memory of D,
+    the bias a StaticInput), then of the simple_rnn op over x + b, with
+    the same parameters by name; each loss the mean of its output."""
+    pt.framework.reset_default_programs()
+    progs = []
+    for group in (True, False):
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup):
+            x = pt.layers.data("x", [D], lod_level=1)
+            b = pt.layers.create_parameter([D], name="rg_b")
+            if group:
+                w = pt.layers.create_parameter([D, D], name="rg_w")
+                out = pt.layers.recurrent_group(
+                    step=rg_cell(w, D),
+                    input=[x, pt.layers.StaticInput(b)])
+            else:
+                xb = pt.layers.elementwise_add(x, b)
+                out = pt.layers.simple_rnn(xb, D, act="tanh",
+                                           param_attr=pt.ParamAttr("rg_w"))
+            loss = pt.layers.mean(out)
+            pg = pt.backward.append_backward(loss)
+        progs.append((main, out, loss, pg))
+    return progs
+
+
+def rnn_group_phase(smi):
+    """Phase 34 (c): the recurrent_group of `rnn_group_programs` against
+    the simple_rnn op: outputs and the gradients of W and b within
+    RG_TOL of each largest element; then the group trains RG_STEPS Adam
+    steps towards a fixed target and the loss falls."""
+    T, B, D = CF_T, CF_B, CF_D
+    rng = np.random.RandomState(SEED + 42)
+    params = {"rg_w": (rng.uniform(-1, 1, (D, D)) / np.sqrt(D)).astype(
+        np.float32),
+              "rg_b": rng.uniform(-.1, .1, (D,)).astype(np.float32)}
+    feed = {"x": rng.randn(B, T, D).astype(np.float32),
+            "x@SEQLEN": np.full((B,), T, np.int32)}
+    (gmain, gout, gloss, gpg), (smain, sout, _sloss, spg) = \
+        rnn_group_programs(T, B, D)
+    exe = pt.Executor()
+    scope = scope_from_numpy(params)
+    zero_counts()                       # the main path starts here
+    got = exe.run(gmain, feed=feed, fetch_list=[gout] + [g for _, g in gpg],
+                  scope=scope, return_numpy=False)
+    walls = timed_steps(exe, gmain, feed, gloss, scope, 0, CF_TIMED)[1]
+    counts = read_counts()
+    ref = exe.run(smain, feed=feed, fetch_list=[sout] + [g for _, g in spg],
+                  scope=scope, return_numpy=False)
+    names = ["out"] + [p.name for p, _ in gpg]
+    ref_by = dict(zip(["out"] + [p.name for p, _ in spg], ref))
+    errs = {n: max_rel(g, ref_by[n]) for n, g in zip(names, got)}
+    log(f"recurrent_group (simple_rnn's cell, memory {D}, StaticInput bias) "
+        f"T {T} B {B}: output and gradients against the simple_rnn op {errs} "
+        f"of the largest element (tol {RG_TOL:g}) | {smi}")
+    if sorted(errs) != ["out", "rg_b", "rg_w"] or \
+            not max(errs.values()) <= RG_TOL:
+        raise AssertionError(f"recurrent_group differs from simple_rnn: "
+                             f"{errs}")
+    costs = step_costs(exe, gmain, feed, gloss, scope, walls,
+                       f"recurrent_group forward + backward T {T} B {B} D "
+                       f"{D}", smi)
+    # training: mean squared error to a fixed target, Adam
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = pt.layers.data("x", [D], lod_level=1)
+        target = pt.layers.data("target", [D], lod_level=1)
+        b = pt.layers.create_parameter([D], name="rg_b")
+        w = pt.layers.create_parameter([D, D], name="rg_w")
+        out = pt.layers.recurrent_group(step=rg_cell(w, D),
+                                        input=[x, pt.layers.StaticInput(b)])
+        cost = pt.layers.mean(pt.layers.square_error_cost(out, target))
+        pt.AdamOptimizer(RG_LR).minimize(cost)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)              # the Adam state
+    for k, v in params.items():
+        scope.set(k, torch.from_numpy(v).cuda())
+    zero_counts()                       # the main path starts again here
+    tfeed = dict(feed, target=rng.uniform(-.5, .5, (B, T, D)).astype(
+        np.float32), **{"target@SEQLEN": feed["x@SEQLEN"]})
+    losses, twalls = timed_steps(exe, main, tfeed, cost, scope, 0, RG_STEPS)
+    counts = {k: counts[k] + v for k, v in read_counts().items()}
+    check_counts(counts, launches_of(), "recurrent_group (no TPU kernel on "
+                 "this path)")
+    tmed = float(np.median(twalls[1:]))
+    log(f"recurrent_group training T {T} B {B} D {D}, Adam {RG_LR:g}, "
+        f"{RG_STEPS} steps: loss {losses[0]:.5f} -> {losses[-1]:.5f}, step "
+        f"{tmed:.2f} ms median | {smi}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"recurrent_group training: losses {losses}")
+    return counts, {"T": T, "B": B, "D": D, "max_rel_err": errs,
+                    "forward_backward": costs,
+                    "train_losses": [losses[0], losses[-1]],
+                    "train_step_ms": tmed}
+
+
+def control_flow_phase(smi):
+    """Phase 34 (a)-(c)."""
+    paths, res = {}, {}
+    paths["control_flow_while_rnn"], res["while_rnn"] = while_rnn_phase(smi)
+    paths["control_flow_ifelse"], res["ifelse"] = ifelse_phase(smi)
+    paths["control_flow_recurrent_group"], res["recurrent_group"] = \
+        rnn_group_phase(smi)
+    return paths, res
+
+
+def first_step_against_cpu(exe, main, feed, fetch, n_grads, scope, what,
+                           smi, tol=SEQ_CPU_TOL):
+    """Step 1 on the card and the same program on the CPU from the same
+    state: the loss (fetch[0]) within 1e-5 relative and each of the
+    `n_grads` gradients after it within `tol` of its largest element.
+    Returns (the card's fetches, the CPU's, the worst gradient, the
+    state before the step on the CPU)."""
+    state = scope_of(tensors_of(scope), "cpu")
+    card = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                   return_numpy=False)
+    cpu = pt.Executor(pt.CPUPlace()).run(main, feed=feed, fetch_list=fetch,
+                                         scope=scope_of(state.vars, "cpu"),
+                                         return_numpy=False)
+    loss_err = max_rel(card[0], cpu[0])
+    names = [v if isinstance(v, str) else v.name
+             for v in fetch[1:1 + n_grads]]
+    errs = {n: max_rel(c, r) for n, c, r in zip(names, card[1:], cpu[1:])}
+    top = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+    c, r = (t.double().cpu() for t in (card[1 + names.index(top[0][0])],
+                                       cpu[1 + names.index(top[0][0])]))
+    at = np.unravel_index(int((c - r).abs().argmax()), tuple(r.shape))
+    log(f"{what} step 1 on the card against the CPU: loss "
+        f"{float(card[0].reshape(-1)[0]):.6f} vs "
+        f"{float(cpu[0].reshape(-1)[0]):.6f} ({loss_err:.2e} relative, tol "
+        f"1e-5); the worst of {len(errs)} gradients "
+        f"{[(n, f'{e:.2e}') for n, e in top]} of their largest elements "
+        f"(tol {tol:g}), the first at {tuple(int(i) for i in at)}: "
+        f"{float(c[at]):.6g} vs {float(r[at]):.6g}, largest "
+        f"{float(r.abs().max()):.6g} | {smi}")
+    if not (loss_err <= 1e-5 and top[0][1] <= tol):
+        raise AssertionError(f"{what}: step 1 differs from the CPU")
+    return card, cpu, (top[0][0], top[0][1], loss_err), state
+
+
+def ocr_feed(rng):
+    """B images 1 x H x W of uniform noise, valid widths 160-256 (a
+    multiple of 4), labels of OCR_LABELS ids in [1, OCR_CLASSES] with
+    repeats (each id repeats its predecessor with probability 0.25)."""
+    B = OCR_B
+    widths = 4 * rng.randint(40, OCR_W // 4 + 1, B)
+    lens = rng.randint(OCR_LABELS[0], OCR_LABELS[1] + 1, B)
+    lab = np.zeros((B, OCR_LABELS[1]), np.int64)
+    for b, n in enumerate(lens):
+        ids = rng.randint(1, OCR_CLASSES + 1, n)
+        rep = rng.rand(n) < 0.25
+        for t in range(1, n):
+            if rep[t]:
+                ids[t] = ids[t - 1]
+        lab[b, :n] = ids
+    return {"img": rng.rand(B, 1, OCR_H, OCR_W).astype(np.float32),
+            "lens": widths.astype(np.int32), "lab": lab,
+            "lab@SEQLEN": lens.astype(np.int32)}
+
+
+def levenshtein(a, b):
+    row = list(range(len(b) + 1))
+    for i, x in enumerate(a, 1):
+        prev, row[0] = row[0], i
+        for j, y in enumerate(b, 1):
+            prev, row[j] = row[j], min(row[j] + 1, row[j - 1] + 1,
+                                       prev + (x != y))
+    return row[-1]
+
+
+def ocr_decode_check(exe, test, fetch, feed, scope, what, smi):
+    """The test clone's greedy decode on the card (ctc_greedy_decoder,
+    ctc_align, edit_distance) held exactly against numpy on the card's
+    own logits: each row's argmax over its length (first maximum),
+    repeats merged, blanks (0) dropped; its ids, its length and its edit
+    distance to the label. Returns (EditDistance's mean distance and
+    sequence error rate, the decoded tokens)."""
+    logits, lg_len, ids, out_len, dist = exe.run(test, feed=feed,
+                                                 fetch_list=fetch, scope=scope)
+    bad = []
+    for b in range(logits.shape[0]):
+        a = np.argmax(logits[b, :lg_len[b]], -1)
+        keep = np.ones(len(a), bool)
+        keep[1:] = a[1:] != a[:-1]
+        want = a[keep & (a != 0)]
+        got = ids[b, :out_len[b]]
+        lab = feed["lab"][b, :feed["lab@SEQLEN"][b]]
+        if not (out_len[b] == len(want) and np.array_equal(got, want)
+                and float(np.ravel(dist[b])[0]) == levenshtein(
+                    want.tolist(), lab.tolist())):
+            bad.append(b)
+    ed = pt.evaluator.EditDistance()
+    ed.update(dist)
+    mean_d, err_rate = ed.eval()
+    tokens = int(np.sum(out_len))
+    log(f"{what} on the card against numpy on its logits: {tokens} "
+        f"tokens decoded in {logits.shape[0]} rows, {len(bad)} rows differ "
+        f"(ids, lengths or edit distances; exact); mean edit distance "
+        f"{mean_d:.4f}, sequence error rate {err_rate:.4f} | {smi}")
+    if bad:
+        raise AssertionError(f"{what}: rows {bad[:8]} differ from numpy")
+    return mean_d, err_rate, tokens
+
+
+def ocr_phase(smi):
+    """Phase 35: models.ocr.crnn_ctc_cost (conv 16 / 32, hidden 96,
+    future_context 2) on 1 x 32 x 256 images, T 64, 95 classes + blank,
+    B 128, f32 Adam 5e-3 on one fixed batch for OCR_STEPS steps: step 1
+    against the CPU, the loss below half of step 1's; the greedy decode
+    at the initial state and after training held to numpy
+    (ocr_decode_check)."""
+    rng = np.random.RandomState(SEED + 43)
+    feed = ocr_feed(rng)
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        img = pt.layers.data("img", [1, OCR_H, OCR_W])
+        lens = pt.layers.data("lens", [OCR_B], dtype="int32",
+                              append_batch_size=False)
+        lab = pt.layers.data("lab", [], dtype="int64", lod_level=1)
+        cost, logits = pt.models.ocr.crnn_ctc_cost(
+            img, lab, num_classes=OCR_CLASSES, image_lens=lens)
+        test = main.clone(for_test=True)
+        _, pg = pt.AdamOptimizer(OCR_LR).minimize(cost)
+    # the decode and its edit distance run in the test clone only
+    with pt.program_guard(test, pt.Program()):
+        blk = test.global_block()
+        decoded = pt.layers.ctc_greedy_decoder(blk.var(logits.name), blank=0)
+        dist, _ = pt.layers.edit_distance(decoded, blk.var("lab"),
+                                          normalized=False)
+    decode = [logits.name, logits.seq_len_var, decoded.name,
+              decoded.seq_len_var, dist.name]
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    init_tokens = ocr_decode_check(exe, test, decode, feed, scope,
+                                   "OCR greedy decode at the initial state",
+                                   smi)[2]
+    if not init_tokens:
+        raise AssertionError("OCR: the initial decode gave no token to check")
+    zero_counts()                       # the main path starts here
+    card, _cpu, worst, _state = first_step_against_cpu(
+        exe, main, feed, [cost] + [g for _, g in pg], len(pg), scope,
+        f"OCR CRNN-CTC B {OCR_B}", smi)
+    losses, walls = timed_steps(exe, main, feed, cost, scope, 0,
+                                OCR_STEPS - 1)
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, launches_of(), "OCR CRNN-CTC (no TPU kernel on "
+                 "this path)")
+    first = float(card[0].reshape(-1)[0])
+    mean_d, err_rate, tokens = ocr_decode_check(
+        exe, test, decode, feed, scope,
+        f"OCR greedy decode after {OCR_STEPS} steps", smi)
+    med = float(np.median(walls))
+    log(f"OCR CRNN-CTC B {OCR_B} 1x{OCR_H}x{OCR_W} (T {OCR_W // 4}), "
+        f"{OCR_CLASSES} classes + blank, Adam {OCR_LR:g}: loss {first:.4f} "
+        f"-> {losses[-1]:.4f} in {OCR_STEPS} steps; {OCR_B / (med / 1e3):.1f}"
+        f" examples/s (step {med:.2f} ms median); greedy decode: mean edit "
+        f"distance {mean_d:.4f} to labels of mean length "
+        f"{feed['lab@SEQLEN'].mean():.2f}, sequence error rate "
+        f"{err_rate:.4f} | {smi}")
+    if not (np.isfinite(losses).all() and losses[-1] < 0.5 * first):
+        raise AssertionError(f"OCR: the loss did not fall below half of "
+                             f"step 1's: {first} -> {losses[-1]}")
+    costs = step_costs(exe, main, feed, cost, scope, walls,
+                       f"OCR CRNN-CTC B {OCR_B} training step", smi)
+    return counts, {"B": OCR_B, "T": OCR_W // 4, "classes": OCR_CLASSES,
+                    "examples_per_s": OCR_B / (med / 1e3),
+                    "losses": [first, losses[-1]],
+                    "step1_worst_grad": worst[:2],
+                    "step1_loss_rel_err": worst[2],
+                    "mean_edit_distance": mean_d,
+                    "sequence_error_rate": err_rate,
+                    "decoded_tokens": {"initial": init_tokens,
+                                       "trained": tokens}, **costs}
+
+
+SRL_CTX = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2")
+
+
+def srl_program(candidate="relu"):
+    """The book's label_semantic_roles db_lstm + CRF: the six word-context
+    embeddings (one table) with the predicate's and the mark's, summed
+    through fc into `hidden`, SRL_DEPTH LSTMs in alternating directions
+    (`candidate` their candidate activation, the book's relu), each fed
+    by fc of the previous hidden and LSTM outputs, fc to the tags,
+    linear_chain_crf; crf_decoding and an InGraphChunkEvaluator over the
+    decoded tags. Returns (main, startup, cost, params_grads, decode,
+    emission, chunk evaluator)."""
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        ins = [pt.layers.data(n, [1], dtype="int64", lod_level=1)
+               for n in SRL_CTX + ("verb", "mark", "target")]
+        embs = [pt.layers.embedding(w, size=[SRL_WORDS, SRL_WORD_DIM],
+                                    param_attr=pt.ParamAttr(name="emb"))
+                for w in ins[:6]]
+        embs.append(pt.layers.embedding(ins[6],
+                                        size=[SRL_PREDS, SRL_WORD_DIM]))
+        embs.append(pt.layers.embedding(ins[7],
+                                        size=[SRL_MARKS, SRL_MARK_DIM]))
+        hidden = pt.layers.fc(input=embs, size=SRL_HIDDEN, act="tanh")
+        lstm = None
+        for i in range(SRL_DEPTH):
+            if i:
+                hidden = pt.layers.fc(input=[hidden, lstm], size=SRL_HIDDEN,
+                                      act="tanh")
+            lstm, _ = pt.layers.dynamic_lstm(
+                hidden, size=SRL_HIDDEN, candidate_activation=candidate,
+                gate_activation="sigmoid", cell_activation="sigmoid",
+                is_reverse=bool(i % 2))
+        emission = pt.layers.fc(input=[hidden, lstm], size=SRL_LABELS)
+        crf = pt.layers.linear_chain_crf(emission, ins[8],
+                                         param_attr=pt.ParamAttr("crfw"))
+        cost = pt.layers.mean(crf)
+        decode = pt.layers.crf_decoding(emission, pt.ParamAttr("crfw"))
+        chunk = pt.evaluator.InGraphChunkEvaluator(
+            decode, ins[8], num_chunk_types=(SRL_LABELS - 1) // 2)
+        _, pg = pt.AdamOptimizer(SRL_LR).minimize(cost)
+    return main, startup, cost, pg, decode, emission, chunk
+
+
+def srl_feed(rng):
+    """conll05's synthetic sentences: lengths SRL_LENS, word and context
+    ids in [3, words), one predicate id a sentence, a mark of 1 at one
+    position, labels uniform over the 59 tags."""
+    B, T = SRL_B, SRL_LENS[1]
+    lens = rng.randint(SRL_LENS[0], SRL_LENS[1] + 1, B).astype(np.int32)
+    lens[0] = T
+    valid = (np.arange(T)[None, :] < lens[:, None])[..., None]
+    feed = {}
+    for n in SRL_CTX:
+        feed[n] = rng.randint(3, SRL_WORDS, (B, T, 1)) * valid
+    feed["verb"] = np.repeat(rng.randint(3, SRL_PREDS, (B, 1, 1)), T, 1) \
+        * valid
+    mark = np.zeros((B, T, 1), np.int64)
+    mark[np.arange(B), rng.randint(0, lens), 0] = 1
+    feed["mark"] = mark
+    feed["target"] = rng.randint(0, SRL_LABELS, (B, T, 1)) * valid
+    for n in SRL_CTX + ("verb", "mark", "target"):
+        feed[n] = feed[n].astype(np.int64)
+        feed[n + "@SEQLEN"] = lens
+    return feed, lens
+
+
+def viterbi_score(em, trans, path):
+    """The CRF score of one tag path (float64)."""
+    start, end, w = trans[0], trans[1], trans[2:]
+    s = start[path[0]] + em[0, path[0]] + end[path[-1]]
+    for t in range(1, len(path)):
+        s += w[path[t - 1], path[t]] + em[t, path[t]]
+    return float(s)
+
+
+def srl_phase(smi):
+    """Phase 36: `srl_program` at the book's widths, B SRL_B, lengths
+    SRL_LENS, Adam SRL_LR for SRL_STEPS steps: step 1 (loss, gradients
+    and the Viterbi paths) against the CPU, the paths equal but at a
+    near tie; the loss falls; the in-graph chunk counts equal the host
+    ChunkEvaluator's on the decoded tags exactly. Then, outside the
+    counted run, step 1 op by op on the card and the tanh-candidate
+    control's step 1 against the CPU."""
+    rng = np.random.RandomState(SEED + 44)
+    feed, lens = srl_feed(rng)
+    main, startup, cost, pg, decode, emission, chunk = srl_program()
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    trans0 = scope.get("crfw").double().cpu().numpy()
+    host = pt.evaluator.ChunkEvaluator((SRL_LABELS - 1) // 2)
+    target = feed["target"][..., 0]
+
+    def count(path):
+        for b in range(SRL_B):
+            host.update(path[b, :lens[b]], target[b, :lens[b]])
+
+    zero_counts()                       # the main path starts here
+    card, cpu, worst, state = first_step_against_cpu(
+        exe, main, feed, [cost] + [g for _, g in pg] + [decode, emission],
+        len(pg), scope, f"SRL db_lstm + CRF B {SRL_B}", smi, SRL_FREE_TOL)
+    path_card, path_cpu = card[-2].cpu().numpy(), cpu[-2].numpy()
+    count(path_card)
+    em_cpu = cpu[-1].double().numpy()
+    rows = [b for b in range(SRL_B)
+            if not np.array_equal(path_card[b], path_cpu[b])]
+    ties = []
+    for b in rows:
+        n = lens[b]
+        sa = viterbi_score(em_cpu[b, :n], trans0, path_card[b, :n])
+        sb = viterbi_score(em_cpu[b, :n], trans0, path_cpu[b, :n])
+        ties.append(abs(sa - sb) / max(abs(sb), 1.0))
+    if ties and max(ties) > SRL_TIE:
+        raise AssertionError(f"SRL: Viterbi paths differ from the CPU's "
+                             f"beyond a near tie: rows {rows}, gaps {ties}")
+    losses, walls = [float(card[0].reshape(-1)[0])], []
+    for _ in range(SRL_STEPS - 1):
+        t0 = time.perf_counter()
+        loss, path = exe.run(main, feed=feed, fetch_list=[cost, decode],
+                             scope=scope)
+        walls.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss[0]))
+        count(path)
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, launches_of(), "SRL db_lstm + CRF (no TPU kernel "
+                 "on this path)")
+    errs, _ = op_by_op_step(main, feed, state, f"SRL db_lstm + CRF B "
+                            f"{SRL_B}", SEQ_CPU_TOL)
+    op_worst = max(errs, key=errs.get)
+    log(f"SRL db_lstm + CRF B {SRL_B} step 1 op by op on the card, on the "
+        f"CPU's inputs: {len(errs)} outputs of {len(main.global_block().ops)}"
+        f" ops, worst {op_worst} at {errs[op_worst]:.2e} of its largest "
+        f"element (tol {SEQ_CPU_TOL:g}) | {smi}")
+    # the control: tanh candidates, no kink; run free within SEQ_CPU_TOL
+    main_t, startup_t, cost_t, pg_t = srl_program("tanh")[:4]
+    scope_t = pt.Scope()
+    exe.run(startup_t, scope=scope_t)
+    control = first_step_against_cpu(
+        exe, main_t, feed, [cost_t] + [g for _, g in pg_t], len(pg_t),
+        scope_t, f"SRL control with tanh candidates B {SRL_B}", smi)[2]
+    cor, inf, lab = (float(np.ravel(v)[0]) for v in exe.run(
+        chunk.eval_program, fetch_list=chunk._fetches, scope=scope))
+    med = float(np.median(walls))
+    tokens_s = float(lens.sum()) / (med / 1e3)
+    log(f"SRL db_lstm + CRF (word {SRL_WORD_DIM}, mark {SRL_MARK_DIM}, "
+        f"hidden {SRL_HIDDEN}, depth {SRL_DEPTH}, {SRL_LABELS} tags) B "
+        f"{SRL_B}, lengths {lens.min()}-{lens.max()}: loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f} in {SRL_STEPS} Adam steps; {tokens_s:.0f} "
+        f"tokens/s (step {med:.2f} ms median); Viterbi paths on the card "
+        f"vs the CPU: {len(rows)} of {SRL_B} rows differ, all at near ties "
+        f"(gaps {ties}); in-graph chunk counts (correct, inferred, label) "
+        f"{(cor, inf, lab)} vs the host's {(host.tp, host.inferred_chunks, host.label_chunks)}"
+        f" | {smi}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"SRL: losses {losses}")
+    if (cor, inf, lab) != (host.tp, host.inferred_chunks, host.label_chunks):
+        raise AssertionError("SRL: in-graph chunk counts differ from the "
+                             "host ChunkEvaluator's")
+    costs = step_costs(exe, main, feed, cost, scope, walls,
+                       f"SRL db_lstm + CRF B {SRL_B} training step", smi)
+    return counts, {"B": SRL_B, "tokens": int(lens.sum()),
+                    "tokens_per_s": tokens_s, "losses": [losses[0],
+                                                         losses[-1]],
+                    "step1_worst_grad": worst[:2],
+                    "step1_loss_rel_err": worst[2],
+                    "step1_op_by_op": {"outputs": len(errs),
+                                       "worst": (op_worst, errs[op_worst])},
+                    "tanh_control_worst_grad": control[:2],
+                    "tanh_control_loss_rel_err": control[2],
+                    "viterbi_rows_differing": len(rows),
+                    "viterbi_tie_gaps": ties,
+                    "chunk_counts": [cor, inf, lab], **costs}
+
+
+def book_phase(smi):
+    """Phases 34-36."""
+    t0 = time.perf_counter()
+    paths, cf = control_flow_phase(smi)
+    paths["ocr_crnn_ctc"], ocr = ocr_phase(smi)
+    paths["srl_db_lstm_crf"], srl = srl_phase(smi)
+    log(f"control flow, OCR and SRL: phases 34-36 in "
+        f"{time.perf_counter() - t0:.1f} s | {smi}")
+    return paths, {"control_flow": cf, "ocr": ocr, "srl": srl}
+
+
 def main():
     name, smi = device_phase()
     t0 = time.perf_counter()
@@ -6337,6 +7052,7 @@ def main():
     telemetry_paths, telemetry = telemetry_phase(smi)
     sequence_paths, sequence = sequence_phase(smi)
     ctr_paths, ctr = ctr_phase(smi)
+    book_paths, book = book_phase(smi)
     paths = {"serving": {"flash_attn_fwd": serving_k1},
              f"training_T{TRAIN_T}": train_counts,
              f"training_T{SHORT_T}": short_counts,
@@ -6352,7 +7068,8 @@ def main():
              "resnet50_hostfed_amp": resnet_hostfed_counts,
              "resnet50_serving_f32": resnet_serving_counts["f32"],
              "resnet50_serving_int8": resnet_serving_counts["int8"],
-             **telemetry_paths, **sequence_paths, **ctr_paths}
+             **telemetry_paths, **sequence_paths, **ctr_paths,
+             **book_paths}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ALL_KERNELS}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()}
@@ -6437,7 +7154,7 @@ def main():
                                    "hostfed": resnet_hostfed,
                                    "serving": resnet_serving},
                       "telemetry": telemetry, "sequence": sequence,
-                      "ctr": ctr}),
+                      "ctr": ctr, "book": book}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

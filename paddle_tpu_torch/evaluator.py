@@ -1,11 +1,13 @@
 """Evaluators: metric accumulation across minibatches (fluid evaluator.py).
 
 The port's copy of the part of `paddle_tpu/evaluator.py` that scores
-the classifiers and the CTR models:
+the classifiers, the CTR models, sequence labelling and the OCR model:
 
-  * host evaluators (`Accuracy`, `Auc`): fetch a batch's metric or
-    scores, `update()` on the host, `eval()` at the pass end;
-  * in-graph evaluators (`InGraphAccuracy`, `InGraphAuc`): the
+  * host evaluators (`Accuracy`, `ChunkEvaluator`, `Auc`,
+    `EditDistance`): fetch a batch's metric, tags, scores or distances,
+    `update()` on the host, `eval()` at the pass end;
+  * in-graph evaluators (`InGraphAccuracy`, `InGraphAuc`,
+    `InGraphChunkEvaluator`): the
     accumulators are persistable program vars updated by ops inside the
     training step, so a pass loop fetches only scalars — raw
     predictions never cross to the host. `eval()` runs a small eval
@@ -18,8 +20,9 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["Evaluator", "Accuracy", "Auc", "InGraphEvaluator",
-           "InGraphAccuracy", "InGraphAuc"]
+__all__ = ["Evaluator", "Accuracy", "ChunkEvaluator", "Auc",
+           "EditDistance", "InGraphEvaluator", "InGraphAccuracy",
+           "InGraphAuc", "InGraphChunkEvaluator"]
 
 
 class Evaluator:
@@ -53,6 +56,55 @@ class Accuracy(Evaluator):
         return self._correct / max(self._total, 1)
 
 
+class ChunkEvaluator(Evaluator):
+    """Chunk F1 for sequence labelling (reference evaluator.py
+    ChunkEvaluator / gserver ChunkEvaluator.cpp). Host-side IOB decoding.
+
+    Tag encoding (IOB): tags 2k / 2k+1 are B-type-k / I-type-k for
+    k < num_chunk_types; any tag >= 2*num_chunk_types is O (outside).
+    """
+
+    def __init__(self, num_chunk_types, chunk_scheme="IOB"):
+        self.scheme = chunk_scheme
+        self.num_chunk_types = num_chunk_types
+        self.reset()
+
+    def reset(self, *a, **k):
+        self.tp = 0
+        self.label_chunks = 0
+        self.inferred_chunks = 0
+
+    def _extract_chunks(self, tags):
+        chunks = []
+        start, ctype = None, None
+        for i, t in enumerate(tags):
+            t = int(t)
+            is_o = t >= 2 * self.num_chunk_types
+            is_b = (not is_o) and (t % 2 == 0)
+            typ = None if is_o else t // 2
+            if start is not None and (is_o or is_b or typ != ctype):
+                chunks.append((start, i, ctype))
+                start, ctype = None, None
+            if is_b:
+                start, ctype = i, typ
+        if start is not None:
+            chunks.append((start, len(tags), ctype))
+        return set(chunks)
+
+    def update(self, inferred_tags, label_tags):
+        inf = self._extract_chunks(inferred_tags)
+        lab = self._extract_chunks(label_tags)
+        self.tp += len(inf & lab)
+        self.inferred_chunks += len(inf)
+        self.label_chunks += len(lab)
+
+    def eval(self, *a, **k):
+        p = self.tp / max(self.inferred_chunks, 1)
+        r = self.tp / max(self.label_chunks, 1)
+        f1 = 2 * p * r / max(p + r, 1e-12)
+        return p, r, f1
+
+
 class Auc(Evaluator):
     """ROC AUC via score histograms (the rankauc evaluator,
     Evaluator.cpp). update() takes positive-class scores in [0, 1] and
@@ -83,6 +135,30 @@ class Auc(Evaluator):
         fpr = np.concatenate([[0.0], fp / N])
         return float(np.trapezoid(tpr, fpr)) if hasattr(np, "trapezoid") \
             else float(np.trapz(tpr, fpr))
+
+
+class EditDistance(Evaluator):
+    """Sequence-error metric (the ctc_error evaluator, Evaluator.cpp;
+    fluid edit_distance op feeds it). Accumulates mean edit distance and
+    sequence error rate from per-batch fetches of layers.edit_distance."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self, *a, **k):
+        self.total_distance = 0.0
+        self.seq_count = 0
+        self.error_seqs = 0
+
+    def update(self, distances, seq_num=None):
+        d = np.ravel(np.asarray(distances, np.float64))
+        self.total_distance += float(d.sum())
+        self.seq_count += d.size if seq_num is None else int(seq_num)
+        self.error_seqs += int((d > 0).sum())
+
+    def eval(self, *a, **k):
+        n = max(self.seq_count, 1)
+        return self.total_distance / n, self.error_seqs / n
 
 
 class InGraphEvaluator:
@@ -138,6 +214,23 @@ class InGraphEvaluator:
                       {"X": [state.name], "Y": [delta.name]},
                       {"Out": [state.name]}, {})
         self.main_program.bump()
+
+    def _build_state_reads(self, states):
+        """Eval program that READS the given states (the executor's
+        state threading needs a consuming op) via assign into fetchable
+        '.read' vars; returns the fetch names."""
+        from . import framework
+        fetches = []
+        with framework.program_guard(self.eval_program):
+            eblk = self.eval_program.global_block()
+            for st in states:
+                out = eblk.create_var(name=st.name + ".read",
+                                      dtype="float32")
+                eblk.append_op("assign", {"X": [st.name]},
+                               {"Out": [out.name]}, {})
+                fetches.append(out.name)
+            self.eval_program.bump()
+        return fetches
 
     def reset(self, executor, scope=None):
         executor.run(self.reset_program, scope=scope)
@@ -237,3 +330,62 @@ class InGraphAuc(InGraphEvaluator):
                           {"Auc": [auc.name]}, {})
             self.eval_program.bump()
         self._metric_name = auc.name
+
+
+class InGraphChunkEvaluator(InGraphEvaluator):
+    """Chunk F1 with IN-GRAPH accumulators (reference fluid
+    ChunkEvaluator, evaluator.py:145, over operators/chunk_eval_op.cc):
+    the chunk_eval op counts inferred/label/correct chunks ON DEVICE
+    each batch and three scalar states accumulate them — evaluating a
+    pass fetches three scalars, never the [B, T] predictions.
+    Host twin (golden reference in tests): evaluator.ChunkEvaluator.
+
+    `input`/`label` are int tag tensors [B, T] or [B, T, 1] in the IOB
+    encoding (2k = B-type-k, 2k+1 = I-type-k, >= 2*num_chunk_types =
+    O); `seq_len` optionally masks padded positions."""
+
+    def __init__(self, input, label, num_chunk_types, seq_len=None):
+        super().__init__("chunk_state")
+        from . import framework
+        n_inf = self._create_state("num_infer", [1], "float32")
+        n_lab = self._create_state("num_label", [1], "float32")
+        n_cor = self._create_state("num_correct", [1], "float32")
+        with framework.program_guard(self.main_program,
+                                     self.startup_program):
+            blk = self.main_program.current_block()
+            outs = {}
+            for slot in ("NumInferChunks", "NumLabelChunks",
+                         "NumCorrectChunks", "Precision", "Recall",
+                         "F1Score"):
+                v = blk.create_var(name=f"{self._prefix}.{slot}",
+                                   dtype="float32")
+                outs[slot] = [v.name]
+            ins = {"Inference": [input.name], "Label": [label.name]}
+            # padding mask: an explicit seq_len wins; else either
+            # operand's @SEQLEN companion (predictions may come from ops
+            # that do not propagate it — the label data var usually does)
+            auto_sl = (getattr(input, "seq_len_var", None)
+                       or getattr(label, "seq_len_var", None))
+            if seq_len is not None:
+                ins["SeqLen"] = [seq_len if isinstance(seq_len, str)
+                                 else seq_len.name]
+            elif auto_sl:
+                ins["SeqLen"] = [auto_sl]
+            blk.append_op("chunk_eval", ins, outs,
+                          {"num_chunk_types": int(num_chunk_types)})
+            self._accumulate(n_inf, blk.var(outs["NumInferChunks"][0]))
+            self._accumulate(n_lab, blk.var(outs["NumLabelChunks"][0]))
+            self._accumulate(n_cor, blk.var(outs["NumCorrectChunks"][0]))
+            self.main_program.bump()
+        self.batch_f1 = outs["F1Score"][0]
+        self._fetches = self._build_state_reads((n_cor, n_inf, n_lab))
+
+    def eval(self, executor, scope=None):
+        """(precision, recall, f1) over everything accumulated since the
+        last reset — same contract as the host ChunkEvaluator.eval."""
+        cor, inf, lab = (float(np.ravel(v)[0]) for v in executor.run(
+            self.eval_program, fetch_list=self._fetches, scope=scope))
+        p = cor / max(inf, 1.0)
+        r = cor / max(lab, 1.0)
+        f1 = 2 * p * r / max(p + r, 1e-12)
+        return p, r, f1

@@ -19,7 +19,14 @@ block directly, on the card unless the caller asks for the CPU:
     sparse gradient (`densify_ins`, selected_rows.py);
   * the optimizer ops update the scope's tensors in place, where the
     reference donates their buffers; the persistables the block writes
-    are then stored back into the scope.
+    are then stored back into the scope;
+  * a control-flow op (while, ifelse, switch, recurrent_group) lowers
+    its sub-blocks' ops through the same dispatch
+    (ops/control_flow_ops.py `lower_block`), into an env of their own,
+    in the grad mode of the op that encloses them: under a taped ifelse
+    or recurrent_group their ops build the tape's graph. Whether the
+    program draws random numbers is read through every sub-block
+    (`_iter_ops_recursive`).
 
 Telemetry: the reserved `__health.*__` fetches (monitor/health.py)
 make a run also compute the global gradient and parameter norms and the
@@ -38,8 +45,11 @@ tensor (`LoweringContext.in_place` is False: the optimizer ops,
 `increment`, `average_accumulates`), the scope's generator state is
 kept, and the executor scans every fetch and every updated state var,
 then commits all of them to the scope or none. It costs one more copy
-of the updated state, as the reference without donation. With the guard
-off, updates stay in place; a run that fails after an op wrote a
+of the updated state, as the reference without donation. A sub-block's
+ops write only their own env: what they compute reaches the scope
+through the outputs of the op that encloses them, which the scan
+covers; `StepHealth` sees the global block's ops only, which hold every
+parameter update. With the guard off, updates stay in place; a run that fails after an op wrote a
 scope tensor in place (its autograd version counter moved) marks the
 scope `state_invalidated`: that state holds half an update, so the
 Trainer restores it from a checkpoint and never retries the step.
@@ -231,6 +241,16 @@ def lower_ops_on(program, device, before, values):
     return pairs
 
 
+def _iter_ops_recursive(program, block):
+    """Yield a block's ops and, recursively, the ops of any sub-blocks
+    referenced by control-flow ops (while / ifelse / switch /
+    recurrent_group)."""
+    for op in block.ops:
+        yield op
+        for idx in op_registry.sub_block_idxs(op):
+            yield from _iter_ops_recursive(program, program.blocks[idx])
+
+
 class Executor:
     """fluid.Executor-shaped API over an eager op-by-op interpreter.
 
@@ -369,7 +389,7 @@ class Executor:
         uses_key = any(op_registry.has_op(op.type)
                        and op_registry.get_op(op.type).stateful
                        and not op.attrs.get("is_test", False)
-                       for op in block.ops)
+                       for op in _iter_ops_recursive(program, block))
         return block, state_mut, state_ro, state_out, feed_names, uses_key
 
     @staticmethod
@@ -408,7 +428,14 @@ class Executor:
         ins = {slot: [ctx.lookup(n) for n in names if n]
                for slot, names in op.inputs.items() if any(names)}
         ins = densify_ins(op.type, ins)
-        if op.id in taped and opdef.differentiable:
+        if ctx.sub_block:
+            # an op of a sub-block runs in the grad mode of the op that
+            # encloses it: under a taped ifelse or recurrent_group its
+            # graph joins the enclosing op's tape
+            if ctx.amp_dtype is not None:
+                ins = amp_mod.cast_ins(op.type, ins, ctx.amp_dtype)
+            outs = opdef.lowering(ctx, ins, dict(op.attrs))
+        elif op.id in taped and opdef.differentiable:
             # amp casts happen INSIDE the tape (grad.py) so gradients
             # come back in the original (f32 master) dtypes
             outs = grad_mod.lower_with_tape(ctx, op, opdef, ins, op.attrs)

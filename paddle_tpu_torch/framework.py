@@ -375,12 +375,26 @@ class Program:
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
 
+    def create_block(self, parent_idx=None) -> Block:
+        """A new sub-block (a While body, an IfElse branch, a
+        recurrent_group step) under the current block, or `parent_idx`;
+        it becomes the current block until `rollback`."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        blk = Block(self, len(self.blocks), parent)
+        self.blocks.append(blk)
+        self.current_block_idx = blk.idx
+        return blk
+
+    def rollback(self):
+        self.current_block_idx = self.current_block().parent_idx
+
     def bump(self):
         self.version += 1
 
     # -- clone / serialise --------------------------------------------------
     def clone(self, for_test=False):
-        """Deep-copy the program (a fresh uid, version bumped). With
+        """Deep-copy the program (a fresh uid, version bumped), every
+        block with it, so a control-flow op keeps its sub-blocks. With
         for_test=True, ops flip to inference behaviour (dropout off,
         batch_norm on its running stats) through the standard `is_test`
         attr: every op that carries it, and every op whose registry
@@ -405,6 +419,9 @@ class Program:
         if getattr(self, "_amp_dtype", None) is not None:
             d["amp_dtype"] = self._amp_dtype
         return d
+
+    def to_json(self, **kw):
+        return json.dumps(self.to_dict(), **kw)
 
     @staticmethod
     def from_dict(d) -> "Program":
@@ -439,6 +456,10 @@ class Program:
             prog.blocks = [Block(prog, 0)]
         prog._amp_dtype = d.get("amp_dtype")
         return prog
+
+    @staticmethod
+    def from_json(s) -> "Program":
+        return Program.from_dict(json.loads(s))
 
 
 # ---------------------------------------------------------------------------

@@ -143,9 +143,26 @@ def load_persistables(executor, dirname, main_program=None, scope=None):
     return scope
 
 
+def _sub_block_names(program, op):
+    """Every var name the ops of `op`'s sub-blocks (recursively) read or
+    write: a kept control-flow op needs them, among them a While's loop
+    vars, whose first values the global block computes."""
+    from .ops.registry import sub_block_idxs
+    names, stack = set(), list(sub_block_idxs(op))
+    while stack:
+        blk = program.blocks[stack.pop()]
+        for o in blk.ops:
+            for ns in list(o.inputs.values()) + list(o.outputs.values()):
+                names.update(n for n in ns if n)
+            stack.extend(sub_block_idxs(o))
+    return names
+
+
 def _prune_for_inference(program, feed_names, fetch_names):
     """Dead-op elimination keeping only ops needed for the fetches
-    (framework/prune.cc analog), with train-only ops stripped."""
+    (framework/prune.cc analog), with train-only ops stripped. Every
+    block is carried (`clone`), so a kept control-flow op keeps its
+    sub-blocks, and the global block keeps what they read."""
     from .ops.registry import optimizer_op_types
     pruned = program.clone(for_test=True)
     block = pruned.global_block()
@@ -159,12 +176,14 @@ def _prune_for_inference(program, feed_names, fetch_names):
             keep.append(op)
             for names in op.inputs.values():
                 needed.update(n for n in names if n)
+            needed.update(_sub_block_names(pruned, op))
     keep.reverse()
     block.ops = keep
     used = set(feed_names)
     for op in keep:
         used.update(n for ns in op.inputs.values() for n in ns if n)
         used.update(n for ns in op.outputs.values() for n in ns if n)
+        used.update(_sub_block_names(pruned, op))
     used.update(fetch_names)
     # keep seqlen companions
     for n, v in list(block.vars.items()):

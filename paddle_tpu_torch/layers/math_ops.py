@@ -1,7 +1,7 @@
 """Elementwise / scalar math layers + Variable operator-sugar support
 (the port's copy of the part of `paddle_tpu/layers/math_ops.py` the
-training path, the LR schedules, the gradient clips and the sequence
-models call)."""
+training path, the LR schedules, the gradient clips, the sequence
+models and `max_sequence_len` call)."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from ..layer_helper import LayerHelper
 __all__ = ["elementwise_add", "elementwise_sub", "elementwise_mul",
            "elementwise_div", "elementwise_max", "elementwise_min", "scale",
            "floor", "clip_by_norm", "sqrt", "square", "exp", "sign", "pow",
-           "reduce_sum", "matmul"]
+           "reduce_sum", "reduce_max", "matmul"]
 
 
 def _elementwise(op_type):
@@ -120,14 +120,21 @@ sign = _unary("sign")
 pow = _unary("pow", ("factor",))
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
-    out = helper.create_tmp_variable(input.dtype)
-    attrs = {"keep_dim": keep_dim}
-    if dim is None:
-        attrs["reduce_all"] = True
-    else:
-        attrs["dim"] = [dim] if isinstance(dim, int) else list(dim)
-    helper.append_op("reduce_sum", {"X": [input.name]}, {"Out": [out.name]},
-                     attrs)
-    return out
+def _reduce(op_type):
+    def layer(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_tmp_variable(input.dtype)
+        attrs = {"keep_dim": keep_dim}
+        if dim is None:
+            attrs["reduce_all"] = True
+        else:
+            attrs["dim"] = [dim] if isinstance(dim, int) else list(dim)
+        helper.append_op(op_type, {"X": [input.name]}, {"Out": [out.name]},
+                         attrs)
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce("reduce_sum")
+reduce_max = _reduce("reduce_max")

@@ -5,7 +5,8 @@ pool2d, batch_norm, layer_norm, dropout, the activations, the
 classification losses, the fused lm-head cross-entropy, mean, the fused
 attention and square_error_cost; the recurrences (dynamic_lstm,
 dynamic_gru, simple_rnn, lstm_unit), the sequence layers, cos_sim,
-edit_distance, row_conv and the beam-search steps). Layer functions
+edit_distance, row_conv and the beam-search steps; the CTC loss and
+greedy decoder, and the linear-chain CRF's loss and Viterbi decoder). Layer functions
 build IR; the work happens in the op lowerings (ops/).
 
 A sequence input (lod_level >= 1) is a padded [B, T, ...] tensor whose
@@ -32,7 +33,8 @@ __all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "pool2d",
            "sequence_first_step", "sequence_last_step", "sequence_softmax",
            "sequence_expand", "sequence_conv", "sequence_reshape",
            "sequence_concat", "sequence_mask", "edit_distance", "row_conv",
-           "beam_search", "beam_search_decode"]
+           "beam_search", "beam_search_decode", "warpctc",
+           "ctc_greedy_decoder", "linear_chain_crf", "crf_decoding"]
 
 
 def _sequence_aware_num_cols(input, num_flatten_dims):
@@ -799,3 +801,97 @@ def row_conv(input, future_context_size, param_attr=None, act=None,
                       "SeqLen": [input.seq_len_var]},
                      {"Out": [out.name]}, {})
     return helper.append_activation(out, act)
+
+
+def linear_chain_crf(input, label, param_attr=None, name=None):
+    """CRF negative log-likelihood (reference layers/nn.py linear_chain_crf
+    + operators/linear_chain_crf_op.cc). input: emissions [B, T, K]
+    (lod_level=1), label: int ids [B, T(,1)]. Returns NLL [B, 1]; the
+    transition parameter is `<name>.w_0` shaped [K+2, K]."""
+    _require_seq(input, "linear_chain_crf")
+    helper = LayerHelper("linear_chain_crf", name=name)
+    K = int(input.shape[-1])
+    transition = helper.create_parameter(param_attr, [K + 2, K], input.dtype)
+    nll = helper.create_tmp_variable(input.dtype)
+    alpha = helper.create_tmp_variable(input.dtype)
+    helper.append_op(
+        "linear_chain_crf",
+        {"Emission": [input.name], "Transition": [transition.name],
+         "Label": [label.name], "SeqLen": [input.seq_len_var]},
+        {"LogLikelihood": [nll.name], "Alpha": [alpha.name]}, {})
+    return nll
+
+
+def crf_decoding(input, param_attr, label=None, name=None):
+    """Viterbi decode using a trained CRF's transition parameter; pass the
+    same param_attr (by name) used in linear_chain_crf."""
+    from ..param_attr import ParamAttr
+    attr = ParamAttr.to_attr(param_attr)
+    if attr is None or attr.name is None:
+        raise ValueError(
+            "crf_decoding needs the NAMED param_attr of the transition "
+            "parameter trained by linear_chain_crf (e.g. "
+            "ParamAttr(name='crfw')); otherwise it would decode with a "
+            "fresh random transition matrix")
+    _require_seq(input, "crf_decoding")
+    helper = LayerHelper("crf_decoding", name=name)
+    K = int(input.shape[-1])
+    transition = helper.create_parameter(param_attr, [K + 2, K], input.dtype)
+    path = helper.create_tmp_variable("int64", lod_level=input.lod_level)
+    path.seq_len_var = input.seq_len_var
+    path.sub_seq_len_var = input.sub_seq_len_var
+    ins = {"Emission": [input.name], "Transition": [transition.name],
+           "SeqLen": [input.seq_len_var]}
+    if label is not None:
+        ins["Label"] = [label.name]
+    helper.append_op("crf_decoding", ins, {"ViterbiPath": [path.name]}, {})
+    return path
+
+
+def warpctc(input, label, blank=0, norm_by_times=False, name=None):
+    """CTC loss (fluid layers/nn.py:2660, operators/warpctc_op.cc).
+
+    input: padded logits [B, T, C] with @SEQLEN lengths; label: padded
+    int ids [B, U] with @SEQLEN lengths. Returns per-sequence loss
+    [B, 1]. The warp-ctc CUDA library the reference dynloads
+    (hl_warpctc_wrap.h) is replaced by a log-space forward recursion
+    (ops/ctc_ops.py) whose autograd IS the CTC gradient.
+    """
+    _require_seq(input, "warpctc")
+    _require_seq(label, "warpctc")
+    helper = LayerHelper("warpctc", name=name)
+    loss = helper.create_tmp_variable(
+        input.dtype, shape=[input.shape[0] if input.shape else -1, 1])
+    helper.append_op(
+        "warpctc",
+        {"Logits": [input.name], "LogitsLen": [input.seq_len_var],
+         "Label": [label.name], "LabelLen": [label.seq_len_var]},
+        {"Loss": [loss.name]},
+        {"blank": blank, "norm_by_times": norm_by_times})
+    return loss
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """Greedy CTC decode (ctc_align_op.h semantics: merge repeats, drop
+    blanks). input: [B, T, C] probs/logits or [B, T] int ids, with
+    @SEQLEN lengths. Returns padded ids [B, T] whose @SEQLEN carries the
+    decoded lengths (the reference compacts to a LoD tensor instead)."""
+    _require_seq(input, "ctc_greedy_decoder")
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    from .tensor import argmax, cast
+    ids = input
+    if len(input.shape) == 3:
+        ids = cast(argmax(input, axis=-1), "int32")
+        ids.seq_len_var = input.seq_len_var
+        ids.sub_seq_len_var = input.sub_seq_len_var
+        ids.lod_level = input.lod_level
+    out = helper.create_tmp_variable("int32", lod_level=1)
+    out_len = helper.block.create_var(
+        name=framework.seq_len_name(out.name), shape=None, dtype="int32")
+    helper.append_op(
+        "ctc_align",
+        {"Input": [ids.name], "InLen": [ids.seq_len_var]},
+        {"Output": [out.name], "OutLen": [out_len.name]},
+        {"blank": blank, "merge_repeated": True})
+    out.seq_len_var = out_len.name
+    return out

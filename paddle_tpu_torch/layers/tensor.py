@@ -1,6 +1,7 @@
 """Tensor creation / manipulation layers (the port's copy of the part of
 `paddle_tpu/layers/tensor.py` the training path, the image models, the
-sequence models, the CTR models and the evaluators call)."""
+sequence models, the CTR models, the evaluators, the control-flow
+programs and the OCR model call)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,9 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["create_parameter", "cast", "concat", "fill_constant", "slice",
            "uniform_random", "argmax", "assign", "increment", "less_than",
-           "squeeze", "unsqueeze", "reshape", "topk"]
+           "equal", "greater_than", "logical_and", "logical_or",
+           "logical_not", "shape", "transpose", "squeeze", "unsqueeze",
+           "reshape", "topk"]
 
 
 def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, name=None):
@@ -99,12 +102,45 @@ def increment(x, value=1.0, in_place=True, name=None):
     return out
 
 
-def less_than(x, y, cond=None, name=None):
-    """x < y elementwise, bool; `cond` is an existing var to write."""
-    helper = LayerHelper("less_than", name=name)
-    out = cond if cond is not None else helper.create_tmp_variable("bool")
-    helper.append_op("less_than", {"X": [x.name], "Y": [y.name]},
-                     {"Out": [out.name]}, {})
+def _cmp(op_type):
+    def layer(x, y, cond=None, name=None):
+        """Elementwise, bool; `cond` is an existing var to write (how a
+        While body updates its loop condition)."""
+        helper = LayerHelper(op_type, name=name)
+        out = cond if cond is not None else helper.create_tmp_variable("bool")
+        helper.append_op(op_type, {"X": [x.name], "Y": [y.name]},
+                         {"Out": [out.name]}, {})
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+less_than = _cmp("less_than")
+equal = _cmp("equal")
+greater_than = _cmp("greater_than")
+logical_and = _cmp("logical_and")
+logical_or = _cmp("logical_or")
+
+
+def logical_not(x, name=None):
+    helper = LayerHelper("logical_not", name=name)
+    out = helper.create_tmp_variable("bool")
+    helper.append_op("logical_not", {"X": [x.name]}, {"Out": [out.name]}, {})
+    return out
+
+
+def shape(input, name=None):
+    helper = LayerHelper("shape", name=name)
+    out = helper.create_tmp_variable("int64")
+    helper.append_op("shape", {"Input": [input.name]}, {"Out": [out.name]}, {})
+    return out
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("transpose", {"X": [x.name]}, {"Out": [out.name]},
+                     {"axis": list(perm)})
     return out
 
 

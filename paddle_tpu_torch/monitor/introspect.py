@@ -359,9 +359,40 @@ def _feed_batch(feed):
     return 1
 
 
+def _src_flops(program, block, src, grad, dyn, fed):
+    """The FLOPs of forward op `src` (of its gradient with `grad`), with
+    the ops of its sub-blocks: a recurrent_group's step block counts
+    once a time step, a while body once (its iteration count is not
+    static), both ifelse branches and every switch case once each."""
+    shapes = {slot: _var_shape(block, names[0], dyn, fed)
+              for slot, names in src.inputs.items() if names and names[0]}
+    out_shapes = {slot: _var_shape(block, names[0], dyn, fed)
+                  for slot, names in src.outputs.items()
+                  if names and names[0]}
+    flops = 0
+    if all(s is not None for s in shapes.values()):
+        try:
+            fn = _grad_flops if grad else _op_flops
+            flops = int(fn(src.type, shapes, src.attrs, out_shapes))
+        except (KeyError, IndexError, TypeError, ValueError):
+            flops = 0
+    from ..ops.registry import sub_block_idxs
+    idxs = sub_block_idxs(src)
+    if not idxs:
+        return flops
+    sub = sum(_src_flops(program, program.blocks[i], o, grad, dyn, None)
+              for i in idxs for o in program.blocks[i].ops)
+    steps = 1
+    if src.type == "recurrent_group":
+        seq = shapes.get("Seq")
+        steps = int(seq[1]) if seq is not None and len(seq) > 1 else 1
+    return flops + steps * sub
+
+
 def program_op_costs(program, feed=None, block=None):
     """[(op_idx, op_type, flops, bytes)] for every op of the program's
-    global block: the static tally behind `program_flops` and
+    global block (a control-flow op with its sub-blocks' ops, as
+    `_src_flops` counts them): the static tally behind `program_flops` and
     deviceprof's per-scope costs. Shapes are the vars' declared shapes
     with the feed's batch dim in place of -1; bytes are the op's input
     and output var bytes."""
@@ -375,19 +406,7 @@ def program_op_costs(program, feed=None, block=None):
         src = by_id.get(op.attrs["fwd_op_id"]) if grad else op
         flops = 0
         if src is not None:
-            shapes = {slot: _var_shape(block, names[0], dyn, fed)
-                      for slot, names in src.inputs.items()
-                      if names and names[0]}
-            out_shapes = {slot: _var_shape(block, names[0], dyn, fed)
-                          for slot, names in src.outputs.items()
-                          if names and names[0]}
-            if all(s is not None for s in shapes.values()):
-                try:
-                    fn = _grad_flops if grad else _op_flops
-                    flops = int(fn(src.type, shapes, src.attrs,
-                                   out_shapes))
-                except (KeyError, IndexError, TypeError, ValueError):
-                    flops = 0
+            flops = _src_flops(program, block, src, grad, dyn, fed)
         nbytes = sum(_var_bytes(block, n, dyn, fed)
                      for names in list(op.inputs.values())
                      + list(op.outputs.values()) for n in names if n)

@@ -4,8 +4,9 @@ runs, with the ops the LR schedules, the gradient clips and the
 regularizers append, the channel concat of the image models, the
 batched matmul, squeeze / unsqueeze and cosine similarity of the
 sequence models, and the CTR models' reshape, the SelectedRows gradient
-of an is_sparse lookup_table and `sum` over it, and the top-k and
-accuracy the evaluators read).
+of an is_sparse lookup_table and `sum` over it, the top-k and
+accuracy the evaluators read, and the OCR model's `transpose` and
+`max_sequence_len`'s `reduce_max`).
 
 Each lowering is a few lines of torch, run eagerly by the executor; the
 large products (`mul`) go to `torch.matmul`, as the reference leaves
@@ -62,23 +63,29 @@ register_op("sign")(_unary(lambda x, a: torch.sign(x)))
 register_op("pow")(_unary(lambda x, a: torch.pow(x, a.get("factor", 1.0))))
 
 
-@register_op("reduce_sum")
-def _reduce_sum(ctx, ins, attrs):
-    """Sum over `dim` (default [0]) or every axis (`reduce_all`); a
+def _reduce(fn):
+    """Reduce over `dim` (default [0]) or every axis (`reduce_all`); a
     scalar result is shape [1] unless `keep_dim` (the reference's
     `_reduce`)."""
-    x = ins["X"][0]
-    if attrs.get("reduce_all", False):
-        dims = tuple(range(x.dim()))
-    else:
-        dim = attrs.get("dim", [0])
-        if isinstance(dim, int):
-            dim = [dim]
-        dims = tuple(d % x.dim() for d in dim)
-    out = torch.sum(x, dim=dims, keepdim=bool(attrs.get("keep_dim", False)))
-    if out.dim() == 0:
-        out = out.reshape(1)
-    return {"Out": [out]}
+    def lowering(ctx, ins, attrs):
+        x = ins["X"][0]
+        if attrs.get("reduce_all", False):
+            dims = tuple(range(x.dim()))
+        else:
+            dim = attrs.get("dim", [0])
+            if isinstance(dim, int):
+                dim = [dim]
+            dims = tuple(d % x.dim() for d in dim)
+        out = fn(x, dim=dims, keepdim=bool(attrs.get("keep_dim", False)))
+        if out.dim() == 0:
+            out = out.reshape(1)
+        return {"Out": [out]}
+    return lowering
+
+
+register_op("reduce_sum")(_reduce(torch.sum))
+# torch.amax splits the gradient among tied maxima, as jnp.max does
+register_op("reduce_max")(_reduce(torch.amax))
 
 
 @register_op("clip_by_norm")
@@ -156,6 +163,11 @@ def _matmul(ctx, ins, attrs):
     if alpha != 1.0:
         out = out * alpha
     return {"Out": [out.to(x.dtype)]}
+
+
+@register_op("transpose")
+def _transpose(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].permute(*attrs["axis"])]}
 
 
 @register_op("squeeze")

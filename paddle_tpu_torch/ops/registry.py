@@ -73,6 +73,31 @@ def has_op(type) -> bool:
     return type in _REGISTRY
 
 
+def sub_block_idxs(op):
+    """Block indices referenced by a control-flow op's attrs."""
+    idxs = []
+    for attr in ("sub_block", "true_block", "false_block", "default_block"):
+        v = op.attrs.get(attr)
+        if isinstance(v, int) and v >= 0:
+            idxs.append(v)
+    idxs.extend(op.attrs.get("case_blocks") or [])
+    return idxs
+
+
+def op_tree_stateful(program, op):
+    """True if any op inside this op's sub-blocks (recursively) draws
+    from the generator."""
+    stack = list(sub_block_idxs(op))
+    while stack:
+        blk = program.blocks[stack.pop()]
+        for o in blk.ops:
+            if (has_op(o.type) and get_op(o.type).stateful
+                    and not o.attrs.get("is_test", False)):
+                return True
+            stack.extend(sub_block_idxs(o))
+    return False
+
+
 def torch_dtype(dtype):
     """Canonical dtype string -> torch dtype."""
     return getattr(torch, framework.canonical_dtype(dtype))
@@ -93,8 +118,13 @@ class LoweringContext:
     reference does;
     `in_place`: whether ops that write a persistable var may update the
     scope's tensor in place (False under the NaN guard: they write a new
-    tensor, and the executor commits the run's state or none of it).
+    tensor, and the executor commits the run's state or none of it);
+    `sub_block`: True in the context of a sub-block's ops
+    (ops/control_flow_ops.py `lower_block`), which run in the grad mode
+    of the op that encloses them.
     """
+
+    sub_block = False
 
     def __init__(self, program, block, env, device, generator=None,
                  in_place=True):
@@ -134,16 +164,27 @@ def _restore_dyn(shape):
 class _MetaCtx:
     """Context for shape inference: meta tensors, a meta device, no RNG
     state (random ops draw on the meta device, which has none), and the
-    test-aware ops in test mode, as the reference's shape context."""
+    test-aware ops in test mode, as the reference's shape context. With
+    a block, `lookup` gives a meta tensor of any var the block sees, so
+    a control-flow op can infer through its sub-blocks
+    (ops/control_flow_ops.py)."""
     device = torch.device("meta")
     generator = None
     amp_dtype = None
     op = None
     in_place = False
     is_test = True
+    sub_block = False
+
+    def __init__(self, block=None):
+        self.block = block
+        self.program = block.program if block is not None else None
 
     def lookup(self, name):
-        raise KeyError(name)
+        v = self.block._find_var(name) if self.block is not None else None
+        if v is None or v.shape is None:
+            raise KeyError(name)
+        return _meta_tensor(v)
 
 
 def eval_op_shapes(block, op):
@@ -170,7 +211,7 @@ def eval_op_shapes(block, op):
             ins[slot] = vals
     try:
         with torch.no_grad():
-            out = opdef.lowering(_MetaCtx(), ins, dict(op.attrs))
+            out = opdef.lowering(_MetaCtx(block), ins, dict(op.attrs))
     except Exception:
         return None
     result = {}

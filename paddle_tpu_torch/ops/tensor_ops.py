@@ -1,6 +1,9 @@
-"""Creation and random op lowerings (the port of the part of
-`paddle_tpu/ops/tensor_ops.py` the training path and its startup
-program run). The random ops draw from the executor's
+"""Creation, random, comparison and logical op lowerings (the port of
+the part of `paddle_tpu/ops/tensor_ops.py` the training path, its
+startup program and the control-flow programs run; `less_than` is in
+math_ops.py). The comparisons and logical ops give bool, as the
+reference's; `shape` gives an int64 vector. The random ops draw from
+the executor's
 `torch.Generator` (`ctx.generator`, seeded from `Program.seed`) on the
 executor's device, where the reference splits its threaded PRNG key:
 the same seed gives other numbers than the JAX package's.
@@ -53,3 +56,35 @@ def _trunc_gaussian(ctx, ins, attrs):
         1.0, -2.0, 2.0, generator=ctx.generator)
     return {"Out": [(out * attrs.get("std", 1.0)
                      + attrs.get("mean", 0.0)).to(dtype)]}
+
+
+@register_op("fill_zeros_like", differentiable=False)
+def _fill_zeros_like(ctx, ins, attrs):
+    return {"Out": [torch.zeros_like(ins["X"][0])]}
+
+
+@register_op("shape", differentiable=False)
+def _shape(ctx, ins, attrs):
+    return {"Out": [torch.tensor(tuple(ins["Input"][0].shape),
+                                 dtype=torch.int64, device=ctx.device)]}
+
+
+def _binary(fn):
+    def lowering(ctx, ins, attrs):
+        return {"Out": [fn(ins["X"][0], ins["Y"][0])]}
+    return lowering
+
+
+register_op("less_equal", differentiable=False)(_binary(torch.le))
+register_op("greater_than", differentiable=False)(_binary(torch.gt))
+register_op("greater_equal", differentiable=False)(_binary(torch.ge))
+register_op("equal", differentiable=False)(_binary(torch.eq))
+register_op("not_equal", differentiable=False)(_binary(torch.ne))
+register_op("logical_and", differentiable=False)(_binary(torch.logical_and))
+register_op("logical_or", differentiable=False)(_binary(torch.logical_or))
+register_op("logical_xor", differentiable=False)(_binary(torch.logical_xor))
+
+
+@register_op("logical_not", differentiable=False)
+def _logical_not(ctx, ins, attrs):
+    return {"Out": [torch.logical_not(ins["X"][0])]}

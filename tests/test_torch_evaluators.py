@@ -1,9 +1,11 @@
 """The evaluators and their ops in the port, on the CPU.
 
-Twins of tests/test_ingraph_evaluators.py's accuracy pass loop and
-in-graph AUC tests and of tests/test_evaluators_profiler.py's AUC and
+Twins of tests/test_ingraph_evaluators.py's accuracy pass loop, in-graph
+AUC and chunk tests and of tests/test_evaluators_profiler.py's AUC and
 training-pass-loop tests (the pass loop scores with the port's host
-Accuracy and Auc: the precision-recall evaluator is not ported yet).
+Accuracy and Auc: the precision-recall evaluator is not ported yet);
+the host ChunkEvaluator and EditDistance against the JAX package's, and
+the in-graph chunk counts against the host's, exactly.
 The ops against the JAX package's lowerings on the same numpy inputs:
 `topk` and `accuracy` exactly, ties included (the lower index first,
 as jax.lax.top_k); `scatter_add_1d` exactly (counts below 2^24 add
@@ -237,3 +239,102 @@ def test_metric_ops_match_jax_package():
     p, j = pout["Auc"][0].numpy(), np.asarray(jout["Auc"][0])
     assert p.shape == j.shape == (1,)
     assert abs(float(p[0]) - float(j[0])) <= AUC_TOL
+
+
+def _iob_batch(rng, B, T, n_types):
+    """Random IOB tags [B, T, 1] (B-, I- and O tags, I-tags of the wrong
+    type and after an O) with ragged lengths."""
+    tags = rng.randint(0, 2 * n_types + 1, (B, T, 1)).astype(np.int64)
+    lens = rng.randint(1, T + 1, (B,)).astype(np.int32)
+    return tags, lens
+
+
+def test_chunk_evaluator_host_matches_jax_package():
+    rng = np.random.RandomState(5)
+    a, b = ev.ChunkEvaluator(3), jev.ChunkEvaluator(3)
+    for _ in range(20):
+        inf = rng.randint(0, 7, 15)
+        lab = np.where(rng.rand(15) < 0.3, rng.randint(0, 7, 15), inf)
+        a.update(inf, lab)
+        b.update(inf, lab)
+    assert (a.tp, a.inferred_chunks, a.label_chunks) == (
+        b.tp, b.inferred_chunks, b.label_chunks)
+    assert a.eval() == b.eval()
+    assert 0 < a.tp < a.inferred_chunks
+
+
+def test_ingraph_chunk_evaluator_matches_host():
+    """A pass of 3 batches through the in-graph chunk states: the Program
+    dicts equal the JAX package's, the accumulated counts equal the host
+    ChunkEvaluator's on the same tags exactly, eval() equals the host's
+    eval(), and reset() zeroes the states."""
+    n_types, B, T = 3, 8, 10
+
+    def build(P):
+        inf = P.layers.data("inf", [1], dtype="int64", lod_level=1)
+        lab = P.layers.data("lab", [1], dtype="int64", lod_level=1)
+        return P.evaluator.InGraphChunkEvaluator(inf, lab, n_types)
+
+    jpt.framework.reset_default_programs()
+    jchunk = build(jpt)
+    jdicts = [p.to_dict() for p in (jpt.default_main_program(),
+                                    jpt.default_startup_program(),
+                                    jchunk.eval_program,
+                                    jchunk.reset_program)]
+    pt.framework.reset_default_programs()
+    chunk = build(pt)
+    assert [p.to_dict() for p in (pt.default_main_program(),
+                                  pt.default_startup_program(),
+                                  chunk.eval_program,
+                                  chunk.reset_program)] == jdicts
+
+    exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    exe.run(pt.default_startup_program(), scope=scope)
+    host = ev.ChunkEvaluator(n_types)
+    rng = np.random.RandomState(6)
+    for _ in range(3):
+        inf, lens = _iob_batch(rng, B, T, n_types)
+        lab = np.where(rng.rand(B, T, 1) < 0.3,
+                       _iob_batch(rng, B, T, n_types)[0], inf)
+        f1, = exe.run(feed={"inf": inf, "inf@SEQLEN": lens, "lab": lab,
+                            "lab@SEQLEN": lens},
+                      fetch_list=[chunk.batch_f1], scope=scope)
+        assert 0.0 <= float(f1[0]) <= 1.0
+        for b in range(B):
+            host.update(inf[b, :lens[b], 0], lab[b, :lens[b], 0])
+    cor, n_inf, n_lab = (float(np.ravel(v)[0]) for v in exe.run(
+        chunk.eval_program, fetch_list=chunk._fetches, scope=scope))
+    assert (cor, n_inf, n_lab) == (host.tp, host.inferred_chunks,
+                                   host.label_chunks)
+    assert chunk.eval(exe, scope) == host.eval()
+    chunk.reset(exe, scope)
+    assert chunk.eval(exe, scope) == (0.0, 0.0, 0.0)
+
+
+def test_edit_distance_evaluator_matches_jax_package():
+    """The edit_distance layer's per-sequence distances (exact) and the
+    host EditDistance evaluator's mean distance and sequence error rate
+    equal the JAX package's."""
+    rng = np.random.RandomState(7)
+    B, T = 6, 7
+    hyps = rng.randint(1, 5, (B, T, 1)).astype(np.int64)
+    refs = np.where(rng.rand(B, T, 1) < 0.6, hyps,
+                    rng.randint(1, 5, (B, T, 1))).astype(np.int64)
+    hl = rng.randint(1, T + 1, (B,)).astype(np.int32)
+    rl = rng.randint(1, T + 1, (B,)).astype(np.int32)
+    feed = {"h": hyps, "h@SEQLEN": hl, "r": refs, "r@SEQLEN": rl}
+    res = []
+    for P, E in ((jpt, jev), (pt, ev)):
+        P.framework.reset_default_programs()
+        h = P.layers.data("h", [1], dtype="int64", lod_level=1)
+        r = P.layers.data("r", [1], dtype="int64", lod_level=1)
+        dist, n = P.layers.edit_distance(h, r, normalized=False)
+        d, = P.Executor(P.CPUPlace()).run(feed=feed, fetch_list=[dist],
+                                          scope=P.Scope())
+        e = E.EditDistance()
+        e.update(d[:3])
+        e.update(d[3:])
+        res.append((np.asarray(d), e.eval()))
+    np.testing.assert_array_equal(res[1][0], res[0][0])
+    assert res[1][1] == res[0][1]
+    assert res[1][1][1] > 0
