@@ -350,7 +350,54 @@ Phases, in order; any failure raises and the script exits non-zero:
      ms, busy. No TPU kernel lies on the phases 34-36 paths: their launch
      counts are checked to be 0. A profile that lost device events (fewer
      than its host side launched) is taken again, up to 3 times, and
-     else its device ms and busy share are not reported.
+     else its device ms and busy share are not reported;
+ 37. an LM fleet in process: a port FleetRouter over two GPT-2-small
+     GenerationEngines (phase 4's weights and config: paged KV, 8 slots,
+     every rung a CUDA graph), each behind its own make_server(
+     replica_id=...) and FleetRegistrar. Four concurrent streams, one
+     buffered request and a repeated prompt through the router: both
+     replicas serve (x-served-by), every reply's greedy tokens equal the
+     same prompt on one engine alone bitwise, summed over both engines
+     and read through the graphs' tallies: the decode kernel's K1
+     launches == layers x decode steps, the Tq > 1 kernel's == layers x
+     prefills, and page gathers == 2 x layers x prefills. Tokens/s and
+     TTFT p50 / p99 of 400 generations at 8 closed-loop streaming
+     clients through the router and against one engine directly (a
+     fresh prompt set each), and the router's added TTFT (1 client).
+     Then lm-1 stopped hard (server closed, engine shut down without
+     draining) with buffered generations live: every request succeeds on
+     the survivor (tokens equal to it alone) or fails typed, and the
+     fleet.* counters (requests, hops, retries, failovers, typed replies)
+     equal what the clients saw;
+ 38. a supervised one-shot fleet of real `python -m paddle_tpu_torch
+     serve --model_dir ... --fleet` replica processes: phase 10's
+     GPT-2-small + argmax at T 1024 saved in f32 and quantized to int8 in
+     a temporary directory, each model's ids for 4 request sets of 8 rows
+     computed here by Executor.run first. Two f32 replicas (one rung of
+     8 rows each, a CUDA graph): (a) SIGKILL one under 4 closed-loop
+     clients: zero raw and zero typed failures, x-trace-id kept, counters
+     of the reference drill (one breaker open, ejection, restart and
+     registration, failovers as seen), the respawned replica seen
+     registered but not ready before its readmission, every reply's ids
+     bitwise the f32 ids; requests/s and p50 / p99 of 8 closed-loop
+     clients for 10 s through the router and for 10 s against one
+     replica directly; (b) rolling_swap to the int8 directory, its
+     replicas sampling their dispatches (profile_sample_n), under load:
+     zero dropped and zero typed, fleet.swaps 2, every reply the f32 or
+     the int8 ids and every reply after the swap the int8 ids; each int8
+     replica's /debug/vars: its dispatches, and its own sampled device
+     trace naming K6 and the quantize kernel. Their launches are not
+     read: they live on the replica's own kernel wrappers, not in the
+     metrics it serves or dumps (ROADMAP C25); (c) the reactive
+     autoscaler, min 1, max 2, over a fresh
+     one-replica int8 fleet: a 16-client ramp gives exactly one
+     scale-up, the plateau only holds, a trickle through the quiesce
+     sees exactly one scale-down by drain and zero failures. Boot times,
+     the swap's duration and the decision timeline are printed, and the
+     memory: nvidia-smi's card total before and with the replicas, its
+     per-process reading where it lists the PID, and each replica's
+     torch.cuda reserved and peak bytes from its /debug/vars; on a
+     failure the replicas' log tails.
 
 The second-to-last line is the kernel table as JSON (with the ResNet-50
 results under "resnet50"); the last line is
@@ -391,9 +438,13 @@ try:
     from paddle_tpu_torch.ops import quant_ops as qo
     from paddle_tpu_torch.ops import registry as op_registry
     from paddle_tpu_torch.ops import transformer_ops as T
-    from paddle_tpu_torch.serving import (EngineConfig, GenerationConfig,
-                                          GenerationEngine, InferenceEngine,
-                                          LMSpec, init_lm_weights)
+    from paddle_tpu_torch.serving import (AutoscaleConfig,
+                                          AutoscaleController, EngineConfig,
+                                          FleetRegistrar, FleetRouter,
+                                          GenerationConfig, GenerationEngine,
+                                          InferenceEngine, LMSpec,
+                                          ReplicaSupervisor, RouterConfig,
+                                          init_lm_weights)
     from paddle_tpu_torch.serving.http import make_server
     from paddle_tpu_torch.weights import (lm_weights_from_numpy,
                                           scope_from_numpy)
@@ -670,31 +721,179 @@ def paged_decode_case(rng, kv_len, q_start, scale):
 
 # -- phase 4: the engine behind HTTP -----------------------------------------
 
-def post(port, body):
+TYPED_ERRORS = ("shed", "unavailable", "deadline")    # a fleet's typed sheds
+
+
+def local(port):
+    return f"http://127.0.0.1:{port}"
+
+
+def http_call(url, path, body=None, trace_id=None, timeout=300):
+    """One HTTP exchange with a server, a router or a replica: a GET
+    without `body`, else a POST of it (bytes, or a dict sent as JSON).
+    Returns (status, headers, raw body, seconds to the status line)."""
     import http.client
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    from urllib.parse import urlsplit
+    parts = urlsplit(url)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port,
+                                      timeout=timeout)
+    headers = {"Content-Type": "application/json"}
+    if trace_id:
+        headers["x-trace-id"] = trace_id
+    if isinstance(body, dict):
+        body = json.dumps(body)
+    t0 = time.perf_counter()
+    try:
+        conn.request("GET" if body is None else "POST", path, body=body,
+                     headers=headers)
+        resp = conn.getresponse()
+        first = time.perf_counter() - t0
+        return resp.status, dict(resp.getheaders()), resp.read(), first
+    finally:
+        conn.close()
+
+
+def outcome(status, error_type):
+    """"ok", "typed" (a 429 / 503 / 504 naming a typed shed) or "raw"."""
+    if status == 200 and not error_type:
+        return "ok"
+    if status in (429, 503, 504) and error_type in TYPED_ERRORS:
+        return "typed"
+    return "raw"
+
+
+def generate(url, body, trace_id=None):
+    """One POST /v1/generate of the dict `body` (streamed unless its
+    "stream" is false): a dict with status, outcome, served_by,
+    attempts, trace_ok, tokens, TTFT (the first token line; the whole
+    reply when buffered), wall, and the error_type and error of a
+    failure (an in-band error event included)."""
+    import http.client
+    from urllib.parse import urlsplit
+    parts = urlsplit(url)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port,
+                                      timeout=600)
+    stream = body.get("stream", True)
     t0 = time.perf_counter()
     conn.request("POST", "/v1/generate", json.dumps(body),
-                 {"Content-Type": "application/json"})
+                 {"Content-Type": "application/json",
+                  **({"x-trace-id": trace_id} if trace_id else {})})
     resp = conn.getresponse()
-    if resp.status != 200:
-        raise AssertionError(f"/v1/generate -> {resp.status}: "
-                             f"{resp.read()!r}")
-    if not body.get("stream", True):
-        out = json.loads(resp.read())
+    out = {"status": resp.status, "served_by": resp.getheader("x-served-by"),
+           "attempts": int(resp.getheader("x-fleet-attempts") or 1),
+           "trace_ok": (trace_id is None
+                        or resp.getheader("x-trace-id") == trace_id),
+           "tokens": [], "ttft": None, "error_type": None, "error": None}
+    try:
+        if resp.status != 200:
+            raw = resp.read()
+            out["error"] = raw[:300]
+            try:
+                out["error_type"] = json.loads(raw or b"{}").get("error_type")
+            except ValueError:
+                pass
+        elif not stream:
+            out["tokens"] = json.loads(resp.read())["tokens"]
+            out["ttft"] = time.perf_counter() - t0
+        else:
+            for line in resp:
+                ev = json.loads(line)
+                if ev["event"] == "token":
+                    if out["ttft"] is None:
+                        out["ttft"] = time.perf_counter() - t0
+                    out["tokens"].append(ev["token"])
+                elif ev["event"] == "error":
+                    out["error_type"] = ev.get("error_type") or "in-band"
+                    out["error"] = ev
+    finally:
         conn.close()
-        return out["tokens"], time.perf_counter() - t0
-    toks, ttft = [], None
-    for line in resp:
-        ev = json.loads(line)
-        if ev["event"] == "token":
-            if ttft is None:
-                ttft = time.perf_counter() - t0
-            toks.append(ev["token"])
-        elif ev["event"] == "error":
-            raise AssertionError(f"in-band error: {ev}")
-    conn.close()
-    return toks, ttft
+    out["wall"] = time.perf_counter() - t0
+    out["outcome"] = ("raw" if resp.status == 200 and out["error"]
+                      else outcome(resp.status, out["error_type"]))
+    return out
+
+
+def post(port, body, trace_id=None):
+    """generate() on the server at `port`, raising unless it answered
+    in full (and echoed `trace_id`): (tokens, TTFT)."""
+    r = generate(local(port), body, trace_id)
+    if r["outcome"] != "ok" or not r["trace_ok"]:
+        raise AssertionError(f"/v1/generate -> {r['status']}, x-trace-id "
+                             f"echoed: {r['trace_ok']}: {r['error']!r}")
+    return r["tokens"], r["ttft"]
+
+
+def get_json(port, path):
+    status, _, body, _ = http_call(local(port), path, timeout=60)
+    if status != 200:
+        raise AssertionError(f"GET {path} -> {status}: {body[:300]!r}")
+    return json.loads(body)
+
+
+def post_infer(port, tokens):
+    status, _, body, _ = http_call(local(port), "/v1/infer",
+                                   {"feeds": {"tokens": tokens.tolist()}})
+    if status != 200:
+        raise AssertionError(f"/v1/infer -> {status}: {body[:300]!r}")
+    return np.asarray(json.loads(body)["outputs"][0], np.int64)
+
+
+class ClientLoad:
+    """`clients` closed-loop client threads, started at once. Each calls
+    `send(i, trace_id)` for the next request number i until finish() or,
+    with `cap`, until `cap` requests were sent in all, waiting `period_s`
+    between its requests. A record is send()'s dict with the send time
+    `t`, `trace_id` and `i`; a send that raises is a raw failure."""
+
+    def __init__(self, send, clients, prefix, cap=None, period_s=0.0):
+        self.records = []
+        self.stop = threading.Event()
+        self.wall = None
+        self._lock = threading.Lock()
+        self._next = 0
+        self._t0 = time.perf_counter()
+        self._threads = [threading.Thread(
+            target=self._client, args=(send, prefix, cap, period_s),
+            daemon=True) for _ in range(clients)]
+        for t in self._threads:
+            t.start()
+
+    def _client(self, send, prefix, cap, period_s):
+        while not self.stop.is_set():
+            with self._lock:
+                i = self._next
+                self._next += 1
+            if cap is not None and i >= cap:
+                return
+            rec = {"t": time.monotonic(), "trace_id": f"{prefix}-{i}", "i": i}
+            try:
+                rec.update(send(i, rec["trace_id"]))
+            except Exception as e:       # a raw failure: recorded
+                rec.update(outcome="raw", error=repr(e))
+            self.records.append(rec)
+            if period_s:
+                self.stop.wait(period_s)
+
+    def oks(self, start=0):
+        return sum(1 for r in self.records[start:] if r["outcome"] == "ok")
+
+    def served(self, rid, start=0):
+        return any(r.get("served_by") == rid and r["outcome"] == "ok"
+                   for r in self.records[start:])
+
+    def join(self):
+        """Wait for every client (a capped load ends by itself); the
+        records by request number, and `wall` from start to end."""
+        for t in self._threads:
+            t.join(900)
+        if any(t.is_alive() for t in self._threads):
+            raise TimeoutError("a client thread did not finish")
+        self.wall = time.perf_counter() - self._t0
+        return sorted(self.records, key=lambda r: r["i"])
+
+    def finish(self):
+        self.stop.set()
+        return self.join()
 
 
 def post_concurrently(port, bodies):
@@ -1639,6 +1838,7 @@ def zero_counts():
     for w in wrappers().values():
         w.launches = 0
     fa.flash_attn_bwd_fused.dq_partials = 0
+    fa.flash_attn_fwd.decode_launches = 0
 
 
 def read_counts():
@@ -2056,20 +2256,6 @@ def build_gpt2_lm():
             max_len=TRAIN_T)
         ids = pt.layers.argmax(logits, axis=-1)
     return main, startup, logits, ids
-
-
-def post_infer(port, tokens):
-    import http.client
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
-    conn.request("POST", "/v1/infer",
-                 json.dumps({"feeds": {"tokens": tokens.tolist()}}),
-                 {"Content-Type": "application/json"})
-    resp = conn.getresponse()
-    body = resp.read()
-    conn.close()
-    if resp.status != 200:
-        raise AssertionError(f"/v1/infer -> {resp.status}: {body[:300]!r}")
-    return np.asarray(json.loads(body)["outputs"][0], np.int64)
 
 
 def int8_reference_logits(scope, tokens):
@@ -5158,37 +5344,6 @@ def telemetry_trainer_phase(smi):
                     "attribution": attribution, "bundle": bundle}
 
 
-def get_json(port, path):
-    import http.client
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-    conn.request("GET", path)
-    resp = conn.getresponse()
-    body = resp.read()
-    conn.close()
-    if resp.status != 200:
-        raise AssertionError(f"GET {path} -> {resp.status}: {body[:300]!r}")
-    return json.loads(body)
-
-
-def post_traced(port, body, trace_id):
-    import http.client
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
-    conn.request("POST", "/v1/generate", json.dumps(body),
-                 {"Content-Type": "application/json",
-                  "x-trace-id": trace_id})
-    resp = conn.getresponse()
-    data = resp.read()
-    echoed = resp.getheader("x-trace-id")
-    conn.close()
-    if resp.status != 200 or echoed != trace_id:
-        raise AssertionError(f"/v1/generate -> {resp.status}, x-trace-id "
-                             f"{echoed!r} for {trace_id!r}: {data[:200]!r}")
-    lines = [json.loads(x) for x in data.splitlines() if x.strip()]
-    if body.get("stream", True):
-        return [ev["token"] for ev in lines if ev["event"] == "token"]
-    return lines[0]["tokens"]
-
-
 def lm_load(port, tag):
     """TEL_REQUESTS generations from TEL_CLIENTS client threads, each
     with its own x-trace-id; returns ({trace id: tokens}, wall s)."""
@@ -5196,27 +5351,14 @@ def lm_load(port, tag):
     bodies = [{"prompt": rng.randint(0, VOCAB, int(n)).tolist(),
                "max_new_tokens": TEL_NEW, "stream": bool(i % 2)}
               for i, n in enumerate(rng.randint(16, 96, TEL_REQUESTS))]
-    ids = [f"{tag}{i:012x}" for i in range(TEL_REQUESTS)]
-    out, errors = {}, []
-
-    def client(c):
-        for i in range(c, TEL_REQUESTS, TEL_CLIENTS):
-            try:
-                out[ids[i]] = post_traced(port, bodies[i], ids[i])
-            except Exception as e:       # re-raised below
-                errors.append((i, e))
-
-    t0 = time.perf_counter()
-    threads = [threading.Thread(target=client, args=(c,))
-               for c in range(TEL_CLIENTS)]
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join(600)
-    wall = time.perf_counter() - t0
-    if errors or len(out) != TEL_REQUESTS:
-        raise AssertionError(f"telemetry (d): requests failed: {errors}")
-    return out, wall
+    load = ClientLoad(lambda i, tid: generate(local(port), bodies[i], tid),
+                      TEL_CLIENTS, tag, cap=TEL_REQUESTS)
+    records = load.join()
+    bad = [(r["i"], r.get("status"), r.get("error")) for r in records
+           if r["outcome"] != "ok" or not r["trace_ok"]]
+    if bad or len(records) != TEL_REQUESTS:
+        raise AssertionError(f"telemetry (d): requests failed: {bad}")
+    return {r["trace_id"]: r["tokens"] for r in records}, load.wall
 
 
 def lm_telemetry_phase(smi):
@@ -7012,6 +7154,778 @@ def book_phase(smi):
     return paths, {"control_flow": cf, "ocr": ocr, "srl": srl}
 
 
+# -- phases 37-38: the serving fleet ------------------------------------------
+
+FLEET_NEW = 32                   # phase 37's tokens a request
+FLEET_CLIENTS = 8                # phase 37's load and both phases' bench
+FLEET_DEADLINE_MS = 120000       # generous: a failure must be a failover
+FLEET_REQS = 4                   # phase 38's distinct request row sets
+LM_BENCH_REQS = 400              # phase 37's timed requests a target
+FLEET_BENCH_S = 10.0             # phase 38's timed window a target
+# phase 38's int8 replicas sample their dispatches: the first is traced
+# whole, so each replica's /debug/vars names the kernels it ran
+FLEET_SAMPLE_N = 16
+FLEET_UNREAD = ("phase 38's int8 replica processes: unread, a replica's "
+                "launch counts are not in what it serves (ROADMAP C25); "
+                "each replica's own sampled device trace names the kernel")
+
+
+def gen_body(prompt, n_new, stream):
+    return {"prompt": list(prompt), "max_new_tokens": n_new,
+            "stream": stream, "deadline_ms": FLEET_DEADLINE_MS}
+
+
+def pct_ms(values, q):
+    return round(1e3 * float(np.percentile(values, q)), 3)
+
+
+def fleet_counters():
+    snap = monitor.snapshot()["counters"]
+    return {k: int(v) for k, v in snap.items()
+            if k.startswith(("fleet.", "autoscale."))}
+
+
+def counter_deltas(before, names):
+    now = fleet_counters()
+    return {n: now.get(n, 0) - before.get(n, 0) for n in names}
+
+
+def wait_for(cond, what, timeout=300.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"fleet: timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def lm_bench(url, prompts, what, smi):
+    """FLEET_CLIENTS closed-loop streaming clients, one request for each
+    of `prompts`, through `url`: tokens/s, TTFT p50 / p99."""
+    load = ClientLoad(
+        lambda i, tid: generate(url, gen_body(prompts[i], FLEET_NEW, True),
+                                tid),
+        FLEET_CLIENTS, f"bench-{what}", cap=len(prompts))
+    records = load.join()
+    bad = [(r["i"], r.get("status"), r.get("error")) for r in records
+           if r["outcome"] != "ok" or len(r["tokens"]) != FLEET_NEW]
+    if bad:
+        raise AssertionError(f"lm fleet bench {what}: failed {bad[:3]}")
+    ttfts = [r["ttft"] for r in records]
+    out = {"requests": len(records), "clients": FLEET_CLIENTS,
+           "tokens_per_s": round(FLEET_NEW * len(records) / load.wall, 1),
+           "ttft_p50_ms": pct_ms(ttfts, 50),
+           "ttft_p99_ms": pct_ms(ttfts, 99), "wall_s": round(load.wall, 3)}
+    log(f"lm fleet bench {what}: {out} | {smi}")
+    return out
+
+
+def lm_fleet_phase(smi):
+    """Phase 37: a port FleetRouter over two GPT-2-small LM engines in
+    process, each behind its own make_server(replica_id=...) and
+    FleetRegistrar; slot-aware routing, tokens bitwise against a solo
+    engine, K1's two kernels' launches through the graphs, a hard stop
+    with requests in flight, and the router's cost."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    flags.set_flag("metrics", True)
+    spec = LMSpec(VOCAB, HID, LAYERS, N_HEADS, TRAIN_T)
+    weights = init_lm_weights(spec, seed=SEED)      # phase 4's weights
+    cfg = GenerationConfig(max_slots=8, prefill_batch=4, max_prompt_len=256,
+                           max_new_tokens=128, paged=True, page_len=16,
+                           prefix_cache=True)
+    router = FleetRouter(RouterConfig(probe_interval_s=0.25,
+                                      breaker_threshold=2,
+                                      breaker_cooldown_s=60.0))
+    replicas = []
+    try:
+        for i in range(2):
+            rid = f"lm-{i}"
+            engine = GenerationEngine(spec, weights, config=cfg,
+                                      ready=False)
+            server = make_server(engine, port=0, replica_id=rid)
+            threading.Thread(target=server.serve_forever,
+                             daemon=True).start()
+            url = local(server.server_address[1])
+            reg = FleetRegistrar(router.url, rid, url, engine,
+                                 ttl_s=5.0).start()
+            rungs = engine.warmup()
+            reg.notify()
+            st = engine.stats()
+            if st["aot_status"] != "cuda_graph" \
+                    or st["aot_rungs"] != cfg.rung_keys():
+                raise AssertionError(f"{rid}: rungs not all CUDA graphs: "
+                                     f"{st['aot_status']} {rungs}")
+            replicas.append({"rid": rid, "engine": engine,
+                             "server": server, "url": url, "reg": reg})
+        wait_for(lambda: all(router.replica_ready(r["rid"])
+                             for r in replicas), "both LM replicas ready")
+        rids = [r["rid"] for r in replicas]
+        log(f"lm fleet: router {router.url} over {rids}, each GPT-2-small "
+            f"{spec.to_meta()} with "
+            f"{len(cfg.rung_keys())} CUDA-graph rungs; memory allocated "
+            f"{torch.cuda.memory_allocated()} B")
+
+        rng = np.random.RandomState(SEED + 7)
+        prompts = [rng.randint(0, VOCAB, size=n).tolist()
+                   for n in (200, 37, 120, 64, 90)]
+        engines = [r["engine"] for r in replicas]
+        before = [e.stats() for e in engines]
+        zero_counts()                    # the main path starts here
+        fa.gather_pages.calls = 0
+        first = ClientLoad(
+            lambda i, tid: generate(router.url,
+                                    gen_body(prompts[i], FLEET_NEW, i < 4),
+                                    tid), 5, "fleet", cap=5).join()
+        again = generate(router.url, gen_body(prompts[1], FLEET_NEW, False),
+                         "fleet-repeat")
+        counts = read_counts()           # the main path ends here
+        decodes = fa.flash_attn_fwd.decode_launches
+        gathers = fa.gather_pages.calls
+        results = {**{r["i"]: r for r in first}, "repeat": again}
+        after = [e.stats() for e in engines]
+        prefills = sum(a["prefills"] - b["prefills"]
+                       for a, b in zip(after, before))
+        steps = sum(a["decode_steps"] - b["decode_steps"]
+                    for a, b in zip(after, before))
+        served = {k: r.get("served_by") for k, r in results.items()}
+        k1 = {"decode_kernel": decodes,
+              "tq_gt_1_kernel": counts["flash_attn_fwd"] - decodes}
+        log(f"lm fleet: 6 requests (4 streams, 1 buffered, 1 repeat) served "
+            f"by {served}; {prefills} prefills + {steps} decode steps over "
+            f"both engines; K1 launches {counts['flash_attn_fwd']} "
+            f"{k1}, page gathers {gathers}")
+        bad = {k: (r.get("status"), r.get("error")) for k, r in results.items()
+               if r["outcome"] != "ok" or len(r["tokens"]) != FLEET_NEW
+               or not r["trace_ok"]}
+        if bad:
+            raise AssertionError(f"lm fleet: failed requests {bad}")
+        if set(served.values()) != {"lm-0", "lm-1"}:
+            raise AssertionError(f"slot-aware routing used one replica: "
+                                 f"{served}")
+        check_counts(counts, launches_of(
+            flash_attn_fwd=LAYERS * (prefills + steps)),
+            f"lm fleet ({prefills} prefills + {steps} decode steps)")
+        check_counts(k1, {"decode_kernel": LAYERS * steps,
+                          "tq_gt_1_kernel": LAYERS * prefills},
+                     "lm fleet, K1 by kernel (layers x decode steps, "
+                     "layers x prefills)")
+        check_counts({"page_gathers": gathers},
+                     {"page_gathers": 2 * LAYERS * prefills},
+                     "lm fleet (2 x layers x prefills: no decode step "
+                     "gathers)")
+        solo = {}
+        for i, p in enumerate(prompts):
+            solo[i] = engines[0].generate(np.array(p),
+                                          max_new_tokens=FLEET_NEW,
+                                          timeout=600)[0].tolist()
+        for key, r in results.items():
+            want = solo[1 if key == "repeat" else key]
+            if r["tokens"] != want:
+                raise AssertionError(f"lm fleet: request {key} served by "
+                                     f"{r['served_by']} differs from the "
+                                     f"solo engine:\n{r['tokens']}\n{want}")
+        log("lm fleet: every routed reply's greedy tokens == the same "
+            "prompt on one engine alone, bitwise")
+
+        # a prompt set a target: a prompt served twice would hit the
+        # prefix cache of the engine that served it first
+        bench = {}
+        for name, url in (("router", router.url),
+                          ("direct", replicas[0]["url"])):
+            bench[name] = lm_bench(
+                url, [rng.randint(0, VOCAB, size=int(n)).tolist()
+                      for n in rng.randint(32, 160, LM_BENCH_REQS)],
+                name, smi)
+        hop = {}
+        for name, url in (("router", router.url),
+                          ("direct", replicas[0]["url"])):
+            ttfts = [generate(url, gen_body(
+                rng.randint(0, VOCAB, size=64).tolist(), 1, True))["ttft"]
+                for _ in range(32)]
+            hop[name] = pct_ms(ttfts, 50)
+        bench["router_added_ttft_ms"] = round(hop["router"]
+                                              - hop["direct"], 3)
+        bench["single_client_ttft_p50_ms"] = hop
+        log(f"lm fleet: router's added TTFT (1 client, 32 sequential "
+            f"1-token streams, p50) {bench['router_added_ttft_ms']} ms "
+            f"{hop} | {smi}")
+
+        # a hard stop of lm-1 with buffered requests in flight
+        c0 = fleet_counters()
+        victim = replicas[1]
+        fail_prompts = [rng.randint(0, VOCAB, size=64).tolist()
+                        for _ in range(FLEET_CLIENTS)]
+        load = ClientLoad(
+            lambda i, tid: generate(router.url,
+                                    gen_body(fail_prompts[i], 128, False),
+                                    tid),
+            FLEET_CLIENTS, "fo", cap=FLEET_CLIENTS)
+        wait_for(lambda: victim["engine"].stats()["live_slots"] > 0,
+                 "a generation live on lm-1", timeout=120)
+        victim["reg"].stop(deregister=False)       # it just dies
+        victim["server"].shutdown()
+        victim["server"].server_close()
+        victim["engine"].shutdown(drain=False)
+        fo = load.join()
+        typed = {r["i"]: r["error_type"] for r in fo
+                 if r["outcome"] == "typed"}
+        raw = {r["i"]: (r.get("status"), r.get("error")) for r in fo
+               if r["outcome"] == "raw"
+               or (r["outcome"] == "ok" and len(r["tokens"]) != 128)}
+        if raw:
+            raise AssertionError(f"lm fleet failover: raw failures {raw}")
+        for r in fo:
+            if r["outcome"] == "ok":
+                want = engines[0].generate(np.array(fail_prompts[r["i"]]),
+                                           max_new_tokens=128,
+                                           timeout=600)[0].tolist()
+                if r["tokens"] != want:
+                    raise AssertionError(f"lm fleet failover: {r['i']} "
+                                         "differs from the survivor alone")
+        d = counter_deltas(c0, ("fleet.requests", "fleet.hops",
+                                "fleet.retries", "fleet.failovers",
+                                "fleet.unavailable", "fleet.shed",
+                                "fleet.deadline_exceeded"))
+        want = {"fleet.requests": len(fo),
+                "fleet.hops": sum(r["attempts"] for r in fo),
+                "fleet.retries": sum(r["attempts"] - 1 for r in fo),
+                "fleet.failovers": sum(1 for r in fo
+                                       if r["outcome"] == "ok"
+                                       and r["attempts"] > 1),
+                "fleet.unavailable": sum(1 for t in typed.values()
+                                         if t == "unavailable"),
+                "fleet.shed": sum(1 for t in typed.values() if t == "shed"),
+                "fleet.deadline_exceeded": sum(
+                    1 for t in typed.values() if t == "deadline")}
+        failover = {"requests": len(fo), "typed": typed, "counters": d,
+                    "served_by": sorted({r["served_by"] for r in fo
+                                         if r["outcome"] == "ok"})}
+        log(f"lm fleet failover: lm-1 stopped hard with generations live; "
+            f"{failover}")
+        if d != want:
+            raise AssertionError(f"lm fleet failover: counters {d} != what "
+                                 f"the clients saw {want}")
+        if want["fleet.failovers"] < 1:
+            raise AssertionError("lm fleet failover: no request failed over "
+                                 "(the stop was not mid-flight)")
+    finally:
+        router.shutdown()
+        for r in replicas:
+            r["reg"].stop(deregister=False)
+            if not r["engine"].stats()["closed"]:
+                r["server"].shutdown()
+                r["server"].server_close()
+                r["engine"].shutdown(drain=True, timeout=600)
+    wall = time.perf_counter() - t_phase
+    log(f"lm fleet: phase 37 in {wall:.1f} s | {smi}")
+    return counts, {"served_by": served, "prefills": prefills,
+                    "decode_steps": steps, "k1_launches":
+                    counts["flash_attn_fwd"], "k1_by_kernel": k1,
+                    "page_gathers": gathers, "bench": bench,
+                    "failover": failover, "seconds": round(wall, 1)}
+
+
+def infer_send(url, bodies, want):
+    """A ClientLoad send: POST /v1/infer of request set i % len(bodies)
+    through `url`. Its record: status, outcome ok / typed / raw, the
+    x-trace-id echo, the replica, the hop count, Retry-After, latency,
+    and which model's ids the reply equals ("f32", "int8" or None)."""
+    def send(i, tid):
+        k = i % len(bodies)
+        t0 = time.monotonic()
+        status, hdrs, body, _ = http_call(url, "/v1/infer", bodies[k],
+                                          trace_id=tid)
+        try:
+            payload = json.loads(body)
+        except ValueError:
+            payload = {}
+        rec = {"status": status, "latency": time.monotonic() - t0,
+               "trace_ok": hdrs.get("x-trace-id") == tid,
+               "served_by": hdrs.get("x-served-by"),
+               "attempts": int(hdrs.get("x-fleet-attempts") or 1),
+               "retry_after": hdrs.get("Retry-After"),
+               "error_type": payload.get("error_type"),
+               "outcome": outcome(status, payload.get("error_type"))}
+        if rec["outcome"] == "ok":
+            ids = np.asarray(payload["outputs"][0], np.int64)
+            rec["match"] = next((m for m, w in want.items()
+                                 if np.array_equal(ids, w[k])), None)
+        elif rec["outcome"] == "raw":
+            rec["error"] = str(payload or body[:300])[:300]
+        return rec
+    return send
+
+
+def fleet_summary(records):
+    typed = {}
+    for r in records:
+        if r["outcome"] == "typed":
+            typed[r["error_type"]] = typed.get(r["error_type"], 0) + 1
+    oks = [r for r in records if r["outcome"] == "ok"]
+    return {"requests": len(records), "ok": len(oks),
+            "raw": [r for r in records if r["outcome"] == "raw"],
+            "typed": typed,
+            "lost_trace": sum(1 for r in records if r["outcome"] != "raw"
+                              and not r["trace_ok"]),
+            "failovers": sum(1 for r in oks if r["attempts"] > 1),
+            "served_by": sorted({r["served_by"] for r in oks}),
+            "matches": {str(m): sum(1 for r in oks if r["match"] == m)
+                        for m in {r["match"] for r in oks}}}
+
+
+def card_used_mib():
+    """The card's used memory, nvidia-smi's reading, MiB."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return int(out.split()[0])
+
+
+def replica_vars(sup, router):
+    """{rid: /debug/vars} of the supervisor's live replicas."""
+    urls = {r["replica_id"]: r["url"] for r in router.status()["replicas"]}
+    out = {}
+    for rid, p in sup.procs().items():
+        if p.poll() is None and rid in urls:
+            _, _, body, _ = http_call(urls[rid], "/debug/vars")
+            out[rid] = json.loads(body)
+    return out
+
+
+def replica_memory(sup, dvars):
+    """{rid: memory} of the replicas whose /debug/vars are `dvars`:
+    nvidia-smi's per-process used_memory (None where nvidia-smi lists no
+    such PID, as in a sandbox with its own PID namespace) and the
+    replica's own torch.cuda reserved and peak allocated bytes."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout
+    by_pid = {}
+    for line in out.splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            by_pid[int(parts[0])] = parts[1]
+    procs = sup.procs()
+    mem = {}
+    for rid, dv in dvars.items():
+        dev = dv["device_memory"][0]
+        mem[rid] = {"smi_mib": by_pid.get(procs[rid].pid),
+                    "torch_reserved_b": dev.get("bytes_reserved"),
+                    "torch_peak_b": dev.get("peak_bytes_in_use")}
+    return mem
+
+
+def replica_boots(sup, router):
+    """Seconds from each slot's spawn to its readmission."""
+    boots = {}
+    while len(boots) < len(sup.slots):
+        for slot in sup.slots:
+            if slot["rid"] not in boots and router.replica_ready(slot["rid"]):
+                boots[slot["rid"]] = round(time.monotonic()
+                                           - slot["spawned_at"], 2)
+        if time.monotonic() - min(s["spawned_at"] for s in sup.slots) > 300:
+            raise TimeoutError(f"fleet: replicas not ready: {boots}")
+        time.sleep(0.02)
+    return boots
+
+
+def fleet_bench(url, bodies, want, what, smi):
+    """FLEET_CLIENTS closed-loop clients of SERVE_B-row requests through
+    `url` for FLEET_BENCH_S seconds, every reply the f32 ids:
+    requests/s over the window (the last replies included), latency
+    p50 / p99."""
+    load = ClientLoad(infer_send(url, bodies, want), FLEET_CLIENTS,
+                      f"bench-{what.split()[0]}")
+    time.sleep(FLEET_BENCH_S)
+    records = load.finish()
+    res = fleet_summary(records)
+    if res["raw"] or res["typed"] or res["matches"] != {"f32": res["ok"]}:
+        raise AssertionError(f"fleet bench {what}: raw {res['raw'][:3]}, "
+                             f"typed {res['typed']}, {res['matches']}")
+    lat = [r["latency"] for r in records]
+    out = {"requests": len(records), "clients": FLEET_CLIENTS,
+           "rows_per_request": SERVE_B, "window_s": round(load.wall, 3),
+           "requests_per_s": round(len(records) / load.wall, 2),
+           "p50_ms": pct_ms(lat, 50), "p99_ms": pct_ms(lat, 99)}
+    log(f"fleet bench {what}: {out} | {smi}")
+    return out
+
+
+def logs_tail(tmp):
+    for name in sorted(os.listdir(tmp)):
+        if name.endswith(".log"):
+            with open(os.path.join(tmp, name), errors="replace") as f:
+                log(f"--- {name} (tail) ---\n{f.read()[-3000:]}")
+
+
+def prepare_fleet_models(tmp):
+    """Phase 10's GPT-2-small + argmax at T 1024 saved in f32 and
+    quantized to int8, and each model's ids for FLEET_REQS request row
+    sets of SERVE_B rows from Executor.run in this process."""
+    main, startup, _, ids = build_gpt2_lm()
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    f32, int8 = os.path.join(tmp, "f32"), os.path.join(tmp, "int8")
+    pt.io.save_inference_model(f32, ["tokens"], [ids], exe,
+                               main_program=main, scope=scope)
+    del scope
+    quant.quantize_inference_model(f32, int8)
+    rng = np.random.RandomState(SEED + 8)
+    reqs = [rng.randint(0, VOCAB, (SERVE_B, TRAIN_T)).astype(np.int64)
+            for _ in range(FLEET_REQS)]
+    want = {}
+    for name, d in (("f32", f32), ("int8", int8)):
+        mscope = pt.Scope()
+        prog, feeds, fetch = pt.io.load_inference_model(d, exe, scope=mscope)
+        want[name] = [np.asarray(exe.run(prog, feed={"tokens": r},
+                                          fetch_list=fetch,
+                                          scope=mscope)[0], np.int64)
+                      for r in reqs]
+        del mscope
+    torch.cuda.empty_cache()
+    differ = sum(int((a != b).sum()) for a, b in zip(want["f32"],
+                                                     want["int8"]))
+    if not differ:
+        raise AssertionError("fleet: the f32 and int8 ids are equal, the "
+                             "swap check would prove nothing")
+    bodies = [json.dumps({"feeds": {"tokens": r.tolist()},
+                          "deadline_ms": FLEET_DEADLINE_MS}).encode()
+              for r in reqs]
+    return f32, int8, bodies, want, differ
+
+
+def replica_kernels(dvars):
+    """{rid: what the replica's own sampled device trace shows}: its
+    dispatches, its sampler's captures, and whether the kernels of its
+    last capture's top rows include K6 and the quantize kernel. The
+    launches themselves are not read (ROADMAP C25)."""
+    out = {}
+    for rid, dv in dvars.items():
+        dp = dv.get("deviceprof") or {}
+        names = [r["op"] for r in dp.get("top_ops") or []]
+        out[rid] = {"dispatches": dv["engine"]["batches"],
+                    "sampled": dp.get("sampled"),
+                    "captures": dp.get("captures"),
+                    "int8_matmul_kernel_in_trace": any(
+                        "int8_matmul_kernel" in n for n in names),
+                    "quantize_rows_in_trace": any(
+                        "quantize_rows" in n for n in names)}
+    return out
+
+
+def oneshot_fleet_phase(smi):
+    """Phase 38: a supervised fleet of real `python -m paddle_tpu_torch
+    serve --model_dir ... --fleet` replica processes on the card: (a)
+    SIGKILL one, (b) a rolling swap f32 -> int8, (c) the autoscaler over
+    a one-replica fleet."""
+    t_phase = time.perf_counter()
+    flags.set_flag("metrics", True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    report = {}
+    sup = router = None
+    try:
+        t0 = time.perf_counter()
+        f32, int8, bodies, want, differ = prepare_fleet_models(tmp)
+        free, total = torch.cuda.mem_get_info()
+        log(f"fleet: saved f32 and int8 models, {FLEET_REQS} request sets "
+            f"of {SERVE_B} x {TRAIN_T} tokens, their ids from Executor.run "
+            f"({differ} ids differ between f32 and int8) in "
+            f"{time.perf_counter() - t0:.1f} s; card free {free} of {total} "
+            f"B before spawning (a replica: weights "
+            f"{os.path.getsize(os.path.join(f32, 'params.npz'))} B f32 + "
+            f"rung-8 logits {SERVE_B * TRAIN_T * VOCAB * 4} B)")
+        replica_args = (f"--max_batch_size={SERVE_B}", f"--buckets={SERVE_B}",
+                        "--batch_timeout_ms=0")
+        router = FleetRouter(RouterConfig(
+            retry_budget=2, probe_interval_s=0.25, probe_timeout_s=2.0,
+            probe_down_after=2, breaker_threshold=2, breaker_cooldown_s=4.0))
+        # ttl 2 s + a boot of seconds keep the kill schedule ordered: the
+        # killed replica's lease expires (one ejection) before its
+        # replacement boots and registers again
+        sup = ReplicaSupervisor(router, f32, 2, ttl_s=2.0,
+                                replica_args=replica_args, log_dir=tmp,
+                                restart_backoff_base_s=1.0,
+                                ready_timeout_s=300.0)
+        router.supervisor = sup
+        used0 = card_used_mib()
+        sup.start()
+        boots = replica_boots(sup, router)
+        mem = {"card_used_mib_before": used0,
+               "card_used_mib_with_2": card_used_mib(),
+               "replicas": replica_memory(sup, replica_vars(sup, router))}
+        log(f"fleet: 2 f32 replicas ready, spawn to ready {boots} s; "
+            f"memory {mem} | {smi}")
+        report["boot_s"], report["memory"] = boots, {"f32": mem}
+
+        # (a) SIGKILL one replica under load
+        c0 = fleet_counters()
+        load = ClientLoad(infer_send(router.url, bodies, want), 4, "kill")
+        wait_for(lambda: load.oks() >= 8, "pre-kill traffic")
+        old_url = next(r["url"] for r in router.status()["replicas"]
+                       if r["replica_id"] == "replica-1")
+        # what the respawned incarnation reports: it registers before
+        # its warmup with ready False, and is routable only once ready
+        reported = []
+        register = router.register
+
+        def recording_register(replica_id, url, *a, **kw):
+            if replica_id == "replica-1" and url != old_url:
+                reported.append(kw.get("ready"))
+            return register(replica_id, url, *a, **kw)
+
+        router.register = recording_register
+        sup.procs()["replica-1"].kill()
+        t_kill = time.monotonic()
+        wait_for(lambda: counter_deltas(c0, ("fleet.restarts",))
+                 ["fleet.restarts"] >= 1, "the supervisor's restart")
+        wait_for(lambda: router.replica_ready("replica-1"),
+                 "the restarted replica readmitted")
+        router.register = register
+        booting = reported[:1] == [False]
+        t_back = time.monotonic()
+        n0 = len(load.records)
+        wait_for(lambda: load.served("replica-1", n0),
+                 "the restarted replica serving")
+        res = fleet_summary(load.finish())
+        d = counter_deltas(c0, ("fleet.breaker_opens", "fleet.ejections",
+                                "fleet.restarts", "fleet.registrations",
+                                "fleet.failovers", "fleet.deregistrations"))
+        kill = {**{k: v for k, v in res.items() if k != "raw"},
+                "counters": d, "kill_to_readmit_s": round(t_back - t_kill, 2),
+                "registered_booting": booting}
+        log(f"fleet (a) kill: {kill}")
+        if res["raw"] or res["typed"] or res["lost_trace"]:
+            raise AssertionError(f"fleet (a): raw {res['raw'][:3]}, typed "
+                                 f"{res['typed']}, lost trace ids "
+                                 f"{res['lost_trace']}")
+        if res["served_by"] != ["replica-0", "replica-1"] \
+                or res["failovers"] < 1:
+            raise AssertionError("fleet (a): the kill was not mid-flight "
+                                 "or a replica never served")
+        if res["matches"] != {"f32": res["ok"]}:
+            raise AssertionError(f"fleet (a): replies not the f32 ids: "
+                                 f"{res['matches']}")
+        if not booting:
+            raise AssertionError(f"fleet (a): the respawned replica did not "
+                                 f"register as not ready before its warmup "
+                                 f"(its registrations said {reported})")
+        want_d = {"fleet.breaker_opens": 1, "fleet.ejections": 1,
+                  "fleet.restarts": 1, "fleet.registrations": 1,
+                  "fleet.failovers": res["failovers"],
+                  "fleet.deregistrations": 0}
+        if d != want_d:
+            raise AssertionError(f"fleet (a): counters {d} != schedule "
+                                 f"{want_d}")
+        report["kill"] = kill
+
+        # requests/s through the router against one replica directly
+        wait_for(lambda: sup.wait_all_ready(timeout=0.1), "fleet ready")
+        direct = next(r["url"] for r in router.status()["replicas"]
+                      if r["replica_id"] == "replica-0")
+        report["bench"] = {
+            "router_2_replicas": fleet_bench(router.url, bodies, want,
+                                             "router, 2 f32 replicas", smi),
+            "direct_1_replica": fleet_bench(direct, bodies, want,
+                                            "replica-0 directly", smi)}
+
+        # (b) a rolling swap to the int8 model under load; the int8
+        # replicas sample their dispatches (the f32 bench above ran
+        # without a sampler)
+        sup.replica_args.append(f"--set=profile_sample_n={FLEET_SAMPLE_N}")
+        c0 = fleet_counters()
+        load = ClientLoad(infer_send(router.url, bodies, want), 4, "swap")
+        wait_for(lambda: load.oks() >= 8, "pre-swap traffic")
+        t0 = time.monotonic()
+        swap_report = sup.rolling_swap(artifact=int8)
+        t_done = time.monotonic()
+        n0 = len(load.records)
+        # each int8 replica serves after the swap, so each has a trace
+        wait_for(lambda: load.oks(n0) >= 8 and load.served("replica-0", n0)
+                 and load.served("replica-1", n0), "traffic after the swap")
+        records = load.finish()
+        res = fleet_summary(records)
+        after = [r for r in records if r["outcome"] == "ok"
+                 and r["t"] >= t_done]
+        d = counter_deltas(c0, ("fleet.swaps", "fleet.restarts",
+                                "fleet.ejections", "fleet.registrations",
+                                "fleet.deregistrations"))
+        dvars = replica_vars(sup, router)
+        mem = {"card_used_mib_with_2": card_used_mib(),
+               "replicas": replica_memory(sup, dvars)}
+        kernels = replica_kernels(dvars)
+        swap = {**{k: v for k, v in res.items() if k != "raw"},
+                "counters": d, "swap_s": round(t_done - t0, 2),
+                "per_replica": swap_report, "after_swap": len(after),
+                "int8_replicas": kernels, "int8_launches": FLEET_UNREAD}
+        log(f"fleet (b) swap: {swap}; int8 replicas' memory {mem} | {smi}")
+        if not all(s.get("ready") for s in swap_report):
+            raise AssertionError(f"fleet (b): a swapped replica never came "
+                                 f"back ready: {swap_report}")
+        if res["raw"] or res["typed"] or res["lost_trace"]:
+            raise AssertionError(f"fleet (b): raw {res['raw'][:3]}, typed "
+                                 f"{res['typed']}, lost trace ids "
+                                 f"{res['lost_trace']}")
+        if None in [r["match"] for r in records if r["outcome"] == "ok"] \
+                or any(r["match"] != "int8" for r in after) or not after:
+            raise AssertionError(f"fleet (b): replies {res['matches']}; "
+                                 f"after the swap not all int8 ids")
+        want_d = {"fleet.swaps": 2, "fleet.restarts": 0,
+                  "fleet.ejections": 0, "fleet.registrations": 2,
+                  "fleet.deregistrations": 2}
+        if d != want_d:
+            raise AssertionError(f"fleet (b): counters {d} != schedule "
+                                 f"{want_d}")
+        if sorted(kernels) != ["replica-0", "replica-1"] or not all(
+                k["int8_matmul_kernel_in_trace"]
+                and k["quantize_rows_in_trace"] for k in kernels.values()):
+            raise AssertionError(f"fleet (b): an int8 replica's own device "
+                                 f"trace does not name K6 and the quantize "
+                                 f"kernel: {kernels}")
+        report["swap"] = swap
+        report["memory"]["int8"] = mem
+        sup.stop()
+        router.shutdown()
+        sup = router = None
+
+        report["autoscale"] = autoscale_fleet(int8, bodies, want, tmp, smi)
+    except Exception:
+        logs_tail(tmp)
+        raise
+    finally:
+        if sup is not None:
+            sup.stop()
+        if router is not None:
+            router.shutdown()
+    shutil.rmtree(tmp, ignore_errors=True)
+    report["seconds"] = round(time.perf_counter() - t_phase, 1)
+    log(f"fleet: phase 38 in {report['seconds']} s | {smi}")
+    return report
+
+
+def autoscale_fleet(int8, bodies, want, tmp, smi):
+    """Phase 38 (c): the reactive autoscaler, min 1, max 2, over a fresh
+    one-replica fleet of the int8 model: a 16-client ramp, a plateau,
+    then a trickle through the drain."""
+    router = FleetRouter(RouterConfig(
+        retry_budget=2, probe_interval_s=0.25, probe_timeout_s=2.0,
+        probe_down_after=2, breaker_threshold=2, breaker_cooldown_s=4.0,
+        scrape_interval_s=0.25))
+    sup = ReplicaSupervisor(router, int8, 1, ttl_s=6.0,
+                            replica_args=(f"--max_batch_size={SERVE_B}",
+                                          f"--buckets={SERVE_B}",
+                                          "--batch_timeout_ms=0"),
+                            log_dir=tmp, restart_backoff_base_s=0.5,
+                            ready_timeout_s=300.0)
+    router.supervisor = sup
+    acfg = AutoscaleConfig(min_replicas=1, max_replicas=2, mode="reactive",
+                           interval_s=0.4, signal_window_s=2.5,
+                           queue_high=3.0, queue_low=2.0, up_for_s=1.2,
+                           idle_rps=10.0, idle_for_s=2.0, up_cooldown_s=3.0,
+                           down_cooldown_s=3.0)
+    ctl = AutoscaleController(router, sup, acfg)
+    router.autoscaler = ctl
+    sup.start()
+    try:
+        wait_for(lambda: sup.wait_all_ready(timeout=0.1), "one replica")
+        c0 = fleet_counters()
+        t_wall0 = time.time()
+        ctl.start()
+        ramp = ClientLoad(infer_send(router.url, bodies, want), 16, "ramp")
+        wait_for(lambda: counter_deltas(c0, ("autoscale.scale_ups",))
+                 ["autoscale.scale_ups"] >= 1, "the scale-up")
+        t_up = time.monotonic()
+        wait_for(lambda: router.replica_ready("replica-1"),
+                 "the added replica ready")
+        n0 = len(ramp.records)
+        wait_for(lambda: ramp.served("replica-1", n0),
+                 "the added replica serving")
+        t_serving = time.monotonic()
+        p0 = counter_deltas(c0, ("autoscale.scale_ups",
+                                 "autoscale.scale_downs", "autoscale.holds"))
+        time.sleep(3.5)                  # the plateau
+        p1 = counter_deltas(c0, ("autoscale.scale_ups",
+                                 "autoscale.scale_downs", "autoscale.holds"))
+        ramp_res = fleet_summary(ramp.finish())
+        trickle = ClientLoad(infer_send(router.url, bodies, want), 1,
+                             "quiesce", period_s=0.25)
+        wait_for(lambda: counter_deltas(c0, ("autoscale.scale_downs",))
+                 ["autoscale.scale_downs"] >= 1, "the scale-down")
+        wait_for(lambda: sup.live_slots() == 1, "the drained slot leaving")
+        n1 = len(trickle.records)
+        wait_for(lambda: trickle.oks(n1) >= 5, "traffic after the drain")
+        trickle_res = fleet_summary(trickle.finish())
+        drained = fleet_summary(trickle.records[n1:])
+        ctl.stop()
+        # before the fleet stops: its own drain deregisters the survivor
+        d = counter_deltas(c0, ("autoscale.scale_ups",
+                                "autoscale.scale_downs",
+                                "autoscale.backfills", "fleet.slots_added",
+                                "fleet.slots_removed", "fleet.ejections",
+                                "fleet.restarts", "fleet.deregistrations",
+                                "fleet.replica_giveups"))
+    finally:
+        ctl.stop()
+        sup.stop()
+        router.shutdown()
+    hist = list(ctl.history)
+    timeline = [(round(e["t"] - t_wall0, 2), e["action"], e["reason"],
+                 e["current"], e["target"]) for e in hist
+                if e["action"] != "hold"]
+    holds = {}
+    for e in hist:
+        if e["action"] == "hold":
+            holds[e["reason"]] = holds.get(e["reason"], 0) + 1
+    downs = [e for e in hist if e["action"] == "down"]
+    out = {"counters": d, "ramp": {k: v for k, v in ramp_res.items()
+                                   if k != "raw"},
+           "plateau": {"before": p0, "after": p1},
+           "trickle": {k: v for k, v in trickle_res.items() if k != "raw"},
+           "scale_up_to_serving_s": round(t_serving - t_up, 2),
+           "timeline": timeline, "holds_by_reason": holds,
+           "drain": downs[0].get("actuation") if downs else None}
+    log(f"fleet (c) autoscale: {out} | {smi}")
+    if ramp_res["raw"] or ramp_res["lost_trace"] \
+            or ramp_res["served_by"] != ["replica-0", "replica-1"]:
+        raise AssertionError(f"fleet (c) ramp: raw {ramp_res['raw'][:3]}, "
+                             f"served by {ramp_res['served_by']}")
+    if not (p1["autoscale.scale_ups"] == p0["autoscale.scale_ups"] == 1
+            and p1["autoscale.scale_downs"] == 0
+            and p1["autoscale.holds"] > p0["autoscale.holds"]):
+        raise AssertionError(f"fleet (c) plateau: {p0} -> {p1}")
+    if trickle_res["raw"] or trickle_res["typed"] \
+            or trickle_res["lost_trace"] \
+            or drained["served_by"] != ["replica-0"]:
+        raise AssertionError(f"fleet (c) quiesce: {trickle_res}, after the "
+                             f"drain {drained['served_by']}")
+    if len(downs) != 1 or not (downs[0]["actuation"] or {}).get("drained") \
+            or downs[0]["actuation"].get("exit_code") != 0:
+        raise AssertionError(f"fleet (c): not one clean drain: {downs}")
+    for r in (ramp_res, trickle_res):
+        if r["matches"] != {"int8": r["ok"]}:
+            raise AssertionError(f"fleet (c): replies not the int8 ids: "
+                                 f"{r['matches']}")
+    want_d = {"autoscale.scale_ups": 1, "autoscale.scale_downs": 1,
+              "autoscale.backfills": 0, "fleet.slots_added": 1,
+              "fleet.slots_removed": 1, "fleet.ejections": 0,
+              "fleet.restarts": 0, "fleet.deregistrations": 1,
+              "fleet.replica_giveups": 0}
+    if d != want_d:
+        raise AssertionError(f"fleet (c): counters {d} != schedule {want_d}")
+    return out
+
+
+def fleet_phase(smi):
+    """Phases 37-38."""
+    t0 = time.perf_counter()
+    lm_counts, lm = lm_fleet_phase(smi)
+    oneshot = oneshot_fleet_phase(smi)
+    log(f"serving fleet: phases 37-38 in {time.perf_counter() - t0:.1f} s "
+        f"| {smi}")
+    return {"serving_lm_fleet": lm_counts}, {"lm": lm, "oneshot": oneshot}
+
+
 def main():
     name, smi = device_phase()
     t0 = time.perf_counter()
@@ -7053,6 +7967,7 @@ def main():
     sequence_paths, sequence = sequence_phase(smi)
     ctr_paths, ctr = ctr_phase(smi)
     book_paths, book = book_phase(smi)
+    fleet_paths, fleet = fleet_phase(smi)
     paths = {"serving": {"flash_attn_fwd": serving_k1},
              f"training_T{TRAIN_T}": train_counts,
              f"training_T{SHORT_T}": short_counts,
@@ -7069,7 +7984,7 @@ def main():
              "resnet50_serving_f32": resnet_serving_counts["f32"],
              "resnet50_serving_int8": resnet_serving_counts["int8"],
              **telemetry_paths, **sequence_paths, **ctr_paths,
-             **book_paths}
+             **book_paths, **fleet_paths}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ALL_KERNELS}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()}
@@ -7116,6 +8031,7 @@ def main():
         "replaces": "paddle_tpu/ops/quant_ops.py:123",
         "launches": launches["int8_matmul"],
         "launches_by_path": by_path["int8_matmul"],
+        "launches_unread": FLEET_UNREAD,
         "max_abs_err": 0.0, "case": dispatch, **k6, "cases": k6_cases})
     kernels.append({
         "name": "quantize_activations", "route": "cuda",
@@ -7125,6 +8041,7 @@ def main():
                     "quantize of int8_matmul: XLA ops, not a Pallas kernel)",
         "launches": launches["quantize_activations"],
         "launches_by_path": by_path["quantize_activations"],
+        "launches_unread": FLEET_UNREAD,
         "case": dispatch, **quantize})
     for kname, r in bf16.items():
         kernels.append({
@@ -7154,7 +8071,7 @@ def main():
                                    "hostfed": resnet_hostfed,
                                    "serving": resnet_serving},
                       "telemetry": telemetry, "sequence": sequence,
-                      "ctr": ctr, "book": book}),
+                      "ctr": ctr, "book": book, "fleet": fleet}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

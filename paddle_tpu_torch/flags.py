@@ -4,10 +4,11 @@ The port's own copy of the slice of `paddle_tpu/flags.py` that LM
 serving, one-shot serving, the int8 quantized ops, the stacked
 transformer's remat, the conv stem rewrite, the sparse embedding
 gradient's dispatch, the executor's NaN guard, the input pipeline, the
-fault injector and the telemetry (metrics, trace, flight recorder, time
-series and SLOs, the serving sampler) read, with the same names,
-defaults and environment spellings (`PADDLE_TPU_<NAME>`), so one
-deployment environment configures both packages alike. Values resolve
+fault injector, the telemetry (metrics, trace, flight recorder, time
+series and SLOs, the serving sampler) and the fleet's autoscaler read,
+with the same names, defaults and environment spellings
+(`PADDLE_TPU_<NAME>`), so one deployment environment configures both
+packages alike. Values resolve
 from the environment at first use and can be set from Python.
 """
 
@@ -179,6 +180,66 @@ _DEFS = {
     "serving_read_timeout_s": (_parse_float, 30.0,
                                "per-connection socket read timeout of the "
                                "HTTP front end; 0 disables"),
+    "autoscale": (_parse_bool, False,
+                  "route: run the AutoscaleController "
+                  "(serving/autoscale.py) inside the router process — "
+                  "the fleet sizes itself off its own /fleet/dashboard "
+                  "signals, adding/removing supervised replica slots "
+                  "within [autoscale_min_replicas, "
+                  "autoscale_max_replicas]. Spawn mode only (a "
+                  "--targets fleet is externally managed)"),
+    "autoscale_min_replicas": (_parse_int, 1,
+                               "autoscale: fleet size floor; a "
+                               "given-up replica does not count, so "
+                               "the controller backfills it"),
+    "autoscale_max_replicas": (_parse_int, 4,
+                               "autoscale: fleet size ceiling"),
+    "autoscale_mode": (_parse_choice("reactive", "predictive"),
+                       "reactive",
+                       "autoscale: reactive = hysteresis over "
+                       "queue-depth/fleet-shed-rate SLO signals; "
+                       "predictive = compute required replicas from "
+                       "offered load (Little's law) and measured "
+                       "per-rung device times (serving.device_time) "
+                       "and scale up ahead of the hold clock — "
+                       "scale-down keeps the reactive sustained-idle "
+                       "discipline in both modes"),
+    "autoscale_interval_s": (_parse_float, 1.0,
+                             "autoscale: decision cadence (seconds)"),
+    "autoscale_window_s": (_parse_float, 10.0,
+                           "autoscale: dashboard window the controller "
+                           "reads its signals over — short, so signals "
+                           "move on the decision timescale"),
+    "autoscale_queue_high": (_parse_float, 8.0,
+                             "autoscale: fleet queue depth above which "
+                             "scale-up pressure exists (breach "
+                             "surface)"),
+    "autoscale_queue_low": (_parse_float, 2.0,
+                            "autoscale: queue depth at/below which the "
+                            "fleet can be considered idle (the "
+                            "separate clear surface — hysteresis)"),
+    "autoscale_up_for_s": (_parse_float, 3.0,
+                           "autoscale: how long scale-up pressure must "
+                           "hold before a reactive scale-up (the hold "
+                           "clock predictive mode skips)"),
+    "autoscale_idle_rps": (_parse_float, 1.0,
+                           "autoscale: fleet requests/sec at/below "
+                           "which the fleet can be considered idle"),
+    "autoscale_idle_for_s": (_parse_float, 15.0,
+                             "autoscale: how long the idle condition "
+                             "must hold before a scale-down"),
+    "autoscale_up_cooldown_s": (_parse_float, 10.0,
+                                "autoscale: minimum time between "
+                                "scale-ups"),
+    "autoscale_down_cooldown_s": (_parse_float, 30.0,
+                                  "autoscale: minimum time between "
+                                  "scale-downs (also waits out the up "
+                                  "cooldown — scale-up is the more "
+                                  "recent evidence)"),
+    "autoscale_target_util": (_parse_float, 0.6,
+                              "autoscale predictive mode: fraction of "
+                              "measured per-replica capacity the load "
+                              "model plans to (derate headroom)"),
 }
 
 _values: dict = {}

@@ -39,16 +39,20 @@ the receiving package's own stream.
     step = load_checkpoint(executor, dirname, main_program=None,
                            scope=None)
 
-LM artifacts: `read_lm_artifact(path)` parses the version-3 container
-of `paddle_tpu.io.export_lm_artifact`:
+Artifacts: the port reads the version-3 container that
+`paddle_tpu.io.export_lm_artifact` and `export_inference_artifact(...,
+embed_program=True)` write:
 
     [8-byte little-endian meta length][JSON meta][StableHLO blob]
-    [npz weights payload][optional AOT section]
+    [npz payload][optional AOT section]
 
-and returns `(meta, weights)`: the meta dict (its `lm` section holds
-the `LMSpec` and the baked `GenerationConfig`) and `{name: np.ndarray}`.
-The StableHLO blob and any AOT section are JAX executables the port
-cannot run; they are skipped, never read.
+`read_artifact_meta(path)` validates the header against the file size;
+`read_lm_artifact(path)` returns `(meta, weights)` (its `lm` section
+holds the `LMSpec` and the baked `GenerationConfig`);
+`read_embedded_program(path)` returns `(meta, Program, arrays)`, which
+`serving.InferenceEngine.from_artifact` serves. The StableHLO blob and
+any AOT section are JAX executables the port cannot run; they are
+skipped, never read. The port writes no artifacts.
 """
 
 from __future__ import annotations
@@ -69,7 +73,8 @@ from .executor import _GENERATOR_KEY, global_scope
 from .framework import Program
 
 __all__ = ["save_persistables", "load_persistables", "save_inference_model",
-           "load_inference_model", "read_lm_artifact", "ARTIFACT_MAGIC",
+           "load_inference_model", "read_lm_artifact", "read_artifact_meta",
+           "read_embedded_program", "ARTIFACT_MAGIC",
            "save_checkpoint", "load_checkpoint", "checkpoint_exists",
            "read_checkpoint_meta", "resolve_checkpoint_dir",
            "CHECKPOINT_VERSION", "BF16PersistableError"]
@@ -490,62 +495,137 @@ ARTIFACT_VERSION = 3
 _MAX_META_BYTES = 1 << 26
 
 
-def _error(path, why):
-    return ValueError(f"{path}: not a loadable paddle_tpu LM artifact "
-                      f"({why})")
+def _aot_rung_bytes(meta):
+    """Bytes of the AOT section the meta header promises."""
+    aot = meta.get("aot") or {}
+    return sum(int(r["bytes"]) for r in aot.get("rungs", ()))
 
 
-def _read_meta(path):
+def _params_bytes(meta):
+    """Bytes of the embedded-params npz section the meta header promises
+    (0 when the artifact embeds no program)."""
+    return int(meta.get("params_bytes") or 0)
+
+
+def _artifact_error(path, why):
+    return ValueError(f"{path}: not a loadable paddle_tpu inference "
+                      f"artifact ({why})")
+
+
+def _read_artifact(path):
+    """The validated meta header of an artifact, read header-only: the
+    payload regions are checked arithmetically against the file size
+    (the reference's one size law, so a truncated write and trailing
+    garbage are both named errors) and nothing past the header is
+    read. The StableHLO module and any AOT rungs are JAX executables the
+    port never reads."""
     size = os.path.getsize(path)
     with open(path, "rb") as f:
         head = f.read(8)
         if len(head) < 8:
-            raise _error(path, f"file is {size} bytes, too short for the "
-                         "meta header")
+            raise _artifact_error(path, f"file is {size} bytes — too "
+                                  "short for the meta header")
         n = int.from_bytes(head, "little")
         if not 0 < n <= min(size - 8, _MAX_META_BYTES):
-            raise _error(path, f"meta header length {n} is outside the "
-                         f"file ({size} bytes)")
+            raise _artifact_error(
+                path, f"meta header length {n} is outside the file "
+                f"({size} bytes) — wrong format or truncated")
         try:
             meta = json.loads(f.read(n))
         except (UnicodeDecodeError, json.JSONDecodeError):
-            raise _error(path, "meta header is not JSON") from None
-    if not isinstance(meta, dict):
-        raise _error(path, "meta header is not a JSON object")
-    if meta.get("magic") != ARTIFACT_MAGIC:
-        raise _error(path, f"unknown magic {meta.get('magic')!r}")
-    version = int(meta.get("version", 1))
-    if version > ARTIFACT_VERSION:
-        raise _error(path, f"artifact version {version} is newer than "
-                     f"this reader supports ({ARTIFACT_VERSION})")
+            raise _artifact_error(path, "meta header is not JSON") \
+                from None
+    if not isinstance(meta, dict) or "feed_names" not in meta:
+        raise _artifact_error(path, "meta header lacks feed_names")
+    magic = meta.get("magic")
+    if magic is not None:
+        if magic != ARTIFACT_MAGIC:
+            raise _artifact_error(path, f"unknown magic {magic!r}")
+        version = int(meta.get("version", 1))
+        if version > ARTIFACT_VERSION:
+            raise _artifact_error(
+                path, f"artifact version {version} is newer than "
+                f"this runtime supports ({ARTIFACT_VERSION})")
     try:
-        blob = int(meta["blob_bytes"])
-        params = int(meta.get("params_bytes") or 0)
-        aot = sum(int(r["bytes"])
-                  for r in (meta.get("aot") or {}).get("rungs", ()))
+        aot_bytes = _aot_rung_bytes(meta)
+        params_bytes = _params_bytes(meta)
     except (KeyError, TypeError, ValueError, AttributeError):
-        raise _error(path, "malformed section lengths in the meta "
-                     "header") from None
-    expected = 8 + n + blob + params + aot
-    if size != expected:
-        raise _error(path, f"file is {size} bytes but the header promises "
-                     f"{expected}: truncated write or trailing garbage")
-    return meta, 8 + n + blob, params
+        raise _artifact_error(
+            path, "malformed AOT rung table or params length in "
+            "the meta header") from None
+    want = meta.get("blob_bytes")
+    if want is not None:
+        expected = 8 + n + int(want) + params_bytes + aot_bytes
+        if size != expected:
+            raise _artifact_error(
+                path, f"file is {size} bytes but the header "
+                f"promises {expected} (meta + module"
+                + (f" + {params_bytes}B of embedded params"
+                   if params_bytes else "")
+                + (f" + {aot_bytes}B of AOT rungs" if aot_bytes
+                   else "")
+                + ") — truncated write or trailing garbage")
+    if size - 8 - n - params_bytes - aot_bytes <= 0:
+        raise _artifact_error(path, "empty StableHLO payload")
+    return meta
+
+
+def read_artifact_meta(path):
+    """The artifact's validated meta header (feed / fetch names,
+    input_specs, symbolic_batch, the lm / quant / program sections)
+    without reading its payloads: a stat and an O(header) read."""
+    return _read_artifact(path)
+
+
+def _read_params_payload(path, meta):
+    """The raw embedded-params npz bytes of a version-3 artifact (b""
+    when it embeds none): [8B len][meta][blob][params][aot rungs]; a
+    short read is a named truncation error."""
+    n_params = _params_bytes(meta)
+    if not n_params:
+        return b""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        f.seek(8 + n + int(meta["blob_bytes"]))
+        payload = f.read(n_params)
+    if len(payload) != n_params:
+        raise _artifact_error(path, "embedded params section is "
+                              "truncated")
+    return payload
+
+
+def read_embedded_program(path):
+    """(meta, Program, {name: array}) of a version-3 artifact written by
+    `paddle_tpu.io.export_inference_artifact(..., embed_program=True)`:
+    the pruned inference program (the port's `Program.from_dict`) and
+    its persistable arrays. Raises a named error on a plain artifact,
+    whose weights exist only as constants of the StableHLO module,
+    telling the caller how to re-export."""
+    meta = _read_artifact(path)
+    payload = _read_params_payload(path, meta)
+    if not payload or "program" not in meta:
+        raise ValueError(
+            f"{path}: artifact does not embed its program/params — "
+            "re-export it with export_inference_artifact(..., "
+            "embed_program=True) to make it quantizable")
+    program = Program.from_dict(meta["program"])
+    with np.load(_bytesio.BytesIO(payload)) as data:
+        arrays = {name: data[name] for name in data.files}
+    return meta, program, arrays
 
 
 def read_lm_artifact(path):
-    """(meta, {name: np.ndarray}) of an LM artifact."""
-    meta, offset, n_params = _read_meta(path)
+    """(meta, {name: np.ndarray}) of an LM artifact
+    (`paddle_tpu.io.export_lm_artifact`)."""
+    meta = _read_artifact(path)
     if not meta.get("lm"):
-        raise _error(path, "no meta['lm'] section: a one-shot inference "
-                     "artifact, not a generative LM")
-    if not n_params:
-        raise _error(path, "LM artifact has no weights payload")
-    with open(path, "rb") as f:
-        f.seek(offset)
-        payload = f.read(n_params)
-    if len(payload) != n_params:
-        raise _error(path, "weights payload is truncated")
+        raise _artifact_error(
+            path, "not a generative-LM artifact (no meta['lm']) — "
+            "one-shot inference artifacts serve through "
+            "InferenceEngine.from_artifact")
+    payload = _read_params_payload(path, meta)
+    if not payload:
+        raise _artifact_error(path, "LM artifact has no weights payload")
     with np.load(_bytesio.BytesIO(payload)) as data:
         weights = {name: data[name] for name in data.files}
     return meta, weights

@@ -30,7 +30,9 @@ of row b lives at page tables[b, j // page_len], row j % page_len, and
 is live when j < kv_len[b] and j <= q_start[b]. It computes what
 `flash_attn_fwd` computes over the row's gathered page view, without
 gathering it. Its launches count on `flash_attn_fwd.launches`: it is
-K1. The card's kernel is one split-key design for both layouts
+K1. Every launch of the decode kernel, from either entry, also counts
+on `flash_attn_fwd.decode_launches`, so a caller can tell the two
+kernels of K1 apart. The card's kernel is one split-key design for both layouts
 (`csrc/flash_attn_fwd.cu::flash_decode_kernel`; `flash_attn_fwd` at Tq
 = 1 runs it on contiguous views): each row's live keys are cut into
 parts that depend only on that row's limit (`decode_parts`), one block
@@ -292,6 +294,8 @@ def _launch(q, k, v, kv_len, q_start, causal, scale):
                            f"failed: {what} (B={B}, n={n}, Tq={Tq}, "
                            f"Tk={Tk}, D={D})")
     count(flash_attn_fwd_bf16 if bf16 else flash_attn_fwd, "launches")
+    if Tq == 1:
+        count(flash_attn_fwd, "decode_launches")
     return o, lse
 
 
@@ -483,6 +487,7 @@ def _decode_launch(q, k_pool, v_pool, tables, page_len, kv_len, q_start,
                            f"cudaError {rc} (B={B}, n={n}, m="
                            f"{tables.shape[1]}, page_len={page_len}, D={D})")
     count(flash_attn_fwd, "launches")
+    count(flash_attn_fwd, "decode_launches")
     return o, lse
 
 
@@ -529,8 +534,9 @@ def _bf16_only(wrapper, name):
 
 
 # kernel launches made through this wrapper (the main-path proof): the
-# f32 K1 here, the bf16 K1 on flash_attn_fwd_bf16
-counted(flash_attn_fwd, "launches")
+# f32 K1 here, the bf16 K1 on flash_attn_fwd_bf16; of the f32 ones, those
+# of the Tq = 1 decode kernel also on decode_launches
+counted(flash_attn_fwd, "launches", "decode_launches")
 counted(gather_pages, "calls")
 flash_attn_fwd_bf16 = _bf16_only(flash_attn_fwd, "flash_attn_fwd_bf16")
 

@@ -6,10 +6,11 @@ either package. A schedule looks like::
 
     PADDLE_TPU_FAULTS="step:7:RuntimeError,ckpt_save:1:crash"
 
-The port fires the sites `step`, `ckpt_save`, `ckpt_swap` and
-`ckpt_load`; the others (`rpc`, `master_*`, `fleet_*`) belong to the
-reference's elastic master and serving fleet, which are not ported, and
-are accepted so that a spec stays valid in both packages.
+The port fires the sites `step`, `ckpt_save`, `ckpt_swap`,
+`ckpt_load`, `fleet_forward` and `fleet_probe` (serving/fleet.py); the
+others (`rpc`, `master_*`) belong to the reference's elastic master,
+which is not ported, and are accepted so that a spec stays valid in both
+packages.
 
 Spec grammar — comma-separated `site:trigger:kind` items:
 

@@ -29,8 +29,15 @@ on the card unless the caller passes a CPU executor:
 
     InferenceEngine.from_program(program, feeds, targets, executor)
 
-Serving the JAX package's StableHLO artifacts (`from_artifact`) is not
-ported. Observability lands in the `monitor` registry (when the
+or an artifact that embeds its program (`paddle_tpu.io.
+export_inference_artifact(..., embed_program=True)`), whose program
+and arrays it reads into a fresh scope and serves the same way:
+
+    InferenceEngine.from_artifact(path, config=None, device=None)
+
+The artifact's StableHLO module and AOT rungs are JAX executables and
+are never read; a plain artifact (no embedded program) is refused with
+a named error. Observability lands in the `monitor` registry (when the
 `metrics` flag is on), in the engine's always-on `stats()` dict (the
 /healthz payload, and /debug/vars's `engine` section) and, with the
 `profile_sample_n` flag, in the sampled device times of
@@ -601,6 +608,54 @@ class InferenceEngine:
         return [np.asarray(o) for o in outputs]
 
     # -- constructors -------------------------------------------------------
+
+    @classmethod
+    def from_artifact(cls, path, config=None, start=True, device=None):
+        """Serve a version-3 artifact written by the JAX package's
+        `export_inference_artifact(..., embed_program=True)`: its
+        embedded program and npz arrays go into a fresh `Scope` on
+        `device` (None: the card) and are served by `from_program`, so
+        on the card each rung is a CUDA graph. A fixed-batch export
+        (`symbolic_batch` False) clamps the ladder to the one baked
+        rung and admits requests of that size only, as the reference
+        does. The StableHLO module and AOT rungs
+        are not read (`stats()["aot_status"]` is "cuda_graph" on the
+        card, "none" on the CPU). A plain artifact raises the reference's
+        named ValueError."""
+        import torch
+
+        from .. import io as io_mod
+        from .. import quant as quant_mod
+        from ..executor import Executor, Scope
+
+        meta, program, arrays = io_mod.read_embedded_program(path)
+        exe = Executor(device)
+        scope = Scope()
+        for name, arr in arrays.items():
+            scope.set(name, torch.from_numpy(np.array(arr)).to(exe.device))
+        if quant_mod.has_quant_ops(program):
+            quant_mod.ensure_loadable(program, scope)
+            quant_mod.place_int8_weights(program, scope)
+        specs = meta.get("input_specs")
+        if meta.get("symbolic_batch") is False and specs:
+            # the export admits exactly the baked batch: one rung
+            baked = int(specs[0]["shape"][0]) if specs[0]["shape"] else 1
+            base = config or EngineConfig()
+            config = EngineConfig(max_batch_size=baked, buckets=(baked,),
+                                  batch_timeout_ms=base.batch_timeout_ms,
+                                  queue_limit=base.queue_limit,
+                                  default_deadline_ms=
+                                  base.default_deadline_ms)
+        engine = cls.from_program(program, meta["feed_names"],
+                                  meta["fetch_names"], executor=exe,
+                                  scope=scope, config=config, start=False)
+        if specs:
+            # the export's own specs: a fixed-batch artifact admits
+            # requests of the baked size only, as in the reference
+            engine.input_specs = {s["name"]: s for s in specs}
+        if meta.get("quant"):
+            engine._quant = quant_mod.record_artifact_loaded(meta["quant"])
+        return engine.start() if start else engine
 
     @classmethod
     def from_program(cls, program, feed_names, target_vars, executor=None,

@@ -3,7 +3,8 @@ GenerationEngine.
 
 The port of `paddle_tpu/serving/http.py`:
 
-  POST /v1/infer   (one-shot replicas: `serve --model_dir`)
+  POST /v1/infer   (one-shot replicas: `serve --model_dir` or an
+                   embedded-program `serve --artifact`)
                    {"feeds": {name: nested lists}, "deadline_ms": 50}
                    -> 200 {"outputs": [...], "fetch_names": [...],
                       "trace_id": "..."}
@@ -30,6 +31,7 @@ The port of `paddle_tpu/serving/http.py`:
   GET  /healthz    engine stats(): 200 "ready" once warmup() completed,
                    503 "booting" before, 503 "shutdown" after close;
                    `?live` answers 200 "alive" through boot and drain.
+                   A fleet replica's payload carries its `replica_id`.
   GET  /metrics    Prometheus text of the monitor registry
                    (?format=json for the raw snapshot dict).
   GET  /debug/vars expvar-style JSON (monitor.introspect.debug_vars):
@@ -59,7 +61,8 @@ from .. import flags, monitor
 from .errors import (DeadlineExceededError, EngineClosedError,
                      ServerOverloadedError)
 
-__all__ = ["make_server", "ServingHandler", "resolve_trace_id"]
+__all__ = ["make_server", "ServingHandler", "QuietHTTPServer",
+           "TimeoutAwareHandler", "resolve_trace_id"]
 
 _MAX_BODY = 64 << 20
 _TRACE_ID_OK = re.compile(r"[0-9A-Za-z_.-]+")
@@ -95,8 +98,11 @@ def resolve_trace_id(raw):
     return monitor.new_trace_id()
 
 
-class ServingHandler(BaseHTTPRequestHandler):
-    # the engine is attached to the *server* by make_server
+class TimeoutAwareHandler(BaseHTTPRequestHandler):
+    """Shared handler base of the replica front end and the fleet
+    router: HTTP/1.1, quiet logging, and the per-connection read timeout
+    (a stalled client cannot pin a handler thread)."""
+
     protocol_version = "HTTP/1.1"
 
     def log_message(self, fmt, *args):   # quiet: metrics cover traffic
@@ -108,13 +114,21 @@ class ServingHandler(BaseHTTPRequestHandler):
         if read_timeout:
             self.connection.settimeout(read_timeout)
 
-    def _read_body(self):
+    def _read_body(self, cap):
+        """The request body. Raises ValueError for a missing or oversized
+        Content-Length (the body is left unread and the connection is
+        flagged to close) and TimeoutError for a mid-body stall (the
+        caller replies 408 and closes)."""
         length = int(self.headers.get("Content-Length", 0))
-        if not 0 < length <= _MAX_BODY:
+        if not 0 < length <= cap:
             self.close_connection = True
             raise ValueError(f"Content-Length {length} outside "
-                             f"(0, {_MAX_BODY}]")
+                             f"(0, {cap}]")
         return self.rfile.read(length)
+
+
+class ServingHandler(TimeoutAwareHandler):
+    # the engine is attached to the *server* by make_server
 
     def _reply(self, code, payload, content_type="application/json",
                trace_id=None):
@@ -137,11 +151,14 @@ class ServingHandler(BaseHTTPRequestHandler):
         path, _, query = self.path.partition("?")
         if path == "/healthz":
             stats = engine.stats()
+            replica_id = getattr(self.server, "replica_id", None)
+            if replica_id:
+                stats["replica_id"] = replica_id
             if "live" in parse_qs(query, keep_blank_values=True):
                 self._reply(200, {"status": "alive", **stats})
             elif stats["closed"]:
                 self._reply(503, {"status": "shutdown", **stats})
-            elif not stats["ready"]:
+            elif not stats.get("ready", True):
                 self._reply(503, {"status": "booting", **stats})
             else:
                 self._reply(200, {"status": "ready", **stats})
@@ -194,7 +211,7 @@ class ServingHandler(BaseHTTPRequestHandler):
         trace_id = resolve_trace_id(self.headers.get("x-trace-id"))
         try:
             try:
-                raw = self._read_body()
+                raw = self._read_body(_MAX_BODY)
             except TimeoutError:
                 self.close_connection = True
                 self._reply(408, {"error": "timed out reading the "
@@ -243,7 +260,7 @@ class ServingHandler(BaseHTTPRequestHandler):
         trace_id = resolve_trace_id(self.headers.get("x-trace-id"))
         try:
             try:
-                raw = self._read_body()
+                raw = self._read_body(_MAX_BODY)
             except TimeoutError:
                 self.close_connection = True
                 self._reply(408, {"error": "timed out reading the "
@@ -346,14 +363,17 @@ def _error_type(e):
     return "internal"
 
 
-def make_server(engine, host="127.0.0.1", port=8080, read_timeout_s=None):
+def make_server(engine, host="127.0.0.1", port=8080, read_timeout_s=None,
+                replica_id=None):
     """ThreadingHTTPServer with `engine` attached. port=0 binds an
     ephemeral port (read it back from `server.server_address[1]`). The
     caller owns the lifecycle: serve_forever() (often in a thread), then
-    server.shutdown(); engine.shutdown(drain=True)."""
+    server.shutdown(); engine.shutdown(drain=True). `replica_id` tags
+    the /healthz payloads of a replica that serves in a fleet."""
     if read_timeout_s is None:
         read_timeout_s = flags.get("serving_read_timeout_s")
     server = QuietHTTPServer((host, port), ServingHandler)
     server.engine = engine
     server.read_timeout_s = float(read_timeout_s) or None
+    server.replica_id = replica_id
     return server

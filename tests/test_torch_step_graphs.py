@@ -315,6 +315,7 @@ def test_one_shot_engine_dispatches_every_bucket_by_key(int8_dir):
 def test_counters_cover_every_wrapper_count():
     names = {(getattr(w, "__name__", ""), a) for w, a in counters()}
     assert ("gather_pages", "calls") in names
+    assert ("flash_attn_fwd", "decode_launches") in names
     for w in (fa.flash_attn_fwd, fa.flash_attn_fwd_bf16,
               qo.int8_matmul_rescaled, qo.quantize_activations):
         assert (w.__name__, "launches") in names
