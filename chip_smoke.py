@@ -398,6 +398,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      per-process reading where it lists the PID, and each replica's
      torch.cuda reserved and peak bytes from its /debug/vars; on a
      failure the replicas' log tails.
+ 39. detection and the evaluators left, f32 with TF32 off: SSD300 on
+     VGG16 (conv1_1-conv5_3, pool3 in ceil_mode, fc6 dilated 6 and fc7
+     as convolutions, four extra pairs, conv4_3 l2-normalised times a
+     learned scale at 20, multi_box_head over six maps: 8732 priors, 21
+     classes). (a) the detection ops at its sizes (B 32, 16 gt slots)
+     on the card against the same port code on the CPU over the same
+     seeded inputs: priors within 1 ulp, IoU and the three box codes
+     within 1e-6 of each array's largest element, bipartite_match,
+     target_assign, mine_hard_examples' mask and multiclass_nms' Out and
+     OutCount exactly (a row excused only at a near tie, counted; the
+     NMS also with every score tied, exactly); each
+     op's card time, the NMS's kernels, host syncs (none) and peak
+     memory; (b) one training step at B 2 op by op, every op on the
+     CPU's values of its inputs within 1e-4 of each output's largest
+     element, the step run free printed, not held; (c) ssd_loss with
+     hard-negative mining (3:1, overlap 0.5), Momentum(1e-5, 0.9), 50
+     steps at B 32 on one batch: the mean of the last 5 losses below
+     0.8 x step 1's; images/s, step wall, device ms, busy share, kernels
+     and syncs a step, peak memory; (d) inference at B 32 over 4
+     batches (softmax, detection_output at nms 0.45, top 400, keep 200,
+     score 0.01, InGraphDetectionMAP with 512 buckets): each batch's
+     in-graph TpHist / FpHist / PosCount bitwise detection_map_buckets
+     on the CPU over the fetched detections, walls, the NMS's share,
+     syncs, the in-graph mAP beside the host DetectionMAP's; (e)
+     roi_pool at Fast R-CNN's shape ([2, 512, 38, 63], 1/16, 128 ROIs an
+     image, 7 x 7): Out and Argmax equal to the CPU's, the gradient of a
+     weighted sum within 1e-6, ms and peak memory; (f) InGraphPnpair
+     over 16384 scores in 64 queries and InGraphPrecisionRecall over
+     4096 predictions of 21 classes: counts equal to the CPU's and the
+     host evaluators'. No TPU kernel lies on the SSD300 paths: their
+     launch counts are checked to be 0.
 
 The second-to-last line is the kernel table as JSON (with the ResNet-50
 results under "resnet50"); the last line is
@@ -4407,13 +4438,18 @@ def suite_cases():
     }
 
 
-def run_update_op(op_type, ins, attrs, device, in_place):
+def lower_on(op, ins, attrs, device, in_place=False, grad=False):
+    """One op's lowering on `device` over numpy arrays or tensors (the
+    executor's dispatch without a program): a tensor already on
+    `device` is passed as it is, anything else is copied there (always
+    copied when `in_place`, so the lowering never writes the caller's
+    arrays); autograd records only when `grad`."""
     ctx = types.SimpleNamespace(in_place=in_place, op=None,
                                 device=torch.device(device))
-    tins = {k: [torch.from_numpy(v.copy()).to(device)]
-            for k, v in ins.items()}
-    out = op_registry.get_op(op_type).lowering(ctx, tins, dict(attrs))
-    return {k: v[0].detach().cpu() for k, v in out.items()}
+    tins = {k: [torch.as_tensor(v).to(device, copy=in_place) for v in vs]
+            for k, vs in ins.items()}
+    with torch.set_grad_enabled(grad):
+        return op_registry.get_op(op).lowering(ctx, tins, dict(attrs))
 
 
 def optimizer_suite_phase(smi):
@@ -4423,9 +4459,13 @@ def optimizer_suite_phase(smi):
     new-tensor mode == the in-place mode bitwise."""
     worst = {}
     for name, (op_type, ins, attrs) in suite_cases().items():
-        cpu = run_update_op(op_type, ins, attrs, "cpu", True)
-        card = run_update_op(op_type, ins, attrs, "cuda", True)
-        fresh = run_update_op(op_type, ins, attrs, "cuda", False)
+        def run(device, in_place):
+            out = lower_on(op_type, {k: [v] for k, v in ins.items()}, attrs,
+                           device, in_place=in_place)
+            return {k: v[0].cpu() for k, v in out.items()}
+
+        cpu, card, fresh = run("cpu", True), run("cuda", True), \
+            run("cuda", False)
         err = 0.0
         for slot, ref in cpu.items():
             if not torch.equal(card[slot], fresh[slot]):
@@ -6001,21 +6041,33 @@ def ctr_throughput(exe, scope, main, cost, feed, B):
     return (*median_lo_hi(rates), losses)
 
 
-def ctr_step_syncs(exe, main, feed, scope):
-    """The device -> host syncs of one step with no fetch, counted by
-    torch's sync debug mode (each warns once; the feed's copies from
-    pageable host memory count too)."""
+# what torch's sync debug mode warns at each sync (its one-time notice
+# that the mode is a prototype names "synchronizing" too, so it is not
+# matched by that word alone)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def call_syncs(fn):
+    """The device -> host syncs of one call of fn, counted by torch's
+    sync debug mode (each sync warns once)."""
     import warnings
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            exe.run(main, feed=feed, fetch_list=[], scope=scope)
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return sum("synchroniz" in str(w.message) for w in seen)
+    return sum(SYNC_WARNING in str(w.message) for w in seen)
+
+
+def ctr_step_syncs(exe, main, feed, scope):
+    """The syncs of one step with no fetch (call_syncs; the feed's copies
+    from pageable host memory count too)."""
+    return call_syncs(lambda: exe.run(main, feed=feed, fetch_list=[],
+                                      scope=scope))
 
 
 def ctr_dispatch(exe, main, feed, scope):
@@ -6510,11 +6562,13 @@ SRL_TIE = 1e-5        # a decoded path may differ only at a near tie
 def whole_profile(exe, main, feed, cost, scope, step_ms, what, smi,
                   tries=3):
     """ctr_profile of one step from a capture that kept its device
-    events: the device events (kernels, copies, sets) must be at least
-    0.95 of the launch calls (runtime or driver Launch, Memcpy, Memset)
-    that the capture's host side recorded. A capture short of that is
-    taken again, up to `tries` times; if none is whole, device ms and
-    busy are None (not measured)."""
+    events: every kernel launch call that the capture's host side
+    recorded (runtime or driver, matched by its correlation id) must
+    have its kernel among the device events. A capture that lost one is
+    taken again, up to `tries` times; if none is whole, device ms, busy
+    and the top op types are None (not measured). `host_launches`
+    counts every launch, copy and set call, against the device events
+    of `kernels_per_step`."""
     for n in range(1, tries + 1):
         tdir = tempfile.mkdtemp(prefix="chip_smoke_prof_")
         try:
@@ -6528,11 +6582,20 @@ def whole_profile(exe, main, feed, cost, scope, step_ms, what, smi,
             and any(k in str(e.get("name", ""))
                     for k in ("Launch", "Memcpy", "Memset"))
             for e in events)
-        prof.update(host_launches=launched, captures=n)
-        if launched and prof["kernels_per_step"] >= 0.95 * launched:
+        called = {(e.get("args") or {}).get("correlation") for e in events
+                  if str(e.get("cat", "")).lower() in ("cuda_runtime",
+                                                        "cuda_driver")
+                  and "LaunchKernel" in str(e.get("name", ""))}
+        ran = {(e.get("args") or {}).get("correlation") for e in events
+               if str(e.get("cat", "")).lower() == "kernel"}
+        lost = len(called - ran)
+        prof.update(host_launches=launched, captures=n,
+                    kernel_launches=len(called), kernels_lost=lost)
+        if called and lost == 0:
             return prof
         log(f"{what}: profile {n} kept {prof['kernels_per_step']} device "
-            f"events of {launched} launched | {smi}")
+            f"events of {launched} launched, lost {lost} of "
+            f"{len(called)} kernels | {smi}")
     prof.update(device_ms=None, busy=None, top_op_types_ms=None)
     return prof
 
@@ -7926,6 +7989,657 @@ def fleet_phase(smi):
     return {"serving_lm_fleet": lm_counts}, {"lm": lm, "oneshot": oneshot}
 
 
+# -- phase 39: detection (SSD300 on VGG16) and the evaluators left -----------
+
+# SSD300 (Liu et al., ECCV 2016): VGG16 conv1_1-conv5_3, fc6 / fc7 as
+# convolutions, four extra pairs, conv4_3 l2-normalised, six maps
+SSD_HW, SSD_C, SSD_G, SSD_PRIORS = 300, 21, 16, 8732
+SSD_MIN = (30.0, 60.0, 111.0, 162.0, 213.0, 264.0)
+SSD_MAX = (60.0, 111.0, 162.0, 213.0, 264.0, 315.0)
+SSD_AR = ((2.0,), (2.0, 3.0), (2.0, 3.0), (2.0, 3.0), (2.0,), (2.0,))
+SSD_MAPS = (38, 19, 10, 5, 3, 1)
+# lr 1e-5, not the paper's 1e-3: ssd_loss sums each image's terms (no
+# division by the matched count), step 1's loss is ~1850, and 1e-3 / 1e-4
+# diverge to NaN within 2 / 25 steps on an H100 (3e-5, 1e-5, 3e-6 fall
+# to 0.30 / 0.27 / 0.35 of step 1 in 50 steps)
+SSD_B, SSD_CHECK_B, SSD_STEPS, SSD_LR = 32, 2, 50, 1e-5
+SSD_FALL = 0.8          # the mean of the last 5 losses below this x step 1's
+SSD_INFER_BATCHES = 4
+SSD_NMS = {"nms_threshold": 0.45, "nms_top_k": 400, "keep_top_k": 200,
+           "score_threshold": 0.01}
+SSD_MAP_BUCKETS = 512
+# (a): IoU and box codes within DET_TOL of each array's largest element;
+# a row of an exact output may differ only where two of its candidates'
+# scores or losses lie within DET_TIE (it is then excused and counted)
+DET_TOL, DET_TIE = 1e-6, 1e-6
+SSD_OP_TOL = 1e-4       # (b): each op on the CPU's values of its inputs
+# (e): Fast R-CNN's roi_pool: VGG16 conv5_3 of a 600 x 1000 image
+ROI_FEAT, ROI_IMAGE = (2, 512, 38, 63), (600, 1000)
+ROI_PER_IMAGE, ROI_BINS, ROI_GRAD_TOL = 128, 7, 1e-6
+PNPAIR_N, PNPAIR_Q, PR_N = 16384, 64, 4096
+
+
+def ssd300_head(img):
+    """SSD300 on VGG16 through the port's layers: 3x3 convs (pad 1, relu)
+    and 2x2 / stride-2 max pools after stages 1-4 (pool3 in ceil_mode:
+    300 -> 150 -> 75 -> 38 -> 19), pool5 3x3 / stride 1 / pad 1, fc6 a 3x3
+    conv of 1024 with dilation 6, fc7 a 1x1 of 1024, the extra pairs (1x1
+    of 256 / 128 / 128 / 128, then 3x3 of 512 / 256 / 256 / 256, stride 2
+    pad 1 twice, pad 0 twice: 10, 5, 3, 1), conv4_3 l2-normalised times
+    a learned [512] scale starting at 20, and multi_box_head over the six
+    maps. Returns (loc, conf, priors, prior variances)."""
+    L = pt.layers
+    x = img
+    for stage, (n, reps) in enumerate(((64, 2), (128, 2), (256, 3),
+                                       (512, 3)), 1):
+        for _ in range(reps):
+            x = L.conv2d(x, n, 3, padding=1, act="relu")
+        if stage == 4:
+            conv4_3 = x
+        x = L.pool2d(x, 2, "max", 2, ceil_mode=stage == 3)
+    for _ in range(3):
+        x = L.conv2d(x, 512, 3, padding=1, act="relu")
+    x = L.pool2d(x, 3, "max", 1, pool_padding=1)
+    x = L.conv2d(x, 1024, 3, padding=6, dilation=6, act="relu")    # fc6
+    x = L.conv2d(x, 1024, 1, act="relu")                           # fc7
+    maps = [x]
+    for n1, n2, stride, pad in ((256, 512, 2, 1), (128, 256, 2, 1),
+                                (128, 256, 1, 0), (128, 256, 1, 0)):
+        x = L.conv2d(x, n1, 1, act="relu")
+        x = L.conv2d(x, n2, 3, stride=stride, padding=pad, act="relu")
+        maps.append(x)
+    scale = L.create_parameter(
+        [512], "float32", name="conv4_3_norm.scale",
+        default_initializer=pt.initializer.ConstantInitializer(20.0))
+    norm = L.elementwise_mul(L.l2_normalize(conv4_3, axis=1), scale, axis=1)
+    return L.detection.multi_box_head(
+        [norm] + maps, img, min_sizes=list(SSD_MIN), max_sizes=list(SSD_MAX),
+        aspect_ratios=[list(a) for a in SSD_AR], num_classes=SSD_C,
+        flip=True, clip=True)
+
+
+def ssd300_inputs():
+    L = pt.layers
+    return (L.data("img", [3, SSD_HW, SSD_HW]), L.data("gtb", [SSD_G, 4]),
+            L.data("gtl", [SSD_G], dtype="int32"))
+
+
+def ssd300_programs():
+    """The training program (ssd_loss with hard-negative mining at 3:1,
+    overlap 0.5, its mean, Momentum(SSD_LR, 0.9)) and the inference
+    program over the same parameter names (softmax, detection_output at
+    SSD's test settings, InGraphDetectionMAP): (main, startup, cost,
+    infer, dmap, (nms out, nms count))."""
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        img, gtb, gtl = ssd300_inputs()
+        loc, conf, priors, pvars = ssd300_head(img)
+        if tuple(priors.shape) != (SSD_PRIORS, 4):
+            raise AssertionError(f"SSD300: {priors.shape} priors, expected "
+                                 f"{SSD_PRIORS}")
+        cost = pt.layers.mean(pt.layers.detection.ssd_loss(
+            loc, conf, gtb, gtl, priors, pvars, overlap_threshold=0.5,
+            neg_pos_ratio=3.0))
+        pt.MomentumOptimizer(SSD_LR, 0.9).minimize(cost)
+    pt.framework.reset_default_programs()       # the same parameter names
+    infer, istart = pt.Program(), pt.Program()
+    with pt.program_guard(infer, istart):
+        img, gtb, gtl = ssd300_inputs()
+        loc, conf, priors, pvars = ssd300_head(img)
+        probs = pt.layers.softmax(conf)
+        nms = pt.layers.detection.detection_output(loc, probs, priors, pvars,
+                                                   **SSD_NMS)
+        dmap = pt.evaluator.InGraphDetectionMAP(
+            nms[0], gtb, gtl, num_classes=SSD_C, num_buckets=SSD_MAP_BUCKETS,
+            overlap_threshold=0.5)
+    return main, startup, cost, infer, dmap, nms
+
+
+def ssd300_feed(rng, B):
+    """Uniform images; 16 ground-truth slots an image, 1-8 real boxes
+    with sides 0.1-0.6 of the image and labels 1-20, padding rows all
+    zero with label 0."""
+    gtb = np.zeros((B, SSD_G, 4), np.float32)
+    gtl = np.zeros((B, SSD_G), np.int32)
+    for b in range(B):
+        for g in range(rng.randint(1, 9)):
+            side = rng.uniform(0.1, 0.6, 2)
+            xy = rng.rand(2) * (1 - side)
+            gtb[b, g] = [xy[0], xy[1], xy[0] + side[0], xy[1] + side[1]]
+            gtl[b, g] = rng.randint(1, SSD_C)
+    return {"img": rng.rand(B, 3, SSD_HW, SSD_HW).astype(np.float32),
+            "gtb": gtb, "gtl": gtl}
+
+
+def card_wall_ms(fn, reps=3):
+    """Median host wall of `reps` calls, each synchronised (one warm-up
+    call first)."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(walls))
+
+
+def call_peak_mib(fn):
+    """The card memory fn allocates at its peak beyond what was
+    allocated before it, in MiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def differing_rows(card, cpu):
+    """Rows (first axis) on which two arrays differ."""
+    card, cpu = np.asarray(card), np.asarray(cpu)
+    return [b for b in range(card.shape[0])
+            if not np.array_equal(card[b], cpu[b])]
+
+
+def nms_row_excused(card, cpu):
+    """An image's NMS output ([keep_top_k, 6] rows of label, score, box)
+    that differs is excused only as a near tie decided the other way:
+    at its first differing row the two sides' scores differ, by no more
+    than DET_TIE; from that row on the two sides hold the same rows in
+    another order; and every row whose scores are bitwise equal on both
+    sides is equal in label and box too."""
+    k = next(i for i in range(card.shape[0])
+             if not np.array_equal(card[i], cpu[i]))
+    same_score = card[:, 1] == cpu[:, 1]
+    return bool(not same_score[k]
+                and abs(float(card[k, 1]) - float(cpu[k, 1])) <= DET_TIE
+                and np.array_equal(card[same_score], cpu[same_score])
+                and sorted(map(tuple, card[k:])) == sorted(map(tuple,
+                                                               cpu[k:])))
+
+
+def mine_row_excused(loss, match, dist, n_card, n_cpu):
+    """A mined row that differs is excused only where the losses of the
+    last negative taken and the first one left lie within DET_TIE."""
+    eligible = (match == -1) & (dist < 0.5)
+    vals = np.sort(loss[eligible])[::-1]
+    k = int(min(n_card, n_cpu))
+    return k < len(vals) and abs(vals[k - 1] - vals[k]) <= DET_TIE
+
+
+def det_ops_phase(smi):
+    """Phase 39 (a): the detection ops at SSD300's sizes (B SSD_B, G 16,
+    8732 priors, 21 classes), the same port code on the card and on the
+    CPU over the same seeded inputs: priors within 1 ulp; IoU and the
+    three box codes within DET_TOL of each array's largest element;
+    bipartite_match, target_assign, mine_hard_examples' mask and
+    multiclass_nms' Out and OutCount exactly, each op fed the CPU's
+    values of its inputs, a differing row only excused at a near tie.
+    Each op's card time; the NMS's kernels, host syncs and peak memory."""
+    rng = np.random.RandomState(SEED + 60)
+    feed = ssd300_feed(rng, SSD_B)
+    B, P = SSD_B, SSD_PRIORS
+    res, ms, excused = {}, {}, {"nms": 0, "mine": 0}
+
+    def both(op, ins, attrs, timed=True):
+        on_card = {k: [torch.as_tensor(v).cuda() for v in vs]
+                   for k, vs in ins.items()}
+        cuda = lower_on(op, on_card, attrs, "cuda")
+        cpu = lower_on(op, ins, attrs, "cpu")
+        if timed:           # the inputs already on the card: no copy timed
+            ms[op] = card_wall_ms(lambda: lower_on(op, on_card, attrs,
+                                                   "cuda"))
+        return ({k: [t.cpu().numpy() for t in v] for k, v in cuda.items()},
+                {k: [t.numpy() for t in v] for k, v in cpu.items()})
+
+    boxes, pvars = [], []
+    for hw, mn, mx, ar in zip(SSD_MAPS, SSD_MIN, SSD_MAX, SSD_AR):
+        ins = {"Input": [torch.zeros(1, 1, hw, hw)],
+               "Image": [torch.zeros(1, 1, SSD_HW, SSD_HW)]}
+        attrs = {"min_sizes": [mn], "max_sizes": [mx],
+                 "aspect_ratios": list(ar), "variances": [0.1, 0.1, 0.2, 0.2],
+                 "flip": True, "clip": True, "step_w": 0.0, "step_h": 0.0,
+                 "offset": 0.5}
+        card, cpu = both("prior_box", ins, attrs)
+        for slot in ("Boxes", "Variances"):
+            np.testing.assert_array_max_ulp(card[slot][0], cpu[slot][0],
+                                            maxulp=1)
+        boxes.append(cpu["Boxes"][0].reshape(-1, 4))
+        pvars.append(cpu["Variances"][0].reshape(-1, 4))
+    priors, pvar = np.concatenate(boxes), np.concatenate(pvars)
+    if priors.shape != (P, 4):
+        raise AssertionError(f"SSD300 priors {priors.shape}")
+    res["priors_bitwise"] = True
+
+    def close(what, card, cpu):
+        err = float(np.abs(card - cpu).max()) / max(float(np.abs(cpu).max()),
+                                                    1e-30)
+        res[what] = err
+        if not err <= DET_TOL:
+            raise AssertionError(f"SSD300 {what}: the card differs from the "
+                                 f"CPU by {err:.3e} of the largest element")
+
+    card, cpu = both("iou_similarity", {"X": [feed["gtb"]], "Y": [priors]},
+                     {})
+    close("iou", card["Out"][0], cpu["Out"][0])
+    iou = cpu["Out"][0]
+    res["iou_bitwise"] = bool(np.array_equal(card["Out"][0], iou))
+    card, cpu = both("bipartite_match", {"DistMat": [iou]},
+                     {"match_type": "per_prediction", "dist_threshold": 0.5})
+    for slot in ("ColToRowMatchIndices", "ColToRowMatchDist"):
+        if differing_rows(card[slot][0], cpu[slot][0]):
+            raise AssertionError(f"SSD300 bipartite_match {slot} differs")
+    match, mdist = (cpu[s][0] for s in ("ColToRowMatchIndices",
+                                        "ColToRowMatchDist"))
+    card, cpu = both("target_assign", {"X": [feed["gtb"]],
+                                       "MatchIndices": [match]},
+                     {"mismatch_value": 0})
+    for slot in ("Out", "OutWeight"):
+        if differing_rows(card[slot][0], cpu[slot][0]):
+            raise AssertionError(f"SSD300 target_assign {slot} differs")
+    matched = cpu["Out"][0]
+    card, cpu = both("box_coder", {"PriorBox": [priors],
+                                   "PriorBoxVar": [pvar],
+                                   "TargetBox": [matched]},
+                     {"code_type": "encode_matched"})
+    close("box_coder_encode_matched", card["OutputBox"][0],
+          cpu["OutputBox"][0])
+    card, cpu = both("box_coder", {"PriorBox": [priors],
+                                   "PriorBoxVar": [pvar],
+                                   "TargetBox": [feed["gtb"][0]]},
+                     {"code_type": "encode_center_size"})
+    close("box_coder_encode_center_size", card["OutputBox"][0],
+          cpu["OutputBox"][0])
+    loc = (rng.randn(B, P, 4) * 0.5).astype(np.float32)
+    card, cpu = both("box_coder", {"PriorBox": [priors],
+                                   "PriorBoxVar": [pvar],
+                                   "TargetBox": [loc]},
+                     {"code_type": "decode_center_size"})
+    close("box_coder_decode", card["OutputBox"][0], cpu["OutputBox"][0])
+    decoded = cpu["OutputBox"][0]
+
+    cls_loss = (rng.rand(B, P) * 5).astype(np.float32)
+    card, cpu = both("mine_hard_examples",
+                     {"ClsLoss": [cls_loss], "MatchIndices": [match],
+                      "MatchDist": [mdist]},
+                     {"neg_pos_ratio": 3.0, "neg_dist_threshold": 0.5})
+    for b in differing_rows(card["NegMask"][0], cpu["NegMask"][0]):
+        if not mine_row_excused(cls_loss[b], match[b], mdist[b],
+                                card["NegMask"][0][b].sum(),
+                                cpu["NegMask"][0][b].sum()):
+            raise AssertionError(f"SSD300 mine_hard_examples: image {b} "
+                                 f"differs away from a near tie")
+        excused["mine"] += 1
+    res["negatives"] = int(cpu["NegMask"][0].sum())
+
+    logits = rng.randn(B, P, SSD_C).astype(np.float32) * 2
+    probs = torch.softmax(torch.from_numpy(logits), -1)
+    scores = probs.transpose(1, 2).contiguous().numpy()     # [B, C, P]
+    nms_ins = {"Scores": [scores], "BBoxes": [decoded]}
+    card, cpu = both("multiclass_nms", nms_ins, SSD_NMS)
+    if differing_rows(card["OutCount"][0], cpu["OutCount"][0]):
+        raise AssertionError("SSD300 multiclass_nms: OutCount differs")
+    for b in differing_rows(card["Out"][0], cpu["Out"][0]):
+        if not nms_row_excused(card["Out"][0][b], cpu["Out"][0][b]):
+            raise AssertionError(f"SSD300 multiclass_nms: image {b} differs "
+                                 f"away from a near tie")
+        excused["nms"] += 1
+    res["nms_kept"] = [int(n) for n in cpu["OutCount"][0][:4]]
+    # every score tied: each pick is the first maximum, and the padding
+    # rows carry the boxes the stable ranking puts there
+    card, cpu = both("multiclass_nms",
+                     {"Scores": [np.full_like(scores[:4], 0.5)],
+                      "BBoxes": [decoded[:4]]}, SSD_NMS, timed=False)
+    if differing_rows(card["Out"][0], cpu["Out"][0]):
+        raise AssertionError("SSD300 multiclass_nms with every score tied "
+                             "differs from the CPU")
+    tins = {k: [torch.as_tensor(v).cuda() for v in vs]
+            for k, vs in nms_ins.items()}
+
+    def nms_call():
+        lower_on("multiclass_nms", tins, SSD_NMS, "cuda")
+
+    res["nms_device_ms"], res["nms_kernels"] = device_time(nms_call)
+    res["nms_syncs"] = call_syncs(nms_call)
+    res["nms_peak_mib"] = call_peak_mib(nms_call)
+    res["ms"] = ms
+    res["excused_rows"] = excused
+    log(f"SSD300 detection ops, the card against the CPU (B {B}, G "
+        f"{SSD_G}, {P} priors, {SSD_C} classes): priors within 1 ulp; IoU "
+        f"{res['iou']:.2e} (bitwise {res['iou_bitwise']}), box codes "
+        f"{res['box_coder_encode_matched']:.2e} / "
+        f"{res['box_coder_encode_center_size']:.2e} / "
+        f"{res['box_coder_decode']:.2e} of the largest element (tol "
+        f"{DET_TOL:g}); bipartite_match, target_assign, mine_hard_examples "
+        f"({res['negatives']} negatives) and multiclass_nms (kept "
+        f"{res['nms_kept']}...; and with every score tied) exact, rows "
+        f"excused at a near tie "
+        f"{excused}; card ms {({k: round(v, 3) for k, v in ms.items()})}; "
+        f"one NMS ({SSD_NMS['nms_top_k']} steps): {res['nms_kernels']} "
+        f"kernels, {res['nms_device_ms']:.2f} device ms (profiled) in "
+        f"{ms['multiclass_nms']:.1f} ms of wall, {res['nms_syncs']} host "
+        f"syncs, peak "
+        f"{res['nms_peak_mib']:.1f} MiB | {smi}")
+    if res["nms_syncs"] != 0:
+        raise AssertionError("SSD300: the NMS read the card on the host")
+    return res
+
+
+def ssd_check_phase(main, startup, cost, smi):
+    """Phase 39 (b): one training step at B SSD_CHECK_B from one CPU
+    initialisation: every op of the forward and backward lowered on the
+    card on the CPU's values of its inputs, each float output within
+    SSD_OP_TOL of its largest element (held); the step run free on both
+    sides (printed, not held: a relu input within rounding of 0 flips
+    side, ROADMAP C11)."""
+    rng = np.random.RandomState(SEED + 61)
+    feed = ssd300_feed(rng, SSD_CHECK_B)
+    cpu_scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=cpu_scope)
+    state = tensors_of(cpu_scope)
+    names = [cost.name] + [n for n in main.global_block().vars
+                           if n.endswith("@GRAD_0")
+                           and n[:-len("@GRAD_0")] in state]
+    card = pt.Executor().run(main, feed=feed, fetch_list=names,
+                             scope=scope_of(state, "cuda"),
+                             return_numpy=False)
+    cpu = pt.Executor(pt.CPUPlace()).run(main, feed=feed, fetch_list=names,
+                                         scope=scope_of(state, "cpu"),
+                                         return_numpy=False)
+    free = {n: max_rel(c, r) for n, c, r in zip(names, card, cpu)}
+    worst_free = max(free.items(), key=lambda kv: kv[1])
+    errs, _ = op_by_op_step(main, feed, scope_of(state, "cpu"),
+                            f"SSD300 B {SSD_CHECK_B}", SSD_OP_TOL)
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    log(f"SSD300 B {SSD_CHECK_B} step op by op on the card, on the CPU's "
+        f"inputs: {len(errs)} outputs of {len(main.global_block().ops)} "
+        f"ops, worst {worst[0]} {worst[1]:.2e} of its largest element (tol "
+        f"{SSD_OP_TOL:g}); run free (not held): loss "
+        f"{free[cost.name]:.2e} relative, the worst of {len(names) - 1} "
+        f"gradients {worst_free[0]} {worst_free[1]:.2e} | {smi}")
+    return {"outputs": len(errs), "ops": len(main.global_block().ops),
+            "worst": list(worst), "free_loss_rel": free[cost.name],
+            "free_worst_grad": list(worst_free)}
+
+
+def ssd_train_phase(main, startup, cost, smi):
+    """Phase 39 (c): SSD300 training at B SSD_B, f32 with TF32 off,
+    SSD_STEPS Momentum steps over one fixed batch: the mean of the last
+    5 losses below SSD_FALL x step 1's; images/s, step wall, device ms
+    and busy share, kernels and host syncs a step, peak memory; no TPU
+    kernel launched."""
+    use_full_f32()
+    rng = np.random.RandomState(SEED + 62)
+    feed = ssd300_feed(rng, SSD_B)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()                       # the main path starts here
+    losses, walls = timed_steps(exe, main, feed, cost, scope, 0, SSD_STEPS)
+    counts = read_counts()              # the main path ends here
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_counts(counts, launches_of(), "SSD300 training (no TPU kernel on "
+                 "this path)")
+    first, last5 = losses[0], float(np.mean(losses[-5:]))
+    med, lo, hi = median_lo_hi(walls[1:])
+    prof = whole_profile(exe, main, feed, cost, scope, med,
+                         "SSD300 training step", smi)
+    syncs = ctr_step_syncs(exe, main, feed, scope)
+    device = ("not measured" if prof["device_ms"] is None else
+              f"{prof['device_ms']:.2f} ms (busy {prof['busy']:.3f})")
+    log(f"SSD300 training B {SSD_B}, Momentum({SSD_LR:g}, 0.9), "
+        f"{SSD_STEPS} steps on one batch: loss {first:.3f} -> mean of the "
+        f"last 5 {last5:.3f} (must be < {SSD_FALL} x step 1); "
+        f"{SSD_B / (med / 1e3):.1f} images/s (step {med:.2f} ms median, "
+        f"{lo:.2f}-{hi:.2f}, the first {walls[0]:.1f}), device {device}, "
+        f"{prof['kernels_per_step']} kernels a step of "
+        f"{prof['host_launches']} launched ({prof['kernels_lost']} kernels "
+        f"lost in capture {prof['captures']}), {syncs} host syncs a step, "
+        f"peak {peak:.2f} GiB; top ops {prof['top_op_types_ms']} | {smi}")
+    if not (np.isfinite(losses).all() and last5 < SSD_FALL * first):
+        raise AssertionError(f"SSD300: the loss did not fall below "
+                             f"{SSD_FALL} x step 1's: {losses}")
+    return counts, scope, feed, {
+        "B": SSD_B, "steps": SSD_STEPS, "lr": SSD_LR,
+        "losses": [first, last5], "images_per_s": SSD_B / (med / 1e3),
+        "step_ms": med, "step_ms_lo": lo, "step_ms_hi": hi,
+        "device_ms": prof["device_ms"], "busy": prof["busy"],
+        "kernels_per_step": prof["kernels_per_step"],
+        "profile_captures": prof["captures"],
+        "kernels_lost": prof["kernels_lost"],
+        "syncs_per_step": syncs, "peak_gib": peak,
+        "top_op_types_ms": prof["top_op_types_ms"]}
+
+
+def ssd_infer_phase(infer, dmap, nms, scope, train_feed, smi):
+    """Phase 39 (d): detection_output (softmax, decode, NMS at SSD's
+    test settings) and InGraphDetectionMAP over SSD_INFER_BATCHES
+    batches of SSD_B (the first the training batch): each batch's
+    in-graph TpHist / FpHist / PosCount equal, to the bit,
+    detection_map_buckets run on the CPU over the fetched detections,
+    and the states their sum; each batch's wall, the NMS's share of it
+    (the op alone on the same inputs), syncs a batch; the in-graph mAP
+    beside the host DetectionMAP's. No TPU kernel launched."""
+    rng = np.random.RandomState(SEED + 63)
+    feeds = [train_feed] + [ssd300_feed(rng, SSD_B)
+                            for _ in range(SSD_INFER_BATCHES - 1)]
+    exe = pt.Executor()
+    dmap.reset(exe, scope)
+    blk = infer.global_block()
+    nms_op = next(op for op in blk.ops if op.type == "multiclass_nms")
+    hists = [f"{dmap._prefix}.{s}" for s in ("TpHist", "FpHist", "PosCount")]
+    fetch = [nms[0].name, nms[1].name] + hists + [
+        nms_op.inputs["Scores"][0], nms_op.inputs["BBoxes"][0]]
+    attrs = next(op for op in blk.ops
+                 if op.type == "detection_map_buckets").attrs
+    host = pt.evaluator.DetectionMAP(overlap_threshold=0.5)
+    sums = [0.0, 0.0, 0.0]
+    walls, outs, nms_ms, kept = [], [], [], []
+    zero_counts()                       # the main path starts here
+    for feed in feeds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(exe.run(infer, feed=feed, fetch_list=fetch, scope=scope,
+                            return_numpy=False))
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, launches_of(), "SSD300 inference (no TPU kernel "
+                 "on this path)")
+    # what the batches fetched, checked and timed after the main path
+    for feed, out in zip(feeds, outs):
+        dets = out[0].cpu().numpy()
+        kept.append(int(out[1].sum()))
+        ref = lower_on("detection_map_buckets",
+                       {"Detections": [dets], "GtBoxes": [feed["gtb"]],
+                        "GtLabels": [feed["gtl"]]}, attrs, "cpu")
+        for i, slot in enumerate(("TpHist", "FpHist", "PosCount")):
+            got = out[2 + i].cpu()
+            if not torch.equal(got, ref[slot][0]):
+                raise AssertionError(f"SSD300 in-graph mAP {slot} differs "
+                                     f"from detection_map_buckets on the CPU")
+            sums[i] = sums[i] + ref[slot][0]
+        host.update(dets, feed["gtb"], feed["gtl"])
+        sc, bx = out[5], out[6]
+        nms_ms.append(card_wall_ms(
+            lambda: lower_on("multiclass_nms", {"Scores": [sc],
+                                                "BBoxes": [bx]},
+                             nms_op.attrs, "cuda"), reps=1))
+    del outs
+    for st, want in zip(dmap.states, sums):
+        if not torch.equal(scope.get(st.name).cpu(), want):
+            raise AssertionError(f"SSD300: the mAP state {st.name} is not "
+                                 f"the sum of the batches' histograms")
+    got_map, host_map = dmap.eval(exe, scope), host.eval()
+    syncs = ctr_step_syncs(exe, infer, feeds[-1], scope)
+    shares = [n / w for n, w in zip(nms_ms, walls)]
+    log(f"SSD300 inference B {SSD_B} x {len(feeds)} batches "
+        f"(detection_output: NMS {SSD_NMS}): walls "
+        f"{[round(w, 1) for w in walls]} ms, the NMS alone "
+        f"{[round(n, 1) for n in nms_ms]} ms (share "
+        f"{[round(s, 3) for s in shares]}), {syncs} host syncs a batch, "
+        f"{kept} detections kept; in-graph histograms == "
+        f"detection_map_buckets on the CPU, bitwise; mAP in-graph "
+        f"{got_map:.6f}, host DetectionMAP {host_map:.6f} | {smi}")
+    return counts, {"B": SSD_B, "batches": len(feeds), "walls_ms": walls,
+                    "nms_ms": nms_ms, "nms_share": shares,
+                    "syncs_per_batch": syncs, "kept": kept,
+                    "map_in_graph": got_map, "map_host": host_map}
+
+
+def roi_pool_phase(smi):
+    """Phase 39 (e): roi_pool at Fast R-CNN's shape (VGG16 conv5_3 of a
+    600 x 1000 image: [2, 512, 38, 63], spatial_scale 1/16, 128 ROIs an
+    image, 7 x 7 bins): Out and Argmax equal the CPU's exactly, the
+    gradient of a weighted sum within ROI_GRAD_TOL of its largest
+    element; ms forward and forward + backward, peak memory, syncs."""
+    rng = np.random.RandomState(SEED + 64)
+    B = ROI_FEAT[0]
+    x = np.maximum(rng.randn(*ROI_FEAT), 0).astype(np.float32)
+    N = B * ROI_PER_IMAGE
+    ih, iw = ROI_IMAGE
+    wh = np.stack([rng.uniform(32, 400, N), rng.uniform(32, 300, N)], 1)
+    xy = rng.rand(N, 2) * (np.array([iw, ih]) - wh)
+    rois = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    lens = np.full(B, ROI_PER_IMAGE, np.int32)
+    wsum = rng.randn(N, ROI_FEAT[1], ROI_BINS, ROI_BINS).astype(np.float32)
+    attrs = {"spatial_scale": 1.0 / 16, "pooled_height": ROI_BINS,
+             "pooled_width": ROI_BINS}
+    on = {d: [torch.from_numpy(a).to(d) for a in (x, rois, lens, wsum)]
+          for d in ("cuda", "cpu")}
+
+    def run(device, backward=True):
+        xd, rd, ld, wd = on[device]
+        xt = xd.detach().requires_grad_(backward)
+        out = lower_on("roi_pool", {"X": [xt], "ROIs": [rd], "SeqLen": [ld]},
+                       attrs, device, grad=backward)
+        g = None
+        if backward:
+            g, = torch.autograd.grad((out["Out"][0] * wd).sum(), [xt])
+        return out["Out"][0].detach(), out["Argmax"][0], g
+
+    co, ca, cg = run("cuda")
+    ro, ra, rg = run("cpu")
+    if not (torch.equal(co.cpu(), ro) and torch.equal(ca.cpu(), ra)):
+        raise AssertionError("roi_pool: Out / Argmax on the card differ from "
+                             "the CPU's")
+    gerr = max_rel(cg, rg)
+    if not gerr <= ROI_GRAD_TOL:
+        raise AssertionError(f"roi_pool: the gradient differs by {gerr:.3e}")
+    fwd_ms = card_wall_ms(lambda: run("cuda", backward=False), reps=5)
+    both_ms = card_wall_ms(lambda: run("cuda"), reps=5)
+    fwd_mib = call_peak_mib(lambda: run("cuda", backward=False))
+    both_mib = call_peak_mib(lambda: run("cuda"))
+    syncs = call_syncs(lambda: run("cuda", backward=False))
+    dev_ms, kernels = device_time(lambda: run("cuda", backward=False))
+    empty = int((ra == -1).sum())
+    log(f"roi_pool at Fast R-CNN's shape (features {list(ROI_FEAT)}, "
+        f"{N} ROIs, scale 1/16, {ROI_BINS} x {ROI_BINS}): Out and Argmax "
+        f"== the CPU's ({empty} empty bins), gradient {gerr:.2e} of its "
+        f"largest element (tol {ROI_GRAD_TOL:g}); forward {fwd_ms:.3f} ms "
+        f"({dev_ms:.3f} device ms in {kernels} kernels), forward + backward "
+        f"{both_ms:.3f} ms, peak {fwd_mib:.1f} / {both_mib:.1f} MiB, "
+        f"{syncs} host sync(s) a call | {smi}")
+    return {"features": list(ROI_FEAT), "rois": N, "grad_rel_err": gerr,
+            "fwd_ms": fwd_ms, "fwd_device_ms": dev_ms, "fwd_kernels": kernels,
+            "fwd_bwd_ms": both_ms, "fwd_peak_mib": fwd_mib,
+            "fwd_bwd_peak_mib": both_mib, "syncs": syncs,
+            "empty_bins": empty}
+
+
+def evaluators_phase(smi):
+    """Phase 39 (f): InGraphPnpair over PNPAIR_N scores in PNPAIR_Q
+    queries and InGraphPrecisionRecall over PR_N predictions of 21
+    classes, each program run on the card and on the CPU from zeroed
+    states: the states equal exactly, and equal the host evaluators'
+    counts."""
+    rng = np.random.RandomState(SEED + 65)
+    res = {}
+    for name in ("pnpair", "precision_recall"):
+        pt.framework.reset_default_programs()
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup):
+            if name == "pnpair":
+                s = pt.layers.data("s", [1])
+                y = pt.layers.data("y", [1])
+                q = pt.layers.data("q", [1], dtype="int64")
+                e = pt.evaluator.InGraphPnpair(score=s, label=y, query_id=q)
+                feed = {"s": np.round(rng.randn(PNPAIR_N, 1) * 4).astype(
+                            np.float32),
+                        "y": rng.randint(0, 3, (PNPAIR_N, 1)).astype(
+                            np.float32),
+                        "q": np.sort(rng.randint(0, PNPAIR_Q, (PNPAIR_N, 1)),
+                                     0).astype(np.int64)}
+                host = pt.evaluator.PnpairEvaluator()
+                host.update(feed["s"], feed["y"], feed["q"])
+                want = [host.pos, host.neg, host.spe]
+            else:
+                p = pt.layers.data("p", [1], dtype="int64")
+                lab = pt.layers.data("lab", [1], dtype="int64")
+                e = pt.evaluator.InGraphPrecisionRecall(p, lab, SSD_C)
+                lab_np = rng.randint(0, SSD_C, (PR_N, 1))
+                pred = np.where(rng.rand(PR_N, 1) < 0.6, lab_np,
+                                rng.randint(0, SSD_C, (PR_N, 1)))
+                feed = {"p": pred.astype(np.int64),
+                        "lab": lab_np.astype(np.int64)}
+                host = pt.evaluator.PrecisionRecall(SSD_C)
+                host.update(pred, lab_np)
+                want = [host.tp, host.fp, host.fn]
+        got = {}
+        for device in ("cuda", "cpu"):
+            exe = pt.Executor(None if device == "cuda" else pt.CPUPlace())
+            scope = pt.Scope()
+            e.reset(exe, scope)
+            t0 = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=[], scope=scope)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                res[f"{name}_ms"] = 1e3 * (time.perf_counter() - t0)
+            got[device] = [scope.get(st.name).cpu().numpy()
+                           for st in e.states]
+        for c, r, w in zip(got["cuda"], got["cpu"], want):
+            if not (np.array_equal(c, r)
+                    and np.array_equal(c.astype(np.float64),
+                                       np.asarray(w, np.float64).reshape(
+                                           c.shape))):
+                raise AssertionError(f"{name}: the card's counts differ from "
+                                     f"the CPU's or the host evaluator's")
+        res[name] = [np.asarray(v).reshape(-1)[:3].tolist()
+                     for v in got["cuda"]]
+    log(f"in-graph evaluators on the card == the CPU == the host: "
+        f"InGraphPnpair over {PNPAIR_N} scores in {PNPAIR_Q} queries (pos, "
+        f"neg, spe {res['pnpair']}) in {res['pnpair_ms']:.1f} ms; "
+        f"InGraphPrecisionRecall over {PR_N} predictions of {SSD_C} classes "
+        f"in {res['precision_recall_ms']:.1f} ms | {smi}")
+    return res
+
+
+def detection_phase(smi):
+    """Phase 39."""
+    t0 = time.perf_counter()
+    ops = det_ops_phase(smi)
+    main, startup, cost, infer, dmap, nms = ssd300_programs()
+    check = ssd_check_phase(main, startup, cost, smi)
+    train_counts, scope, feed, train = ssd_train_phase(main, startup, cost,
+                                                       smi)
+    infer_counts, inference = ssd_infer_phase(infer, dmap, nms, scope, feed,
+                                              smi)
+    del scope
+    roi = roi_pool_phase(smi)
+    evals = evaluators_phase(smi)
+    secs = time.perf_counter() - t0
+    log(f"detection: phase 39 in {secs:.1f} s | {smi}")
+    return ({"ssd300_training": train_counts,
+             "ssd300_inference": infer_counts},
+            {"ops": ops, "step_check": check, "training": train,
+             "inference": inference, "roi_pool": roi, "evaluators": evals,
+             "seconds": secs})
+
+
 def main():
     name, smi = device_phase()
     t0 = time.perf_counter()
@@ -7968,6 +8682,7 @@ def main():
     ctr_paths, ctr = ctr_phase(smi)
     book_paths, book = book_phase(smi)
     fleet_paths, fleet = fleet_phase(smi)
+    det_paths, detection = detection_phase(smi)
     paths = {"serving": {"flash_attn_fwd": serving_k1},
              f"training_T{TRAIN_T}": train_counts,
              f"training_T{SHORT_T}": short_counts,
@@ -7984,7 +8699,7 @@ def main():
              "resnet50_serving_f32": resnet_serving_counts["f32"],
              "resnet50_serving_int8": resnet_serving_counts["int8"],
              **telemetry_paths, **sequence_paths, **ctr_paths,
-             **book_paths, **fleet_paths}
+             **book_paths, **fleet_paths, **det_paths}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ALL_KERNELS}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()}
@@ -8071,7 +8786,8 @@ def main():
                                    "hostfed": resnet_hostfed,
                                    "serving": resnet_serving},
                       "telemetry": telemetry, "sequence": sequence,
-                      "ctr": ctr, "book": book, "fleet": fleet}),
+                      "ctr": ctr, "book": book, "fleet": fleet,
+                      "detection": detection}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

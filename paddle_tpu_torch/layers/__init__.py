@@ -6,4 +6,5 @@ from .tensor import *    # noqa: F401,F403
 from .nn import *        # noqa: F401,F403
 from .math_ops import *  # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403
+from .detection import *  # noqa: F401,F403
 from .rnn_group import *  # noqa: F401,F403
