@@ -429,6 +429,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      4096 predictions of 21 classes: counts equal to the CPU's and the
      host evaluators'. No TPU kernel lies on the SSD300 paths: their
      launch counts are checked to be 0.
+ 40. the rest of the op corpus, f32 with TF32 off. (a) each of the 57
+     ops at a stated shape on the card against the same lowering on
+     the CPU: outputs within 1e-5 of their largest element, gradients
+     within 1e-4, the integer and selecting outputs (gather, scatter
+     with distinct ids, multiplex, crop, rotate, range, isfinite, ceil,
+     round, the with_index pools' Mask) exactly, a tied window's
+     gradient split in quarters exactly; where raises; print syncs
+     once; nce without CustomSamples draws uniform negatives in [0, V)
+     (chi-square) and scores them as the CPU does, with CustomSamples
+     draws nothing; sampling_id's one-hot rows exact, a fixed row's
+     draws by chi-square. (b) word2vec's N-gram model at the book's
+     widths (V 2073, embedding 32, hidden 256, B 100) with the softmax,
+     NCE (10 negatives) and hsigmoid heads: step 1 op by op against the
+     CPU (NCE's negatives given), 200 Adam steps with the loss falling,
+     examples/s, device ms, busy share, syncs a step. (c) nets.glu and
+     nets.scaled_dot_product_attention against the CPU. (d) C3D's conv1
+     / pool1 / conv2 / pool2 and conv2's inverse (B 8 clips of 3 x 16 x
+     112 x 112), SegNet's pool with index into unpool (B 4 x 64 x 360 x
+     480), spp on VGG16's conv5 map and bilinear_interp x 2: forward +
+     backward ms and peak memory, and at batch 1 against the CPU. No
+     TPU kernel lies on these paths: their launch counts are checked to
+     be 0.
 
 The second-to-last line is the kernel table as JSON (with the ResNet-50
 results under "resnet50"); the last line is
@@ -4438,14 +4460,17 @@ def suite_cases():
     }
 
 
-def lower_on(op, ins, attrs, device, in_place=False, grad=False):
+def lower_on(op, ins, attrs, device, in_place=False, grad=False,
+             generator=None):
     """One op's lowering on `device` over numpy arrays or tensors (the
     executor's dispatch without a program): a tensor already on
     `device` is passed as it is, anything else is copied there (always
     copied when `in_place`, so the lowering never writes the caller's
-    arrays); autograd records only when `grad`."""
+    arrays); autograd records only when `grad`; a random op draws from
+    `generator`."""
     ctx = types.SimpleNamespace(in_place=in_place, op=None,
-                                device=torch.device(device))
+                                device=torch.device(device),
+                                generator=generator)
     tins = {k: [torch.as_tensor(v).to(device, copy=in_place) for v in vs]
             for k, vs in ins.items()}
     with torch.set_grad_enabled(grad):
@@ -6582,10 +6607,13 @@ def whole_profile(exe, main, feed, cost, scope, step_ms, what, smi,
             and any(k in str(e.get("name", ""))
                     for k in ("Launch", "Memcpy", "Memset"))
             for e in events)
-        called = {(e.get("args") or {}).get("correlation") for e in events
-                  if str(e.get("cat", "")).lower() in ("cuda_runtime",
-                                                        "cuda_driver")
-                  and "LaunchKernel" in str(e.get("name", ""))}
+        calls = sorted(((e.get("ts", 0), (e.get("args") or {}).get(
+            "correlation")) for e in events
+            if str(e.get("cat", "")).lower() in ("cuda_runtime",
+                                                  "cuda_driver")
+            and "LaunchKernel" in str(e.get("name", ""))),
+            key=lambda tc: float(tc[0]))
+        called = {c for _, c in calls}
         ran = {(e.get("args") or {}).get("correlation") for e in events
                if str(e.get("cat", "")).lower() == "kernel"}
         lost = len(called - ran)
@@ -6593,9 +6621,12 @@ def whole_profile(exe, main, feed, cost, scope, step_ms, what, smi,
                     kernel_launches=len(called), kernels_lost=lost)
         if called and lost == 0:
             return prof
+        # where in the step's launch order the lost kernels sat (C30)
+        at = [i for i, (_, c) in enumerate(calls) if c not in ran]
         log(f"{what}: profile {n} kept {prof['kernels_per_step']} device "
             f"events of {launched} launched, lost {lost} of "
-            f"{len(called)} kernels | {smi}")
+            f"{len(called)} kernels, at launches {at[:3]}..{at[-3:]} of "
+            f"{len(calls)} | {smi}")
     prof.update(device_ms=None, busy=None, top_op_types_ms=None)
     return prof
 
@@ -8640,6 +8671,678 @@ def detection_phase(smi):
              "seconds": secs})
 
 
+# -- phase 40: the rest of the op corpus ---------------------------------------
+
+# (a) tolerances: forward within OPS_FWD_TOL of each output's largest
+# element, gradients within OPS_GRAD_TOL of each gradient's largest
+OPS_FWD_TOL, OPS_GRAD_TOL = 1e-5, 1e-4
+# chi-square tests of the random ops' draws: the 0.999 quantile
+CHI2_Z = 3.09
+# (b) word2vec's N-gram model at the book's widths (test_word2vec.py):
+# 4 context words, embedding 32, hidden 256, B 100, over imikolov's
+# dictionary at min_word_freq 50 (2073 words); 10 NCE negatives (the
+# reference default); Adam, W2V_STEPS steps over W2V_BATCHES batches
+W2V_V, W2V_EMB, W2V_HID, W2V_B = 2073, 32, 256, 100
+W2V_NEG, W2V_STEPS, W2V_BATCHES, W2V_LR = 10, 200, 8, 1e-3
+W2V_HEADS = ("softmax", "nce", "hsigmoid")
+CARD = "cuda"                    # phase 40's device
+# (d) published shapes: C3D (Tran et al., 2015) clips 3 x 16 x 112 x 112
+# at B C3D_B; SegNet's first encoder / last decoder stage on CamVid
+# (360 x 480, 64 channels) at B SEGNET_B; VGG16's conv5 map (224 input)
+# at B SPP_B; a [B, 21, 64, 64] score map x 2 at B INTERP_B; the CPU
+# check of each at batch 1
+C3D_B, SEGNET_B, SPP_B, INTERP_B = 8, 4, 32, 32
+
+
+def _u(rng, shape, lo=-1.0, hi=1.0):
+    return rng.uniform(lo, hi, shape).astype(np.float32)
+
+
+def corpus_cases(rng):
+    """(a)'s cases: (op, inputs, attrs, output slot, gradient slots,
+    exact output slots). Shapes: a [256, 1024] f32 plane for the
+    elementwise ops, the stated ones for the rest."""
+    E = (256, 1024)
+    pos = _u(rng, E, 0.5, 2.0)
+    ties = np.zeros((2, 4, 8, 8), np.float32)
+    ties[:, :, 0:2, 0:2] = 1.0          # a window of four tied maxima
+    ties[:, :, 4:6, 2:4] = 2.0
+    lens = rng.randint(1, 33, (64,)).astype(np.int32)
+    return [
+        ("elementwise_pow", {"X": [pos], "Y": [_u(rng, E, -2, 2)]}, {},
+         "Out", ("X", "Y"), ()),
+        ("rsqrt", {"X": [pos]}, {}, "Out", ("X",), ()),
+        ("abs", {"X": [_u(rng, E)]}, {}, "Out", ("X",), ()),
+        ("log", {"X": [pos]}, {}, "Out", ("X",), ()),
+        ("ceil", {"X": [_u(rng, E, -8, 8)]}, {}, "Out", (), ("Out",)),
+        ("round", {"X": [np.round(_u(rng, E, -8, 8) * 2) / 2]}, {}, "Out",
+         (), ("Out",)),
+        ("reciprocal", {"X": [pos]}, {}, "Out", ("X",), ()),
+        ("cos", {"X": [_u(rng, E, -4, 4)]}, {}, "Out", ("X",), ()),
+        ("sin", {"X": [_u(rng, E, -4, 4)]}, {}, "Out", ("X",), ()),
+        ("reduce_mean", {"X": [_u(rng, (64, 128, 32))]}, {"dim": [1]},
+         "Out", ("X",), ()),
+        ("reduce_min", {"X": [np.round(_u(rng, (64, 128, 32)) * 4)]},
+         {"dim": [0, 2]}, "Out", ("X",), ()),
+        ("reduce_prod", {"X": [_u(rng, (4096, 8), 0.5, 1.5)]}, {"dim": [1]},
+         "Out", ("X",), ()),
+        ("split", {"X": [_u(rng, E)]}, {"axis": 1,
+                                        "sections": [256, 512, 256]},
+         "Out", ("X",), ()),
+        ("stack", {"X": [_u(rng, E), _u(rng, E)]}, {"axis": 1}, "Out",
+         ("X",), ()),
+        ("expand", {"X": [_u(rng, (256, 64))]}, {"expand_times": [2, 16]},
+         "Out", ("X",), ()),
+        ("pad", {"X": [_u(rng, (64, 32, 32))]},
+         {"paddings": [0, 0, 1, 2, 3, 0], "pad_value": 0.5}, "Out", ("X",),
+         ()),
+        ("isfinite", {"X": [_u(rng, E), np.asarray([1.0, np.inf],
+                                                    np.float32)]}, {},
+         "Out", (), ("Out",)),
+        ("gather", {"X": [_u(rng, (4096, 256))],
+                    "Index": [rng.randint(0, 4096, (1024, 1))]}, {}, "Out",
+         ("X",), ("Out",)),
+        ("scatter", {"X": [_u(rng, (4096, 256))],
+                     "Ids": [rng.permutation(4096)[:1024]],
+                     "Updates": [_u(rng, (1024, 256))]}, {}, "Out",
+         ("X", "Updates"), ("Out",)),
+        ("cumsum", {"X": [_u(rng, (256, 1024))]},
+         {"axis": 1, "reverse": True, "exclusive": True}, "Out", ("X",),
+         ()),
+        ("range", {}, {"start": 3, "end": 100003, "step": 7}, "Out", (),
+         ("Out",)),
+        ("multiplex", {"X": [_u(rng, E), _u(rng, E), _u(rng, E)],
+                       "Ids": [rng.randint(0, 3, (256, 1))]}, {}, "Out",
+         ("X",), ("Out",)),
+        ("print", {"X": [_u(rng, (4, 8))]}, {"message": "phase 40 print",
+                                              "summarize": 8}, "Out", ("X",),
+         ("Out",)),
+        ("hard_shrink", {"X": [_u(rng, E, -2, 2)]}, {"threshold": 0.5},
+         "Out", ("X",), ()),
+        ("tanh_shrink", {"X": [_u(rng, E, -3, 3)]}, {}, "Out", ("X",), ()),
+        ("soft_relu", {"X": [_u(rng, E, -50, 50)]}, {"threshold": 40.0},
+         "Out", ("X",), ()),
+        ("prelu", {"X": [_u(rng, (32, 64, 16, 16))],
+                   "Alpha": [_u(rng, (64,), 0, 0.5)]}, {"mode": "channel"},
+         "Out", ("X", "Alpha"), ()),
+        ("minus", {"X": [_u(rng, E)], "Y": [_u(rng, E)]}, {}, "Out",
+         ("X", "Y"), ()),
+        ("log_loss", {"Predicted": [_u(rng, (4096, 1), 0.01, 0.99)],
+                      "Labels": [(rng.rand(4096, 1) > 0.5).astype(
+                          np.float32)]}, {}, "Loss", ("Predicted",), ()),
+        ("margin_rank_loss", {"X1": [_u(rng, (4096, 1))],
+                              "X2": [_u(rng, (4096, 1))],
+                              "Label": [np.sign(_u(rng, (4096, 1)))]},
+         {"margin": 0.1}, "Out", ("X1", "X2"), ()),
+        ("modified_huber_loss", {"X": [_u(rng, (4096, 1), -3, 3)],
+                                 "Y": [(rng.rand(4096, 1) > 0.5).astype(
+                                     np.float32)]}, {}, "Out", ("X",), ()),
+        ("squared_l2_distance", {"X": [_u(rng, (512, 256))],
+                                 "Y": [_u(rng, (1, 256))]}, {}, "Out",
+         ("X", "Y"), ()),
+        ("l1_norm", {"X": [_u(rng, E)]}, {}, "Out", ("X",), ()),
+        ("squared_l2_norm", {"X": [_u(rng, E)]}, {}, "Out", ("X",), ()),
+        ("label_smooth", {"X": [np.eye(1000, dtype=np.float32)[
+            rng.randint(0, 1000, 512)]]}, {"epsilon": 0.1}, "Out", ("X",),
+         ()),
+        ("assign_value", {}, {"shape": [4, 4],
+                              "fp32_values": _u(rng, (16,)).tolist()},
+         "Out", (), ("Out",)),
+        ("fill", {}, {"shape": [2, 3], "value": [1, 2, 3, 4, 5, 6],
+                      "dtype": "int64"}, "Out", (), ("Out",)),
+        ("bilinear_tensor_product", {"X": [_u(rng, (256, 128))],
+                                     "Y": [_u(rng, (256, 64))],
+                                     "Weight": [_u(rng, (32, 128, 64),
+                                                   -0.1, 0.1)],
+                                     "Bias": [_u(rng, (1, 32))]}, {}, "Out",
+         ("X", "Y", "Weight", "Bias"), ()),
+        ("conv_shift", {"X": [_u(rng, (256, 128))],
+                        "Y": [_u(rng, (256, 5))]}, {}, "Out", ("X", "Y"),
+         ()),
+        ("lambda_rank_cost", {"Score": [_u(rng, (64, 32))],
+                              "Label": [rng.randint(0, 4, (64, 32)).astype(
+                                  np.float32)], "SeqLen": [lens]},
+         {"NDCG_num": 5, "max_sort_size": -1}, "Out", ("Score",), ()),
+        ("conv3d", {"Input": [_u(rng, (4, 8, 8, 16, 16))],
+                    "Filter": [_u(rng, (16, 8, 3, 3, 3), -0.2, 0.2)]},
+         {"paddings": [1, 1, 1]}, "Output", ("Input", "Filter"), ()),
+        ("conv3d_transpose", {"Input": [_u(rng, (4, 16, 4, 8, 8))],
+                              "Filter": [_u(rng, (16, 8, 2, 2, 2), -0.2,
+                                            0.2)]},
+         {"strides": [2, 2, 2]}, "Output", ("Input", "Filter"), ()),
+        ("pool3d", {"X": [_u(rng, (4, 16, 8, 16, 16))]},
+         {"pooling_type": "avg", "ksize": [2, 3, 3], "strides": [2, 2, 2],
+          "paddings": [0, 1, 1]}, "Out", ("X",), ()),
+        ("max_pool2d_with_index", {"X": [_u(rng, (8, 16, 32, 32))]},
+         {"ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1]}, "Out",
+         ("X",), ("Mask",)),
+        ("max_pool2d_with_index", {"X": [ties]},
+         {"ksize": [2, 2], "strides": [2, 2]}, "Out", ("X",),
+         ("Out", "Mask", "grad")),
+        ("max_pool3d_with_index", {"X": [_u(rng, (4, 8, 8, 16, 16))]},
+         {"ksize": [2, 2, 2], "strides": [2, 2, 2]}, "Out", ("X",),
+         ("Mask",)),
+        ("unpool", {"X": [_u(rng, (8, 16, 16, 16))],
+                    "Indices": [(np.arange(16 * 16).reshape(16, 16) // 16
+                                 * 64 + np.arange(16) * 2)[None, None]
+                                .repeat(8, 0).repeat(16, 1)]},
+         {"ksize": [2, 2], "strides": [2, 2]}, "Out", ("X",), ()),
+        ("spp", {"X": [_u(rng, (8, 64, 14, 14))]},
+         {"pyramid_height": 3, "pooling_type": "max"}, "Out", ("X",), ()),
+        ("crop", {"X": [_u(rng, (8, 16, 64, 64))]},
+         {"shape": [48, 40], "offsets": [5, 9]}, "Out", ("X",), ("Out",)),
+        ("norm", {"X": [_u(rng, (8, 512, 38, 38))],
+                  "Scale": [np.full((512,), 20.0, np.float32)]}, {}, "Out",
+         ("X", "Scale"), ()),
+        ("bilinear_interp", {"X": [_u(rng, (8, 21, 32, 32))]},
+         {"out_h": 64, "out_w": 64}, "Out", ("X",), ()),
+        ("rotate", {"X": [_u(rng, (8, 16, 32, 48))]}, {}, "Out", ("X",),
+         ("Out",)),
+        ("scale_sub_region", {"X": [_u(rng, (8, 16, 32, 32))],
+                              "Indices": [np.tile(np.asarray(
+                                  [[2, 9, 3, 20, 5, 30]], np.int32),
+                                  (8, 1))]}, {"value": 2.0}, "Out", ("X",),
+         ()),
+        ("dynamic_conv2d", {"X": [_u(rng, (16, 8, 32, 32))],
+                            "Filter": [_u(rng, (16, 16 * 8 * 3 * 3), -0.2,
+                                          0.2)]},
+         {"num_filters": 16, "num_channels": 8, "kh": 3, "kw": 3, "ph": 1,
+          "pw": 1}, "Out", ("X", "Filter"), ()),
+        ("nce", {"Input": [_u(rng, (W2V_B, W2V_HID))],
+                 "Label": [rng.randint(0, W2V_V, (W2V_B, 1))],
+                 "Weight": [_u(rng, (W2V_V, W2V_HID), -0.1, 0.1)],
+                 "Bias": [_u(rng, (W2V_V,), -0.1, 0.1)],
+                 "CustomSamples": [rng.randint(0, W2V_V, (W2V_B, W2V_NEG))]},
+         {"num_total_classes": W2V_V, "num_neg_samples": W2V_NEG}, "Cost",
+         ("Input", "Weight", "Bias"), ()),
+        ("hsigmoid", {"X": [_u(rng, (W2V_B, W2V_HID))],
+                      "Label": [rng.randint(0, W2V_V, (W2V_B, 1))],
+                      "W": [_u(rng, (W2V_V - 1, W2V_HID), -0.1, 0.1)],
+                      "Bias": [_u(rng, (W2V_V - 1,), -0.1, 0.1)]},
+         {"num_classes": W2V_V}, "Cost", ("X", "W", "Bias"), ()),
+        ("sampling_id", {"X": [np.eye(1000, dtype=np.float32)[
+            rng.randint(0, 1000, 4096)]]}, {}, "Out", (), ("Out",)),
+    ]
+
+
+def corpus_run(dev, op, ins, attrs, slot, grad, cot_seed):
+    """One op's lowering on `dev` over the numpy inputs, and with `grad`
+    the gradients of output slot `slot` (every tensor of it) under
+    seeded cotangents: (outputs, {input slot: [grads]})."""
+    tins = {k: [torch.as_tensor(np.asarray(v)).to(dev) for v in vs]
+            for k, vs in ins.items()}
+    leaves = []
+    for s in grad:
+        tins[s] = [t.clone().requires_grad_(True) for t in tins[s]]
+        leaves += tins[s]
+    out = lower_on(op, tins, attrs, dev, grad=bool(grad))
+    grads = {}
+    if grad:
+        ys = out[slot]
+        crng = np.random.RandomState(cot_seed)
+        cots = [torch.from_numpy(crng.randn(*y.shape).astype(np.float32))
+                .to(dev) for y in ys]
+        gs = torch.autograd.grad(ys, leaves, cots, allow_unused=True)
+        i = 0
+        for s in grad:
+            n = len(tins[s])
+            grads[s] = [torch.zeros_like(t) if g is None else g.detach()
+                        for t, g in zip(tins[s], gs[i:i + n])]
+            i += n
+    return ({k: [v.detach() for v in vs] for k, vs in out.items()}, grads)
+
+
+def chi2_ok(counts, probs):
+    """Pearson's chi-square statistic of `counts` against `probs` below
+    the distribution's 0.999 quantile (Wilson-Hilferty):
+    (ok, statistic, quantile)."""
+    counts = np.asarray(counts, np.float64)
+    exp = counts.sum() * np.asarray(probs, np.float64)
+    stat = float(np.sum((counts - exp) ** 2 / exp))
+    k = len(probs) - 1
+    q = k * (1 - 2 / (9 * k) + CHI2_Z * np.sqrt(2 / (9 * k))) ** 3
+    return stat < q, stat, float(q)
+
+
+def corpus_sweep_phase(smi):
+    """Phase 40 (a): each of the 57 ops on the card against the same
+    lowering on the CPU over the same seeded inputs: every output within
+    OPS_FWD_TOL of its largest element (exactly where the op is integer
+    or selecting), each listed gradient within OPS_GRAD_TOL of its
+    largest; `where` raises on the card as in the reference; the random
+    ops by their distributions."""
+    rng = np.random.RandomState(SEED + 80)
+    res, worst_fwd, worst_grad = {}, 0.0, 0.0
+    ops = set()
+    for i, (op, ins, attrs, slot, grad, exact) in enumerate(
+            corpus_cases(rng)):
+        name = op if op not in res else f"{op}_ties"
+        card, gcard = corpus_run(CARD, op, ins, attrs, slot, grad, i)
+        cpu, gcpu = corpus_run("cpu", op, ins, attrs, slot, grad, i)
+        fwd = {}
+        for s, vals in cpu.items():
+            for j, (c, r) in enumerate(zip(card[s], vals)):
+                c = c.cpu()
+                if tuple(c.shape) != tuple(r.shape) or c.dtype != r.dtype:
+                    raise AssertionError(f"{op} {s}: {tuple(c.shape)} "
+                                         f"{c.dtype} on the card, "
+                                         f"{tuple(r.shape)} {r.dtype} on "
+                                         f"the CPU")
+                if s in exact or not r.is_floating_point():
+                    if not torch.equal(c, r):
+                        raise AssertionError(f"{op} {s}: not equal to the "
+                                             f"CPU's")
+                    fwd[f"{s}{j}"] = 0.0
+                else:
+                    fwd[f"{s}{j}"] = max_rel(c, r)
+        gerr = {}
+        for s in grad:
+            for j, (c, r) in enumerate(zip(gcard[s], gcpu[s])):
+                if "grad" in exact:
+                    if not torch.equal(c.cpu(), r):
+                        raise AssertionError(f"{op} {s} gradient: not "
+                                             f"equal to the CPU's")
+                gerr[f"{s}{j}"] = max_rel(c, r)
+        f, g = max(fwd.values(), default=0.0), max(gerr.values(),
+                                                    default=0.0)
+        if not (f <= OPS_FWD_TOL and g <= OPS_GRAD_TOL):
+            raise AssertionError(f"{op}: the card differs from the CPU: "
+                                 f"forward {fwd}, gradients {gerr}")
+        worst_fwd, worst_grad = max(worst_fwd, f), max(worst_grad, g)
+        shapes = {k: [list(np.shape(v)) for v in vs]
+                  for k, vs in ins.items()}
+        res[name] = {"shapes": shapes, "fwd_err": f, "grad_err": g,
+                     "exact": sorted(exact)}
+        ops.add(op)
+    # the tied window: each of the four maxima gets a quarter
+    x = torch.zeros((1, 1, 4, 4), device=CARD)
+    x[0, 0, :2, :2] = 1.0
+    x.requires_grad_(True)
+    out = lower_on("max_pool2d_with_index", {"X": [x]},
+                   {"ksize": [2, 2], "strides": [2, 2]}, CARD, grad=True)
+    g, = torch.autograd.grad(out["Out"][0].sum(), [x])
+    if not (torch.all(g[0, 0, :2, :2] == 0.25)
+            and int(out["Mask"][0].reshape(-1)[0]) == 0):
+        raise AssertionError("max_pool2d_with_index: a tied window's "
+                             f"gradient {g[0, 0, :2, :2].tolist()}")
+    # where raises on the card as the reference does
+    try:
+        lower_on("where", {"Condition": [torch.ones(4, dtype=torch.bool,
+                                                      device=CARD)]}, {},
+                 CARD)
+        raise AssertionError("where did not raise")
+    except NotImplementedError:
+        ops.add("where")
+    # print reads its values on the host: one sync
+    prints = call_syncs(lambda: lower_on(
+        "print", {"X": [torch.ones(3, device=CARD)]},
+        {"message": "phase 40 print sync"}, CARD))
+    res["print"]["syncs"] = prints
+    random = random_ops_phase(rng, smi)
+    ops.update(("nce", "sampling_id"))
+    if len(ops) != 57:
+        raise AssertionError(f"phase 40 (a) held {len(ops)} ops, not 57")
+    log(f"corpus ops: {len(ops)} ops held on the card against the CPU, the "
+        f"worst forward {worst_fwd:.2e} of the largest element (tol "
+        f"{OPS_FWD_TOL:g}), the worst gradient {worst_grad:.2e} (tol "
+        f"{OPS_GRAD_TOL:g}); exact: the integer and selecting outputs, the "
+        f"with_index Masks, a tied window's gradient split in quarters; "
+        f"where raised; print {prints} sync a call | {smi}")
+    return {"ops": res, "random": random, "worst_fwd": worst_fwd,
+            "worst_grad": worst_grad, "n_ops": len(ops)}
+
+
+def random_ops_phase(rng, smi):
+    """(a)'s random ops: nce without CustomSamples draws its negatives
+    from the generator on the card, in [0, V) and uniform by chi-square,
+    its cost the CPU's with them given as CustomSamples; with
+    CustomSamples it draws nothing (the generator's state unchanged);
+    sampling_id: one-hot rows give their class exactly, a fixed
+    probability row's draws pass a chi-square test."""
+    B, V, k = 4096, 1000, W2V_NEG
+    ins = {"Input": [_u(rng, (B, 64))],
+           "Label": [rng.randint(0, V, (B, 1))],
+           "Weight": [_u(rng, (V, 64), -0.1, 0.1)]}
+    attrs = {"num_total_classes": V, "num_neg_samples": k}
+    gen = torch.Generator(device=CARD).manual_seed(SEED + 81)
+    twin = torch.Generator(device=CARD).set_state(gen.get_state())
+    tins = {s: [torch.as_tensor(v[0]).to(CARD)] for s, v in ins.items()}
+    cost = lower_on("nce", tins, attrs, CARD, generator=gen)["Cost"][0]
+    neg = torch.randint(0, V, (B, k), generator=twin, dtype=torch.int64,
+                        device=CARD).cpu().numpy()
+    ok_range = neg.min() >= 0 and neg.max() < V
+    ok, stat, q = chi2_ok(np.bincount(neg.reshape(-1), minlength=V),
+                          [1.0 / V] * V)
+    ref = lower_on("nce", {**ins, "CustomSamples": [neg]}, attrs,
+                   "cpu")["Cost"][0]
+    nce_err = max_rel(cost.cpu(), ref)
+    state = gen.get_state()
+    lower_on("nce", {**tins, "CustomSamples": [neg]}, attrs, CARD,
+             generator=gen)
+    untouched = torch.equal(state, gen.get_state())
+    probs = np.asarray([0.02, 0.08, 0.1, 0.2, 0.25, 0.35], np.float32)
+    n = 100000
+    ids = lower_on("sampling_id", {"X": [np.tile(probs, (n, 1))]}, {},
+                   CARD, generator=gen)["Out"][0].cpu().numpy()
+    sok, sstat, sq = chi2_ok(np.bincount(ids, minlength=6), probs)
+    log(f"random ops: nce without CustomSamples, B {B} x {k} negatives of "
+        f"V {V} drawn on the card: in range {ok_range}, chi-square "
+        f"{stat:.1f} < {q:.1f} ({ok}), the cost vs the CPU's on the same "
+        f"negatives {nce_err:.2e}; with CustomSamples the generator is "
+        f"untouched ({untouched}); sampling_id over {n} rows of "
+        f"{probs.tolist()}: chi-square {sstat:.2f} < {sq:.2f} ({sok}) | "
+        f"{smi}")
+    if not (ok_range and ok and nce_err <= OPS_FWD_TOL and untouched
+            and sok):
+        raise AssertionError("phase 40 (a): a random op's draws fail")
+    return {"nce_chi2": stat, "nce_chi2_q": q, "nce_cost_err": nce_err,
+            "sampling_id_chi2": sstat, "sampling_id_chi2_q": sq}
+
+
+def w2v_program(head, custom=False):
+    """The book's N-gram model (models/word2vec.py::ngram_lm's body) with
+    one of three heads, Adam: (main, startup, cost)."""
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        words = [pt.layers.data(f"w{i}", [1], dtype="int64")
+                 for i in range(4)]
+        nxt = pt.layers.data("next", [1], dtype="int64")
+        embs = [pt.layers.embedding(
+            input=w, size=[W2V_V, W2V_EMB],
+            param_attr=pt.ParamAttr(name="shared_w")) for w in words]
+        hidden = pt.layers.fc(input=pt.layers.concat(input=embs, axis=1),
+                              size=W2V_HID, act="sigmoid")
+        if head == "softmax":
+            probs = pt.layers.fc(input=hidden, size=W2V_V, act="softmax")
+            cost = pt.layers.cross_entropy(probs, nxt)
+        elif head == "nce":
+            neg = (pt.layers.data("neg", [W2V_NEG], dtype="int64")
+                   if custom else None)
+            cost = pt.layers.nce(hidden, nxt, W2V_V,
+                                 num_neg_samples=W2V_NEG,
+                                 custom_samples=neg)
+        else:
+            cost = pt.layers.hsigmoid(hidden, nxt, W2V_V)
+        avg = pt.layers.mean(cost)
+        pt.AdamOptimizer(W2V_LR).minimize(avg)
+    main.seed = startup.seed = SEED + 90
+    return main, startup, avg
+
+
+def w2v_feeds(rng):
+    """W2V_BATCHES synthetic batches: the next word is the sum of the
+    four context ids modulo V (a learnable rule, as
+    tests/test_book_models.py's word2vec)."""
+    feeds = []
+    for _ in range(W2V_BATCHES):
+        ctx = [rng.randint(0, W2V_V, (W2V_B, 1)).astype(np.int64)
+               for _ in range(4)]
+        f = {f"w{i}": c for i, c in enumerate(ctx)}
+        f["next"] = (sum(c[:, 0] for c in ctx) % W2V_V).astype(
+            np.int64)[:, None]
+        feeds.append(f)
+    return feeds
+
+
+def w2v_head_phase(head, feeds, smi):
+    """Phase 40 (b), one head: step 1 op by op against the CPU (NCE with
+    the same negatives given as CustomSamples), then W2V_STEPS Adam
+    steps on the card (the mean loss of the last 10 below that of the
+    first 10); examples/s, device ms, busy share and syncs a step; no
+    TPU kernel launched."""
+    use_full_f32()
+    what = f"word2vec {head}"
+    main, startup, avg = w2v_program(head)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    # step 1 op by op on the CPU's values, from the same state
+    cmain, _, _ = w2v_program(head, custom=True) if head == "nce" else (
+        main, None, None)
+    feed1 = dict(feeds[0])
+    if head == "nce":
+        feed1["neg"] = np.random.RandomState(SEED + 91).randint(
+            0, W2V_V, (W2V_B, W2V_NEG)).astype(np.int64)
+    errs, _ = op_by_op_step(cmain, feed1, scope_of(tensors_of(scope), "cpu"),
+                            what, SEQ_CPU_TOL)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()                       # the main path starts here
+    losses, walls = [], []
+    for i in range(W2V_STEPS):
+        t0 = time.perf_counter()
+        loss, = exe.run(main, feed=feeds[i % W2V_BATCHES], fetch_list=[avg],
+                        scope=scope)
+        walls.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss.ravel()[0]))
+    counts = read_counts()              # the main path ends here
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    check_counts(counts, launches_of(), f"{what} (no TPU kernel on this "
+                 "path)")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    med, lo, hi = median_lo_hi(walls[10:])
+    prof = whole_profile(exe, main, feeds[0], avg, scope, med,
+                         f"{what} step", smi)
+    syncs = ctr_step_syncs(exe, main, feeds[0], scope)
+    device = ("not measured" if prof["device_ms"] is None else
+              f"{prof['device_ms']:.3f} ms (busy {prof['busy']:.3f})")
+    log(f"{what}: V {W2V_V}, emb {W2V_EMB}, hidden {W2V_HID}, B {W2V_B}, "
+        f"Adam({W2V_LR:g}), {W2V_STEPS} steps: mean loss of the first 10 "
+        f"{first:.4f} -> of the last 10 {last:.4f}; "
+        f"{W2V_B / (med / 1e3):.1f} examples/s (step {med:.3f} ms median, "
+        f"{lo:.3f}-{hi:.3f}), device {device}, "
+        f"{prof['kernels_per_step']} kernels a step ({prof['kernels_lost']}"
+        f" lost, capture {prof['captures']}), {syncs} syncs a step, peak "
+        f"{peak:.1f} MiB; step 1 op by op: the worst of {len(errs)} outputs "
+        f"{max(errs.values()):.2e} (tol {SEQ_CPU_TOL:g}); top ops "
+        f"{prof['top_op_types_ms']} | {smi}")
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"{what}: the loss did not fall: {first} -> "
+                             f"{last}")
+    return counts, {
+        "V": W2V_V, "B": W2V_B, "steps": W2V_STEPS, "lr": W2V_LR,
+        "loss_first10": first, "loss_last10": last,
+        "examples_per_s": W2V_B / (med / 1e3), "step_ms": med,
+        "step_ms_lo": lo, "step_ms_hi": hi, "device_ms": prof["device_ms"],
+        "busy": prof["busy"], "kernels_per_step": prof["kernels_per_step"],
+        "kernels_lost": prof["kernels_lost"],
+        "profile_captures": prof["captures"], "syncs_per_step": syncs,
+        "peak_mib": peak, "op_by_op_worst": max(errs.values()),
+        "top_op_types_ms": prof["top_op_types_ms"]}
+
+
+def nets_phase(smi):
+    """Phase 40 (c): nets.glu over [512, 2 x 512] and
+    nets.scaled_dot_product_attention over q [64, 128, 64], k / v [64,
+    256, 64], forward and their input gradients, on the card against
+    the CPU; K1 is launched no time (matmul, softmax, matmul)."""
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        a = pt.layers.data("a", [1024], dtype="float32",
+                           stop_gradient=False)
+        q = pt.layers.data("q", [128, 64], dtype="float32",
+                           stop_gradient=False)
+        k = pt.layers.data("k", [256, 64], dtype="float32",
+                           stop_gradient=False)
+        v = pt.layers.data("v", [256, 64], dtype="float32",
+                           stop_gradient=False)
+        g = pt.nets.glu(a, dim=-1)
+        att = pt.nets.scaled_dot_product_attention(q, k, v)
+        loss = pt.layers.elementwise_add(
+            pt.layers.reduce_sum(pt.layers.square(g)),
+            pt.layers.reduce_sum(pt.layers.square(att)))
+        grads = pt.backward.calc_gradient(loss, [a, q, k, v])
+    rng = np.random.RandomState(SEED + 92)
+    feed = {"a": _u(rng, (512, 1024)), "q": _u(rng, (64, 128, 64)),
+            "k": _u(rng, (64, 256, 64)), "v": _u(rng, (64, 256, 64))}
+    fetch = [g, att] + grads
+    zero_counts()                       # the main path starts here
+    card = pt.Executor().run(main, feed=feed, fetch_list=fetch)
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, launches_of(), "nets.glu / nets."
+                 "scaled_dot_product_attention (no TPU kernel)")
+    cpu = pt.Executor(pt.CPUPlace()).run(main, feed=feed, fetch_list=fetch)
+    names = ["glu", "sdpa", "d_a", "d_q", "d_k", "d_v"]
+    errs = {n: max_rel(c, r) for n, c, r in zip(names, card, cpu)}
+    log(f"nets: glu [512, 1024] and scaled_dot_product_attention q [64, "
+        f"128, 64] k / v [64, 256, 64] on the card against the CPU "
+        f"{ {n: f'{e:.2e}' for n, e in errs.items()} } (tol forward "
+        f"{OPS_FWD_TOL:g}, gradients {OPS_GRAD_TOL:g}); K1 launched "
+        f"{counts['flash_attn_fwd']} times | {smi}")
+    if not (errs["glu"] <= OPS_FWD_TOL and errs["sdpa"] <= OPS_FWD_TOL
+            and all(errs[n] <= OPS_GRAD_TOL for n in names[2:])):
+        raise AssertionError(f"nets: the card differs from the CPU: {errs}")
+    return counts, errs
+
+
+def vision_fwd_bwd(case, ins, dev):
+    """(d): one case's op forward + backward on `dev` under a ones
+    cotangent: (outputs, the differentiated output, the gradients of the
+    `grad` inputs). `then`: a second op fed by the first's outputs (the
+    pool's Mask into unpool)."""
+    tins = {k: [torch.as_tensor(v).to(dev) for v in vs]
+            for k, vs in ins.items()}
+    leaves = [t.requires_grad_(True) for s in case["grad"]
+              for t in tins[s]]
+    out = lower_on(case["op"], tins, case["attrs"], dev, grad=True)
+    y = out[case["slot"]][0]
+    if case.get("then") is not None:
+        top, tattrs = case["then"]
+        y = lower_on(top, {"X": [y], "Indices": [out["Mask"][0]]}, tattrs,
+                     dev, grad=True)["Out"][0]
+    gs = torch.autograd.grad(y, leaves, torch.ones_like(y))
+    return out, y, gs
+
+
+def legacy_vision_case(case, card_ins, smi):
+    """(d): one case at its published shape on the card (forward +
+    backward ms median of 3, peak MiB), and at batch 1 against the CPU
+    (forward OPS_FWD_TOL of the largest element, gradients OPS_GRAD_TOL,
+    Mask exactly)."""
+    name = case["name"]
+    ms = card_wall_ms(lambda: vision_fwd_bwd(case, card_ins, CARD))
+    peak = call_peak_mib(lambda: vision_fwd_bwd(case, card_ins, CARD))
+    c_out, c_y, c_g = vision_fwd_bwd(case, case["cpu"], CARD)
+    r_out, r_y, r_g = vision_fwd_bwd(case, case["cpu"], "cpu")
+    fwd = max_rel(c_y.detach(), r_y.detach())
+    gerr = max(max_rel(c, r) for c, r in zip(c_g, r_g))
+    mask_ok = ("Mask" not in r_out
+               or torch.equal(c_out["Mask"][0].cpu(), r_out["Mask"][0]))
+    shape = list(np.shape(next(iter(case["card"].values()))[0]))
+    log(f"{name}: {shape} forward + backward {ms:.3f} ms, peak "
+        f"{peak:.1f} MiB; batch 1 against the CPU: forward {fwd:.2e}, "
+        f"gradient {gerr:.2e}, Mask exact {mask_ok} | {smi}")
+    if not (fwd <= OPS_FWD_TOL and gerr <= OPS_GRAD_TOL and mask_ok):
+        raise AssertionError(f"{name}: the card differs from the CPU")
+    return {"shape": shape, "ms": ms, "peak_mib": peak, "fwd_err": fwd,
+            "grad_err": gerr}
+
+
+def legacy_vision_phase(smi):
+    """Phase 40 (d): C3D's conv1 / pool1 / conv2 / pool2 and the inverse
+    of conv2, SegNet's first pool with index into its last unpool, spp
+    on VGG16's conv5 map, bilinear_interp x 2 on a 21-class score map;
+    no TPU kernel launched. The launch counts hold one forward + backward
+    of each case at its published shape and nothing else; the timing,
+    the peak and the CPU check run after."""
+    use_full_f32()
+    rng = np.random.RandomState(SEED + 93)
+
+    gen = np.random.default_rng(SEED + 93)
+
+    def two(shape, b):
+        """A [b, ...] f32 input in [-1, 1) and its first sample."""
+        x = gen.random((b,) + shape[1:], dtype=np.float32) * 2 - 1
+        return x, x[:1].copy()
+
+    c1x, c1s = two((0, 3, 16, 112, 112), C3D_B)
+    c1w = _u(rng, (64, 3, 3, 3, 3), -0.2, 0.2)
+    p1x, p1s = two((0, 64, 16, 112, 112), C3D_B)
+    c2x, c2s = two((0, 64, 16, 56, 56), C3D_B)
+    c2w = _u(rng, (128, 64, 3, 3, 3), -0.05, 0.05)
+    p2x, p2s = two((0, 128, 16, 56, 56), C3D_B)
+    tx, ts = two((0, 128, 16, 56, 56), C3D_B)
+    tw = _u(rng, (128, 64, 3, 3, 3), -0.05, 0.05)
+    sx, ss = two((0, 64, 360, 480), SEGNET_B)
+    vx, vs = two((0, 512, 14, 14), SPP_B)
+    bx, bs = two((0, 21, 64, 64), INTERP_B)
+    conv = {"paddings": [1, 1, 1]}
+    conv_grad = ("Input", "Filter")
+
+    def case(name, op, card, cpu, attrs, slot, grad, then=None):
+        return {"name": name, "op": op, "card": card, "cpu": cpu,
+                "attrs": attrs, "slot": slot, "grad": grad, "then": then}
+
+    cases = {
+        "c3d_conv1": case(
+            "C3D conv1 (conv3d 3 -> 64, 3 x 3 x 3)", "conv3d",
+            {"Input": [c1x], "Filter": [c1w]},
+            {"Input": [c1s], "Filter": [c1w]}, conv, "Output", conv_grad),
+        "c3d_pool1": case(
+            "C3D pool1 (pool3d max 1 x 2 x 2)", "pool3d", {"X": [p1x]},
+            {"X": [p1s]}, {"pooling_type": "max", "ksize": [1, 2, 2],
+                           "strides": [1, 2, 2]}, "Out", ("X",)),
+        "c3d_conv2": case(
+            "C3D conv2 (conv3d 64 -> 128, 3 x 3 x 3)", "conv3d",
+            {"Input": [c2x], "Filter": [c2w]},
+            {"Input": [c2s], "Filter": [c2w]}, conv, "Output", conv_grad),
+        "c3d_pool2": case(
+            "C3D pool2 (pool3d max 2 x 2 x 2)", "pool3d", {"X": [p2x]},
+            {"X": [p2s]}, {"pooling_type": "max", "ksize": [2, 2, 2],
+                           "strides": [2, 2, 2]}, "Out", ("X",)),
+        "c3d_conv2_transpose": case(
+            "C3D conv2 inverse (conv3d_transpose 128 -> 64)",
+            "conv3d_transpose", {"Input": [tx], "Filter": [tw]},
+            {"Input": [ts], "Filter": [tw]}, conv, "Output", conv_grad),
+        "segnet_pool_unpool": case(
+            "SegNet pool1 with index -> unpool (64 x 360 x 480, 2 x 2 "
+            "stride 2)", "max_pool2d_with_index", {"X": [sx]}, {"X": [ss]},
+            {"ksize": [2, 2], "strides": [2, 2]}, "Out", ("X",),
+            then=("unpool", {"ksize": [2, 2], "strides": [2, 2]})),
+        "vgg16_spp": case(
+            "spp on VGG16 conv5 (512 x 14 x 14, pyramid 3)", "spp",
+            {"X": [vx]}, {"X": [vs]}, {"pyramid_height": 3,
+                                       "pooling_type": "max"}, "Out",
+            ("X",)),
+        "bilinear_interp_x2": case(
+            "bilinear_interp x 2 (21 x 64 x 64 -> 128 x 128)",
+            "bilinear_interp", {"X": [bx]}, {"X": [bs]},
+            {"out_h": 128, "out_w": 128}, "Out", ("X",)),
+    }
+    card_ins = {key: {k: [torch.as_tensor(v).to(CARD) for v in vs]
+                      for k, vs in c["card"].items()}
+                for key, c in cases.items()}
+    zero_counts()                       # the main path starts here
+    for key, c in cases.items():
+        vision_fwd_bwd(c, card_ins[key], CARD)
+    torch.cuda.synchronize()
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, launches_of(), "the legacy vision ops (no TPU "
+                 "kernel)")
+    res = {key: legacy_vision_case(c, card_ins[key], smi)
+           for key, c in cases.items()}
+    return counts, res
+
+
+def corpus_phase(smi):
+    """Phase 40."""
+    t0 = time.perf_counter()
+    use_full_f32()
+    sweep = corpus_sweep_phase(smi)
+    paths, w2v = {}, {}
+    feeds = w2v_feeds(np.random.RandomState(SEED + 94))
+    for head in W2V_HEADS:
+        paths[f"word2vec_{head}"], w2v[head] = w2v_head_phase(head, feeds,
+                                                              smi)
+    paths["nets_glu_sdpa"], nets = nets_phase(smi)
+    paths["legacy_vision"], vision = legacy_vision_phase(smi)
+    secs = time.perf_counter() - t0
+    log(f"corpus: phase 40 in {secs:.1f} s | {smi}")
+    return paths, {"sweep": sweep, "word2vec": w2v, "nets": nets,
+                   "legacy_vision": vision, "seconds": secs}
+
+
 def main():
     name, smi = device_phase()
     t0 = time.perf_counter()
@@ -8683,6 +9386,7 @@ def main():
     book_paths, book = book_phase(smi)
     fleet_paths, fleet = fleet_phase(smi)
     det_paths, detection = detection_phase(smi)
+    corpus_paths, corpus = corpus_phase(smi)
     paths = {"serving": {"flash_attn_fwd": serving_k1},
              f"training_T{TRAIN_T}": train_counts,
              f"training_T{SHORT_T}": short_counts,
@@ -8699,7 +9403,7 @@ def main():
              "resnet50_serving_f32": resnet_serving_counts["f32"],
              "resnet50_serving_int8": resnet_serving_counts["int8"],
              **telemetry_paths, **sequence_paths, **ctr_paths,
-             **book_paths, **fleet_paths, **det_paths}
+             **book_paths, **fleet_paths, **det_paths, **corpus_paths}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ALL_KERNELS}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()}
@@ -8787,7 +9491,7 @@ def main():
                                    "serving": resnet_serving},
                       "telemetry": telemetry, "sequence": sequence,
                       "ctr": ctr, "book": book, "fleet": fleet,
-                      "detection": detection}),
+                      "detection": detection, "corpus": corpus}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

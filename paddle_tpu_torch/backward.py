@@ -47,6 +47,12 @@ def append_backward(loss: Variable, parameter_list=None, no_grad_set=None):
 
     Returns [(param, grad_var)] like the reference (backward.py:338).
     """
+    params_and_grads, _ = _append_backward_impl(loss, parameter_list,
+                                                no_grad_set)
+    return params_and_grads
+
+
+def _append_backward_impl(loss, parameter_list=None, no_grad_set=None):
     block = loss.block
     program = block.program
     no_grad = set(no_grad_set or ())
@@ -131,4 +137,18 @@ def append_backward(loss: Variable, parameter_list=None, no_grad_set=None):
         if g is None:
             continue
         params_and_grads.append((p, block.var(g)))
-    return params_and_grads
+    return params_and_grads, grad_map
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Grad of targets w.r.t. arbitrary inputs (fluid backward.py:464)."""
+    if isinstance(targets, Variable):
+        targets = [targets]
+    if isinstance(inputs, Variable):
+        inputs = [inputs]
+    assert len(targets) == 1, "calc_gradient currently supports one target"
+    _, grad_map = _append_backward_impl(targets[0], parameter_list=None,
+                                        no_grad_set=no_grad_set)
+    block = targets[0].block
+    return [block.var(grad_map[v.name]) if v.name in grad_map else None
+            for v in inputs]

@@ -1,7 +1,7 @@
 """Elementwise / scalar math layers + Variable operator-sugar support
 (the port's copy of the part of `paddle_tpu/layers/math_ops.py` the
 training path, the LR schedules, the gradient clips, the sequence
-models and `max_sequence_len` call)."""
+models and `max_sequence_len` call, and the rest of its layers)."""
 
 from __future__ import annotations
 
@@ -10,9 +10,12 @@ import numpy as np
 from ..layer_helper import LayerHelper
 
 __all__ = ["elementwise_add", "elementwise_sub", "elementwise_mul",
-           "elementwise_div", "elementwise_max", "elementwise_min", "scale",
-           "floor", "clip_by_norm", "sqrt", "square", "exp", "sign", "pow",
-           "reduce_sum", "reduce_max", "matmul"]
+           "elementwise_div", "elementwise_max", "elementwise_min",
+           "elementwise_pow", "scale", "sums", "matmul", "clip",
+           "clip_by_norm", "sqrt", "square", "abs", "exp", "log", "sign",
+           "pow", "cos", "sin", "floor", "ceil", "round", "reciprocal",
+           "rsqrt", "reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+           "reduce_prod", "cumsum"]
 
 
 def _elementwise(op_type):
@@ -33,6 +36,7 @@ elementwise_mul = _elementwise("elementwise_mul")
 elementwise_div = _elementwise("elementwise_div")
 elementwise_max = _elementwise("elementwise_max")
 elementwise_min = _elementwise("elementwise_min")
+elementwise_pow = _elementwise("elementwise_pow")
 
 
 def binary_helper(x, other, op_type, reverse=False):
@@ -85,6 +89,22 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
     return out
 
 
+def sums(input, name=None):
+    helper = LayerHelper("sum", name=name)
+    out = helper.create_tmp_variable(input[0].dtype)
+    helper.append_op("sum", {"X": [v.name for v in input]},
+                     {"Out": [out.name]}, {})
+    return out
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("clip", {"X": [x.name]}, {"Out": [out.name]},
+                     {"min": float(min), "max": float(max)})
+    return out
+
+
 def floor(x, name=None):
     helper = LayerHelper("floor", name=name)
     out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
@@ -115,9 +135,17 @@ def _unary(op_type, attr_names=()):
 
 sqrt = _unary("sqrt")
 square = _unary("square")
+abs = _unary("abs")
 exp = _unary("exp")
+log = _unary("log")
 sign = _unary("sign")
+cos = _unary("cos")
+sin = _unary("sin")
 pow = _unary("pow", ("factor",))
+ceil = _unary("ceil")
+round = _unary("round")
+reciprocal = _unary("reciprocal")
+rsqrt = _unary("rsqrt")
 
 
 def _reduce(op_type):
@@ -137,4 +165,15 @@ def _reduce(op_type):
 
 
 reduce_sum = _reduce("reduce_sum")
+reduce_mean = _reduce("reduce_mean")
 reduce_max = _reduce("reduce_max")
+reduce_min = _reduce("reduce_min")
+reduce_prod = _reduce("reduce_prod")
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False, name=None):
+    helper = LayerHelper("cumsum", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("cumsum", {"X": [x.name]}, {"Out": [out.name]},
+                     {"axis": axis, "exclusive": exclusive, "reverse": reverse})
+    return out

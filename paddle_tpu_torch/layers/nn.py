@@ -34,7 +34,8 @@ __all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "pool2d",
            "sequence_expand", "sequence_conv", "sequence_reshape",
            "sequence_concat", "sequence_mask", "edit_distance", "row_conv",
            "beam_search", "beam_search_decode", "warpctc",
-           "ctc_greedy_decoder", "linear_chain_crf", "crf_decoding"]
+           "ctc_greedy_decoder", "linear_chain_crf", "crf_decoding",
+           "im2sequence", "nce", "hsigmoid", "Print"]
 
 
 def _sequence_aware_num_cols(input, num_flatten_dims):
@@ -894,4 +895,78 @@ def ctc_greedy_decoder(input, blank, name=None):
         {"Output": [out.name], "OutLen": [out_len.name]},
         {"blank": blank, "merge_repeated": True})
     out.seq_len_var = out_len.name
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    helper = LayerHelper("im2sequence", name=name)
+    out = helper.create_tmp_variable(input.dtype, lod_level=1)
+    helper.append_op("im2sequence", {"X": [input.name]}, {"Out": [out.name]},
+                     {"kernels": [filter_size, filter_size]
+                      if isinstance(filter_size, int) else list(filter_size),
+                      "strides": [stride, stride] if isinstance(stride, int)
+                      else list(stride),
+                      "paddings": [padding] * 4 if isinstance(padding, int)
+                      else list(padding)})
+    return out
+
+
+def nce(input, label, num_total_classes, num_neg_samples=10,
+        param_attr=None, bias_attr=None, sample_weight=None,
+        custom_samples=None, name=None):
+    """Noise-contrastive estimation loss (operators/nce_op.cc): a
+    large-vocabulary classifier trained against uniformly sampled
+    negatives instead of a full [B, V] softmax. Per-example cost [B, 1]."""
+    helper = LayerHelper("nce", name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr, [num_total_classes, dim],
+                                input.dtype)
+    b = helper.create_parameter(bias_attr, [num_total_classes], input.dtype,
+                                is_bias=True)
+    cost = helper.create_tmp_variable(
+        input.dtype, shape=[input.shape[0] if input.shape else -1, 1])
+    ins = {"Input": [input.name], "Label": [label.name], "Weight": [w.name],
+           "Bias": [b.name]}
+    if sample_weight is not None:
+        ins["SampleWeight"] = [sample_weight.name]
+    if custom_samples is not None:
+        ins["CustomSamples"] = [custom_samples.name]
+    helper.append_op("nce", ins, {"Cost": [cost.name]},
+                     {"num_total_classes": num_total_classes,
+                      "num_neg_samples": num_neg_samples})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """Hierarchical sigmoid loss over the complete binary tree's bit code
+    (HierarchicalSigmoidLayer.cpp, MatrixBitCode.cpp). Per-example cost
+    [B, 1]."""
+    helper = LayerHelper("hsigmoid", name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr, [num_classes - 1, dim],
+                                input.dtype)
+    b = helper.create_parameter(bias_attr, [num_classes - 1], input.dtype,
+                                is_bias=True)
+    cost = helper.create_tmp_variable(
+        input.dtype, shape=[input.shape[0] if input.shape else -1, 1])
+    helper.append_op("hsigmoid",
+                     {"X": [input.name], "Label": [label.name],
+                      "W": [w.name], "Bias": [b.name]},
+                     {"Cost": [cost.name]},
+                     {"num_classes": num_classes})
+    return cost
+
+
+def Print(input, message="", summarize=20, name=None):
+    """Debug print pass-through (operators/print_op.cc): `input`'s value
+    unchanged, printed on the host when the op runs (a sync on the
+    card)."""
+    helper = LayerHelper("print", name=name)
+    out = helper.create_tmp_variable(input.dtype, shape=input.shape,
+                                     lod_level=input.lod_level)
+    out.seq_len_var = input.seq_len_var
+    out.sub_seq_len_var = input.sub_seq_len_var
+    helper.append_op("print", {"X": [input.name]}, {"Out": [out.name]},
+                     {"message": message, "summarize": summarize})
     return out

@@ -1,18 +1,23 @@
 """Tensor creation / manipulation layers (the port's copy of the part of
 `paddle_tpu/layers/tensor.py` the training path, the image models, the
 sequence models, the CTR models, the evaluators, the control-flow
-programs and the OCR model call)."""
+programs and the OCR model call, and the rest of its layers)."""
 
 from __future__ import annotations
+
+import builtins
 
 from .. import framework
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "cast", "concat", "fill_constant", "slice",
-           "uniform_random", "argmax", "assign", "increment", "less_than",
-           "equal", "greater_than", "logical_and", "logical_or",
-           "logical_not", "shape", "transpose", "squeeze", "unsqueeze",
-           "reshape", "topk"]
+__all__ = [
+    "create_tensor", "create_parameter", "cast", "concat", "split",
+    "reshape", "transpose", "squeeze", "unsqueeze", "stack", "expand",
+    "fill_constant", "ones", "zeros", "assign", "increment", "argmax",
+    "one_hot", "gather", "scatter", "slice", "shape", "less_than", "equal",
+    "greater_than", "logical_and", "logical_or", "logical_not", "topk",
+    "range", "multiplex", "isfinite", "uniform_random", "gaussian_random",
+]
 
 
 def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, name=None):
@@ -24,6 +29,21 @@ def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, name=None):
                      {"shape": list(shape), "dtype": dtype,
                       "min": min, "max": max})
     return out
+
+
+def gaussian_random(shape, dtype="float32", mean=0.0, std=1.0, name=None):
+    helper = LayerHelper("gaussian_random", name=name)
+    out = helper.create_tmp_variable(dtype, shape=list(shape))
+    helper.append_op("gaussian_random", {}, {"Out": [out.name]},
+                     {"shape": list(shape), "dtype": dtype,
+                      "mean": mean, "std": std})
+    return out
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.block.create_var(name=helper.name, dtype=dtype,
+                                   persistable=persistable)
 
 
 def create_parameter(shape, dtype="float32", name=None, attr=None,
@@ -180,3 +200,97 @@ def topk(input, k, name=None):
                      {"Out": [values.name], "Indices": [indices.name]},
                      {"k": k})
     return values, indices
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = []
+    else:
+        num = len(num_or_sections)
+        sections = list(num_or_sections)
+    # builtins.range: this module's `range` is the layer (the
+    # reference's split calls the layer here and raises, ROADMAP C34)
+    outs = [helper.create_tmp_variable(input.dtype)
+            for _ in builtins.range(num)]
+    helper.append_op("split", {"X": [input.name]},
+                     {"Out": [o.name for o in outs]},
+                     {"axis": dim, "num": 0 if sections else num,
+                      "sections": sections})
+    return outs
+
+
+def stack(x, axis=0, name=None):
+    helper = LayerHelper("stack", name=name)
+    out = helper.create_tmp_variable(x[0].dtype)
+    helper.append_op("stack", {"X": [v.name for v in x]},
+                     {"Out": [out.name]}, {"axis": axis})
+    return out
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("expand", {"X": [x.name]}, {"Out": [out.name]},
+                     {"expand_times": list(expand_times)})
+    return out
+
+
+def ones(shape, dtype="float32", name=None):
+    return fill_constant(shape, dtype, 1.0, name=name)
+
+
+def zeros(shape, dtype="float32", name=None):
+    return fill_constant(shape, dtype, 0.0, name=name)
+
+
+def one_hot(input, depth, name=None):
+    helper = LayerHelper("one_hot", name=name)
+    out = helper.create_tmp_variable("float32")
+    helper.append_op("one_hot", {"X": [input.name]}, {"Out": [out.name]},
+                     {"depth": depth})
+    return out
+
+
+def gather(input, index, name=None):
+    helper = LayerHelper("gather", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("gather", {"X": [input.name], "Index": [index.name]},
+                     {"Out": [out.name]}, {})
+    return out
+
+
+def scatter(input, index, updates, name=None):
+    helper = LayerHelper("scatter", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("scatter",
+                     {"X": [input.name], "Ids": [index.name],
+                      "Updates": [updates.name]},
+                     {"Out": [out.name]}, {})
+    return out
+
+
+def range(start, end, step=1, dtype="int64", name=None):
+    helper = LayerHelper("range", name=name)
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op("range", {}, {"Out": [out.name]},
+                     {"start": start, "end": end, "step": step,
+                      "dtype": framework.canonical_dtype(dtype)})
+    return out
+
+
+def multiplex(inputs, index, name=None):
+    helper = LayerHelper("multiplex", name=name)
+    out = helper.create_tmp_variable(inputs[0].dtype)
+    helper.append_op("multiplex",
+                     {"X": [v.name for v in inputs], "Ids": [index.name]},
+                     {"Out": [out.name]}, {})
+    return out
+
+
+def isfinite(x, name=None):
+    helper = LayerHelper("isfinite", name=name)
+    out = helper.create_tmp_variable("bool")
+    helper.append_op("isfinite", {"X": [x.name]}, {"Out": [out.name]}, {})
+    return out

@@ -472,11 +472,33 @@ def _sync():
         torch.cuda.synchronize()
 
 
-def _capture(fn, path):
+# Late in a long process, a whole-step capture lost the device events of
+# the step's first launches (a fixed number for a given step: ~20-55),
+# while their launch calls were recorded (ROADMAP C30). A session warmed
+# first keeps them: it turns CUPTI's activity collection on (the
+# profiler's warm-up phase), launches WARM_LAUNCHES trivial kernels
+# outside the recorded window, and only then opens the window around
+# the step.
+WARM_LAUNCHES = 512
+
+
+def _capture(fn, path, warm=False):
     """fn() under torch.profiler with the executor's op scopes on, its
-    Chrome trace written to `path`; returns (fn's result, wall s)."""
-    from torch.profiler import profile
-    with profiling(), profile(activities=_activities()) as prof:
+    Chrome trace written to `path`; returns (fn's result, wall s). With
+    `warm` (on the card), the session's warm-up phase runs
+    WARM_LAUNCHES trivial kernels before the recorded window opens."""
+    from torch.profiler import profile, schedule
+    warm = warm and _on_card()
+    sched = schedule(wait=0, warmup=1, active=1) if warm else None
+    with profiling(), profile(activities=_activities(),
+                              schedule=sched) as prof:
+        if warm:
+            import torch
+            z = torch.zeros(1, device="cuda")
+            for _ in range(WARM_LAUNCHES):
+                z.add_(1.0)
+            _sync()
+            prof.step()            # the recorded window opens here
         t0 = time.perf_counter()
         out = fn()
         _sync()
@@ -488,9 +510,10 @@ def _capture(fn, path):
 def profile_fn(fn, steps=3, warmup=1, static_costs=None, trace_dir=None,
                keep_trace=False, unscoped=None):
     """Profile `steps` calls of fn() (after `warmup` plain calls), each
-    in its own capture, and return the attribution report dict (see the
-    module docstring for the modes). `trace_dir=None` captures into a
-    temp dir removed after parsing; a caller's dir is kept."""
+    in its own warmed capture (`_capture`), and return the attribution
+    report dict (see the module docstring for the modes).
+    `trace_dir=None` captures into a temp dir removed after parsing; a
+    caller's dir is kept."""
     import shutil
     import tempfile
 
@@ -505,7 +528,7 @@ def profile_fn(fn, steps=3, warmup=1, static_costs=None, trace_dir=None,
     for i in range(steps):
         path = os.path.join(tdir, f"step{i}.trace.json")
         try:
-            _, dt = _capture(fn, path)
+            _, dt = _capture(fn, path, warm=True)
         except Exception as e:   # noqa: BLE001 — degrade, never crash
             _warn(f"profiler capture failed ({e}); host-timed fallback")
             t0 = time.perf_counter()

@@ -252,22 +252,75 @@ def _op_flops(op_type, shapes, attrs, out_shapes):
         if "Wqkv" not in shapes:
             return 0
         return _stack_flops(shapes["X"], shapes)
+    return _tail_flops(op_type, shapes, attrs, out_shapes)
+
+
+def _tail_flops(op_type, shapes, attrs, out_shapes):
+    """The product ops of the corpus's tail, by the reference's traced
+    eqns: conv3d_transpose is an input-dilated conv over the whole
+    output (2 x out x Cin x kernel), dynamic_conv2d a conv a sample,
+    bilinear_tensor_product the outer product x y^T then its
+    contraction with W, nce one row product a sample (true and
+    negative), hsigmoid one a tree level."""
+    if op_type == "conv3d":
+        out = out_shapes.get("Output")
+        return 0 if out is None else _conv_fwd(
+            shapes["Input"], shapes["Filter"], out, attrs.get("groups", 1))
+    if op_type == "conv3d_transpose":
+        out, flt = out_shapes.get("Output"), shapes["Filter"]
+        return 0 if out is None else \
+            2 * _prod(out) * int(flt[0]) * _prod(flt[2:])
+    if op_type == "dynamic_conv2d":
+        out = out_shapes.get("Out")
+        return 0 if out is None else 2 * _prod(out) * int(
+            attrs["num_channels"]) * int(attrs["kh"]) * int(attrs["kw"])
+    if op_type == "bilinear_tensor_product":
+        (b, m), n = shapes["X"], int(shapes["Y"][-1])
+        s = int(shapes["Weight"][0])
+        return 2 * int(b) * int(m) * n * (1 + s)
+    if op_type == "conv_shift":
+        (b, m), n = shapes["X"], int(shapes["Y"][-1])
+        return 2 * int(b) * int(m) * n
+    if op_type == "nce":
+        b, d = shapes["Input"]
+        n = int(shapes["Label"][-1]) + int(attrs["num_neg_samples"])
+        return 2 * int(b) * int(d) * n
+    if op_type == "hsigmoid":
+        b, d = shapes["X"]
+        levels = int(math.floor(math.log2(2 * int(attrs["num_classes"])
+                                          - 1)))
+        return 2 * int(b) * int(d) * levels
     return 0
 
 
 _GRAD_FACTOR = {"mul": 2, "scaled_dot_product_attention": 2,
                 "fused_lm_head_xent": 3, "transformer_stack": 2,
                 "conv2d_transpose": 2, "matmul": 2, "gru": 2, "lstm": 2,
-                "lstmp": 2, "simple_rnn": 2, "sequence_conv": 2}
+                "lstmp": 2, "simple_rnn": 2, "sequence_conv": 2,
+                "bilinear_tensor_product": 2, "conv_shift": 2, "nce": 2,
+                "hsigmoid": 2}
 
 
 def _grad_flops(op_type, shapes, attrs, out_shapes):
-    if op_type in ("conv2d", "depthwise_conv2d"):
+    if op_type in ("conv2d", "depthwise_conv2d", "conv3d"):
         out = out_shapes.get("Output")
         if out is None:
             return 0
         return _conv_grad(shapes["Input"], shapes["Filter"], out,
                           attrs.get("groups", 1))
+    if op_type == "conv3d_transpose":
+        # the input's cotangent (a strided conv) and the filter's (the
+        # forward's count)
+        return 2 * _prod(shapes["Input"]) * _prod(shapes["Filter"][1:]) \
+            + _op_flops(op_type, shapes, attrs, out_shapes)
+    if op_type == "dynamic_conv2d":
+        out = out_shapes.get("Out")
+        if out is None:
+            return 0
+        x, flt = shapes["X"], shapes["Filter"]
+        o, kh, kw = (int(attrs[k]) for k in ("num_filters", "kh", "kw"))
+        positions = _prod(out) // (int(x[0]) * o)
+        return 2 * _prod(x) * o * kh * kw + 2 * _prod(flt) * positions
     factor = _GRAD_FACTOR.get(op_type)
     if factor is None:
         return 0

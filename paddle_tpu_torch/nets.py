@@ -1,12 +1,13 @@
-"""Composed network blocks (the port's copy of `paddle_tpu/nets.py`'s
-simple_img_conv_pool, img_conv_group and sequence_conv_pool, fluid
-nets.py)."""
+"""Composed network blocks (the port's copy of `paddle_tpu/nets.py`,
+fluid nets.py: simple_img_conv_pool, img_conv_group, sequence_conv_pool,
+glu and scaled_dot_product_attention)."""
 
 from __future__ import annotations
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool",
+           "glu", "scaled_dot_product_attention"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -48,3 +49,22 @@ def sequence_conv_pool(input, num_filters, filter_size, act="sigmoid",
     conv_out = layers.sequence_conv(input, num_filters=num_filters,
                                     filter_size=filter_size, act=act)
     return layers.sequence_pool(conv_out, pool_type=pool_type)
+
+
+def glu(input, dim=-1):
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return a * layers.sigmoid(b)
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0):
+    """Single-block attention (fluid nets.py dot-product attention) as
+    matmul, softmax, matmul: q [B, Lq, D], k / v [B, Lk, D]. Not the
+    fused attention op: no attention kernel runs."""
+    d = int(queries.shape[-1])
+    scores = layers.matmul(queries, keys, transpose_y=True,
+                           alpha=d ** -0.5)
+    weights = layers.softmax(scores)
+    if dropout_rate:
+        weights = layers.dropout(weights, dropout_rate)
+    return layers.matmul(weights, values)

@@ -1,6 +1,6 @@
-"""CTC loss and greedy alignment (the port of `warpctc` and `ctc_align`
-from `paddle_tpu/ops/ctc_ops.py`; its `nce` and `hsigmoid` are not
-ported yet).
+"""CTC loss, greedy alignment and the two sampled-softmax losses (the
+port of `paddle_tpu/ops/ctc_ops.py`: `warpctc`, `ctc_align`, `nce` and
+`hsigmoid`).
 
   * `warpctc` (operators/warpctc_op.cc, which dynloads warp-ctc): the
     reference's log-space forward recursion over the blank-interleaved
@@ -18,10 +18,21 @@ ported yet).
     index op raises on an out-of-range index, so the port scatters into
     a [B, T + 1] buffer whose last column takes the dropped writes, and
     keeps the first T columns: every index is in range.
+  * `nce` (nce_op.h): the reference's cost over the true classes and
+    `num_neg_samples` negatives drawn uniformly from [0, V), b = k / V.
+    With `CustomSamples` the negatives are given and the cost is the
+    reference's bit for bit in formula; without them they come from the
+    executor's generator, so they differ from the JAX package's draws
+    (ROADMAP C32).
+  * `hsigmoid` (HierarchicalSigmoidLayer.cpp, MatrixBitCode.cpp): the
+    bit code of label + K walked over floor(log2(2K - 1)) levels, each a
+    gather of the node's row of W and a row product, softplus(pre) -
+    bit * pre where the level is on the path.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -111,3 +122,66 @@ def _ctc_align(ctx, ins, attrs):
     out = out.scatter(1, tgt, ids)[:, :T]
     out_len = keep.sum(dim=1)
     return {"Output": [out.to(ids_in.dtype)], "OutLen": [out_len]}
+
+
+@register_op("nce", stateful=True)
+def _nce(ctx, ins, attrs):
+    """Input [B, D], Label [B, num_true], Weight [V, D] (+ Bias [V],
+    SampleWeight [B], CustomSamples [B, k]) -> Cost [B, 1]:
+    sum over the true classes of -log(o / (o + b)) plus over the
+    negatives -log(b / (o + b)), o the sigmoid of the class logit."""
+    x = ins["Input"][0]
+    label = ins["Label"][0].to(torch.int64)
+    w = ins["Weight"][0]
+    bias = ins["Bias"][0] if ins.get("Bias") else None
+    V = int(attrs["num_total_classes"])
+    k = int(attrs["num_neg_samples"])
+    B = x.shape[0]
+    if ins.get("CustomSamples"):
+        neg = ins["CustomSamples"][0].to(torch.int64)
+    else:
+        neg = torch.randint(0, V, (B, k), generator=ctx.generator,
+                            dtype=torch.int64, device=x.device)
+    samples = torch.cat([label, neg], dim=1)              # [B, n]
+    logits = torch.einsum("bd,bnd->bn", x.float(), w[samples].float())
+    if bias is not None:
+        logits = logits + bias[samples].float()
+    o = torch.sigmoid(logits)
+    b = float(k) / float(V)
+    nt = label.shape[1]
+    cost_true = -torch.log(o[:, :nt] / (o[:, :nt] + b))
+    cost_neg = -torch.log(b / (o[:, nt:] + b))
+    cost = cost_true.sum(dim=1) + cost_neg.sum(dim=1)
+    if ins.get("SampleWeight"):
+        cost = cost * ins["SampleWeight"][0].to(cost.dtype)
+    return {"Cost": [cost[:, None].to(x.dtype)]}
+
+
+@register_op("hsigmoid")
+def _hsigmoid(ctx, ins, attrs):
+    """X [B, D], Label [B] or [B, 1], W [K - 1, D] (+ Bias [K - 1]) ->
+    Cost [B, 1], over the complete binary tree's bit code of label + K:
+    at level j the node (code >> (j + 1)) - 1 and the bit (code >> j) &
+    1, on the path while j < floor(log2(code))."""
+    x = ins["X"][0]
+    label = ins["Label"][0].to(torch.int32)
+    w = ins["W"][0]
+    bias = ins["Bias"][0] if ins.get("Bias") else None
+    K = int(attrs["num_classes"])
+    if label.dim() == 2:
+        label = label[:, 0]
+    code = label + K
+    length = torch.floor(torch.log2(code.float()) + 1e-6).to(torch.int32)
+    max_len = int(np.floor(np.log2(2 * K - 1)))
+    cdt = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(cdt)
+    cost = torch.zeros((x.shape[0],), dtype=cdt, device=x.device)
+    for j in range(max_len):
+        idx = torch.clamp((code >> (j + 1)) - 1, 0, K - 2).long()
+        bit = ((code >> j) & 1).float()
+        pre = torch.sum(xf * w[idx].to(cdt), dim=-1)
+        if bias is not None:
+            pre = pre + bias[idx].to(cdt)
+        c = torch.logaddexp(pre, torch.zeros_like(pre)) - bit * pre
+        cost = cost + torch.where(j < length, c, torch.zeros_like(c))
+    return {"Cost": [cost[:, None].to(x.dtype)]}

@@ -6,7 +6,10 @@ batched matmul, squeeze / unsqueeze and cosine similarity of the
 sequence models, and the CTR models' reshape, the SelectedRows gradient
 of an is_sparse lookup_table and `sum` over it, the top-k and
 accuracy the evaluators read, and the OCR model's `transpose` and
-`max_sequence_len`'s `reduce_max`).
+`max_sequence_len`'s `reduce_max`), and the rest of the reference's
+math ops: `elementwise_pow`, the unary tail, `reduce_mean` /
+`reduce_min` / `reduce_prod`, `split`, `stack`, `expand`, `pad` and
+`isfinite`.
 
 Each lowering is a few lines of torch, run eagerly by the executor; the
 large products (`mul`) go to `torch.matmul`, as the reference leaves
@@ -48,6 +51,7 @@ register_op("elementwise_mul")(_elementwise(lambda x, y: x * y))
 register_op("elementwise_div")(_elementwise(lambda x, y: x / y))
 register_op("elementwise_max")(_elementwise(torch.maximum))
 register_op("elementwise_min")(_elementwise(torch.minimum))
+register_op("elementwise_pow")(_elementwise(torch.pow))
 
 
 def _unary(fn):
@@ -61,6 +65,15 @@ register_op("sqrt")(_unary(lambda x, a: torch.sqrt(x)))
 register_op("square")(_unary(lambda x, a: torch.square(x)))
 register_op("sign")(_unary(lambda x, a: torch.sign(x)))
 register_op("pow")(_unary(lambda x, a: torch.pow(x, a.get("factor", 1.0))))
+register_op("rsqrt")(_unary(lambda x, a: 1.0 / torch.sqrt(x)))
+register_op("abs")(_unary(lambda x, a: torch.abs(x)))
+register_op("log")(_unary(lambda x, a: torch.log(x)))
+register_op("ceil")(_unary(lambda x, a: torch.ceil(x)))
+# torch.round rounds half to even, as jnp.round does
+register_op("round")(_unary(lambda x, a: torch.round(x)))
+register_op("reciprocal")(_unary(lambda x, a: 1.0 / x))
+register_op("cos")(_unary(lambda x, a: torch.cos(x)))
+register_op("sin")(_unary(lambda x, a: torch.sin(x)))
 
 
 def _reduce(fn):
@@ -83,9 +96,20 @@ def _reduce(fn):
     return lowering
 
 
+def _prod(x, dim, keepdim):
+    """jnp.prod over several axes (torch.prod takes one at a time)."""
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
 register_op("reduce_sum")(_reduce(torch.sum))
-# torch.amax splits the gradient among tied maxima, as jnp.max does
+register_op("reduce_mean")(_reduce(torch.mean))
+# torch.amax / amin split the gradient among tied extrema, as jnp.max /
+# jnp.min do
 register_op("reduce_max")(_reduce(torch.amax))
+register_op("reduce_min")(_reduce(torch.amin))
+register_op("reduce_prod")(_reduce(_prod))
 
 
 @register_op("clip_by_norm")
@@ -264,6 +288,61 @@ def _cast(ctx, ins, attrs):
 @register_op("concat")
 def _concat(ctx, ins, attrs):
     return {"Out": [torch.cat(ins["X"], dim=attrs.get("axis", 0))]}
+
+
+@register_op("split")
+def _split(ctx, ins, attrs):
+    """Along `axis`, into `sections` (their sizes) or `num` equal parts
+    (jnp.split's contract: `num` must divide the axis)."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", 0)
+    sections = attrs.get("sections", [])
+    if sections:
+        return {"Out": list(torch.split(x, [int(s) for s in sections],
+                                        dim=axis))}
+    num = int(attrs.get("num", 0))
+    n = int(x.shape[axis])
+    if num <= 0 or n % num:
+        raise ValueError(f"split: axis {axis} of {tuple(x.shape)} does not "
+                         f"split into {num} equal parts")
+    return {"Out": list(torch.split(x, n // num, dim=axis))}
+
+
+@register_op("stack")
+def _stack(ctx, ins, attrs):
+    return {"Out": [torch.stack(ins["X"], dim=attrs.get("axis", 0))]}
+
+
+@register_op("expand")
+def _expand(ctx, ins, attrs):
+    """jnp.tile(x, expand_times): fewer times than axes repeat the last
+    axes (leading 1s), more prepend axes."""
+    x = ins["X"][0]
+    times = [int(t) for t in attrs["expand_times"]]
+    times = [1] * (x.dim() - len(times)) + times
+    return {"Out": [x.repeat(*times)]}
+
+
+@register_op("pad")
+def _pad(ctx, ins, attrs):
+    """Constant padding; `paddings` is flat [before0, after0, before1,
+    after1, ...] over every axis."""
+    x = ins["X"][0]
+    p = [int(v) for v in attrs["paddings"]]
+    widths = []
+    for i in reversed(range(x.dim())):
+        widths += [p[2 * i], p[2 * i + 1]]
+    return {"Out": [torch.nn.functional.pad(
+        x, widths, value=float(attrs.get("pad_value", 0.0)))]}
+
+
+@register_op("isfinite", differentiable=False)
+def _isfinite(ctx, ins, attrs):
+    """[1] bool: every element of every input finite."""
+    ok = torch.ones((), dtype=torch.bool, device=ins["X"][0].device)
+    for x in ins["X"]:
+        ok = ok & torch.isfinite(x).all()
+    return {"Out": [ok.reshape(1)]}
 
 
 @register_op("reshape")

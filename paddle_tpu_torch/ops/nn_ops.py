@@ -21,6 +21,8 @@ stats and returns them unchanged.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -291,49 +293,70 @@ def _conv2d_transpose(ctx, ins, attrs):
     return {"Output": [out.to(x.dtype)]}
 
 
+def _tup(v, n):
+    if isinstance(v, (list, tuple)):
+        t = tuple(int(x) for x in v)
+        return t if len(t) == n else t * n
+    return (int(v),) * n
+
+
+def _pad_arg(pads):
+    """Symmetric per-axis pads -> F.pad's flat list (last axis first)."""
+    out = []
+    for p in reversed(pads):
+        out += [p, p]
+    return out
+
+
 def _ceil_extra(n, k, s, p):
     """The bottom/right pad that rounds the pooled size up (ceil_mode)."""
     out = -(-(n + 2 * p - k) // s) + 1
     return max(0, (out - 1) * s + k - (n + 2 * p))
 
 
-@register_op("pool2d")
-def _pool2d(ctx, ins, attrs):
-    """Max pooling over a -inf padded input; avg pooling as the
-    reference's window sum over a zero padded input, divided by the
-    count of real elements (`exclusive` with padding) or else by kh*kw,
-    the ceil_mode pad included."""
-    x = ins["X"][0]
+_MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
+_SUM_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def pool_nd(x, attrs, nd, ceil_mode=False):
+    """N-D pooling of an N, C + spatial tensor (math/pooling.cc): max
+    over a -inf padded input; avg the reference's window sum over a zero
+    padded input, divided by the count of real elements (`exclusive`
+    with padding) or else by the window size, the ceil_mode pad
+    included."""
     ptype = attrs.get("pooling_type", "max")
-    ksize = _pair(attrs.get("ksize", [2, 2]))
-    strides = _pair(attrs.get("strides", ksize))
-    pads = _pair(attrs.get("paddings", [0, 0]))
+    ksize = _tup(attrs.get("ksize", [2] * nd), nd)
+    strides = _tup(attrs.get("strides", ksize), nd)
+    pads = _tup(attrs.get("paddings", [0] * nd), nd)
+    spatial = tuple(int(s) for s in x.shape[2:])
     if attrs.get("global_pooling", False):
-        ksize = (int(x.shape[2]), int(x.shape[3]))
-        strides = ksize
-        pads = (0, 0)
-    pad_h = [pads[0], pads[0]]
-    pad_w = [pads[1], pads[1]]
-    if attrs.get("ceil_mode", False):
-        pad_h[1] += _ceil_extra(int(x.shape[2]), ksize[0], strides[0],
-                                pads[0])
-        pad_w[1] += _ceil_extra(int(x.shape[3]), ksize[1], strides[1],
-                                pads[1])
-    padding = (pad_w[0], pad_w[1], pad_h[0], pad_h[1])
+        ksize, strides, pads = spatial, spatial, (0,) * nd
+    lo_hi = [[p, p] for p in pads]
+    if ceil_mode:
+        for d in range(nd):
+            lo_hi[d][1] += _ceil_extra(spatial[d], ksize[d], strides[d],
+                                       pads[d])
+    padding = [v for pair in reversed(lo_hi) for v in pair]
     if ptype == "max":
         xp = F.pad(x, padding, value=float("-inf")) if any(padding) else x
-        out = F.max_pool2d(xp, ksize, strides)
+        out = _MAX_POOL[nd](xp, ksize, strides)
     else:
         xp = F.pad(x, padding) if any(padding) else x
-        summed = F.avg_pool2d(xp, ksize, strides, divisor_override=1)
-        if attrs.get("exclusive", True) and (pads[0] or pads[1]):
-            ones = F.pad(torch.ones((1, 1) + tuple(x.shape[2:]),
-                                    dtype=x.dtype, device=x.device), padding)
-            counts = F.avg_pool2d(ones, ksize, strides, divisor_override=1)
-            out = summed / counts
+        summed = _SUM_POOL[nd](xp, ksize, strides, divisor_override=1)
+        if attrs.get("exclusive", True) and any(pads):
+            ones = F.pad(torch.ones((1, 1) + spatial, dtype=x.dtype,
+                                    device=x.device), padding)
+            out = summed / _SUM_POOL[nd](ones, ksize, strides,
+                                         divisor_override=1)
         else:
-            out = summed / float(ksize[0] * ksize[1])
-    return {"Out": [out.to(x.dtype)]}
+            out = summed / float(math.prod(ksize))
+    return out.to(x.dtype)
+
+
+@register_op("pool2d")
+def _pool2d(ctx, ins, attrs):
+    return {"Out": [pool_nd(ins["X"][0], attrs, 2,
+                            attrs.get("ceil_mode", False))]}
 
 
 # -- normalisation ----------------------------------------------------------

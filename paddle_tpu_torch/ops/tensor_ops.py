@@ -7,6 +7,10 @@ the executor's
 `torch.Generator` (`ctx.generator`, seeded from `Program.seed`) on the
 executor's device, where the reference splits its threaded PRNG key:
 the same seed gives other numbers than the JAX package's.
+
+Also the tensor tail: `gather`, `scatter`, `where`
+(which raises, as the reference's does), `cumsum`, `range`,
+`multiplex` and `print`.
 """
 
 from __future__ import annotations
@@ -88,3 +92,88 @@ register_op("logical_xor", differentiable=False)(_binary(torch.logical_xor))
 @register_op("logical_not", differentiable=False)
 def _logical_not(ctx, ins, attrs):
     return {"Out": [torch.logical_not(ins["X"][0])]}
+
+
+@register_op("gather")
+def _gather(ctx, ins, attrs):
+    """Rows of X at Index (an [N, 1] index is squeezed)."""
+    idx = ins["Index"][0]
+    if idx.dim() == 2 and idx.shape[-1] == 1:
+        idx = idx.squeeze(-1)
+    return {"Out": [ins["X"][0][idx.long()]]}
+
+
+@register_op("scatter")
+def _scatter(ctx, ins, attrs):
+    """X with its rows at Ids overwritten by Updates (`.at[ids].set`).
+    With duplicate ids, which write wins is unspecified here as in the
+    reference (ROADMAP C31)."""
+    x = ins["X"][0]
+    idx = ins["Ids"][0]
+    if idx.dim() == 2 and idx.shape[-1] == 1:
+        idx = idx.squeeze(-1)
+    return {"Out": [x.index_put((idx.long(),), ins["Updates"][0])]}
+
+
+@register_op("where", differentiable=False)
+def _where_index(ctx, ins, attrs):
+    raise NotImplementedError(
+        "`where` (nonzero indices) has a data-dependent output shape and "
+        "cannot be compiled for TPU; use masked ops instead")
+
+
+@register_op("cumsum")
+def _cumsum(ctx, ins, attrs):
+    """The reference's formulas: `reverse` flips around the cumsum,
+    `exclusive` subtracts X from the inclusive sum (not a shifted scan,
+    which rounds otherwise)."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", -1)
+    if attrs.get("reverse", False):
+        out = torch.flip(torch.cumsum(torch.flip(x, (axis,)), dim=axis),
+                         (axis,))
+    else:
+        out = torch.cumsum(x, dim=axis)
+    if attrs.get("exclusive", False):
+        out = out - x
+    return {"Out": [out]}
+
+
+@register_op("range", differentiable=False)
+def _range(ctx, ins, attrs):
+    """arange from the static attrs: nothing is read on the host."""
+    return {"Out": [torch.arange(attrs["start"], attrs["end"],
+                                 attrs.get("step", 1),
+                                 dtype=torch_dtype(attrs.get("dtype",
+                                                             "int64")),
+                                 device=ctx.device)]}
+
+
+@register_op("multiplex")
+def _multiplex(ctx, ins, attrs):
+    """Row i of the output is row i of X[Ids[i]]."""
+    ids = ins["Ids"][0]
+    if ids.dim() == 2:
+        ids = ids.squeeze(-1)
+    stacked = torch.stack(ins["X"], dim=0)              # [k, N, D]
+    rows = torch.arange(stacked.shape[1], device=stacked.device)
+    return {"Out": [stacked[ids.long(), rows]]}
+
+
+@register_op("print")
+def _print(ctx, ins, attrs):
+    """X unchanged, and `message shape=... values=...` (the first
+    `summarize` values) printed on the host: a device -> host read, so
+    one sync a call on the card, counted on `print.host_syncs` with the
+    monitor on. Shape inference (meta tensors) prints nothing."""
+    x = ins["X"][0]
+    if x.device.type != "meta":
+        from .. import monitor
+        summarize = attrs.get("summarize", 20)
+        flat = x.reshape(-1)[:summarize] if summarize and summarize > 0 \
+            else x
+        vals = flat.detach().cpu().numpy()
+        monitor.counter_inc("print.host_syncs")
+        print(f"{attrs.get('message', '')} shape={tuple(x.shape)} "
+              f"values={vals}", flush=True)
+    return {"Out": [x]}
