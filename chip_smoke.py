@@ -451,6 +451,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      backward ms and peak memory, and at batch 1 against the CPU. No
      TPU kernel lies on these paths: their launch counts are checked to
      be 0.
+ 41. the legacy front end, f32 with TF32 off (~60-90 s). (a) a legacy
+     AlexNet config after benchmark/paddle/image/alexnet.py (227 x 227 x
+     3, 1000 classes, B 128, Momentum 0.9, L2; its @provider draws
+     images and labels from a seed), written with its provider into a
+     temporary directory: `python -m paddle_tpu_torch train` (layer_num
+     1, 1280 samples: 10 batches, every cost finite, pass-00000 saved),
+     `time --num_batches=20` (ms a batch, samples/s) and `test
+     --init_model_path=.../pass-00000`, run in this process through
+     runpy so the launch counters see them; then step 1 at layer_num 1
+     and 2 (dropout off) on the card against the CPU from the same
+     weights: the loss within 1e-5 relative, each op on the CPU's values
+     of its inputs within 1e-4 of each output's largest element; the
+     step's wall, device ms, busy share, kernels and peak memory. (b)
+     `checkgrad` on tests/fixtures/cli/tiny_config.py: max relative
+     diff under 5e-2. (c) the v2 API: init(use_gpu=True), the book's
+     recognize-digits conv net, one pass of 8192 synthetic mnist images
+     at B 128 through trainer.SGD with Momentum, infer on 128 test
+     images: the first 3 costs and the probabilities within 1e-5 of the
+     CPU's from the same weights; samples/s. (d) legacy_beam_generate:
+     the memory decoder of tests/test_legacy_generation.py at width 512,
+     a 30000-word dictionary, beam 3, B 64, max_length 50 (the seqToseq
+     demo's 250, cut): ms and kernels a generation, no device -> host
+     sync in a generation, ids and lengths equal to the CPU's from the
+     same weights but for rows at a near tie (at most 2), scores within
+     1e-5. (e) cross_entropy_over_beam: tests/test_beam_training.py's
+     two cases and a B 64 batch of 3 expansions, beam 3, through kmax ->
+     sub_nested_seq -> seq_slice: loss and gradients within 1e-6 of the
+     CPU's, beam.host_syncs 1 a forward + backward. No TPU kernel lies
+     on these paths: their launch counts are checked to be 0.
 
 The second-to-last line is the kernel table as JSON (with the ResNet-50
 results under "resnet50"); the last line is
@@ -458,6 +487,7 @@ results under "resnet50"); the last line is
 no CUDA card is visible or when run outside a checkout of the repo.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -9343,6 +9373,740 @@ def corpus_phase(smi):
                    "legacy_vision": vision, "seconds": secs}
 
 
+# -- phase 41: the legacy front end ------------------------------------------
+
+# (a) a legacy config after the published benchmark config
+# benchmark/paddle/image/alexnet.py: 227 x 227 x 3, 1000 classes, B 128,
+# Momentum(0.9), lr 0.01 / B, L2 0.0005 x B; its provider draws images and
+# labels from a seed
+LEGACY_ALEXNET = """\
+from paddle.trainer_config_helpers import *
+
+height = width = get_config_arg('height', int, 227)
+num_class = get_config_arg('num_class', int, 1000)
+batch_size = get_config_arg('batch_size', int, 128)
+gp = get_config_arg('layer_num', int, 1)
+num_samples = get_config_arg('num_samples', int, 1280)
+drop_rate = get_config_arg('drop_rate', float, 0.5)
+
+define_py_data_sources2(
+    "train.list", "test.list", module="alexnet_provider", obj="process",
+    args={"height": height, "width": width, "num_class": num_class,
+          "num_samples": num_samples, "num_test_samples": 256})
+
+settings(batch_size=batch_size, learning_rate=0.01 / batch_size,
+         learning_method=MomentumOptimizer(0.9),
+         regularization=L2Regularization(0.0005 * batch_size))
+
+net = data_layer('data', size=height * width * 3)
+net = img_conv_layer(input=net, filter_size=11, num_channels=3,
+                     num_filters=96, stride=4, padding=1)
+net = img_cmrnorm_layer(input=net, size=5, scale=0.0001, power=0.75)
+net = img_pool_layer(input=net, pool_size=3, stride=2)
+net = img_conv_layer(input=net, filter_size=5, num_filters=256, stride=1,
+                     padding=2, groups=gp)
+net = img_cmrnorm_layer(input=net, size=5, scale=0.0001, power=0.75)
+net = img_pool_layer(input=net, pool_size=3, stride=2)
+net = img_conv_layer(input=net, filter_size=3, num_filters=384, stride=1,
+                     padding=1)
+net = img_conv_layer(input=net, filter_size=3, num_filters=384, stride=1,
+                     padding=1, groups=gp)
+net = img_conv_layer(input=net, filter_size=3, num_filters=256, stride=1,
+                     padding=1, groups=gp)
+net = img_pool_layer(input=net, pool_size=3, stride=2)
+net = fc_layer(input=net, size=4096, act=ReluActivation(),
+               layer_attr=ExtraAttr(drop_rate=drop_rate))
+net = fc_layer(input=net, size=4096, act=ReluActivation(),
+               layer_attr=ExtraAttr(drop_rate=drop_rate))
+net = fc_layer(input=net, size=num_class, act=SoftmaxActivation())
+lab = data_layer('label', num_class)
+outputs(cross_entropy(input=net, label=lab))
+"""
+LEGACY_ALEXNET_PROVIDER = """\
+import numpy as np
+from paddle.trainer.PyDataProvider2 import *
+
+
+def hook(settings, height, width, num_class, num_samples, num_test_samples,
+         is_train, **kwargs):
+    settings.dim = height * width * 3
+    settings.num_class = num_class
+    settings.count = num_samples if is_train else num_test_samples
+    settings.seed = 0 if is_train else 1
+    settings.slots = [dense_vector(settings.dim), integer_value(num_class)]
+
+
+@provider(init_hook=hook)
+def process(settings, file_list):
+    rng = np.random.default_rng(settings.seed)
+    for _ in range(settings.count):
+        yield (rng.random(settings.dim, dtype=np.float32),
+               int(rng.integers(settings.num_class)))
+"""
+LEGACY_SIDE, LEGACY_CLASSES, LEGACY_B = 227, 1000, 128
+LEGACY_SAMPLES, LEGACY_TIME_BATCHES = 1280, 20
+LEGACY_LOSS_RTOL, LEGACY_OP_TOL = 1e-5, 1e-4
+LEGACY_TIMED_STEPS = 5
+# (c) the book's recognize-digits conv net through the v2 API: B 128, one
+# pass of the synthetic mnist train set (8192), Momentum(0.1 / 128, 0.9);
+# the first V2_CHECKED costs against the CPU's from the same weights
+V2_B, V2_SAMPLES, V2_LR, V2_CHECKED, V2_TOL = 128, 8192, 0.1 / 128, 3, 1e-5
+# (d) the memory decoder of tests/test_legacy_generation.py at the widths
+# of the reference's v1 seqToseq demo (512 wide, a 30000-word dictionary,
+# beam 3); max_length 50, cut from the demo's 250
+GEN_B, GEN_DIM, GEN_VOCAB, GEN_BEAM, GEN_MAX_LEN = 64, 512, 30000, 3, 50
+GEN_SCORE_RTOL, GEN_TIE, GEN_MAX_TIE_ROWS = 1e-5, 1e-5, 2
+LEGACY_GEN = """\
+from paddle.trainer_config_helpers import *
+
+dim = get_config_arg('dim', int, 512)
+vocab = get_config_arg('vocab', int, 30000)
+beam = get_config_arg('beam', int, 3)
+max_length = get_config_arg('max_length', int, 50)
+settings(batch_size=64, learning_rate=0)
+ctx = data_layer(name='ctx', size=dim)
+gen_in = [StaticInput(input=ctx, size=dim),
+          GeneratedInput(size=vocab, embedding_name='gen_emb',
+                         embedding_size=dim)]
+
+
+def step(ctx_in, word_emb):
+    state = memory(name='dec', size=dim)
+    merged = mixed_layer(size=3 * dim,
+                         input=[full_matrix_projection(input=ctx_in),
+                                full_matrix_projection(input=word_emb)])
+    h = gru_step_layer(input=merged, output_mem=state, size=dim,
+                       name='dec')
+    with mixed_layer(size=vocab, act=SoftmaxActivation()) as out:
+        out += full_matrix_projection(input=h)
+    return out
+
+
+outputs(beam_search(name='gen', step=step, input=gen_in, bos_id=0,
+                    eos_id=1, beam_size=beam, max_length=max_length))
+"""
+# (e) the beam cost: B 64 sequences of 3 to 8 sentences of 3 to 8 words
+# and spans of 8 to 24 scores, 3 expansions, beam 3
+BC_B, BC_S, BC_T, BC_K, BC_TOL = 64, 8, 8, 3, 1e-6
+
+
+def run_cli(args):
+    """`python -m paddle_tpu_torch <args>` in this process (runpy runs
+    the package's __main__ as the interpreter would), so the kernel
+    wrappers' launch counters see its work. Returns (exit code, stdout)."""
+    import contextlib
+    import io
+    import runpy
+    buf, argv = io.StringIO(), sys.argv
+    sys.argv = ["paddle_tpu_torch", *args]
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module("paddle_tpu_torch", run_name="__main__",
+                             alter_sys=True)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else (0 if e.code is None
+                                                     else 1)
+    finally:
+        sys.argv = argv
+    return rc, buf.getvalue()
+
+
+def last_json(out, what):
+    for line in reversed(out.strip().splitlines()):
+        if line.startswith("{"):
+            return json.loads(line)
+    raise AssertionError(f"{what}: no JSON record in its output")
+
+
+def legacy_args(**args):
+    """The AlexNet config's args at this phase's sizes."""
+    return {"height": LEGACY_SIDE, "num_class": LEGACY_CLASSES,
+            "batch_size": LEGACY_B, **args}
+
+
+def cli_config_args(**args):
+    return "--config_args=" + ",".join(
+        f"{k}={v}" for k, v in legacy_args(**args).items())
+
+
+def legacy_cli_phase(tmp, smi):
+    """(a) train, time and test through the CLI, on the card."""
+    cfg = os.path.join(tmp, "alexnet.py")
+    save = os.path.join(tmp, "alexnet_out")
+    args = cli_config_args(layer_num=1, num_samples=LEGACY_SAMPLES)
+    zero_counts()                       # the main path starts here
+    t0 = time.perf_counter()
+    rc, out = run_cli(["train", f"--config={cfg}", "--num_passes=1",
+                       "--log_period=1", f"--save_dir={save}", args])
+    train_s = time.perf_counter() - t0
+    costs = [float(ln.split("Cost ")[1].split(",")[0])
+             for ln in out.splitlines() if ", Cost " in ln]
+    rates = [float(ln.rsplit(", ", 1)[1].split()[0])
+             for ln in out.splitlines() if ", Cost " in ln]
+    if rc != 0 or len(costs) != LEGACY_SAMPLES // LEGACY_B \
+            or not np.isfinite(costs).all() \
+            or not os.path.isdir(os.path.join(save, "pass-00000")):
+        raise AssertionError(f"legacy train job: rc {rc}, costs {costs}, "
+                             f"output tail {out[-800:]}")
+    test_line = next(ln for ln in out.splitlines() if "test cost" in ln)
+    n_time = LEGACY_TIME_BATCHES * LEGACY_B
+    rc, out = run_cli(["time", f"--config={cfg}",
+                       f"--num_batches={LEGACY_TIME_BATCHES}",
+                       cli_config_args(layer_num=1, num_samples=n_time)])
+    timed = last_json(out, "legacy time job")
+    if rc != 0 or timed.get("batches") != LEGACY_TIME_BATCHES:
+        raise AssertionError(f"legacy time job: rc {rc}, {out[-800:]}")
+    rc, out = run_cli(["test", f"--config={cfg}", args,
+                       f"--init_model_path={save}/pass-00000"])
+    tested = last_json(out, "legacy test job")
+    if rc != 0 or not np.isfinite(tested.get("cost", np.nan)):
+        raise AssertionError(f"legacy test job: rc {rc}, {out[-800:]}")
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, launches_of(), "legacy AlexNet through the CLI "
+                 "(no TPU kernel on this path)")
+    log(f"legacy AlexNet (layer_num 1, {LEGACY_SIDE} x {LEGACY_SIDE}, "
+        f"{LEGACY_CLASSES} classes, B {LEGACY_B}) through python -m paddle_tpu_torch on the card: train "
+        f"{len(costs)} batches in {train_s:.1f} s, costs {costs[0]:.6f} -> "
+        f"{costs[-1]:.6f}, the job's last rate {rates[-1]:.1f} samples/s, "
+        f"'{test_line}', pass-00000 saved; time: "
+        f"{timed['ms_per_batch']} ms a batch, {timed['samples_per_sec']} "
+        f"samples/s over {timed['batches']} batches; test on pass-00000: "
+        f"cost {tested['cost']:.6f} | {smi}")
+    return counts, {"train_costs": costs, "train_s": train_s,
+                    "train_samples_per_s_logged": rates[-1],
+                    "ms_per_batch": timed["ms_per_batch"],
+                    "samples_per_sec": timed["samples_per_sec"],
+                    "test_cost": tested["cost"]}
+
+
+def legacy_feed(rec, provider_dir):
+    """The first batch of the config's provider, fed as the trainer feeds
+    it."""
+    from paddle_tpu_torch.trainer_config_helpers import import_provider_module
+    ds = rec.data_sources
+    prov = getattr(import_provider_module(ds["module"], provider_dir),
+                   ds["obj"]).bind(ds["args"], file_list=["train"],
+                                   is_train=True)
+    batch = next(pt.reader.batch(prov.reader(None), LEGACY_B)())
+    block = rec.program.global_block()
+    return pt.DataFeeder([block.var(n) for n in rec.feed_order]).feed(batch)
+
+
+@contextlib.contextmanager
+def cudnn_weight_gradient():
+    """nn_ops's C39 rule off for the block: every f32 conv2d on the card
+    takes cuDNN's weight gradient, the wrong ones too (a timing
+    comparison only)."""
+    from paddle_tpu_torch.ops import nn_ops
+    rule = nn_ops.cudnn_wgrad_faulty
+    nn_ops.cudnn_wgrad_faulty = lambda w, stride: False
+    try:
+        yield
+    finally:
+        nn_ops.cudnn_wgrad_faulty = rule
+
+
+def legacy_step_phase(tmp, smi):
+    """(a) in process: step 1 at layer_num 1 and 2 (dropout off: the
+    card's and the CPU's generators draw different masks) from the same
+    weights on the card and on the CPU, the loss within 1e-5 relative,
+    each op on the CPU's values of its inputs within 1e-4 of each
+    output's largest element; then the CLI's program (layer_num 1,
+    dropout 0.5): step wall, a profiled step's device ms, busy share and
+    kernels, peak memory, and the step wall with cuDNN's weight gradient
+    at C39's shapes too."""
+    from paddle_tpu_torch.trainer_config_helpers import parse_config
+    cfg = os.path.join(tmp, "alexnet.py")
+    parity, counts = {}, launches_of()
+    for gp, drop in ((1, 0.0), (2, 0.0), (1, 0.5)):
+        pt.framework.reset_default_programs()
+        rec = parse_config(cfg, config_args=legacy_args(layer_num=gp,
+                                                        drop_rate=drop))
+        loss, = rec.outputs
+        rec.create_optimizer().minimize(loss)
+        main = rec.program
+        feed = legacy_feed(rec, tmp)
+        exe, scope = pt.Executor(), pt.Scope()
+        exe.run(pt.framework.default_startup_program(), scope=scope)
+        what = f"legacy AlexNet layer_num {gp}"
+        if drop == 0.0:
+            state = tensors_of(scope)
+            zero_counts()               # the main path starts here
+            card, = exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope_of(state, "cuda"),
+                            return_numpy=False)
+            c = read_counts()           # the main path ends here
+            counts = {k: counts[k] + c[k] for k in counts}
+            errs, pairs = op_by_op_step(main, feed, scope_of(state, "cpu"),
+                                        what, LEGACY_OP_TOL)
+            cpu = pairs[loss.name][1]
+            loss_err = max_rel(card, cpu)
+            worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+            log(f"{what} step 1 on the card against the CPU from the same "
+                f"weights: loss {float(card):.6f} vs {float(cpu):.6f} "
+                f"({loss_err:.2e} relative, tol {LEGACY_LOSS_RTOL:g}); op by "
+                f"op, the worst of {len(errs)} outputs "
+                f"{[(n, f'{e:.2e}') for n, e in worst]} (tol "
+                f"{LEGACY_OP_TOL:g}) | {smi}")
+            if not loss_err <= LEGACY_LOSS_RTOL:
+                raise AssertionError(f"{what}: step 1's loss differs from "
+                                     "the CPU's")
+            parity[f"layer_num_{gp}"] = {"loss_rel_err": loss_err,
+                                         "worst_op_err": worst[0][1]}
+            continue
+        feed = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                for k, v in feed.items()}
+        zero_counts()                   # the main path starts here
+        walls = []
+        for _ in range(LEGACY_TIMED_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        c = read_counts()               # the main path ends here
+        counts = {k: counts[k] + c[k] for k in counts}
+        med, lo, hi = median_lo_hi(walls[1:])
+        torch.cuda.reset_peak_memory_stats()
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = whole_profile(exe, main, feed, loss, scope, med, what, smi)
+        device = ("not measured" if prof["device_ms"] is None else
+                  f"{prof['device_ms']:.2f} ms (busy {prof['busy']:.3f})")
+        walls = []
+        with cudnn_weight_gradient():
+            for _ in range(LEGACY_TIMED_STEPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+        cmed, clo, chi = median_lo_hi(walls[1:])
+        log(f"the same step with cuDNN's weight gradient at C39's shapes "
+            f"too (wrong there; timed only): {cmed:.2f} ms median "
+            f"({clo:.2f}-{chi:.2f}) against {med:.2f} | {smi}")
+        log(f"legacy AlexNet training step (layer_num 1, dropout 0.5, B "
+            f"{LEGACY_B}, fed from device tensors): {med:.2f} ms median "
+            f"({lo:.2f}-{hi:.2f}), {LEGACY_B / med * 1e3:.1f} samples/s, "
+            f"device {device}, {prof['kernels_per_step']} kernels a step, "
+            f"peak {peak:.2f} GiB; top ops {prof['top_op_types_ms']} | {smi}")
+        parity["step"] = {"step_ms": med, "step_ms_lo": lo,
+                          "step_ms_hi": hi, "device_ms": prof["device_ms"],
+                          "busy": prof["busy"],
+                          "kernels_per_step": prof["kernels_per_step"],
+                          "peak_gib": peak,
+                          "top_op_types_ms": prof["top_op_types_ms"],
+                          "cudnn_wgrad_step_ms": cmed,
+                          "cudnn_wgrad_step_ms_lo": clo,
+                          "cudnn_wgrad_step_ms_hi": chi}
+    check_counts(counts, launches_of(), "legacy AlexNet in process (no TPU "
+                 "kernel on this path)")
+    return counts, parity
+
+
+def legacy_checkgrad_phase(tmp, smi):
+    """(b) checkgrad on the CLI fixture config, on the card."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    for name in ("tiny_config.py", "tiny_provider.py"):
+        shutil.copy(os.path.join(here, "tests", "fixtures", "cli", name),
+                    os.path.join(tmp, name))
+    zero_counts()                       # the main path starts here
+    rc, out = run_cli(["checkgrad",
+                       f"--config={os.path.join(tmp, 'tiny_config.py')}"])
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, launches_of(), "legacy checkgrad (no TPU kernel)")
+    lines = [ln for ln in out.splitlines() if "max relative diff" in ln]
+    diff = float(lines[-1].split("= ")[1]) if lines else float("nan")
+    log(f"legacy checkgrad on the card (tiny_config, f32, TF32 off, eps "
+        f"1e-3): rc {rc}, max relative diff {diff:.3g} (limit 5e-2) | {smi}")
+    if rc != 0 or not diff < 5e-2:
+        raise AssertionError(f"legacy checkgrad: rc {rc}, {out[-800:]}")
+    return counts, {"max_relative_diff": diff}
+
+
+def v2_digits(paddle, init=None, samples=None):
+    """The book's recognize-digits conv net through the v2 API, trained
+    one pass over `samples` of the synthetic mnist train set from `init`
+    (else the startup's weights). Returns (the net's output, its
+    Parameters, the initial weights, the costs, the wall of train)."""
+    from paddle_tpu_torch import event as events
+    images = paddle.layer.data(name="pixel",
+                               type=paddle.data_type.dense_vector(784))
+    label = paddle.layer.data(name="label",
+                              type=paddle.data_type.integer_value(10))
+    x = pt.layers.reshape(images, [-1, 1, 28, 28])
+    c1 = paddle.networks.simple_img_conv_pool(
+        input=x, filter_size=5, num_filters=20, pool_size=2, pool_stride=2,
+        act=paddle.activation.Relu())
+    c2 = paddle.networks.simple_img_conv_pool(
+        input=c1, filter_size=5, num_filters=50, pool_size=2,
+        pool_stride=2, act=paddle.activation.Relu())
+    predict = paddle.layer.fc(input=c2, size=10,
+                              act=paddle.activation.Softmax())
+    cost = paddle.layer.classification_cost(input=predict, label=label)
+    parameters = paddle.parameters.create(cost)
+    if init is None:
+        init = {n: parameters.get(n) for n in parameters.names()}
+    for n, v in init.items():
+        parameters.set(n, v)
+    trainer = paddle.trainer.SGD(
+        cost=cost, parameters=parameters,
+        update_equation=paddle.optimizer.Momentum(learning_rate=V2_LR,
+                                                  momentum=0.9))
+    costs = []
+    t0 = time.perf_counter()
+    trainer.train(
+        reader=paddle.batch(paddle.reader.firstn(
+            paddle.dataset.mnist.train(), samples or V2_SAMPLES), V2_B),
+        num_passes=1,
+        event_handler=lambda e: costs.append(e.cost)
+        if isinstance(e, events.EndIteration) else None)
+    return predict, parameters, init, costs, time.perf_counter() - t0
+
+
+def legacy_v2_phase(smi):
+    """(c) the v2 API on the card: init(use_gpu=True), one pass of the
+    recognize-digits conv net, infer on 128 test images; the first costs
+    and the probabilities against the CPU."""
+    import paddle_tpu_torch.v2 as paddle
+    paddle.init(use_gpu=True)
+    zero_counts()                       # the main path starts here
+    predict, params, init, costs, wall = v2_digits(paddle)
+    rows = [(x,) for x, _ in paddle.reader.firstn(
+        paddle.dataset.mnist.test(), V2_B)()]
+    probs = np.asarray(paddle.infer(output_layer=predict, parameters=params,
+                                    input=rows))
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, launches_of(), "v2 recognize-digits (no TPU "
+                 "kernel on this path)")
+    final = {n: params.get(n) for n in params.names()}
+    paddle.init(use_gpu=False)
+    cpu_predict, cpu_params, _, cpu_costs, _ = v2_digits(
+        paddle, init, samples=V2_CHECKED * V2_B)
+    for n, v in final.items():
+        cpu_params.set(n, v)
+    cpu_probs = np.asarray(paddle.infer(output_layer=cpu_predict,
+                                        parameters=cpu_params, input=rows))
+    paddle.init(use_gpu=True)
+    cost_err = float(np.max(np.abs(np.subtract(costs[:V2_CHECKED],
+                                               cpu_costs))
+                            / np.abs(cpu_costs)))
+    prob_err = float(np.abs(probs - cpu_probs).max())
+    acc = float(np.mean(probs.argmax(1) == [
+        y for _, y in paddle.reader.firstn(paddle.dataset.mnist.test(),
+                                           V2_B)()]))
+    rate = len(costs) * V2_B / wall
+    log(f"v2 recognize-digits conv net on the card (init(use_gpu=True), "
+        f"SGD Momentum, B {V2_B}, {len(costs)} batches): {wall:.2f} s, "
+        f"{rate:.1f} samples/s, costs {costs[0]:.4f} -> {costs[-1]:.4f}; "
+        f"the first {V2_CHECKED} costs against the CPU's from the same "
+        f"weights {cost_err:.2e} relative (tol {V2_TOL:g}); infer on "
+        f"{len(rows)} test images: probabilities within {prob_err:.2e} of "
+        f"the CPU's (tol {V2_TOL:g}), accuracy {acc:.3f} | {smi}")
+    if not (len(costs) == V2_SAMPLES // V2_B and np.isfinite(costs).all()
+            and costs[-1] < costs[0] and cost_err <= V2_TOL
+            and prob_err <= V2_TOL):
+        raise AssertionError("v2 recognize-digits: the card differs from "
+                             "the CPU, or did not train")
+    return counts, {"samples_per_s": rate, "train_s": wall,
+                    "costs_first_last": [costs[0], costs[-1]],
+                    "cost_rel_err": cost_err, "prob_abs_err": prob_err,
+                    "accuracy": acc}
+
+
+def legacy_generation_phase(tmp, smi):
+    """(d) legacy_beam_generate at the seqToseq demo's widths: ms and
+    kernels a generation, device -> host syncs of a generation fed from
+    the card (none), the ids and lengths against the CPU's from the same
+    weights, a differing row excused only at a near tie."""
+    from paddle_tpu_torch.trainer_config_helpers import parse_config
+    cfg = os.path.join(tmp, "generate.py")
+    with open(cfg, "w") as f:
+        f.write(LEGACY_GEN)
+    pt.framework.reset_default_programs()
+    rec = parse_config(cfg, config_args={
+        "dim": GEN_DIM, "vocab": GEN_VOCAB, "beam": GEN_BEAM,
+        "max_length": GEN_MAX_LEN})
+    ids = rec.outputs[-1]
+    main = rec.program
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(pt.framework.default_startup_program(), scope=scope)
+    ctx = np.random.RandomState(SEED + 41).randn(GEN_B, GEN_DIM).astype(
+        np.float32)
+    feed = {"ctx": torch.from_numpy(ctx).cuda()}
+    fetch = [ids, ids.scores_var, ids.lens_var]
+    zero_counts()                       # the main path starts here
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    counts = read_counts()              # the main path ends here
+    check_counts(counts, launches_of(), "legacy generation (no TPU kernel "
+                 "on this path)")
+    med, lo, hi = median_lo_hi(walls[1:])
+    syncs = call_syncs(lambda: exe.run(main, feed=feed, fetch_list=[],
+                                       scope=scope))
+    prof = whole_profile(exe, main, {"ctx": ctx}, ids, scope, med,
+                         "legacy generation", smi)
+    card_ids, card_scores, card_lens = (t.cpu() for t in out)
+    record = []
+    mod, real, wrapped = decode_leads(record)
+    mod.beam_step = wrapped
+    try:
+        t0 = time.perf_counter()
+        cpu_ids, cpu_scores, cpu_lens = (
+            torch.as_tensor(v) for v in pt.Executor(pt.CPUPlace()).run(
+                main, feed={"ctx": ctx}, fetch_list=fetch,
+                scope=scope_of(tensors_of(scope), "cpu")))
+        cpu_s = time.perf_counter() - t0
+    finally:
+        mod.beam_step = real
+    lead = torch.stack(record).amin(dim=0)          # [B]
+    near = lead < GEN_TIE
+    same = ((card_ids == cpu_ids).flatten(1).all(1)
+            & (card_lens == cpu_lens).all(1))
+    differ = ~same
+    excused = differ & near
+    rel = ((card_scores - cpu_scores).abs()
+           / cpu_scores.abs().clamp_min(1e-30))[same]
+    rel_max = float(rel.max()) if rel.numel() else 0.0
+    device = ("not measured" if prof["device_ms"] is None else
+              f"{prof['device_ms']:.2f} ms (busy {prof['busy']:.3f})")
+    log(f"legacy generation (memory decoder, width {GEN_DIM}, vocab "
+        f"{GEN_VOCAB}, beam {GEN_BEAM}, B {GEN_B}, max_length "
+        f"{GEN_MAX_LEN}): {med:.1f} ms a generation median of 3 "
+        f"({lo:.1f}-{hi:.1f}), device {device}, "
+        f"{prof['kernels_per_step']} kernels a generation, {syncs} device "
+        f"-> host syncs a generation; card vs CPU ({cpu_s:.1f} s): scores "
+        f"{rel_max:.2e} relative (tol {GEN_SCORE_RTOL:g}) on the "
+        f"{int(same.sum())} equal rows, rows differing "
+        f"{int(differ.sum())}, excused by a near tie {int(excused.sum())} "
+        f"(at most {GEN_MAX_TIE_ROWS}), rows with a lead under {GEN_TIE:g} "
+        f"{int(near.sum())}, smallest lead {float(lead.min()):.3e}; mean "
+        f"length {float(card_lens[:, 0].float().mean()):.1f} | {smi}")
+    if syncs != 0 or rel_max > GEN_SCORE_RTOL \
+            or bool((differ & ~near).any()) \
+            or int(excused.sum()) > GEN_MAX_TIE_ROWS:
+        raise AssertionError("legacy generation: the card differs from the "
+                             "CPU, or it read the device from the host")
+    return counts, {"ms_per_generation": med, "ms_lo": lo, "ms_hi": hi,
+                    "device_ms": prof["device_ms"], "busy": prof["busy"],
+                    "kernels_per_generation": prof["kernels_per_step"],
+                    "syncs_per_generation": syncs,
+                    "scores_rel_err": rel_max,
+                    "differing_rows": int(differ.sum()),
+                    "excused_rows": int(excused.sum()),
+                    "near_tie_rows": int(near.sum()),
+                    "smallest_lead": float(lead.min())}
+
+
+def beam_cost_program(B, K):
+    """Three chained expansions: the sentence scores and kmax over them;
+    sub_nested_seq picks the selected sentences' word scores, kmax over
+    those; seq_slice cuts a span from each selected word on, kmax over
+    the spans; cross_entropy_over_beam over the three, and its gradients
+    to the three score inputs."""
+    from paddle_tpu_torch import trainer_config_helpers as tch
+    L = pt.layers
+    sent = L.data("sent", shape=[1], dtype="float32", lod_level=1,
+                  stop_gradient=False)
+    word = L.data("word", shape=[1], dtype="float32", lod_level=2,
+                  stop_gradient=False)
+    span = L.data("span", shape=[1], dtype="float32", lod_level=1,
+                  stop_gradient=False)
+    golds = [L.data(f"g{i}", shape=[1], dtype="int64") for i in range(3)]
+    top_s = tch.kmax_seq_score_layer(input=sent, beam_size=K)
+    picked = tch.sub_nested_seq_layer(input=word, selected_indices=top_s)
+    top_w = tch.kmax_seq_score_layer(input=picked, beam_size=K)
+    sliced = tch.seq_slice_layer(input=span,
+                                 starts=L.reshape(top_w, [-1, K * K]),
+                                 ends=None)
+    top_e = tch.kmax_seq_score_layer(input=sliced, beam_size=K)
+    cost = tch.cross_entropy_over_beam(input=[
+        tch.BeamInput(candidate_scores=sent, selected_candidates=top_s,
+                      gold=golds[0]),
+        tch.BeamInput(candidate_scores=picked, selected_candidates=top_w,
+                      gold=golds[1]),
+        tch.BeamInput(candidate_scores=sliced, selected_candidates=top_e,
+                      gold=golds[2])])
+    return [cost] + list(pt.backward.calc_gradient(cost, [sent, word, span]))
+
+
+def beam_cost_feed(rng, B, S, T, K):
+    """Every expansion but the last selects K candidates in every row
+    (the cost's bookkeeping maps a row to a slot of the previous
+    expansion): at least K sentences and K words; a span from a word on
+    is never empty."""
+    outer = rng.randint(K, S + 1, size=B).astype(np.int64)
+    inner = np.zeros((B, S), np.int64)
+    for b in range(B):
+        inner[b, :outer[b]] = rng.randint(K, T + 1, size=outer[b])
+    return {"sent": rng.randn(B, S, 1).astype(np.float32),
+            "sent@SEQLEN": outer,
+            "word": rng.randn(B, S, T, 1).astype(np.float32),
+            "word@SEQLEN": outer, "word@SEQLEN@SUB": inner,
+            "span": rng.randn(B, 3 * T, 1).astype(np.float32),
+            "span@SEQLEN": rng.randint(T, 3 * T + 1,
+                                       size=B).astype(np.int64),
+            **{f"g{i}": rng.randint(0, 2, size=(B, 1)).astype(np.int64)
+               for i in range(3)}}
+
+
+def beam_cost_oracle_cases():
+    """tests/test_beam_training.py's cases: (ids0, gold0, scores1 rows,
+    ids1, gold1)."""
+    return [([1, 3, 0], 3, [[0.5, 0.1, 0.4], [0.9, 0.2], [0.3, 0.6, 0.7]],
+             [[0, 2, -1], [1, -1, -1], [2, 0, -1]], 1),
+            ([1, 3, 0], 2, [[0.5, 0.1], [0.9, 0.2], [0.3, 0.6]],
+             [[0, -1, -1], [1, -1, -1], [0, 1, -1]], 0)]
+
+
+def oracle_program_and_feed(case):
+    from paddle_tpu_torch import trainer_config_helpers as tch
+    ids0, gold0, rows1, ids1, gold1 = case
+    K, S1, T1 = len(ids0), len(rows1), max(len(r) for r in rows1)
+    L = pt.layers
+    s0 = L.data("s0", shape=[1], dtype="float32", lod_level=1,
+                stop_gradient=False)
+    i0 = L.data("i0", shape=[K], dtype="float32")
+    g0 = L.data("g0", shape=[1], dtype="int64")
+    s1 = L.data("s1", shape=[1], dtype="float32", lod_level=2,
+                stop_gradient=False)
+    i1 = L.data("i1", shape=[S1, K], dtype="float32")
+    g1 = L.data("g1", shape=[1], dtype="int64")
+    cost = tch.cross_entropy_over_beam(input=[
+        tch.BeamInput(candidate_scores=s0, selected_candidates=i0,
+                      gold=g0),
+        tch.BeamInput(candidate_scores=s1, selected_candidates=i1,
+                      gold=g1)])
+    fetch = [cost] + list(pt.backward.calc_gradient(cost, [s0, s1]))
+    s1v = np.zeros((1, S1, T1, 1), np.float32)
+    inner = np.zeros((1, S1), np.int64)
+    for r, row in enumerate(rows1):
+        s1v[0, r, :len(row), 0] = row
+        inner[0, r] = len(row)
+    feed = {"s0": np.random.RandomState(7).randn(1, 5, 1).astype(np.float32),
+            "s0@SEQLEN": np.asarray([5], np.int64),
+            "i0": np.asarray([ids0], np.float32),
+            "g0": np.asarray([[gold0]], np.int64), "s1": s1v,
+            "s1@SEQLEN": np.asarray([S1], np.int64),
+            "s1@SEQLEN@SUB": inner, "i1": np.asarray([ids1], np.float32),
+            "g1": np.asarray([[gold1]], np.int64)}
+    return fetch, feed
+
+
+def beam_cost_card(main, feed, fetch):
+    """The card's run with the monitor on (beam.host_syncs); returns
+    (card outputs, host syncs)."""
+    exe = pt.Executor()
+    monitor.reset()
+    monitor.set_enabled(True)
+    try:
+        card = exe.run(main, feed=feed, fetch_list=fetch, return_numpy=False)
+        torch.cuda.synchronize()
+        syncs = int(monitor.snapshot().get("counters", {}).get(
+            "beam.host_syncs", 0))
+    finally:
+        monitor.set_enabled(False)
+        monitor.reset()
+    return card, syncs
+
+
+def beam_cost_errors(main, feed, fetch, card):
+    """The CPU's run of the same program and feed; the largest absolute
+    difference of each fetch from the card's."""
+    cpu = pt.Executor(pt.CPUPlace()).run(main, feed=feed, fetch_list=fetch,
+                                         return_numpy=False)
+    return [float((c.double().cpu() - r.double()).abs().max())
+            for c, r in zip(card, cpu)]
+
+
+def legacy_beam_cost_phase(smi):
+    """(e) cross_entropy_over_beam on the card: the oracle cases and a
+    batch of BC_B through kmax -> sub_nested_seq -> seq_slice; loss and
+    gradients against the CPU's, one device -> host copy a run (the
+    forward's; the backward reads nothing), step wall."""
+    results, counts = [], launches_of()
+    cases = [(f"oracle {i}", None, c)
+             for i, c in enumerate(beam_cost_oracle_cases())]
+    cases.append((f"B {BC_B}, 3 expansions, beam {BC_K}",
+                  beam_cost_feed(np.random.RandomState(SEED + 42), BC_B,
+                                 BC_S, BC_T, BC_K), None))
+    for what, feed, case in cases:
+        pt.framework.reset_default_programs()
+        if case is None:
+            fetch = beam_cost_program(BC_B, BC_K)
+        else:
+            fetch, feed = oracle_program_and_feed(case)
+        main = pt.framework.default_main_program()
+        zero_counts()                   # the main path starts here
+        card, syncs = beam_cost_card(main, feed, fetch)
+        c = read_counts()               # the main path ends here
+        counts = {k: counts[k] + c[k] for k in counts}
+        errs = beam_cost_errors(main, feed, fetch, card)
+        results.append({"case": what, "host_syncs": syncs,
+                        "max_abs_err": max(errs)})
+        log(f"beam cost ({what}) on the card against the CPU: loss "
+            f"{float(card[0].mean()):.6f}, loss and gradients within "
+            f"{max(errs):.2e} (tol {BC_TOL:g}); beam.host_syncs {syncs} "
+            f"a forward + backward | {smi}")
+        if max(errs) > BC_TOL or syncs != 1:
+            raise AssertionError(f"beam cost ({what}): the card differs "
+                                 "from the CPU, or it synced other than "
+                                 "once")
+    exe = pt.Executor()
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=fetch, return_numpy=False)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    med, lo, hi = median_lo_hi(walls[1:])
+    syncs = call_syncs(lambda: exe.run(main, feed=feed, fetch_list=[]))
+    log(f"beam cost B {BC_B} step (kmax, sub_nested_seq, seq_slice, the "
+        f"cost, its backward): {med:.2f} ms median ({lo:.2f}-{hi:.2f}), "
+        f"{syncs} device -> host syncs a step in all (torch's sync debug "
+        f"mode) | {smi}")
+    check_counts(counts, launches_of(), "the beam cost (no TPU kernel)")
+    return counts, {"cases": results, "step_ms": med, "step_ms_lo": lo,
+                    "step_ms_hi": hi, "syncs_per_step": syncs}
+
+
+def legacy_phase(smi):
+    """Phase 41."""
+    t0 = time.perf_counter()
+    use_full_f32()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_legacy_")
+    try:
+        with open(os.path.join(tmp, "alexnet.py"), "w") as f:
+            f.write(LEGACY_ALEXNET)
+        with open(os.path.join(tmp, "alexnet_provider.py"), "w") as f:
+            f.write(LEGACY_ALEXNET_PROVIDER)
+        paths, out = {}, {}
+        paths["legacy_alexnet_cli"], out["alexnet_cli"] = \
+            legacy_cli_phase(tmp, smi)
+        paths["legacy_alexnet_step"], out["alexnet_step"] = \
+            legacy_step_phase(tmp, smi)
+        paths["legacy_checkgrad"], out["checkgrad"] = \
+            legacy_checkgrad_phase(tmp, smi)
+        paths["legacy_v2_digits"], out["v2"] = legacy_v2_phase(smi)
+        paths["legacy_generation"], out["generation"] = \
+            legacy_generation_phase(tmp, smi)
+        paths["legacy_beam_cost"], out["beam_cost"] = \
+            legacy_beam_cost_phase(smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"legacy: phase 41 in {out['seconds']:.1f} s | {smi}")
+    return paths, out
+
+
 def main():
     name, smi = device_phase()
     t0 = time.perf_counter()
@@ -9387,6 +10151,7 @@ def main():
     fleet_paths, fleet = fleet_phase(smi)
     det_paths, detection = detection_phase(smi)
     corpus_paths, corpus = corpus_phase(smi)
+    legacy_paths, legacy = legacy_phase(smi)
     paths = {"serving": {"flash_attn_fwd": serving_k1},
              f"training_T{TRAIN_T}": train_counts,
              f"training_T{SHORT_T}": short_counts,
@@ -9403,7 +10168,8 @@ def main():
              "resnet50_serving_f32": resnet_serving_counts["f32"],
              "resnet50_serving_int8": resnet_serving_counts["int8"],
              **telemetry_paths, **sequence_paths, **ctr_paths,
-             **book_paths, **fleet_paths, **det_paths, **corpus_paths}
+             **book_paths, **fleet_paths, **det_paths, **corpus_paths,
+             **legacy_paths}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ALL_KERNELS}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()}
@@ -9491,7 +10257,8 @@ def main():
                                    "serving": resnet_serving},
                       "telemetry": telemetry, "sequence": sequence,
                       "ctr": ctr, "book": book, "fleet": fleet,
-                      "detection": detection, "corpus": corpus}),
+                      "detection": detection, "corpus": corpus,
+                      "legacy": legacy}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -72,6 +72,13 @@ and `deepfm` over is_sparse embeddings, whose gradients are SelectedRows
 the sgd / momentum / adam / adagrad ops apply row by row; scored by the
 evaluators (`evaluator.InGraphAuc`, `InGraphAccuracy`, `Auc`,
 `Accuracy`).
+
+The legacy front end (slice 25): a legacy config (`trainer_config_helpers`,
+a `data_provider` `@provider` module) trains through the same Trainer,
+and the v2 API (`v2`, with the `dataset` loaders) runs where
+`v2.init(use_gpu=...)` chose:
+
+    python -m paddle_tpu_torch train --config=cfg.py [--device cpu]
 """
 
 from . import framework
@@ -92,6 +99,7 @@ from .optimizer import (AdadeltaOptimizer, AdagradOptimizer,
                         MomentumOptimizer, RMSPropOptimizer, SGDOptimizer)
 from .param_attr import HookAttribute, ParamAttr
 from .trainer import Trainer
+from . import data_provider, dataset, trainer_config_helpers, v2
 
 __all__ = ["amp", "framework", "CPUPlace", "CUDAPlace", "Program",
            "default_main_program", "default_startup_program",
@@ -105,4 +113,5 @@ __all__ = ["amp", "framework", "CPUPlace", "CUDAPlace", "Program",
            "HookAttribute", "flags", "io", "monitor", "ops", "quant",
            "serving", "weights", "clip", "event", "learning_rate_decay",
            "reader", "resilience", "DataFeeder", "Trainer", "profiler",
-           "evaluator", "selected_rows"]
+           "evaluator", "selected_rows", "data_provider", "dataset",
+           "trainer_config_helpers", "v2"]

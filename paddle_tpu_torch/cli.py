@@ -1,5 +1,12 @@
 """Command line of the port.
 
+    python -m paddle_tpu_torch train --config=cfg.py [--save_dir=out]
+        [--num_passes=1] [--log_period=100] [--config_args=k=v,...]
+        [--device cpu]
+    python -m paddle_tpu_torch test --config=cfg.py \
+        --init_model_path=out/pass-00000
+    python -m paddle_tpu_torch time --config=cfg.py --num_batches=20
+    python -m paddle_tpu_torch checkgrad --config=cfg.py
     python -m paddle_tpu_torch serve --model_dir DIR \
         [--max_batch_size 16] [--batch_timeout_ms 2] [--buckets 1,2,4,8]
     python -m paddle_tpu_torch serve --artifact m.pdmodel
@@ -10,6 +17,16 @@
         [--replicas 3] [--retry_budget 2] [--probe_interval 0.5]
         [--autoscale --min_replicas 1 --max_replicas 4]
     python -m paddle_tpu_torch route --targets http://a:1,http://b:2
+
+`train`, `test`, `time` and `checkgrad` are the legacy trainer's jobs
+(the reference's TrainerMain, `paddle_tpu/cli.py`): the config runs
+through `trainer_config_helpers.parse_config`, its data comes from the
+`define_py_data_sources2` provider module, pass snapshots land in
+`SAVE_DIR/pass-%05d`, and the log lines and JSON records are printed to
+stdout exactly as the reference prints them. They run on the card
+unless `--device cpu`; with no card they raise. The reference's
+`--use_tpu` is `--device` here, and its `--mesh` / `--master` are not
+offered (one card, no elastic master yet).
 
 Telemetry: `--set flag=value,...` sets any flag (as the env spelling
 PADDLE_TPU_<FLAG> would), e.g. `--set metrics_sample_s=1,trace_path=
@@ -63,7 +80,8 @@ def _log(msg):
 
 def _parser():
     p = argparse.ArgumentParser(prog="python -m paddle_tpu_torch")
-    p.add_argument("job", choices=["serve", "route"])
+    p.add_argument("job", choices=["train", "test", "time", "checkgrad",
+                                   "serve", "route"])
     src = p.add_mutually_exclusive_group()
     src.add_argument("--model_dir",
                      help="[serve|route] a save_inference_model "
@@ -166,7 +184,49 @@ def _parser():
                         "direction cooldowns with one value (defaults: "
                         "the autoscale_up_cooldown_s / "
                         "autoscale_down_cooldown_s flags)")
+    _legacy_arguments(p)
     return p
+
+
+def _legacy_arguments(p):
+    """The arguments of the legacy jobs (the reference's flags of the
+    same names)."""
+    p.add_argument("--config", default=None,
+                   help="[train|test|time|checkgrad] legacy config file "
+                        "(executed by parse_config)")
+    p.add_argument("--config_args", default="",
+                   help="comma-separated k=v handed to get_config_arg")
+    p.add_argument("--save_dir", default=None,
+                   help="[train] pass snapshots land in "
+                        "SAVE_DIR/pass-%%05d; also holds the resume "
+                        "checkpoint")
+    p.add_argument("--num_passes", type=int, default=1)
+    p.add_argument("--start_pass", type=int, default=0)
+    p.add_argument("--init_model_path", default=None,
+                   help="load persistables from this dir before running")
+    p.add_argument("--log_period", type=int, default=100)
+    p.add_argument("--test_period", type=int, default=0,
+                   help="0 = test on all test data at the end of each "
+                        "pass; N>0 = test every N batches")
+    p.add_argument("--num_batches", type=int, default=10,
+                   help="[time] batches to measure")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--feed_workers", type=int, default=None,
+                   help="[train] input-pipeline convert worker threads "
+                        "(default: the feed_workers flag)")
+    p.add_argument("--feed_prefetch_depth", type=int, default=None,
+                   help="[train] device-side prefetch queue depth "
+                        "(default: the feed_prefetch_depth flag)")
+    p.add_argument("--anomaly_policy", default=None,
+                   choices=["raise", "skip_batch", "rollback"],
+                   help="[train] what a NaN-guard trip / loss spike "
+                        "does (resilience.AnomalyPolicy)")
+    p.add_argument("--max_skips", type=int, default=3,
+                   help="[train] consecutive-skip budget for "
+                        "--anomaly_policy=skip_batch")
+    p.add_argument("--preemption_checkpoint", action="store_true",
+                   help="[train] SIGTERM/SIGINT checkpoints at the next "
+                        "step boundary and exits 0")
 
 
 def _parse_kv(text):
@@ -454,8 +514,333 @@ def _route(args):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the legacy trainer's jobs (the reference's TrainerMain analog)
+# ---------------------------------------------------------------------------
+
+def _out(msg):
+    """A log line or JSON record of a legacy job: stdout, as the
+    reference prints it, so the same scripts read both packages."""
+    print(msg, flush=True)
+
+
+def _place(args):
+    """The job's place: the card unless `--device cpu` (raises with no
+    card)."""
+    from ._device import resolve_device
+    from .framework import CPUPlace, CUDAPlace
+    dev = resolve_device(args.device)
+    return CPUPlace() if dev.type == "cpu" else CUDAPlace(dev.index or 0)
+
+
+def _load_config(args):
+    """The job's config, parsed into fresh default programs (a job owns
+    them, also when `main` runs twice in one process)."""
+    from .framework import reset_default_programs
+    from .trainer_config_helpers import parse_config
+    reset_default_programs()
+    if not args.config:
+        raise SystemExit("--config is required for this job")
+    cfg_path = os.path.abspath(args.config)
+    if not os.path.exists(cfg_path):
+        raise SystemExit(f"--config file not found: {cfg_path}")
+    rec = parse_config(cfg_path, config_args=_parse_kv(args.config_args))
+    if not rec.outputs:
+        raise SystemExit("config produced no outputs() — nothing to train")
+    return rec
+
+
+def _provider_readers(rec, config_dir):
+    """Resolve the config's define_py_data_sources2 into (train_reader,
+    test_reader) sample readers via the @provider module (the
+    PyDataProvider2 path, reference PyDataProvider2.cpp:195, minus the
+    embedded interpreter), imported against this package's
+    data_provider."""
+    from .trainer_config_helpers import import_provider_module
+    ds = rec.data_sources
+    if not ds:
+        return None, None
+    prov = getattr(import_provider_module(ds["module"], config_dir),
+                   ds["obj"])
+
+    def file_list(spec):
+        if spec is None:
+            return None
+        path = spec if os.path.isabs(spec) else os.path.join(config_dir,
+                                                             spec)
+        if os.path.exists(path) and path.endswith(".list"):
+            with open(path) as f:
+                return [ln.strip() for ln in f if ln.strip()]
+        return [path]   # a single data file is its own list
+
+    def mk(files, is_train):
+        if files is None:
+            return None
+        bound = prov.bind(ds.get("args"), file_list=files,
+                          is_train=is_train)
+        return bound.reader_from_list(files)
+
+    return (mk(file_list(ds.get("train_list")), True),
+            mk(file_list(ds.get("test_list")), False))
+
+
+def _job_train(args):
+    import time
+
+    from . import event, flags, io, resilience
+    from . import reader as reader_mod
+    from .trainer import Trainer
+
+    rec = _load_config(args)
+    cost, = rec.outputs[:1]
+    place = _place(args)
+    if args.seed is not None:
+        rec.program.seed = args.seed
+    # pipeline knobs land in the flags so every feed of the job (train
+    # loop, per-batch test sweeps) picks them up
+    if args.feed_workers is not None:
+        flags.set_flag("feed_workers", args.feed_workers)
+    if args.feed_prefetch_depth is not None:
+        flags.set_flag("feed_prefetch_depth", args.feed_prefetch_depth)
+    anomaly = (resilience.AnomalyPolicy(
+                   args.anomaly_policy,
+                   max_consecutive_skips=args.max_skips)
+               if args.anomaly_policy else None)
+    trainer = Trainer(cost=cost, optimizer=rec.create_optimizer(),
+                      place=place,
+                      checkpoint_dir=(os.path.join(args.save_dir, "ckpt")
+                                      if args.save_dir else None),
+                      anomaly_policy=anomaly,
+                      preemption_checkpoint=args.preemption_checkpoint)
+    # FLAGS_start_pass: begin at this pass index (a resume checkpoint
+    # further along wins); an override past the checkpoint starts its
+    # pass at batch 0
+    if args.start_pass > trainer._start_pass:
+        trainer._start_pass = args.start_pass
+        trainer._start_batch = 0
+
+    cfg_dir = os.path.dirname(os.path.abspath(args.config))
+    try:
+        train_sampler, test_sampler = _provider_readers(rec, cfg_dir)
+        if train_sampler is None:
+            raise SystemExit(
+                "config has no define_py_data_sources2 train source")
+        bs = rec.batch_size or 32
+        train_reader = reader_mod.batch(train_sampler, bs, drop_last=True)
+        test_reader = (reader_mod.batch(test_sampler, bs, drop_last=False)
+                       if test_sampler else None)
+        feed_order = rec.feed_order
+
+        t_state = {"t0": time.perf_counter(), "seen": 0}
+
+        def handler(ev):
+            if isinstance(ev, event.EndIteration):
+                t_state["seen"] += bs
+                if (args.log_period
+                        and (ev.batch_id + 1) % args.log_period == 0):
+                    dt = time.perf_counter() - t_state["t0"]
+                    _out(f"Pass {ev.pass_id}, Batch {ev.batch_id + 1}, "
+                         f"Cost {ev.cost:.6f}, "
+                         f"{t_state['seen'] / dt:.1f} samples/sec")
+                if (args.test_period and test_reader is not None
+                        and (ev.batch_id + 1) % args.test_period == 0):
+                    res = trainer.test(test_reader, feed_order)
+                    _out(f"Pass {ev.pass_id}, Batch {ev.batch_id + 1}, "
+                         f"test cost {res.cost:.6f}")
+            elif isinstance(ev, event.EndPass):
+                msg = f"Pass {ev.pass_id} done"
+                if getattr(ev, "test_result", None) is not None:
+                    msg += f"; test cost {ev.test_result.cost:.6f}"
+                _out(msg)
+                if args.save_dir:
+                    pass_dir = os.path.join(args.save_dir,
+                                            f"pass-{ev.pass_id:05d}")
+                    trainer.save_params(pass_dir)
+                    _out(f"saved parameters to {pass_dir}")
+
+        if args.init_model_path:
+            io.load_persistables(trainer.exe, args.init_model_path,
+                                 rec.program, scope=trainer.scope)
+            _out(f"initialised model from {args.init_model_path}")
+
+        # test_period == 0: sweep the test data at the end of every pass
+        trainer.train(reader=train_reader, num_passes=args.num_passes,
+                      feed_order=feed_order, event_handler=handler,
+                      test_reader=(test_reader if args.test_period == 0
+                                   else None))
+    except resilience.PreemptionShutdown as e:
+        # graceful preemption: the checkpoint (if --save_dir) is on
+        # disk; exit 0 so the scheduler restarts rather than fails
+        _out(f"preemption shutdown: {e}")
+    return 0
+
+
+def _job_test(args):
+    from . import io
+    from . import reader as reader_mod
+    from .trainer import Trainer
+
+    rec = _load_config(args)
+    cost, = rec.outputs[:1]
+    trainer = Trainer(cost=cost, optimizer=None, place=_place(args))
+    if args.init_model_path:
+        io.load_persistables(trainer.exe, args.init_model_path,
+                             rec.program, scope=trainer.scope)
+    cfg_dir = os.path.dirname(os.path.abspath(args.config))
+    train_sampler, test_sampler = _provider_readers(rec, cfg_dir)
+    sampler = test_sampler or train_sampler
+    if sampler is None:
+        raise SystemExit("config has no data sources to test on")
+    bs = rec.batch_size or 32
+    res = trainer.test(reader_mod.batch(sampler, bs, drop_last=False),
+                       rec.feed_order)
+    out = {"cost": res.cost}
+    for name, val in zip(res.metric_names, res.metrics):
+        out[name] = val
+    _out(json.dumps({"job": "test", **out}))
+    return 0
+
+
+def _job_time(args):
+    """Trainer::time: the training time a batch on the provider's data,
+    forward, backward and update together. Each timed step fetches its
+    cost (a device -> host read), so the clock covers the card's work."""
+    import time
+
+    import numpy as np
+
+    from . import reader as reader_mod
+    from .trainer import Trainer
+
+    rec = _load_config(args)
+    cost, = rec.outputs[:1]
+    trainer = Trainer(cost=cost, optimizer=rec.create_optimizer(),
+                      place=_place(args))
+    cfg_dir = os.path.dirname(os.path.abspath(args.config))
+    train_sampler, _ = _provider_readers(rec, cfg_dir)
+    if train_sampler is None:
+        raise SystemExit("config has no train data source")
+    bs = rec.batch_size or 32
+    batches = []
+    it = reader_mod.batch(train_sampler, bs, drop_last=True)()
+    for _ in range(args.num_batches):
+        try:
+            batches.append(next(it))
+        except StopIteration:
+            break
+    if not batches:
+        raise SystemExit("train source yielded no full batch")
+    feeder = trainer._feeder(rec.feed_order)
+    # warmup: the first run builds what later runs reuse
+    trainer.exe.run(trainer.main_program, feed=feeder.feed(batches[0]),
+                    fetch_list=[cost], scope=trainer.scope)
+    t0 = time.perf_counter()
+    n = 0
+    for b in batches:
+        out = trainer.exe.run(trainer.main_program, feed=feeder.feed(b),
+                              fetch_list=[cost], scope=trainer.scope)
+        n += 1
+    np.asarray(out[0])
+    dt = (time.perf_counter() - t0) / n
+    _out(json.dumps({"job": "time", "batches": n, "batch_size": bs,
+                     "ms_per_batch": round(dt * 1e3, 3),
+                     "samples_per_sec": round(bs / dt, 1)}))
+    return 0
+
+
+def _job_checkgrad(args):
+    """Trainer::checkGradient: analytic parameter gradients against
+    central finite differences (1e-3, float32) on one batch, at a few
+    sampled elements a parameter."""
+    import numpy as np
+
+    from . import framework
+    from . import reader as reader_mod
+    from .backward import calc_gradient
+    from .data_feeder import DataFeeder
+    from .executor import Executor, Scope
+
+    rec = _load_config(args)
+    cost, = rec.outputs[:1]
+    prog = rec.program
+    params = [n for n, v in prog.global_block().vars.items()
+              if isinstance(v, framework.Parameter) and v.trainable]
+    grads = calc_gradient(cost, [prog.global_block().var(n)
+                                 for n in params])
+    params, grads = zip(*[(p, g) for p, g in zip(params, grads)
+                          if g is not None])
+    exe = Executor(_place(args))
+    scope = Scope()
+    exe.run(framework.default_startup_program(), scope=scope)
+
+    cfg_dir = os.path.dirname(os.path.abspath(args.config))
+    train_sampler, _ = _provider_readers(rec, cfg_dir)
+    if train_sampler is None:
+        raise SystemExit("config has no train data source")
+    bs = rec.batch_size or 32
+    batch = next(reader_mod.batch(train_sampler, bs, drop_last=True)())
+    feed_vars = [prog.global_block().var(n) for n in rec.feed_order]
+    feed = DataFeeder(feed_vars).feed(batch)
+
+    fetched = exe.run(prog, feed=feed, fetch_list=[cost] + list(grads),
+                      scope=scope)
+    base_cost = float(np.ravel(fetched[0])[0])
+    _out(f"original cost = {base_cost:.6f}")
+    rng = np.random.RandomState(0)
+    eps, max_diff = 1e-3, 0.0
+    for pname, g in zip(params, fetched[1:]):
+        g = np.asarray(g, np.float64)
+        val = np.array(scope.get(pname).detach().cpu().numpy(), np.float64)
+        flat = val.reshape(-1)
+        idxs = rng.choice(flat.size, size=min(4, flat.size), replace=False)
+        for i in idxs:
+            for sgn in (1, -1):
+                pert = flat.copy()
+                pert[i] += sgn * eps
+                scope.set(pname, pert.reshape(val.shape).astype(np.float32))
+                c, = exe.run(prog, feed=feed, fetch_list=[cost],
+                             scope=scope)
+                if sgn == 1:
+                    hi = float(np.ravel(c)[0])
+                else:
+                    lo = float(np.ravel(c)[0])
+            scope.set(pname, val.astype(np.float32))
+            numeric = (hi - lo) / (2 * eps)
+            analytic = float(g.reshape(-1)[i])
+            denom = max(abs(numeric), abs(analytic), 1e-6)
+            diff = abs(numeric - analytic) / denom
+            max_diff = max(max_diff, diff)
+            _out(f"  {pname}[{i}]: analytic={analytic:.6g} "
+                 f"numeric={numeric:.6g} rel_diff={diff:.3g}")
+    _out(f"max relative diff = {max_diff:.3g}")
+    return 0 if max_diff < 5e-2 else 1
+
+
+def _legacy_job(args):
+    from . import flags, monitor
+    for k, v in _parse_kv(args.set_flags).items():
+        flags.set_flag(k, v)
+    if args.metrics_path:
+        flags.set_flag("metrics_path", args.metrics_path)
+    if flags.get("metrics_path"):
+        flags.set_flag("metrics", True)
+    job = {"train": _job_train, "test": _job_test, "time": _job_time,
+           "checkgrad": _job_checkgrad}[args.job]
+    try:
+        return job(args)
+    finally:
+        # written even when the job raises, and a dump failure never
+        # masks the job's exception
+        try:
+            monitor.maybe_dump()
+        except OSError as e:
+            print(f"metrics dump failed: {e}", file=sys.stderr)
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
+    if args.job in ("train", "test", "time", "checkgrad"):
+        return _legacy_job(args)
     if args.job == "serve":
         return _serve(args)
     return _route(args)

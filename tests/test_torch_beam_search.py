@@ -33,9 +33,9 @@ def test_registered_ops():
     for n in ("beam_search", "beam_search_decode",
               "gru_attention_beam_decode"):
         assert preg.has_op(n) and not preg.get_op(n).differentiable
-    # the v2 generator and the host-callback beam cost stay in ROADMAP A8
-    for n in ("legacy_beam_generate", "cross_entropy_over_beam"):
-        assert not preg.has_op(n)
+    # the legacy generator decodes only; the host beam cost trains
+    assert not preg.get_op("legacy_beam_generate").differentiable
+    assert preg.get_op("cross_entropy_over_beam").differentiable
 
 
 def _step_both(pre, logp, fin, end_id, K, first):

@@ -15,7 +15,8 @@ package, on the CPU.
   program with each product op, forward and with its gradients.
 - `scope_from_numpy` / `scope_to_numpy` carry prelu's Alpha, NCE's and
   hsigmoid's W / Bias and bilinear_tensor_product's Weight both ways.
-- The port registers every op of the reference's but the beam pair.
+- The port registers every op of the reference's, with the same
+  differentiable and stateful marks.
 """
 
 import builtins
@@ -277,11 +278,10 @@ def test_new_parameters_travel_through_scope_from_numpy_and_back():
         np.testing.assert_allclose(p, j, rtol=0, atol=1e-5)
 
 
-def test_registry_lacks_only_the_beam_pair():
-    missing = set(jreg._REGISTRY) - set(preg._REGISTRY)
-    assert missing == {"cross_entropy_over_beam", "legacy_beam_generate"}
-    assert len(preg._REGISTRY) == len(jreg._REGISTRY) - 2
-    for t in set(jreg._REGISTRY) & set(preg._REGISTRY):
+def test_registry_equals_the_references():
+    assert set(preg._REGISTRY) == set(jreg._REGISTRY)
+    assert len(preg._REGISTRY) == len(jreg._REGISTRY) == 228
+    for t in jreg._REGISTRY:
         j, p = jreg.get_op(t), preg.get_op(t)
         assert (j.differentiable, j.stateful) == \
             (p.differentiable, p.stateful), t
