@@ -480,6 +480,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      sub_nested_seq -> seq_slice: loss and gradients within 1e-6 of the
      CPU's, beam.host_syncs 1 a forward + backward. No TPU kernel lies
      on these paths: their launch counts are checked to be 0.
+ 42. the pb model format, recordio and the dataset loaders. (a) phase
+     10's GPT-2-small inference program and weights saved with
+     format="pb" (the reference's binary ProgramDesc, `__model__`) and
+     with format="json"; both loaded by load_inference_model (walls in
+     turns, the program's parse alone, the files' sizes), the programs
+     alike (ops, slots, var shapes, dtypes, persistables; float attrs
+     equal after rounding to float32); the pb directory quantized by
+     quantize_inference_model (4 x 12 + 2 ops, no fallback), written
+     again as pb, loaded (int8 weights column-major) and served one-shot
+     through InferenceEngine.from_program behind make_server with phase
+     10's eight requests (the main path `pb_serving_int8`): K1, K6 and
+     the quantize kernel launch as on phase 10 a dispatch, and every
+     reply's ids are bitwise those of the json-saved int8 model. (b)
+     phase 27's seq2seq amp program (B 256, vocab 30000, emb / hid 512,
+     Adam 1e-3) trained 8 steps by the Trainer from wmt16.train (lengths
+     3-16) through recordio (pickled examples in 4 files built with g++
+     from native/recordio.cpp, sharded_reader(paths, 1, 0),
+     reader.batch(256)): feeds bitwise those of wmt16.train fed
+     straight, step 1's loss bitwise, later losses within
+     WMT_LOSS_TOL (beside the spread of a second recordio run), finite
+     and falling; tokens/s, step wall, a profiled step's device time,
+     the busy share and a batch's host time (read, unpickle, batch,
+     DataFeeder) beside phase 27's. (c) the book's recommender from
+     movielens.train through recordio, 6 steps at B 256: feeds bitwise
+     the direct reader's, losses finite and falling. No TPU kernel lies
+     on (b) and (c): their launch counts are checked to be 0.
 
 The second-to-last line is the kernel table as JSON (with the ResNet-50
 results under "resnet50"); the last line is
@@ -532,6 +558,7 @@ try:
     from paddle_tpu_torch.weights import (lm_weights_from_numpy,
                                           scope_from_numpy)
     from paddle_tpu_torch._device import use_full_f32
+    from paddle_tpu_torch.native import build as native_build
 except ImportError as e:
     sys.exit(f"chip_smoke: the paddle_tpu_torch package is not beside "
              f"this script ({e}); run it from a checkout of the repo")
@@ -10107,12 +10134,508 @@ def legacy_phase(smi):
     return paths, out
 
 
+# -- phase 42: the pb model format, recordio and the dataset loaders ---------
+
+# (b): seq2seq at phase 27's card config, fed from wmt16 through recordio
+WMT_STEPS, WMT_FILES = 8, 4
+# later losses of the recordio route against the direct feed, absolute.
+# Two runs of one route gave the same bits at every step on the H100
+# (the spread is measured and printed beside this every run); the
+# embedding gradients' atomic adds may still sum in another order, which
+# the recommender's f32 losses showed at 2.4e-7: 1e-5 is ten f32 ulps of
+# a loss near 10
+WMT_LOSS_TOL = 1e-5
+# (c): the book's recommender at its widths (movielens ids, embedding 32,
+# towers of 200), B 256
+REC_B, REC_STEPS, REC_LR = 256, 6, 1e-2
+REC_SIZES = {"max_uid": 6041, "max_gender": 2, "max_age": 7, "max_job": 21,
+             "max_movie": 3953, "max_category": 18, "max_title": 5000}
+REC_ORDER = ("uid", "gender", "age", "job", "movie", "cats", "titles",
+             "rating")
+
+
+def f32_attr(v):
+    """An attr value as the pb format keeps it: floats rounded to
+    float32, lists element by element."""
+    if isinstance(v, float):
+        with np.errstate(over="ignore"):
+            return float(np.float32(v))
+    if isinstance(v, (list, tuple)):
+        return [f32_attr(x) for x in v]
+    return v
+
+
+def program_signature(prog):
+    """Per block: the vars (shape, dtype, persistable, lod level) and the
+    ops (type, slots, attrs with floats rounded to float32)."""
+    return [({n: (tuple(v.shape or ()), v.dtype, bool(v.persistable),
+                  int(v.lod_level or 0)) for n, v in blk.vars.items()},
+             [(op.type, op.inputs, op.outputs,
+               {k: f32_attr(a) for k, a in op.attrs.items()
+                if k != "fwd_op_id"}) for op in blk.ops])
+            for blk in prog.blocks]
+
+
+def programs_alike(pb_prog, json_prog, what):
+    """Raise unless the pb-loaded program has the json-loaded one's ops,
+    slots, var shapes, dtypes and persistables, float attrs equal after
+    rounding to float32. Returns the float attrs the rounding moved."""
+    if program_signature(pb_prog) != program_signature(json_prog):
+        raise AssertionError(f"{what}: the pb-loaded program differs from "
+                             "the json-loaded one")
+    return sorted({f"{op.type}.{k}" for blk in json_prog.blocks
+                   for op in blk.ops for k, a in op.attrs.items()
+                   if f32_attr(a) != a})
+
+
+def timed_loads(dirs, exe, reps=2):
+    """load_inference_model of each dir in turns (json, pb, pb, json, ...):
+    {fmt: [wall s]}; each load puts the weights on the card."""
+    walls = {fmt: [] for fmt in dirs}
+    order = list(dirs) + list(dirs)[::-1]
+    for _ in range(reps):
+        for fmt in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pt.io.load_inference_model(dirs[fmt], exe, scope=pt.Scope())
+            torch.cuda.synchronize()
+            walls[fmt].append(time.perf_counter() - t0)
+    return walls
+
+
+def parse_walls(dirs, reps=5):
+    """The program's parse alone, from the file's bytes: {fmt: [s]}."""
+    from paddle_tpu_torch import proto_io
+    with open(os.path.join(dirs["json"], "__model__.json")) as f:
+        text = f.read()
+    with open(os.path.join(dirs["pb"], "__model__"), "rb") as f:
+        blob = f.read()
+    walls = {"json": [], "pb": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pt.Program.from_dict(json.loads(text)["program"])
+        walls["json"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        proto_io.program_from_bytes(blob)
+        walls["pb"].append(time.perf_counter() - t0)
+    return walls
+
+
+def model_sizes(dirs):
+    return {fmt: os.path.getsize(os.path.join(
+        d, "__model__.json" if fmt == "json" else "__model__"))
+        for fmt, d in dirs.items()}
+
+
+def pb_serving_phase(smi):
+    """Phase 42 (a): phase 10's GPT-2-small inference program and weights
+    saved as pb and as json, loaded both ways; the pb directory quantized
+    (read through the auto-detect), written again as pb and served
+    one-shot behind make_server with phase 10's requests."""
+    torch.cuda.empty_cache()
+    flags.set_flag("metrics", True)
+    t0 = time.perf_counter()
+    main, startup, logits, ids = build_gpt2_lm()
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pb_")
+    try:
+        f32 = {fmt: os.path.join(tmp, f"f32_{fmt}") for fmt in ("json", "pb")}
+        for fmt, d in f32.items():
+            pt.io.save_inference_model(d, ["tokens"], [ids], exe,
+                                       main_program=main, scope=scope,
+                                       format=fmt)
+        del scope
+        loads = timed_loads(f32, exe)
+        parses = parse_walls(f32)
+        sizes = model_sizes(f32)
+        progs = {fmt: pt.io.load_inference_model(d, exe, scope=pt.Scope())[0]
+                 for fmt, d in f32.items()}
+        moved = programs_alike(progs["pb"], progs["json"], "f32 GPT-2")
+        log(f"pb serving: GPT-2-small saved as json and pb in "
+            f"{time.perf_counter() - t0:.1f} s; __model__ {sizes['pb']} B "
+            f"vs __model__.json {sizes['json']} B; load_inference_model "
+            f"(program + weights to the card) pb "
+            f"{[round(x, 4) for x in loads['pb']]} s vs json "
+            f"{[round(x, 4) for x in loads['json']]} s; the program's parse "
+            f"alone pb {np.median(parses['pb']) * 1e3:.2f} ms vs json "
+            f"{np.median(parses['json']) * 1e3:.2f} ms (median of 5); the "
+            f"programs alike ({len(progs['pb'].global_block().ops)} ops); "
+            f"float attrs the format rounds: {moved} | {smi}")
+        del progs
+
+        qjson, qpb = os.path.join(tmp, "int8_json"), os.path.join(tmp,
+                                                                  "int8_pb")
+        _, report = quant.quantize_inference_model(f32["pb"], qjson)
+        jscope = pt.Scope()
+        jprog, feeds, fetch = pt.io.load_inference_model(qjson, exe,
+                                                         scope=jscope)
+        pt.io.save_inference_model(qpb, feeds, fetch, exe,
+                                   main_program=jprog, scope=jscope,
+                                   format="pb")
+        qsizes = model_sizes({"json": qjson, "pb": qpb})
+        fallback0 = monitor.snapshot()["counters"].get("quant.fallback_ops",
+                                                       0)
+        qscope = pt.Scope()
+        prog, feeds, fetch = pt.io.load_inference_model(qpb, exe,
+                                                        scope=qscope)
+        fallbacks = monitor.snapshot()["counters"].get(
+            "quant.fallback_ops", 0) - fallback0
+        qmoved = programs_alike(prog, jprog, "int8 GPT-2")
+        dot_weights = {op.input("Y")[0] for op in prog.global_block().ops
+                       if op.type == "quant_mul"}
+        row_major = sorted(n for n in dot_weights
+                           if not qo.is_column_major(qscope.get(n)))
+        log(f"pb serving: the pb directory quantized "
+            f"({report['quantized_ops']} ops, "
+            f"{report['quantized_weights']} weights), written again "
+            f"as pb (__model__ {qsizes['pb']} B vs __model__.json "
+            f"{qsizes['json']} B), loaded with {fallbacks} fallback ops; "
+            f"the pb and json programs alike; {len(dot_weights)} int8 "
+            f"matmul weights, {len(dot_weights) - len(row_major)} "
+            f"column-major on the card; float attrs rounded: {qmoved}")
+        if report["quantized_ops"] != 4 * LAYERS + 2 or fallbacks != 0:
+            raise AssertionError(f"expected {4 * LAYERS + 2} quantized ops "
+                                 "and no fallback")
+        if row_major or len(dot_weights) != 4 * LAYERS + 1:
+            raise AssertionError(f"int8 weights not column-major on the "
+                                 f"card: {row_major}")
+
+        engine = InferenceEngine.from_program(
+            prog, feeds, fetch, executor=exe, scope=qscope,
+            config=EngineConfig(max_batch_size=SERVE_B, buckets=(1, 2, 4, 8),
+                                batch_timeout_ms=20))
+        engine.warmup()
+        server = make_server(engine, port=0)
+        port = server.server_address[1]
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        rng = np.random.RandomState(SEED + 5)         # phase 10's requests
+        reqs = [rng.randint(0, VOCAB, (r, TRAIN_T)).astype(np.int64)
+                for r in rng.randint(1, 4, 8)]
+        replies, errors = {}, []
+
+        def client(idx):
+            for i in idx:
+                try:
+                    replies[i] = post_infer(port, reqs[i])
+                except Exception as e:       # re-raised below
+                    errors.append((i, e))
+
+        before = engine.stats()
+        zero_counts()                       # the main path starts here
+        t_start = time.perf_counter()
+        threads = [threading.Thread(target=client, args=((c, c + 4),))
+                   for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t_start
+        counts = read_counts()              # the main path ends here
+        server.shutdown()
+        engine.shutdown(drain=True, timeout=600)
+        if errors:
+            raise AssertionError(f"/v1/infer requests failed: {errors}")
+        st = engine.stats()
+        batches = st["batches"] - before["batches"]
+        done = st["completed"] - before["completed"]
+        log(f"pb serving: {done} requests ({sum(len(r) for r in reqs)} "
+            f"rows) in {batches} dispatches over {wall:.2f} s, launches "
+            f"{counts}")
+        if done != len(reqs):
+            raise AssertionError("requests lost")
+        check_counts(counts, launches_of(
+            int8_matmul=INT8_PER_DISPATCH * batches,
+            quantize_activations=INT8_PER_DISPATCH * batches,
+            flash_attn_fwd=LAYERS * batches),
+            f"pb int8 serving ({batches} dispatches)")
+        for i, x in enumerate(reqs):
+            want, = exe.run(jprog, feed={"tokens": x}, fetch_list=fetch,
+                            scope=jscope)
+            if not np.array_equal(replies[i], want):
+                raise AssertionError(
+                    f"request {i}: the pb-saved model's ids differ from "
+                    f"the json-saved one's (float attrs the pb format "
+                    f"rounds: {qmoved})")
+        log(f"pb serving: every reply's ids bitwise those of the json-saved "
+            f"int8 model (Executor.run) | {smi}")
+        del engine, qscope, jscope
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {k: n for k, n in counts.items() if n}, {
+        "model_bytes": {"f32": sizes, "int8": qsizes},
+        "load_s": loads, "parse_s": parses, "dispatches": batches,
+        "requests": done, "serve_wall_s": wall, "rounded_attrs": moved,
+        "rounded_attrs_int8": qmoved, "quantized_ops":
+            report["quantized_ops"]}
+
+
+def write_recordio(examples, root, files):
+    """`examples` pickled one a record (the CLI's convention) into
+    `files` recordio files, in order; their paths."""
+    import pickle
+    paths, per = [], -(-len(examples) // files)
+    for k in range(files):
+        path = os.path.join(root, f"part-{k:05d}.rec")
+        pt.recordio.write_records(path, [pickle.dumps(e) for e in
+                                         examples[k * per:(k + 1) * per]])
+        paths.append(path)
+    return paths
+
+
+def recordio_batches(paths, B):
+    import pickle
+    return pt.reader.batch(pt.reader.map_readers(
+        pickle.loads, pt.recordio.sharded_reader(paths, 1, 0)), B)
+
+
+def trainer_run(main, startup, cost, weights, reader, order, record):
+    """One pass of `reader` through the port's Trainer from a copy of
+    `weights`: (losses, the host clock at each step's end, the feeds the
+    executor got as numpy when `record`, the scope)."""
+    scope = scope_of(weights, "cuda")
+    trainer = pt.Trainer(cost, main_program=main, startup_program=startup,
+                         scope=scope)
+    losses, ends, feeds = [], [], []
+    run = trainer.exe.run
+
+    def recording(program, feed=None, **kw):
+        if program is main:
+            feeds.append({k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                              else np.array(v)) for k, v in feed.items()})
+        return run(program, feed=feed, **kw)
+
+    if record:
+        trainer.exe.run = recording
+
+    def handler(ev):
+        if type(ev).__name__ == "EndIteration":
+            losses.append(float(ev.cost))
+            ends.append(time.perf_counter())
+    trainer.train(reader, 1, list(order), handler)
+    return losses, ends, feeds, scope
+
+
+def same_feeds(got, want, what):
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} feeds, {len(want)} direct")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if sorted(g) != sorted(w) or not all(
+                g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k])
+                for k in w):
+            raise AssertionError(f"{what}: step {i + 1}'s feed differs from "
+                                 "the direct feed's")
+
+
+def host_batch_costs(paths, B, feed_vars, steps):
+    """Host seconds a batch spends in the record read, unpickling,
+    batching and the DataFeeder's conversion, timed stage by stage."""
+    import pickle
+    t0 = time.perf_counter()
+    raw = list(pt.recordio.sharded_reader(paths, 1, 0)())
+    t1 = time.perf_counter()
+    examples = [pickle.loads(r) for r in raw]
+    t2 = time.perf_counter()
+    batches = list(pt.reader.batch(lambda: iter(examples), B)())
+    t3 = time.perf_counter()
+    feeder = pt.DataFeeder(feed_vars, pt.CPUPlace())
+    for b in batches:
+        feeder.feed(b)
+    t4 = time.perf_counter()
+    return {"read": (t1 - t0) / steps, "unpickle": (t2 - t1) / steps,
+            "batch": (t3 - t2) / steps, "convert": (t4 - t3) / steps}
+
+
+def wmt16_recordio_phase(smi, s2s27):
+    """Phase 42 (b): phase 27's seq2seq amp program trained by the port's
+    Trainer from wmt16 through recordio (4 files, sharded_reader(paths,
+    1, 0), reader.batch), against the same steps fed straight from
+    wmt16.train; a second run of the recordio route measures the
+    spread."""
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    main, startup, cost = seq2seq_program(S2S_VOCAB, S2S_EMB, S2S_HID,
+                                          S2S_LR, True)
+    exe, scope0 = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope0)
+    weights = tensors_of(scope0)
+    del scope0
+    n = S2S_B * WMT_STEPS
+    order = ("src", "tgt", "nxt")
+    examples = list(pt.reader.firstn(
+        pt.dataset.wmt16.train(S2S_VOCAB, S2S_VOCAB), n)())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rec_")
+    try:
+        t0 = time.perf_counter()
+        paths = write_recordio(examples, tmp, WMT_FILES)
+        write_s = time.perf_counter() - t0
+        zero_counts()                       # the main path starts here
+        losses, _, feeds, _ = trainer_run(main, startup, cost, weights,
+                                          recordio_batches(paths, S2S_B),
+                                          order, True)
+        counts = read_counts()              # the main path ends here
+        check_counts(counts, launches_of(), "seq2seq from recordio (no "
+                     "TPU kernel on this path)")
+        d_losses, _, d_feeds, _ = trainer_run(
+            main, startup, cost, weights, pt.reader.batch(pt.reader.firstn(
+                pt.dataset.wmt16.train(S2S_VOCAB, S2S_VOCAB), n), S2S_B),
+            order, True)
+        same_feeds(feeds, d_feeds, "seq2seq from recordio")
+        r_losses, ends, _, scope = trainer_run(
+            main, startup, cost, weights, recordio_batches(paths, S2S_B),
+            order, False)
+        if not (losses[0] == d_losses[0] == r_losses[0]):
+            raise AssertionError(f"step 1's loss: recordio {losses[0]!r}, "
+                                 f"direct {d_losses[0]!r}, again "
+                                 f"{r_losses[0]!r}")
+        vs_direct = float(np.max(np.abs(np.subtract(losses, d_losses))))
+        spread = float(np.max(np.abs(np.subtract(losses, r_losses))))
+        walls = np.diff(ends) * 1e3
+        med, lo, hi = median_lo_hi(list(walls))
+        pad_tokens = sum(f["tgt"].size for f in feeds) / len(feeds)
+        real_tokens = sum(int(f["tgt@SEQLEN"].sum()) for f in feeds) / len(
+            feeds)
+        rep = monitor.deviceprof.profile_program(
+            main, feeds[-1], [cost.name], scope, exe, steps=1, warmup=0)
+        device_ms = rep["total_us"] / 1e3
+        host = host_batch_costs(paths, S2S_B, [main.global_block().var(k)
+                                               for k in order], WMT_STEPS)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lens = [len(e[0]) for e in examples]
+    log(f"wmt16 via recordio: {n} examples (source lengths {min(lens)}-"
+        f"{max(lens)}) pickled into {WMT_FILES} files in {write_s:.3f} s; "
+        f"{WMT_STEPS} Trainer steps at B {S2S_B}: losses "
+        f"{[round(x, 4) for x in losses]}; direct feed: feeds (ids and "
+        f"@SEQLEN) bitwise equal, step 1's loss bitwise, later max |diff| "
+        f"{vs_direct:.3e} (tol {WMT_LOSS_TOL:g}); a second recordio run: "
+        f"step 1 bitwise, later max |diff| {spread:.3e}; launches {counts}")
+    log(f"wmt16 via recordio: step {med:.2f} ms median ({lo:.2f}-{hi:.2f}, "
+        f"steps 2-{WMT_STEPS}), {real_tokens:.0f} target tokens a batch "
+        f"({pad_tokens:.0f} padded): {real_tokens / med * 1e3:.0f} tokens/s "
+        f"({pad_tokens / med * 1e3:.0f} padded); device {device_ms:.2f} ms "
+        f"a profiled step, busy share {device_ms / med:.3f}; host a batch: "
+        f"read {host['read'] * 1e3:.2f} ms, unpickle "
+        f"{host['unpickle'] * 1e3:.2f}, batch {host['batch'] * 1e3:.3f}, "
+        f"DataFeeder {host['convert'] * 1e3:.2f}; beside phase 27's one "
+        f"fixed batch (T 64): {s2s27['tokens_per_s']:.0f} tokens/s, step "
+        f"{s2s27['step_ms']:.2f} ms, device "
+        f"{s2s27['profile']['device_ms']:.2f} ms | {smi}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"seq2seq losses not finite and falling: "
+                             f"{losses}")
+    if not vs_direct <= WMT_LOSS_TOL:
+        raise AssertionError(f"the recordio route's losses differ from the "
+                             f"direct feed's by {vs_direct:.3e}")
+    return counts, {
+        "losses": losses, "direct_losses": d_losses, "again_losses":
+            r_losses, "vs_direct": vs_direct, "spread": spread,
+        "loss_tol": WMT_LOSS_TOL, "step_ms": med, "step_ms_lo": lo,
+        "step_ms_hi": hi, "tokens_per_s": real_tokens / med * 1e3,
+        "padded_tokens_per_s": pad_tokens / med * 1e3,
+        "device_ms": device_ms, "busy": device_ms / med,
+        "host_s_per_batch": host, "write_s": write_s,
+        "seconds": time.perf_counter() - t_phase}
+
+
+def recommender_program():
+    pt.framework.reset_default_programs()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        ids = {k: pt.layers.data(k, [1], dtype="int64")
+               for k in ("uid", "gender", "age", "job", "movie")}
+        cats = pt.layers.data("cats", [1], dtype="int64", lod_level=1)
+        titles = pt.layers.data("titles", [1], dtype="int64", lod_level=1)
+        rating = pt.layers.data("rating", [1])
+        R = pt.models.recommender
+        usr = R.user_net(ids["uid"], ids["gender"], ids["age"], ids["job"],
+                         REC_SIZES)
+        mov = R.movie_net(ids["movie"], cats, titles, REC_SIZES)
+        cost = R.recommender_cost(usr, mov, rating)
+        pt.AdamOptimizer(REC_LR).minimize(cost)
+    return main, startup, cost
+
+
+def movielens_recordio_phase(smi):
+    """Phase 42 (c): the book's recommender trained by the Trainer from
+    movielens through recordio, against the direct feed."""
+    use_full_f32()
+    t_phase = time.perf_counter()
+    main, startup, cost = recommender_program()
+    exe, scope0 = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope0)
+    weights = tensors_of(scope0)
+    del scope0
+    n = REC_B * REC_STEPS
+    examples = list(pt.reader.firstn(pt.dataset.movielens.train(), n)())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rec_")
+    try:
+        paths = write_recordio(examples, tmp, WMT_FILES)
+        zero_counts()                       # the main path starts here
+        losses, ends, feeds, _ = trainer_run(
+            main, startup, cost, weights, recordio_batches(paths, REC_B),
+            REC_ORDER, True)
+        counts = read_counts()              # the main path ends here
+        check_counts(counts, launches_of(), "recommender from recordio (no "
+                     "TPU kernel on this path)")
+        d_losses, _, d_feeds, _ = trainer_run(
+            main, startup, cost, weights, pt.reader.batch(pt.reader.firstn(
+                pt.dataset.movielens.train(), n), REC_B), REC_ORDER, True)
+        same_feeds(feeds, d_feeds, "recommender from recordio")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    walls = np.diff(ends) * 1e3
+    log(f"movielens via recordio: recommender (book widths) {REC_STEPS} "
+        f"Trainer steps at B {REC_B}: losses {[round(x, 4) for x in losses]}"
+        f" (direct feed {[round(x, 4) for x in d_losses]}); feeds bitwise "
+        f"equal; step {np.median(walls):.2f} ms median (recorded feeds, a "
+        f"copy back a step); launches {counts} | {smi}")
+    if not all(np.isfinite(losses)) or not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"recommender losses not finite and falling: "
+                             f"{losses}")
+    return counts, {"losses": losses, "direct_losses": d_losses,
+                    "step_ms": float(np.median(walls)),
+                    "seconds": time.perf_counter() - t_phase}
+
+
+def installed(dist):
+    """The version of an installed distribution, read from its metadata
+    (nothing is imported), or None."""
+    from importlib import metadata
+    try:
+        return metadata.version(dist)
+    except metadata.PackageNotFoundError:
+        return None
+
+
+def pb_recordio_phase(smi, s2s27):
+    """Phase 42."""
+    t0 = time.perf_counter()
+    paths, out = {}, {}
+    out["packages"] = {d: installed(d) for d in ("protobuf", "pillow")}
+    log(f"pb and recordio: this Python's protobuf and Pillow (the port "
+        f"needs neither here): {out['packages']}")
+    paths["pb_serving_int8"], out["pb_serving"] = pb_serving_phase(smi)
+    paths["wmt16_recordio_seq2seq_amp"], out["wmt16_recordio"] = \
+        wmt16_recordio_phase(smi, s2s27)
+    paths["movielens_recordio_recommender"], out["movielens_recordio"] = \
+        movielens_recordio_phase(smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"pb and recordio: phase 42 in {out['seconds']:.1f} s | {smi}")
+    return paths, out
+
+
 def main():
     name, smi = device_phase()
     t0 = time.perf_counter()
     _build.build_libraries(_build.KERNEL_SOURCES)
     log(f"build: {', '.join(_build.KERNEL_SOURCES)} (nvcc, sm_90a, in "
         f"parallel) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lib = native_build.build()
+    log(f"build: native/recordio.cpp (g++) -> {os.path.basename(lib)} in "
+        f"{time.perf_counter() - t0:.1f} s")
     cases = kernel_phase()
     serving_k1, decode_step = engine_phase(smi)
     bwd, k1_train = backward_kernel_phase(smi)
@@ -10152,6 +10675,8 @@ def main():
     det_paths, detection = detection_phase(smi)
     corpus_paths, corpus = corpus_phase(smi)
     legacy_paths, legacy = legacy_phase(smi)
+    pbrec_paths, pbrec = pb_recordio_phase(
+        smi, sequence["seq2seq_training_amp"])
     paths = {"serving": {"flash_attn_fwd": serving_k1},
              f"training_T{TRAIN_T}": train_counts,
              f"training_T{SHORT_T}": short_counts,
@@ -10169,7 +10694,7 @@ def main():
              "resnet50_serving_int8": resnet_serving_counts["int8"],
              **telemetry_paths, **sequence_paths, **ctr_paths,
              **book_paths, **fleet_paths, **det_paths, **corpus_paths,
-             **legacy_paths}
+             **legacy_paths, **pbrec_paths}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ALL_KERNELS}
     by_path = {k: {p: c.get(k, 0) for p, c in paths.items()}
@@ -10258,7 +10783,7 @@ def main():
                       "telemetry": telemetry, "sequence": sequence,
                       "ctr": ctr, "book": book, "fleet": fleet,
                       "detection": detection, "corpus": corpus,
-                      "legacy": legacy}),
+                      "legacy": legacy, "pb_recordio": pbrec}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -79,6 +79,16 @@ and the v2 API (`v2`, with the `dataset` loaders) runs where
 `v2.init(use_gpu=...)` chose:
 
     python -m paddle_tpu_torch train --config=cfg.py [--device cpu]
+
+Model formats and host data (slice 26): `io.save_inference_model(...,
+format="pb")` writes the reference's binary ProgramDesc (`proto_io`,
+encoded by hand in `proto/`), which `load_inference_model` detects;
+`recordio` (native/recordio.cpp, built with g++ at first use), the
+CSP channels of `concurrency`, `debugger`'s program listing and dot
+graph, and all 13 `dataset` loaders:
+
+    pt.recordio.write_records("a.rec", [pickle.dumps(x) for x in rows])
+    reader = pt.recordio.sharded_reader(["a.rec"], num_shards, shard_id)
 """
 
 from . import framework
@@ -100,6 +110,8 @@ from .optimizer import (AdadeltaOptimizer, AdagradOptimizer,
 from .param_attr import HookAttribute, ParamAttr
 from .trainer import Trainer
 from . import data_provider, dataset, trainer_config_helpers, v2
+from . import concurrency, debugger, proto_io, recordio
+from .concurrency import close_channel, make_channel
 
 __all__ = ["amp", "framework", "CPUPlace", "CUDAPlace", "Program",
            "default_main_program", "default_startup_program",
@@ -114,4 +126,5 @@ __all__ = ["amp", "framework", "CPUPlace", "CUDAPlace", "Program",
            "serving", "weights", "clip", "event", "learning_rate_decay",
            "reader", "resilience", "DataFeeder", "Trainer", "profiler",
            "evaluator", "selected_rows", "data_provider", "dataset",
-           "trainer_config_helpers", "v2"]
+           "trainer_config_helpers", "v2", "concurrency", "make_channel",
+           "close_channel", "recordio", "debugger", "proto_io"]

@@ -1,13 +1,16 @@
 """Save and load models in the JAX package's formats.
 
-Inference models (the port of `paddle_tpu/io.py`'s json format): a
-directory with `__model__.json` (the pruned Program's `to_dict` plus the
-feed and fetch names) and `params.npz` (the persistable arrays). A
-directory either package wrote loads in the other unchanged, f32 or
-quantized by `quant.quantize_inference_model`:
+Inference models (the port of `paddle_tpu/io.py`'s two formats): a
+directory with `params.npz` (the persistable arrays) and the pruned
+Program, either as `__model__.json` (its `to_dict` plus the feed and
+fetch names; format "json", the default) or as `__model__` (the
+reference's binary ProgramDesc, `proto_io`) beside `__targets__.json`
+(the feed and fetch names; format "pb"). `load_inference_model` detects
+the format, json first. A directory either package wrote loads in the
+other unchanged, f32 or quantized by `quant.quantize_inference_model`:
 
     save_inference_model(dirname, feed_names, target_vars, executor,
-                         main_program=None, scope=None)
+                         main_program=None, scope=None, format="json")
     program, feed_names, fetch_vars = load_inference_model(dirname,
                                                            executor)
 
@@ -16,8 +19,7 @@ executor's device, so a served model's weights cross to the card once,
 at load; a quantized model's int8 matmul weights are then laid out
 column-major on the card (`quant.place_int8_weights`).
 `save_persistables` writes every array C-ordered, whatever its strides
-on the device, so the file is the same for either layout. The
-reference's binary ProgramDesc format ("pb") is not ported.
+on the device, so the file is the same for either layout.
 
 Training checkpoints (the reference's `save_checkpoint` /
 `load_checkpoint`): a directory with `params.npz` (every persistable),
@@ -202,45 +204,57 @@ def _prune_for_inference(program, feed_names, fetch_names):
 def save_inference_model(dirname, feeded_var_names, target_vars, executor,
                          main_program=None, scope=None, format="json"):
     """Prune the program to what the targets need and write it with its
-    persistables (the reference's json format). Returns the fetch
-    names."""
-    if format != "json":
-        raise ValueError(f"inference-model format {format!r} is not "
-                         "ported (json only; the binary ProgramDesc "
-                         "format waits for proto_io)")
+    persistables: format "json" (`__model__.json`) or "pb" (the
+    reference's binary ProgramDesc, `__model__`, with the feed and fetch
+    names in `__targets__.json`). Returns the fetch names."""
+    if format not in ("json", "pb"):
+        raise ValueError(f"unknown inference-model format {format!r}")
     program = main_program or framework.default_main_program()
     fetch_names = [v.name if isinstance(v, framework.Variable) else v
                    for v in target_vars]
     pruned = _prune_for_inference(program, list(feeded_var_names),
                                   fetch_names)
     os.makedirs(dirname, exist_ok=True)
-    # a stale binary model beside the json one would be ambiguous
+    # a re-save in the OTHER format must not leave a stale model behind
+    # (load's auto-detect would pick the json one first)
     for fname in ("__model__.json", "__model__", "__targets__.json"):
         try:
             os.remove(os.path.join(dirname, fname))
         except FileNotFoundError:
             pass
-    with open(os.path.join(dirname, "__model__.json"), "w") as f:
-        json.dump({"program": pruned.to_dict(),
-                   "feed_names": list(feeded_var_names),
-                   "fetch_names": fetch_names}, f)
+    if format == "pb":
+        from . import proto_io
+        with open(os.path.join(dirname, "__model__"), "wb") as f:
+            f.write(proto_io.program_to_bytes(pruned))
+        with open(os.path.join(dirname, "__targets__.json"), "w") as f:
+            json.dump({"feed_names": list(feeded_var_names),
+                       "fetch_names": fetch_names}, f)
+    else:
+        with open(os.path.join(dirname, "__model__.json"), "w") as f:
+            json.dump({"program": pruned.to_dict(),
+                       "feed_names": list(feeded_var_names),
+                       "fetch_names": fetch_names}, f)
     save_persistables(executor, dirname, pruned, scope)
     return fetch_names
 
 
 def load_inference_model(dirname, executor, scope=None):
-    """(program, feed_names, fetch_vars) of a json inference model, its
-    persistables loaded into `scope` on `executor.device`. A quantized
-    model's ops this runtime cannot execute fall back to f32 per op
-    (quant.ensure_loadable)."""
+    """(program, feed_names, fetch_vars) of an inference model in either
+    format (`__model__.json` first, else `__model__` with
+    `__targets__.json`), its persistables loaded into `scope` on
+    `executor.device`. A quantized model's ops this runtime cannot
+    execute fall back to f32 per op (quant.ensure_loadable)."""
     json_path = os.path.join(dirname, "__model__.json")
-    if not os.path.exists(json_path):
-        raise FileNotFoundError(
-            f"{json_path} not found: the port loads json inference models "
-            "(the binary ProgramDesc format is not ported)")
-    with open(json_path) as f:
-        meta = json.load(f)
-    program = Program.from_dict(meta["program"])
+    if os.path.exists(json_path):
+        with open(json_path) as f:
+            meta = json.load(f)
+        program = Program.from_dict(meta["program"])
+    else:
+        from . import proto_io
+        with open(os.path.join(dirname, "__model__"), "rb") as f:
+            program = proto_io.program_from_bytes(f.read())
+        with open(os.path.join(dirname, "__targets__.json")) as f:
+            meta = json.load(f)
     load_persistables(executor, dirname, program, scope)
     from . import quant
     if quant.has_quant_ops(program):

@@ -21,7 +21,9 @@ stats and returns them unchanged.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -254,16 +256,38 @@ class _Conv2dF32(torch.autograd.Function):
             gx = torch.nn.grad.conv2d_input(x.shape, w, gy, stride,
                                             padding, dilation, groups)
         if fctx.needs_input_grad[1]:
-            # a process-wide switch: a conv on another thread meanwhile
-            # takes the same exact, slower path
-            cudnn = torch.backends.cudnn
-            enabled, cudnn.enabled = cudnn.enabled, False
-            try:
+            with _cudnn_off():
                 gw = torch.nn.grad.conv2d_weight(x, w.shape, gy, stride,
                                                  padding, dilation, groups)
-            finally:
-                cudnn.enabled = enabled
         return gx, gw, None, None, None, None
+
+
+_cudnn_off_lock = threading.Lock()
+_cudnn_off_depth = 0
+_cudnn_saved = None
+
+
+@contextlib.contextmanager
+def _cudnn_off():
+    """cuDNN off while any thread is inside: the first thread in saves
+    the process-wide flag and clears it, the last one out restores it,
+    so interleaved threads cannot leave it off. A conv on another
+    thread meanwhile takes the same exact, slower path: that costs
+    time, not accuracy."""
+    global _cudnn_off_depth, _cudnn_saved
+    cudnn = torch.backends.cudnn
+    with _cudnn_off_lock:
+        if _cudnn_off_depth == 0:
+            _cudnn_saved = cudnn.enabled
+            cudnn.enabled = False
+        _cudnn_off_depth += 1
+    try:
+        yield
+    finally:
+        with _cudnn_off_lock:
+            _cudnn_off_depth -= 1
+            if _cudnn_off_depth == 0:
+                cudnn.enabled = _cudnn_saved
 
 
 def _conv2d_f(x, w, stride=(1, 1), padding=(0, 0), dilation=(1, 1),

@@ -3,7 +3,8 @@ was measured wrong (`ops/nn_ops.py::cudnn_wgrad_faulty`, `_Conv2dF32`;
 ROADMAP C39): the rule against the shapes `tools/grouped_conv_probe.py`
 read on the card, `_Conv2dF32`'s output and both gradients against
 F.conv2d's in float64 on the CPU, cuDNN switched off for the weight
-gradient alone and back on after, and a CPU tensor never routed. On a
+gradient alone and back on after (also with two threads interleaved,
+ROADMAP C40), and a CPU tensor never routed. On a
 card (marker `cuda`): the lowering's weight gradient at AlexNet's
 conv2 within 1e-5 of the float64 sum. This file imports neither JAX
 nor the JAX package.
@@ -83,6 +84,59 @@ def test_weight_gradient_runs_with_cudnn_off(monkeypatch):
     np.testing.assert_allclose(
         got.numpy(), conv2d_weight(x, w.shape, gy, stride=2, padding=2,
                                    groups=2).numpy(), rtol=0, atol=1e-10)
+
+
+def test_two_threads_leave_cudnn_as_it_was(monkeypatch):
+    """ROADMAP C40: two weight gradients on two threads, interleaved by
+    events (A enters, B enters, A leaves, B leaves) against a stand-in
+    for torch.backends.cudnn. cuDNN stays off while either is inside
+    and is back at its value from before once both are out; a bare
+    save / set / restore of the flag would leave it off."""
+    import threading
+    import types
+
+    fake = types.SimpleNamespace(enabled=True)
+    monkeypatch.setattr(torch.backends, "cudnn", fake)
+    weight = torch.nn.grad.conv2d_weight
+    a_in, b_in, a_out = (threading.Event() for _ in range(3))
+    seen, errors = {}, []
+
+    def spy(*args):
+        me = threading.current_thread().name
+        seen[me + " in"] = fake.enabled
+        if me == "A":
+            a_in.set()
+            assert b_in.wait(10)
+        else:
+            b_in.set()
+            assert a_out.wait(10)
+            seen["B after A left"] = fake.enabled
+        return weight(*args)
+
+    monkeypatch.setattr(torch.nn.grad, "conv2d_weight", spy)
+    x, w, gy = _case(*CASES[1])
+    w.requires_grad_(True)
+
+    def grad():
+        try:
+            out = nn_ops._Conv2dF32.apply(x, w, (2, 2), (2, 2), (1, 1), 2)
+            torch.autograd.grad(out, [w], gy)
+        except Exception as e:           # re-raised below
+            errors.append(e)
+
+    ta = threading.Thread(target=grad, name="A", daemon=True)
+    tb = threading.Thread(target=grad, name="B", daemon=True)
+    ta.start()
+    assert a_in.wait(10)
+    tb.start()
+    ta.join(10)
+    assert not ta.is_alive(), "thread A hung"
+    a_out.set()
+    tb.join(10)
+    assert not tb.is_alive(), "thread B hung"
+    assert not errors, errors
+    assert seen == {"A in": False, "B in": False, "B after A left": False}
+    assert fake.enabled is True and nn_ops._cudnn_off_depth == 0
 
 
 def test_a_cpu_tensor_takes_the_plain_conv(monkeypatch):
